@@ -9,19 +9,31 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 
 1. device   the card (``nvidia-smi`` name and power limit) and the build
             of every kernel from the sources under
-            ``distributed_inference_demo_tpu_torch/csrc/``;
+            ``distributed_inference_demo_tpu_torch/csrc/`` (all sources
+            compiled at once, one ``nvcc`` each);
 2. kernels  each kernel against its plain PyTorch version on the card at
-            the main path's shapes, with the stated tolerance, and its
+            the main paths' shapes, with the stated tolerance, and its
             time beside the plain version's, the bound's and one PyTorch
             library call's (a yardstick the port never calls).  ``ms``
             is device time (calls replayed from a CUDA graph);
-            ``eager_ms`` is per eager call, host launch cost included;
-3. serve    the main path: ``InferenceHTTPServer`` over ``InferenceEngine``
-            at full TinyLlama-1.1B width (random weights from a seed)
-            answers a greedy, a streamed and a sampled request; the
-            launch counts show the prefill went through the kernel; the
-            prefill logits are held against an engine on plain attention;
-4. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+            ``eager_ms`` is per eager call, host launch cost included.
+            The flash kernel, then the two paged kernels (decode and
+            chunk prefill) over shuffled page tables with sentinels;
+3. serve    the plain path: ``InferenceHTTPServer`` over
+            ``InferenceEngine`` at full TinyLlama-1.1B width (random
+            weights from a seed) answers a greedy, a streamed and a
+            sampled request; the launch counts show the prefill went
+            through the flash kernel; the prefill logits are held against
+            an engine on plain attention;
+4. batching the serving path: ``InferenceHTTPServer`` over
+            ``ContinuousBatchingEngine`` (8 slots, paged KV, chunked
+            admission) at full TinyLlama-1.1B width answers 8 concurrent
+            greedy requests, one streamed and two sharing a prefix; the
+            paged kernels' launch counts equal what the routing predicts;
+            at f32 the tokens equal a plain-attention ``InferenceEngine``'s;
+            no page leaks; throughput, TTFT, step time and the device's
+            idle share;
+5. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout,
@@ -54,8 +66,21 @@ LOGIT_TOL_F32 = 1e-3
 # device memory bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-KERNEL_SOURCE = "distributed_inference_demo_tpu_torch/csrc/flash_attention.cu"
+CSRC = "distributed_inference_demo_tpu_torch/csrc/"
+KERNEL_SOURCE = CSRC + "flash_attention.cu"
 KERNEL_REPLACES = "distributed_inference_demo_tpu/ops/flash_attention.py:49"
+PAGED_SOURCE = CSRC + "paged_attention.cu"
+PAGED_REPLACES = {
+    "paged_decode": "distributed_inference_demo_tpu/ops/paged_attention.py:136",
+    "paged_prefill":
+        "distributed_inference_demo_tpu/ops/paged_attention.py:326"}
+# the batching phase: 8 slots, pages of 16 tokens, 64-token admission
+# chunks, 8 concurrent requests of these prompt lengths, 32 new tokens
+SLOTS = 8
+BLOCK_TOKENS = 16
+PREFILL_CHUNK = 64
+BATCH_PROMPTS = (20, 64, 100, 150, 300, 600, 1000, 1500)
+SHARED_PREFIX = 256         # the 300- and 600-token prompts share it
 
 
 def emit(obj) -> None:
@@ -112,15 +137,27 @@ def device_ms(torch, fn, iters: int = 50) -> float:
 # ---------------------------------------------------------------------------
 
 def phase_device(torch, smi: str) -> dict:
+    from concurrent.futures import ThreadPoolExecutor
+
     from distributed_inference_demo_tpu_torch.ops import _build
     from distributed_inference_demo_tpu_torch.ops import flash_attention as fa
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
 
     t0 = time.perf_counter()
-    _build.build(fa.SOURCE)
+    sources = (fa.SOURCE, pa.SOURCE)
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
     fa._kernel_fn()
+    pa._kernel_fns()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_logs.get(fa.SOURCE, "")
-             .splitlines() if "registers" in ln or "spill" in ln]
+    # per kernel instance: its (mangled) name, then its spills and its
+    # registers, as ptxas -v reports them
+    keep = ("Function properties for", "registers", "spill")
+    ptxas = {src: [ln.strip() for ln in _build.build_logs.get(src, "")
+                   .splitlines() if any(k in ln for k in keep)]
+             for src in sources}
     return {"phase": "device", "nvidia_smi": smi,
             "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
@@ -239,6 +276,174 @@ def phase_kernels(torch) -> dict:
                                 f"{row['max_abs_err']}")
             del q, kc, vc, kt, vt
     return {"phase": "kernels", "cases": results, "failures": failures}
+
+
+def paged_cases():
+    """(label, kind, nh, nkv, hd, alibi, per-row lens or (chunk, starts)),
+    at pages of BLOCK_TOKENS tokens: TinyLlama heads for decode at b=1
+    and b=8 (ragged lengths: 1, a page boundary, mid-page, ~2000; two
+    freed slots with all-sentinel tables and stale lengths) and for
+    prefill chunks of 16/32/64 tokens at start 0, mid-page and several
+    pages in; one ALiBi case with bloom-560m heads and one hd-128 case
+    with llama-3-8b heads for each kernel."""
+    serve = (1, 16, 37, 1999, 512, 130, -300, -5)   # negative: freed slot
+    cases = [("tinyllama", "decode", 32, 4, 64, False, (1000,)),
+             ("tinyllama", "decode", 32, 4, 64, False, serve)]
+    for chunk in (16, 32, 64):
+        for start in (0, 7, 200):
+            cases.append(("tinyllama", "prefill", 32, 4, 64, False,
+                          (chunk, (start,))))
+    cases += [("bloom560m-alibi", "decode", 16, 16, 64, True, serve),
+              ("bloom560m-alibi", "prefill", 16, 16, 64, True,
+               (32, (7,))),
+              ("llama3-8b-hd128", "decode", 32, 8, 128, False, serve),
+              ("llama3-8b-hd128", "prefill", 32, 8, 128, False,
+               (32, (200,)))]
+    return cases
+
+
+def _paged_inputs(torch, gen, dev, dtype, lens, nkv, hd, W):
+    """A pool holding exactly the live pages of ``lens`` (a negative
+    length: a freed slot, all-sentinel table) under shuffled ids, plus a
+    few spare pages; tables [b, W] int32 with sentinels N and N + 7."""
+    bt = BLOCK_TOKENS
+    need = [-(-l // bt) if l > 0 else 0 for l in lens]
+    N = sum(need) + 5
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(N))
+    tables = torch.full((len(lens), W), N, dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[nxt:nxt + n].to(torch.int32)
+        tables[i, n + 1:] = N + 7
+        nxt += n
+    pk = torch.randn((N, nkv, bt, hd), generator=gen, device=dev).to(dtype)
+    pv = torch.randn((N, nkv, bt, hd), generator=gen, device=dev).to(dtype)
+    return pk, pv, tables.to(dev)
+
+
+def paged_work(kind, nh, nkv, hd, elt, lens, chunk=1):
+    """(flops, bytes) on these inputs: per query, its keys (QK and PV, 2
+    flops per multiply-add each); q and out once, each row's live K/V
+    once.  Decode ``lens`` as in :func:`paged_cases`: a freed slot
+    (negative length) computes over its stale length, but every key of
+    its all-sentinel table clamps to one page, so it moves at most one
+    page of K/V per kv head."""
+    if kind == "decode":
+        keys = sum(abs(l) for l in lens)
+        kv = sum(l if l > 0 else min(-l, BLOCK_TOKENS) for l in lens)
+        nq = len(lens)
+    else:
+        keys = sum(chunk * s + chunk * (chunk + 1) // 2 for s in lens)
+        kv = sum(s + chunk for s in lens)
+        nq = len(lens) * chunk
+    return (4 * nh * hd * keys,
+            elt * (2 * nq * nh * hd + 2 * nkv * hd * kv))
+
+
+def phase_paged_kernels(torch) -> dict:
+    import torch.nn.functional as F
+
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops.attention import \
+        alibi_slopes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    W = MAX_SEQ // BLOCK_TOKENS
+    results, failures = [], []
+    for label, kind, nh, nkv, hd, alibi, shape in paged_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            if kind == "decode":
+                lens = [abs(x) for x in shape]
+                live = list(shape)
+                chunk, b = 1, len(lens)
+            else:
+                chunk, starts = shape
+                lens = [s + chunk for s in starts]
+                live, b = lens, len(starts)
+            pk, pv, tables = _paged_inputs(torch, gen, dev, dtype, live,
+                                           nkv, hd, W)
+            q = torch.randn((b, chunk, nh, hd), generator=gen, device=dev
+                            ).to(dtype)
+            slopes = alibi_slopes(nh, device=dev) if alibi else None
+            if kind == "decode":
+                per_row = torch.tensor(lens, dtype=torch.int32, device=dev)
+                kern_fn, plain_fn = (pa.paged_flash_attention,
+                                     pa.paged_flash_attention_plain)
+                qpos = per_row.long()[:, None] - 1
+            else:
+                per_row = torch.tensor(starts, dtype=torch.int32,
+                                       device=dev)[:, None]
+                kern_fn, plain_fn = (pa.paged_prefill_attention,
+                                     pa.paged_prefill_attention_plain)
+                qpos = per_row.long() + torch.arange(chunk, device=dev)
+
+            def kern():
+                return kern_fn(q, pk, pv, tables, per_row, slopes)
+
+            def plain():
+                return plain_fn(q, pk, pv, tables, per_row, slopes)
+
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            atol, rtol = TOL[dname]
+            ok = bool(torch.isfinite(got.float()).all()) and bool(
+                (err <= atol + rtol * want.float().abs()).all())
+
+            # yardstick: SDPA over the pages gathered beforehand into a
+            # linear view, K/V expanded to nh heads, the causal (and
+            # ALiBi) mask built outside the timed call
+            S = max(lens)
+            g = nh // nkv
+            kt = pa._linear_view(pk, tables)[:, :, :S].repeat_interleave(
+                g, dim=1)
+            vt = pa._linear_view(pv, tables)[:, :, :S].repeat_interleave(
+                g, dim=1)
+            qt = q.transpose(1, 2).contiguous()
+            dist = (qpos[:, :, None]
+                    - torch.arange(S, device=dev)).float()   # [b, c, S]
+            mask = torch.where(dist >= 0, 0.0, float("-inf"))[:, None]
+            if slopes is not None:
+                mask = mask - slopes[None, :, None, None] * dist[:, None]
+            mask = mask.to(dtype)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+
+            lib_err = float((sdpa().transpose(1, 2).float()
+                             - want.float()).abs().max())
+            flops, nbytes = paged_work(kind, nh, nkv, hd, q.element_size(),
+                                       shape if kind == "decode" else starts,
+                                       chunk)
+            t_ops = flops / PEAK_FLOPS[dname]
+            t_bytes = nbytes / PEAK_BYTES
+            row = {"case": label, "kind": kind, "dtype": dname, "b": b,
+                   "chunk": chunk, "lens": list(shape) if kind == "decode"
+                   else None, "starts": None if kind == "decode"
+                   else list(starts), "nh": nh, "nkv": nkv, "hd": hd,
+                   "block_tokens": BLOCK_TOKENS,
+                   "max_abs_err": float(err.max()), "tol": [atol, rtol],
+                   "ok": ok,
+                   "ms": device_ms(torch, kern),
+                   "plain_ms": device_ms(torch, plain),
+                   "library_ms": device_ms(torch, sdpa),
+                   "eager_ms": eager_ms(torch, kern),
+                   "plain_eager_ms": eager_ms(torch, plain),
+                   "library_max_abs_err": lib_err,
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes
+                   else "bytes", "flops": flops, "bytes": nbytes}
+            results.append(row)
+            if not ok:
+                failures.append(f"{label} {kind} {dname} {shape}: max err "
+                                f"{row['max_abs_err']}")
+            del q, pk, pv, kt, vt
+    return {"phase": "paged_kernels", "cases": results,
+            "failures": failures}
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +618,246 @@ def phase_serve(torch) -> dict:
     return out
 
 
+def _batch_prompts(vocab: int):
+    """The 8 prompts of the batching phase (seeded): lengths
+    BATCH_PROMPTS; the 300- and 600-token prompts share their first
+    SHARED_PREFIX tokens, so whichever admits second hits the radix
+    tree (both stream their chunks, one stream at a time)."""
+    import numpy as np
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, vocab, n).tolist() for n in BATCH_PROMPTS]
+    i300, i600 = BATCH_PROMPTS.index(300), BATCH_PROMPTS.index(600)
+    prompts[i300][:SHARED_PREFIX] = prompts[i600][:SHARED_PREFIX]
+    return prompts
+
+
+def predicted_paged_launches(engine, admits, L: int) -> dict:
+    """The routing's prediction from the engine's admissions (prompt
+    length, matched prefix): the decode kernel L times per decode step;
+    the prefill kernel L times per mid chunk (C = 64 tokens: 512 rows at
+    g = 8) and per final suffix whose padded bucket stays within 512
+    rows (the 32 bucket: 256 rows); finals padded to the 128 bucket
+    (1024 rows) take the gather path."""
+    from distributed_inference_demo_tpu_torch.ops.paged_attention import \
+        paged_route
+    cfg = engine.cfg
+    g = cfg.num_heads // cfg.num_kv_heads
+    bt = engine.kv_cache.block_tokens
+    C = engine.prefill_chunk
+    prefill = 0
+    for plen, m in admits:
+        suffix = plen - m
+        n_mid = max(0, -(-suffix // C) - 1) if suffix > C else 0
+        final = engine._bucket(suffix - n_mid * C)
+        prefill += n_mid * (paged_route(True, C, g, bt) == "prefill")
+        prefill += paged_route(True, final, g, bt) == "prefill"
+    return {"paged_decode": L * engine.loop_stats["device_loop_steps"],
+            "paged_prefill": L * prefill}
+
+
+def _wait_steps(engine, n: int, timeout: float = 300.0) -> None:
+    """Poll until the scheduler has run ``n`` more decode steps."""
+    goal = engine._step_count + n
+    t_end = time.monotonic() + timeout
+    while engine._step_count < goal:
+        _check(time.monotonic() < t_end, "decode steps did not advance")
+        time.sleep(0.001)
+
+
+def _no_page_leak(engine) -> bool:
+    """Every page is free or an evictable radix leaf: allocating the
+    whole pool succeeds (evicting the tree), and freeing it brings
+    ``free_blocks`` back to the total."""
+    mgr = engine.kv_cache
+    ids = mgr.alloc(mgr.num_blocks)
+    if ids is None:
+        return False
+    mgr.free(ids)
+    return mgr.free_blocks == mgr.num_blocks
+
+
+def phase_batching(torch) -> dict:
+    import threading
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
+
+    cfg = get_model_config(SERVE_MODEL)
+    L = cfg.num_layers
+    greedy = SamplingParams(greedy=True)
+    prompts = _batch_prompts(cfg.vocab_size)
+    stream_i = BATCH_PROMPTS.index(150)
+
+    def engine_for(c, params):
+        return ContinuousBatchingEngine(
+            c, params, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
+            kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+            device="cuda")
+
+    def serve_all(port):
+        """The 8 requests at once over HTTP: [tokens] per prompt."""
+        out = [None] * len(prompts)
+
+        def one(i):
+            body = {"prompt_ids": [prompts[i]],
+                    "max_new_tokens": NEW_TOKENS}
+            if i == stream_i:
+                body["stream"] = True
+            code, text = _post(port, body)
+            _check(code == 200, f"batched request {i}: HTTP {code}")
+            if i == stream_i:
+                lines = [json.loads(ln) for ln in text.splitlines()
+                         if ln.strip()]
+                _check([ln["step"] for ln in lines]
+                       == list(range(NEW_TOKENS)), "stream steps")
+                out[i] = [ln["tokens"][0] for ln in lines]
+            else:
+                out[i] = json.loads(text)["tokens"][0]
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        _check(all(o is not None and len(o) == NEW_TOKENS for o in out),
+               "a batched request did not complete")
+        return out
+
+    out = {"phase": "batching", "device": torch.cuda.get_device_name(0),
+           "model": SERVE_MODEL, "slots": SLOTS,
+           "block_tokens": BLOCK_TOKENS, "prefill_chunk": PREFILL_CHUNK,
+           "prompt_lens": list(BATCH_PROMPTS), "new_tokens": NEW_TOKENS}
+    params = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    engine = engine_for(cfg, params)
+    _check(engine.attn_backend == "auto", "paged backend")
+    server = InferenceHTTPServer(engine, "127.0.0.1", 0,
+                                 model_name=SERVE_MODEL,
+                                 default_max_new=NEW_TOKENS)
+    server.start()
+    flight = get_flight_recorder()
+    try:
+        # warm the path once (allocator, first launches), then start from
+        # a fresh engine state for the counted run
+        _post(server.port, {"prompt_ids": [list(range(16))],
+                            "max_new_tokens": 2})
+        engine.reset_stats()
+        _check(_no_page_leak(engine), "warm-up leaked pages")
+        flight.clear()
+        # ---- the main path: counts from zero, 8 concurrent requests ----
+        pa.paged_flash_attention.launches = 0
+        pa.paged_prefill_attention.launches = 0
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        toks = serve_all(server.port)
+        wall = time.perf_counter() - t0
+        launches = {"paged_decode": pa.paged_flash_attention.launches,
+                    "paged_prefill": pa.paged_prefill_attention.launches}
+        events = flight.snapshot()
+        admits = [(e["prompt_len"], e["prefix_reused"]) for e in events
+                  if e["kind"] == "batch_admit"]
+        ttft = {e["prompt_len"]: e["ttft_s"] for e in events
+                if e["kind"] == "batch_done"}
+        predicted = predicted_paged_launches(engine, admits, L)
+        stats = engine.stats()
+        out.update(launches=launches, predicted_launches=predicted,
+                   flash_launches=flash_attention.launches,
+                   wall_s=wall, tok_s=len(prompts) * NEW_TOKENS / wall,
+                   decode_steps=engine.loop_stats["device_loop_steps"],
+                   admissions=admits, kvcache=stats["kvcache"],
+                   chunked_prefill=stats["chunked_prefill"],
+                   ttft_shortest_s=ttft.get(min(BATCH_PROMPTS)),
+                   ttft_longest_s=ttft.get(max(BATCH_PROMPTS)),
+                   tokens=toks)
+        _check(launches == predicted and min(launches.values()) > 0,
+               f"paged launches {launches}, routing predicts {predicted}")
+        _check(flash_attention.launches == 0, "the flash kernel ran")
+        _check(stats["kvcache"]["hits"] == 1
+               and stats["kvcache"]["partial_hit_tokens"] == SHARED_PREFIX,
+               f"radix hit: {stats['kvcache']}")
+        _check(len(admits) == len(prompts), f"admissions {admits}")
+        out["no_page_leak"] = _no_page_leak(engine)
+        _check(out["no_page_leak"], "pages leaked after the drain")
+
+        # ---- decode step time and the device's idle share, 8 slots
+        # decoding (short prompts, steps counted by the engine) ----
+        reqs = [engine.submit(prompts[i][:16], 200)
+                for i in range(SLOTS)]
+        _wait_steps(engine, 4)
+        t0, s0 = time.perf_counter(), engine._step_count
+        _wait_steps(engine, 32)
+        out["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                     / (engine._step_count - s0))
+        out["profile"] = profile_steps(torch, engine, 16)
+        for r in reqs:
+            r.cancel()
+        for r in reqs:
+            r.done.wait(timeout=120)
+        _check(_no_page_leak(engine), "cancelled requests leaked pages")
+    finally:
+        server.shutdown()
+        engine.close()
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # ---- f32, same seed: the batching engine (paged kernels) against a
+    # plain-attention InferenceEngine, token for token ----
+    cfg32 = cfg.replace(dtype_name="float32")
+    p32 = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
+    with engine_for(cfg32, p32) as eng32:
+        reqs = [eng32.submit(p, NEW_TOKENS) for p in prompts]
+        got = [r.wait(timeout=900).tolist() for r in reqs]
+        _check(_no_page_leak(eng32), "f32 run leaked pages")
+    plain = InferenceEngine(cfg32, p32, max_seq=MAX_SEQ, sampling=greedy,
+                            attn_backend="plain", device="cuda")
+    want = [plain.generate([p], NEW_TOKENS).tokens[0].tolist()
+            for p in prompts]
+    agree = [sum(a == b for a, b in zip(g_, w_)) for g_, w_ in
+             zip(got, want)]
+    out["f32_greedy_agreement"] = sum(agree) / (len(prompts) * NEW_TOKENS)
+    out["f32_agreement_per_request"] = agree
+    _check(got == want, f"f32 batching tokens differ from the plain "
+           f"engine's: {agree} of {NEW_TOKENS} per request")
+    del plain, p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_steps(torch, engine, steps: int) -> dict:
+    """torch.profiler over ``steps`` decode steps of a running batching
+    engine: device time by kernel (top 8), device-busy sum, wall time and
+    the device's idle share 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _wait_steps(engine, steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _profile_summary(prof, wall_ms, {"steps": steps})
+
+
 def profile_generate(torch, engine, prompt, new_tokens: int = 16) -> dict:
     """Where one request's time goes: torch.profiler over a greedy
     generate (prefill + ``new_tokens`` decode steps).  Device time by
@@ -427,6 +872,12 @@ def profile_generate(torch, engine, prompt, new_tokens: int = 16) -> dict:
         engine.generate(prompt, new_tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return _profile_summary(prof, wall_ms, {"new_tokens": new_tokens})
+
+
+def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
+    """Device time by kernel name (top 8), the device-busy sum, the wall
+    time and the device's idle share from a finished profile."""
     rows = []
     for ev in prof.key_averages():
         # kernel rows only: a CPU op's row would count its kernels twice
@@ -439,7 +890,7 @@ def profile_generate(torch, engine, prompt, new_tokens: int = 16) -> dict:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     _check(bool(rows), "torch.profiler recorded no device time")
-    return {"new_tokens": new_tokens, "wall_ms": wall_ms,
+    return {**head, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n}
@@ -475,13 +926,18 @@ def main(argv) -> int:
         emit(phase_device(torch, smi))
         kern = phase_kernels(torch)
         emit(kern)
-        if kern["failures"]:
+        paged = phase_paged_kernels(torch)
+        emit(paged)
+        failures = kern["failures"] + paged["failures"]
+        if failures:
             raise AssertionError("kernel disagrees with its plain version: "
-                                 + "; ".join(kern["failures"]))
+                                 + "; ".join(failures))
         if "--kernels-only" in argv:
             return 0
         serve = phase_serve(torch)
         emit(serve)
+        batching = phase_batching(torch)
+        emit(batching)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -491,13 +947,32 @@ def main(argv) -> int:
                      if c["case"] == "tinyllama" and c["dtype"] == "bfloat16"
                      and c["b"] == 1 and c["chunk"] == PROMPT_LEN
                      and c["q_start"] == 0)
-    emit({"kernels": [{
-        "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": serve["launches"],
-        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+    # the paged kernels at the serving path's shapes: decode over 8 slots
+    # (bf16, TinyLlama heads), a 64-token admission chunk several pages in
+    paged_main = {
+        "paged_decode": next(
+            c for c in paged["cases"] if c["case"] == "tinyllama"
+            and c["kind"] == "decode" and c["dtype"] == "bfloat16"
+            and c["b"] == SLOTS),
+        "paged_prefill": next(
+            c for c in paged["cases"] if c["case"] == "tinyllama"
+            and c["kind"] == "prefill" and c["dtype"] == "bfloat16"
+            and c["chunk"] == PREFILL_CHUNK and c["starts"] == [200])}
+
+    def entry(name, source, replaces, launches, case):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"]}
+
+    emit({"kernels": [
+        entry("flash_attention", KERNEL_SOURCE, KERNEL_REPLACES,
+              serve["launches"], main_case)] + [
+        entry(name, PAGED_SOURCE, PAGED_REPLACES[name],
+              batching["launches"][name], case)
+        for name, case in paged_main.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,14 @@
         --model tinyllama-1.1b --http-port 5000
     python -m distributed_inference_demo_tpu_torch serve \\
         --model llama-test --device cpu --greedy
+    python -m distributed_inference_demo_tpu_torch serve \\
+        --model tinyllama-1.1b --batch-slots 8 --prefill-chunk 64
 
-The plain serve mode of the JAX package's CLI: one ``InferenceEngine``
-(random weights from ``--weights-seed``) behind ``InferenceHTTPServer``.
+Two serve modes of the JAX package's CLI, with random weights from
+``--weights-seed`` behind ``InferenceHTTPServer``: plain (one
+``InferenceEngine``) and ``--batch-slots N`` (a ``ContinuousBatchingEngine``
+over the paged KV pool, with ``--kv-cache-blocks``, ``--kv-block-tokens``,
+``--decode-block``, ``--prefill-chunk`` and ``--admission-queue-depth``).
 It runs on CUDA unless ``--device cpu`` is given.  Every other subcommand
 and mode flag of the JAX package's CLI exits 1 with "not yet ported".
 """
@@ -28,33 +33,72 @@ def _sampling_from_args(args):
                           min_p=args.min_p)
 
 
-def build_engine(args):
-    """(cfg, InferenceEngine) for the parsed serve flags."""
+def _params(args):
+    """(device, cfg, params): random weights from ``--weights-seed``."""
     import torch
 
     from .device import resolve_device
     from .models.decoder import init_full_params
     from .models.registry import get_model_config
-    from .runtime.engine import InferenceEngine
 
     device = resolve_device(args.device)
     cfg = get_model_config(args.model)
     gen = torch.Generator(device=device).manual_seed(args.weights_seed)
-    params = init_full_params(gen, cfg, device)
+    return device, cfg, init_full_params(gen, cfg, device)
+
+
+def build_batching_engine(args):
+    """(cfg, ContinuousBatchingEngine) for ``serve --batch-slots N``."""
+    from .runtime.batching import ContinuousBatchingEngine
+
+    device, cfg, params = _params(args)
+    return cfg, ContinuousBatchingEngine(
+        cfg, params, max_seq=args.max_seq, max_batch=args.batch_slots,
+        sampling=_sampling_from_args(args), seed=args.seed,
+        eos_id=args.eos_id, decode_block=args.decode_block,
+        prefill_chunk=args.prefill_chunk or None,
+        max_queue_depth=args.admission_queue_depth,
+        kv_cache_blocks=args.kv_cache_blocks,
+        kv_block_tokens=args.kv_block_tokens,
+        attn_backend="cuda" if args.attn_backend == "flash"
+        else args.attn_backend, device=device)
+
+
+def build_engine(args):
+    """(cfg, InferenceEngine) for the parsed plain serve flags."""
+    from .runtime.engine import InferenceEngine
+
+    device, cfg, params = _params(args)
     return cfg, InferenceEngine(
         cfg, params, max_seq=args.max_seq,
         sampling=_sampling_from_args(args),
         attn_backend=args.attn_backend, eos_id=args.eos_id,
         prefill_chunk=args.prefill_chunk or None,
+        kv_cache_blocks=args.kv_cache_blocks,
+        kv_block_tokens=args.kv_block_tokens,
         stream_block=args.stream_block, device=device)
 
 
 def cmd_serve(args) -> int:
     from .runtime.http_server import InferenceHTTPServer
 
-    cfg, engine = build_engine(args)
-    print(f"SERVE_ENGINE {args.model} attn={engine.attn_backend} "
-          f"device={engine.device}", flush=True)
+    if args.batch_slots:
+        if args.stream_block is not None:
+            # the scheduler's fused block is --decode-block; a second K
+            # knob is rejected, never silently ignored
+            print("--stream-block is not supported with --batch-slots "
+                  "(use --decode-block)", file=sys.stderr)
+            return 1
+        cfg, engine = build_batching_engine(args)
+        kvc = engine.kv_cache
+        print(f"SERVE_BATCHING {args.model} slots={args.batch_slots} "
+              f"kv_cache={kvc.num_blocks}x{kvc.block_tokens}tok "
+              f"{engine.kv_layout} tp=1 attn={engine.attn_backend} "
+              f"device={engine.device}", flush=True)
+    else:
+        cfg, engine = build_engine(args)
+        print(f"SERVE_ENGINE {args.model} attn={engine.attn_backend} "
+              f"device={engine.device}", flush=True)
     server = InferenceHTTPServer(engine, host=args.http_host,
                                  port=args.http_port, model_name=args.model,
                                  default_max_new=args.max_new_tokens)
@@ -65,6 +109,8 @@ def cmd_serve(args) -> int:
         pass
     finally:
         server.shutdown()
+        if args.batch_slots:
+            engine.close()
     return 0
 
 
@@ -77,8 +123,10 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new-tokens", type=int, default=128)
     ap.add_argument("--weights-seed", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0,
-                    help="accepted for compatibility; requests carry "
-                         "their own seed")
+                    help="with --batch-slots: seeds the engine's one "
+                         "sampling stream, and a request's own seed is not "
+                         "honored; otherwise unused, requests carry their "
+                         "own seed")
     ap.add_argument("--greedy", action="store_true")
     ap.add_argument("--temperature", type=float, default=0.7)
     ap.add_argument("--top-k", type=int, default=7)
@@ -91,7 +139,28 @@ def _serve_parser() -> argparse.ArgumentParser:
                     help="decode steps per streaming dispatch; default "
                          "DWT_STREAM_BLOCK or 1")
     ap.add_argument("--attn-backend", default="auto",
-                    choices=["auto", "flash", "plain"])
+                    choices=["auto", "flash", "plain"],
+                    help="auto: the CUDA kernels on the card; flash: the "
+                         "CUDA kernels, card only; plain: PyTorch attention "
+                         "(with --batch-slots, the paged gather path)")
+    ap.add_argument("--batch-slots", type=int, default=0,
+                    help="continuous batching with N slots: concurrent "
+                         "requests join the running decode batch between "
+                         "steps")
+    ap.add_argument("--decode-block", type=int, default=1,
+                    help="with --batch-slots: fuse N decode steps per "
+                         "dispatch when no admission could land anyway")
+    ap.add_argument("--kv-cache-blocks", type=int, default=None,
+                    help="with --batch-slots: page-pool size in blocks "
+                         "(default DWT_KVCACHE_BLOCKS, else slots x "
+                         "table width)")
+    ap.add_argument("--kv-block-tokens", type=int, default=None,
+                    help="tokens per KV page (default "
+                         "DWT_KVCACHE_BLOCK_TOKENS, else 16)")
+    ap.add_argument("--admission-queue-depth", type=int, default=0,
+                    help="with --batch-slots: answer 503 + Retry-After "
+                         "once this many requests wait for a slot (0 = "
+                         "unbounded)")
     ap.add_argument("--http-host", default="127.0.0.1")
     ap.add_argument("--http-port", type=int, default=5000)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -120,6 +189,9 @@ def main(argv=None) -> int:
         return 1
     try:
         return cmd_serve(args)
+    except NotImplementedError as e:
+        print(f"error: not yet ported: {e}", file=sys.stderr)
+        return 1
     except ValueError as e:
         # configuration errors render as one line, like the JAX CLI's
         print(f"error: {e}", file=sys.stderr)

@@ -4,8 +4,10 @@ Each kernel source under ``csrc/`` has a plain C interface.  At first use
 it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, and loaded with ``ctypes``.  A library already
-built from the same source is reused.  A failed build raises: there is no
-fallback that hides a missing kernel.
+built from the same source is reused, and nvcc's output (the ptxas
+register and spill report) is kept beside it as ``<name>-<hash>.log``, so
+``build_logs`` holds it whether the library was built now or before.  A
+failed build raises: there is no fallback that hides a missing kernel.
 """
 
 import ctypes
@@ -42,9 +44,12 @@ def library_path(source: str) -> Path:
 
 
 def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library already exists."""
+    """Compile ``csrc/<source>`` unless its library already exists; either
+    way ``build_logs[source]`` holds the build's nvcc output."""
     out = library_path(source)
+    log = out.with_suffix(".log")
     if out.exists():
+        build_logs[source] = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -54,6 +59,10 @@ def build(source: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source} "
                            f"(exit {proc.returncode}):\n{build_logs[source]}")
+    # the log first: a loader that sees the library finds its log too
+    tmp_log = log.with_suffix(f".{os.getpid()}.logtmp")
+    tmp_log.write_text(build_logs[source])
+    os.replace(tmp_log, log)
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
     return out
 

@@ -33,9 +33,9 @@ from ..ops.quant import require_float_weights
 from ..ops.sampling import (SamplingParams, match_stop_ids, pad_stop_ids,
                             sample_logits)
 
-KVCACHE_LATER = ("the block KV prefix cache, reduced-precision caches and "
-                 "quantized pages are ported in a later slice (paged KV + "
-                 "ContinuousBatchingEngine)")
+KVCACHE_LATER = ("this engine's block KV prefix cache, reduced-precision "
+                 "caches and quantized pages are ported in a later slice "
+                 "(ROADMAP A5, A2)")
 ATTN_BACKENDS = ("auto", "flash", "plain")
 
 
@@ -108,6 +108,26 @@ def validate_prefill_chunk(prefill_chunk, max_seq: int):
         raise ValueError(
             f"prefill_chunk must be in [1, max_seq={max_seq}]")
     return prefill_chunk
+
+
+def make_paged_chunk_programs(fwd_p, bind_tables):
+    """``chunk_mid``: the non-final prefill chunk over a PAGED forward
+    seam (``parallel.tensor.make_paged_forward_seam``), as the
+    reference's factory makes it.  The chunk's K/V is written straight
+    into the page pool through the block tables, in place; the logits
+    are dropped.  (The reference's second program, the mixed dispatch's
+    slab body, is ported with the mixed dispatch.)"""
+
+    def chunk_mid(params, pk, pv, ids, tables, start: int) -> None:
+        """One chunk ``ids`` [b, s] at global offset ``start``, written
+        through ``tables`` [b, W] (device int32) into the pools
+        ``pk``/``pv``."""
+        bind_tables(tables)
+        b, s = ids.shape
+        pos = (start + torch.arange(s, device=ids.device)).expand(b, s)
+        fwd_p(params, ids, KVCache(pk, pv, 0), pos, True)
+
+    return chunk_mid
 
 
 def run_chunked_prefill(ids: torch.Tensor, cache: KVCache, C: int,

@@ -1,7 +1,10 @@
 """HTTP inference endpoint over an engine backend.
 
 Counterpart of ``distributed_inference_demo_tpu/runtime/http_server.py``'s
-``InferenceHTTPServer``, with the same JSON shapes:
+``InferenceHTTPServer``, with the same JSON shapes.  The backend is an
+``InferenceEngine`` or a ``ContinuousBatchingEngine``; the server holds no
+lock around it, so concurrent requests reach the batching engine together
+and batch there.
 
 - ``GET  /health``   model, backend, device, capacity
 - ``GET  /stats``    the backend's ``stats()``, else ``{"stages": []}``
@@ -9,6 +12,8 @@ Counterpart of ``distributed_inference_demo_tpu/runtime/http_server.py``'s
   "seed": s, "logprobs": bool, "stream": bool}`` -> ``{"tokens": [[...]]}``
   (+ ``"logprobs"``); ``"stream": true`` answers chunked JSONL, one
   ``{"step": i, "tokens": [...]}`` line per decoded step
+  (+ per-step ``"logprobs"``).  A batching engine whose admission queue
+  is full answers ``503`` with ``Retry-After`` (``SchedulerOverloaded``)
 - ``POST /classify`` ``{"prompt_ids", "label_token_ids"}`` ->
   ``{"labels": [...]}``
 
@@ -27,6 +32,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+
+from .overload import SchedulerOverloaded
 
 NOT_PORTED_ROUTES = ("/metrics", "/trace", "/timeline", "/debugz", "/sketch")
 NOT_PORTED_FIELDS = ("stop", "resume", "image", "prompt")
@@ -61,13 +68,23 @@ class InferenceHTTPServer:
             def log_message(self, fmt, *args):   # quiet by default
                 pass
 
-            def _json(self, code: int, obj: dict) -> None:
+            def _json(self, code: int, obj: dict,
+                      headers: Optional[dict] = None) -> None:
                 body = json.dumps(obj).encode("utf-8")
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(body)
+
+            def _shed(self, e: SchedulerOverloaded) -> None:
+                """503 (or the exception's own code) + Retry-After: the
+                admission queue is past its configured depth."""
+                self._json(e.http_code, {"error": str(e)},
+                           headers={"Retry-After":
+                                    str(max(1, int(e.retry_after_s)))})
 
             def _internal_error(self, e: Exception) -> None:
                 # the server keeps serving: log the traceback, answer 500
@@ -135,6 +152,8 @@ class InferenceHTTPServer:
                         out["logprobs"] = [_round_lps(row)
                                            for row in res.logprobs]
                     self._json(200, out)
+                except SchedulerOverloaded as e:
+                    self._shed(e)
                 except ValueError as e:     # capacity etc.
                     self._json(400, {"error": str(e)})
                 except Exception as e:
@@ -171,6 +190,9 @@ class InferenceHTTPServer:
                     first = next(gen)
                 except StopIteration:
                     pass
+                except SchedulerOverloaded as e:
+                    self._shed(e)       # still before headers: clean 503
+                    return
                 except ValueError as e:
                     self._json(400, {"error": str(e)})
                     return

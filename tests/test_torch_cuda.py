@@ -15,8 +15,11 @@ from distributed_inference_demo_tpu_torch.models import get_model_config
 from distributed_inference_demo_tpu_torch.models.decoder import \
     init_full_params
 from distributed_inference_demo_tpu_torch.ops import flash_attention as fa
+from distributed_inference_demo_tpu_torch.ops import paged_attention as pa
 from distributed_inference_demo_tpu_torch.ops.attention import alibi_slopes
 from distributed_inference_demo_tpu_torch.ops.sampling import SamplingParams
+from distributed_inference_demo_tpu_torch.runtime.batching import \
+    ContinuousBatchingEngine
 from distributed_inference_demo_tpu_torch.runtime.engine import \
     InferenceEngine
 
@@ -96,3 +99,103 @@ def test_auto_backend_raises_on_a_head_dim_the_kernel_lacks(cuda_device):
     plain = InferenceEngine(cfg, params, max_seq=64, attn_backend="plain",
                             device=cuda_device)
     assert plain.attn_backend == "plain"
+
+
+def _paged_pool(gen, dev, dtype, lens, nkv, hd, bt, W):
+    """Pages holding the live pages of ``lens`` (negative: a freed slot
+    with an all-sentinel table) under shuffled ids; sentinels N, N + 7."""
+    need = [-(-l // bt) if l > 0 else 0 for l in lens]
+    N = sum(need) + 3
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(N))
+    tables = torch.full((len(lens), W), N + 7, dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[nxt:nxt + n].to(torch.int32)
+        tables[i, n] = N
+        nxt += n
+    pk = torch.randn((N, nkv, bt, hd), generator=gen, device=dev).to(dtype)
+    pv = torch.randn((N, nkv, bt, hd), generator=gen, device=dev).to(dtype)
+    return pk, pv, tables.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nh,nkv,hd,alibi", [
+    (32, 4, 64, False),       # TinyLlama heads
+    (16, 16, 64, True),       # bloom-560m heads, ALiBi
+    (32, 8, 128, False),      # llama-3-8b heads, hd 128
+])
+def test_paged_kernels_match_plain(cuda_device, dtype, atol, nh, nkv, hd,
+                                   alibi):
+    """Both paged kernels against their plain versions: ragged lengths
+    (1, a page boundary, mid-page, long), freed slots, shuffled pages;
+    prefill chunks from zero, mid-page and several pages in."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    bt, W = 16, 64
+    slopes = alibi_slopes(nh, device=cuda_device) if alibi else None
+    lens = [1, 16, 37, 1000, -300, 130]
+    pk, pv, tables = _paged_pool(gen, cuda_device, dtype, lens, nkv, hd, bt,
+                                 W)
+    q = torch.randn((len(lens), 1, nh, hd), generator=gen,
+                    device=cuda_device).to(dtype)
+    kv_lens = torch.tensor([abs(x) for x in lens], dtype=torch.int32,
+                           device=cuda_device)
+    before = pa.paged_flash_attention.launches
+    got = pa.paged_flash_attention(q, pk, pv, tables, kv_lens, slopes)
+    want = pa.paged_flash_attention_plain(q, pk, pv, tables, kv_lens, slopes)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol)
+    for chunk, starts in ((16, [0, 7]), (64, [200, 3]), (37, [20, 0])):
+        lens = [s + chunk for s in starts]
+        pk, pv, tables = _paged_pool(gen, cuda_device, dtype, lens, nkv, hd,
+                                     bt, W)
+        q = torch.randn((len(starts), chunk, nh, hd), generator=gen,
+                        device=cuda_device).to(dtype)
+        pos = (torch.tensor(starts, device=cuda_device)[:, None]
+               + torch.arange(chunk, device=cuda_device))
+        before = pa.paged_prefill_attention.launches
+        got = pa.paged_prefill_attention(q, pk, pv, tables, pos, slopes)
+        want = pa.paged_prefill_attention_plain(q, pk, pv, tables, pos,
+                                                slopes)
+        torch.cuda.synchronize()
+        assert pa.paged_prefill_attention.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=atol)
+
+
+@pytest.mark.cuda
+def test_batching_engine_goes_through_the_paged_kernels(cuda_device):
+    """A small f32 llama (hd 64) batching engine on the card: decode
+    launches the decode kernel, chunked admission the prefill kernel,
+    and the greedy tokens equal a plain-attention InferenceEngine's; the
+    "plain" backend launches neither."""
+    cfg = get_model_config("llama-test").replace(
+        hidden_size=256, intermediate_size=512, num_layers=3)
+    params = init_full_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, cuda_device)
+    greedy = SamplingParams(greedy=True)
+    plain = InferenceEngine(cfg, params, max_seq=128, sampling=greedy,
+                            attn_backend="plain", device=cuda_device)
+    prompts = [np.random.RandomState(i).randint(0, cfg.vocab_size,
+                                                n).tolist()
+               for i, n in enumerate((10, 40, 70))]
+    want = [plain.generate([p], 8).tokens[0].tolist() for p in prompts]
+    for backend in ("auto", "plain"):
+        dec = pa.paged_flash_attention.launches
+        pre = pa.paged_prefill_attention.launches
+        with ContinuousBatchingEngine(
+                cfg, params, max_seq=128, max_batch=4, sampling=greedy,
+                kv_block_tokens=16, prefill_chunk=16, attn_backend=backend,
+                device=cuda_device) as eng:
+            got = [r.wait(timeout=120).tolist()
+                   for r in [eng.submit(p, 8) for p in prompts]]
+        assert got == want
+        ran = (pa.paged_flash_attention.launches - dec,
+               pa.paged_prefill_attention.launches - pre)
+        if backend == "auto":
+            assert min(ran) > 0 and ran[0] % cfg.num_layers == 0
+        else:
+            assert ran == (0, 0)

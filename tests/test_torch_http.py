@@ -132,7 +132,7 @@ def test_cli_serve_flags(capsys, monkeypatch):
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["serve", "--model", "llama-test"])
     assert cli.main(["serve", "--model", "llama-test", "--batch-slots",
-                     "4"]) == 1
+                     "4", "--mixed-token-budget", "64"]) == 1
     assert "not yet ported" in capsys.readouterr().err
     assert cli.main(["worker", "--model", "llama-test"]) == 1
     assert "not yet ported" in capsys.readouterr().err
