@@ -18,7 +18,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             is device time (calls replayed from a CUDA graph);
             ``eager_ms`` is per eager call, host launch cost included.
             The flash kernel, then the two paged kernels (decode and
-            chunk prefill) over shuffled page tables with sentinels;
+            chunk prefill) over shuffled page tables with sentinels, on
+            full-width pages and on int8 pages (their int8 instances),
+            and the prefill kernel on a mixed dispatch's 4-row slab;
 3. serve    the plain path: ``InferenceHTTPServer`` over
             ``InferenceEngine`` at full TinyLlama-1.1B width (random
             weights from a seed) answers a greedy, a streamed and a
@@ -33,7 +35,16 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             at f32 the tokens equal a plain-attention ``InferenceEngine``'s;
             no page leaks; throughput, TTFT, step time and the device's
             idle share;
-5. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+5. mixed    the mixed prefill+decode dispatch over int8 pages: the same 8
+            requests to ``ContinuousBatchingEngine`` with
+            ``mixed_token_budget`` 288 (4 segments of 64 tokens beside 8
+            rows x 4 decode steps) and ``kv_dtype`` int8; the int8
+            kernels' launch counts equal L x decode steps and L x slab
+            forwards; at f32 the tokens equal the same configuration's on
+            the gather path; no page leak; an int4 request gathers with no
+            launch; throughput, TTFT, step time, idle share, and how many
+            tokens agree with the serialized interleave's;
+6. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout,
@@ -74,6 +85,9 @@ PAGED_REPLACES = {
     "paged_decode": "distributed_inference_demo_tpu/ops/paged_attention.py:136",
     "paged_prefill":
         "distributed_inference_demo_tpu/ops/paged_attention.py:326"}
+# the int8 instances replace the same kernels' quantized branches
+PAGED_REPLACES["paged_decode_int8"] = PAGED_REPLACES["paged_decode"]
+PAGED_REPLACES["paged_prefill_int8"] = PAGED_REPLACES["paged_prefill"]
 # the batching phase: 8 slots, pages of 16 tokens, 64-token admission
 # chunks, 8 concurrent requests of these prompt lengths, 32 new tokens
 SLOTS = 8
@@ -81,6 +95,13 @@ BLOCK_TOKENS = 16
 PREFILL_CHUNK = 64
 BATCH_PROMPTS = (20, 64, 100, 150, 300, 600, 1000, 1500)
 SHARED_PREFIX = 256         # the 300- and 600-token prompts share it
+# the mixed phase: 4 decode steps per dispatch and a budget of 8 x 4 +
+# 4 x 64 tokens (the README's formula: 4 prefill segments per dispatch)
+MIXED_DECODE_BLOCK = 4
+MIXED_BUDGET = SLOTS * MIXED_DECODE_BLOCK + 4 * PREFILL_CHUNK
+# the slab case: 4 rows of 64-token segments, the last unused (start 0,
+# all-sentinel table, marked None)
+SLAB_STARTS = (0, 64, 448, None)
 
 
 def emit(obj) -> None:
@@ -279,13 +300,15 @@ def phase_kernels(torch) -> dict:
 
 
 def paged_cases():
-    """(label, kind, nh, nkv, hd, alibi, per-row lens or (chunk, starts)),
-    at pages of BLOCK_TOKENS tokens: TinyLlama heads for decode at b=1
-    and b=8 (ragged lengths: 1, a page boundary, mid-page, ~2000; two
-    freed slots with all-sentinel tables and stale lengths) and for
-    prefill chunks of 16/32/64 tokens at start 0, mid-page and several
-    pages in; one ALiBi case with bloom-560m heads and one hd-128 case
-    with llama-3-8b heads for each kernel."""
+    """(label, kind, nh, nkv, hd, alibi, per-row lens or (chunk, starts),
+    pages), at pages of BLOCK_TOKENS tokens, "full" width (q's dtype) or
+    "int8": TinyLlama heads for decode at b=1 and b=8 (ragged lengths: 1,
+    a page boundary, mid-page, ~2000; two freed slots with all-sentinel
+    tables and stale lengths) and for prefill chunks of 16/32/64 tokens
+    at start 0, mid-page and several pages in; one ALiBi case with
+    bloom-560m heads and one hd-128 case with llama-3-8b heads for each
+    kernel; the same shapes' int8 instances; the mixed slab (4 rows of
+    64 tokens at distinct starts, one unused) on both page types."""
     serve = (1, 16, 37, 1999, 512, 130, -300, -5)   # negative: freed slot
     cases = [("tinyllama", "decode", 32, 4, 64, False, (1000,)),
              ("tinyllama", "decode", 32, 4, 64, False, serve)]
@@ -299,13 +322,28 @@ def paged_cases():
               ("llama3-8b-hd128", "decode", 32, 8, 128, False, serve),
               ("llama3-8b-hd128", "prefill", 32, 8, 128, False,
                (32, (200,)))]
+    cases = [c + ("full",) for c in cases]
+    int8 = [("tinyllama", "decode", 32, 4, 64, False, (1000,)),
+            ("tinyllama", "decode", 32, 4, 64, False, serve),
+            ("tinyllama", "prefill", 32, 4, 64, False, (16, (0,))),
+            ("tinyllama", "prefill", 32, 4, 64, False, (64, (200,))),
+            ("bloom560m-alibi", "decode", 16, 16, 64, True, serve),
+            ("bloom560m-alibi", "prefill", 16, 16, 64, True, (32, (7,))),
+            ("llama3-8b-hd128", "decode", 32, 8, 128, False, serve),
+            ("llama3-8b-hd128", "prefill", 32, 8, 128, False,
+             (32, (200,)))]
+    cases += [c + ("int8",) for c in int8]
+    for pages in ("full", "int8"):
+        cases.append(("tinyllama-slab", "prefill", 32, 4, 64, False,
+                      (PREFILL_CHUNK, SLAB_STARTS), pages))
     return cases
 
 
-def _paged_inputs(torch, gen, dev, dtype, lens, nkv, hd, W):
+def _paged_inputs(torch, gen, dev, dtype, lens, nkv, hd, W, pages="full"):
     """A pool holding exactly the live pages of ``lens`` (a negative
     length: a freed slot, all-sentinel table) under shuffled ids, plus a
-    few spare pages; tables [b, W] int32 with sentinels N and N + 7."""
+    few spare pages; tables [b, W] int32 with sentinels N and N + 7.
+    ``pages`` "int8": int8 pages quantized from the same random draw."""
     bt = BLOCK_TOKENS
     need = [-(-l // bt) if l > 0 else 0 for l in lens]
     N = sum(need) + 5
@@ -316,28 +354,40 @@ def _paged_inputs(torch, gen, dev, dtype, lens, nkv, hd, W):
         tables[i, :n] = perm[nxt:nxt + n].to(torch.int32)
         tables[i, n + 1:] = N + 7
         nxt += n
-    pk = torch.randn((N, nkv, bt, hd), generator=gen, device=dev).to(dtype)
-    pv = torch.randn((N, nkv, bt, hd), generator=gen, device=dev).to(dtype)
-    return pk, pv, tables.to(dev)
+    pk = torch.randn((N, nkv, bt, hd), generator=gen, device=dev)
+    pv = torch.randn((N, nkv, bt, hd), generator=gen, device=dev)
+    if pages == "int8":
+        from distributed_inference_demo_tpu_torch.ops.quant import \
+            quantize_kv_pages
+        return (quantize_kv_pages(pk, 8), quantize_kv_pages(pv, 8),
+                tables.to(dev))
+    return pk.to(dtype), pv.to(dtype), tables.to(dev)
 
 
-def paged_work(kind, nh, nkv, hd, elt, lens, chunk=1):
+def paged_work(kind, nh, nkv, hd, elt, lens, chunk=1, pages="full"):
     """(flops, bytes) on these inputs: per query, its keys (QK and PV, 2
-    flops per multiply-add each); q and out once, each row's live K/V
-    once.  Decode ``lens`` as in :func:`paged_cases`: a freed slot
-    (negative length) computes over its stale length, but every key of
-    its all-sentinel table clamps to one page, so it moves at most one
-    page of K/V per kv head."""
+    flops per multiply-add each); q and out once (``elt`` bytes an
+    element), each row's live K/V once: ``elt * hd`` bytes per (token, kv
+    head) and tensor for full-width pages, ``hd + 4`` (codes and the f32
+    scale) for int8 pages.  Decode ``lens`` as in :func:`paged_cases`: a
+    freed slot (negative length) computes over its stale length, but
+    every key of its all-sentinel table clamps to one page, so it moves
+    at most one page of K/V per kv head.  Prefill ``lens`` are the rows'
+    starts; an unused slab row (None) computes its chunk from 0 over one
+    clamped page."""
     if kind == "decode":
         keys = sum(abs(l) for l in lens)
         kv = sum(l if l > 0 else min(-l, BLOCK_TOKENS) for l in lens)
         nq = len(lens)
     else:
-        keys = sum(chunk * s + chunk * (chunk + 1) // 2 for s in lens)
-        kv = sum(s + chunk for s in lens)
+        starts = [s or 0 for s in lens]
+        keys = sum(chunk * s + chunk * (chunk + 1) // 2 for s in starts)
+        kv = sum(s + chunk if s is not None else min(chunk, BLOCK_TOKENS)
+                 for s in lens)
         nq = len(lens) * chunk
+    kv_elt = hd + 4 if pages == "int8" else elt * hd
     return (4 * nh * hd * keys,
-            elt * (2 * nq * nh * hd + 2 * nkv * hd * kv))
+            elt * 2 * nq * nh * hd + 2 * nkv * kv_elt * kv)
 
 
 def phase_paged_kernels(torch) -> dict:
@@ -352,7 +402,7 @@ def phase_paged_kernels(torch) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     W = MAX_SEQ // BLOCK_TOKENS
     results, failures = [], []
-    for label, kind, nh, nkv, hd, alibi, shape in paged_cases():
+    for label, kind, nh, nkv, hd, alibi, shape, pages in paged_cases():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
             if kind == "decode":
@@ -360,11 +410,15 @@ def phase_paged_kernels(torch) -> dict:
                 live = list(shape)
                 chunk, b = 1, len(lens)
             else:
-                chunk, starts = shape
+                # an unused slab row (None): start 0, all-sentinel table
+                chunk, row_starts = shape
+                starts = [s or 0 for s in row_starts]
                 lens = [s + chunk for s in starts]
-                live, b = lens, len(starts)
+                live = [s + chunk if s is not None else -1
+                        for s in row_starts]
+                b = len(starts)
             pk, pv, tables = _paged_inputs(torch, gen, dev, dtype, live,
-                                           nkv, hd, W)
+                                           nkv, hd, W, pages)
             q = torch.randn((b, chunk, nh, hd), generator=gen, device=dev
                             ).to(dtype)
             slopes = alibi_slopes(nh, device=dev) if alibi else None
@@ -398,10 +452,11 @@ def phase_paged_kernels(torch) -> dict:
             # ALiBi) mask built outside the timed call
             S = max(lens)
             g = nh // nkv
-            kt = pa._linear_view(pk, tables)[:, :, :S].repeat_interleave(
-                g, dim=1)
-            vt = pa._linear_view(pv, tables)[:, :, :S].repeat_interleave(
-                g, dim=1)
+            # (int8 pages: gathered, then dequantized, beforehand)
+            kt = pa._linear_view(pk, tables)[:, :, :S].to(
+                dtype).repeat_interleave(g, dim=1)
+            vt = pa._linear_view(pv, tables)[:, :, :S].to(
+                dtype).repeat_interleave(g, dim=1)
             qt = q.transpose(1, 2).contiguous()
             dist = (qpos[:, :, None]
                     - torch.arange(S, device=dev)).float()   # [b, c, S]
@@ -417,14 +472,15 @@ def phase_paged_kernels(torch) -> dict:
             lib_err = float((sdpa().transpose(1, 2).float()
                              - want.float()).abs().max())
             flops, nbytes = paged_work(kind, nh, nkv, hd, q.element_size(),
-                                       shape if kind == "decode" else starts,
-                                       chunk)
+                                       shape if kind == "decode"
+                                       else row_starts, chunk, pages)
             t_ops = flops / PEAK_FLOPS[dname]
             t_bytes = nbytes / PEAK_BYTES
-            row = {"case": label, "kind": kind, "dtype": dname, "b": b,
+            row = {"case": label, "kind": kind, "dtype": dname,
+                   "pages": pages, "b": b,
                    "chunk": chunk, "lens": list(shape) if kind == "decode"
                    else None, "starts": None if kind == "decode"
-                   else list(starts), "nh": nh, "nkv": nkv, "hd": hd,
+                   else list(row_starts), "nh": nh, "nkv": nkv, "hd": hd,
                    "block_tokens": BLOCK_TOKENS,
                    "max_abs_err": float(err.max()), "tol": [atol, rtol],
                    "ok": ok,
@@ -439,8 +495,8 @@ def phase_paged_kernels(torch) -> dict:
                    else "bytes", "flops": flops, "bytes": nbytes}
             results.append(row)
             if not ok:
-                failures.append(f"{label} {kind} {dname} {shape}: max err "
-                                f"{row['max_abs_err']}")
+                failures.append(f"{label} {kind} {dname} {pages} {shape}: "
+                                f"max err {row['max_abs_err']}")
             del q, pk, pv, kt, vt
     return {"phase": "paged_kernels", "cases": results,
             "failures": failures}
@@ -676,11 +732,49 @@ def _no_page_leak(engine) -> bool:
     return mgr.free_blocks == mgr.num_blocks
 
 
-def phase_batching(torch) -> dict:
+def _serve_all(port: int, prompts) -> list:
+    """The batching phases' requests, all at once over HTTP, greedy,
+    NEW_TOKENS each, the 150-token prompt's streamed: [tokens] per
+    prompt."""
     import threading
 
-    import numpy as np
+    stream_i = BATCH_PROMPTS.index(150)
+    out = [None] * len(prompts)
 
+    def one(i):
+        body = {"prompt_ids": [prompts[i]], "max_new_tokens": NEW_TOKENS}
+        if i == stream_i:
+            body["stream"] = True
+        code, text = _post(port, body)
+        _check(code == 200, f"batched request {i}: HTTP {code}")
+        if i == stream_i:
+            lines = [json.loads(ln) for ln in text.splitlines()
+                     if ln.strip()]
+            _check([ln["step"] for ln in lines] == list(range(NEW_TOKENS)),
+                   "stream steps")
+            out[i] = [ln["tokens"][0] for ln in lines]
+        else:
+            out[i] = json.loads(text)["tokens"][0]
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    _check(all(o is not None and len(o) == NEW_TOKENS for o in out),
+           "a batched request did not complete")
+    return out
+
+
+def _reset_launches(*wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "int8_launches"):
+            w.int8_launches = 0
+
+
+def phase_batching(torch) -> dict:
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
     from distributed_inference_demo_tpu_torch.models.registry import \
@@ -704,43 +798,12 @@ def phase_batching(torch) -> dict:
     L = cfg.num_layers
     greedy = SamplingParams(greedy=True)
     prompts = _batch_prompts(cfg.vocab_size)
-    stream_i = BATCH_PROMPTS.index(150)
 
     def engine_for(c, params):
         return ContinuousBatchingEngine(
             c, params, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
             kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
             device="cuda")
-
-    def serve_all(port):
-        """The 8 requests at once over HTTP: [tokens] per prompt."""
-        out = [None] * len(prompts)
-
-        def one(i):
-            body = {"prompt_ids": [prompts[i]],
-                    "max_new_tokens": NEW_TOKENS}
-            if i == stream_i:
-                body["stream"] = True
-            code, text = _post(port, body)
-            _check(code == 200, f"batched request {i}: HTTP {code}")
-            if i == stream_i:
-                lines = [json.loads(ln) for ln in text.splitlines()
-                         if ln.strip()]
-                _check([ln["step"] for ln in lines]
-                       == list(range(NEW_TOKENS)), "stream steps")
-                out[i] = [ln["tokens"][0] for ln in lines]
-            else:
-                out[i] = json.loads(text)["tokens"][0]
-
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        _check(all(o is not None and len(o) == NEW_TOKENS for o in out),
-               "a batched request did not complete")
-        return out
 
     out = {"phase": "batching", "device": torch.cuda.get_device_name(0),
            "model": SERVE_MODEL, "slots": SLOTS,
@@ -764,11 +827,10 @@ def phase_batching(torch) -> dict:
         _check(_no_page_leak(engine), "warm-up leaked pages")
         flight.clear()
         # ---- the main path: counts from zero, 8 concurrent requests ----
-        pa.paged_flash_attention.launches = 0
-        pa.paged_prefill_attention.launches = 0
-        flash_attention.launches = 0
+        _reset_launches(pa.paged_flash_attention, pa.paged_prefill_attention,
+                        flash_attention)
         t0 = time.perf_counter()
-        toks = serve_all(server.port)
+        toks = _serve_all(server.port, prompts)
         wall = time.perf_counter() - t0
         launches = {"paged_decode": pa.paged_flash_attention.launches,
                     "paged_prefill": pa.paged_prefill_attention.launches}
@@ -791,6 +853,9 @@ def phase_batching(torch) -> dict:
         _check(launches == predicted and min(launches.values()) > 0,
                f"paged launches {launches}, routing predicts {predicted}")
         _check(flash_attention.launches == 0, "the flash kernel ran")
+        _check(pa.paged_flash_attention.int8_launches
+               == pa.paged_prefill_attention.int8_launches == 0,
+               "an int8 instance ran on full-width pages")
         _check(stats["kvcache"]["hits"] == 1
                and stats["kvcache"]["partial_hit_tokens"] == SHARED_PREFIX,
                f"radix hit: {stats['kvcache']}")
@@ -839,6 +904,172 @@ def phase_batching(torch) -> dict:
     _check(got == want, f"f32 batching tokens differ from the plain "
            f"engine's: {agree} of {NEW_TOKENS} per request")
     del plain, p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mixed(torch) -> dict:
+    """The mixed dispatch over int8 pages at full TinyLlama width: see
+    the module docstring, item 5."""
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
+
+    cfg = get_model_config(SERVE_MODEL)
+    L = cfg.num_layers
+    greedy = SamplingParams(greedy=True)
+    prompts = _batch_prompts(cfg.vocab_size)
+    wrappers = (pa.paged_flash_attention, pa.paged_prefill_attention,
+                flash_attention)
+
+    def engine_for(c, params, **kw):
+        kw.setdefault("mixed_token_budget", MIXED_BUDGET)
+        kw.setdefault("kv_dtype", "int8")
+        return ContinuousBatchingEngine(
+            c, params, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
+            kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+            decode_block=MIXED_DECODE_BLOCK, device="cuda", **kw)
+
+    def counts():
+        return {"paged_decode": pa.paged_flash_attention.launches,
+                "paged_prefill": pa.paged_prefill_attention.launches,
+                "paged_decode_int8": pa.paged_flash_attention.int8_launches,
+                "paged_prefill_int8":
+                    pa.paged_prefill_attention.int8_launches,
+                "flash_attention": flash_attention.launches}
+
+    out = {"phase": "mixed", "device": torch.cuda.get_device_name(0),
+           "model": SERVE_MODEL, "slots": SLOTS,
+           "block_tokens": BLOCK_TOKENS, "prefill_chunk": PREFILL_CHUNK,
+           "decode_block": MIXED_DECODE_BLOCK,
+           "mixed_token_budget": MIXED_BUDGET, "kv_dtype": "int8",
+           "prompt_lens": list(BATCH_PROMPTS), "new_tokens": NEW_TOKENS}
+    params = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    engine = engine_for(cfg, params)
+    _check(engine._mixed_seg_cap == 4, "the budget packs 4 segments")
+    out["pool_bytes"] = engine._pk.nbytes + engine._pv.nbytes
+    server = InferenceHTTPServer(engine, "127.0.0.1", 0,
+                                 model_name=SERVE_MODEL,
+                                 default_max_new=NEW_TOKENS)
+    server.start()
+    flight = get_flight_recorder()
+    try:
+        _post(server.port, {"prompt_ids": [list(range(16))],
+                            "max_new_tokens": 2})
+        engine.reset_stats()
+        _check(_no_page_leak(engine), "warm-up leaked pages")
+        flight.clear()
+        # ---- the main path: counts from zero, 8 concurrent requests ----
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        toks = _serve_all(server.port, prompts)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        events = flight.snapshot()
+        ttft = {e["prompt_len"]: e["ttft_s"] for e in events
+                if e["kind"] == "batch_done"}
+        stats = engine.stats()
+        # the routing: every decode step launches the decode kernel's
+        # int8 instance once a layer; every slab forward (a dispatch that
+        # packed a segment) the prefill kernel's, its 64-token segments
+        # being 512 rows; nothing else launches
+        predicted = {
+            "paged_decode": 0, "paged_prefill": 0,
+            "paged_decode_int8": L * engine.loop_stats["device_loop_steps"],
+            "paged_prefill_int8":
+                L * engine.chunk_stats["mixed_slab_forwards"],
+            "flash_attention": 0}
+        out.update(launches=launches, predicted_launches=predicted,
+                   wall_s=wall, tok_s=len(prompts) * NEW_TOKENS / wall,
+                   decode_steps=engine.loop_stats["device_loop_steps"],
+                   host_dispatches=engine.loop_stats["host_dispatches"],
+                   slab_forwards=engine.chunk_stats["mixed_slab_forwards"],
+                   mixed=stats["mixed"], kvcache=stats["kvcache"],
+                   ttft_shortest_s=ttft.get(min(BATCH_PROMPTS)),
+                   ttft_longest_s=ttft.get(max(BATCH_PROMPTS)),
+                   tokens=toks)
+        _check(launches == predicted
+               and min(launches["paged_decode_int8"],
+                       launches["paged_prefill_int8"]) > 0,
+               f"launches {launches}, routing predicts {predicted}")
+        _check(stats["mixed"]["dispatches"] > 0, "no mixed dispatch ran")
+        _check(stats["kvcache"]["page_dtype"] == "int8", "page dtype")
+        out["no_page_leak"] = _no_page_leak(engine)
+        _check(out["no_page_leak"], "pages leaked after the drain")
+
+        # ---- decode step time and the device's idle share, 8 slots
+        # decoding (short prompts, steps counted by the engine) ----
+        reqs = [engine.submit(prompts[i][:16], 200) for i in range(SLOTS)]
+        _wait_steps(engine, 4)
+        t0, s0 = time.perf_counter(), engine._step_count
+        _wait_steps(engine, 32)
+        out["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                     / (engine._step_count - s0))
+        out["profile"] = profile_steps(torch, engine, 16)
+        for r in reqs:
+            r.cancel()
+        for r in reqs:
+            r.done.wait(timeout=120)
+        _check(_no_page_leak(engine), "cancelled requests leaked pages")
+    finally:
+        server.shutdown()
+        engine.close()
+
+    # ---- the serialized interleave on the same int8 pages: how many of
+    # the same 8 requests' greedy tokens agree (bf16: a count, no check)
+    with engine_for(cfg, params, mixed_token_budget=0) as ser:
+        reqs = [ser.submit(p, NEW_TOKENS) for p in prompts]
+        ser_toks = [r.wait(timeout=900).tolist() for r in reqs]
+    out["serialized_agreement"] = sum(
+        sum(a == b for a, b in zip(m, s_)) for m, s_ in zip(toks, ser_toks))
+    out["serialized_agreement_of"] = len(prompts) * NEW_TOKENS
+
+    # ---- an int4 pool: the routing sends it to the gather path ----
+    _reset_launches(*wrappers)
+    with engine_for(cfg, params, kv_dtype="int4") as eng4:
+        got4 = eng4.submit(prompts[1], 8).wait(timeout=300).tolist()
+        _check(_no_page_leak(eng4), "int4 run leaked pages")
+    out["int4_launches"] = counts()
+    _check(len(got4) == 8, "int4 request")
+    _check(not any(out["int4_launches"].values()),
+           f"an int4 pool launched {out['int4_launches']}")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- f32, same seed, requests one after another (the same schedule
+    # for both): the int8 kernels against the gather path, token for
+    # token ----
+    cfg32 = cfg.replace(dtype_name="float32")
+    p32 = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
+    runs = {}
+    for backend in ("auto", "plain"):
+        with engine_for(cfg32, p32, attn_backend=backend) as eng32:
+            runs[backend] = [eng32.submit(p, NEW_TOKENS).wait(
+                timeout=900).tolist() for p in prompts]
+            _check(_no_page_leak(eng32), "f32 run leaked pages")
+    agree = [sum(a == b for a, b in zip(g_, w_))
+             for g_, w_ in zip(runs["auto"], runs["plain"])]
+    out["f32_greedy_agreement"] = sum(agree) / (len(prompts) * NEW_TOKENS)
+    out["f32_agreement_per_request"] = agree
+    _check(runs["auto"] == runs["plain"],
+           f"f32 mixed int8 tokens differ between the kernels and the "
+           f"gather path: {agree} of {NEW_TOKENS} per request")
+    del p32
     torch.cuda.empty_cache()
     return out
 
@@ -938,6 +1169,8 @@ def main(argv) -> int:
         emit(serve)
         batching = phase_batching(torch)
         emit(batching)
+        mixed = phase_mixed(torch)
+        emit(mixed)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -949,15 +1182,20 @@ def main(argv) -> int:
                      and c["q_start"] == 0)
     # the paged kernels at the serving path's shapes: decode over 8 slots
     # (bf16, TinyLlama heads), a 64-token admission chunk several pages in
+    # (full-width pages for the batching path, int8 pages for the mixed)
+    def serve_case(kind, pages):
+        return next(c for c in paged["cases"] if c["case"] == "tinyllama"
+                    and c["kind"] == kind and c["dtype"] == "bfloat16"
+                    and c["pages"] == pages
+                    and (c["b"] == SLOTS if kind == "decode" else
+                         c["chunk"] == PREFILL_CHUNK
+                         and c["starts"] == [200]))
+
     paged_main = {
-        "paged_decode": next(
-            c for c in paged["cases"] if c["case"] == "tinyllama"
-            and c["kind"] == "decode" and c["dtype"] == "bfloat16"
-            and c["b"] == SLOTS),
-        "paged_prefill": next(
-            c for c in paged["cases"] if c["case"] == "tinyllama"
-            and c["kind"] == "prefill" and c["dtype"] == "bfloat16"
-            and c["chunk"] == PREFILL_CHUNK and c["starts"] == [200])}
+        "paged_decode": (batching, serve_case("decode", "full")),
+        "paged_prefill": (batching, serve_case("prefill", "full")),
+        "paged_decode_int8": (mixed, serve_case("decode", "int8")),
+        "paged_prefill_int8": (mixed, serve_case("prefill", "int8"))}
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda", "source": source,
@@ -971,8 +1209,8 @@ def main(argv) -> int:
         entry("flash_attention", KERNEL_SOURCE, KERNEL_REPLACES,
               serve["launches"], main_case)] + [
         entry(name, PAGED_SOURCE, PAGED_REPLACES[name],
-              batching["launches"][name], case)
-        for name, case in paged_main.items()]})
+              phase["launches"][name], case)
+        for name, (phase, case) in paged_main.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

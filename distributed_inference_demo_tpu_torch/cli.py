@@ -6,12 +6,16 @@
         --model llama-test --device cpu --greedy
     python -m distributed_inference_demo_tpu_torch serve \\
         --model tinyllama-1.1b --batch-slots 8 --prefill-chunk 64
+    python -m distributed_inference_demo_tpu_torch serve \\
+        --model tinyllama-1.1b --batch-slots 8 --prefill-chunk 64 \\
+        --decode-block 4 --mixed-token-budget 288 --kv-dtype int8
 
 Two serve modes of the JAX package's CLI, with random weights from
 ``--weights-seed`` behind ``InferenceHTTPServer``: plain (one
 ``InferenceEngine``) and ``--batch-slots N`` (a ``ContinuousBatchingEngine``
 over the paged KV pool, with ``--kv-cache-blocks``, ``--kv-block-tokens``,
-``--decode-block``, ``--prefill-chunk`` and ``--admission-queue-depth``).
+``--decode-block``, ``--prefill-chunk``, ``--admission-queue-depth``,
+``--mixed-token-budget`` and ``--kv-dtype``).
 It runs on CUDA unless ``--device cpu`` is given.  Every other subcommand
 and mode flag of the JAX package's CLI exits 1 with "not yet ported".
 """
@@ -58,6 +62,8 @@ def build_batching_engine(args):
         eos_id=args.eos_id, decode_block=args.decode_block,
         prefill_chunk=args.prefill_chunk or None,
         max_queue_depth=args.admission_queue_depth,
+        mixed_token_budget=args.mixed_token_budget or None,
+        kv_dtype=args.kv_dtype,
         kv_cache_blocks=args.kv_cache_blocks,
         kv_block_tokens=args.kv_block_tokens,
         attn_backend="cuda" if args.attn_backend == "flash"
@@ -75,7 +81,7 @@ def build_engine(args):
         attn_backend=args.attn_backend, eos_id=args.eos_id,
         prefill_chunk=args.prefill_chunk or None,
         kv_cache_blocks=args.kv_cache_blocks,
-        kv_block_tokens=args.kv_block_tokens,
+        kv_block_tokens=args.kv_block_tokens, kv_dtype=args.kv_dtype,
         stream_block=args.stream_block, device=device)
 
 
@@ -93,8 +99,10 @@ def cmd_serve(args) -> int:
         kvc = engine.kv_cache
         print(f"SERVE_BATCHING {args.model} slots={args.batch_slots} "
               f"kv_cache={kvc.num_blocks}x{kvc.block_tokens}tok "
-              f"{engine.kv_layout} tp=1 attn={engine.attn_backend} "
-              f"device={engine.device}", flush=True)
+              f"{engine.kv_layout} kv_dtype={engine.kv_dtype} "
+              f"mixed_token_budget={engine.mixed_token_budget} tp=1 "
+              f"attn={engine.attn_backend} device={engine.device}",
+              flush=True)
     else:
         cfg, engine = build_engine(args)
         print(f"SERVE_ENGINE {args.model} attn={engine.attn_backend} "
@@ -157,6 +165,20 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-block-tokens", type=int, default=None,
                     help="tokens per KV page (default "
                          "DWT_KVCACHE_BLOCK_TOKENS, else 16)")
+    ap.add_argument("--mixed-token-budget", type=int, default=0,
+                    help="with --batch-slots and --prefill-chunk: pack "
+                         "prefill chunk tokens from admitting prompts "
+                         "into the SAME dispatch as the fused decode "
+                         "block, up to N tokens total per step (decode "
+                         "fusion survives admission; default "
+                         "DWT_MIXED_TOKEN_BUDGET or 0 = serialized)")
+    ap.add_argument("--kv-dtype", default=None,
+                    choices=["bf16", "int8", "int4"],
+                    help="with --batch-slots: the KV page width: bf16 "
+                         "stores full-width pages (the default); int8 / "
+                         "packed int4 quantize each page at write time "
+                         "with a per-token scale beside it.  Default "
+                         "DWT_KV_DTYPE, else bf16")
     ap.add_argument("--admission-queue-depth", type=int, default=0,
                     help="with --batch-slots: answer 503 + Retry-After "
                          "once this many requests wait for a slot (0 = "

@@ -57,12 +57,32 @@
 // launch has only 32 blocks for 132 SMs.  Splitting along the pages
 // (flash-decoding) and tensor-core math are later work.
 //
+// int8 pages.  The Pallas kernels' quantized instance (_paged_kernel and
+// _paged_prefill_kernel with quantized=True) streams int8 pages with an
+// f32 [bt, 1] scale block riding the same page index map, and
+// dequantizes in registers right after the load.  Here the tile load is
+// templated on the page type P: for P = int8_t each K/V element is its
+// code times its token's scale, code * scale in f32 (the reference's
+// dequantize, so the kernel and its plain version agree), one multiply
+// per element in registers; the scale is read through the same clamped
+// page id as the data.  The rest (masking, online softmax) is the same
+// code as the full-width instance.  An int8 page moves hd + 4 bytes per
+// (token, kv head) where a bf16 page moves 2 * hd: 68 against 128 at hd
+// 64, so int8 about halves the bytes that bound decode.  This first
+// int8 instance keeps the byte-wide loads (one byte per thread, a warp
+// reading 32 consecutive bytes) and the f32 CUDA-core math of the
+// full-width one; 16-byte vector loads (hd % 16 == 0 holds for 64 and
+// 128) are later work.  Int4 pages have no kernel: the reference sends
+// them to the gather path on purpose, and so does the port.
+//
 // Plain C interface, loaded with ctypes: each launch goes on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -77,15 +97,29 @@ __device__ __forceinline__ void store_val(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Offset of (position pos, kv head h, lane d) of one row through its
-// table row `tab`, the page id clamped into the pool.
-__device__ __forceinline__ size_t page_offset(const int* tab, int pos,
-                                              int bt, int nkv, int h,
-                                              int num_pages, int hd,
-                                              int d) {
+// Token row of (position pos, kv head h) in a pool [num_pages, nkv, bt,
+// .] through the table row `tab`, the page id clamped into the pool:
+// element d of the page data is at row * hd + d, the token's int8 scale
+// at row.
+__device__ __forceinline__ size_t page_row(const int* tab, int pos, int bt,
+                                           int nkv, int h, int num_pages) {
   const int j = pos / bt;
   const int page = min(max(tab[j], 0), num_pages - 1);
-  return (((size_t)page * nkv + h) * bt + (pos - j * bt)) * hd + d;
+  return ((size_t)page * nkv + h) * bt + (pos - j * bt);
+}
+
+// Element d of a token row as f32: a full-width page converts, an int8
+// page multiplies its code by the token's scale (sc is unused for
+// full-width pages).
+template <typename P>
+__device__ __forceinline__ float load_kv(const P* __restrict__ p,
+                                         const float* __restrict__ sc,
+                                         size_t row, int hd, int d) {
+  if constexpr (std::is_same<P, int8_t>::value) {
+    return (float)p[row * hd + d] * sc[row];
+  } else {
+    return to_f32(p[row * hd + d]);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -104,10 +138,12 @@ constexpr size_t decode_smem_bytes() {
                           D_GMAX * D_TK + 3 * D_GMAX);
 }
 
-template <typename T, int HD>
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(D_NT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp,
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
+                    const float* __restrict__ ksc,
+                    const P* __restrict__ vp,
+                    const float* __restrict__ vsc,
                     const int* __restrict__ tables,
                     const int* __restrict__ kv_lens,
                     const float* __restrict__ slopes, T* __restrict__ out,
@@ -158,10 +194,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int pos = t0 + r;
       float kx = 0.f, vx = 0.f;
       if (pos < kv_end) {
-        const size_t off = page_offset(tab, pos, bt, nkv, h, num_pages,
-                                       HD, d);
-        kx = to_f32(kp[off]);
-        vx = to_f32(vp[off]);
+        const size_t row = page_row(tab, pos, bt, nkv, h, num_pages);
+        kx = load_kv(kp, ksc, row, HD, d);
+        vx = load_kv(vp, vsc, row, HD, d);
       }
       ks[r * KP + d] = kx;
       vs[r * HD + d] = vx;
@@ -250,10 +285,12 @@ constexpr size_t prefill_smem_bytes() {
                           P_BR * (P_BK + 1));
 }
 
-template <typename T, int HD>
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(P_NT)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                     const T* __restrict__ vp,
+paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ kp,
+                     const float* __restrict__ ksc,
+                     const P* __restrict__ vp,
+                     const float* __restrict__ vsc,
                      const int* __restrict__ tables,
                      const int* __restrict__ starts,
                      const float* __restrict__ slopes, T* __restrict__ out,
@@ -317,10 +354,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int pos = t0 + r;
       float kx = 0.f, vx = 0.f;
       if (pos < kv_end) {
-        const size_t off = page_offset(tab, pos, bt, nkv, h, num_pages,
-                                       HD, d);
-        kx = to_f32(kp[off]);
-        vx = to_f32(vp[off]);
+        const size_t row = page_row(tab, pos, bt, nkv, h, num_pages);
+        kx = load_kv(kp, ksc, row, HD, d);
+        vx = load_kv(vp, vsc, row, HD, d);
       }
       ks[r * KP + d] = kx;
       vs[r * HD + d] = vx;
@@ -416,47 +452,105 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int HD>
-cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
-                          const int* tables, const int* kv_lens,
-                          const float* slopes, void* out, int b, int nh,
-                          int nkv, int bt, int num_pages, int W,
-                          float scale, cudaStream_t stream) {
+bool shapes_ok(int b, int chunk, int nh, int nkv, int bt, int num_pages,
+               int W) {
+  return b > 0 && chunk > 0 && nkv > 0 && nh % nkv == 0 && bt > 0 &&
+         num_pages > 0 && W > 0;
+}
+
+// The pages of one launch: data and, for int8, the scale sidecars
+// (null for full-width pages).
+struct Pages {
+  const void* k;
+  const float* ks;
+  const void* v;
+  const float* vs;
+};
+
+template <typename T, typename P, int HD>
+cudaError_t launch_decode(const void* q, Pages pg, const int* tables,
+                          const int* kv_lens, const float* slopes,
+                          void* out, int b, int nh, int nkv, int bt,
+                          int num_pages, int W, float scale,
+                          cudaStream_t stream) {
   constexpr size_t smem = decode_smem_bytes<HD>();
-  auto kern = paged_decode_kernel<T, HD>;
+  auto kern = paged_decode_kernel<T, P, HD>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(nkv, b);
   kern<<<grid, D_NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, kv_lens, slopes,
+      static_cast<const T*>(q), static_cast<const P*>(pg.k), pg.ks,
+      static_cast<const P*>(pg.v), pg.vs, tables, kv_lens, slopes,
       static_cast<T*>(out), nh, nkv, bt, num_pages, W, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
-                           const int* tables, const int* starts,
-                           const float* slopes, void* out, int b, int chunk,
-                           int nh, int nkv, int bt, int num_pages, int W,
-                           float scale, cudaStream_t stream) {
+template <typename T, typename P, int HD>
+cudaError_t launch_prefill(const void* q, Pages pg, const int* tables,
+                           const int* starts, const float* slopes, void* out,
+                           int b, int chunk, int nh, int nkv, int bt,
+                           int num_pages, int W, float scale,
+                           cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_bytes<HD>();
-  auto kern = paged_prefill_kernel<T, HD>;
+  auto kern = paged_prefill_kernel<T, P, HD>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const int rows = chunk * (nh / nkv);
   dim3 grid((rows + P_BR - 1) / P_BR, nkv, b);
   kern<<<grid, P_NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, starts, slopes,
+      static_cast<const T*>(q), static_cast<const P*>(pg.k), pg.ks,
+      static_cast<const P*>(pg.v), pg.vs, tables, starts, slopes,
       static_cast<T*>(out), chunk, nh, nkv, bt, num_pages, W, scale);
   return cudaGetLastError();
 }
 
-bool shapes_ok(int b, int chunk, int nh, int nkv, int bt, int num_pages,
-               int W) {
-  return b > 0 && chunk > 0 && nkv > 0 && nh % nkv == 0 && bt > 0 &&
-         num_pages > 0 && W > 0;
+// One decode launch, dispatched on q's dtype (0 = float32, 1 = bfloat16),
+// the page type (full width = q's dtype, or int8) and the head dim.
+template <bool INT8>
+int decode_fwd(const void* q, Pages pg, const void* tables,
+               const void* kv_lens, const void* slopes, void* out, int b,
+               int nh, int nkv, int hd, int bt, int num_pages, int W,
+               float scale, int dtype, void* stream) {
+  if (!shapes_ok(b, 1, nh, nkv, bt, num_pages, W) || nh / nkv > D_GMAX)
+    return (int)cudaErrorInvalidValue;
+  const int* tab = static_cast<const int*>(tables);
+  const int* lens = static_cast<const int*>(kv_lens);
+  const float* sl = static_cast<const float*>(slopes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PD_CASE(T, HD)                                                     \
+  return (int)launch_decode<T, typename std::conditional<INT8, int8_t,     \
+                                                         T>::type, HD>(    \
+      q, pg, tab, lens, sl, out, b, nh, nkv, bt, num_pages, W, scale, st)
+  if (dtype == 0 && hd == 64) PD_CASE(float, 64);
+  if (dtype == 0 && hd == 128) PD_CASE(float, 128);
+  if (dtype == 1 && hd == 64) PD_CASE(__nv_bfloat16, 64);
+  if (dtype == 1 && hd == 128) PD_CASE(__nv_bfloat16, 128);
+#undef PD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool INT8>
+int prefill_fwd(const void* q, Pages pg, const void* tables,
+                const void* starts, const void* slopes, void* out, int b,
+                int chunk, int nh, int nkv, int hd, int bt, int num_pages,
+                int W, float scale, int dtype, void* stream) {
+  if (!shapes_ok(b, chunk, nh, nkv, bt, num_pages, W))
+    return (int)cudaErrorInvalidValue;
+  const int* tab = static_cast<const int*>(tables);
+  const int* st0 = static_cast<const int*>(starts);
+  const float* sl = static_cast<const float*>(slopes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PP_CASE(T, HD)                                                     \
+  return (int)launch_prefill<T, typename std::conditional<INT8, int8_t,    \
+                                                          T>::type, HD>(   \
+      q, pg, tab, st0, sl, out, b, chunk, nh, nkv, bt, num_pages, W, scale, \
+      st)
+  if (dtype == 0 && hd == 64) PP_CASE(float, 64);
+  if (dtype == 0 && hd == 128) PP_CASE(float, 128);
+  if (dtype == 1 && hd == 64) PP_CASE(__nv_bfloat16, 64);
+  if (dtype == 1 && hd == 128) PP_CASE(__nv_bfloat16, 128);
+#undef PP_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -472,21 +566,26 @@ int paged_decode_fwd(const void* q, const void* k_pages,
                      const void* kv_lens, const void* slopes, void* out,
                      int b, int nh, int nkv, int hd, int bt, int num_pages,
                      int W, float scale, int dtype, void* stream) {
-  if (!shapes_ok(b, 1, nh, nkv, bt, num_pages, W) || nh / nkv > D_GMAX)
-    return (int)cudaErrorInvalidValue;
-  const int* tab = static_cast<const int*>(tables);
-  const int* lens = static_cast<const int*>(kv_lens);
-  const float* sl = static_cast<const float*>(slopes);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PD_CASE(T, HD)                                                    \
-  return (int)launch_decode<T, HD>(q, k_pages, v_pages, tab, lens, sl, out, \
-                                   b, nh, nkv, bt, num_pages, W, scale, st)
-  if (dtype == 0 && hd == 64) PD_CASE(float, 64);
-  if (dtype == 0 && hd == 128) PD_CASE(float, 128);
-  if (dtype == 1 && hd == 64) PD_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) PD_CASE(__nv_bfloat16, 128);
-#undef PD_CASE
-  return (int)cudaErrorInvalidValue;
+  return decode_fwd<false>(q, Pages{k_pages, nullptr, v_pages, nullptr},
+                           tables, kv_lens, slopes, out, b, nh, nkv, hd, bt,
+                           num_pages, W, scale, dtype, stream);
+}
+
+// As paged_decode_fwd over int8 pages [num_pages, nkv, bt, hd] with their
+// float32 scales [num_pages, nkv, bt, 1]; dtype is q's and out's.
+int paged_decode_int8_fwd(const void* q, const void* k_pages,
+                          const void* k_scale, const void* v_pages,
+                          const void* v_scale, const void* tables,
+                          const void* kv_lens, const void* slopes, void* out,
+                          int b, int nh, int nkv, int hd, int bt,
+                          int num_pages, int W, float scale, int dtype,
+                          void* stream) {
+  return decode_fwd<true>(
+      q,
+      Pages{k_pages, static_cast<const float*>(k_scale), v_pages,
+            static_cast<const float*>(v_scale)},
+      tables, kv_lens, slopes, out, b, nh, nkv, hd, bt, num_pages, W, scale,
+      dtype, stream);
 }
 
 // As paged_decode_fwd, with q/out [b, chunk, nh, hd] and starts [b]
@@ -497,22 +596,25 @@ int paged_prefill_fwd(const void* q, const void* k_pages,
                       int b, int chunk, int nh, int nkv, int hd, int bt,
                       int num_pages, int W, float scale, int dtype,
                       void* stream) {
-  if (!shapes_ok(b, chunk, nh, nkv, bt, num_pages, W))
-    return (int)cudaErrorInvalidValue;
-  const int* tab = static_cast<const int*>(tables);
-  const int* st0 = static_cast<const int*>(starts);
-  const float* sl = static_cast<const float*>(slopes);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PP_CASE(T, HD)                                                     \
-  return (int)launch_prefill<T, HD>(q, k_pages, v_pages, tab, st0, sl, out, \
-                                    b, chunk, nh, nkv, bt, num_pages, W,    \
-                                    scale, st)
-  if (dtype == 0 && hd == 64) PP_CASE(float, 64);
-  if (dtype == 0 && hd == 128) PP_CASE(float, 128);
-  if (dtype == 1 && hd == 64) PP_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) PP_CASE(__nv_bfloat16, 128);
-#undef PP_CASE
-  return (int)cudaErrorInvalidValue;
+  return prefill_fwd<false>(q, Pages{k_pages, nullptr, v_pages, nullptr},
+                            tables, starts, slopes, out, b, chunk, nh, nkv,
+                            hd, bt, num_pages, W, scale, dtype, stream);
+}
+
+// As paged_prefill_fwd over int8 pages with their float32 scales.
+int paged_prefill_int8_fwd(const void* q, const void* k_pages,
+                           const void* k_scale, const void* v_pages,
+                           const void* v_scale, const void* tables,
+                           const void* starts, const void* slopes, void* out,
+                           int b, int chunk, int nh, int nkv, int hd, int bt,
+                           int num_pages, int W, float scale, int dtype,
+                           void* stream) {
+  return prefill_fwd<true>(
+      q,
+      Pages{k_pages, static_cast<const float*>(k_scale), v_pages,
+            static_cast<const float*>(v_scale)},
+      tables, starts, slopes, out, b, chunk, nh, nkv, hd, bt, num_pages, W,
+      scale, dtype, stream);
 }
 
 const char* paged_attention_error_string(int err) {

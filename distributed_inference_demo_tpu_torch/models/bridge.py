@@ -1,18 +1,19 @@
-"""Weights carried across from the JAX package.
+"""Weights and KV pages carried across from the JAX package.
 
 ``params_from_numpy`` takes the JAX package's ``StageParams`` leaves as
 numpy arrays, ``{"layers": {...}, "embed": {...}, "final_norm": {...},
 "lm_head": {...}}``, and returns the port's ``StageParams`` on a device,
-so both packages can run on the same weights.  The conversion from JAX
-arrays to numpy happens in the caller, never here: this module does not
-import JAX.
+so both packages can run on the same weights.  ``kv_pages_from_numpy``
+does the same for a quantized page pool.  The conversion from JAX arrays
+to numpy happens in the caller, never here: this module does not import
+JAX.
 """
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.quant import require_float_weights
+from ..ops.quant import QuantizedKVPages, require_float_weights
 from .base import ModelConfig, StageParams
 
 
@@ -44,3 +45,22 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None
     return StageParams(layers=part("layers"), embed=part("embed"),
                        final_norm=part("final_norm"),
                        lm_head=part("lm_head"))
+
+
+def kv_pages_from_numpy(data: np.ndarray, scale: np.ndarray,
+                        zero, bits: int, device=None) -> QuantizedKVPages:
+    """The reference's ``QuantizedKVPages`` pool of one layer, ``[N, nkv,
+    bt, ·]`` (its ``data``, ``scale`` and ``zero`` leaves as numpy arrays,
+    ``zero`` None for int8), as the port's on ``device``, with the port's
+    drop page appended after the N pages.  The drop page is zeroed, so
+    every page stays finite."""
+    device = resolve_device(device)
+
+    def leaf(arr):
+        arr = np.asarray(arr)
+        pad = [(0, 1)] + [(0, 0)] * (arr.ndim - 1)
+        return tensor_from_numpy(np.pad(arr, pad), device)
+
+    return QuantizedKVPages(data=leaf(data), scale=leaf(scale),
+                            zero=None if zero is None else leaf(zero),
+                            bits=int(bits))

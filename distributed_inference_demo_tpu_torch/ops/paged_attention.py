@@ -15,11 +15,16 @@ writes land there, which no read reaches and which costs no host sync
 clamped page is causally masked, and pool pages always hold finite
 values, so it contributes exact zeros.
 
+A pool is a tensor of the model's dtype (bf16 or f32) or, for
+``kv_dtype`` int8/int4, an ``ops.quant.QuantizedKVPages`` whose leaves
+share the page layout: writes quantize once, per token over ``hd``, and
+every read dequantizes ``code * scale (+ zero)`` in f32.
+
 Three compute paths with the same numerics as ``ops.attention``:
 
 - :func:`paged_gather_attention`: gather the table's pages into a linear
-  view and run ``ops.attention``; the routing's fallback, and the
-  "plain" backend;
+  view and run ``ops.attention``; the routing's fallback, the "plain"
+  backend, and every int4 pool (the reference's deliberate gate);
 - :func:`paged_flash_attention`: one query token per row (decode); the
   CUDA kernel ``paged_decode_fwd`` of ``csrc/paged_attention.cu``, which
   replaces the Pallas kernel ``_paged_kernel``;
@@ -27,10 +32,13 @@ Three compute paths with the same numerics as ``ops.attention``:
   the CUDA kernel ``paged_prefill_fwd``, which replaces
   ``_paged_prefill_kernel``.
 
-The two kernel wrappers launch their kernel for CUDA tensors and raise on
-anything it does not take; for CPU tensors they run their plain PyTorch
-version (``paged_flash_attention_plain``, ``paged_prefill_attention_plain``).
-Each has an integer ``.launches`` count of kernel launches.
+Each kernel has a full-width instance (f32 or bf16 pages of q's dtype)
+and an int8 instance (int8 pages with their f32 scales).  The two kernel
+wrappers launch their kernel for CUDA tensors and raise on anything it
+does not take (int4 pages included); for CPU tensors they run their
+plain PyTorch version (``paged_flash_attention_plain``,
+``paged_prefill_attention_plain``).  Each has integer counts of kernel
+launches: ``.launches`` (full-width instance) and ``.int8_launches``.
 """
 
 import ctypes
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from .attention import attention, prepare_kv_chunk
+from .quant import QuantizedKVPages, quantize_kv_like
 
 SOURCE = "paged_attention.cu"
 HEAD_DIMS = (64, 128)
@@ -75,14 +84,20 @@ def _write_slots(tables: torch.Tensor, positions: torch.Tensor, bt: int,
 
 def _scatter(k_pages, v_pages, k_new, v_new, page, off) -> None:
     """Advanced indices at dims (0, 2) around the head slice: the indexed
-    layout [b, s, nkv, hd] is the projection layout the chunk arrives in."""
-    k_new, v_new = prepare_kv_chunk(k_new, v_new, k_pages.dtype,
-                                    v_pages.dtype)
-    k_pages[page, :, off] = k_new
-    v_pages[page, :, off] = v_new
+    layout [b, s, nkv, ·] is the projection layout the chunk arrives in.
+    A quantized pool takes the chunk quantized ONCE, per token over hd,
+    from f32; its data, scale and zero leaves take the same slots."""
+    quant = isinstance(k_pages, QuantizedKVPages)
+    k_new, v_new = prepare_kv_chunk(
+        k_new, v_new, torch.float32 if quant else k_pages.dtype,
+        torch.float32 if quant else v_pages.dtype)
+    for pool, new in ((k_pages, k_new), (v_pages, v_new)):
+        for dst, src in zip(_leaves(pool),
+                            _leaves(quantize_kv_like(pool, new))):
+            dst[page, :, off] = src
 
 
-def write_paged_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
+def write_paged_kv(k_pages, v_pages,
                    k_new: torch.Tensor, v_new: torch.Tensor,
                    tables: torch.Tensor, positions: torch.Tensor, *,
                    num_pages: int) -> None:
@@ -95,9 +110,11 @@ def write_paged_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
     (``>= num_pages``) and a position past the table (``p // bt >= W``,
     a padded prefill tail running off a full-width table) route the
     write to the drop page; every other page is left as it was, as the
-    reference's ``mode="drop"`` scatter leaves it.  Write contract:
-    :func:`ops.attention.prepare_kv_chunk`."""
-    if k_pages.shape[0] != num_pages + 1 or v_pages.shape != k_pages.shape:
+    reference's ``mode="drop"`` scatter leaves it.  A quantized pool
+    (``QuantizedKVPages``) is written quantized, every leaf alike.
+    Write contract: :func:`ops.attention.prepare_kv_chunk`."""
+    if (k_pages.shape[0] != num_pages + 1
+            or tuple(v_pages.shape) != tuple(k_pages.shape)):
         raise ValueError(
             f"the page pools must hold num_pages + 1 = {num_pages + 1} "
             f"pages (the last is the drop page); got {tuple(k_pages.shape)}"
@@ -110,17 +127,22 @@ def write_paged_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
 # gather path and the plain versions of the kernels
 
 
-def _linear_view(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+def _linear_view(pages, tables: torch.Tensor) -> torch.Tensor:
     """[b, nkv, W*bt, hd]: each row's pages in table order, sentinels
-    clamped into the pool."""
+    clamped into the pool.  A quantized pool gathers its narrow leaves
+    through the table first, then dequantizes the gathered pages to f32
+    (the kernels' per-element ``code * scale``)."""
     n, nkv, bt, hd = pages.shape
     b, W = tables.shape
     safe = tables.long().clamp(0, n - 1)
-    return pages[safe].permute(0, 2, 1, 3, 4).reshape(b, nkv, W * bt, hd)
+    lin = pages[safe]
+    if isinstance(lin, QuantizedKVPages):
+        lin = lin.dequantize(torch.float32)
+    return lin.permute(0, 2, 1, 3, 4).reshape(b, nkv, W * bt, hd)
 
 
-def paged_gather_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, tables: torch.Tensor,
+def paged_gather_attention(q: torch.Tensor, k_pages, v_pages,
+                           tables: torch.Tensor,
                            q_positions: torch.Tensor,
                            slopes: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
@@ -183,26 +205,58 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, tables, q_positions,
 
 
 @functools.cache
-def _kernel_fns():
-    """(decode, prefill, error-string) C functions, built and bound once."""
+def _kernel_fns() -> dict:
+    """The C functions, built and bound once: ``(kind, int8)`` -> the
+    launch function of that kernel instance ("decode" or "prefill", full
+    width or int8 pages), and "error" -> the error-string function."""
     from ._build import load
     lib = load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    dec = lib.paged_decode_fwd
-    dec.argtypes = [ptr] * 7 + [i32] * 7 + [ctypes.c_float, i32, ptr]
-    dec.restype = i32
-    pre = lib.paged_prefill_fwd
-    pre.argtypes = [ptr] * 7 + [i32] * 8 + [ctypes.c_float, i32, ptr]
-    pre.restype = i32
+    tail = [ctypes.c_float, i32, ptr]
+    fns = {}
+    for kind, n_int in (("decode", 7), ("prefill", 8)):
+        for int8, n_ptr in ((False, 7), (True, 9)):
+            fn = getattr(lib, f"paged_{kind}{'_int8' if int8 else ''}_fwd")
+            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + tail
+            fn.restype = i32
+            fns[kind, int8] = fn
     lib.paged_attention_error_string.argtypes = [i32]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
-    return dec, pre, lib.paged_attention_error_string
+    fns["error"] = lib.paged_attention_error_string
+    return fns
+
+
+def _check_pages(k_pages, v_pages, q_dtype) -> bool:
+    """Raise on page pools the kernels do not take; True for int8 pools
+    (data int8 [N, nkv, bt, hd] + f32 scales [N, nkv, bt, 1]), False for
+    full-width pools of q's dtype."""
+    quant = isinstance(k_pages, QuantizedKVPages)
+    if quant != isinstance(v_pages, QuantizedKVPages):
+        raise ValueError("the K and V pools must both be quantized or "
+                         "both full width")
+    if not quant:
+        if not q_dtype == k_pages.dtype == v_pages.dtype:
+            raise ValueError(
+                "the CUDA paged kernels take float32 or bfloat16 q and "
+                f"full-width pages of q's dtype; got {q_dtype}, "
+                f"{k_pages.dtype}, {v_pages.dtype}")
+        return False
+    if k_pages.bits != 8 or v_pages.bits != 8:
+        raise ValueError("the CUDA paged kernels stream full-width or int8 "
+                         "pages; int4 KV takes the gather path")
+    for p in (k_pages, v_pages):
+        if (p.data.dtype != torch.int8 or p.scale.dtype != torch.float32
+                or tuple(p.scale.shape) != (*p.data.shape[:-1], 1)):
+            raise ValueError("int8 pages need int8 data [N, nkv, bt, hd] "
+                             "and float32 scales [N, nkv, bt, 1]")
+    return True
 
 
 def _check_cuda_args(name, q, k_pages, v_pages, tables, per_row, slopes):
-    """Raise on what the kernels do not take; return the int32 tables
-    and per-row vector the kernel reads."""
-    if q.ndim != 4 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
+    """Raise on what the kernels do not take; return whether the pages
+    are int8, and the int32 tables and per-row vector the kernel reads."""
+    if (q.ndim != 4 or len(k_pages.shape) != 4
+            or tuple(k_pages.shape) != tuple(v_pages.shape)):
         raise ValueError(
             f"{name} needs q [b, chunk, nh, hd] and pages [N, nkv, bt, hd];"
             f" got {tuple(q.shape)}, {tuple(k_pages.shape)}, "
@@ -215,52 +269,74 @@ def _check_cuda_args(name, q, k_pages, v_pages, tables, per_row, slopes):
     if hd not in HEAD_DIMS:
         raise ValueError(f"the CUDA paged kernels take head_dim in "
                          f"{HEAD_DIMS}, got {hd}")
-    if q.dtype not in _DTYPE_CODE or not (q.dtype == k_pages.dtype
-                                          == v_pages.dtype):
-        raise ValueError(
-            "the CUDA paged kernels take float32 or bfloat16 q and pages "
-            f"of one dtype; got {q.dtype}, {k_pages.dtype}, "
-            f"{v_pages.dtype}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the CUDA paged kernels take float32 or bfloat16 "
+                         f"q, got {q.dtype}")
+    int8 = _check_pages(k_pages, v_pages, q.dtype)
+    pools = ([("k_pages", t) for t in _leaves(k_pages)]
+             + [("v_pages", t) for t in _leaves(v_pages)])
     if tables.ndim != 2 or tables.shape[0] != b or per_row.shape != (b,):
         raise ValueError(f"{name}: tables must be [{b}, W] and the per-row "
                          f"vector [{b}]; got {tuple(tables.shape)}, "
                          f"{tuple(per_row.shape)}")
-    for what, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("tables", tables), ("per-row vector", per_row)):
+    for what, t in [("q", q), *pools, ("tables", tables),
+                    ("per-row vector", per_row)]:
         if t.device != q.device:
             raise ValueError(f"{what} is on {t.device}, q on {q.device}")
-    for what, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    for what, t in [("q", q), *pools]:
         if not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
     if slopes is not None and (slopes.shape != (nh,)
                                or slopes.device != q.device):
         raise ValueError(f"slopes must be [{nh}] on {q.device}")
-    return (tables.to(torch.int32).contiguous(),
+    return (int8, tables.to(torch.int32).contiguous(),
             per_row.to(torch.int32).contiguous())
 
 
-def _launch(fn, err_str, q, args) -> None:
+def _leaves(pages):
+    return pages.leaves() if isinstance(pages, QuantizedKVPages) else [pages]
+
+
+def _page_ptrs(k_pages, v_pages, int8: bool) -> tuple:
+    """The page pointers of a launch: (k, v) for full-width pages,
+    (k data, k scale, v data, v scale) for int8 pages."""
+    if int8:
+        return (k_pages.data.data_ptr(), k_pages.scale.data_ptr(),
+                v_pages.data.data_ptr(), v_pages.scale.data_ptr())
+    return k_pages.data_ptr(), v_pages.data_ptr()
+
+
+def _launch(kind: str, int8: bool, q, args) -> None:
+    fns = _kernel_fns()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*args, stream)
+        err = fns[kind, int8](*args, stream)
     if err != 0:
         raise RuntimeError("paged attention kernel launch failed: "
-                           + err_str(err).decode())
+                           + fns["error"](err).decode())
+
+
+def _count(wrapper, int8: bool) -> None:
+    with _count_lock:
+        if int8:
+            wrapper.int8_launches += 1
+        else:
+            wrapper.launches += 1
 
 
 def _scale(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                          v_pages: torch.Tensor, tables: torch.Tensor,
-                          kv_lens: torch.Tensor,
+def paged_flash_attention(q: torch.Tensor, k_pages, v_pages,
+                          tables: torch.Tensor, kv_lens: torch.Tensor,
                           slopes: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Paged decode attention: ``q`` [b, 1, nh, hd], each row's query at
     position ``kv_lens[b] - 1`` (``kv_lens`` [b]: valid length including
     this token) over its table row of ``tables`` [b, W]; ``slopes`` [nh]
-    adds ALiBi.  Returns [b, 1, nh, hd] in q's dtype.
+    adds ALiBi.  The pages are full width (q's dtype) or int8
+    ``QuantizedKVPages``.  Returns [b, 1, nh, hd] in q's dtype.
 
     CUDA tensors launch the kernel or raise; CPU tensors take the plain
     version."""
@@ -273,8 +349,9 @@ def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention: unsupported device "
                          f"{q.device}")
-    tables, kv_lens = _check_cuda_args("paged_flash_attention", q, k_pages,
-                                       v_pages, tables, kv_lens, slopes)
+    int8, tables, kv_lens = _check_cuda_args(
+        "paged_flash_attention", q, k_pages, v_pages, tables, kv_lens,
+        slopes)
     b, _, nh, hd = q.shape
     num_pages, nkv, bt, _ = k_pages.shape
     if nh // nkv > MAX_DECODE_GROUP:
@@ -284,30 +361,29 @@ def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if slopes is not None:
         slopes = slopes.float().contiguous()
     out = torch.empty_like(q)
-    dec, _, err_str = _kernel_fns()
-    _launch(dec, err_str, q, (
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    _launch("decode", int8, q, (
+        q.data_ptr(), *_page_ptrs(k_pages, v_pages, int8),
         tables.data_ptr(), kv_lens.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, out.data_ptr(),
         b, nh, nkv, hd, bt, num_pages, tables.shape[1], _scale(hd),
         _DTYPE_CODE[q.dtype]))
-    with _count_lock:
-        paged_flash_attention.launches += 1
+    _count(paged_flash_attention, int8)
     return out
 
 
 paged_flash_attention.launches = 0
+paged_flash_attention.int8_launches = 0
 
 
-def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                            v_pages: torch.Tensor, tables: torch.Tensor,
-                            q_positions: torch.Tensor,
+def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
+                            tables: torch.Tensor, q_positions: torch.Tensor,
                             slopes: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Paged attention for a contiguous chunk per row: ``q`` [b, chunk,
     nh, hd] at positions ``q_positions[b, 0] + arange(chunk)`` (the
     callers' contract; only the first column is read) attends causally
     over its table row's pages, which already hold the chunk's own K/V.
+    The pages are full width (q's dtype) or int8 ``QuantizedKVPages``.
     Returns [b, chunk, nh, hd] in q's dtype.
 
     CUDA tensors launch the kernel or raise; CPU tensors take the plain
@@ -319,26 +395,25 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device "
                          f"{q.device}")
-    tables, starts = _check_cuda_args("paged_prefill_attention", q,
-                                      k_pages, v_pages, tables,
-                                      q_positions[:, 0], slopes)
+    int8, tables, starts = _check_cuda_args(
+        "paged_prefill_attention", q, k_pages, v_pages, tables,
+        q_positions[:, 0], slopes)
     num_pages, nkv, bt, _ = k_pages.shape
     if slopes is not None:
         slopes = slopes.float().contiguous()
     out = torch.empty_like(q)
-    _, pre, err_str = _kernel_fns()
-    _launch(pre, err_str, q, (
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    _launch("prefill", int8, q, (
+        q.data_ptr(), *_page_ptrs(k_pages, v_pages, int8),
         tables.data_ptr(), starts.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, out.data_ptr(),
         b, chunk, nh, nkv, hd, bt, num_pages, tables.shape[1], _scale(hd),
         _DTYPE_CODE[q.dtype]))
-    with _count_lock:
-        paged_prefill_attention.launches += 1
+    _count(paged_prefill_attention, int8)
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.int8_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -381,13 +456,17 @@ def resolve_paged_backend(backend: str, device_type: str,
 
 
 def paged_route(use_kernels: bool, chunk: int, groups: int,
-                block_tokens: int) -> str:
-    """The reference's routing (``make_paged_attn_impl``): "decode" (the
-    decode kernel) for a 1-token chunk, "prefill" (the prefill kernel)
-    for a longer contiguous chunk of at most ``PREFILL_KERNEL_MAX_ROWS``
-    8-padded query rows, "gather" otherwise; the kernels need pages of a
-    multiple of 8 tokens."""
-    if use_kernels and block_tokens % 8 == 0:
+                block_tokens: int, kv_bits: Optional[int] = None) -> str:
+    """The reference's routing (``make_paged_attn_impl``), which follows
+    the pool's own type: "decode" (the decode kernel) for a 1-token
+    chunk, "prefill" (the prefill kernel) for a longer contiguous chunk
+    of at most ``PREFILL_KERNEL_MAX_ROWS`` 8-padded query rows, "gather"
+    otherwise.  The kernels need pages of a multiple of 8 tokens, full
+    width or int8 (``kv_bits`` 8); int4 pools (``kv_bits`` 4) always
+    gather.  The reference's extra rule for int8, pages of a multiple of
+    32 tokens off its forced backend, is the TPU's int8 tile and is not
+    kept (ROADMAP C)."""
+    if use_kernels and block_tokens % 8 == 0 and kv_bits != 4:
         if chunk == 1:
             return "decode"
         if -(-(chunk * groups) // 8) * 8 <= PREFILL_KERNEL_MAX_ROWS:
@@ -410,7 +489,9 @@ def make_paged_attn_impl(block_tokens: int, backend: str = "auto", *,
     sync and no table upload.
 
     ``num_pages``: the page ids a table may name; the pools the hook is
-    given hold one drop page more (default: their size minus one).
+    given hold one drop page more (default: their size minus one).  The
+    pools are full width or ``QuantizedKVPages``, and their type picks
+    the route (:func:`paged_route`).
     ``backend``: see :func:`resolve_paged_backend`, which this calls with
     ``device_type``, ``head_dim`` and ``block_tokens``; the routing is
     :func:`paged_route`."""
@@ -439,7 +520,8 @@ def make_paged_attn_impl(block_tokens: int, backend: str = "auto", *,
         page, off = plan["slots"]
         _scatter(k_pages, v_pages, k, v, page, off)
         route = paged_route(use_kernels, q.shape[1],
-                            q.shape[2] // k.shape[2], k_pages.shape[2])
+                            q.shape[2] // k.shape[2], k_pages.shape[2],
+                            getattr(k_pages, "bits", None))
         if route == "decode":
             out = paged_flash_attention(q.contiguous(), k_pages, v_pages,
                                         tables, plan["kv_lens"], slopes)

@@ -1,9 +1,10 @@
 """Continuous batching: requests join and leave a running decode batch.
 
 Counterpart of ``distributed_inference_demo_tpu/runtime/batching.py``'s
-``ContinuousBatchingEngine`` in plain mode (no proposer, the serialized
-interleave).  A fixed pool of batch SLOTS decodes in lockstep; a new
-request is admitted into a free slot between two decode steps.
+``ContinuousBatchingEngine`` in plain mode (no proposer): the serialized
+interleave and the mixed prefill+decode dispatch.  A fixed pool of batch
+SLOTS decodes in lockstep; a new request is admitted into a free slot
+between two decode steps.
 
 - **Paged slot cache.**  K/V live in one device page pool
   ``[L, N + 1, nkv, block_tokens, hd]`` addressed through per-slot block
@@ -11,6 +12,8 @@ request is admitted into a free slot between two decode steps.
   dispatch).  Memory is reserved per page a request holds, and radix
   prefix hits are shared table entries.  Page ``N`` is the drop page:
   writes through sentinel entries land there (``ops/paged_attention``).
+  ``kv_dtype`` int8/int4 makes the pool ``ops.quant.QuantizedKVPages``,
+  quantized once per token as it is written.
 - **Every step runs all slots.**  An ``active`` mask keeps freed and
   empty slots harmless: their tables are all-sentinel, so their writes
   drop, and their outputs are discarded.
@@ -24,16 +27,20 @@ request is admitted into a free slot between two decode steps.
   (``decode_block`` steps with the reference's early exit: the active
   mask frozen for the block, a row done on eos or its token budget,
   and the steps that ran driving the drain).
+- **Mixed dispatch** (``mixed_token_budget`` > 0): each scheduler
+  iteration is ONE dispatch that packs C-token prefill segments of
+  several concurrent admissions into an ``[n_seg, C]`` slab, samples and
+  installs the finals, and runs the fused decode block over every
+  active row, so decode fusion survives admission.
 
 The reference's jitted programs become methods; PyTorch runs eagerly.
 Sampling noise comes from one ``torch.Generator`` seeded with ``seed``
 (the reference's single rng stream): per-request seeds are not honored,
 and greedy decoding is bit-exact against ``InferenceEngine``.
 
-Not ported yet, each refused where it is asked for: the mixed
-prefill+decode dispatch, the draft-model and prompt-lookup proposers,
-tiered KV, migration and resume, quantized pages, reduced-precision
-caches and tp meshes.
+Not ported yet, each refused where it is asked for: the draft-model and
+prompt-lookup proposers, tiered KV, migration and resume,
+reduced-precision caches and tp meshes.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ from ..device import resolve_device
 from ..models.base import (KVCache, ModelConfig, StageParams, StageSpec,
                            pad_cache_capacity)
 from ..ops.paged_attention import BACKENDS as PAGED_BACKENDS
-from ..ops.quant import (KV_QUANT_LATER, require_float_weights,
+from ..ops.quant import (alloc_kv_pages, require_float_weights,
                          resolve_kv_dtype)
 from ..ops.sampling import SamplingParams, sample_logits
 from ..telemetry._env import env_int
@@ -63,8 +70,6 @@ from .engine import (GenerationResult, check_capacity,
                      make_paged_chunk_programs, validate_prefill_chunk)
 from .overload import SchedulerOverloaded
 
-MIXED_LATER = ("the mixed prefill+decode dispatch (mixed_token_budget) is "
-               "ported in the next slice")
 SPEC_LATER = ("the draft-model and prompt-lookup proposers are ported in a "
               "later slice (ROADMAP A11)")
 TIER_LATER = "tiered KV is ported in a later slice (ROADMAP A12)"
@@ -167,9 +172,14 @@ class ContinuousBatchingEngine:
         the engine runs, CUDA unless "cpu" is asked for; ``params`` must
         already live there.
 
-        Refused until their slice: ``mixed_token_budget`` > 0, the
-        proposers (``draft_cfg``, ``prompt_lookup``), the tier knobs,
-        ``kv_dtype`` int8/int4, ``kv_cache_dtype`` and a tp ``mesh``.
+        ``mixed_token_budget`` > 0 (needs ``prefill_chunk``, at least one
+        chunk): the mixed prefill+decode dispatch, see
+        :meth:`_dispatch_mixed`.  ``kv_dtype`` "int8"/"int4": a quantized
+        page pool; it does not compose with ``kv_cache_dtype``.
+
+        Refused until their slice: the proposers (``draft_cfg``,
+        ``prompt_lookup``), the tier knobs, ``kv_cache_dtype`` and a tp
+        ``mesh``.
         ``num_draft``, ``spec_adaptive`` and ``kv_disk_tier_bytes`` only
         shape a proposer or a tier, so without one they do nothing, as in
         the reference."""
@@ -179,19 +189,24 @@ class ContinuousBatchingEngine:
         self.max_queue_depth = max(0, int(max_queue_depth))
         if mixed_token_budget is None:
             mixed_token_budget = env_int("DWT_MIXED_TOKEN_BUDGET", 0)
-        if int(mixed_token_budget) > 0:
-            raise NotImplementedError(MIXED_LATER)
+        self.mixed_token_budget = max(0, int(mixed_token_budget))
         if draft_cfg is not None or draft_params is not None or prompt_lookup:
             raise NotImplementedError(SPEC_LATER)
         if kv_host_tier_bytes is None:
             kv_host_tier_bytes = env_int("DWT_KV_HOST_TIER_BYTES", 0)
         if int(kv_host_tier_bytes) > 0 or kv_disk_tier_path:
             raise NotImplementedError(TIER_LATER)
+        # kv_dtype quantizes the page pool; the kv_cache_dtype storage
+        # cast is another grid for the same full-width layout: one knob
+        # or the other, as in the reference
+        self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        if self.kv_dtype != "bf16" and kv_cache_dtype:
+            raise ValueError(
+                f"kv_dtype={self.kv_dtype!r} quantizes the page pool and "
+                "cannot compose with a kv_cache_dtype storage cast; drop "
+                "one of the two knobs")
         if kv_cache_dtype:
             raise NotImplementedError(KV_CAST_LATER)
-        self.kv_dtype = resolve_kv_dtype(kv_dtype)
-        if self.kv_dtype != "bf16":
-            raise NotImplementedError(KV_QUANT_LATER)
         if mesh is not None and dict(mesh.shape).get("tp", 1) > 1:
             raise NotImplementedError(TP_LATER)
         if attn_backend not in PAGED_BACKENDS:
@@ -213,6 +228,16 @@ class ContinuousBatchingEngine:
                                                     self.max_seq)
         if decode_block < 1:
             raise ValueError("decode_block must be >= 1")
+        if self.mixed_token_budget > 0:
+            if self.prefill_chunk is None:
+                raise ValueError(
+                    "mixed_token_budget needs prefill_chunk: the budget "
+                    "is packed with C-token prefill segments")
+            if self.mixed_token_budget < self.prefill_chunk:
+                raise ValueError(
+                    f"mixed_token_budget ({self.mixed_token_budget}) must "
+                    f"fit at least one prefill chunk "
+                    f"({self.prefill_chunk} tokens)")
         self.prompt_buckets = tuple(
             b for b in sorted(prompt_buckets) if b <= self.max_seq
         ) or (self.max_seq,)
@@ -240,8 +265,10 @@ class ContinuousBatchingEngine:
         self._page_sentinel = N
         # N pages a table may name + the drop page N
         shape = (cfg.num_layers, N + 1, cfg.num_kv_heads, bt, cfg.head_dim)
-        self._pk = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
-        self._pv = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self._pk = alloc_kv_pages(shape, self.kv_dtype, cfg.dtype,
+                                  self.device)
+        self._pv = alloc_kv_pages(shape, self.kv_dtype, cfg.dtype,
+                                  self.device)
         self._tables = np.full((B, self._table_width), N, np.int32)
 
         from ..parallel.tensor import make_paged_forward_seam
@@ -249,8 +276,13 @@ class ContinuousBatchingEngine:
         self._fwd, self._bind, _ = make_paged_forward_seam(
             cfg, self.spec, None, params, bt, self.attn_backend,
             num_pages=N, device_type=self.device.type)
-        self._paged_chunk_mid = make_paged_chunk_programs(self._fwd,
-                                                          self._bind)
+        self._paged_chunk_mid, self._slab_body = make_paged_chunk_programs(
+            self._fwd, self._bind)
+        # the mixed dispatch's slab: a FIXED budget // C segments per
+        # dispatch (unused rows ride all-sentinel tables)
+        self._mixed_seg_cap = (max(1, self.mixed_token_budget
+                                   // self.prefill_chunk)
+                               if self.mixed_token_budget > 0 else 0)
 
         self._lengths = torch.zeros(B, dtype=torch.int64, device=self.device)
         self._last_tok = torch.zeros(B, dtype=torch.int64,
@@ -266,6 +298,8 @@ class ContinuousBatchingEngine:
         # chunks at a time (_adm); _pending holds popped-but-unserved
         # requests, served FIFO, serviceable ones passing blocked ones
         self._adm: Optional[dict] = None
+        # mixed mode: several admissions stream their chunks at once
+        self._adms: List[dict] = []
         self._pending: "deque[Request]" = deque()
         # completed-request latency reservoirs (seconds), bounded FIFO
         self._lat = {"ttft": deque(maxlen=512), "e2e": deque(maxlen=512),
@@ -435,11 +469,13 @@ class ContinuousBatchingEngine:
         adm = self._adm
         if adm is not None:
             total += max(0, len(adm["req"].prompt) - adm["start"])
+        for a in list(self._adms):
+            total += max(0, len(a["req"].prompt) - a["start"])
         return total
 
     def stats(self) -> dict:
         """Scheduler counters for the HTTP ``/stats`` surface: the slot,
-        queue, kv-cache, device-loop, latency and chunked-prefill
+        queue, kv-cache, device-loop, latency, chunked-prefill and mixed
         fragments of the reference's ``stats()``."""
         out = {"slots": self.max_batch, "steps": self._step_count,
                "kv_layout": self.kv_layout,
@@ -462,6 +498,18 @@ class ContinuousBatchingEngine:
             out["chunked_prefill"] = {
                 "chunk": self.prefill_chunk, "chunks": cs["chunks"],
                 "interleaved_steps": cs["interleaved_steps"]}
+        if self.mixed_token_budget > 0:
+            cs = self.chunk_stats
+            out["mixed"] = {
+                "token_budget": self.mixed_token_budget,
+                "dispatches": cs["mixed_dispatches"],
+                "prefill_tokens": cs["mixed_prefill_tokens"],
+                # the share of the offered budget actually carried
+                # (prefill segment tokens + fused decode tokens)
+                "budget_utilization": (
+                    round(cs["mixed_packed_tokens"]
+                          / cs["mixed_budget_tokens"], 4)
+                    if cs["mixed_budget_tokens"] else None)}
         return out
 
     def reset_stats(self) -> None:
@@ -474,7 +522,15 @@ class ContinuousBatchingEngine:
             res.clear()
 
     def _reset_chunk_stats(self) -> None:
-        self.chunk_stats = {"chunks": 0, "interleaved_steps": 0}
+        """The chunk/mixed counters, the reference's, plus the port's
+        ``mixed_slab_forwards``: the mixed dispatches that ran the slab
+        (one with no segment packed skips it)."""
+        self.chunk_stats = {"chunks": 0, "interleaved_steps": 0,
+                            "mixed_dispatches": 0,
+                            "mixed_prefill_tokens": 0,
+                            "mixed_packed_tokens": 0,
+                            "mixed_budget_tokens": 0,
+                            "mixed_slab_forwards": 0}
 
     def close(self):
         self._running = False
@@ -518,20 +574,24 @@ class ContinuousBatchingEngine:
         return self._one_step(active)
 
     def _paged_multi_step(self, tables: torch.Tensor, active: torch.Tensor,
-                          eos: int, budget: torch.Tensor, num_steps: int):
+                          eos: int, budget: torch.Tensor, num_steps: int,
+                          done0: Optional[torch.Tensor] = None):
         """``decode_block`` fusion with the reference's early exit: up to
         ``num_steps`` steps, stopping once every active row is done (eos,
         or its remaining-token ``budget`` spent).  The active mask stays
         frozen for the block; rows that finish while others run keep
-        decoding into their own positions or the drop page.  Returns
-        (toks [B, num_steps], lps, steps_ran)."""
+        decoding into their own positions or the drop page.  ``done0``:
+        rows already done at entry (a mixed dispatch's freshly installed
+        row whose token #1 was eos).  Returns (toks [B, num_steps], lps,
+        steps_ran)."""
         self._bind(tables)
         B = active.shape[0]
         toks = torch.zeros((B, num_steps), dtype=torch.int64,
                            device=self.device)
         lps = torch.zeros((B, num_steps), dtype=torch.float32,
                           device=self.device)
-        row_done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        row_done = (done0 if done0 is not None else
+                    torch.zeros(B, dtype=torch.bool, device=self.device))
         j = 0
         while j < num_steps and bool((active & ~row_done).any()):
             tok, lp = self._one_step(active)
@@ -802,6 +862,9 @@ class ContinuousBatchingEngine:
         if self._adm is not None:
             self._fail_request(self._adm["req"], err)
             self._adm = None
+        for a in self._adms:
+            self._fail_request(a["req"], err)
+        self._adms = []
         while self._pending:
             self._fail_request(self._pending.popleft(), err)
         while True:
@@ -863,6 +926,242 @@ class ContinuousBatchingEngine:
                     self._record_token(i, req, int(tok_np[i]),
                                        float(lp_np[i]))
 
+    # ------------------------------------------------------------------
+    # the mixed prefill+decode dispatch
+
+    def _slab_finals(self, logits: torch.Tensor, finals: list):
+        """Token #1 of each packed final ``(row, n, slot, plen)``, in pack
+        order: one batch-1 draw at the row's last real position, the
+        serialized final prefill's draw.  Returns ([F] toks, [F] lps)."""
+        toks, lps = [], []
+        for r, n, _, _ in finals:
+            last = logits[r, n - 1][None]                   # [1, V]
+            tok = sample_logits(last, self._gen, self.sampling)
+            toks.append(tok[0])
+            lps.append(_emitted_logprob(last, tok)[0])
+        return torch.stack(toks), torch.stack(lps)
+
+    def _mixed_step(self, seg_ids: Optional[torch.Tensor],
+                    seg_tables: torch.Tensor, seg_starts: torch.Tensor,
+                    finals: list, dec_tables: torch.Tensor,
+                    active: torch.Tensor, eos: int, budget: torch.Tensor,
+                    num_steps: int):
+        """One mixed dispatch (the reference's ``mixed_step``).
+
+        The prefill slab first: row r of ``seg_ids`` [n_seg, C] runs at
+        ``seg_starts[r] + arange(C)`` through ``seg_tables[r]`` (unused
+        rows ride all-sentinel tables, so their writes drop).
+        ``seg_ids`` None: no segment is packed, and the slab forward,
+        whose writes would all drop and whose logits nobody reads, is
+        skipped (ROADMAP C).  Then each final ``(row, n, slot, plen)``
+        samples token #1 (:meth:`_slab_finals`) and is installed at
+        ``slot`` with length ``plen``; ``active`` already marks it.  Then
+        the fused decode block over ``dec_tables``: freshly installed rows
+        decode in the same dispatch, one whose token #1 was eos, or with
+        no budget left, enters the loop done.  On failure the engine's
+        row state is as before the call.  Returns (final toks [F], final
+        lps [F], toks [B, num_steps], lps, steps ran)."""
+        lengths0, last0 = self._lengths, self._last_tok
+        try:
+            final_toks = final_lps = None
+            done0 = budget <= 0
+            if seg_ids is not None:
+                logits, _ = self._slab_body(self.params, self._pool(),
+                                            seg_ids, seg_tables, seg_starts)
+            if finals:
+                final_toks, final_lps = self._slab_finals(logits, finals)
+                idx = torch.tensor([f[2] for f in finals],
+                                   device=self.device)
+                lengths, last = self._lengths.clone(), self._last_tok.clone()
+                lengths[idx] = torch.tensor([f[3] for f in finals],
+                                            device=self.device)
+                last[idx] = final_toks
+                self._lengths, self._last_tok = lengths, last
+                if eos >= 0:
+                    done0[idx] |= final_toks == eos
+            toks, lps, steps = self._paged_multi_step(
+                dec_tables, active, eos, budget, num_steps, done0=done0)
+        except BaseException:
+            self._lengths, self._last_tok = lengths0, last0
+            raise
+        return final_toks, final_lps, toks, lps, steps
+
+    def _mixed_iteration(self) -> None:
+        """One mixed-mode scheduler iteration: intake, start concurrent
+        admissions (at most one per free slot, floor one, so a full batch
+        still streams one prompt's chunks), drop cancelled ones, then ONE
+        token-budget dispatch."""
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        # block for work only when truly idle
+        timeout = (None if not (any(self._slots) or self._adms
+                                or self._pending)
+                   else 0.0)
+        while True:
+            try:
+                req = self._queue.get(timeout=timeout)
+            except queue.Empty:
+                break
+            timeout = 0.0
+            if req is None:                # close() sentinel
+                break
+            self._pending.append(req)
+        # serve pending FIFO; serviceable requests pass blocked ones
+        still: "deque[Request]" = deque()
+        for req in self._pending:
+            if req.cancelled:              # dropped while waiting
+                self._fail_request(req, None)
+            elif len(self._adms) < max(1, len(free)):
+                if req.t_sched == 0.0:
+                    req.t_sched = time.perf_counter()
+                try:
+                    start = self._reserve_pages(req)
+                except _BlocksExhausted:
+                    still.append(req)      # retry when pages free up
+                    continue
+                except BaseException as e:  # surface to the waiter
+                    self._fail_request(req, e)
+                    continue
+                self._adms.append({"req": req, "start": start, "m": start,
+                                   "suffix": req.prompt[start:]})
+            else:
+                still.append(req)
+        self._pending = still
+        # cancel latency: one dispatch, as in the serialized loop
+        for a in [a for a in self._adms if a["req"].cancelled]:
+            self._adms = [x for x in self._adms if x is not a]
+            self._fail_request(a["req"], None)
+        self._sweep_cancelled()
+        if not any(self._slots) and not self._adms:
+            return
+        self._dispatch_mixed(
+            [i for i, s in enumerate(self._slots) if s is None])
+
+    def _dispatch_mixed(self, free: list) -> None:
+        """Build and run ONE mixed token-budget dispatch, then drain it.
+
+        Packing (the reference's): every active row takes its
+        ``decode_block`` tokens off the top of the budget; the rest packs
+        C-token segments FIFO over the concurrent admissions, each its
+        next chunks, then its final segment (sampling token #1, installing
+        the slot) once a free slot pops; a final with no slot waits while
+        later admissions still pack their chunks.  At least one segment is
+        packed while an admission is in flight, so a full decode batch
+        cannot starve prefill.  Generator draws: one batch-1 draw per
+        packed final in pack order, then the decode block's, the
+        serialized schedule's order.  The slab and decode tables are
+        uploaded once.  A failure with packed segments fails the packed
+        requests only; one with nothing packed is an engine failure."""
+        B, C = self.max_batch, self.prefill_chunk
+        n_seg = self._mixed_seg_cap
+        n_active = sum(1 for s in self._slots if s is not None)
+        room = max(0, self.mixed_token_budget - n_active * self.decode_block)
+        want = min(n_seg, max(1, room // C)) if self._adms else 0
+        seg_ids = np.zeros((n_seg, C), np.int64)
+        seg_tables = np.full((n_seg, self._table_width), self._page_sentinel,
+                             np.int32)
+        seg_starts = np.zeros((n_seg,), np.int64)
+        packed = []          # (row, admission, is_final, slot)
+        finals = []          # (row, n, slot, plen), pack order
+        prefill_tokens = 0
+        r = 0
+        for a in self._adms:
+            if r >= want:
+                break
+            table = a["req"]._pkv["table"]
+            while r < want and len(a["suffix"]) > C:
+                seg_ids[r] = a["suffix"][:C]
+                seg_tables[r] = table
+                seg_starts[r] = a["start"]
+                packed.append((r, a, False, -1))
+                prefill_tokens += C
+                a["start"] += C
+                a["suffix"] = a["suffix"][C:]
+                self.chunk_stats["chunks"] += 1
+                r += 1
+            if r >= want or len(a["suffix"]) > C:
+                break
+            if not free:
+                continue     # the final waits for a slot; later
+                             # admissions may still pack their chunks
+            slot = free.pop(0)
+            n = len(a["suffix"])
+            seg_ids[r, :n] = a["suffix"]
+            seg_tables[r] = table
+            seg_starts[r] = a["start"]
+            # decode inside this dispatch pages through the installed
+            # row, so its table is live before the dispatch; the radix
+            # adoption waits until its pages hold data
+            self._tables[slot] = table
+            packed.append((r, a, True, slot))
+            finals.append((r, n, slot, len(a["req"].prompt)))
+            prefill_tokens += n
+            r += 1
+        active_mask = np.array([s is not None for s in self._slots])
+        # the remaining-token budget per row; an installed final has
+        # max_new - 1 left (token #1 comes from its slab logits)
+        budget_vec = np.array([(s.max_new - len(s.tokens)) if s is not None
+                               else 0 for s in self._slots], np.int64)
+        for _, a, is_final, slot in packed:
+            if is_final:
+                active_mask[slot] = True
+                budget_vec[slot] = a["req"].max_new - 1
+        dev = self.device
+        try:
+            final_toks, final_lps, toks, lps, steps = self._mixed_step(
+                torch.from_numpy(seg_ids).to(dev) if packed else None,
+                self._upload(seg_tables), torch.from_numpy(seg_starts).to(dev),
+                finals, self._upload(self._tables),
+                torch.from_numpy(active_mask).to(dev), self._eos(),
+                torch.from_numpy(budget_vec).to(dev), self.decode_block)
+        except BaseException as e:
+            if not packed:
+                raise
+            failed = []
+            for _, a, is_final, slot in packed:
+                if not any(a["req"] is f for f in failed):
+                    failed.append(a["req"])
+                if is_final:
+                    self._sentinel_slot(slot)
+            self._adms = [a for a in self._adms
+                          if not any(a["req"] is f for f in failed)]
+            for req in failed:
+                self._fail_request(req, e)
+            return
+        cs = self.chunk_stats
+        cs["mixed_dispatches"] += 1
+        cs["mixed_prefill_tokens"] += prefill_tokens
+        cs["mixed_budget_tokens"] += self.mixed_token_budget
+        cs["mixed_slab_forwards"] += bool(packed)
+        # finals first: slot install, radix adoption (only now: the tree
+        # must never serve pages whose K/V is not written), token #1
+        if finals:
+            ft, fl = final_toks.cpu().numpy(), final_lps.cpu().numpy()
+            installed = [(a, slot) for _, a, f, slot in packed if f]
+            for i, (a, slot) in enumerate(installed):
+                req = a["req"]
+                self._adms = [x for x in self._adms if x is not a]
+                st = req._pkv
+                plen = len(req.prompt)
+                bt = self.kv_cache.block_tokens
+                if plen // bt >= 1:
+                    adopted, store_lease = self.kv_cache.store_shared(
+                        req.prompt, st["table"][:plen // bt])
+                    st["adopted"] = adopted
+                    st["store_lease"] = store_lease
+                self._slots[slot] = req
+                self._flight.record("batch_admit", slot=slot,
+                                    prompt_len=plen, max_new=req.max_new,
+                                    prefix_reused=a["m"])
+                self._record_token(slot, req, int(ft[i]), float(fl[i]))
+        cs["mixed_packed_tokens"] += prefill_tokens + n_active * steps
+        if steps > 0:
+            self._count_loop(steps)
+            self._step_count += steps
+            self._record_row_blocks(toks.cpu().numpy(), np.full(B, steps),
+                                    lps.cpu().numpy())
+            if self._adms:
+                cs["interleaved_steps"] += 1
+
     def _loop(self):
         try:
             self._loop_body()
@@ -878,6 +1177,14 @@ class ContinuousBatchingEngine:
                 self._drain_all(e)
 
     def _loop_body(self):
+        if self.mixed_token_budget > 0:
+            # one token-budget dispatch per iteration; the serialized
+            # loop below is the bit-identity reference
+            while self._running:
+                self._mixed_iteration()
+            self._drain_all(
+                RuntimeError("engine closed while request in flight"))
+            return
         while self._running:
             free = [i for i, s in enumerate(self._slots) if s is None]
             # one dispatch of the in-progress chunked admission (if any)

@@ -111,12 +111,16 @@ def validate_prefill_chunk(prefill_chunk, max_seq: int):
 
 
 def make_paged_chunk_programs(fwd_p, bind_tables):
-    """``chunk_mid``: the non-final prefill chunk over a PAGED forward
-    seam (``parallel.tensor.make_paged_forward_seam``), as the
-    reference's factory makes it.  The chunk's K/V is written straight
-    into the page pool through the block tables, in place; the logits
-    are dropped.  (The reference's second program, the mixed dispatch's
-    slab body, is ported with the mixed dispatch.)"""
+    """``(chunk_mid, slab_body)``: the prefill programs over a PAGED
+    forward seam (``parallel.tensor.make_paged_forward_seam``), as the
+    reference's factory makes them.  Chunks write their K/V straight into
+    the page pool through the block tables, in place, before attending
+    (the paged attention hook writes first), so causal masking keeps a
+    segment's queries on its own prior pages plus its in-chunk keys.
+
+    ``chunk_mid`` is the serialized admission's non-final chunk (logits
+    dropped); ``slab_body`` is the mixed dispatch's ``[n_seg, C]`` slab
+    of segments at per-row starts (logits at every position)."""
 
     def chunk_mid(params, pk, pv, ids, tables, start: int) -> None:
         """One chunk ``ids`` [b, s] at global offset ``start``, written
@@ -127,7 +131,16 @@ def make_paged_chunk_programs(fwd_p, bind_tables):
         pos = (start + torch.arange(s, device=ids.device)).expand(b, s)
         fwd_p(params, ids, KVCache(pk, pv, 0), pos, True)
 
-    return chunk_mid
+    def slab_body(params, cache: KVCache, ids, tables, starts):
+        """Row r of ``ids`` [n, s] at positions ``starts[r] + arange(s)``
+        (``starts`` [n], device) through ``tables[r]``; returns the logits
+        at every position [n, s, V] and the cache (written in place)."""
+        bind_tables(tables)
+        s = ids.shape[1]
+        pos = starts.long()[:, None] + torch.arange(s, device=ids.device)
+        return fwd_p(params, ids, cache, pos, False)
+
+    return chunk_mid, slab_body
 
 
 def run_chunked_prefill(ids: torch.Tensor, cache: KVCache, C: int,

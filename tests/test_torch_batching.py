@@ -310,9 +310,10 @@ def test_sampled_rows_and_streams(weights, oracle):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(mixed_token_budget=32, prefill_chunk=16), "next slice"),
+    (dict(mixed_token_budget=32), "needs prefill_chunk"),
     (dict(prompt_lookup=True), "A11"),
-    (dict(kv_dtype="int8"), "A2"),
+    (dict(kv_dtype="int8", kv_cache_dtype="float8_e4m3fn"),
+     "cannot compose"),
     (dict(kv_cache_dtype="float8_e4m3fn"), "A5"),
     (dict(kv_host_tier_bytes=1 << 20), "A12"),
     (dict(kv_layout="dense"), "removed"),

@@ -235,7 +235,7 @@ def test_cli_batching_flags(capsys, monkeypatch):
                      "--batch-slots", "2", "--stream-block", "4"]) == 1
     assert "--decode-block" in capsys.readouterr().err
     # what this slice leaves out exits 1
-    for extra in (["--batch-slots", "2", "--mixed-token-budget", "32"],
+    for extra in (["--batch-slots", "2", "--tp", "2"],
                   ["--batch-slots", "2", "--draft-model", "llama-test"],
                   ["--kv-cache-blocks", "4"]):
         assert cli.main(["serve", "--model", "llama-test", "--device",

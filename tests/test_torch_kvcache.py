@@ -139,7 +139,10 @@ def test_page_width_matches_reference(dtype, np_dtype):
     assert quant.kv_scale_token_head_bytes(None) == 0
     assert quant.resolve_kv_dtype() == ref_quant.resolve_kv_dtype() == "bf16"
     for width in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="A2"):
-            quant.kv_token_head_bytes(64, width, dtype)
+        assert (quant.kv_token_head_bytes(64, width, dtype)
+                == ref_quant.kv_token_head_bytes(64, width,
+                                                 np.dtype(np_dtype)))
+        assert (quant.kv_scale_token_head_bytes(width)
+                == ref_quant.kv_scale_token_head_bytes(width))
     with pytest.raises(ValueError, match="unknown kv dtype"):
         quant.resolve_kv_dtype("fp8")
