@@ -20,7 +20,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             The flash kernel, then the two paged kernels (decode and
             chunk prefill) over shuffled page tables with sentinels, on
             full-width pages and on int8 pages (their int8 instances),
-            and the prefill kernel on a mixed dispatch's 4-row slab;
+            the prefill kernel on a mixed dispatch's 4-row slab and on a
+            1024-row chunk, decode rows around the split boundaries;
+            each row of the 8-slot bf16 decode launch bit-equal to the
+            row launched alone;
 3. serve    the plain path: ``InferenceHTTPServer`` over
             ``InferenceEngine`` at full TinyLlama-1.1B width (random
             weights from a seed) answers a greedy, a streamed and a
@@ -32,16 +35,20 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             admission) at full TinyLlama-1.1B width answers 8 concurrent
             greedy requests, one streamed and two sharing a prefix; the
             paged kernels' launch counts equal what the routing predicts;
-            at f32 the tokens equal a plain-attention ``InferenceEngine``'s;
-            no page leaks; throughput, TTFT, step time and the device's
-            idle share;
+            at bf16 the logits of a chunked prefill and of decode steps
+            through the engine's kernels are held against the same
+            engine configuration on the gather path; at f32 the tokens
+            equal a plain-attention ``InferenceEngine``'s; no page leaks;
+            throughput, TTFT, step time and the device's idle share;
 5. mixed    the mixed prefill+decode dispatch over int8 pages: the same 8
             requests to ``ContinuousBatchingEngine`` with
             ``mixed_token_budget`` 288 (4 segments of 64 tokens beside 8
             rows x 4 decode steps) and ``kv_dtype`` int8; the int8
             kernels' launch counts equal L x decode steps and L x slab
-            forwards; at f32 the tokens equal the same configuration's on
-            the gather path; no page leak; an int4 request gathers with no
+            forwards; at bf16 the logits through the int8 kernels are held
+            against the gather path's, as in the batching phase; at f32
+            the tokens equal the same configuration's on the gather path;
+            no page leak; an int4 request gathers with no
             launch; throughput, TTFT, step time, idle share, and how many
             tokens agree with the serialized interleave's;
 6. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
@@ -65,8 +72,14 @@ PROMPT_LEN = 64
 NEW_TOKENS = 32
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|, elementwise.
 # f32: both sum the same f32 products in another order (~1e-6 apart).
-# bf16: both compute in f32 and round once to bf16, so they differ by at
-# most about one bf16 ulp (2^-8 relative) where rounding flips.
+# bf16: the plain versions compute in f32 and round once to bf16.  The
+# flash kernel does the same (about one bf16 ulp apart, 2^-8 relative).
+# The paged kernels' bf16-q instances also round each probability to
+# bf16 (2^-9 relative) for the P V product on the tensor cores, and on
+# int8 pages apply the f32 per-token scale to the score column and to
+# the probability (the codes are exact in bf16).  So each output, a
+# convex mix of unit-scale V values, moves by up to about 2^-9 times
+# the spread of V, before its own bf16 rounding: under 2e-2.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # prefill logits, kernel engine vs plain-attention engine, both bf16: the
 # attention outputs round differently in places and 22 layers carry it on
@@ -88,6 +101,8 @@ PAGED_REPLACES = {
 # the int8 instances replace the same kernels' quantized branches
 PAGED_REPLACES["paged_decode_int8"] = PAGED_REPLACES["paged_decode"]
 PAGED_REPLACES["paged_prefill_int8"] = PAGED_REPLACES["paged_prefill"]
+# the same int8 prefill instance at the shape the mixed path launches it
+PAGED_REPLACES["paged_prefill_int8_slab"] = PAGED_REPLACES["paged_prefill"]
 # the batching phase: 8 slots, pages of 16 tokens, 64-token admission
 # chunks, 8 concurrent requests of these prompt lengths, 32 new tokens
 SLOTS = 8
@@ -157,6 +172,40 @@ def device_ms(torch, fn, iters: int = 50) -> float:
 # phase 1: device + build
 # ---------------------------------------------------------------------------
 
+def ptxas_report(log: str) -> list:
+    """Each kernel instance's registers and spill bytes from nvcc's
+    ``-Xptxas -v`` output, its name demangled by ``c++filt`` where the
+    machine has it."""
+    import re
+    rows, name, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            rows.append({"kernel": name, "registers": int(m.group(1)),
+                         "spill_stores": spill[0], "spill_loads": spill[1]})
+            name = None
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r["kernel"] for r in rows),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["kernel"] = n.replace("(anonymous namespace)::", "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
+
+
 def phase_device(torch, smi: str) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -173,11 +222,7 @@ def phase_device(torch, smi: str) -> dict:
     fa._kernel_fn()
     pa._kernel_fns()
     build_s = time.perf_counter() - t0
-    # per kernel instance: its (mangled) name, then its spills and its
-    # registers, as ptxas -v reports them
-    keep = ("Function properties for", "registers", "spill")
-    ptxas = {src: [ln.strip() for ln in _build.build_logs.get(src, "")
-                   .splitlines() if any(k in ln for k in keep)]
+    ptxas = {src: ptxas_report(_build.build_logs.get(src, ""))
              for src in sources}
     return {"phase": "device", "nvidia_smi": smi,
             "kind": torch.cuda.get_device_name(0),
@@ -308,8 +353,14 @@ def paged_cases():
     at start 0, mid-page and several pages in; one ALiBi case with
     bloom-560m heads and one hd-128 case with llama-3-8b heads for each
     kernel; the same shapes' int8 instances; the mixed slab (4 rows of
-    64 tokens at distinct starts, one unused) on both page types."""
+    64 tokens at distinct starts, one unused) on both page types; decode
+    rows one key either side of the bf16 kernel's split boundaries and
+    two splits plus 9 on both page types; a 128-token chunk (1024 rows,
+    above the routing's cap, so checked and timed but never routed)."""
+    from distributed_inference_demo_tpu_torch.ops.paged_attention import \
+        KV_SPLIT
     serve = (1, 16, 37, 1999, 512, 130, -300, -5)   # negative: freed slot
+    splits = (KV_SPLIT - 1, KV_SPLIT, KV_SPLIT + 1, 2 * KV_SPLIT + 9)
     cases = [("tinyllama", "decode", 32, 4, 64, False, (1000,)),
              ("tinyllama", "decode", 32, 4, 64, False, serve)]
     for chunk in (16, 32, 64):
@@ -321,7 +372,10 @@ def paged_cases():
                (32, (7,))),
               ("llama3-8b-hd128", "decode", 32, 8, 128, False, serve),
               ("llama3-8b-hd128", "prefill", 32, 8, 128, False,
-               (32, (200,)))]
+               (32, (200,))),
+              ("tinyllama-splits", "decode", 32, 4, 64, False, splits),
+              ("tinyllama-1024rows", "prefill", 32, 4, 64, False,
+               (2 * PREFILL_CHUNK, (200,)))]
     cases = [c + ("full",) for c in cases]
     int8 = [("tinyllama", "decode", 32, 4, 64, False, (1000,)),
             ("tinyllama", "decode", 32, 4, 64, False, serve),
@@ -331,7 +385,8 @@ def paged_cases():
             ("bloom560m-alibi", "prefill", 16, 16, 64, True, (32, (7,))),
             ("llama3-8b-hd128", "decode", 32, 8, 128, False, serve),
             ("llama3-8b-hd128", "prefill", 32, 8, 128, False,
-             (32, (200,)))]
+             (32, (200,))),
+            ("tinyllama-splits", "decode", 32, 4, 64, False, splits)]
     cases += [c + ("int8",) for c in int8]
     for pages in ("full", "int8"):
         cases.append(("tinyllama-slab", "prefill", 32, 4, 64, False,
@@ -401,7 +456,7 @@ def phase_paged_kernels(torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     W = MAX_SEQ // BLOCK_TOKENS
-    results, failures = [], []
+    results, failures, invariance = [], [], []
     for label, kind, nh, nkv, hd, alibi, shape, pages in paged_cases():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
@@ -497,9 +552,30 @@ def phase_paged_kernels(torch) -> dict:
             if not ok:
                 failures.append(f"{label} {kind} {dname} {pages} {shape}: "
                                 f"max err {row['max_abs_err']}")
+            if dname == "bfloat16" and label == "tinyllama" and \
+                    kind == "decode" and b == SLOTS:
+                invariance.append(batch_invariance(
+                    torch, kern_fn, q, pk, pv, tables, per_row, got, pages))
             del q, pk, pv, kt, vt
+    for inv in invariance:
+        if inv["rows_bit_equal"] != inv["rows"]:
+            failures.append(f"batch invariance, {inv['pages']} pages: "
+                            f"{inv['rows_bit_equal']} of {inv['rows']} rows "
+                            "bit-equal")
     return {"phase": "paged_kernels", "cases": results,
-            "failures": failures}
+            "batch_invariance": invariance, "failures": failures}
+
+
+def batch_invariance(torch, kern_fn, q, pk, pv, tables, per_row, got,
+                     pages) -> dict:
+    """Each row of the 8-slot decode launch against the same row launched
+    alone: bit-equal, since the kernel's splits sit at fixed positions."""
+    same = 0
+    for i in range(q.shape[0]):
+        one = kern_fn(q[i:i + 1], pk, pv, tables[i:i + 1], per_row[i:i + 1])
+        same += bool(torch.equal(one, got[i:i + 1]))
+    return {"pages": pages, "dtype": str(q.dtype).split(".")[1],
+            "rows": q.shape[0], "rows_bit_equal": same}
 
 
 # ---------------------------------------------------------------------------
@@ -774,6 +850,68 @@ def _reset_launches(*wrappers) -> None:
             w.int8_launches = 0
 
 
+def _paged_logits(torch, engine, seq, n_decode: int):
+    """The logits of ``seq``, teacher forced, through a closed batching
+    engine's paged forward as its scheduler runs it: all but the last
+    ``n_decode`` tokens as a chunked prefill (chunks of ``prefill_chunk``,
+    the last one shorter), then ``n_decode`` one-token decode steps, on
+    pages taken from the engine's own pool and given back after.  Returns
+    [n_decode + 1, vocab] f32: the prefill's last position, then each
+    decode step's."""
+    import numpy as np
+    mgr = engine.kv_cache
+    n_pre = len(seq) - n_decode
+    pages = mgr.alloc(-(-len(seq) // mgr.block_tokens))
+    _check(pages is not None, "no free pages for the logit check")
+    table = np.full((1, engine._table_width), engine._page_sentinel,
+                    np.int32)
+    table[0, :len(pages)] = pages
+    tables = engine._upload(table)
+    out, start = [], 0
+    try:
+        while start < len(seq):
+            n = min(engine.prefill_chunk, n_pre - start) if start < n_pre \
+                else 1
+            ids = torch.tensor([seq[start:start + n]], dtype=torch.int64,
+                               device=engine.device)
+            pos = start + torch.arange(n, device=engine.device)[None]
+            engine._bind(tables)
+            logits, _ = engine._fwd(engine.params, ids, engine._pool(), pos,
+                                    True)
+            start += n
+            if start >= n_pre:
+                out.append(logits[0, -1].float().cpu().numpy())
+    finally:
+        mgr.free(pages)
+    return np.stack(out)
+
+
+def paged_logit_check(torch, kernel_engine, plain_engine, seq,
+                      n_decode: int = 8) -> dict:
+    """bf16 logits of the kernels against the gather path: the same
+    ``seq`` through both closed engines (same weights, same pool
+    configuration, ``attn_backend`` "auto" and "plain"); the kernel
+    engine's logits must be finite and within LOGIT_TOL_REL of the
+    gather path's largest logit, as the serve phase holds the flash
+    kernel."""
+    import numpy as np
+    lk = _paged_logits(torch, kernel_engine, seq, n_decode)
+    lp = _paged_logits(torch, plain_engine, seq, n_decode)
+    scale = max(1.0, float(np.abs(lp).max()))
+    err = np.abs(lk - lp).max(axis=1)
+    res = {"tokens": len(seq), "decode_steps": n_decode,
+           "logit_max_abs_err": float(err.max()),
+           "prefill_logit_max_abs_err": float(err[0]),
+           "logit_scale": scale, "logit_tol": LOGIT_TOL_REL * scale,
+           "argmax_agreement": int((lk.argmax(1) == lp.argmax(1)).sum()),
+           "argmax_agreement_of": len(err)}
+    _check(bool(np.isfinite(lk).all()), "paged kernel logits not finite")
+    _check(res["logit_max_abs_err"] <= res["logit_tol"],
+           f"paged kernel logits differ from the gather path's by "
+           f"{res['logit_max_abs_err']} (> {LOGIT_TOL_REL} x {scale})")
+    return res
+
+
 def phase_batching(torch) -> dict:
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
@@ -799,11 +937,11 @@ def phase_batching(torch) -> dict:
     greedy = SamplingParams(greedy=True)
     prompts = _batch_prompts(cfg.vocab_size)
 
-    def engine_for(c, params):
+    def engine_for(c, params, **kw):
         return ContinuousBatchingEngine(
             c, params, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
             kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
-            device="cuda")
+            device="cuda", **kw)
 
     out = {"phase": "batching", "device": torch.cuda.get_device_name(0),
            "model": SERVE_MODEL, "slots": SLOTS,
@@ -881,7 +1019,14 @@ def phase_batching(torch) -> dict:
     finally:
         server.shutdown()
         engine.close()
-    del engine, params
+
+    # ---- bf16 logits, the kernels against the gather path: a 1000-token
+    # chunked prefill (15 chunks of 64 and one of 40) and 8 decode steps
+    with engine_for(cfg, params, attn_backend="plain") as plain_engine:
+        pass
+    out["logit_check"] = paged_logit_check(
+        torch, engine, plain_engine, prompts[BATCH_PROMPTS.index(1500)][:1008])
+    del engine, plain_engine, params
     torch.cuda.empty_cache()
 
     # ---- f32, same seed: the batching engine (paged kernels) against a
@@ -1029,6 +1174,14 @@ def phase_mixed(torch) -> dict:
         server.shutdown()
         engine.close()
 
+    # ---- bf16 logits over int8 pages, the int8 kernels against the
+    # gather path, as in the batching phase ----
+    with engine_for(cfg, params, attn_backend="plain") as plain_engine:
+        pass
+    out["logit_check"] = paged_logit_check(
+        torch, engine, plain_engine, prompts[BATCH_PROMPTS.index(1500)][:1008])
+    del engine, plain_engine
+
     # ---- the serialized interleave on the same int8 pages: how many of
     # the same 8 requests' greedy tokens agree (bf16: a count, no check)
     with engine_for(cfg, params, mixed_token_budget=0) as ser:
@@ -1074,19 +1227,31 @@ def phase_mixed(torch) -> dict:
     return out
 
 
-def profile_steps(torch, engine, steps: int) -> dict:
+def profile_steps(torch, engine, steps: int, attempts: int = 3) -> dict:
     """torch.profiler over ``steps`` decode steps of a running batching
     engine: device time by kernel (top 8), device-busy sum, wall time and
-    the device's idle share 1 - busy / wall."""
+    the device's idle share 1 - busy / wall.  The engine launches from
+    its scheduler thread, and a profile can hold that thread's copies but
+    none of its kernels (seen on the H100 in one run of two phases): such
+    a profile is taken again, up to ``attempts`` times, and if none holds
+    a kernel the busy sum and idle share are None, with the reason."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _wait_steps(engine, steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return _profile_summary(prof, wall_ms, {"steps": steps})
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _wait_steps(engine, steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out = _profile_summary(prof, wall_ms,
+                               {"steps": steps, "attempts": attempt})
+        if out["kernels"]:
+            return out
+    out.update(device_busy_ms=None, device_idle_share=None,
+               not_measured="no profile recorded a kernel of the "
+               "scheduler thread")
+    return out
 
 
 def profile_generate(torch, engine, prompt, new_tokens: int = 16) -> dict:
@@ -1103,12 +1268,15 @@ def profile_generate(torch, engine, prompt, new_tokens: int = 16) -> dict:
         engine.generate(prompt, new_tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _profile_summary(prof, wall_ms, {"new_tokens": new_tokens})
+    out = _profile_summary(prof, wall_ms, {"new_tokens": new_tokens})
+    _check(out["kernels"] > 0, "torch.profiler recorded no kernel")
+    return out
 
 
 def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
     """Device time by kernel name (top 8), the device-busy sum, the wall
-    time and the device's idle share from a finished profile."""
+    time and the device's idle share from a finished profile, and how
+    many of its device rows are kernels (not copies or fills)."""
     rows = []
     for ev in prof.key_averages():
         # kernel rows only: a CPU op's row would count its kernels twice
@@ -1121,7 +1289,9 @@ def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     _check(bool(rows), "torch.profiler recorded no device time")
-    return {**head, "wall_ms": wall_ms,
+    kernels = sum(1 for r in rows
+                  if not r[1].startswith(("Memcpy", "Memset")))
+    return {**head, "wall_ms": wall_ms, "kernels": kernels,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n}
@@ -1182,24 +1352,33 @@ def main(argv) -> int:
                      and c["q_start"] == 0)
     # the paged kernels at the serving path's shapes: decode over 8 slots
     # (bf16, TinyLlama heads), a 64-token admission chunk several pages in
-    # (full-width pages for the batching path, int8 pages for the mixed)
-    def serve_case(kind, pages):
-        return next(c for c in paged["cases"] if c["case"] == "tinyllama"
+    # (full-width pages for the batching path, int8 pages for the mixed),
+    # and the mixed path's own prefill shape, the 4-row slab, which every
+    # one of its int8 prefill launches has
+    def serve_case(kind, pages, case="tinyllama"):
+        return next(c for c in paged["cases"] if c["case"] == case
                     and c["kind"] == kind and c["dtype"] == "bfloat16"
                     and c["pages"] == pages
                     and (c["b"] == SLOTS if kind == "decode" else
                          c["chunk"] == PREFILL_CHUNK
-                         and c["starts"] == [200]))
+                         and (case != "tinyllama" or c["starts"] == [200])))
 
-    paged_main = {
-        "paged_decode": (batching, serve_case("decode", "full")),
-        "paged_prefill": (batching, serve_case("prefill", "full")),
-        "paged_decode_int8": (mixed, serve_case("decode", "int8")),
-        "paged_prefill_int8": (mixed, serve_case("prefill", "int8"))}
+    paged_main = [
+        ("paged_decode", batching, serve_case("decode", "full"),
+         "8 rows, lengths 1-1999, 2 freed"),
+        ("paged_prefill", batching, serve_case("prefill", "full"),
+         "64-token chunk at 200"),
+        ("paged_decode_int8", mixed, serve_case("decode", "int8"),
+         "8 rows, lengths 1-1999, 2 freed"),
+        ("paged_prefill_int8", mixed, serve_case("prefill", "int8"),
+         "64-token chunk at 200"),
+        ("paged_prefill_int8_slab", mixed,
+         serve_case("prefill", "int8", "tinyllama-slab"),
+         "mixed slab: 4 rows of 64 tokens at 0, 64, 448, one unused")]
 
-    def entry(name, source, replaces, launches, case):
+    def entry(name, source, replaces, launches, case, shape):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "shape": shape, "launches": launches,
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
@@ -1207,10 +1386,10 @@ def main(argv) -> int:
 
     emit({"kernels": [
         entry("flash_attention", KERNEL_SOURCE, KERNEL_REPLACES,
-              serve["launches"], main_case)] + [
+              serve["launches"], main_case, "64-token prompt at 0")] + [
         entry(name, PAGED_SOURCE, PAGED_REPLACES[name],
-              phase["launches"][name], case)
-        for name, (phase, case) in paged_main.items()]})
+              phase["launches"][name.removesuffix("_slab")], case, shape)
+        for name, phase, case, shape in paged_main]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,15 @@
 // Replaces the two Pallas TPU kernels of
 // distributed_inference_demo_tpu/ops/paged_attention.py:
 //
-// - paged_decode_kernel replaces _paged_kernel (via _paged_call): one
-//   query token per row.  For kv head h of row b, the g query heads
+// - decode replaces _paged_kernel (via _paged_call): paged_decode_kernel
+//   for f32 q, paged_decode_split_kernel + paged_decode_merge_kernel for
+//   bf16 q.  One query token per row.  For kv head h of row b, the g query heads
 //   h*g .. h*g+g-1 attend to every key position s < kv_len[b] (which is
 //   the causal bound: the query sits at kv_len - 1), with an optional
 //   ALiBi bias -slope * (kv_len - 1 - s);
-// - paged_prefill_kernel replaces _paged_prefill_kernel (via
-//   _paged_prefill_call): a contiguous chunk of queries per row.  Row r
+// - prefill replaces _paged_prefill_kernel (via _paged_prefill_call):
+//   paged_prefill_kernel for f32 q, paged_prefill_mma_kernel for bf16 q.
+//   A contiguous chunk of queries per row.  Row r
 //   of the regrouped [chunk*g] rows of kv head h is position
 //   starts[b] + r/g of q head h*g + r%g and attends to every s <= its own
 //   position (the chunk's own K/V is already in the pages), with ALiBi
@@ -25,55 +27,95 @@
 // is the reference's: f32, scale 1/sqrt(hd) on q, masked scores -1e30,
 // masked probabilities exactly 0, final division by max(l, 1e-30).
 //
-// Design.  Hopper has no sequential grid axis to carry the online softmax
-// across pages, so each thread block loops over the keys itself and keeps
-// the running max, sum and f32 accumulator for the whole loop.
+// What bounds them on the H100.  Decode does 4*nh*hd operations per
+// live key over 2*nkv*hd page elements per key: about g operations per
+// byte, far below the card's ~295 bf16 operations per byte, so decode is
+// bound by the bytes of the live pages, and at the serving shapes (8
+// rows, ~3000 live keys, 1.5 MB of bf16 pages) that bound is ~1 us: what
+// is left is latency, so the design is about putting every SM to work at
+// once and overlapping the page copies with the math.  Prefill chunks of
+// 16-64 tokens over short prefixes are bound by bytes too (~30 operations
+// per byte at a 64-token chunk after 200 tokens); long prefixes turn
+// them toward operations, where the tensor cores' rate matters.
 //
-// - Decode: one block per (kv head, row).  The g query heads of the kv
-//   head are the block's rows (at most 16), so each K/V tile is loaded
-//   from device memory once and shared by the whole group (8 q heads for
-//   TinyLlama).  A tile is 32 consecutive key positions, which may span
-//   several pages (bt is any multiple of 8): each key's page is looked up
-//   in the table as the tile is loaded.  One warp owns one query row in
-//   the softmax, one lane per key.  The block stops at its row's own
-//   kv_len, so a short sequence costs O(kv_len), never O(W*bt).
-// - Prefill: the structure of csrc/flash_attention.cu, with the cache
-//   addressed through the table: one block per (64-row tile of the
-//   chunk*g rows, kv head, row), looping over 64-key tiles up to the
-//   tile's causal frontier starts[b] + last_row/g + 1.  q is read and the
-//   output written in the projection layout [b, chunk, nh, hd] by index
-//   arithmetic, so the wrapper does no regroup transpose.
+// Design of the bf16-q instances (bf16 or int8 pages).
 //
-// Bound on the H100.  Decode does 4*nh*hd operations per live key over
-// the live K/V pages (2*nkv*hd elements per key) plus q and out: about g
-// operations per byte, far below the card's ~295 bf16 operations per
-// byte, so decode is bound by the bytes of the live pages.  What the
-// design does about it: every page is read once per (row, kv head) and
-// shared by the g query heads, and pages past kv_len are not read.
-// Prefill chunks of 16-64 tokens over short prefixes are bound by bytes
-// too; long prefixes turn them toward operations.  This first version
-// computes on the CUDA cores in f32 (no mma.sync/wgmma, no TMA) and
-// splits no row's keys across blocks: at 8 rows x 4 kv heads the decode
-// launch has only 32 blocks for 132 SMs.  Splitting along the pages
-// (flash-decoding) and tensor-core math are later work.
+// - Decode: split-KV (flash-decoding).  The grid is (splits, nkv, b) with
+//   splits = ceil(W*bt / KV_SPLIT), known from the table's shape, so the
+//   host reads no kv_lens.  Split s of row b covers positions
+//   [s*KV_SPLIT, (s+1)*KV_SPLIT) clipped to the row's kv_end; a split past
+//   kv_end exits at once.  At the 8-slot serving shape about 116 blocks
+//   have work where one block per (row, kv head) gave 32.  Split
+//   boundaries sit at fixed positions and each warp owns fixed 16-key
+//   slices of every 64-key tile, so a row's output depends only on its own
+//   kv_len and pages, never on b or the other rows: the batch
+//   invariance that greedy identity across batch compositions needs.
+//   The g <= 16 q heads of the kv head are the rows of one m16n8k16 A
+//   tile (zero-padded to 16), read once from q into registers.  Each warp
+//   keeps its own running (m, l, acc); the four merge in shared memory at
+//   the end of the block, which writes its unnormalised partial (acc, m,
+//   l) in f32 to scratch the wrapper allocates.  A second small kernel on
+//   the same stream merges each row's live splits in split order and
+//   writes out in q's dtype (0 for a row with kv_end = 0).
+// - Prefill: a tensor-core flash tile over the table.  A block of four
+//   warps owns PREFILL_ROWS of the chunk*g regrouped rows of one (kv head,
+//   row), 16 per row-warp: at 64 rows each warp walks every key of every
+//   tile; at 32 or 16 rows the 2 or 4 warps of a row group split each
+//   tile's keys and merge in shared memory at the end, which shortens
+//   each warp's serial chain and puts 2 or 4 times as many blocks on the
+//   card.  Q is read once, in the projection layout, into registers as A
+//   fragments, and the output is written back in that layout (no regroup
+//   transpose in the wrapper).  Tiles past the block's causal frontier
+//   are never loaded, tiles past a row group's are not computed, and the
+//   diagonal tile is masked per row.
+// - Both: K/V arrive in 64-key tiles through the table by cp.async
+//   16-byte copies (8 bf16 values or 16 int8 codes, plus each token's f32
+//   scale) into a ring in shared memory (decode: a whole split of up to 4
+//   tiles; prefill: 4 stages), so later tiles' copies overlap tile t's
+//   math.  Each key row's page is looked up once; keys
+//   past the bound are zero-filled.  S = Q K^T and O += P V are
+//   mma.sync.m16n8k16 with bf16 operands (bf16 pages' fragments come by
+//   ldmatrix) and f32 accumulation; the scale 1/sqrt(hd), ALiBi, the
+//   masks and the online softmax run in f32 on the accumulator layout, in
+//   the log2 domain (exp2f of scores scaled by log2 e); P is rounded to
+//   bf16 in registers as P V's A fragment (the TPU kernel's f32 dots at
+//   default precision also run in bf16 passes on the MXU).
+// - int8 pages, bf16 q: a code is exact in bf16, and a token's scale is
+//   one factor for its whole K or V row, so the dequantize code * scale
+//   is applied in f32 where it is one multiply per key instead of one per
+//   element: the K scale to the key's score column after Q K^T (the
+//   products of bf16 q and exact codes sum in f32), the V scale to the
+//   key's probability before it is rounded to bf16 for P V.  That is one
+//   bf16 rounding fewer per operand than rounding code * scale to bf16,
+//   and fewer instructions while the fragments are built.
 //
-// int8 pages.  The Pallas kernels' quantized instance (_paged_kernel and
-// _paged_prefill_kernel with quantized=True) streams int8 pages with an
-// f32 [bt, 1] scale block riding the same page index map, and
-// dequantizes in registers right after the load.  Here the tile load is
-// templated on the page type P: for P = int8_t each K/V element is its
-// code times its token's scale, code * scale in f32 (the reference's
-// dequantize, so the kernel and its plain version agree), one multiply
-// per element in registers; the scale is read through the same clamped
-// page id as the data.  The rest (masking, online softmax) is the same
-// code as the full-width instance.  An int8 page moves hd + 4 bytes per
-// (token, kv head) where a bf16 page moves 2 * hd: 68 against 128 at hd
-// 64, so int8 about halves the bytes that bound decode.  This first
-// int8 instance keeps the byte-wide loads (one byte per thread, a warp
-// reading 32 consecutive bytes) and the f32 CUDA-core math of the
-// full-width one; 16-byte vector loads (hd % 16 == 0 holds for 64 and
-// 128) are later work.  Int4 pages have no kernel: the reference sends
-// them to the gather path on purpose, and so does the port.
+// Why not wgmma or TMA here: a decode tile has g <= 16 rows where wgmma
+// takes 64; at these shapes both kernels are bound by bytes and launch
+// latency (bounds of 0.2-0.9 us), so wgmma's full rate buys nothing yet;
+// and a per-key-row paged gather is simpler with cp.async than with one
+// TMA box per page.
+//
+// The f32-q instances (f32 pages, or int8 pages under f32 q) keep full
+// f32 math on the CUDA cores, with no TF32, as the f32 cross-checks of
+// the serving paths need: one block per (row, kv head) for decode and
+// per (64-row tile, kv head, row) for prefill, looping over 32- or
+// 64-key tiles and looking each key's page up as they load.
+//
+// int8 pages.  The Pallas kernels' quantized instance streams int8 pages
+// with an f32 [bt, 1] scale block riding the same page index map and
+// dequantizes right after the load; here every instance reads the codes
+// and the scale through the same clamped page id and dequantizes code *
+// scale in f32.  An int8 page moves hd + 4 bytes per (token, kv head)
+// where a bf16 page moves 2 * hd.  Int4 pages have no kernel: the
+// reference sends them to the gather path on purpose, and so does the
+// port.
+//
+// Tile constants (below): KV_SPLIT, the keys per decode split (the
+// wrapper's KV_SPLIT in ops/paged_attention.py; a launch whose split
+// count does not match it is refused), and PREFILL_ROWS, the query rows
+// per prefill block.  Both were chosen by timing the alternatives at the
+// serving shapes (PERF.md): 128 against 256 keys, 16 against 32 and 64
+// rows.
 //
 // Plain C interface, loaded with ctypes: each launch goes on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -84,9 +126,13 @@
 
 #include <type_traits>
 
+#include "hopper_tile.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;
+constexpr int KV_SPLIT = 128;     // keys per decode split
+constexpr int PREFILL_ROWS = 16;  // regrouped query rows per prefill block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -446,6 +492,563 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ kp,
   }
 }
 
+// ---------------------------------------------------------------------
+// The bf16-q instances: tensor cores, cp.async ring, split-KV decode
+
+using hopper_tile::cp_async16;
+using hopper_tile::cp_async4;
+using hopper_tile::mma_bf16;
+using hopper_tile::pack_bf16;
+using bf16 = __nv_bfloat16;
+
+constexpr int TK = 64;        // keys per K/V tile, one stage of the ring
+// ring stages: decode issues a whole split's copies at once (up to 3
+// tiles), prefill keeps 3 tiles' copies in flight beside the one being
+// computed, so copy latency hides behind earlier tiles' math
+constexpr int D_STAGES = KV_SPLIT / TK + 1 < 4 ? KV_SPLIT / TK + 1 : 4;
+constexpr int P_STAGES = 4;
+static_assert(KV_SPLIT % TK == 0 && KV_SPLIT > 0,
+              "KV_SPLIT must be a positive multiple of the 64-key tile");
+static_assert(PREFILL_ROWS == 16 || PREFILL_ROWS == 32 ||
+                  PREFILL_ROWS == 64,
+              "PREFILL_ROWS: 16, 32 or 64 rows per block of four warps");
+
+// One ring stage for page type P: K and V rows of TK keys (and, for int8
+// pages, each key's two f32 scales).  The row pitch adds 16 bytes, which
+// keeps the 8 rows one fragment load touches on distinct banks and every
+// row 16-byte aligned for cp.async.
+template <typename P, int HD>
+struct Stage {
+  static constexpr bool Q8 = std::is_same<P, int8_t>::value;
+  static constexpr int PITCH = HD + 16 / (int)sizeof(P);
+  static constexpr size_t KV = (size_t)TK * PITCH * sizeof(P);
+  static constexpr size_t BYTES = 2 * KV + (Q8 ? 2 * TK * sizeof(float) : 0);
+  static __device__ P* k(char* st) { return reinterpret_cast<P*>(st); }
+  static __device__ P* v(char* st) { return reinterpret_cast<P*>(st + KV); }
+  static __device__ float* ks(char* st) {
+    return reinterpret_cast<float*>(st + 2 * KV);
+  }
+  static __device__ float* vs(char* st) { return ks(st) + TK; }
+};
+
+// The ring's copies.  A block has T_NT = 128 threads and a tile TK = 64
+// key rows, so thread tid copies half of key row tid / 2: it looks the
+// row's page up once (tile_row, a table load issued a tile ahead of its
+// use) and issues its 16-byte pieces (issue_tile); keys at or past kend
+// are zero-filled, so their products stay finite (their probabilities
+// are exactly 0).
+constexpr int T_NT = 128;
+
+// The token row of this thread's key in the tile at t0, or -1 past kend.
+__device__ __forceinline__ long long tile_row(const int* tab, int t0,
+                                              int kend, int bt, int nkv,
+                                              int h, int num_pages) {
+  const int pos = t0 + (threadIdx.x >> 1);
+  return pos < kend ? (long long)page_row(tab, pos, bt, nkv, h, num_pages)
+                    : -1;
+}
+
+template <typename P, int HD>
+__device__ __forceinline__ void issue_tile(char* st, long long row,
+                                           const P* __restrict__ kp,
+                                           const float* __restrict__ ksc,
+                                           const P* __restrict__ vp,
+                                           const float* __restrict__ vsc) {
+  using S = Stage<P, HD>;
+  constexpr int E = 16 / (int)sizeof(P);          // elements per copy
+  constexpr int CH = HD / E;                      // copies per key row
+  const int r = threadIdx.x >> 1, part = threadIdx.x & 1;
+  const bool ok = row >= 0;
+  const size_t src = ok ? (size_t)row : 0;
+  P* kd = S::k(st) + r * S::PITCH;
+  P* vd = S::v(st) + r * S::PITCH;
+#pragma unroll
+  for (int c = part; c < CH; c += 2) {
+    cp_async16(kd + c * E, kp + src * HD + c * E, ok);
+    cp_async16(vd + c * E, vp + src * HD + c * E, ok);
+  }
+  if constexpr (S::Q8) {
+    if (part == 0) {
+      cp_async4(S::ks(st) + r, ksc + src, ok);
+      cp_async4(S::vs(st) + r, vsc + src, ok);
+    }
+  }
+}
+
+// Stream the tiles at first + t * TK, t < ntiles, below kend through a
+// ring of NS stages and call math(t, stage) on each once it has landed.
+// One barrier per tile: it publishes tile t and frees the stage of tile
+// t - 1, which takes tile t + NS - 1's copy; the table load of the tile
+// after that is issued before tile t's math, which hides its latency.
+template <typename P, int HD, int NS, typename Math>
+__device__ __forceinline__ void stream_tiles(char* ring, const P* kp,
+                                             const float* ksc, const P* vp,
+                                             const float* vsc, const int* tab,
+                                             int first, int ntiles, int kend,
+                                             int bt, int nkv, int h,
+                                             int num_pages, Math&& math) {
+  using S = Stage<P, HD>;
+  static_assert(NS >= 2, "the ring needs two stages");
+  // the prologue's table loads first, all in flight at once
+  long long rows[NS - 1];
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t)
+    rows[t] = t < ntiles ? tile_row(tab, first + t * TK, kend, bt, nkv, h,
+                                    num_pages)
+                         : -1;
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < ntiles)
+      issue_tile<P, HD>(ring + t * S::BYTES, rows[t], kp, ksc, vp, vsc);
+    hopper_tile::cp_async_commit();
+  }
+  long long next = NS - 1 < ntiles
+                       ? tile_row(tab, first + (NS - 1) * TK, kend, bt, nkv,
+                                  h, num_pages)
+                       : -1;
+  for (int t = 0; t < ntiles; ++t) {
+    hopper_tile::cp_async_wait<NS - 2>();   // tile t has landed
+    __syncthreads();
+    const int tn = t + NS - 1;
+    if (tn < ntiles)
+      issue_tile<P, HD>(ring + (tn % NS) * S::BYTES, next, kp, ksc, vp, vsc);
+    hopper_tile::cp_async_commit();         // (empty past the last tile)
+    if (tn + 1 < ntiles)
+      next = tile_row(tab, first + (tn + 1) * TK, kend, bt, nkv, h,
+                      num_pages);
+    math(t, ring + (t % NS) * S::BYTES);
+  }
+  __syncthreads();   // every warp is done with the ring
+}
+
+// The B operands of S = Q K^T for 16 keys from stage row `key` at head
+// columns [d, d + 16): b[0], b[1] for keys key .. key + 7 and b[2], b[3]
+// for key + 8 .. key + 15 (B[d][n] = K[n][d]).  bf16 pages: one ldmatrix;
+// int8 pages: the codes, exact in bf16 (the key's scale multiplies its
+// score column in f32, see attend).
+template <typename P, int HD>
+__device__ __forceinline__ void k_frags(char* st, int key, int d,
+                                        uint32_t (&b)[4]) {
+  using S = Stage<P, HD>;
+  const int lane = threadIdx.x & 31;
+  if constexpr (S::Q8) {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const P* kr = S::k(st) + (key + 8 * j + gid) * S::PITCH + d + 2 * tig;
+      const char2 c0 = *reinterpret_cast<const char2*>(kr);
+      const char2 c1 = *reinterpret_cast<const char2*>(kr + 8);
+      b[2 * j] = pack_bf16((float)c0.x, (float)c0.y);
+      b[2 * j + 1] = pack_bf16((float)c1.x, (float)c1.y);
+    }
+  } else {
+    const int row = key + (lane & 7) + ((lane >> 4) << 3);
+    hopper_tile::ldmatrix_x4(
+        b, S::k(st) + row * S::PITCH + d + (((lane >> 3) & 1) << 3));
+  }
+}
+
+// The B operands of O += P V for the 16 keys from stage row `key` at
+// head columns [d, d + 16): b[0], b[1] for columns d .. d + 7 and b[2],
+// b[3] for d + 8 .. d + 15 (B[k][n] = V[key + k][n]).  bf16 pages: one
+// ldmatrix.trans; int8 pages: the codes (the key's scale multiplies its
+// probability in f32, see attend).
+template <typename P, int HD>
+__device__ __forceinline__ void v_frags(char* st, int key, int d,
+                                        uint32_t (&b)[4]) {
+  using S = Stage<P, HD>;
+  constexpr int PI = S::PITCH;
+  const int lane = threadIdx.x & 31;
+  if constexpr (S::Q8) {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const P* vr = S::v(st) + (key + 2 * tig) * PI + d + 8 * j + gid;
+      b[2 * j] = pack_bf16((float)vr[0], (float)vr[PI]);
+      b[2 * j + 1] = pack_bf16((float)vr[8 * PI], (float)vr[9 * PI]);
+    }
+  } else {
+    // matrices: (keys 0-7, cols 0-7), (keys 8-15, cols 0-7), (keys 0-7,
+    // cols 8-15), (keys 8-15, cols 8-15)
+    const int row = key + (lane & 7) + (((lane >> 3) & 1) << 3);
+    hopper_tile::ldmatrix_x4_trans(
+        b, S::v(st) + row * PI + d + ((lane >> 4) << 3));
+  }
+}
+
+// Q's A fragments for the warp's rows gid (lo) and gid + 8 (hi), read
+// from global memory once; a null row is zero padding.
+template <int HD>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4],
+                                       const bf16* lo, const bf16* hi) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int d = kk * 16 + 2 * tig;
+    qa[kk][0] = lo ? *reinterpret_cast<const uint32_t*>(lo + d) : 0u;
+    qa[kk][1] = hi ? *reinterpret_cast<const uint32_t*>(hi + d) : 0u;
+    qa[kk][2] = lo ? *reinterpret_cast<const uint32_t*>(lo + d + 8) : 0u;
+    qa[kk][3] = hi ? *reinterpret_cast<const uint32_t*>(hi + d + 8) : 0u;
+  }
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// One warp's online-softmax step over the KW keys at stage rows
+// [kb, kb + KW) of the tile starting at position t0: S = Q K^T for its 16
+// rows; in f32, the scale, the int8 keys' scales, ALiBi and the mask (key
+// < kend and key <= the row's position), all in the log2 domain (sl2 =
+// scale * log2 e, the slopes times log2 e), so exp2f(s - m) is the
+// softmax's exp(s - m); the running max m and this lane's share of the
+// sum l for rows gid and gid + 8; then O += P V with P rounded to bf16 in
+// registers (for int8 pages, P times each key's V scale).
+template <typename P, int HD, int KW>
+__device__ __forceinline__ void attend(char* st,
+                                       const uint32_t (&qa)[HD / 16][4],
+                                       int kb, int t0, float sl2, int kend,
+                                       const int (&qpos)[2],
+                                       const float (&slope2)[2],
+                                       float (&m)[2], float (&l)[2],
+                                       float (&o)[HD / 8][4]) {
+  using S = Stage<P, HD>;
+  const int lane = threadIdx.x & 31;
+  const int tig = lane & 3;
+  float s[KW / 8][4];
+#pragma unroll
+  for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int jj = 0; jj < KW / 16; ++jj) {
+      uint32_t b[4];
+      k_frags<P, HD>(st, kb + 16 * jj, kk * 16, b);
+      mma_bf16(s[2 * jj], qa[kk], b[0], b[1]);
+      mma_bf16(s[2 * jj + 1], qa[kk], b[2], b[3]);
+    }
+
+  static_assert(KW / 8 * 4 <= 32, "validity mask bits");
+  unsigned valid = 0;
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1;
+      const int c = kb + 8 * j + 2 * tig + (e & 1);   // stage row
+      const int key = t0 + c;
+      const bool ok = key < kend && key <= qpos[hr];
+      float v = s[j][e];
+      if constexpr (S::Q8) v *= S::ks(st)[c];
+      v = v * sl2 - slope2[hr] * (float)(qpos[hr] - key);
+      s[j][e] = ok ? v : NEG;
+      valid |= (ok ? 1u : 0u) << (j * 4 + e);
+      mx[hr] = fmaxf(mx[hr], s[j][e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    // the quad's four lanes hold the row's columns
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    const float m_new = fmaxf(m[hr], mx[hr]);
+    alpha[hr] = exp2f(m[hr] - m_new);
+    m[hr] = m_new;
+    l[hr] *= alpha[hr];
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1;
+      float p = (valid >> (j * 4 + e)) & 1u ? exp2f(s[j][e] - m[hr]) : 0.f;
+      l[hr] += p;
+      if constexpr (S::Q8) p *= S::vs(st)[kb + 8 * j + 2 * tig + (e & 1)];
+      s[j][e] = p;
+    }
+#pragma unroll
+  for (int kk = 0; kk < KW / 16; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int nn = 0; nn < HD / 16; ++nn) {
+      uint32_t b[4];
+      v_frags<P, HD>(st, kb + 16 * kk, 16 * nn, b);
+      mma_bf16(o[2 * nn], pa, b[0], b[1]);
+      mma_bf16(o[2 * nn + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+// The row sums: each lane holds a share of its rows' columns.
+__device__ __forceinline__ void quad_sum(float (&l)[2]) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+  }
+}
+
+// The four warps' running states, parked in shared memory once the ring
+// is free: m and l (summed over the quad) of rows gid and gid + 8, and the
+// f32 accumulators, [warp][16 rows] and [warp][16 rows][HD].
+template <int HD>
+__device__ __forceinline__ void stash_state(char* ring, const float (&m)[2],
+                                            const float (&l)[2],
+                                            const float (&o)[HD / 8][4]) {
+  float* wm = reinterpret_cast<float*>(ring);
+  float* wl = wm + 4 * 16;
+  float* wo = wl + 4 * 16;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int r = (threadIdx.x >> 5) * 16 + gid;
+  if (tig == 0) {
+    wm[r] = m[0];
+    wm[r + 8] = m[1];
+    wl[r] = l[0];
+    wl[r + 8] = l[1];
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int c = 8 * n + 2 * tig;
+    wo[r * HD + c] = o[n][0];
+    wo[r * HD + c + 1] = o[n][1];
+    wo[(r + 8) * HD + c] = o[n][2];
+    wo[(r + 8) * HD + c + 1] = o[n][3];
+  }
+}
+
+// Row r of warps w0 .. w0 + n - 1 merged in warp order: the common max
+// mm, and l and column d of the accumulator rescaled to it.
+template <int HD>
+__device__ __forceinline__ void merge_state(const char* ring, int w0, int n,
+                                            int r, int d, float& mm,
+                                            float& ll, float& acc) {
+  const float* wm = reinterpret_cast<const float*>(ring);
+  const float* wl = wm + 4 * 16;
+  const float* wo = wl + 4 * 16;
+  mm = NEG;
+  for (int w = w0; w < w0 + n; ++w) mm = fmaxf(mm, wm[w * 16 + r]);
+  ll = 0.f;
+  acc = 0.f;
+  for (int w = w0; w < w0 + n; ++w) {
+    const float e = exp2f(wm[w * 16 + r] - mm);
+    ll += wl[w * 16 + r] * e;
+    acc += wo[(w * 16 + r) * HD + d] * e;
+  }
+}
+
+template <typename P, int HD, int NS>
+constexpr size_t ring_smem_bytes() {
+  // the ring, reused at the end for the four warps' states
+  constexpr size_t ring = NS * Stage<P, HD>::BYTES;
+  constexpr size_t merge = sizeof(float) * 4 * 16 * (2 + HD);
+  return ring > merge ? ring : merge;
+}
+
+// Decode, split s of (kv head h, row bi): the unnormalised partial (acc,
+// m, l; m in the log2 domain of attend) of the keys [s*KV_SPLIT, (s+1)*KV_SPLIT) below kv_end, written to
+// part_acc [b, splits, nh, HD] and part_m / part_l [b, splits, nh].  Warp
+// w owns keys [16 w, 16 w + 16) of every tile.
+template <typename P, int HD>
+__global__ void __launch_bounds__(T_NT)
+paged_decode_split_kernel(const bf16* __restrict__ q,
+                          const P* __restrict__ kp,
+                          const float* __restrict__ ksc,
+                          const P* __restrict__ vp,
+                          const float* __restrict__ vsc,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ kv_lens,
+                          const float* __restrict__ slopes,
+                          float* __restrict__ part_acc,
+                          float* __restrict__ part_m,
+                          float* __restrict__ part_l, int nh, int nkv,
+                          int bt, int num_pages, int W, int splits,
+                          float scale) {
+  extern __shared__ __align__(16) char ring[];
+  const int s = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int kv_len = kv_lens[bi];
+  const int kv_end = max(0, min(kv_len, W * bt));
+  const int s0 = s * KV_SPLIT;
+  if (s0 >= kv_end) return;          // a dead split: the merge skips it
+  const int s1 = min(s0 + KV_SPLIT, kv_end);
+  const int g = nh / nkv;
+  const int* tab = tables + (size_t)bi * W;
+  const int tid = threadIdx.x, warp = tid >> 5, gid = (tid & 31) >> 2;
+
+  // the g q heads of kv head h are the A tile's rows, zero-padded to 16
+  const bf16* qb = q + ((size_t)bi * nh + (size_t)h * g) * HD;
+  uint32_t qa[HD / 16][4];
+  load_q<HD>(qa, gid < g ? qb + (size_t)gid * HD : nullptr,
+             gid + 8 < g ? qb + (size_t)(gid + 8) * HD : nullptr);
+  const int qpos[2] = {kv_len - 1, kv_len - 1};
+  const float slope2[2] = {
+      slopes != nullptr && gid < g ? slopes[h * g + gid] * LOG2E : 0.f,
+      slopes != nullptr && gid + 8 < g ? slopes[h * g + gid + 8] * LOG2E
+                                       : 0.f};
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  stream_tiles<P, HD, D_STAGES>(
+      ring, kp, ksc, vp, vsc, tab, s0, (s1 - s0 + TK - 1) / TK, s1, bt, nkv,
+      h, num_pages, [&](int t, char* st) {
+        const int t0 = s0 + t * TK;
+        if (t0 + warp * 16 < s1)      // warp-uniform
+          attend<P, HD, 16>(st, qa, warp * 16, t0, scale * LOG2E, s1, qpos,
+                            slope2, m, l, o);
+      });
+  quad_sum(l);
+  stash_state<HD>(ring, m, l, o);
+  __syncthreads();
+  for (int i = tid; i < g * HD; i += T_NT) {
+    const int r = i / HD, d = i - r * HD;
+    float mm, ll, acc;
+    merge_state<HD>(ring, 0, 4, r, d, mm, ll, acc);
+    const size_t pr = ((size_t)bi * splits + s) * nh + (size_t)h * g + r;
+    part_acc[pr * HD + d] = acc;
+    if (d == 0) {
+      part_m[pr] = mm;
+      part_l[pr] = ll;
+    }
+  }
+}
+
+// Decode, second pass: row bi, q head blockIdx.x merges its live splits
+// in split order and writes out [b, 1, nh, HD]; kv_end = 0 writes 0.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+paged_decode_merge_kernel(const float* __restrict__ part_acc,
+                          const float* __restrict__ part_m,
+                          const float* __restrict__ part_l,
+                          const int* __restrict__ kv_lens,
+                          T* __restrict__ out, int nh, int bt, int W,
+                          int splits) {
+  const int qh = blockIdx.x, bi = blockIdx.y, d = threadIdx.x;
+  const int kv_end = max(0, min(kv_lens[bi], W * bt));
+  const int live = (kv_end + KV_SPLIT - 1) / KV_SPLIT;
+  const size_t base = (size_t)bi * splits * nh + qh;
+  float mm = NEG;
+  for (int s = 0; s < live; ++s) mm = fmaxf(mm, part_m[base + (size_t)s * nh]);
+  float ll = 0.f, acc = 0.f;
+  for (int s = 0; s < live; ++s) {
+    const size_t pr = base + (size_t)s * nh;
+    const float e = exp2f(part_m[pr] - mm);
+    ll += part_l[pr] * e;
+    acc += part_acc[pr * HD + d] * e;
+  }
+  store_val(out + ((size_t)bi * nh + qh) * HD + d, acc / fmaxf(ll, 1e-30f));
+}
+
+// Prefill: PREFILL_ROWS regrouped rows of one (kv head h, row bi) per
+// block of four warps, 16 rows per row-warp; the KWARPS = 4 * 16 /
+// PREFILL_ROWS warps of a row group share each tile's keys, TK / KWARPS
+// each, and merge in shared memory at the end.
+constexpr int P_KWARPS = 4 * 16 / PREFILL_ROWS;
+
+template <typename P, int HD>
+__global__ void __launch_bounds__(T_NT)
+paged_prefill_mma_kernel(const bf16* __restrict__ q,
+                         const P* __restrict__ kp,
+                         const float* __restrict__ ksc,
+                         const P* __restrict__ vp,
+                         const float* __restrict__ vsc,
+                         const int* __restrict__ tables,
+                         const int* __restrict__ starts,
+                         const float* __restrict__ slopes,
+                         bf16* __restrict__ out, int chunk, int nh, int nkv,
+                         int bt, int num_pages, int W, float scale) {
+  constexpr int KWS = P_KWARPS;
+  constexpr int KW = TK / KWS;        // keys of a tile per warp
+  extern __shared__ __align__(16) char ring[];
+  const int g = nh / nkv;
+  const int rows = chunk * g;
+  const int row0 = blockIdx.x * PREFILL_ROWS, h = blockIdx.y,
+            bi = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rw = warp / KWS, kw = warp - rw * KWS;
+  const int* tab = tables + (size_t)bi * W;
+  const int start = starts[bi];
+
+  // the block's causal frontier, and never past the table
+  const int last_row = min(row0 + PREFILL_ROWS, rows) - 1;
+  const int kv_end = max(0, min(start + last_row / g + 1, W * bt));
+
+  // regrouped row r is position start + r / g of q head h*g + r % g
+  const int wr0 = row0 + rw * 16;
+  const int rr[2] = {wr0 + gid, wr0 + gid + 8};
+  const bf16* qr[2];
+  int qpos[2];
+  float slope2[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int c = rr[hr] / g, mh = rr[hr] - c * g;
+    qr[hr] = rr[hr] < rows
+                 ? q + (((size_t)bi * chunk + c) * nh + (size_t)h * g + mh) *
+                           HD
+                 : nullptr;
+    qpos[hr] = start + c;
+    slope2[hr] = slopes != nullptr ? slopes[h * g + mh] * LOG2E : 0.f;
+  }
+  uint32_t qa[HD / 16][4];
+  load_q<HD>(qa, qr[0], qr[1]);
+  // the row-warp's own frontier: its last real row's position + 1
+  const int wlast = min(wr0 + 15, rows - 1);
+  const int wend = wlast >= wr0 ? min(start + wlast / g + 1, kv_end) : 0;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  stream_tiles<P, HD, P_STAGES>(
+      ring, kp, ksc, vp, vsc, tab, 0, (kv_end + TK - 1) / TK, kv_end, bt,
+      nkv, h, num_pages, [&](int t, char* st) {
+        if (t * TK + kw * KW < wend)  // warp-uniform: past the frontier
+          attend<P, HD, KW>(st, qa, kw * KW, t * TK, scale * LOG2E, kv_end,
+                            qpos, slope2, m, l, o);
+      });
+  quad_sum(l);
+
+  if constexpr (KWS == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (qr[hr] == nullptr) continue;
+      const size_t off = qr[hr] - q;  // out shares q's layout
+      const float den = fmaxf(l[hr], 1e-30f);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + off + 8 * n + 2 * tig) =
+            pack_bf16(o[n][2 * hr] / den, o[n][2 * hr + 1] / den);
+    }
+  } else {
+    stash_state<HD>(ring, m, l, o);
+    __syncthreads();
+    for (int i = tid; i < PREFILL_ROWS * HD; i += T_NT) {
+      const int r = i / HD, d = i - r * HD;
+      const int row = row0 + r;
+      if (row >= rows) break;
+      float mm, ll, acc;
+      merge_state<HD>(ring, (r / 16) * KWS, KWS, r % 16, d, mm, ll, acc);
+      const int c = row / g, mh = row - c * g;
+      out[(((size_t)bi * chunk + c) * nh + (size_t)h * g + mh) * HD + d] =
+          __float2bfloat16(acc / fmaxf(ll, 1e-30f));
+    }
+  }
+}
+
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(
@@ -467,6 +1070,7 @@ struct Pages {
   const float* vs;
 };
 
+// The f32-q decode: one block per (kv head, row).
 template <typename T, typename P, int HD>
 cudaError_t launch_decode(const void* q, Pages pg, const int* tables,
                           const int* kv_lens, const float* slopes,
@@ -485,6 +1089,33 @@ cudaError_t launch_decode(const void* q, Pages pg, const int* tables,
   return cudaGetLastError();
 }
 
+// The bf16-q decode: the split kernel, then the merge, on one stream.
+template <typename P, int HD>
+cudaError_t launch_decode_split(const void* q, Pages pg, const int* tables,
+                                const int* kv_lens, const float* slopes,
+                                void* out, float* part_acc, float* part_ml,
+                                int b, int nh, int nkv, int bt,
+                                int num_pages, int W, int splits,
+                                float scale, cudaStream_t stream) {
+  constexpr size_t smem = ring_smem_bytes<P, HD, D_STAGES>();
+  auto kern = paged_decode_split_kernel<P, HD>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  float* part_m = part_ml;
+  float* part_l = part_ml + (size_t)b * splits * nh;
+  kern<<<dim3(splits, nkv, b), T_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const P*>(pg.k), pg.ks,
+      static_cast<const P*>(pg.v), pg.vs, tables, kv_lens, slopes, part_acc,
+      part_m, part_l, nh, nkv, bt, num_pages, W, splits, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_decode_merge_kernel<bf16, HD><<<dim3(nh, b), HD, 0, stream>>>(
+      part_acc, part_m, part_l, kv_lens, static_cast<bf16*>(out), nh, bt, W,
+      splits);
+  return cudaGetLastError();
+}
+
+// The f32-q prefill: one block per (64-row tile, kv head, row).
 template <typename T, typename P, int HD>
 cudaError_t launch_prefill(const void* q, Pages pg, const int* tables,
                            const int* starts, const float* slopes, void* out,
@@ -504,27 +1135,67 @@ cudaError_t launch_prefill(const void* q, Pages pg, const int* tables,
   return cudaGetLastError();
 }
 
-// One decode launch, dispatched on q's dtype (0 = float32, 1 = bfloat16),
-// the page type (full width = q's dtype, or int8) and the head dim.
+// The bf16-q prefill: one block per (PREFILL_ROWS rows, kv head, row).
+template <typename P, int HD>
+cudaError_t launch_prefill_mma(const void* q, Pages pg, const int* tables,
+                               const int* starts, const float* slopes,
+                               void* out, int b, int chunk, int nh, int nkv,
+                               int bt, int num_pages, int W, float scale,
+                               cudaStream_t stream) {
+  constexpr size_t smem = ring_smem_bytes<P, HD, P_STAGES>();
+  constexpr int BR = PREFILL_ROWS;
+  auto kern = paged_prefill_mma_kernel<P, HD>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const int rows = chunk * (nh / nkv);
+  dim3 grid((rows + BR - 1) / BR, nkv, b);
+  kern<<<grid, T_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const P*>(pg.k), pg.ks,
+      static_cast<const P*>(pg.v), pg.vs, tables, starts, slopes,
+      static_cast<bf16*>(out), chunk, nh, nkv, bt, num_pages, W, scale);
+  return cudaGetLastError();
+}
+
+// One decode launch, dispatched on q's dtype (0 = float32, 1 =
+// bfloat16), the page type (full width = q's dtype, or int8) and the head
+// dim.  bf16 q needs the partials' scratch: part_acc [b, splits, nh, hd]
+// and part_ml [2, b, splits, nh] (m, then l), f32, with splits =
+// ceil(W * bt / KV_SPLIT).
 template <bool INT8>
 int decode_fwd(const void* q, Pages pg, const void* tables,
-               const void* kv_lens, const void* slopes, void* out, int b,
-               int nh, int nkv, int hd, int bt, int num_pages, int W,
-               float scale, int dtype, void* stream) {
+               const void* kv_lens, const void* slopes, void* out,
+               void* part_acc, void* part_ml, int b, int nh, int nkv,
+               int hd, int bt, int num_pages, int W, int splits, float scale,
+               int dtype, void* stream) {
   if (!shapes_ok(b, 1, nh, nkv, bt, num_pages, W) || nh / nkv > D_GMAX)
     return (int)cudaErrorInvalidValue;
   const int* tab = static_cast<const int*>(tables);
   const int* lens = static_cast<const int*>(kv_lens);
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (part_acc == nullptr || part_ml == nullptr ||
+        (long long)splits * KV_SPLIT < (long long)W * bt ||
+        (long long)(splits - 1) * KV_SPLIT >= (long long)W * bt)
+      return (int)cudaErrorInvalidValue;
+    using P = typename std::conditional<INT8, int8_t, bf16>::type;
+    float* pa = static_cast<float*>(part_acc);
+    float* pm = static_cast<float*>(part_ml);
+#define PD_SPLIT(HD)                                                        \
+  return (int)launch_decode_split<P, HD>(q, pg, tab, lens, sl, out, pa, pm, \
+                                         b, nh, nkv, bt, num_pages, W,      \
+                                         splits, scale, st)
+    if (hd == 64) PD_SPLIT(64);
+    if (hd == 128) PD_SPLIT(128);
+#undef PD_SPLIT
+    return (int)cudaErrorInvalidValue;
+  }
 #define PD_CASE(T, HD)                                                     \
   return (int)launch_decode<T, typename std::conditional<INT8, int8_t,     \
                                                          T>::type, HD>(    \
       q, pg, tab, lens, sl, out, b, nh, nkv, bt, num_pages, W, scale, st)
   if (dtype == 0 && hd == 64) PD_CASE(float, 64);
   if (dtype == 0 && hd == 128) PD_CASE(float, 128);
-  if (dtype == 1 && hd == 64) PD_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) PD_CASE(__nv_bfloat16, 128);
 #undef PD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -540,6 +1211,17 @@ int prefill_fwd(const void* q, Pages pg, const void* tables,
   const int* st0 = static_cast<const int*>(starts);
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    using P = typename std::conditional<INT8, int8_t, bf16>::type;
+#define PP_MMA(HD)                                                         \
+  return (int)launch_prefill_mma<P, HD>(q, pg, tab, st0, sl, out, b, chunk, \
+                                        nh, nkv, bt, num_pages, W, scale,   \
+                                        st)
+    if (hd == 64) PP_MMA(64);
+    if (hd == 128) PP_MMA(128);
+#undef PP_MMA
+    return (int)cudaErrorInvalidValue;
+  }
 #define PP_CASE(T, HD)                                                     \
   return (int)launch_prefill<T, typename std::conditional<INT8, int8_t,    \
                                                           T>::type, HD>(   \
@@ -547,8 +1229,6 @@ int prefill_fwd(const void* q, Pages pg, const void* tables,
       st)
   if (dtype == 0 && hd == 64) PP_CASE(float, 64);
   if (dtype == 0 && hd == 128) PP_CASE(float, 128);
-  if (dtype == 1 && hd == 64) PP_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) PP_CASE(__nv_bfloat16, 128);
 #undef PP_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -560,15 +1240,19 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).
 // q/out [b, 1, nh, hd]; pages [num_pages, nkv, bt, hd]; tables [b, W]
 // int32; kv_lens [b] int32; slopes [nh] float32 ALiBi slopes or null.
+// part_acc / part_ml: the split partials' f32 scratch for bf16 q (see
+// decode_fwd; null for f32 q), splits = ceil(W * bt / KV_SPLIT).
 // Returns a cudaError_t; the caller raises on anything but 0.
 int paged_decode_fwd(const void* q, const void* k_pages,
                      const void* v_pages, const void* tables,
                      const void* kv_lens, const void* slopes, void* out,
-                     int b, int nh, int nkv, int hd, int bt, int num_pages,
-                     int W, float scale, int dtype, void* stream) {
+                     void* part_acc, void* part_ml, int b, int nh, int nkv,
+                     int hd, int bt, int num_pages, int W, int splits,
+                     float scale, int dtype, void* stream) {
   return decode_fwd<false>(q, Pages{k_pages, nullptr, v_pages, nullptr},
-                           tables, kv_lens, slopes, out, b, nh, nkv, hd, bt,
-                           num_pages, W, scale, dtype, stream);
+                           tables, kv_lens, slopes, out, part_acc, part_ml,
+                           b, nh, nkv, hd, bt, num_pages, W, splits, scale,
+                           dtype, stream);
 }
 
 // As paged_decode_fwd over int8 pages [num_pages, nkv, bt, hd] with their
@@ -577,15 +1261,15 @@ int paged_decode_int8_fwd(const void* q, const void* k_pages,
                           const void* k_scale, const void* v_pages,
                           const void* v_scale, const void* tables,
                           const void* kv_lens, const void* slopes, void* out,
-                          int b, int nh, int nkv, int hd, int bt,
-                          int num_pages, int W, float scale, int dtype,
-                          void* stream) {
+                          void* part_acc, void* part_ml, int b, int nh,
+                          int nkv, int hd, int bt, int num_pages, int W,
+                          int splits, float scale, int dtype, void* stream) {
   return decode_fwd<true>(
       q,
       Pages{k_pages, static_cast<const float*>(k_scale), v_pages,
             static_cast<const float*>(v_scale)},
-      tables, kv_lens, slopes, out, b, nh, nkv, hd, bt, num_pages, W, scale,
-      dtype, stream);
+      tables, kv_lens, slopes, out, part_acc, part_ml, b, nh, nkv, hd, bt,
+      num_pages, W, splits, scale, dtype, stream);
 }
 
 // As paged_decode_fwd, with q/out [b, chunk, nh, hd] and starts [b]

@@ -3,9 +3,10 @@
 Each kernel source under ``csrc/`` has a plain C interface.  At first use
 it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, and loaded with ``ctypes``.  A library already
-built from the same source is reused, and nvcc's output (the ptxas
-register and spill report) is kept beside it as ``<name>-<hash>.log``, so
+source, every header under ``csrc/`` (a source may include any of them)
+and the flags, and loaded with ``ctypes``.  A library already built from
+the same bytes is reused, and nvcc's output (the ptxas register and
+spill report) is kept beside it as ``<name>-<hash>.log``, so
 ``build_logs`` holds it whether the library was built now or before.  A
 failed build raises: there is no fallback that hides a missing kernel.
 """
@@ -37,10 +38,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    text = (CSRC / source).read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{key[:16]}.so"
+    """Where the library built from ``csrc/<source>`` lives: the name
+    hashes the source, every ``csrc/*.cuh`` header and the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:

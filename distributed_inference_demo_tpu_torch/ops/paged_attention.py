@@ -38,7 +38,14 @@ wrappers launch their kernel for CUDA tensors and raise on anything it
 does not take (int4 pages included); for CPU tensors they run their
 plain PyTorch version (``paged_flash_attention_plain``,
 ``paged_prefill_attention_plain``).  Each has integer counts of kernel
-launches: ``.launches`` (full-width instance) and ``.int8_launches``.
+launches: ``.launches`` (full-width instance) and ``.int8_launches``,
+one per wrapper call (a bf16 decode call is two CUDA launches, the
+split pass and its merge).
+
+Under bf16 q the decode kernel splits each row's keys at fixed positions
+``KV_SPLIT`` apart (flash-decoding) and merges the splits' partial
+softmax states in split order; :func:`paged_decode_split_plain` is that
+arithmetic in plain PyTorch, for the tests.
 """
 
 import ctypes
@@ -55,6 +62,9 @@ from .quant import QuantizedKVPages, quantize_kv_like
 SOURCE = "paged_attention.cu"
 HEAD_DIMS = (64, 128)
 MAX_DECODE_GROUP = 16        # q heads per kv head the decode kernel takes
+# keys per split of the bf16 decode kernel, as KV_SPLIT in the source,
+# which refuses a launch whose split count does not match it
+KV_SPLIT = 128
 # one prefill kernel call's query rows = chunk * group, padded to 8; the
 # reference's cap (its f32 VMEM accumulators crowd the page stream past
 # it), kept so the routing matches
@@ -189,6 +199,67 @@ def paged_flash_attention_plain(q, k_pages, v_pages, tables, kv_lens,
                         kv_lens.long()[:, None] - 1, slopes)
 
 
+def decode_splits(W: int, block_tokens: int, kv_split: int = KV_SPLIT
+                  ) -> int:
+    """The split count of a decode launch: ``ceil(W * bt / kv_split)``,
+    from the table's shape alone (the host reads no ``kv_lens``).  Splits
+    past a row's ``kv_len`` do no work."""
+    if W <= 0 or block_tokens <= 0 or kv_split <= 0:
+        raise ValueError(f"decode_splits needs positive W, block_tokens and "
+                         f"kv_split; got {W}, {block_tokens}, {kv_split}")
+    return -(-W * block_tokens // kv_split)
+
+
+def paged_decode_split_plain(q, k_pages, v_pages, tables, kv_lens,
+                             slopes=None, kv_split: int = KV_SPLIT
+                             ) -> torch.Tensor:
+    """The bf16 decode kernel's split arithmetic in plain f32 PyTorch
+    (tests only; no path calls it): split ``s`` of a row covers the
+    positions ``[s * kv_split, (s + 1) * kv_split)`` below its ``kv_end =
+    min(kv_len, W * bt)`` and keeps an unnormalised partial (acc, m, l);
+    the live splits merge in split order, ``acc / max(l, 1e-30)``, and a
+    row with ``kv_end`` 0 gives 0.  Same contract as
+    :func:`paged_flash_attention_plain`."""
+    b, _, nh, hd = q.shape
+    nkv, bt = k_pages.shape[1], k_pages.shape[2]
+    g = nh // nkv
+    W = tables.shape[1]
+    ns = decode_splits(W, bt, kv_split)
+    kf = _linear_view(k_pages, tables).float()          # [b, nkv, S, hd]
+    vf = _linear_view(v_pages, tables).float()
+    qf = q.float().reshape(b, nkv, g, hd) * _scale(hd)
+    s = torch.einsum("bkgd,bksd->bkgs", qf, kf)
+    pos = torch.arange(W * bt, device=q.device)
+    kv_len = kv_lens.long()
+    kv_end = kv_len.clamp(0, W * bt)
+    if slopes is not None:
+        dist = (kv_len[:, None] - 1 - pos).float()           # [b, S]
+        s = s - (slopes.float().reshape(nkv, g)[None, :, :, None]
+                 * dist[:, None, None])
+    valid = (pos < kv_end[:, None])[:, None, None]          # [b,1,1,S]
+    s = s.masked_fill(~valid, _NEG)
+    acc = torch.zeros((b, nkv, g, hd), device=q.device)
+    l_sum = torch.zeros((b, nkv, g), device=q.device)
+    parts = []
+    for i in range(ns):
+        cols = slice(i * kv_split, (i + 1) * kv_split)
+        m_i = s[..., cols].amax(-1)
+        p = torch.where(valid[..., cols],
+                        torch.exp(s[..., cols] - m_i[..., None]), 0.0)
+        parts.append((torch.einsum("bkgs,bksd->bkgd", p, vf[:, :, cols]),
+                      m_i, p.sum(-1)))
+    live = [(i * kv_split < kv_end)[:, None, None] for i in range(ns)]
+    m = torch.full((b, nkv, g), _NEG, device=q.device)
+    for (_, m_i, _), ok in zip(parts, live):
+        m = torch.where(ok, torch.maximum(m, m_i), m)
+    for (acc_i, m_i, l_i), ok in zip(parts, live):
+        w = torch.where(ok, torch.exp(m_i - m), 0.0)
+        l_sum = l_sum + l_i * w
+        acc = acc + acc_i * w[..., None]
+    out = acc / l_sum.clamp_min(1e-30)[..., None]
+    return out.reshape(b, 1, nh, hd).to(q.dtype)
+
+
 def paged_prefill_attention_plain(q, k_pages, v_pages, tables, q_positions,
                                   slopes=None) -> torch.Tensor:
     """Plain version of the prefill kernel: ``q`` [b, chunk, nh, hd] at
@@ -208,16 +279,19 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, tables, q_positions,
 def _kernel_fns() -> dict:
     """The C functions, built and bound once: ``(kind, int8)`` -> the
     launch function of that kernel instance ("decode" or "prefill", full
-    width or int8 pages), and "error" -> the error-string function."""
+    width or int8 pages), "error" -> the error-string function."""
     from ._build import load
     lib = load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     tail = [ctypes.c_float, i32, ptr]
     fns = {}
-    for kind, n_int in (("decode", 7), ("prefill", 8)):
-        for int8, n_ptr in ((False, 7), (True, 9)):
+    # decode: q, pages, tables, kv_lens, slopes, out, 2 scratch; b, nh,
+    # nkv, hd, bt, num_pages, W, splits.  prefill: q, pages, tables,
+    # starts, slopes, out; b, chunk, nh, nkv, hd, bt, num_pages, W
+    for kind, n_ptr, n_int in (("decode", 9, 8), ("prefill", 7, 8)):
+        for int8 in (False, True):
             fn = getattr(lib, f"paged_{kind}{'_int8' if int8 else ''}_fwd")
-            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + tail
+            fn.argtypes = [ptr] * (n_ptr + 2 * int8) + [i32] * n_int + tail
             fn.restype = i32
             fns[kind, int8] = fn
     lib.paged_attention_error_string.argtypes = [i32]
@@ -286,6 +360,10 @@ def _check_cuda_args(name, q, k_pages, v_pages, tables, per_row, slopes):
     for what, t in [("q", q), *pools]:
         if not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
+        # the kernels copy pages in 16-byte pieces and read q in pairs
+        if t.data_ptr() % (16 if t is not q else 4):
+            raise ValueError(f"{what} is not aligned for the kernels' "
+                             "vector loads")
     if slopes is not None and (slopes.shape != (nh,)
                                or slopes.device != q.device):
         raise ValueError(f"slopes must be [{nh}] on {q.device}")
@@ -306,8 +384,7 @@ def _page_ptrs(k_pages, v_pages, int8: bool) -> tuple:
     return k_pages.data_ptr(), v_pages.data_ptr()
 
 
-def _launch(kind: str, int8: bool, q, args) -> None:
-    fns = _kernel_fns()
+def _launch(kind: str, int8: bool, q, args, fns: dict) -> None:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fns[kind, int8](*args, stream)
@@ -360,13 +437,24 @@ def paged_flash_attention(q: torch.Tensor, k_pages, v_pages,
                          f"{nh // nkv}")
     if slopes is not None:
         slopes = slopes.float().contiguous()
+    W = tables.shape[1]
+    splits = decode_splits(W, bt)
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if q.dtype == torch.bfloat16:
+        # the split pass's f32 partials in one buffer: acc [b, splits, nh,
+        # hd], then (m, l) [2, b, splits, nh]
+        n_acc = b * splits * nh * hd
+        scratch = torch.empty(n_acc + 2 * b * splits * nh,
+                              dtype=torch.float32, device=q.device)
+        part_acc = scratch.data_ptr()
+        part_ml = part_acc + 4 * n_acc
     _launch("decode", int8, q, (
         q.data_ptr(), *_page_ptrs(k_pages, v_pages, int8),
         tables.data_ptr(), kv_lens.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, out.data_ptr(),
-        b, nh, nkv, hd, bt, num_pages, tables.shape[1], _scale(hd),
-        _DTYPE_CODE[q.dtype]))
+        part_acc, part_ml, b, nh, nkv, hd, bt, num_pages, W, splits,
+        _scale(hd), _DTYPE_CODE[q.dtype]), _kernel_fns())
     _count(paged_flash_attention, int8)
     return out
 
@@ -407,7 +495,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
         tables.data_ptr(), starts.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, out.data_ptr(),
         b, chunk, nh, nkv, hd, bt, num_pages, tables.shape[1], _scale(hd),
-        _DTYPE_CODE[q.dtype]))
+        _DTYPE_CODE[q.dtype]), _kernel_fns())
     _count(paged_prefill_attention, int8)
     return out
 

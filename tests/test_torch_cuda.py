@@ -332,3 +332,74 @@ def test_mixed_int8_engine_goes_through_the_int8_kernels(cuda_device):
         else:
             assert ran == (0, 0, 0, 0)
     assert runs["auto", "int8"] == runs["plain", "int8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["full", "int8"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_paged_decode_split_boundaries(cuda_device, pages, dtype, atol):
+    """Decode rows one key either side of the bf16 kernel's split
+    boundaries, and two splits plus 9 keys, against the plain version
+    (and, under bf16 q, the plain split arithmetic), TinyLlama heads."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    k = pa.KV_SPLIT
+    lens = [k - 1, k, k + 1, 2 * k + 9]
+    pk, pv, tables = _paged_pool(gen, cuda_device,
+                                 "int8" if pages == "int8" else dtype, lens,
+                                 4, 64, 16, 64)
+    q = torch.randn((len(lens), 1, 32, 64), generator=gen,
+                    device=cuda_device).to(dtype)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = pa.paged_flash_attention(q, pk, pv, tables, kv_lens)
+    want = pa.paged_flash_attention_plain(q, pk, pv, tables, kv_lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol)
+    split = pa.paged_decode_split_plain(q, pk, pv, tables, kv_lens)
+    torch.testing.assert_close(got.float(), split.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["full", "int8"])
+def test_paged_decode_is_batch_invariant(cuda_device, pages):
+    """Each row of an 8-slot bf16 decode launch is bit-equal to the same
+    row launched alone: split boundaries sit at fixed positions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    lens = [1, 16, 37, 1000, 512, 130, -300, -5]
+    pk, pv, tables = _paged_pool(
+        gen, cuda_device, "int8" if pages == "int8" else torch.bfloat16,
+        lens, 4, 64, 16, 64)
+    q = torch.randn((len(lens), 1, 32, 64), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    kv_lens = torch.tensor([abs(x) for x in lens], dtype=torch.int32,
+                           device=cuda_device)
+    batch = pa.paged_flash_attention(q, pk, pv, tables, kv_lens)
+    for i in range(len(lens)):
+        one = pa.paged_flash_attention(q[i:i + 1], pk, pv, tables[i:i + 1],
+                                       kv_lens[i:i + 1])
+        assert torch.equal(one, batch[i:i + 1]), f"row {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_paged_prefill_above_the_routing_cap(cuda_device, dtype, atol):
+    """A 128-token chunk at TinyLlama heads is 1024 regrouped rows, above
+    the routing's 512: never routed to the kernel, but the kernel takes
+    it and agrees with its plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    chunk, starts = 128, [200]
+    pk, pv, tables = _paged_pool(gen, cuda_device, dtype,
+                                 [s + chunk for s in starts], 4, 64, 16, 64)
+    q = torch.randn((1, chunk, 32, 64), generator=gen,
+                    device=cuda_device).to(dtype)
+    pos = (torch.tensor(starts, device=cuda_device)[:, None]
+           + torch.arange(chunk, device=cuda_device))
+    assert pa.paged_route(True, chunk, 8, 16) == "gather"
+    got = pa.paged_prefill_attention(q, pk, pv, tables, pos)
+    want = pa.paged_prefill_attention_plain(q, pk, pv, tables, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol)
