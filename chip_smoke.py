@@ -17,7 +17,11 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             library call's (a yardstick the port never calls).  ``ms``
             is device time (calls replayed from a CUDA graph);
             ``eager_ms`` is per eager call, host launch cost included.
-            The flash kernel, then the two paged kernels (decode and
+            The flash kernel (chunks of 16-512 tokens, the 2048-token
+            prompt, ragged rows with ALiBi, one token either side of its
+            instance threshold; each bf16 row names the instance the
+            wrapper took and holds and times the other one too), then
+            the two paged kernels (decode and
             chunk prefill) over shuffled page tables with sentinels, on
             full-width pages and on int8 pages (their int8 instances),
             the prefill kernel on a mixed dispatch's 4-row slab and on a
@@ -28,8 +32,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             ``InferenceEngine`` at full TinyLlama-1.1B width (random
             weights from a seed) answers a greedy, a streamed and a
             sampled request; the launch counts show the prefill went
-            through the flash kernel; the prefill logits are held against
-            an engine on plain attention;
+            through the flash kernel's 16-row instance; the prefill
+            logits are held against an engine on plain attention, for
+            the 64-token prompt and for a 1500-token one, whose prefill
+            takes the 64-row instance in every layer;
 4. batching the serving path: ``InferenceHTTPServer`` over
             ``ContinuousBatchingEngine`` (8 slots, paged KV, chunked
             admission) at full TinyLlama-1.1B width answers 8 concurrent
@@ -70,16 +76,18 @@ SERVE_MODEL = "tinyllama-1.1b"
 MAX_SEQ = 2048
 PROMPT_LEN = 64
 NEW_TOKENS = 32
+# the serve phase's long prompt: its prefill takes the flash kernel's
+# 64-row instance
+LONG_PROMPT_LEN = 1500
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|, elementwise.
 # f32: both sum the same f32 products in another order (~1e-6 apart).
 # bf16: the plain versions compute in f32 and round once to bf16.  The
-# flash kernel does the same (about one bf16 ulp apart, 2^-8 relative).
-# The paged kernels' bf16-q instances also round each probability to
-# bf16 (2^-9 relative) for the P V product on the tensor cores, and on
-# int8 pages apply the f32 per-token scale to the score column and to
-# the probability (the codes are exact in bf16).  So each output, a
-# convex mix of unit-scale V values, moves by up to about 2^-9 times
-# the spread of V, before its own bf16 rounding: under 2e-2.
+# bf16-q instances of all three kernels also round each probability to
+# bf16 (2^-9 relative) for the P V product on the tensor cores, and the
+# paged ones on int8 pages apply the f32 per-token scale to the score
+# column and to the probability (the codes are exact in bf16).  So each
+# output, a convex mix of unit-scale V values, moves by up to about 2^-9
+# times the spread of V, before its own bf16 rounding: under 2e-2.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # prefill logits, kernel engine vs plain-attention engine, both bf16: the
 # attention outputs round differently in places and 22 layers carry it on
@@ -238,7 +246,11 @@ def phase_device(torch, smi: str) -> dict:
 def kernel_cases():
     """(label, b, chunk, q_start, nh, nkv, hd, alibi) at the main path's
     shapes: TinyLlama heads over a 2048 cache, plus one ALiBi case with
-    bloom-560m's heads and one hd=128 case with llama-3-8b's."""
+    bloom-560m's heads and one hd=128 case with llama-3-8b's; the longest
+    plain-serve prompt (2048 tokens at 0); ragged rows (bloom-560m, g = 1,
+    37 tokens at 7, ALiBi); and 256 and 257 tokens at 0, whose 2048 and
+    2056 TinyLlama rows sit either side of the instance threshold (32
+    and 33 64-row blocks per kv head, 128 and 132 in all)."""
     cases = []
     for b in (1, 4):
         for chunk in (16, 64, 512):
@@ -247,6 +259,10 @@ def kernel_cases():
                               False))
     cases.append(("bloom560m-alibi", 1, 64, 100, 16, 16, 64, True))
     cases.append(("llama3-8b-hd128", 1, 64, 100, 32, 8, 128, False))
+    cases.append(("tinyllama-long", 1, MAX_SEQ, 0, 32, 4, 64, False))
+    cases.append(("bloom560m-ragged", 1, 37, 7, 16, 16, 64, True))
+    for chunk in (256, 257):
+        cases.append(("tinyllama-threshold", 1, chunk, 0, 32, 4, 64, False))
     return cases
 
 
@@ -263,13 +279,16 @@ def flash_work(b, chunk, q_start, nh, nkv, hd, elt):
 
 def phase_kernels(torch) -> dict:
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
 
+    from distributed_inference_demo_tpu_torch.ops import flash_attention as fa
     from distributed_inference_demo_tpu_torch.ops.attention import \
         alibi_slopes
     from distributed_inference_demo_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
 
     dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     results, failures = [], []
     for label, b, chunk, q_start, nh, nkv, hd, alibi in kernel_cases():
@@ -291,26 +310,55 @@ def phase_kernels(torch) -> dict:
                 return flash_attention_plain(q, kc, vc, q_start, kv_len,
                                              slopes)
 
+            wide = flash_attention.wide_launches
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             atol, rtol = TOL[dname]
             ok = bool(torch.isfinite(got.float()).all()) and bool(
                 (err <= atol + rtol * want.float().abs()).all())
+            # the bf16 instance the wrapper took, by its count, against the
+            # rule (f32 has one instance)
+            g = nh // nkv
+            rule = fa.flash_rows_per_block(b, nkv, chunk * g, sm_count)
+            rows_per_block, other = None, {}
+            if dtype == torch.bfloat16:
+                rows_per_block = (64 if flash_attention.wide_launches > wide
+                                  else 16)
+                ok = ok and rows_per_block == rule
+                # the instance the rule did not pick, checked and timed
+                # on the same inputs: the evidence for the threshold
+                o_rows = 16 if rows_per_block == 64 else 64
+
+                def kern_other():
+                    return fa._launch(q, kc, vc, q_start, kv_len, slopes,
+                                      o_rows)
+
+                o_err = (kern_other().float() - want.float()).abs()
+                o_ok = bool(torch.isfinite(o_err).all()) and bool(
+                    (o_err <= atol + rtol * want.float().abs()).all())
+                ok = ok and o_ok
+                other = {"other_rows_per_block": o_rows,
+                         "other_max_abs_err": float(o_err.max()),
+                         "other_ms": device_ms(torch, kern_other)}
 
             # yardstick: SDPA on the live prefix, K/V expanded to nh heads
-            # and the mask built beforehand (outside the timed call)
-            g = nh // nkv
+            # beforehand (outside the timed call).  Without ALiBi the mask
+            # is SDPA's own causal one aligned to the last key (plain
+            # is_causal where q_start is 0), so it may take its flash
+            # backend and skip the tiles past the diagonal; with ALiBi
+            # the bias is a tensor, built beforehand too.
             qt = q.transpose(1, 2).contiguous()
             kt = kc[:, :, :kv_len].repeat_interleave(g, dim=1)
             vt = vc[:, :, :kv_len].repeat_interleave(g, dim=1)
-            qpos = q_start + torch.arange(chunk, device=dev)
-            kpos = torch.arange(kv_len, device=dev)
-            dist = (qpos[:, None] - kpos[None, :]).float()
-            mask = torch.where(dist >= 0, 0.0, float("-inf"))[None]
-            if slopes is not None:
-                mask = mask - slopes[:, None, None] * dist[None]
-            mask = mask[None].to(dtype)
+            if slopes is None:
+                mask = causal_lower_right(chunk, kv_len)
+            else:
+                qpos = q_start + torch.arange(chunk, device=dev)
+                kpos = torch.arange(kv_len, device=dev)
+                dist = (qpos[:, None] - kpos[None, :]).float()
+                mask = (torch.where(dist >= 0, 0.0, float("-inf"))[None]
+                        - slopes[:, None, None] * dist[None])[None].to(dtype)
 
             def sdpa():
                 return F.scaled_dot_product_attention(qt, kt, vt,
@@ -324,11 +372,14 @@ def phase_kernels(torch) -> dict:
             t_bytes = nbytes / PEAK_BYTES
             row = {"case": label, "dtype": dname, "b": b, "chunk": chunk,
                    "q_start": q_start, "nh": nh, "nkv": nkv, "hd": hd,
+                   "rows_per_block": rows_per_block,
                    "max_abs_err": float(err.max()), "tol": [atol, rtol],
                    "ok": ok,
-                   "ms": device_ms(torch, kern),
+                   "ms": device_ms(torch, kern), **other,
                    "plain_ms": device_ms(torch, plain),
                    "library_ms": device_ms(torch, sdpa),
+                   "library_mask": "causal" if slopes is None
+                   else "alibi bias",
                    "eager_ms": eager_ms(torch, kern),
                    "plain_eager_ms": eager_ms(torch, plain),
                    "library_max_abs_err": lib_err,
@@ -339,7 +390,9 @@ def phase_kernels(torch) -> dict:
             if not ok:
                 failures.append(f"{label} {dname} b={b} chunk={chunk} "
                                 f"q_start={q_start}: max err "
-                                f"{row['max_abs_err']}")
+                                f"{row['max_abs_err']}, rows_per_block "
+                                f"{rows_per_block} (rule {rule}), "
+                                f"other instance {other}")
             del q, kc, vc, kt, vt
     return {"phase": "kernels", "cases": results, "failures": failures}
 
@@ -608,8 +661,8 @@ def phase_serve(torch) -> dict:
         init_full_params
     from distributed_inference_demo_tpu_torch.models.registry import \
         get_model_config
-    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
-        flash_attention
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_rows_per_block)
     from distributed_inference_demo_tpu_torch.ops.sampling import \
         SamplingParams
     from distributed_inference_demo_tpu_torch.runtime.engine import \
@@ -633,6 +686,10 @@ def phase_serve(torch) -> dict:
            f"auto backend resolved to {greedy.attn_backend}")
     prompt = np.random.RandomState(1).randint(
         0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
+    long_prompt = np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, LONG_PROMPT_LEN)).tolist()
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    g = cfg.num_heads // cfg.num_kv_heads
     servers = [InferenceHTTPServer(e, "127.0.0.1", 0, model_name=SERVE_MODEL,
                                    default_max_new=NEW_TOKENS)
                for e in (greedy, sampled)]
@@ -645,7 +702,7 @@ def phase_serve(torch) -> dict:
         gport, sport = servers[0].port, servers[1].port
         torch.cuda.reset_peak_memory_stats()
         # ---- the main path: counts from zero, three requests ----
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention.wide_launches = 0
         t0 = time.perf_counter()
         code, body = _post(gport, {"prompt_ids": prompt,
                                    "max_new_tokens": NEW_TOKENS})
@@ -680,7 +737,15 @@ def phase_serve(torch) -> dict:
                "sampled logprobs not finite and <= 0")
         launches = flash_attention.launches
         _check(launches == 3 * L, f"{launches} launches, expected {3 * L}")
-        out.update(launches=launches, greedy_tokens=toks[0],
+        # the 64-token prefill's instance: 16 rows a block on the H100
+        wide = 3 * L if flash_rows_per_block(
+            1, cfg.num_kv_heads, PROMPT_LEN * g, sm_count) == 64 else 0
+        _check(flash_attention.wide_launches == wide,
+               f"{flash_attention.wide_launches} 64-row launches, "
+               f"expected {wide}")
+        out.update(launches=launches,
+                   wide_launches=flash_attention.wide_launches,
+                   greedy_tokens=toks[0],
                    sampled_tokens=res["tokens"][0],
                    peak_mem_bytes=torch.cuda.max_memory_allocated())
         code, health = _get(gport, "/health")
@@ -710,6 +775,33 @@ def phase_serve(torch) -> dict:
     _check(logit_err <= LOGIT_TOL_REL * scale,
            f"prefill logits differ by {logit_err} (> {LOGIT_TOL_REL} x "
            f"{scale})")
+
+    # ---- the long prompt: one whole-prompt prefill, counts from zero;
+    # every layer launches the 64-row instance; logits against plain ----
+    flash_attention.launches = flash_attention.wide_launches = 0
+    lk_long = greedy.prefill_logits(long_prompt)
+    long_launches = flash_attention.launches
+    long_wide = flash_attention.wide_launches
+    lp_long = plain.prefill_logits(long_prompt)
+    scale_long = max(1.0, float(np.abs(lp_long).max()))
+    err_long = float(np.abs(lk_long - lp_long).max())
+    out.update(long_prompt_len=LONG_PROMPT_LEN,
+               long_launches=long_launches, long_wide_launches=long_wide,
+               long_logit_max_abs_err=err_long, long_logit_scale=scale_long,
+               long_logit_tol=LOGIT_TOL_REL * scale_long)
+    _check(long_launches == L and long_wide == L,
+           f"the long prefill launched {long_launches}, {long_wide} of "
+           f"them 64-row, expected {L} and {L}")
+    _check(bool(np.isfinite(lk_long).all()), "long-prompt logits not finite")
+    _check(err_long <= LOGIT_TOL_REL * scale_long,
+           f"long-prompt prefill logits differ by {err_long} (> "
+           f"{LOGIT_TOL_REL} x {scale_long})")
+    # wall time of one warm prefill each, host clock (the logits come
+    # back to the host, which waits for the card)
+    for name, p in (("prefill_s", prompt), ("long_prefill_s", long_prompt)):
+        t0 = time.perf_counter()
+        greedy.prefill_logits(p)
+        out[name] = time.perf_counter() - t0
 
     # ---- the same check in f32 (same seed), where the kernel and the
     # plain path should agree to f32 rounding, not bf16's ----
@@ -846,8 +938,9 @@ def _serve_all(port: int, prompts) -> list:
 def _reset_launches(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
-        if hasattr(w, "int8_launches"):
-            w.int8_launches = 0
+        for extra in ("int8_launches", "wide_launches"):
+            if hasattr(w, extra):
+                setattr(w, extra, 0)
 
 
 def _paged_logits(torch, engine, seq, n_decode: int):
@@ -1350,6 +1443,9 @@ def main(argv) -> int:
                      if c["case"] == "tinyllama" and c["dtype"] == "bfloat16"
                      and c["b"] == 1 and c["chunk"] == PROMPT_LEN
                      and c["q_start"] == 0)
+    long_case = next(c for c in kern["cases"]
+                     if c["case"] == "tinyllama-long"
+                     and c["dtype"] == "bfloat16")
     # the paged kernels at the serving path's shapes: decode over 8 slots
     # (bf16, TinyLlama heads), a 64-token admission chunk several pages in
     # (full-width pages for the batching path, int8 pages for the mixed),
@@ -1386,7 +1482,10 @@ def main(argv) -> int:
 
     emit({"kernels": [
         entry("flash_attention", KERNEL_SOURCE, KERNEL_REPLACES,
-              serve["launches"], main_case, "64-token prompt at 0")] + [
+              serve["launches"], main_case, "64-token prompt at 0"),
+        entry("flash_attention_long", KERNEL_SOURCE, KERNEL_REPLACES,
+              serve["long_wide_launches"], long_case,
+              "2048-token prompt at 0 (launches: the 1500-token prompt)")] + [
         entry(name, PAGED_SOURCE, PAGED_REPLACES[name],
               phase["launches"][name.removesuffix("_slab")], case, shape)
         for name, phase, case, shape in paged_main]})

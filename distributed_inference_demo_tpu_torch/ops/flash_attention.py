@@ -7,7 +7,10 @@ it).  ``flash_attention`` launches it for CUDA tensors and raises on
 anything it does not take; for CPU tensors it runs the plain PyTorch
 version, which is ``ops.attention.attention`` at contiguous query
 positions.  Its integer ``flash_attention.launches`` counts kernel
-launches, so a run can show that it went through the kernel.
+launches, so a run can show that it went through the kernel, and
+``flash_attention.wide_launches`` those of the bf16 kernel's 64-row
+instance, so a run can show which instance it took
+(:func:`flash_rows_per_block` picks it).
 """
 
 import ctypes
@@ -44,11 +47,28 @@ def _kernel_fn():
     lib = load(SOURCE)
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return fn, lib.flash_attention_error_string
+
+
+def flash_rows_per_block(b: int, nkv: int, rows: int, sm_count: int) -> int:
+    """The bf16 kernel's instance for ``rows`` regrouped query rows
+    (chunk x q heads per kv head) of ``b`` batch rows and ``nkv`` kv
+    heads: 64 rows a block when those blocks alone fill at least one wave
+    of the card's ``sm_count`` SMs (one K/V tile then feeds 64 rows), else
+    16 (four times the blocks; a block's four warps split each tile's
+    keys).  Near that line the two instances are within ~20% of each
+    other and the faster one varies with the shape (PERF.md §6 lists
+    the shapes where the rule picks the slower one)."""
+    return 64 if b * nkv * -(-rows // 64) >= sm_count else 16
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda_args(q, k_cache, v_cache, q_start, kv_len, slopes):
@@ -82,6 +102,11 @@ def _check_cuda_args(q, k_cache, v_cache, q_start, kv_len, slopes):
     if slopes is not None and (slopes.shape != (nh,)
                                or slopes.device != q.device):
         raise ValueError(f"slopes must be [{nh}] on {q.device}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned for the "
+                                 "bf16 kernel's 16-byte copies")
 
 
 def flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -101,6 +126,18 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda_args(q, k_cache, v_cache, q_start, kv_len, slopes)
+    b, chunk, nh, _ = q.shape
+    nkv = k_cache.shape[1]
+    rows = flash_rows_per_block(b, nkv, chunk * (nh // nkv),
+                                _sm_count(q.device))
+    return _launch(q, k_cache, v_cache, q_start, kv_len, slopes, rows)
+
+
+def _launch(q, k_cache, v_cache, q_start: int, kv_len: int, slopes,
+            rows_per_block: int) -> torch.Tensor:
+    """One launch of the bf16 instance with ``rows_per_block`` rows a
+    block (the f32 kernel has one instance and ignores it; arguments
+    already checked); counts it."""
     b, chunk, nh, hd = q.shape
     nkv, max_seq = k_cache.shape[1], k_cache.shape[2]
     if slopes is not None:
@@ -113,16 +150,19 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  slopes.data_ptr() if slopes is not None else None,
                  out.data_ptr(), b, chunk, nh, nkv, hd, max_seq, q_start,
-                 kv_len, scale, _DTYPE_CODE[q.dtype], stream)
+                 kv_len, scale, _DTYPE_CODE[q.dtype], rows_per_block, stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + err_str(err).decode())
     with _count_lock:
         flash_attention.launches += 1
+        if q.dtype == torch.bfloat16 and rows_per_block == 64:
+            flash_attention.wide_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.wide_launches = 0
 
 
 def make_flash_attn_impl(min_chunk: int = 16):

@@ -403,3 +403,103 @@ def test_paged_prefill_above_the_routing_cap(cuda_device, dtype, atol):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=atol)
+
+
+def _flash_inputs(gen, dev, dtype, b, chunk, nh, nkv, hd, max_seq=320):
+    return (torch.randn((b, chunk, nh, hd), generator=gen,
+                        device=dev).to(dtype),
+            torch.randn((b, nkv, max_seq, hd), generator=gen,
+                        device=dev).to(dtype),
+            torch.randn((b, nkv, max_seq, hd), generator=gen,
+                        device=dev).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_block", [16, 64])
+@pytest.mark.parametrize("b,chunk,nh,nkv,hd,q_start,alibi", [
+    (1, 37, 16, 16, 64, 7, True),       # g = 1, ragged rows, ALiBi
+    (2, 48, 32, 8, 128, 100, False),    # g = 4, hd 128, after a prefix
+    (1, 200, 32, 4, 64, 0, False),      # g = 8, 1600 rows: many tiles
+    (1, 64, 32, 4, 64, 250, True),      # g = 8 past several tiles, ALiBi
+])
+def test_flash_bf16_instances_match_plain(cuda_device, rows_per_block, b,
+                                          chunk, nh, nkv, hd, q_start,
+                                          alibi):
+    """Each bf16 instance, launched directly, against the plain version
+    wherever the wrapper's rule would send the shape."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, kc, vc = _flash_inputs(gen, cuda_device, torch.bfloat16, b, chunk,
+                              nh, nkv, hd)
+    slopes = alibi_slopes(nh, device=cuda_device) if alibi else None
+    kv_len = q_start + chunk
+    fa._check_cuda_args(q, kc, vc, q_start, kv_len, slopes)
+    before = (fa.flash_attention.launches, fa.flash_attention.wide_launches)
+    got = fa._launch(q, kc, vc, q_start, kv_len, slopes, rows_per_block)
+    want = fa.flash_attention_plain(q, kc, vc, q_start, kv_len, slopes)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.wide_launches) == (
+        before[0] + 1, before[1] + (rows_per_block == 64))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("side", [-1, 0])
+def test_flash_either_side_of_the_threshold(cuda_device, dtype, atol, side):
+    """TinyLlama heads at the chunk just below (side -1) and at (0) the
+    first chunk whose 64-row blocks fill one wave of this card's SMs: the
+    wrapper takes the instance its rule names (f32: its one kernel) and
+    agrees with the plain version."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    b, nh, nkv, hd, g = 1, 32, 4, 64, 8
+    chunk = (-(-sms // (b * nkv)) - 1) * 64 // g + 1 + side  # 256, 257
+    rule = fa.flash_rows_per_block(b, nkv, chunk * g, sms)
+    assert rule == (64 if side == 0 else 16)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, kc, vc = _flash_inputs(gen, cuda_device, dtype, b, chunk, nh, nkv, hd)
+    wide = fa.flash_attention.wide_launches
+    got = fa.flash_attention(q, kc, vc, 0, chunk)
+    want = fa.flash_attention_plain(q, kc, vc, 0, chunk)
+    torch.cuda.synchronize()
+    took_wide = fa.flash_attention.wide_launches - wide
+    assert took_wide == (dtype == torch.bfloat16 and rule == 64)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+def test_engine_long_prompt_takes_the_wide_instance(cuda_device):
+    """A small bf16 llama (hd 64, g = 2): a prompt long enough for 64-row
+    blocks to fill this card moves ``wide_launches`` by one a layer, a
+    short one leaves it; the logits stay near a plain-attention engine's
+    on the same weights."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    cfg = get_model_config("llama-test").replace(
+        hidden_size=256, intermediate_size=512, num_layers=3,
+        dtype_name="bfloat16")
+    b, nkv, g = 2, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    plen = -(-sms // (b * nkv)) * 64 // g + 5
+    assert fa.flash_rows_per_block(b, nkv, plen * g, sms) == 64
+    params = init_full_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, cuda_device)
+    greedy = SamplingParams(greedy=True)
+    kern = InferenceEngine(cfg, params, max_seq=plen + 8, sampling=greedy,
+                           device=cuda_device)
+    plain = InferenceEngine(cfg, params, max_seq=plen + 8, sampling=greedy,
+                            attn_backend="plain", device=cuda_device)
+    rng = np.random.RandomState(3)
+    for n, wide in ((plen, cfg.num_layers), (16, 0)):
+        ids = rng.randint(0, cfg.vocab_size, (b, n))
+        before = (fa.flash_attention.launches,
+                  fa.flash_attention.wide_launches)
+        got = kern.prefill_logits(ids)
+        assert (fa.flash_attention.launches,
+                fa.flash_attention.wide_launches) == (
+            before[0] + cfg.num_layers, before[1] + wide)
+        want = plain.prefill_logits(ids)
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= 5e-2 * max(1.0,
+                                                     np.abs(want).max())
