@@ -56,8 +56,19 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             the tokens equal the same configuration's on the gather path;
             no page leak; an int4 request gathers with no
             launch; throughput, TTFT, step time, idle share, and how many
-            tokens agree with the serialized interleave's;
-6. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+            tokens agree with the serialized interleave's, on the kernels
+            and on the gather path, with the teacher-forced logit gap
+            between a prefill chunk run in a mixed slab and run alone,
+            through the kernels and through the gather path;
+6. serve_model  plain serve, as in phase 3, of each model at the kernels'
+            other head dims, at full width: gemma-2b (hd 256), bloom3b
+            (hd 80) and bloom1b1 (hd 96): one greedy request, the flash
+            kernel's launch count, the prefill logits against plain
+            attention, decode ms/token;
+7. batching, mixed  phases 4 and 5 for gemma-2b (at f32 its batching
+            tokens through the kernels equal the gather path's), and
+            phase 4 for bloom3b (bf16 only);
+8. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout,
@@ -125,6 +136,12 @@ MIXED_BUDGET = SLOTS * MIXED_DECODE_BLOCK + 4 * PREFILL_CHUNK
 # the slab case: 4 rows of 64-token segments, the last unused (start 0,
 # all-sentinel table, marked None)
 SLAB_STARTS = (0, 64, 448, None)
+# the catalog's models at the kernels' other head dims, at full width:
+# gemma-2b (hd 256, 8 q heads on 1 kv head, GeGLU, embedding scale) and
+# bloom3b (hd 80, ALiBi, 32 heads) through plain serve, 8-slot batching
+# and (gemma-2b) the mixed dispatch over int8 pages; bloom1b1 (hd 96,
+# ALiBi) through plain serve
+HEAD_DIM_MODELS = ("gemma-2b", "bloom3b", "bloom1b1")
 
 
 def emit(obj) -> None:
@@ -243,14 +260,23 @@ def phase_device(torch, smi: str) -> dict:
 # phase 2: kernel vs plain
 # ---------------------------------------------------------------------------
 
+def model_heads(name: str):
+    """(nh, nkv, hd, alibi) of a catalog model."""
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    cfg = get_model_config(name)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.use_alibi
+
+
 def kernel_cases():
     """(label, b, chunk, q_start, nh, nkv, hd, alibi) at the main path's
     shapes: TinyLlama heads over a 2048 cache, plus one ALiBi case with
     bloom-560m's heads and one hd=128 case with llama-3-8b's; the longest
     plain-serve prompt (2048 tokens at 0); ragged rows (bloom-560m, g = 1,
-    37 tokens at 7, ALiBi); and 256 and 257 tokens at 0, whose 2048 and
-    2056 TinyLlama rows sit either side of the instance threshold (32
-    and 33 64-row blocks per kv head, 128 and 132 in all)."""
+    37 tokens at 7, ALiBi); 256 and 257 tokens at 0, whose 2048 and 2056
+    TinyLlama rows sit either side of the instance threshold (32 and 33
+    64-row blocks per kv head, 128 and 132 in all); and the serve prefill
+    (64 tokens at 0) of each HEAD_DIM_MODELS model, at hd 256, 80, 96."""
     cases = []
     for b in (1, 4):
         for chunk in (16, 64, 512):
@@ -263,6 +289,8 @@ def kernel_cases():
     cases.append(("bloom560m-ragged", 1, 37, 7, 16, 16, 64, True))
     for chunk in (256, 257):
         cases.append(("tinyllama-threshold", 1, chunk, 0, 32, 4, 64, False))
+    for name in HEAD_DIM_MODELS:
+        cases.append((name, 1, PROMPT_LEN, 0, *model_heads(name)))
     return cases
 
 
@@ -409,7 +437,11 @@ def paged_cases():
     64 tokens at distinct starts, one unused) on both page types; decode
     rows one key either side of the bf16 kernel's split boundaries and
     two splits plus 9 on both page types; a 128-token chunk (1024 rows,
-    above the routing's cap, so checked and timed but never routed)."""
+    above the reference's 512-row cap, which the card's routing does not
+    keep: the serialized admission's finals padded to 128 tokens); and
+    each HEAD_DIM_MODELS model's heads (hd 256, 80, 96) at the 8-slot
+    decode and the 64-token chunk at 200 on both page types, and
+    gemma-2b's at the mixed slab over int8 pages."""
     from distributed_inference_demo_tpu_torch.ops.paged_attention import \
         KV_SPLIT
     serve = (1, 16, 37, 1999, 512, 130, -300, -5)   # negative: freed slot
@@ -444,6 +476,14 @@ def paged_cases():
     for pages in ("full", "int8"):
         cases.append(("tinyllama-slab", "prefill", 32, 4, 64, False,
                       (PREFILL_CHUNK, SLAB_STARTS), pages))
+    for name in HEAD_DIM_MODELS:
+        heads = model_heads(name)
+        for pages in ("full", "int8"):
+            cases += [(name, "decode", *heads, serve, pages),
+                      (name, "prefill", *heads, (PREFILL_CHUNK, (200,)),
+                       pages)]
+    cases.append(("gemma-2b-slab", "prefill", *model_heads("gemma-2b"),
+                  (PREFILL_CHUNK, SLAB_STARTS), "int8"))
     return cases
 
 
@@ -605,29 +645,34 @@ def phase_paged_kernels(torch) -> dict:
             if not ok:
                 failures.append(f"{label} {kind} {dname} {pages} {shape}: "
                                 f"max err {row['max_abs_err']}")
-            if dname == "bfloat16" and label == "tinyllama" and \
+            if dname == "bfloat16" and label in (
+                    "tinyllama", "gemma-2b", "bloom3b") and \
                     kind == "decode" and b == SLOTS:
                 invariance.append(batch_invariance(
-                    torch, kern_fn, q, pk, pv, tables, per_row, got, pages))
+                    torch, kern_fn, label, q, pk, pv, tables, per_row,
+                    slopes, got, pages))
             del q, pk, pv, kt, vt
     for inv in invariance:
         if inv["rows_bit_equal"] != inv["rows"]:
-            failures.append(f"batch invariance, {inv['pages']} pages: "
+            failures.append(f"batch invariance, {inv['case']}, "
+                            f"{inv['pages']} pages: "
                             f"{inv['rows_bit_equal']} of {inv['rows']} rows "
                             "bit-equal")
     return {"phase": "paged_kernels", "cases": results,
             "batch_invariance": invariance, "failures": failures}
 
 
-def batch_invariance(torch, kern_fn, q, pk, pv, tables, per_row, got,
-                     pages) -> dict:
+def batch_invariance(torch, kern_fn, label, q, pk, pv, tables, per_row,
+                     slopes, got, pages) -> dict:
     """Each row of the 8-slot decode launch against the same row launched
     alone: bit-equal, since the kernel's splits sit at fixed positions."""
     same = 0
     for i in range(q.shape[0]):
-        one = kern_fn(q[i:i + 1], pk, pv, tables[i:i + 1], per_row[i:i + 1])
+        one = kern_fn(q[i:i + 1], pk, pv, tables[i:i + 1], per_row[i:i + 1],
+                      slopes)
         same += bool(torch.equal(one, got[i:i + 1]))
-    return {"pages": pages, "dtype": str(q.dtype).split(".")[1],
+    return {"case": label, "pages": pages,
+            "dtype": str(q.dtype).split(".")[1],
             "rows": q.shape[0], "rows_bit_equal": same}
 
 
@@ -842,13 +887,105 @@ def phase_serve(torch) -> dict:
     return out
 
 
-def _batch_prompts(vocab: int):
+def phase_serve_model(torch, name: str) -> dict:
+    """Plain serve of a HEAD_DIM_MODELS model at full width (random
+    weights from seed 0): ``InferenceHTTPServer`` over an
+    ``InferenceEngine`` on "auto", which resolves to the flash kernel,
+    answers one greedy request (a PROMPT_LEN-token prompt, NEW_TOKENS new
+    tokens); the counts show every layer's prefill launched the kernel,
+    in the instance its rule names; the prefill logits are held against
+    an engine on plain attention; decode ms/token."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_rows_per_block)
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+
+    cfg = get_model_config(name)
+    L, g = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
+    greedy = SamplingParams(greedy=True)
+    params = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    engine = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
+                             attn_backend="auto", device="cuda")
+    _check(engine.attn_backend == "flash",
+           f"{name}: auto backend resolved to {engine.attn_backend}")
+    prompt = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"phase": "serve_model", "device": torch.cuda.get_device_name(0),
+           "model": name, "layers": L, "head_dim": cfg.head_dim,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "alibi": cfg.use_alibi, "attn_backend": engine.attn_backend,
+           "params_bytes": params.nbytes()}
+    server = InferenceHTTPServer(engine, "127.0.0.1", 0, model_name=name,
+                                 default_max_new=NEW_TOKENS)
+    server.start()
+    try:
+        # ---- the main path: counts from zero, one request ----
+        _reset_launches(flash_attention)
+        t0 = time.perf_counter()
+        code, body = _post(server.port, {"prompt_ids": prompt,
+                                         "max_new_tokens": NEW_TOKENS})
+        out["greedy_request_s"] = time.perf_counter() - t0
+        _check(code == 200, f"{name} greedy request: HTTP {code}")
+        toks = json.loads(body)["tokens"]
+        _check(np.asarray(toks).shape == (1, NEW_TOKENS),
+               f"{name} greedy tokens shape {np.asarray(toks).shape}")
+        launches = flash_attention.launches
+        wide = flash_attention.wide_launches
+        rule = flash_rows_per_block(1, cfg.num_kv_heads, PROMPT_LEN * g,
+                                    sm_count)
+        out.update(launches=launches, wide_launches=wide,
+                   rows_per_block=rule, greedy_tokens=toks[0])
+        _check(launches == L, f"{name}: the prefill launched {launches}, "
+               f"expected {L}")
+        _check(wide == (L if rule == 64 else 0),
+               f"{name}: {wide} 64-row launches, rule {rule}")
+    finally:
+        server.shutdown()
+    plain = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
+                            attn_backend="plain", device="cuda")
+    lk, lp = engine.prefill_logits(prompt), plain.prefill_logits(prompt)
+    scale = max(1.0, float(np.abs(lp).max()))
+    err = float(np.abs(lk - lp).max())
+    plain_toks = plain.generate(prompt, NEW_TOKENS).tokens[0].tolist()
+    out.update(logit_max_abs_err=err, logit_scale=scale,
+               logit_tol=LOGIT_TOL_REL * scale,
+               greedy_agreement=sum(a == b for a, b in
+                                    zip(plain_toks, toks[0])) / NEW_TOKENS)
+    _check(bool(np.isfinite(lk).all()), f"{name}: kernel logits not finite")
+    _check(err <= LOGIT_TOL_REL * scale,
+           f"{name}: prefill logits differ by {err} (> {LOGIT_TOL_REL} x "
+           f"{scale})")
+    # ---- decode rate: (t(1 + n) - t(1)) / n, b=1, after warm-up ----
+    n = NEW_TOKENS
+    engine.generate(prompt, 1)
+    t_one = engine.generate(prompt, 1).seconds
+    t_many = engine.generate(prompt, 1 + n).seconds
+    out.update(decode_ms_per_token=(t_many - t_one) / n * 1e3,
+               prefill_plus_one_token_s=t_one)
+    del engine, plain, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _batch_prompts(vocab: int, seed: int = 2):
     """The 8 prompts of the batching phase (seeded): lengths
     BATCH_PROMPTS; the 300- and 600-token prompts share their first
     SHARED_PREFIX tokens, so whichever admits second hits the radix
     tree (both stream their chunks, one stream at a time)."""
     import numpy as np
-    rng = np.random.RandomState(2)
+    rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, vocab, n).tolist() for n in BATCH_PROMPTS]
     i300, i600 = BATCH_PROMPTS.index(300), BATCH_PROMPTS.index(600)
     prompts[i300][:SHARED_PREFIX] = prompts[i600][:SHARED_PREFIX]
@@ -856,12 +993,11 @@ def _batch_prompts(vocab: int):
 
 
 def predicted_paged_launches(engine, admits, L: int) -> dict:
-    """The routing's prediction from the engine's admissions (prompt
-    length, matched prefix): the decode kernel L times per decode step;
-    the prefill kernel L times per mid chunk (C = 64 tokens: 512 rows at
-    g = 8) and per final suffix whose padded bucket stays within 512
-    rows (the 32 bucket: 256 rows); finals padded to the 128 bucket
-    (1024 rows) take the gather path."""
+    """The card's routing's prediction from the engine's admissions
+    (prompt length, matched prefix): the decode kernel L times per decode
+    step; the prefill kernel L times per mid chunk and per final suffix
+    padded to its bucket (on the card the routing keeps no row cap, so
+    a 128-token bucket's 1024 rows at g = 8 take the kernel too)."""
     from distributed_inference_demo_tpu_torch.ops.paged_attention import \
         paged_route
     cfg = engine.cfg
@@ -873,8 +1009,9 @@ def predicted_paged_launches(engine, admits, L: int) -> dict:
         suffix = plen - m
         n_mid = max(0, -(-suffix // C) - 1) if suffix > C else 0
         final = engine._bucket(suffix - n_mid * C)
-        prefill += n_mid * (paged_route(True, C, g, bt) == "prefill")
-        prefill += paged_route(True, final, g, bt) == "prefill"
+        prefill += n_mid * (paged_route(True, C, g, bt, max_rows=None)
+                            == "prefill")
+        prefill += paged_route(True, final, g, bt, max_rows=None) == "prefill"
     return {"paged_decode": L * engine.loop_stats["device_loop_steps"],
             "paged_prefill": L * prefill}
 
@@ -943,12 +1080,15 @@ def _reset_launches(*wrappers) -> None:
                 setattr(w, extra, 0)
 
 
-def _paged_logits(torch, engine, seq, n_decode: int):
+def _paged_logits(torch, engine, seq, n_decode: int,
+                  pad_final: bool = False):
     """The logits of ``seq``, teacher forced, through a closed batching
     engine's paged forward as its scheduler runs it: all but the last
     ``n_decode`` tokens as a chunked prefill (chunks of ``prefill_chunk``,
-    the last one shorter), then ``n_decode`` one-token decode steps, on
-    pages taken from the engine's own pool and given back after.  Returns
+    the last one shorter, or with ``pad_final`` zero-padded to its prompt
+    bucket and routed by that length, as the serialized admission's final
+    prefill is), then ``n_decode`` one-token decode steps, on pages taken
+    from the engine's own pool and given back after.  Returns
     [n_decode + 1, vocab] f32: the prefill's last position, then each
     decode step's."""
     import numpy as np
@@ -965,15 +1105,20 @@ def _paged_logits(torch, engine, seq, n_decode: int):
         while start < len(seq):
             n = min(engine.prefill_chunk, n_pre - start) if start < n_pre \
                 else 1
-            ids = torch.tensor([seq[start:start + n]], dtype=torch.int64,
-                               device=engine.device)
-            pos = start + torch.arange(n, device=engine.device)[None]
+            width = (engine._bucket(n) if pad_final and start < n_pre
+                     and start + n == n_pre else n)
+            ids = torch.zeros((1, width), dtype=torch.int64,
+                              device=engine.device)
+            ids[0, :n] = torch.tensor(seq[start:start + n])
+            pos = start + torch.arange(width, device=engine.device)[None]
             engine._bind(tables)
+            # a padded chunk's logits at every position, as the engine's
             logits, _ = engine._fwd(engine.params, ids, engine._pool(), pos,
-                                    True)
+                                    width == n)
             start += n
             if start >= n_pre:
-                out.append(logits[0, -1].float().cpu().numpy())
+                out.append(logits[0, -1 if width == n else n - 1]
+                           .float().cpu().numpy())
     finally:
         mgr.free(pages)
     return np.stack(out)
@@ -1005,7 +1150,80 @@ def paged_logit_check(torch, kernel_engine, plain_engine, seq,
     return res
 
 
-def phase_batching(torch) -> dict:
+def _slab_logits(torch, engine, seq, n_decode: int):
+    """As :func:`_paged_logits`, but each prefill chunk runs as the mixed
+    dispatch runs it: row 0 of a slab of the engine's ``_mixed_seg_cap``
+    rows of ``prefill_chunk`` tokens (the last chunk zero-padded, its
+    logits read at its last real token; padded positions write past the
+    prompt, which decode overwrites or which drop), the other rows unused
+    (all-sentinel tables, start 0).  The decode steps are
+    :func:`_paged_logits`' own."""
+    import numpy as np
+    mgr = engine.kv_cache
+    C, n_seg, dev = engine.prefill_chunk, engine._mixed_seg_cap, engine.device
+    n_pre = len(seq) - n_decode
+    pages = mgr.alloc(-(-len(seq) // mgr.block_tokens))
+    _check(pages is not None, "no free pages for the slab logits")
+    table = np.full((n_seg, engine._table_width), engine._page_sentinel,
+                    np.int32)
+    table[0, :len(pages)] = pages
+    tables, one = engine._upload(table), engine._upload(table[:1])
+    out, start = [], 0
+    try:
+        while start < len(seq):
+            if start < n_pre:
+                n = min(C, n_pre - start)
+                ids = np.zeros((n_seg, C), np.int64)
+                ids[0, :n] = seq[start:start + n]
+                starts = torch.zeros(n_seg, dtype=torch.int64, device=dev)
+                starts[0] = start
+                logits, _ = engine._slab_body(
+                    engine.params, engine._pool(),
+                    torch.from_numpy(ids).to(dev), tables, starts)
+                last = logits[0, n - 1]
+            else:
+                n = 1
+                engine._bind(one)
+                logits, _ = engine._fwd(
+                    engine.params,
+                    torch.tensor([[seq[start]]], device=dev),
+                    engine._pool(), torch.tensor([[start]], device=dev),
+                    True)
+                last = logits[0, -1]
+            start += n
+            if start >= n_pre:
+                out.append(last.float().cpu().numpy())
+    finally:
+        mgr.free(pages)
+    return np.stack(out)
+
+
+def slab_vs_chunk(torch, engine, seq, n_decode: int = 8,
+                  pad_final: bool = False) -> dict:
+    """The gap between the mixed slab's and the serialized chunk's
+    teacher-forced logits of ``seq`` on one closed engine (a report, no
+    check): the prefill's last position and ``n_decode`` decode steps;
+    ``pad_final`` as in :func:`_paged_logits`."""
+    import numpy as np
+    slab = _slab_logits(torch, engine, seq, n_decode)
+    chunk = _paged_logits(torch, engine, seq, n_decode, pad_final)
+    err = np.abs(slab - chunk).max(axis=1)
+    return {"tokens": len(seq), "decode_steps": n_decode,
+            "pad_final": pad_final,
+            "logit_max_abs_gap": float(err.max()),
+            "logit_scale": max(1.0, float(np.abs(chunk).max())),
+            "argmax_agreement": int((slab.argmax(1)
+                                     == chunk.argmax(1)).sum()),
+            "argmax_agreement_of": len(err)}
+
+
+def phase_batching(torch, model: str = SERVE_MODEL,
+                   f32: str | None = "engine") -> dict:
+    """The batching path of ``model`` at full width: see the module
+    docstring, item 4.  ``f32``: "engine" holds the f32 tokens to a
+    plain-attention ``InferenceEngine``'s (requests concurrent), "gather"
+    to the same batching configuration's on the gather path (requests
+    one after another, the same schedule for both), None skips it."""
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
     from distributed_inference_demo_tpu_torch.models.registry import \
@@ -1025,7 +1243,7 @@ def phase_batching(torch) -> dict:
     from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
         import get_flight_recorder
 
-    cfg = get_model_config(SERVE_MODEL)
+    cfg = get_model_config(model)
     L = cfg.num_layers
     greedy = SamplingParams(greedy=True)
     prompts = _batch_prompts(cfg.vocab_size)
@@ -1037,7 +1255,7 @@ def phase_batching(torch) -> dict:
             device="cuda", **kw)
 
     out = {"phase": "batching", "device": torch.cuda.get_device_name(0),
-           "model": SERVE_MODEL, "slots": SLOTS,
+           "model": model, "head_dim": cfg.head_dim, "slots": SLOTS,
            "block_tokens": BLOCK_TOKENS, "prefill_chunk": PREFILL_CHUNK,
            "prompt_lens": list(BATCH_PROMPTS), "new_tokens": NEW_TOKENS}
     params = init_full_params(
@@ -1045,7 +1263,7 @@ def phase_batching(torch) -> dict:
     engine = engine_for(cfg, params)
     _check(engine.attn_backend == "auto", "paged backend")
     server = InferenceHTTPServer(engine, "127.0.0.1", 0,
-                                 model_name=SERVE_MODEL,
+                                 model_name=model,
                                  default_max_new=NEW_TOKENS)
     server.start()
     flight = get_flight_recorder()
@@ -1122,33 +1340,50 @@ def phase_batching(torch) -> dict:
     del engine, plain_engine, params
     torch.cuda.empty_cache()
 
+    if f32 is None:
+        return out
     # ---- f32, same seed: the batching engine (paged kernels) against a
-    # plain-attention InferenceEngine, token for token ----
+    # plain-attention InferenceEngine, or against the gather path, token
+    # for token ----
     cfg32 = cfg.replace(dtype_name="float32")
     p32 = init_full_params(
         torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
-    with engine_for(cfg32, p32) as eng32:
-        reqs = [eng32.submit(p, NEW_TOKENS) for p in prompts]
-        got = [r.wait(timeout=900).tolist() for r in reqs]
-        _check(_no_page_leak(eng32), "f32 run leaked pages")
-    plain = InferenceEngine(cfg32, p32, max_seq=MAX_SEQ, sampling=greedy,
-                            attn_backend="plain", device="cuda")
-    want = [plain.generate([p], NEW_TOKENS).tokens[0].tolist()
-            for p in prompts]
+    if f32 == "engine":
+        with engine_for(cfg32, p32) as eng32:
+            reqs = [eng32.submit(p, NEW_TOKENS) for p in prompts]
+            got = [r.wait(timeout=900).tolist() for r in reqs]
+            _check(_no_page_leak(eng32), "f32 run leaked pages")
+        plain = InferenceEngine(cfg32, p32, max_seq=MAX_SEQ, sampling=greedy,
+                                attn_backend="plain", device="cuda")
+        want = [plain.generate([p], NEW_TOKENS).tokens[0].tolist()
+                for p in prompts]
+        del plain
+    else:
+        runs = {}
+        for backend in ("auto", "plain"):
+            with engine_for(cfg32, p32, attn_backend=backend) as eng32:
+                runs[backend] = [eng32.submit(p, NEW_TOKENS).wait(
+                    timeout=900).tolist() for p in prompts]
+                _check(_no_page_leak(eng32), "f32 run leaked pages")
+        got, want = runs["auto"], runs["plain"]
     agree = [sum(a == b for a, b in zip(g_, w_)) for g_, w_ in
              zip(got, want)]
+    out["f32_against"] = f32
     out["f32_greedy_agreement"] = sum(agree) / (len(prompts) * NEW_TOKENS)
     out["f32_agreement_per_request"] = agree
-    _check(got == want, f"f32 batching tokens differ from the plain "
-           f"engine's: {agree} of {NEW_TOKENS} per request")
-    del plain, p32
+    _check(got == want, f"f32 batching tokens differ from the {f32} "
+           f"path's: {agree} of {NEW_TOKENS} per request")
+    del p32
     torch.cuda.empty_cache()
     return out
 
 
-def phase_mixed(torch) -> dict:
-    """The mixed dispatch over int8 pages at full TinyLlama width: see
-    the module docstring, item 5."""
+def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
+                ) -> dict:
+    """The mixed dispatch over int8 pages at ``model``'s full width: see
+    the module docstring, item 5.  ``extras``: also the agreement with the
+    serialized interleave (kernels and gather path), the teacher-forced
+    slab-vs-chunk logit gap, the int4 pool and the f32 tokens."""
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
     from distributed_inference_demo_tpu_torch.models.registry import \
@@ -1166,7 +1401,7 @@ def phase_mixed(torch) -> dict:
     from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
         import get_flight_recorder
 
-    cfg = get_model_config(SERVE_MODEL)
+    cfg = get_model_config(model)
     L = cfg.num_layers
     greedy = SamplingParams(greedy=True)
     prompts = _batch_prompts(cfg.vocab_size)
@@ -1190,7 +1425,7 @@ def phase_mixed(torch) -> dict:
                 "flash_attention": flash_attention.launches}
 
     out = {"phase": "mixed", "device": torch.cuda.get_device_name(0),
-           "model": SERVE_MODEL, "slots": SLOTS,
+           "model": model, "head_dim": cfg.head_dim, "slots": SLOTS,
            "block_tokens": BLOCK_TOKENS, "prefill_chunk": PREFILL_CHUNK,
            "decode_block": MIXED_DECODE_BLOCK,
            "mixed_token_budget": MIXED_BUDGET, "kv_dtype": "int8",
@@ -1201,7 +1436,7 @@ def phase_mixed(torch) -> dict:
     _check(engine._mixed_seg_cap == 4, "the budget packs 4 segments")
     out["pool_bytes"] = engine._pk.nbytes + engine._pv.nbytes
     server = InferenceHTTPServer(engine, "127.0.0.1", 0,
-                                 model_name=SERVE_MODEL,
+                                 model_name=model,
                                  default_max_new=NEW_TOKENS)
     server.start()
     flight = get_flight_recorder()
@@ -1271,18 +1506,51 @@ def phase_mixed(torch) -> dict:
     # gather path, as in the batching phase ----
     with engine_for(cfg, params, attn_backend="plain") as plain_engine:
         pass
-    out["logit_check"] = paged_logit_check(
-        torch, engine, plain_engine, prompts[BATCH_PROMPTS.index(1500)][:1008])
+    seq = prompts[BATCH_PROMPTS.index(1500)][:1008]
+    out["logit_check"] = paged_logit_check(torch, engine, plain_engine, seq)
+    if not extras:
+        del engine, plain_engine, params
+        torch.cuda.empty_cache()
+        return out
+    # ---- teacher forced, bf16 over int8 pages: the same tokens' logits
+    # with each prefill chunk in a mixed slab against the serialized
+    # chunk, through the kernels and through the gather path; the 1000-
+    # and the 100-token prompt (a 40- and a 36-token final chunk, the
+    # latter padded to the 128 bucket: 1024 rows, which the serialized
+    # admission sends to the gather path) ----
+    out["slab_vs_chunk"] = {
+        f"{name}_{n}": slab_vs_chunk(torch, e, p[:n + 8], pad_final=True)
+        for name, e in (("kernels", engine), ("gather", plain_engine))
+        for n, p in ((1000, seq), (100, prompts[BATCH_PROMPTS.index(100)]
+                                   + prompts[0][:8]))}
     del engine, plain_engine
 
     # ---- the serialized interleave on the same int8 pages: how many of
-    # the same 8 requests' greedy tokens agree (bf16: a count, no check)
-    with engine_for(cfg, params, mixed_token_budget=0) as ser:
-        reqs = [ser.submit(p, NEW_TOKENS) for p in prompts]
-        ser_toks = [r.wait(timeout=900).tolist() for r in reqs]
-    out["serialized_agreement"] = sum(
-        sum(a == b for a, b in zip(m, s_)) for m, s_ in zip(toks, ser_toks))
+    # the same 8 requests' greedy tokens agree (bf16: a count, no check);
+    # then both orders again with the 8 requests submitted at once, on
+    # the kernels and on the gather path
+    def agreement(a, b):
+        return sum(sum(x == y for x, y in zip(r, s_)) for r, s_ in zip(a, b))
+
+    def submit_all(**kw):
+        with engine_for(cfg, params, **kw) as e:
+            reqs = [e.submit(p, NEW_TOKENS) for p in prompts]
+            return [r.wait(timeout=900).tolist() for r in reqs]
+
+    ser_toks = submit_all(mixed_token_budget=0)
+    out["serialized_agreement"] = agreement(toks, ser_toks)
     out["serialized_agreement_of"] = len(prompts) * NEW_TOKENS
+    # per prompt set (seeds 2, the phase's own, to 4), per request
+    out["serialized_agreement_submitted"] = {}
+    for seed in (2, 3, 4):
+        prompts = _batch_prompts(cfg.vocab_size, seed)
+        out["serialized_agreement_submitted"][seed] = {
+            name: [sum(x == y for x, y in zip(r, s_)) for r, s_ in
+                   zip(submit_all(attn_backend=backend),
+                       submit_all(attn_backend=backend,
+                                  mixed_token_budget=0))]
+            for name, backend in (("kernels", "auto"), ("gather", "plain"))}
+    prompts = _batch_prompts(cfg.vocab_size)
 
     # ---- an int4 pool: the routing sends it to the gather path ----
     _reset_launches(*wrappers)
@@ -1434,15 +1702,29 @@ def main(argv) -> int:
         emit(batching)
         mixed = phase_mixed(torch)
         emit(mixed)
+        # the catalog's models at the kernels' other head dims
+        served = {}
+        for name in HEAD_DIM_MODELS:
+            served[name] = phase_serve_model(torch, name)
+            emit(served[name])
+        gemma_batching = phase_batching(torch, "gemma-2b", f32="gather")
+        emit(gemma_batching)
+        gemma_mixed = phase_mixed(torch, "gemma-2b", extras=False)
+        emit(gemma_mixed)
+        bloom_batching = phase_batching(torch, "bloom3b", f32=None)
+        emit(bloom_batching)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    main_case = next(c for c in kern["cases"]
-                     if c["case"] == "tinyllama" and c["dtype"] == "bfloat16"
-                     and c["b"] == 1 and c["chunk"] == PROMPT_LEN
-                     and c["q_start"] == 0)
+    def flash_case(case):
+        return next(c for c in kern["cases"]
+                    if c["case"] == case and c["dtype"] == "bfloat16"
+                    and c["b"] == 1 and c["chunk"] == PROMPT_LEN
+                    and c["q_start"] == 0)
+
+    main_case = flash_case("tinyllama")
     long_case = next(c for c in kern["cases"]
                      if c["case"] == "tinyllama-long"
                      and c["dtype"] == "bfloat16")
@@ -1459,18 +1741,38 @@ def main(argv) -> int:
                          c["chunk"] == PREFILL_CHUNK
                          and (case != "tinyllama" or c["starts"] == [200])))
 
+    rows8 = "8 rows, lengths 1-1999, 2 freed"
+    chunk200 = "64-token chunk at 200"
+    slab = "mixed slab: 4 rows of 64 tokens at 0, 64, 448, one unused"
+    # (name, launch count, its phase, kernel case, shape)
     paged_main = [
-        ("paged_decode", batching, serve_case("decode", "full"),
-         "8 rows, lengths 1-1999, 2 freed"),
-        ("paged_prefill", batching, serve_case("prefill", "full"),
-         "64-token chunk at 200"),
-        ("paged_decode_int8", mixed, serve_case("decode", "int8"),
-         "8 rows, lengths 1-1999, 2 freed"),
-        ("paged_prefill_int8", mixed, serve_case("prefill", "int8"),
-         "64-token chunk at 200"),
-        ("paged_prefill_int8_slab", mixed,
-         serve_case("prefill", "int8", "tinyllama-slab"),
-         "mixed slab: 4 rows of 64 tokens at 0, 64, 448, one unused")]
+        ("paged_decode", "paged_decode", batching,
+         serve_case("decode", "full"), rows8),
+        ("paged_prefill", "paged_prefill", batching,
+         serve_case("prefill", "full"), chunk200),
+        ("paged_decode_int8", "paged_decode_int8", mixed,
+         serve_case("decode", "int8"), rows8),
+        ("paged_prefill_int8", "paged_prefill_int8", mixed,
+         serve_case("prefill", "int8"), chunk200),
+        ("paged_prefill_int8_slab", "paged_prefill_int8", mixed,
+         serve_case("prefill", "int8", "tinyllama-slab"), slab),
+        ("paged_decode_hd256", "paged_decode", gemma_batching,
+         serve_case("decode", "full", "gemma-2b"), "gemma-2b, " + rows8),
+        ("paged_prefill_hd256", "paged_prefill", gemma_batching,
+         serve_case("prefill", "full", "gemma-2b"), "gemma-2b, " + chunk200),
+        ("paged_decode_int8_hd256", "paged_decode_int8", gemma_mixed,
+         serve_case("decode", "int8", "gemma-2b"), "gemma-2b, " + rows8),
+        ("paged_prefill_int8_hd256", "paged_prefill_int8", gemma_mixed,
+         serve_case("prefill", "int8", "gemma-2b"),
+         "gemma-2b, " + chunk200),
+        ("paged_prefill_int8_slab_hd256", "paged_prefill_int8", gemma_mixed,
+         serve_case("prefill", "int8", "gemma-2b-slab"), "gemma-2b, " + slab),
+        ("paged_decode_hd80", "paged_decode", bloom_batching,
+         serve_case("decode", "full", "bloom3b"), "bloom3b, " + rows8),
+        ("paged_prefill_hd80", "paged_prefill", bloom_batching,
+         serve_case("prefill", "full", "bloom3b"), "bloom3b, " + chunk200)]
+    flash_new = [(f"flash_attention_hd{served[n]['head_dim']}", n)
+                 for n in HEAD_DIM_MODELS]
 
     def entry(name, source, replaces, launches, case, shape):
         return {"name": name, "route": "cuda", "source": source,
@@ -1486,9 +1788,12 @@ def main(argv) -> int:
         entry("flash_attention_long", KERNEL_SOURCE, KERNEL_REPLACES,
               serve["long_wide_launches"], long_case,
               "2048-token prompt at 0 (launches: the 1500-token prompt)")] + [
-        entry(name, PAGED_SOURCE, PAGED_REPLACES[name],
-              phase["launches"][name.removesuffix("_slab")], case, shape)
-        for name, phase, case, shape in paged_main]})
+        entry(name, KERNEL_SOURCE, KERNEL_REPLACES, served[model]["launches"],
+              flash_case(model), f"{model}, 64-token prompt at 0")
+        for name, model in flash_new] + [
+        entry(name, PAGED_SOURCE, PAGED_REPLACES[key], phase["launches"][key],
+              case, shape)
+        for name, key, phase, case, shape in paged_main]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

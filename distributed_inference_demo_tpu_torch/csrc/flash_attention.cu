@@ -53,6 +53,12 @@
 //   beside tile t's math, one barrier per tile.  Q's 16-byte copies go
 //   out in the same group as the first tile's, so their latencies
 //   overlap; Q then moves into m16n8k16 A fragments by ldmatrix once.
+// - Head dims: an instance for each head dim of the catalog's models (64,
+//   80, 96, 128, 256).  At 256 a warp's f32 accumulator alone takes 128
+//   registers a lane, so Q's fragments stay in the Q tile and are read by
+//   ldmatrix at each k step (QFrags, hopper_tile.cuh), the 64-row
+//   instance's warps take each tile in two 32-key steps, and a stage is
+//   66 KB, so the 16-row instance's ring has three stages there, not four.
 // - Math: S = Q K^T and O += P V on mma.sync.m16n8k16 with bf16 operands
 //   (ldmatrix / ldmatrix.trans for K and V) and f32 accumulation.  The
 //   scale, ALiBi, the masks and the online softmax run in f32 on the
@@ -272,6 +278,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 using hopper_tile::cp_async16;
 using hopper_tile::mma_bf16;
 using hopper_tile::pack_bf16;
+using hopper_tile::QFrags;
 using bf16 = __nv_bfloat16;
 
 constexpr int TK = 64;         // keys per K/V tile
@@ -285,21 +292,27 @@ constexpr float LOG2E = 1.4426950408889634f;
 // PITCH adds 16 bytes to a row: every row stays 16-byte aligned for
 // cp.async, and the 8 rows one ldmatrix reads fall on distinct banks.
 // Ring depth: the 16-row instance keeps three tiles' copies in flight
-// beside the one it computes; the 64-row instance, whose blocks do 4x the
-// math per tile, double-buffers, and at hd 64 its registers are capped
-// (MIN_BLOCKS) so that three blocks share an SM (two at hd 128, where the
-// cap would spill): on the card this beat deeper rings and the uncapped
-// kernel at the long shapes (PERF.md).
+// beside the one it computes where four stages fit (two at hd 256, whose
+// 66 KB stages fit three times); the 64-row instance, whose blocks do 4x
+// the math per tile, double-buffers, and at hd 64 its registers are
+// capped (MIN_BLOCKS) so that three blocks share an SM (one or two at the
+// other head dims, where the cap would spill): on the card this beat
+// deeper rings and the uncapped kernel at the long shapes (PERF.md).
 template <int HD, int ROWS>
 struct Inst {
   static constexpr int PITCH = HD + 8;
   static constexpr int KWS = 64 / ROWS;    // warps sharing a row group
   static constexpr int KW = TK / KWS;      // keys of a tile per warp
-  static constexpr int NS = ROWS == 16 ? 4 : 2;
+  // keys per online-softmax step: at hd 256 the 64-row instance takes
+  // its 64 keys in two steps (a 64-key step's scores beside the 128
+  // accumulator registers spilled)
+  static constexpr int KS = HD > 128 && KW > 32 ? 32 : KW;
   static constexpr int MIN_BLOCKS = ROWS == 64 && HD == 64 ? 3 : 1;
   static constexpr size_t Q_BYTES = (size_t)ROWS * PITCH * sizeof(bf16);
   static constexpr size_t TILE = (size_t)TK * PITCH * sizeof(bf16);
   static constexpr size_t STAGE = 2 * TILE;
+  static constexpr int FIT = (int)((232448 - Q_BYTES) / STAGE);
+  static constexpr int NS = ROWS == 16 ? (FIT < 4 ? FIT : 4) : 2;
   static constexpr int WOP = HD + 8;       // f32 pitch of a parked acc row
   static constexpr size_t MERGE = sizeof(float) * 4 * 16 * (2 + WOP);
   static constexpr size_t RING =
@@ -333,16 +346,19 @@ __device__ __forceinline__ void issue_kv(bf16* ks, bf16* vs,
 }
 
 // The block's Q rows [row0, row0 + ROWS) from the projection layout into
-// shared memory; rows past the chunk are zero-filled.
+// shared memory; rows past the chunk are zero-filled.  The last round of
+// pieces is partial where ROWS * HD / 8 is not a multiple of the block's
+// threads (16 rows at hd 80 and 96).
 template <int HD, int ROWS, int PITCH>
 __device__ __forceinline__ void issue_q(bf16* qs, const bf16* __restrict__ q,
                                         int bi, int h, int row0, int rows,
                                         int g, int chunk, int nh) {
   constexpr int CH = HD / 8;
-  static_assert(ROWS * CH % T_NT == 0, "whole pieces per thread");
+  constexpr int N = ROWS * CH;               // pieces of the tile
 #pragma unroll
-  for (int j = 0; j < ROWS * CH / T_NT; ++j) {
+  for (int j = 0; j < (N + T_NT - 1) / T_NT; ++j) {
     const int i = threadIdx.x + j * T_NT;
+    if (N % T_NT != 0 && i >= N) break;
     const int r = i / CH, c = i % CH;
     const int row = row0 + r;
     size_t src = 0;
@@ -352,20 +368,6 @@ __device__ __forceinline__ void issue_q(bf16* qs, const bf16* __restrict__ q,
     }
     cp_async16(qs + r * PITCH + c * 8, q + src, row < rows);
   }
-}
-
-// The A fragments of the warp's 16 Q rows at qw (shared memory), every
-// 16 head columns: matrices (rows 0-7, cols 0-7), (rows 8-15, cols 0-7),
-// (rows 0-7, cols 8-15), (rows 8-15, cols 8-15) are a[0] .. a[3].
-template <int HD, int PITCH>
-__device__ __forceinline__ void load_qa(uint32_t (&qa)[HD / 16][4],
-                                        const bf16* qw) {
-  const int lane = threadIdx.x & 31;
-  const int row = (lane & 7) + (((lane >> 3) & 1) << 3);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    hopper_tile::ldmatrix_x4(qa[kk],
-                             qw + row * PITCH + kk * 16 + ((lane >> 4) << 3));
 }
 
 // One warp's online-softmax step over the KW keys at tile rows
@@ -378,7 +380,7 @@ __device__ __forceinline__ void load_qa(uint32_t (&qa)[HD / 16][4],
 // P rounded to bf16 in registers (V by ldmatrix.trans).
 template <int HD, int PITCH, int KW, bool MASKED>
 __device__ __forceinline__ void attend(const bf16* ks, const bf16* vs,
-                                       const uint32_t (&qa)[HD / 16][4],
+                                       const QFrags<HD, PITCH>& qf,
                                        int kb, int t0, float sl2, int kend,
                                        const int (&qpos)[2],
                                        const float (&slope2)[2],
@@ -395,15 +397,18 @@ __device__ __forceinline__ void attend(const bf16* ks, const bf16* vs,
   const int krow = (lane & 7) + ((lane >> 4) << 3);
   const int kcol = ((lane >> 3) & 1) << 3;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    qf.get(kk, a);
 #pragma unroll
     for (int jj = 0; jj < KW / 16; ++jj) {
       uint32_t b[4];
       hopper_tile::ldmatrix_x4(
           b, ks + (kb + 16 * jj + krow) * PITCH + kk * 16 + kcol);
-      mma_bf16(s[2 * jj], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * jj + 1], qa[kk], b[2], b[3]);
+      mma_bf16(s[2 * jj], a, b[0], b[1]);
+      mma_bf16(s[2 * jj + 1], a, b[2], b[3]);
     }
+  }
 
   static_assert(KW / 8 * 4 <= 32, "validity mask bits");
   unsigned valid = 0;
@@ -490,7 +495,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int chunk, int nh, int nkv, int max_seq, int q_start,
                  int kv_len, int nrb, float scale) {
   using I = Inst<HD, ROWS>;
-  constexpr int PITCH = I::PITCH, KWS = I::KWS, KW = I::KW, NS = I::NS;
+  constexpr int PITCH = I::PITCH, KWS = I::KWS, KW = I::KW, KS = I::KS,
+                NS = I::NS;
   // (the f32 kernel's extern array is float: nvcc wants another name)
   extern __shared__ __align__(16) char tiles[];
   bf16* qs = reinterpret_cast<bf16*>(tiles);
@@ -546,7 +552,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int wend = wlast >= wr0 ? min(q_start + wlast / g + 1, kv_end) : 0;
   const int wfirst = q_start + wr0 / g;   // the warp's lowest position
   const float sl2 = scale * LOG2E;
-  uint32_t qa[HD / 16][4];
+  QFrags<HD, PITCH> qf;
+  qf.tile = qs + rw * 16 * PITCH;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, o[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
@@ -563,17 +570,20 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       issue_kv<HD, PITCH>(kst(tn % NS), vst(tn % NS), kp, vp, tn * TK,
                           kv_end);
     hopper_tile::cp_async_commit();        // (empty past the last tile)
-    if (t == 0) load_qa<HD, PITCH>(qa, qs + rw * 16 * PITCH);
-    const int k0 = t * TK + kw * KW;       // this warp's first key
-    if (k0 < wend) {                       // warp-uniform
-      if (k0 + KW <= kv_end && k0 + KW - 1 <= wfirst)
-        attend<HD, PITCH, KW, false>(kst(t % NS), vst(t % NS), qa, kw * KW,
-                                     t * TK, sl2, kv_end, qpos, slope2, m, l,
-                                     o);
-      else
-        attend<HD, PITCH, KW, true>(kst(t % NS), vst(t % NS), qa, kw * KW,
-                                    t * TK, sl2, kv_end, qpos, slope2, m, l,
-                                    o);
+    if (t == 0) qf.hold();
+#pragma unroll
+    for (int ks = 0; ks < KW; ks += KS) {
+      const int k0 = t * TK + kw * KW + ks;  // this step's first key
+      if (k0 < wend) {                       // warp-uniform
+        if (k0 + KS <= kv_end && k0 + KS - 1 <= wfirst)
+          attend<HD, PITCH, KS, false>(kst(t % NS), vst(t % NS), qf,
+                                       kw * KW + ks, t * TK, sl2, kv_end,
+                                       qpos, slope2, m, l, o);
+        else
+          attend<HD, PITCH, KS, true>(kst(t % NS), vst(t % NS), qf,
+                                      kw * KW + ks, t * TK, sl2, kv_end,
+                                      qpos, slope2, m, l, o);
+      }
     }
   }
   hopper_tile::cp_async_wait<0>();   // (Q's copies, where there was no tile)
@@ -734,16 +744,20 @@ int flash_attention_fwd(const void* q, const void* k_cache,
   return (int)launch_mma<HD, ROWS>(q, k_cache, v_cache, sl, out, b,      \
                                    chunk, nh, nkv, max_seq, q_start,     \
                                    kv_len, scale, st)
-  if (dtype == 0) {
-    if (hd == 64) FA_CASE(float, 64);
-    if (hd == 128) FA_CASE(float, 128);
+  // the head dims of the catalog's models: 64 (llama, bloom-560m), 80
+  // (bloom3b), 96 (bloom1b1), 128 (llama-3-8b, bloom7b1), 256 (gemma)
+#define FA_HD(HD)                                                        \
+  if (hd == HD) {                                                        \
+    if (dtype == 0) FA_CASE(float, HD);                                  \
+    if (dtype == 1 && rows_per_block == 16) FA_MMA(HD, 16);              \
+    if (dtype == 1 && rows_per_block == 64) FA_MMA(HD, 64);              \
   }
-  if (dtype == 1) {
-    if (hd == 64 && rows_per_block == 16) FA_MMA(64, 16);
-    if (hd == 64 && rows_per_block == 64) FA_MMA(64, 64);
-    if (hd == 128 && rows_per_block == 16) FA_MMA(128, 16);
-    if (hd == 128 && rows_per_block == 64) FA_MMA(128, 64);
-  }
+  FA_HD(64)
+  FA_HD(80)
+  FA_HD(96)
+  FA_HD(128)
+  FA_HD(256)
+#undef FA_HD
 #undef FA_MMA
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;

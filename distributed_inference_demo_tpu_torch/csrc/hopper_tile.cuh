@@ -1,7 +1,8 @@
 // Warp-level building blocks for the port's Hopper (sm_90a) attention
 // kernels: asynchronous 16-byte (and 4-byte) global-to-shared copies,
 // the bf16 tensor-core product mma.sync.m16n8k16 with f32 accumulation,
-// and the packing of two f32 values into one bf16x2 operand register.
+// the packing of two f32 values into one bf16x2 operand register, and
+// Q's A fragments held in registers or read from shared memory (QFrags).
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with gid = lane / 4 and tig = lane % 4:
@@ -92,5 +93,44 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// The A fragments of a warp's 16 query rows over HD head columns, for
+// S = Q K^T.  Up to HD = 128 a lane holds them all (HD / 4 registers)
+// for the whole key loop.  At HD = 256 it would hold 64 of them beside
+// the 128 of its f32 accumulator, over what a thread can keep without
+// spilling, so the fragments of each 16-column k step are read again
+// from the rows' tile in shared memory (row pitch PITCH elements) by
+// ldmatrix where they are used.
+template <int HD, int PITCH>
+struct QFrags {
+  static constexpr bool HELD = HD <= 128;
+  uint32_t a[HELD ? HD / 16 : 1][4];
+  const __nv_bfloat16* tile;   // the warp's 16 rows in shared memory
+
+  // matrices (rows 0-7, cols 0-7), (rows 8-15, cols 0-7), (rows 0-7,
+  // cols 8-15), (rows 8-15, cols 8-15) of head columns [16 kk, 16 kk + 16)
+  __device__ __forceinline__ void read(int kk, uint32_t (&r)[4]) const {
+    const int lane = threadIdx.x & 31;
+    const int row = (lane & 7) + (((lane >> 3) & 1) << 3);
+    ldmatrix_x4(r, tile + row * PITCH + kk * 16 + ((lane >> 4) << 3));
+  }
+
+  // Held fragments: read every k step's from the tile once.
+  __device__ __forceinline__ void hold() {
+    if constexpr (HELD) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) read(kk, a[kk]);
+    }
+  }
+
+  __device__ __forceinline__ void get(int kk, uint32_t (&r)[4]) const {
+    if constexpr (HELD) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[e] = a[kk][e];
+    } else {
+      read(kk, r);
+    }
+  }
+};
 
 }  // namespace hopper_tile

@@ -71,9 +71,9 @@
 // - Both: K/V arrive in 64-key tiles through the table by cp.async
 //   16-byte copies (8 bf16 values or 16 int8 codes, plus each token's f32
 //   scale) into a ring in shared memory (decode: a whole split of up to 4
-//   tiles; prefill: 4 stages), so later tiles' copies overlap tile t's
-//   math.  Each key row's page is looked up once; keys
-//   past the bound are zero-filled.  S = Q K^T and O += P V are
+//   tiles; prefill: 4 stages, 3 for bf16 pages at hd 256), so later
+//   tiles' copies overlap tile t's math.  Each key row's page is looked
+//   up once; keys past the bound are zero-filled.  S = Q K^T and O += P V are
 //   mma.sync.m16n8k16 with bf16 operands (bf16 pages' fragments come by
 //   ldmatrix) and f32 accumulation; the scale 1/sqrt(hd), ALiBi, the
 //   masks and the online softmax run in f32 on the accumulator layout, in
@@ -88,6 +88,15 @@
 //   key's probability before it is rounded to bf16 for P V.  That is one
 //   bf16 rounding fewer per operand than rounding code * scale to bf16,
 //   and fewer instructions while the fragments are built.
+//
+// - Head dims: an instance for each head dim of the catalog's models (64,
+//   80, 96, 128, 256).  At 256 a warp's f32 accumulator alone takes 128
+//   registers a lane, so Q does not stay in registers: the block's rows
+//   go by cp.async into a tile in shared memory after the ring, in the
+//   first tile's copy group, and each k step's fragments are read from
+//   it by ldmatrix (QFrags, hopper_tile.cuh); bf16 stages are 66 KB there,
+//   so both rings take three.  The merge pass runs one thread per output
+//   column, a partial last warp at 80 and 96; it has no warp-level step.
 //
 // Why not wgmma or TMA here: a decode tile has g <= 16 rows where wgmma
 // takes 64; at these shapes both kernels are bound by bytes and launch
@@ -499,14 +508,11 @@ using hopper_tile::cp_async16;
 using hopper_tile::cp_async4;
 using hopper_tile::mma_bf16;
 using hopper_tile::pack_bf16;
+using hopper_tile::QFrags;
 using bf16 = __nv_bfloat16;
 
 constexpr int TK = 64;        // keys per K/V tile, one stage of the ring
-// ring stages: decode issues a whole split's copies at once (up to 3
-// tiles), prefill keeps 3 tiles' copies in flight beside the one being
-// computed, so copy latency hides behind earlier tiles' math
-constexpr int D_STAGES = KV_SPLIT / TK + 1 < 4 ? KV_SPLIT / TK + 1 : 4;
-constexpr int P_STAGES = 4;
+constexpr size_t SMEM_MAX = 232448;   // a block's shared memory on sm_90
 static_assert(KV_SPLIT % TK == 0 && KV_SPLIT > 0,
               "KV_SPLIT must be a positive multiple of the 64-key tile");
 static_assert(PREFILL_ROWS == 16 || PREFILL_ROWS == 32 ||
@@ -514,13 +520,17 @@ static_assert(PREFILL_ROWS == 16 || PREFILL_ROWS == 32 ||
               "PREFILL_ROWS: 16, 32 or 64 rows per block of four warps");
 
 // One ring stage for page type P: K and V rows of TK keys (and, for int8
-// pages, each key's two f32 scales).  The row pitch adds 16 bytes, which
-// keeps the 8 rows one fragment load touches on distinct banks and every
-// row 16-byte aligned for cp.async.
+// pages, each key's two f32 scales).  The row pitch is an odd count of
+// 16-byte pieces, 16 or 32 bytes over the row: every row stays 16-byte
+// aligned for cp.async, and the 8 rows one fragment load touches fall on
+// distinct banks (an even count would put rows r and r + 4, or for int8
+// V reads r and r + 2, on the same banks: int8 pages at hd 80, whose
+// 80-byte rows take 32 bytes of padding where the others take 16).
 template <typename P, int HD>
 struct Stage {
   static constexpr bool Q8 = std::is_same<P, int8_t>::value;
-  static constexpr int PITCH = HD + 16 / (int)sizeof(P);
+  static constexpr int PITCH =
+      ((HD * (int)sizeof(P) / 16 + 1) | 1) * 16 / (int)sizeof(P);
   static constexpr size_t KV = (size_t)TK * PITCH * sizeof(P);
   static constexpr size_t BYTES = 2 * KV + (Q8 ? 2 * TK * sizeof(float) : 0);
   static __device__ P* k(char* st) { return reinterpret_cast<P*>(st); }
@@ -530,6 +540,34 @@ struct Stage {
   }
   static __device__ float* vs(char* st) { return ks(st) + TK; }
 };
+
+// Q's A fragments (QFrags): held in registers up to hd 128; at hd 256
+// read at each k step from a tile of the block's ROWS query rows (bf16,
+// pitch QT_PITCH) in shared memory after the ring, BYTES long (0 where
+// the fragments are held).
+template <int HD>
+constexpr int QT_PITCH = HD + 8;
+template <int HD, int ROWS>
+constexpr size_t QT_BYTES =
+    QFrags<HD, QT_PITCH<HD>>::HELD
+        ? 0
+        : (size_t)ROWS * QT_PITCH<HD> * sizeof(bf16);
+
+// Ring stages: decode issues a whole split's copies at once (up to 3
+// tiles), prefill keeps 3 tiles' copies in flight beside the one being
+// computed, so copy latency hides behind earlier tiles' math; fewer where
+// that many do not fit beside Q's tile (bf16 pages at hd 256: 66 KB
+// stages, three of them).
+template <typename P, int HD, int ROWS>
+__host__ __device__ constexpr int stages(int want) {
+  const int fit = (int)((SMEM_MAX - QT_BYTES<HD, ROWS>) / Stage<P, HD>::BYTES);
+  return fit < want ? fit : want;
+}
+template <typename P, int HD>
+constexpr int D_STAGES =
+    stages<P, HD, 16>(KV_SPLIT / TK + 1 < 4 ? KV_SPLIT / TK + 1 : 4);
+template <typename P, int HD>
+constexpr int P_STAGES = stages<P, HD, PREFILL_ROWS>(4);
 
 // The ring's copies.  A block has T_NT = 128 threads and a tile TK = 64
 // key rows, so thread tid copies half of key row tid / 2: it looks the
@@ -618,6 +656,7 @@ __device__ __forceinline__ void stream_tiles(char* ring, const P* kp,
                       num_pages);
     math(t, ring + (t % NS) * S::BYTES);
   }
+  hopper_tile::cp_async_wait<0>();   // (Q's tile copies, where no tile ran)
   __syncthreads();   // every warp is done with the ring
 }
 
@@ -692,6 +731,21 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4],
   }
 }
 
+// The block's ROWS query rows into Q's tile (hd 256) by 4-byte cp.async
+// (q's rows are 4-byte aligned), joining the ring's first copy group:
+// row r comes from row_ptr(r), null for zero padding.
+template <int HD, int ROWS, typename RowPtr>
+__device__ __forceinline__ void issue_q_tile(bf16* tile, const bf16* q,
+                                             RowPtr row_ptr) {
+  constexpr int WORDS = HD / 2;
+  for (int i = threadIdx.x; i < ROWS * WORDS; i += T_NT) {
+    const int r = i / WORDS, w = i - r * WORDS;
+    const bf16* src = row_ptr(r);
+    cp_async4(tile + r * QT_PITCH<HD> + 2 * w, src ? src + 2 * w : q,
+              src != nullptr);
+  }
+}
+
 constexpr float LOG2E = 1.4426950408889634f;
 
 // One warp's online-softmax step over the KW keys at stage rows
@@ -704,7 +758,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 // registers (for int8 pages, P times each key's V scale).
 template <typename P, int HD, int KW>
 __device__ __forceinline__ void attend(char* st,
-                                       const uint32_t (&qa)[HD / 16][4],
+                                       const QFrags<HD, QT_PITCH<HD>>& qf,
                                        int kb, int t0, float sl2, int kend,
                                        const int (&qpos)[2],
                                        const float (&slope2)[2],
@@ -719,14 +773,17 @@ __device__ __forceinline__ void attend(char* st,
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    qf.get(kk, a);
 #pragma unroll
     for (int jj = 0; jj < KW / 16; ++jj) {
       uint32_t b[4];
       k_frags<P, HD>(st, kb + 16 * jj, kk * 16, b);
-      mma_bf16(s[2 * jj], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * jj + 1], qa[kk], b[2], b[3]);
+      mma_bf16(s[2 * jj], a, b[0], b[1]);
+      mma_bf16(s[2 * jj + 1], a, b[2], b[3]);
     }
+  }
 
   static_assert(KW / 8 * 4 <= 32, "validity mask bits");
   unsigned valid = 0;
@@ -847,12 +904,20 @@ __device__ __forceinline__ void merge_state(const char* ring, int w0, int n,
   }
 }
 
+// The ring, reused at the end for the four warps' states; Q's tile
+// (hd 256) follows it.
 template <typename P, int HD, int NS>
-constexpr size_t ring_smem_bytes() {
-  // the ring, reused at the end for the four warps' states
+__host__ __device__ constexpr size_t ring_bytes() {
   constexpr size_t ring = NS * Stage<P, HD>::BYTES;
   constexpr size_t merge = sizeof(float) * 4 * 16 * (2 + HD);
   return ring > merge ? ring : merge;
+}
+
+template <typename P, int HD, int NS, int ROWS>
+constexpr size_t ring_smem_bytes() {
+  constexpr size_t bytes = ring_bytes<P, HD, NS>() + QT_BYTES<HD, ROWS>;
+  static_assert(bytes <= SMEM_MAX, "over the SM's 227 KB");
+  return bytes;
 }
 
 // Decode, split s of (kv head h, row bi): the unnormalised partial (acc,
@@ -886,10 +951,19 @@ paged_decode_split_kernel(const bf16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, gid = (tid & 31) >> 2;
 
   // the g q heads of kv head h are the A tile's rows, zero-padded to 16
+  constexpr int NS = D_STAGES<P, HD>;
   const bf16* qb = q + ((size_t)bi * nh + (size_t)h * g) * HD;
-  uint32_t qa[HD / 16][4];
-  load_q<HD>(qa, gid < g ? qb + (size_t)gid * HD : nullptr,
-             gid + 8 < g ? qb + (size_t)(gid + 8) * HD : nullptr);
+  QFrags<HD, QT_PITCH<HD>> qf;
+  if constexpr (QFrags<HD, QT_PITCH<HD>>::HELD) {
+    load_q<HD>(qf.a, gid < g ? qb + (size_t)gid * HD : nullptr,
+               gid + 8 < g ? qb + (size_t)(gid + 8) * HD : nullptr);
+  } else {
+    bf16* qt = reinterpret_cast<bf16*>(ring + ring_bytes<P, HD, NS>());
+    issue_q_tile<HD, 16>(qt, q, [&](int r) {
+      return r < g ? qb + (size_t)r * HD : nullptr;
+    });
+    qf.tile = qt;
+  }
   const int qpos[2] = {kv_len - 1, kv_len - 1};
   const float slope2[2] = {
       slopes != nullptr && gid < g ? slopes[h * g + gid] * LOG2E : 0.f,
@@ -901,12 +975,12 @@ paged_decode_split_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  stream_tiles<P, HD, D_STAGES>(
+  stream_tiles<P, HD, NS>(
       ring, kp, ksc, vp, vsc, tab, s0, (s1 - s0 + TK - 1) / TK, s1, bt, nkv,
       h, num_pages, [&](int t, char* st) {
         const int t0 = s0 + t * TK;
         if (t0 + warp * 16 < s1)      // warp-uniform
-          attend<P, HD, 16>(st, qa, warp * 16, t0, scale * LOG2E, s1, qpos,
+          attend<P, HD, 16>(st, qf, warp * 16, t0, scale * LOG2E, s1, qpos,
                             slope2, m, l, o);
       });
   quad_sum(l);
@@ -1002,8 +1076,20 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q,
     qpos[hr] = start + c;
     slope2[hr] = slopes != nullptr ? slopes[h * g + mh] * LOG2E : 0.f;
   }
-  uint32_t qa[HD / 16][4];
-  load_q<HD>(qa, qr[0], qr[1]);
+  constexpr int NS = P_STAGES<P, HD>;
+  QFrags<HD, QT_PITCH<HD>> qf;
+  if constexpr (QFrags<HD, QT_PITCH<HD>>::HELD) {
+    load_q<HD>(qf.a, qr[0], qr[1]);
+  } else {
+    bf16* qt = reinterpret_cast<bf16*>(ring + ring_bytes<P, HD, NS>());
+    issue_q_tile<HD, PREFILL_ROWS>(qt, q, [&](int r) -> const bf16* {
+      const int row = row0 + r;
+      if (row >= rows) return nullptr;
+      const int c = row / g, mh = row - c * g;
+      return q + (((size_t)bi * chunk + c) * nh + (size_t)h * g + mh) * HD;
+    });
+    qf.tile = qt + rw * 16 * QT_PITCH<HD>;
+  }
   // the row-warp's own frontier: its last real row's position + 1
   const int wlast = min(wr0 + 15, rows - 1);
   const int wend = wlast >= wr0 ? min(start + wlast / g + 1, kv_end) : 0;
@@ -1013,11 +1099,11 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  stream_tiles<P, HD, P_STAGES>(
+  stream_tiles<P, HD, NS>(
       ring, kp, ksc, vp, vsc, tab, 0, (kv_end + TK - 1) / TK, kv_end, bt,
       nkv, h, num_pages, [&](int t, char* st) {
         if (t * TK + kw * KW < wend)  // warp-uniform: past the frontier
-          attend<P, HD, KW>(st, qa, kw * KW, t * TK, scale * LOG2E, kv_end,
+          attend<P, HD, KW>(st, qf, kw * KW, t * TK, scale * LOG2E, kv_end,
                             qpos, slope2, m, l, o);
       });
   quad_sum(l);
@@ -1097,7 +1183,7 @@ cudaError_t launch_decode_split(const void* q, Pages pg, const int* tables,
                                 int b, int nh, int nkv, int bt,
                                 int num_pages, int W, int splits,
                                 float scale, cudaStream_t stream) {
-  constexpr size_t smem = ring_smem_bytes<P, HD, D_STAGES>();
+  constexpr size_t smem = ring_smem_bytes<P, HD, D_STAGES<P, HD>, 16>();
   auto kern = paged_decode_split_kernel<P, HD>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
@@ -1142,7 +1228,8 @@ cudaError_t launch_prefill_mma(const void* q, Pages pg, const int* tables,
                                void* out, int b, int chunk, int nh, int nkv,
                                int bt, int num_pages, int W, float scale,
                                cudaStream_t stream) {
-  constexpr size_t smem = ring_smem_bytes<P, HD, P_STAGES>();
+  constexpr size_t smem =
+      ring_smem_bytes<P, HD, P_STAGES<P, HD>, PREFILL_ROWS>();
   constexpr int BR = PREFILL_ROWS;
   auto kern = paged_prefill_mma_kernel<P, HD>;
   cudaError_t err = allow_smem(kern, smem);
@@ -1186,7 +1273,10 @@ int decode_fwd(const void* q, Pages pg, const void* tables,
                                          b, nh, nkv, bt, num_pages, W,      \
                                          splits, scale, st)
     if (hd == 64) PD_SPLIT(64);
+    if (hd == 80) PD_SPLIT(80);
+    if (hd == 96) PD_SPLIT(96);
     if (hd == 128) PD_SPLIT(128);
+    if (hd == 256) PD_SPLIT(256);
 #undef PD_SPLIT
     return (int)cudaErrorInvalidValue;
   }
@@ -1195,7 +1285,10 @@ int decode_fwd(const void* q, Pages pg, const void* tables,
                                                          T>::type, HD>(    \
       q, pg, tab, lens, sl, out, b, nh, nkv, bt, num_pages, W, scale, st)
   if (dtype == 0 && hd == 64) PD_CASE(float, 64);
+  if (dtype == 0 && hd == 80) PD_CASE(float, 80);
+  if (dtype == 0 && hd == 96) PD_CASE(float, 96);
   if (dtype == 0 && hd == 128) PD_CASE(float, 128);
+  if (dtype == 0 && hd == 256) PD_CASE(float, 256);
 #undef PD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -1218,7 +1311,10 @@ int prefill_fwd(const void* q, Pages pg, const void* tables,
                                         nh, nkv, bt, num_pages, W, scale,   \
                                         st)
     if (hd == 64) PP_MMA(64);
+    if (hd == 80) PP_MMA(80);
+    if (hd == 96) PP_MMA(96);
     if (hd == 128) PP_MMA(128);
+    if (hd == 256) PP_MMA(256);
 #undef PP_MMA
     return (int)cudaErrorInvalidValue;
   }
@@ -1228,7 +1324,10 @@ int prefill_fwd(const void* q, Pages pg, const void* tables,
       q, pg, tab, st0, sl, out, b, chunk, nh, nkv, bt, num_pages, W, scale, \
       st)
   if (dtype == 0 && hd == 64) PP_CASE(float, 64);
+  if (dtype == 0 && hd == 80) PP_CASE(float, 80);
+  if (dtype == 0 && hd == 96) PP_CASE(float, 96);
   if (dtype == 0 && hd == 128) PP_CASE(float, 128);
+  if (dtype == 0 && hd == 256) PP_CASE(float, 256);
 #undef PP_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,8 @@ import torch
 from .attention import attention, update_kv_cache
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (64, 128)
+# the head dims of the catalog's models, each an instance of the kernels
+HEAD_DIMS = (64, 80, 96, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()   # server threads may launch concurrently
 

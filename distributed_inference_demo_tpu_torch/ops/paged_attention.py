@@ -60,14 +60,17 @@ from .attention import attention, prepare_kv_chunk
 from .quant import QuantizedKVPages, quantize_kv_like
 
 SOURCE = "paged_attention.cu"
-HEAD_DIMS = (64, 128)
+# the head dims of the catalog's models, each an instance of the kernels
+HEAD_DIMS = (64, 80, 96, 128, 256)
 MAX_DECODE_GROUP = 16        # q heads per kv head the decode kernel takes
 # keys per split of the bf16 decode kernel, as KV_SPLIT in the source,
 # which refuses a launch whose split count does not match it
 KV_SPLIT = 128
 # one prefill kernel call's query rows = chunk * group, padded to 8; the
 # reference's cap (its f32 VMEM accumulators crowd the page stream past
-# it), kept so the routing matches
+# it), kept off the card so the routing matches the reference's; the
+# CUDA kernel has no such bound, and on the card the routing takes no
+# cap (:func:`make_paged_attn_impl`)
 PREFILL_KERNEL_MAX_ROWS = 512
 BACKENDS = ("auto", "plain", "cuda")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -544,11 +547,12 @@ def resolve_paged_backend(backend: str, device_type: str,
 
 
 def paged_route(use_kernels: bool, chunk: int, groups: int,
-                block_tokens: int, kv_bits: Optional[int] = None) -> str:
+                block_tokens: int, kv_bits: Optional[int] = None,
+                max_rows: Optional[int] = PREFILL_KERNEL_MAX_ROWS) -> str:
     """The reference's routing (``make_paged_attn_impl``), which follows
     the pool's own type: "decode" (the decode kernel) for a 1-token
     chunk, "prefill" (the prefill kernel) for a longer contiguous chunk
-    of at most ``PREFILL_KERNEL_MAX_ROWS`` 8-padded query rows, "gather"
+    of at most ``max_rows`` 8-padded query rows (None: any), "gather"
     otherwise.  The kernels need pages of a multiple of 8 tokens, full
     width or int8 (``kv_bits`` 8); int4 pools (``kv_bits`` 4) always
     gather.  The reference's extra rule for int8, pages of a multiple of
@@ -557,7 +561,7 @@ def paged_route(use_kernels: bool, chunk: int, groups: int,
     if use_kernels and block_tokens % 8 == 0 and kv_bits != 4:
         if chunk == 1:
             return "decode"
-        if -(-(chunk * groups) // 8) * 8 <= PREFILL_KERNEL_MAX_ROWS:
+        if max_rows is None or -(-(chunk * groups) // 8) * 8 <= max_rows:
             return "prefill"
     return "gather"
 
@@ -582,9 +586,14 @@ def make_paged_attn_impl(block_tokens: int, backend: str = "auto", *,
     the route (:func:`paged_route`).
     ``backend``: see :func:`resolve_paged_backend`, which this calls with
     ``device_type``, ``head_dim`` and ``block_tokens``; the routing is
-    :func:`paged_route`."""
+    :func:`paged_route`, with the reference's row cap off the card and
+    none on it: there every contiguous chunk takes the prefill kernel, so
+    the serialized admission's final chunk padded to its bucket (1024 rows
+    at a 128-token bucket and g = 8) and the same tokens in a mixed slab
+    share one arithmetic (ROADMAP C)."""
     use_kernels = resolve_paged_backend(backend, device_type, head_dim,
                                         block_tokens)
+    max_rows = None if device_type == "cuda" else PREFILL_KERNEL_MAX_ROWS
     bound = {}
 
     def bind(tables: torch.Tensor) -> None:
@@ -609,7 +618,7 @@ def make_paged_attn_impl(block_tokens: int, backend: str = "auto", *,
         _scatter(k_pages, v_pages, k, v, page, off)
         route = paged_route(use_kernels, q.shape[1],
                             q.shape[2] // k.shape[2], k_pages.shape[2],
-                            getattr(k_pages, "bits", None))
+                            getattr(k_pages, "bits", None), max_rows)
         if route == "decode":
             out = paged_flash_attention(q.contiguous(), k_pages, v_pages,
                                         tables, plan["kv_lens"], slopes)

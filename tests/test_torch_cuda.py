@@ -40,6 +40,9 @@ def cuda_device():
     (2, 37, 32, 4, 64, 100, False),     # ragged chunk after a prefix
     (1, 16, 16, 16, 64, 7, True),       # bloom-560m heads, ALiBi
     (1, 64, 32, 8, 128, 100, False),    # llama-3-8b heads, hd 128
+    (1, 64, 8, 1, 256, 0, False),       # gemma-2b heads, hd 256
+    (1, 64, 32, 32, 80, 0, True),       # bloom3b heads, hd 80, ALiBi
+    (2, 37, 16, 16, 96, 100, True),     # bloom1b1 heads, hd 96, ALiBi
 ])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, atol, b, chunk, nh,
                                    nkv, hd, q_start, alibi):
@@ -90,9 +93,10 @@ def test_engine_prefill_goes_through_the_kernel(cuda_device):
 
 @pytest.mark.cuda
 def test_auto_backend_raises_on_a_head_dim_the_kernel_lacks(cuda_device):
-    """gemma's head dim 256: "auto" on the card refuses instead of
-    running plain attention; "plain" is the explicit opt-in."""
-    cfg = get_model_config("gemma-test").replace(head_dim_override=256)
+    """Head dim 48, which no catalog model has: "auto" on the card
+    refuses instead of running plain attention; "plain" is the explicit
+    opt-in."""
+    cfg = get_model_config("gemma-test").replace(head_dim_override=48)
     params = init_full_params(
         torch.Generator(device=cuda_device).manual_seed(0), cfg, cuda_device)
     with pytest.raises(ValueError, match="--attn-backend plain"):
@@ -130,6 +134,9 @@ def _paged_pool(gen, dev, dtype, lens, nkv, hd, bt, W):
     (32, 4, 64, False),       # TinyLlama heads
     (16, 16, 64, True),       # bloom-560m heads, ALiBi
     (32, 8, 128, False),      # llama-3-8b heads, hd 128
+    (8, 1, 256, False),       # gemma-2b heads, hd 256
+    (32, 32, 80, True),       # bloom3b heads, hd 80, ALiBi
+    (16, 16, 96, True),       # bloom1b1 heads, hd 96, ALiBi
 ])
 def test_paged_kernels_match_plain(cuda_device, dtype, atol, nh, nkv, hd,
                                    alibi):
@@ -220,6 +227,9 @@ def _launches():
     (32, 4, 64, False),       # TinyLlama heads
     (16, 16, 64, True),       # bloom-560m heads, ALiBi
     (32, 8, 128, False),      # llama-3-8b heads, hd 128
+    (8, 1, 256, False),       # gemma-2b heads, hd 256
+    (32, 32, 80, True),       # bloom3b heads, hd 80, ALiBi
+    (16, 16, 96, True),       # bloom1b1 heads, hd 96, ALiBi
 ])
 def test_paged_int8_kernels_match_plain(cuda_device, dtype, atol, nh, nkv,
                                         hd, alibi):
@@ -387,8 +397,9 @@ def test_paged_decode_is_batch_invariant(cuda_device, pages):
                                         (torch.bfloat16, 2e-2)])
 def test_paged_prefill_above_the_routing_cap(cuda_device, dtype, atol):
     """A 128-token chunk at TinyLlama heads is 1024 regrouped rows, above
-    the routing's 512: never routed to the kernel, but the kernel takes
-    it and agrees with its plain version."""
+    the reference's 512-row cap, which the routing keeps off the card; on
+    the card the routing takes the kernel, which agrees with its plain
+    version."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     chunk, starts = 128, [200]
     pk, pv, tables = _paged_pool(gen, cuda_device, dtype,
@@ -398,6 +409,7 @@ def test_paged_prefill_above_the_routing_cap(cuda_device, dtype, atol):
     pos = (torch.tensor(starts, device=cuda_device)[:, None]
            + torch.arange(chunk, device=cuda_device))
     assert pa.paged_route(True, chunk, 8, 16) == "gather"
+    assert pa.paged_route(True, chunk, 8, 16, max_rows=None) == "prefill"
     got = pa.paged_prefill_attention(q, pk, pv, tables, pos)
     want = pa.paged_prefill_attention_plain(q, pk, pv, tables, pos)
     torch.cuda.synchronize()
@@ -421,6 +433,10 @@ def _flash_inputs(gen, dev, dtype, b, chunk, nh, nkv, hd, max_seq=320):
     (2, 48, 32, 8, 128, 100, False),    # g = 4, hd 128, after a prefix
     (1, 200, 32, 4, 64, 0, False),      # g = 8, 1600 rows: many tiles
     (1, 64, 32, 4, 64, 250, True),      # g = 8 past several tiles, ALiBi
+    (1, 64, 8, 1, 256, 0, False),       # gemma-2b heads, hd 256
+    (1, 100, 8, 1, 256, 150, False),    # hd 256, several tiles
+    (1, 37, 32, 32, 80, 7, True),       # bloom3b heads, hd 80, ragged
+    (2, 40, 16, 16, 96, 100, True),     # bloom1b1 heads, hd 96
 ])
 def test_flash_bf16_instances_match_plain(cuda_device, rows_per_block, b,
                                           chunk, nh, nkv, hd, q_start,
@@ -503,3 +519,134 @@ def test_engine_long_prompt_takes_the_wide_instance(cuda_device):
         assert np.isfinite(got).all()
         assert np.abs(got - want).max() <= 5e-2 * max(1.0,
                                                      np.abs(want).max())
+
+
+def _shaped(name):
+    """Three-layer f32 models with a catalog model's head geometry:
+    gemma-2b's (8 q heads on 1 kv head, hd 256; GeGLU, embedding scale)
+    and bloom3b's (hd 80, one kv head per q head, ALiBi)."""
+    if name == "gemma-2b":
+        return get_model_config("gemma-test").replace(
+            hidden_size=256, num_heads=8, num_kv_heads=1,
+            head_dim_override=256, intermediate_size=512, num_layers=3,
+            max_seq_len=256)
+    return get_model_config("bloom-test").replace(
+        hidden_size=640, num_heads=8, num_kv_heads=8, intermediate_size=512,
+        num_layers=3, max_seq_len=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemma-2b", "bloom3b"])
+def test_engines_take_the_kernels_at_the_new_head_dims(cuda_device, name):
+    """gemma-2b- and bloom3b-shaped f32 models on the card: "auto"
+    resolves to the kernels; the plain engine's prefill launches the
+    flash kernel, the batching engine the paged kernels, the mixed one
+    over int8 pages their int8 instances; the greedy tokens equal the
+    same engines' on plain attention / the gather path."""
+    cfg = _shaped(name)
+    assert cfg.head_dim == (256 if name == "gemma-2b" else 80)
+    params = init_full_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, cuda_device)
+    greedy = SamplingParams(greedy=True)
+    L = cfg.num_layers
+    prompts = [np.random.RandomState(i).randint(0, cfg.vocab_size,
+                                                n).tolist()
+               for i, n in enumerate((10, 40, 70))]
+    kern = InferenceEngine(cfg, params, max_seq=128, sampling=greedy,
+                           device=cuda_device)
+    plain = InferenceEngine(cfg, params, max_seq=128, sampling=greedy,
+                            attn_backend="plain", device=cuda_device)
+    assert kern.attn_backend == "flash"
+    before = fa.flash_attention.launches
+    got = [kern.generate([p], 8).tokens[0].tolist() for p in prompts]
+    # the hook's prefills of 16 tokens or more launch the kernel
+    assert fa.flash_attention.launches == before + L * sum(
+        len(p) >= 16 for p in prompts)
+    want = [plain.generate([p], 8).tokens[0].tolist() for p in prompts]
+    assert got == want
+    kw = dict(max_seq=128, max_batch=4, sampling=greedy, kv_block_tokens=16,
+              prefill_chunk=16, device=cuda_device)
+    before = _launches()
+    with ContinuousBatchingEngine(cfg, params, **kw) as eng:
+        got = [r.wait(timeout=120).tolist()
+               for r in [eng.submit(p, 8) for p in prompts]]
+    ran = tuple(a - b for a, b in zip(_launches(), before))
+    assert got == want
+    assert ran[0] > 0 and ran[0] % L == 0 and ran[2] > 0
+    assert ran[1] == ran[3] == 0
+    mixed = dict(kw, decode_block=4, mixed_token_budget=48, kv_dtype="int8")
+    runs = {}
+    for backend in ("auto", "plain"):
+        before = _launches()
+        with ContinuousBatchingEngine(cfg, params, attn_backend=backend,
+                                      **mixed) as eng:
+            runs[backend] = [eng.submit(p, 8).wait(timeout=120).tolist()
+                             for p in prompts]
+            steps = eng.loop_stats["device_loop_steps"]
+            slabs = eng.chunk_stats["mixed_slab_forwards"]
+        ran = tuple(a - b for a, b in zip(_launches(), before))
+        if backend == "auto":
+            assert ran == (0, L * steps, 0, L * slabs)
+            assert steps > 0 and slabs > 0
+        else:
+            assert ran == (0, 0, 0, 0)
+    assert runs["auto"] == runs["plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["full", "int8"])
+def test_slab_and_bucket_padded_final_share_the_prefill_kernel(cuda_device,
+                                                                pages):
+    """A prompt's last 36 tokens at 64, in bf16 at TinyLlama heads, as the
+    two admission orders run them: the serialized admission pads them to
+    the 128-token bucket (1024 rows, above the reference's cap), the
+    mixed dispatch puts them in row 0 of a 4 x 64 slab beside other rows.
+    On the card the paged hook routes both to the prefill kernel (before,
+    the padded chunk gathered), and the kernel's rows do not depend on the
+    chunk's length or the other rows: the real tokens' outputs are the
+    same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    nh, nkv, hd, bt, W, start, n = 32, 4, 64, 16, 64, 64, 36
+    need = -(-(start + 128) // bt)
+    N = need + 2                       # pages a table may name; N drops
+    tables = torch.full((1, W), N, dtype=torch.int32)
+    tables[0, :need] = torch.randperm(
+        N, generator=torch.Generator().manual_seed(N))[:need]
+    tables = tables.to(cuda_device)
+
+    def pool():
+        x = torch.randn((N + 1, nkv, bt, hd), generator=gen,
+                        device=cuda_device)
+        return (x.to(torch.bfloat16) if pages == "full"
+                else quant.quantize_kv_pages(x, 8))
+
+    k_pool, v_pool = pool(), pool()
+    impl, bind = pa.make_paged_attn_impl(bt, "auto", num_pages=N,
+                                         head_dim=hd, device_type="cuda")
+    q = torch.randn((1, 128, nh, hd), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    kv = torch.randn((1, 128, nkv, hd), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+
+    def run(q_, kv_, tables_, starts):
+        bind(tables_)
+        pos = (torch.tensor(starts, device=cuda_device)[:, None]
+               + torch.arange(q_.shape[1], device=cuda_device))
+        before = _launches()
+        out, _, _ = impl(q_, kv_, kv_, k_pool, v_pool, pos, 0, None)
+        ran = tuple(a - b for a, b in zip(_launches(), before))
+        assert ran == ((0, 0, 1, 0) if pages == "full" else (0, 0, 0, 1))
+        return out
+
+    serial = run(q, kv, tables, [start])
+    slab_q = torch.randn((4, 64, nh, hd), generator=gen,
+                         device=cuda_device).to(torch.bfloat16)
+    slab_kv = torch.zeros((4, 64, nkv, hd), dtype=torch.bfloat16,
+                          device=cuda_device)
+    slab_q[0], slab_kv[0] = q[0, :64], kv[0, :64]
+    slab_tables = torch.full((4, W), N, dtype=torch.int32,
+                             device=cuda_device)
+    slab_tables[0] = tables[0]
+    slab = run(slab_q, slab_kv, slab_tables, [start, 0, 0, 0])
+    torch.cuda.synchronize()
+    assert torch.equal(slab[0, :n], serial[0, :n])

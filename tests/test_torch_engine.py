@@ -205,18 +205,22 @@ def test_engine_refuses_what_this_slice_does_not_port():
     ("auto", "cpu", 256, "plain"),
     ("auto", "cuda", 64, "flash"),
     ("auto", "cuda", 128, "flash"),
+    ("auto", "cuda", 80, "flash"),      # bloom3b
+    ("auto", "cuda", 96, "flash"),      # bloom1b1
+    ("auto", "cuda", 256, "flash"),     # gemma
     ("flash", "cuda", 64, "flash"),
     ("plain", "cuda", 256, "plain"),
-    ("auto", "cuda", 256, "--attn-backend plain"),
-    ("flash", "cuda", 256, "--attn-backend plain"),
+    ("auto", "cuda", 48, "--attn-backend plain"),
+    ("flash", "cuda", 48, "--attn-backend plain"),
     ("flash", "cpu", 64, "CUDA kernel"),
     ("jnp", "cuda", 64, "unknown attn_backend"),
 ])
 def test_attn_backend_never_gives_way_to_plain_on_the_card(
         backend, device_type, head_dim, want):
     """On CUDA "auto" is always the kernel hook: a head dim the kernel
-    does not take (gemma's 256) raises, naming the explicit plain
-    choice, instead of running plain attention on the card."""
+    does not take (48, which no catalog model has) raises, naming the
+    explicit plain choice, instead of running plain attention on the
+    card."""
     if want in ("plain", "flash"):
         assert resolve_attn_backend(backend, device_type, head_dim) == want
     else:

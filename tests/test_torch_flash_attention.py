@@ -124,7 +124,7 @@ def test_flash_hook_in_stage_forward_matches_reference(model):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(hd=256), "head_dim"),
+    (dict(hd=48), "head_dim"),
     (dict(dtype=torch.float16), "float32 or bfloat16"),
     (dict(q_start=-1), "out of range"),
     (dict(kv_len=65), "out of range"),

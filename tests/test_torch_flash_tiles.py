@@ -55,7 +55,7 @@ def _tensors(dtype, hd=64, offset=(0, 0, 0)):
     (torch.bfloat16, 64, (1, 0, 0), "q must be 16-byte aligned"),
     (torch.bfloat16, 64, (0, 4, 0), "k_cache must be 16-byte aligned"),
     (torch.bfloat16, 64, (0, 0, 2), "v_cache must be 16-byte aligned"),
-    (torch.bfloat16, 256, (0, 0, 0), "head_dim"),
+    (torch.bfloat16, 48, (0, 0, 0), "head_dim"),
     (torch.float16, 64, (0, 0, 0), "float32 or bfloat16"),
 ])
 def test_wrapper_refuses_what_the_instances_do_not_take(dtype, hd, offset,

@@ -243,18 +243,52 @@ def test_routing_matches_reference(monkeypatch, chunk, nh, nkv, bt):
     assert pa.paged_route(True, chunk, nh // nkv, bt) == ref_calls[0]
 
 
+@pytest.mark.parametrize("chunk,nh,nkv,want", [
+    (128, 32, 4, "prefill"),    # a 128-token bucket at g = 8: 1024 rows
+    (65, 32, 4, "prefill"),     # 520 rows
+    (64, 32, 4, "prefill"),     # 512 rows, the reference's cap
+    (1, 32, 4, "decode"),
+])
+def test_cuda_routing_keeps_no_row_cap(monkeypatch, chunk, nh, nkv, want):
+    """On the card the hook sends every contiguous chunk to the prefill
+    kernel, past the reference's 512-row cap (its TPU kernel's VMEM
+    bound), so the serialized admission's bucket-padded final and the
+    same tokens in a mixed slab share one kernel; off the card the cap
+    stays (test_routing_matches_reference)."""
+    rng = np.random.default_rng(chunk)
+    b, hd, bt, W = 2, 8, 16, 12
+    pk, pv, tables, N = _random_paged(rng, b, nkv, hd, bt, W, [20, 7])
+    q = rng.standard_normal((b, chunk, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((b, chunk, nkv, hd)).astype(np.float32)
+    pos = (np.asarray([3, 11])[:, None] + np.arange(chunk)).astype(np.int32)
+    calls = _record_routes(monkeypatch, pa, (
+        "paged_flash_attention", "paged_prefill_attention",
+        "paged_gather_attention"))
+    drop = np.zeros((1, nkv, bt, hd), np.float32)
+    impl, bind = pa.make_paged_attn_impl(bt, "auto", num_pages=N,
+                                         device_type="cuda")
+    bind(_t(tables))
+    impl(_t(q), _t(k), _t(k), _t(np.concatenate([pk, drop])),
+         _t(np.concatenate([pv, drop])), _t(pos).long(), 0, None)
+    assert calls == [want]
+    assert pa.paged_route(True, chunk, nh // nkv, bt, max_rows=None) == want
+
+
 @pytest.mark.parametrize("backend,device_type,head_dim,bt,want", [
     ("auto", "cpu", 64, 16, True),
     ("auto", "cpu", 256, 16, True),     # the plain versions take any hd
     ("auto", "cpu", 64, 12, True),      # ... and route 12-token pages
     ("auto", "cuda", 64, 16, True),
     ("auto", "cuda", 128, 8, True),
+    ("auto", "cuda", 80, 16, True),     # bloom3b
+    ("auto", "cuda", 96, 16, True),     # bloom1b1
+    ("cuda", "cuda", 256, 16, True),    # gemma
     ("cuda", "cuda", 64, 16, True),
     ("plain", "cuda", 256, 16, False),
     ("plain", "cuda", 64, 12, False),
     ("plain", "cpu", 64, 16, False),
-    ("auto", "cuda", 256, 16, "'plain'"),  # never a silent plain path
-    ("cuda", "cuda", 256, 16, "'plain'"),  # on CUDA
+    ("auto", "cuda", 48, 16, "'plain'"),   # never a silent plain path
+    ("cuda", "cuda", 48, 16, "'plain'"),   # on CUDA
     ("auto", "cuda", 64, 12, "multiple of 8 tokens.*'plain'"),
     ("cuda", "cuda", 64, 4, "multiple of 8 tokens.*'plain'"),
     ("cuda", "cpu", 64, 16, "CUDA kernels"),
