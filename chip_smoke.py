@@ -68,7 +68,17 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 7. batching, mixed  phases 4 and 5 for gemma-2b (at f32 its batching
             tokens through the kernels equal the gather path's), and
             phase 4 for bloom3b (bf16 only);
-8. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+8. graph    every decode step of phases 3-7 replays a captured CUDA graph
+            (the engines' default); this phase runs five paths with the
+            graph and with ``cuda_graph=False``, one engine each on the
+            same weights: TinyLlama plain serve (b=1), 8-slot batching
+            and 8-slot mixed int8, gemma-2b batching, bloom3b plain
+            serve (ALiBi).  For each: ms/token or ms per step, the
+            device's idle share (``torch.profiler``), replays against the
+            decode steps, paged decode launches against L per step, and
+            greedy bf16 tokens and logprobs of the two equal bit for bit
+            (TinyLlama plain also greedy and sampled at f32);
+9. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout,
@@ -90,6 +100,9 @@ NEW_TOKENS = 32
 # the serve phase's long prompt: its prefill takes the flash kernel's
 # 64-row instance
 LONG_PROMPT_LEN = 1500
+# the graph phase's plain paths: decode rate (t(1 + n) - t(1)) / n and the
+# profiled decode, n steps each
+GRAPH_DECODE_TOKENS = 64
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|, elementwise.
 # f32: both sum the same f32 products in another order (~1e-6 apart).
 # bf16: the plain versions compute in f32 and round once to bf16.  The
@@ -1314,18 +1327,7 @@ def phase_batching(torch, model: str = SERVE_MODEL,
 
         # ---- decode step time and the device's idle share, 8 slots
         # decoding (short prompts, steps counted by the engine) ----
-        reqs = [engine.submit(prompts[i][:16], 200)
-                for i in range(SLOTS)]
-        _wait_steps(engine, 4)
-        t0, s0 = time.perf_counter(), engine._step_count
-        _wait_steps(engine, 32)
-        out["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
-                                     / (engine._step_count - s0))
-        out["profile"] = profile_steps(torch, engine, 16)
-        for r in reqs:
-            r.cancel()
-        for r in reqs:
-            r.done.wait(timeout=120)
+        out.update(decode_window(torch, engine, prompts))
         _check(_no_page_leak(engine), "cancelled requests leaked pages")
     finally:
         server.shutdown()
@@ -1486,17 +1488,7 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
 
         # ---- decode step time and the device's idle share, 8 slots
         # decoding (short prompts, steps counted by the engine) ----
-        reqs = [engine.submit(prompts[i][:16], 200) for i in range(SLOTS)]
-        _wait_steps(engine, 4)
-        t0, s0 = time.perf_counter(), engine._step_count
-        _wait_steps(engine, 32)
-        out["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
-                                     / (engine._step_count - s0))
-        out["profile"] = profile_steps(torch, engine, 16)
-        for r in reqs:
-            r.cancel()
-        for r in reqs:
-            r.done.wait(timeout=120)
+        out.update(decode_window(torch, engine, prompts))
         _check(_no_page_leak(engine), "cancelled requests leaked pages")
     finally:
         server.shutdown()
@@ -1588,30 +1580,107 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
     return out
 
 
-def profile_steps(torch, engine, steps: int, attempts: int = 3) -> dict:
+# new tokens per request of a decode window: far more than the window
+# runs, so every row decodes through it (16 + 1500 <= MAX_SEQ)
+DECODE_WINDOW_NEW = 1500
+
+
+def _stop(reqs) -> None:
+    """Cancel ``reqs`` and wait until the scheduler has dropped them."""
+    for r in reqs:
+        r.cancel()
+    for r in reqs:
+        _check(r.done.wait(timeout=120), "a cancelled request hung")
+
+
+def decode_window(torch, engine, prompts, steps: int = 32,
+                  profiled: int = 16) -> dict:
+    """SLOTS rows of a batching engine decoding (each prompt's first 16
+    tokens, DECODE_WINDOW_NEW new): the host-clock ms per engine step over
+    ``steps`` steps, then :func:`profile_steps` over ``profiled`` more.
+    Every request is cancelled and done when it returns;
+    ``window_requests`` counts the requests it made."""
+    def submit():
+        return [engine.submit(p[:16], DECODE_WINDOW_NEW)
+                for p in prompts[:SLOTS]]
+
+    made = []
+
+    def counted():
+        made.extend(submit())
+        return made[-SLOTS:]
+
+    reqs = counted()
+    try:
+        _wait_steps(engine, 4)
+        t0, k0 = time.perf_counter(), engine._step_count
+        _wait_steps(engine, steps)
+        ms = (time.perf_counter() - t0) * 1e3 / (engine._step_count - k0)
+    finally:
+        _stop(reqs)
+    prof = profile_steps(torch, engine, profiled, counted)
+    return {"decode_ms_per_step": ms, "profile": prof,
+            "window_requests": len(made)}
+
+
+def profile_steps(torch, engine, steps: int, submit,
+                  attempts: int = 3) -> dict:
     """torch.profiler over ``steps`` decode steps of a running batching
-    engine: device time by kernel (top 8), device-busy sum, wall time and
-    the device's idle share 1 - busy / wall.  The engine launches from
-    its scheduler thread, and a profile can hold that thread's copies but
-    none of its kernels (seen on the H100 in one run of two phases): such
-    a profile is taken again, up to ``attempts`` times, and if none holds
-    a kernel the busy sum and idle share are None, with the reason."""
+    engine, the requests ``submit()`` makes: device time by kernel (top
+    8), device-busy sum, wall time and the device's idle share 1 - busy /
+    wall.  The requests are cancelled, and the scheduler idle, before the
+    profiler stops: on the H100 a stop while the scheduler thread replayed
+    its graph hung for minutes.  A profile can hold the scheduler
+    thread's copies but none of its kernels (seen on the H100 in one run
+    of two phases): such a profile is taken again, up to ``attempts``
+    times, and if none holds a kernel the busy sum and idle share are
+    None, with the reason."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _wait_steps(engine, steps)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        reqs = submit()
+        try:
+            _wait_steps(engine, 4)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0, k0 = time.perf_counter(), engine._step_count
+                _wait_steps(engine, steps)
+                _stop(reqs)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                ran = engine._step_count - k0
+        finally:
+            _stop(reqs)
         out = _profile_summary(prof, wall_ms,
-                               {"steps": steps, "attempts": attempt})
+                               {"steps": ran, "attempts": attempt})
         if out["kernels"]:
             return out
     out.update(device_busy_ms=None, device_idle_share=None,
                not_measured="no profile recorded a kernel of the "
                "scheduler thread")
+    return out
+
+
+def profile_decode(torch, engine, prompt,
+                   steps: int = GRAPH_DECODE_TOKENS) -> dict:
+    """torch.profiler over ``steps`` decode steps of a plain engine and
+    nothing else: the prompt is prefilled before the profile starts, and
+    the engine's decode loop runs inside it.  Device time by kernel (top
+    8), the device-busy sum, the wall time, the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = engine._ids(prompt)
+    with engine._lock:
+        st, eos = engine._start(ids, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine._decode_loop(st, eos, steps, steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    out = _profile_summary(prof, wall_ms, {"decode_steps": steps})
+    _check(out["kernels"] > 0, "torch.profiler recorded no kernel")
     return out
 
 
@@ -1657,6 +1726,203 @@ def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n}
                     for us, k, n in rows[:8]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the decode step as a CUDA graph against the same step eager
+# ---------------------------------------------------------------------------
+
+def _graph_plain_side(torch, engine, prompt) -> dict:
+    """One plain engine's numbers: greedy tokens and logprobs, decode
+    ms/token over GRAPH_DECODE_TOKENS, the replays and decode steps of
+    those calls, then a profile of GRAPH_DECODE_TOKENS decode steps."""
+    engine.generate(prompt, 2)                   # captures, warms
+    r0, s0 = engine.graph_replays, engine.loop_stats["device_loop_steps"]
+    res = engine.generate(prompt, NEW_TOKENS, logprobs=True)
+    t_one = engine.generate(prompt, 1).seconds
+    t_many = engine.generate(prompt, 1 + GRAPH_DECODE_TOKENS).seconds
+    ms = (t_many - t_one) / GRAPH_DECODE_TOKENS * 1e3
+    replays = engine.graph_replays - r0
+    steps = engine.loop_stats["device_loop_steps"] - s0
+    prof = profile_decode(torch, engine, prompt)
+    return {"tokens": res.tokens[0].tolist(), "logprobs": res.logprobs,
+            "ms_per_token": ms, "ms_per_step": ms, "tok_s": 1e3 / ms,
+            "replays": replays, "decode_steps": steps,
+            "device_ms_per_step": prof["device_busy_ms"]
+            / GRAPH_DECODE_TOKENS,
+            "device_idle_share": prof["device_idle_share"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "profile_wall_ms": prof["wall_ms"],
+            "profile_kernels": prof["kernels"],
+            "profile_top": prof["top"][:3]}
+
+
+def graph_plain(torch, name: str, f32: bool = False) -> dict:
+    """Plain serve of ``name`` at b=1, full width, the decode step
+    replayed and eager (one engine each, the same weights): see the
+    module docstring, item 8.  ``f32``: also greedy and sampled
+    (seed 7) tokens and logprobs at f32, bit for bit."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+
+    cfg = get_model_config(name)
+    greedy = SamplingParams(greedy=True)
+    prompt = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
+    params = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    out = {"path": f"{name} plain serve, b=1", "model": name,
+           "decode_tokens": GRAPH_DECODE_TOKENS}
+    for key, flag in (("graph", True), ("eager", False)):
+        eng = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
+                              device="cuda", cuda_graph=flag)
+        out[key] = _graph_plain_side(torch, eng, prompt)
+        del eng
+    g, e = out["graph"], out["eager"]
+    out["bits_equal"] = (g["tokens"] == e["tokens"] and
+                         np.array_equal(g.pop("logprobs"),
+                                        e.pop("logprobs")))
+    out["speedup"] = e["ms_per_token"] / g["ms_per_token"]
+    _check(out["bits_equal"], f"{name}: replayed greedy tokens or logprobs "
+           "differ from the eager step's")
+    _check(g["replays"] == g["decode_steps"] > 0 and e["replays"] == 0,
+           f"{name}: replays {g['replays']} of {g['decode_steps']} steps")
+    del params
+    torch.cuda.empty_cache()
+    if f32:
+        cfg32 = cfg.replace(dtype_name="float32")
+        p32 = init_full_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
+        for mode, sp in (("greedy", greedy), ("sampled", SamplingParams())):
+            got = []
+            for flag in (True, False):
+                eng = InferenceEngine(cfg32, p32, max_seq=MAX_SEQ,
+                                      sampling=sp, device="cuda",
+                                      cuda_graph=flag)
+                res = eng.generate(prompt, NEW_TOKENS, seed=7, logprobs=True)
+                got.append((res.tokens, res.logprobs))
+                del eng
+            same = all(np.array_equal(a, b) for a, b in zip(*got))
+            out[f"f32_{mode}_bits_equal"] = same
+            _check(same, f"{name} f32 {mode}: replayed tokens or logprobs "
+                   "differ from the eager step's")
+        del p32
+        torch.cuda.empty_cache()
+    return out
+
+
+def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
+    """One batching engine's numbers: 8 short requests together, greedy,
+    NEW_TOKENS each (tokens and logprobs); then :func:`decode_window`;
+    the replays, decode steps and paged launches of both against L per
+    step and L per admission (mixed: per slab forward, the int8
+    instances)."""
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+
+    L = engine.cfg.num_layers
+    dec, pre = pa.paged_flash_attention, pa.paged_prefill_attention
+    attr = "int8_launches" if mixed else "launches"
+    # counted from the idle, built engine to the idle engine at the end
+    c0 = (getattr(dec, attr), getattr(pre, attr))
+    r0, s0 = engine.graph_replays, engine.loop_stats["device_loop_steps"]
+    f0 = engine.chunk_stats["mixed_slab_forwards"]
+    reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
+    for r in reqs:
+        r.wait(timeout=600)
+    toks = [r.tokens for r in reqs]
+    lps = [r.lps for r in reqs]
+    window = decode_window(torch, engine, prompts)
+    steps = engine.loop_stats["device_loop_steps"] - s0
+    launches = {"paged_decode": getattr(dec, attr) - c0[0],
+                "paged_prefill": getattr(pre, attr) - c0[1]}
+    # the routing: L decode launches a step; L prefill launches an
+    # admission (a 16-token prompt, one dispatch, no radix hit) or, mixed,
+    # a slab forward
+    admitted = len(prompts) + window["window_requests"]
+    predicted = {"paged_decode": L * steps, "paged_prefill": L * (
+        engine.chunk_stats["mixed_slab_forwards"] - f0 if mixed
+        else admitted)}
+    prof = window["profile"]
+    return {"tokens": toks, "logprobs": lps,
+            "ms_per_step": window["decode_ms_per_step"],
+            "rows": len(prompts), "replays": engine.graph_replays - r0,
+            "decode_steps": steps, "launches": launches,
+            "predicted_launches": predicted,
+            "device_ms_per_step": (prof["device_busy_ms"] / prof["steps"]
+                                   if prof.get("device_busy_ms") else None),
+            "device_idle_share": prof.get("device_idle_share"),
+            "device_busy_ms": prof.get("device_busy_ms"),
+            "profile_steps": prof["steps"],
+            "profile_wall_ms": prof["wall_ms"],
+            "profile_kernels": prof["kernels"],
+            "profile_top": prof["top"][:3]}
+
+
+def graph_batching(torch, name: str, mixed: bool = False) -> dict:
+    """8-slot batching of ``name`` (``mixed``: the mixed dispatch over
+    int8 pages, whose decode half is the graph), full width, the decode
+    step replayed and eager (one engine each, the same weights): see
+    the module docstring, item 8."""
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+
+    cfg = get_model_config(name)
+    params = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    prompts = [p[:16] for p in _batch_prompts(cfg.vocab_size)]
+    kw = (dict(mixed_token_budget=MIXED_BUDGET, kv_dtype="int8",
+               decode_block=MIXED_DECODE_BLOCK) if mixed else {})
+    out = {"path": f"{name} {'mixed int8' if mixed else 'batching'}, "
+                   f"{SLOTS} slots", "model": name}
+    for key, flag in (("graph", True), ("eager", False)):
+        with ContinuousBatchingEngine(
+                cfg, params, max_seq=MAX_SEQ, max_batch=SLOTS,
+                sampling=SamplingParams(greedy=True),
+                kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+                device="cuda", cuda_graph=flag, **kw) as eng:
+            out[key] = _graph_batching_side(torch, eng, prompts, mixed)
+    g, e = out["graph"], out["eager"]
+    out["bits_equal"] = ((g.pop("tokens"), g.pop("logprobs"))
+                         == (e.pop("tokens"), e.pop("logprobs")))
+    out["speedup"] = e["ms_per_step"] / g["ms_per_step"]
+    _check(out["bits_equal"], f"{out['path']}: replayed greedy tokens or "
+           "logprobs differ from the eager step's")
+    for side in (g, e):
+        _check(side["launches"] == side["predicted_launches"],
+               f"{out['path']}: paged launches {side['launches']}, "
+               f"predicted {side['predicted_launches']}")
+    _check(g["replays"] == g["decode_steps"] > 0 and e["replays"] == 0,
+           f"{out['path']}: replays {g['replays']} of "
+           f"{g['decode_steps']} steps")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graph(torch) -> dict:
+    t0 = time.perf_counter()
+    paths = [graph_plain(torch, SERVE_MODEL, f32=True),
+             graph_batching(torch, SERVE_MODEL),
+             graph_batching(torch, SERVE_MODEL, mixed=True),
+             graph_batching(torch, "gemma-2b"),
+             graph_plain(torch, "bloom3b")]
+    return {"phase": "graph", "device": torch.cuda.get_device_name(0),
+            "paths": paths, "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -1713,6 +1979,7 @@ def main(argv) -> int:
         emit(gemma_mixed)
         bloom_batching = phase_batching(torch, "bloom3b", f32=None)
         emit(bloom_batching)
+        emit(phase_graph(torch))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1777,6 +2044,9 @@ def main(argv) -> int:
     def entry(name, source, replaces, launches, case, shape):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "shape": shape, "launches": launches,
+                # the decode kernel's launches all come from replays of
+                # the captured decode step
+                "graph_replayed": name.startswith("paged_decode"),
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],

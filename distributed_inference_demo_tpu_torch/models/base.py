@@ -9,14 +9,15 @@ The KV cache keeps the reference's head-major layout
 a contiguous ``[seq, hd]`` plane, which is what the CUDA flash kernel
 streams tile by tile.  PyTorch tensors are mutable, so the cache is
 written in place (``ops.attention.update_kv_cache``) and its valid length
-is a plain Python int.
+is a plain Python int, or a 0-d device tensor in the engine's fixed-shape
+decode state, which a CUDA graph replays.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -103,14 +104,16 @@ class KVCache:
     """Per-stage KV cache, stacked over the stage's layers.
 
     keys/values: ``[num_layers, batch, num_kv_heads, max_seq, head_dim]``
-    (head-major).  ``length`` counts the filled positions.  Writes past
-    the buffer raise (``ops.attention.update_kv_cache``); the engine
-    enforces the caller's ``max_seq`` before any write (``check_capacity``).
+    (head-major).  ``length`` counts the filled positions (a Python int,
+    or a 0-d int64 device tensor for the fixed-shape decode step).  Host
+    writes past the buffer raise (``ops.attention.update_kv_cache``); the
+    engine enforces the caller's ``max_seq`` before any write
+    (``check_capacity``).
     """
 
     keys: torch.Tensor
     values: torch.Tensor
-    length: int = 0
+    length: Union[int, torch.Tensor] = 0
 
     @staticmethod
     def create(cfg: ModelConfig, num_layers: int, batch: int,

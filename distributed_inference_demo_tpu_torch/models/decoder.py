@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.attention import alibi_slopes, attention, update_kv_cache
+from ..ops.attention import (alibi_slopes, attention, attention_at,
+                             update_kv_cache)
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.quant import dense, require_float_weights
 from ..ops.rope import apply_rope
@@ -157,7 +158,12 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
 
 def _default_attn(q, k, v, k_cache, v_cache, positions, cache_start, slopes):
     """Default attention path: insert the chunk into the cache (in place),
-    attend to the cache.  ``attn_impl`` hooks share this signature."""
+    attend to the cache.  ``attn_impl`` hooks share this signature.  A
+    ``cache_start`` held as a device tensor takes the fixed-shape form
+    (``ops.attention.attention_at``), the one a CUDA graph replays."""
+    if torch.is_tensor(cache_start):
+        return (attention_at(q, k, v, k_cache, v_cache, positions,
+                             cache_start, slopes), k_cache, v_cache)
     k_cache, v_cache = update_kv_cache(k_cache, v_cache, k, v, cache_start)
     out = attention(q, k_cache, v_cache, positions,
                     int(cache_start) + q.shape[1], slopes)
@@ -166,7 +172,7 @@ def _default_attn(q, k, v, k_cache, v_cache, positions, cache_start, slopes):
 
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
            k_cache: torch.Tensor, v_cache: torch.Tensor,
-           positions: torch.Tensor, cache_start: int,
+           positions: torch.Tensor, cache_start,
            slopes: Optional[torch.Tensor], attn_impl=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder block. x: [b, s, H]. Returns (x', k_cache, v_cache)."""
@@ -231,7 +237,10 @@ def stage_forward(
 
     slopes = (alibi_slopes(cfg.num_heads, device=x.device)
               if cfg.use_alibi else None)
-    cache_start = int(cache.length)
+    # a length held as a device scalar passes through (the fixed-shape
+    # decode step); a host length stays a Python int
+    cache_start = (cache.length if torch.is_tensor(cache.length)
+                   else int(cache.length))
     for li in range(cache.keys.shape[0]):
         # every hook writes its layer's cache plane in place
         # (update_kv_cache), so the returned planes need no copy back

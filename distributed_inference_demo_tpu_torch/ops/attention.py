@@ -6,6 +6,12 @@ was inserted, so prefill (chunk = prompt) and decode (chunk = 1 token) are
 one code path.  Supports GQA by head-group broadcast and the bloom family's
 ALiBi bias.  This is the path decode steps take (chunks below the flash
 hook's ``min_chunk``), as XLA computes it in the reference.
+
+Two forms of the same arithmetic.  With a host ``cache_len`` the read
+stops at the valid length (O(length)).  The fixed-shape form
+(:func:`attention_at`), which a captured CUDA graph replays, takes the
+length as a device scalar: it writes at a device index and reads all
+``max_seq`` columns under the causal mask, as the reference does.
 """
 
 import functools
@@ -43,7 +49,7 @@ def attention(
     k_cache: torch.Tensor,       # [batch, num_kv_heads, max_seq, head_dim]
     v_cache: torch.Tensor,       # [batch, num_kv_heads, max_seq, head_dim]
     q_positions: torch.Tensor,   # [batch, chunk] absolute positions of q tokens
-    cache_len: int,              # valid length of the cache
+    cache_len: Optional[int],    # valid length, or None (fixed)
     slopes: Optional[torch.Tensor] = None,  # [num_heads] ALiBi, or None
 ) -> torch.Tensor:
     """Causal attention of the current chunk against the cache, in f32.
@@ -51,14 +57,26 @@ def attention(
     Only the first ``cache_len`` cache columns are read: every column past
     it is masked in the reference, where its probability is exactly 0, so
     the result is the same and decode reads O(cache_len), not O(max_seq).
+
+    ``cache_len`` None is the fixed-shape form: every column is read, and
+    the columns past the row's last query position (stale ones, left by
+    an earlier call on the same static cache) are masked.  Their scores
+    are replaced, so a stale non-finite K cannot leak; a masked
+    probability is an exact 0, but ``0 * NaN`` is NaN inside the P V
+    product, so stale V columns are zeroed before it.
     Returns [batch, chunk, num_heads, head_dim] in q's dtype.
     """
     b, chunk, nh, hd = q.shape
     nkv = k_cache.shape[1]
     groups = nh // nkv
-    cache_len = int(cache_len)
-    kf = k_cache[:, :, :cache_len].float()
-    vf = v_cache[:, :, :cache_len].float()
+    fixed = cache_len is None
+    if not fixed:
+        cache_len = int(cache_len)
+        k_cache = k_cache[:, :, :cache_len]
+        v_cache = v_cache[:, :, :cache_len]
+    cache_len = k_cache.shape[2]
+    kf = k_cache.float()
+    vf = v_cache.float()
 
     # 1/sqrt(hd) in f32 as the reference computes it; a Python scalar,
     # so no host-to-device copy (which would synchronize every layer)
@@ -72,6 +90,9 @@ def attention(
     # causal: a q token at position p attends to kv positions <= p
     valid = kv_pos <= qpos                                       # [b, q, s]
     mask = valid[:, None, None, :, :]                            # [b,1,1,q,s]
+    if fixed:
+        # a column no query of its row reaches is stale
+        vf = vf.masked_fill(~valid.any(dim=1)[:, None, :, None], 0.0)
 
     if slopes is not None:
         # ALiBi: bias = -slope * (qpos - kvpos); shape [b, nh, q, s]
@@ -97,6 +118,23 @@ def prepare_kv_chunk(k_new: torch.Tensor, v_new: torch.Tensor,
             "KV chunk must be projection-layout [batch, chunk, nkv, hd]; "
             f"got {tuple(k_new.shape)} / {tuple(v_new.shape)}")
     return k_new.to(k_dtype), v_new.to(v_dtype)
+
+
+def attention_at(q, k, v, k_cache, v_cache, positions, start: torch.Tensor,
+                 slopes=None) -> torch.Tensor:
+    """The fixed-shape cached attention of a decode step: insert the
+    chunk's K/V in place at the DEVICE index ``start`` (a 0-d int64
+    tensor; ``index_copy_`` along the sequence axis), then attend over
+    every cache column (``attention`` with ``cache_len`` None).  No shape
+    or host value depends on the length, so a CUDA graph can replay it.
+    No host bounds check, unlike :func:`update_kv_cache`: the engine
+    bounds every step before its loop (``check_capacity``), and on the
+    card an index past the buffer is a device-side error."""
+    k, v = prepare_kv_chunk(k, v, k_cache.dtype, v_cache.dtype)
+    idx = start.reshape(1) + torch.arange(k.shape[1], device=k.device)
+    k_cache.index_copy_(2, idx, k.transpose(1, 2))
+    v_cache.index_copy_(2, idx, v.transpose(1, 2))
+    return attention(q, k_cache, v_cache, positions, None, slopes)
 
 
 def update_kv_cache(

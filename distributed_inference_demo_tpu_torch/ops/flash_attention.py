@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .attention import attention, update_kv_cache
+from .attention import attention, attention_at, update_kv_cache
 
 SOURCE = "flash_attention.cu"
 # the head dims of the catalog's models, each an instance of the kernels
@@ -170,9 +170,20 @@ def make_flash_attn_impl(min_chunk: int = 16):
     """An ``attn_impl`` hook (models/decoder.py): the flash kernel for
     chunks of ``min_chunk`` tokens or more, ``ops.attention`` below
     (decode), as in the reference.  Assumes contiguous query positions
-    (the engine's guarantee)."""
+    (the engine's guarantee).  A ``cache_start`` held as a device tensor
+    is the engine's fixed-shape decode step, which a CUDA graph replays:
+    it takes ``ops.attention.attention_at``; the kernel, whose launch
+    takes host offsets, is for host lengths only."""
 
     def impl(q, k, v, k_cache, v_cache, positions, cache_start, slopes):
+        if torch.is_tensor(cache_start):
+            if q.shape[1] >= min_chunk:
+                raise ValueError(
+                    f"a device cache length is the fixed-shape decode "
+                    f"path; a {q.shape[1]}-token chunk needs a host "
+                    "length for the flash kernel")
+            return (attention_at(q, k, v, k_cache, v_cache, positions,
+                                 cache_start, slopes), k_cache, v_cache)
         k_cache, v_cache = update_kv_cache(k_cache, v_cache, k, v,
                                            cache_start)
         kv_len = int(cache_start) + q.shape[1]

@@ -8,10 +8,12 @@ between two decode steps.
 
 - **Paged slot cache.**  K/V live in one device page pool
   ``[L, N + 1, nkv, block_tokens, hd]`` addressed through per-slot block
-  tables (host numpy, the scheduler's source of truth, uploaded once per
-  dispatch).  Memory is reserved per page a request holds, and radix
-  prefix hits are shared table entries.  Page ``N`` is the drop page:
-  writes through sentinel entries land there (``ops/paged_attention``).
+  tables (host numpy, the scheduler's source of truth, copied once per
+  dispatch into a static device buffer for decode, uploaded for
+  admission and the mixed slab).  Memory is reserved per page a
+  request holds, and radix prefix hits are shared table entries.  Page
+  ``N`` is the drop page: writes through sentinel entries land there
+  (``ops/paged_attention``).
   ``kv_dtype`` int8/int4 makes the pool ``ops.quant.QuantizedKVPages``,
   quantized once per token as it is written.
 - **Every step runs all slots.**  An ``active`` mask keeps freed and
@@ -26,17 +28,23 @@ between two decode steps.
 - **Decode** is ``paged_step`` (one step) or ``paged_multi_step``
   (``decode_block`` steps with the reference's early exit: the active
   mask frozen for the block, a row done on eos or its token budget,
-  and the steps that ran driving the drain).
+  and the steps that ran driving the drain).  A step reads and writes
+  static buffers in place (the decode tables, the active mask, each
+  slot's length and last token, the step's logprobs); on the card it
+  is a CUDA graph captured when the engine is built and replayed from
+  the host loop (``runtime/cuda_graph.py``), on the CPU the same step
+  run eagerly.
 - **Mixed dispatch** (``mixed_token_budget`` > 0): each scheduler
   iteration is ONE dispatch that packs C-token prefill segments of
   several concurrent admissions into an ``[n_seg, C]`` slab, samples and
   installs the finals, and runs the fused decode block over every
   active row, so decode fusion survives admission.
 
-The reference's jitted programs become methods; PyTorch runs eagerly.
-Sampling noise comes from one ``torch.Generator`` seeded with ``seed``
-(the reference's single rng stream): per-request seeds are not honored,
-and greedy decoding is bit-exact against ``InferenceEngine``.
+The reference's other jitted programs (admission prefill, the mixed
+slab) run eagerly.  Sampling noise comes from one ``torch.Generator``
+seeded with ``seed`` (the reference's single rng stream): per-request
+seeds are not honored, and greedy decoding is bit-exact against
+``InferenceEngine``.
 
 Not ported yet, each refused where it is asked for: the draft-model and
 prompt-lookup proposers, tiered KV, migration and resume,
@@ -68,6 +76,7 @@ from ..telemetry._env import env_int
 from ..telemetry.flightrecorder import get_flight_recorder
 from .engine import (GenerationResult, check_capacity,
                      make_paged_chunk_programs, validate_prefill_chunk)
+from .cuda_graph import StepGraphs
 from .overload import SchedulerOverloaded
 
 SPEC_LATER = ("the draft-model and prompt-lookup proposers are ported in a "
@@ -156,7 +165,7 @@ class ContinuousBatchingEngine:
                  kv_disk_tier_path: Optional[str] = None,
                  kv_disk_tier_bytes: Optional[int] = None,
                  attn_backend: str = "auto",
-                 device=None):
+                 device=None, cuda_graph: bool = True):
         """Arguments as in the reference.  ``kv_cache_blocks`` sizes the
         page pool (0/None = ``max_batch x table_width``);
         ``kv_block_tokens`` is the page size (default 16, or the
@@ -170,7 +179,11 @@ class ContinuousBatchingEngine:
         (the gather path everywhere); see
         ``ops.paged_attention.resolve_paged_backend``.  ``device``: where
         the engine runs, CUDA unless "cpu" is asked for; ``params`` must
-        already live there.
+        already live there.  ``cuda_graph``: on the card the decode step
+        is captured as a CUDA graph here, before the scheduler starts
+        (a failed capture raises), and replayed; False runs the same
+        step eagerly (the comparison for the graph).  On the CPU the
+        step always runs eagerly.
 
         ``mixed_token_budget`` > 0 (needs ``prefill_chunk``, at least one
         chunk): the mixed prefill+decode dispatch, see
@@ -284,11 +297,25 @@ class ContinuousBatchingEngine:
                                    // self.prefill_chunk)
                                if self.mixed_token_budget > 0 else 0)
 
+        # the decode step's static buffers, updated in place: the decode
+        # tables and the active mask (filled per dispatch), each slot's
+        # length and last token, the step's emitted logprobs
+        self._dec_tables = torch.full((B, self._table_width), N,
+                                      dtype=torch.int32, device=self.device)
+        self._active = torch.zeros(B, dtype=torch.bool, device=self.device)
         self._lengths = torch.zeros(B, dtype=torch.int64, device=self.device)
         self._last_tok = torch.zeros(B, dtype=torch.int64,
                                      device=self.device)
+        self._step_lp = torch.zeros(B, dtype=torch.float32,
+                                    device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed))
+        # captured here, on the constructing thread, before the scheduler
+        # thread starts and before any server can hand this engine a
+        # request; the warm-up step runs with every slot inactive and
+        # every table sentinel, so it changes no slot state
+        self._decode = StepGraphs(self.device, self._gen,
+                                  cuda_graph).capture(self._decode_step)
         self._step_count = 0
         # one host dispatch per step or fused block; device_loop_steps
         # counts the steps that ran in it (early exit shows here)
@@ -544,37 +571,48 @@ class ContinuousBatchingEngine:
         self.close()
 
     # ------------------------------------------------------------------
-    # device programs (the reference's jits, run eagerly)
+    # device programs (the reference's jits: the decode step a CUDA
+    # graph on the card, the rest eager)
 
     def _upload(self, tables: np.ndarray) -> torch.Tensor:
-        """Block tables to the device: once per dispatch, every layer of
-        every step in it reads this copy."""
+        """Admission or slab block tables to the device: once per
+        dispatch, every layer of its forward reads this copy (decode
+        reads the static ``_dec_tables``, :meth:`_load_decode`)."""
         return torch.from_numpy(np.ascontiguousarray(tables)).to(
             self.device)
 
     def _pool(self) -> KVCache:
         return KVCache(self._pk, self._pv, 0)
 
-    def _one_step(self, active: torch.Tensor):
-        """One lockstep decode step over all slots (the tables bound by
-        the caller): forward every slot's last token at its own length,
-        sample, keep inactive slots' state.  Returns (tok, lp)."""
+    @property
+    def graph_replays(self) -> int:
+        """Decode steps replayed from the captured graph."""
+        return self._decode.replays
+
+    def _decode_step(self) -> None:
+        """One lockstep decode step over all slots, on the static buffers
+        and in place: forward every slot's last token at its own length
+        through the decode tables, sample, keep inactive slots' state.
+        After it ``_last_tok`` holds the step's tokens and ``_step_lp``
+        their logprobs."""
+        self._bind(self._dec_tables)
         logits, _ = self._fwd(self.params, self._last_tok[:, None],
                               self._pool(), self._lengths[:, None], True)
         logits = logits[:, 0]
         tok = sample_logits(logits, self._gen, self.sampling)
-        tok = torch.where(active, tok, self._last_tok)
-        lp = _emitted_logprob(logits, tok)
-        self._lengths = self._lengths + active.long()
-        self._last_tok = tok
-        return tok, lp
+        tok = torch.where(self._active, tok, self._last_tok)
+        self._step_lp.copy_(_emitted_logprob(logits, tok))
+        self._lengths.add_(self._active.long())
+        self._last_tok.copy_(tok)
 
-    def _paged_step(self, tables: torch.Tensor, active: torch.Tensor):
-        self._bind(tables)
-        return self._one_step(active)
+    def _load_decode(self, active_mask: np.ndarray) -> None:
+        """A dispatch's decode inputs into the static buffers: the host
+        tables and the active mask."""
+        self._dec_tables.copy_(torch.from_numpy(self._tables))
+        self._active.copy_(torch.from_numpy(active_mask))
 
-    def _paged_multi_step(self, tables: torch.Tensor, active: torch.Tensor,
-                          eos: int, budget: torch.Tensor, num_steps: int,
+    def _paged_multi_step(self, eos: int, budget: torch.Tensor,
+                          num_steps: int,
                           done0: Optional[torch.Tensor] = None):
         """``decode_block`` fusion with the reference's early exit: up to
         ``num_steps`` steps, stopping once every active row is done (eos,
@@ -582,9 +620,10 @@ class ContinuousBatchingEngine:
         frozen for the block; rows that finish while others run keep
         decoding into their own positions or the drop page.  ``done0``:
         rows already done at entry (a mixed dispatch's freshly installed
-        row whose token #1 was eos).  Returns (toks [B, num_steps], lps,
-        steps_ran)."""
-        self._bind(tables)
+        row whose token #1 was eos).  The decode tables and the active
+        mask are already loaded (:meth:`_load_decode`).  Returns (toks
+        [B, num_steps], lps, steps_ran)."""
+        active = self._active
         B = active.shape[0]
         toks = torch.zeros((B, num_steps), dtype=torch.int64,
                            device=self.device)
@@ -594,12 +633,13 @@ class ContinuousBatchingEngine:
                     torch.zeros(B, dtype=torch.bool, device=self.device))
         j = 0
         while j < num_steps and bool((active & ~row_done).any()):
-            tok, lp = self._one_step(active)
+            self._decode()
+            tok = self._last_tok
             row_done = row_done | (j + 1 >= budget)
             if eos >= 0:
                 row_done = row_done | ((tok == eos) & active)
             toks[:, j] = tok
-            lps[:, j] = lp
+            lps[:, j] = self._step_lp
             j += 1
         return toks, lps, j
 
@@ -905,21 +945,19 @@ class ContinuousBatchingEngine:
         slots and record the emitted tokens.  The fused block may run
         fewer (every row eos'd or out of budget); the steps that ran
         drive the drain."""
-        active_mask = np.array([s is not None for s in self._slots])
-        active = torch.from_numpy(active_mask).to(self.device)
-        tables = self._upload(self._tables)
+        self._load_decode(np.array([s is not None for s in self._slots]))
         if rounds > 1:
             toks, lps, steps = self._paged_multi_step(
-                tables, active, self._eos(), self._budget_vec(), rounds)
+                self._eos(), self._budget_vec(), rounds)
             self._count_loop(steps)
             self._step_count += steps
             self._record_row_blocks(toks.cpu().numpy(),
                                     np.full(len(self._slots), steps),
                                     lps.cpu().numpy())
         else:
-            tok, lp = self._paged_step(tables, active)
+            self._decode()
             self._count_loop(1)
-            tok_np, lp_np = tok.cpu().numpy(), lp.cpu().numpy()
+            tok_np, lp_np = self._last_tok.tolist(), self._step_lp.tolist()
             self._step_count += 1
             for i, req in enumerate(self._slots):
                 if req is not None:
@@ -943,9 +981,8 @@ class ContinuousBatchingEngine:
 
     def _mixed_step(self, seg_ids: Optional[torch.Tensor],
                     seg_tables: torch.Tensor, seg_starts: torch.Tensor,
-                    finals: list, dec_tables: torch.Tensor,
-                    active: torch.Tensor, eos: int, budget: torch.Tensor,
-                    num_steps: int):
+                    finals: list, active_mask: np.ndarray, eos: int,
+                    budget: torch.Tensor, num_steps: int):
         """One mixed dispatch (the reference's ``mixed_step``).
 
         The prefill slab first: row r of ``seg_ids`` [n_seg, C] runs at
@@ -955,13 +992,14 @@ class ContinuousBatchingEngine:
         whose writes would all drop and whose logits nobody reads, is
         skipped (ROADMAP C).  Then each final ``(row, n, slot, plen)``
         samples token #1 (:meth:`_slab_finals`) and is installed at
-        ``slot`` with length ``plen``; ``active`` already marks it.  Then
-        the fused decode block over ``dec_tables``: freshly installed rows
-        decode in the same dispatch, one whose token #1 was eos, or with
-        no budget left, enters the loop done.  On failure the engine's
-        row state is as before the call.  Returns (final toks [F], final
-        lps [F], toks [B, num_steps], lps, steps ran)."""
-        lengths0, last0 = self._lengths, self._last_tok
+        ``slot`` with length ``plen``; ``active_mask`` already marks it.
+        Then the fused decode block over the host tables: freshly
+        installed rows decode in the same dispatch, one whose token #1
+        was eos, or with no budget left, enters the loop done.  On
+        failure the engine's row state (lengths and last tokens,
+        restored in place) is as before the call.  Returns (final toks
+        [F], final lps [F], toks [B, num_steps], lps, steps ran)."""
+        lengths0, last0 = self._lengths.clone(), self._last_tok.clone()
         try:
             final_toks = final_lps = None
             done0 = budget <= 0
@@ -972,17 +1010,17 @@ class ContinuousBatchingEngine:
                 final_toks, final_lps = self._slab_finals(logits, finals)
                 idx = torch.tensor([f[2] for f in finals],
                                    device=self.device)
-                lengths, last = self._lengths.clone(), self._last_tok.clone()
-                lengths[idx] = torch.tensor([f[3] for f in finals],
-                                            device=self.device)
-                last[idx] = final_toks
-                self._lengths, self._last_tok = lengths, last
+                self._lengths[idx] = torch.tensor([f[3] for f in finals],
+                                                  device=self.device)
+                self._last_tok[idx] = final_toks
                 if eos >= 0:
                     done0[idx] |= final_toks == eos
+            self._load_decode(active_mask)
             toks, lps, steps = self._paged_multi_step(
-                dec_tables, active, eos, budget, num_steps, done0=done0)
+                eos, budget, num_steps, done0=done0)
         except BaseException:
-            self._lengths, self._last_tok = lengths0, last0
+            self._lengths.copy_(lengths0)
+            self._last_tok.copy_(last0)
             raise
         return final_toks, final_lps, toks, lps, steps
 
@@ -1048,9 +1086,10 @@ class ContinuousBatchingEngine:
         packed while an admission is in flight, so a full decode batch
         cannot starve prefill.  Generator draws: one batch-1 draw per
         packed final in pack order, then the decode block's, the
-        serialized schedule's order.  The slab and decode tables are
-        uploaded once.  A failure with packed segments fails the packed
-        requests only; one with nothing packed is an engine failure."""
+        serialized schedule's order.  The slab tables are uploaded
+        once, the decode tables copied once into the static buffer.  A
+        failure with packed segments fails the packed requests only; one
+        with nothing packed is an engine failure."""
         B, C = self.max_batch, self.prefill_chunk
         n_seg = self._mixed_seg_cap
         n_active = sum(1 for s in self._slots if s is not None)
@@ -1110,8 +1149,7 @@ class ContinuousBatchingEngine:
             final_toks, final_lps, toks, lps, steps = self._mixed_step(
                 torch.from_numpy(seg_ids).to(dev) if packed else None,
                 self._upload(seg_tables), torch.from_numpy(seg_starts).to(dev),
-                finals, self._upload(self._tables),
-                torch.from_numpy(active_mask).to(dev), self._eos(),
+                finals, active_mask, self._eos(),
                 torch.from_numpy(budget_vec).to(dev), self.decode_block)
         except BaseException as e:
             if not packed:

@@ -11,12 +11,19 @@ Counterpart of ``distributed_inference_demo_tpu/runtime/engine.py``'s
 - ``generate`` / ``generate_stream`` (``stream_block`` 1 or K) /
   ``classify``, and the ``loop_stats`` dispatch accounting.
 
-PyTorch runs eagerly, so the reference's jitted programs become methods;
-"one dispatch" of ``loop_stats`` is one call of the decode loop.  The
-KV cache is written in place and its length is a Python int.
+The reference's decode loop is one jitted program.  Here the host runs
+the loop, and each decode step is the counterpart of the compiled
+program: on the card a CUDA graph captured once per batch size and
+replayed (``runtime/cuda_graph.py``), on the CPU
+the same step run eagerly.  The step reads and writes a static decode
+state (:class:`DecodeState`): the KV cache, whose length is a device
+scalar, the logits, the token, done and logprob rows.  Prefill runs
+eagerly into that state.  "One dispatch" of ``loop_stats`` is one call
+of the decode loop, as in the reference.
 """
 
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Iterator, Optional
@@ -32,6 +39,7 @@ from ..ops.flash_attention import make_flash_attn_impl
 from ..ops.quant import require_float_weights
 from ..ops.sampling import (SamplingParams, match_stop_ids, pad_stop_ids,
                             sample_logits)
+from .cuda_graph import StepGraph, StepGraphs
 
 KVCACHE_LATER = ("this engine's block KV prefix cache, reduced-precision "
                  "caches and quantized pages are ported in a later slice "
@@ -190,6 +198,38 @@ def run_chunked_prefill(ids: torch.Tensor, cache: KVCache, C: int,
     return last, KVCache(cache.keys, cache.values, start + plen)
 
 
+class DecodeState:
+    """The static decode state of one batch size: what a decode step
+    reads and writes in place, at addresses that stay fixed for the
+    engine's life, so that a captured CUDA graph can replay the step.
+    ``cache.length`` is a 0-d int64 device tensor; ``logits`` [b, V] are
+    the next step's input; ``tok``, ``done`` and ``lp`` [b] the last
+    step's emitted token, finished rows and raw logprob; ``eos`` the
+    call's eos id (-1 = none).  ``step`` runs one decode step on it (a
+    replayed graph on the card)."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_seq: int, device):
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.cache = KVCache.create(cfg, cfg.num_layers, batch, max_seq,
+                                    device=device)
+        self.cache.length = zeros()
+        self.logits = zeros(batch, cfg.vocab_size, dtype=cfg.dtype)
+        self.tok = zeros(batch)
+        self.done = zeros(batch, dtype=torch.bool)
+        self.lp = zeros(batch, dtype=torch.float32)
+        self.eos = zeros()
+        self.step: Optional[StepGraph] = None
+
+    def begin(self, logits: torch.Tensor, length: int, eos: int) -> None:
+        """Start a decode from a prefill: its last logits, the prompt
+        length, no row done."""
+        self.logits.copy_(logits)
+        self.cache.length.fill_(length)
+        self.done.zero_()
+        self.eos.fill_(eos)
+
+
 class InferenceEngine:
     """KV-cached generation over a full model on one device."""
 
@@ -206,7 +246,7 @@ class InferenceEngine:
                  kv_dtype: Optional[str] = None,
                  stop_token_ids=None,
                  stream_block: Optional[int] = None,
-                 device=None):
+                 device=None, cuda_graph: bool = True):
         """``attn_backend``: "auto" (the CUDA flash kernel hook on CUDA,
         plain attention on the CPU), "flash" (the kernel hook; CUDA
         only), or "plain" (``ops.attention`` only); see
@@ -215,6 +255,11 @@ class InferenceEngine:
 
         ``device``: where the engine runs, CUDA unless "cpu" is asked
         for; ``params`` must already live there.
+
+        ``cuda_graph`` (port-only): on the card each decode step replays
+        a captured CUDA graph; False runs the same fixed-shape step
+        eagerly (the comparison for the graph).  A capture that fails
+        raises.  On the CPU the step always runs eagerly.
 
         ``kv_cache_blocks`` > 0, ``kv_block_tokens``, ``kv_cache_dtype``
         and ``kv_dtype`` are refused until the slice that ports the
@@ -245,6 +290,13 @@ class InferenceEngine:
         self._stop_ids = pad_stop_ids(stop_token_ids, device=self.device)
         self._has_stop_ids = bool(stop_token_ids)
         self.loop_stats = {"host_dispatches": 0, "device_loop_steps": 0}
+        self.cuda_graph = bool(cuda_graph)
+        # one generator, seeded per call; one static decode state per
+        # batch size; the lock keeps concurrent calls off the shared state
+        self._gen = torch.Generator(device=self.device)
+        self._graphs = StepGraphs(self.device, self._gen, self.cuda_graph)
+        self._states = {}
+        self._lock = threading.Lock()
 
         self.attn_backend = resolve_attn_backend(
             attn_backend, self.device.type, cfg.head_dim)
@@ -295,33 +347,61 @@ class InferenceEngine:
         """eos_id read at call time (-1 = disabled)."""
         return self.eos_id if self.eos_id is not None else -1
 
-    def _step(self, logits, cache, gen, eos: int, done, with_logprobs):
-        """One decode step, shared by the loop and the per-token stream
-        (so the two are bit-identical by construction): sample, eos-pad
-        finished rows, match stop ids, score the emitted token, forward
-        it.  Returns (tok, lp or None, next_logits, cache, done)."""
-        b = logits.shape[0]
-        tok = sample_logits(logits, gen, self.sampling)
-        if eos >= 0:
-            tok = torch.where(done, torch.full_like(tok, eos), tok)
-            done = done | (tok == eos)
-        done = done | match_stop_ids(tok, self._stop_ids)
-        lp = None
-        if with_logprobs:
-            lp = torch.gather(torch.log_softmax(logits.float(), dim=-1), -1,
-                              tok[:, None])[:, 0]
-        pos = torch.full((b, 1), cache.length, dtype=torch.int64,
-                         device=self.device)
-        out, cache = self._fwd(tok[:, None], cache, pos, False)
-        return tok, lp, out[:, 0], cache, done
+    def _decode_step(self, st: DecodeState) -> None:
+        """One decode step on the static state ``st``, in place, shared by
+        the loop and the per-token stream (so the two are bit-identical
+        by construction): sample, eos-pad finished rows, match stop ids,
+        score the emitted token, forward it at the device length.  No
+        shape and no host value depends on the length or the call."""
+        b = st.tok.shape[0]
+        tok = sample_logits(st.logits, self._gen, self.sampling)
+        tok = torch.where(st.done & (st.eos >= 0), st.eos, tok)
+        done = (st.done | (tok == st.eos)
+                | match_stop_ids(tok, self._stop_ids))
+        lp = torch.gather(torch.log_softmax(st.logits.float(), dim=-1), -1,
+                          tok[:, None])[:, 0]
+        out, _ = self._fwd(tok[:, None], st.cache,
+                           st.cache.length.expand(b, 1), False)
+        st.tok.copy_(tok)
+        st.done.copy_(done)
+        st.lp.copy_(lp)
+        st.logits.copy_(out[:, 0])
+        st.cache.length.add_(1)
 
-    def _decode_loop(self, logits, cache, gen, eos, done, limit: int,
+    def _state(self, batch: int) -> DecodeState:
+        """The static decode state of ``batch`` rows, made at first use
+        with its step captured (the sampling setting is fixed at
+        construction); the warm-up step writes the fresh state at length
+        0, before any prefill fills it."""
+        st = self._states.get(batch)
+        if st is None:
+            st = DecodeState(self.cfg, batch, self.max_seq, self.device)
+            st.step = self._graphs.capture(lambda: self._decode_step(st))
+            self._states[batch] = st
+        return st
+
+    @property
+    def graph_replays(self) -> int:
+        """Decode steps replayed from a captured graph, over all states."""
+        return self._graphs.replays
+
+    def _start(self, ids, seed: int):
+        """The call's state, its generator seeded, the prompt prefilled
+        into the state.  Returns (state, eos)."""
+        st = self._state(ids.shape[0])
+        self._gen.manual_seed(int(seed))
+        eos = self._eos()
+        logits, _ = self._run_prefill(
+            ids, KVCache(st.cache.keys, st.cache.values, 0))
+        st.begin(logits, ids.shape[1], eos)
+        return st, eos
+
+    def _decode_loop(self, st: DecodeState, eos: int, limit: int,
                      num_steps: int, with_logprobs: bool = False):
         """Up to ``limit`` steps, stopping early once every row is done.
-        Returns (toks [b, num_steps], lps [b, num_steps], next_logits,
-        cache, done, steps_ran); columns >= steps_ran are eos padding
-        (token 0 without an eos)."""
-        b = logits.shape[0]
+        Returns (toks [b, num_steps], lps [b, num_steps], steps_ran);
+        columns >= steps_ran are eos padding (token 0 without an eos)."""
+        b = st.tok.shape[0]
         toks = torch.full((b, num_steps), eos if eos >= 0 else 0,
                           dtype=torch.int64, device=self.device)
         lps = torch.zeros((b, num_steps), dtype=torch.float32,
@@ -330,22 +410,18 @@ class InferenceEngine:
         # skip the per-step host sync that reads `done`
         can_finish = eos >= 0 or self._has_stop_ids
         j = 0
-        while j < limit and not (can_finish and bool(done.all())):
-            tok, lp, logits, cache, done = self._step(
-                logits, cache, gen, eos, done, with_logprobs)
-            toks[:, j] = tok
-            if lp is not None:
-                lps[:, j] = lp
+        while j < limit and not (can_finish and bool(st.done.all())):
+            st.step()
+            toks[:, j] = st.tok
+            if with_logprobs:
+                lps[:, j] = st.lp
             j += 1
-        return toks, lps, logits, cache, done, j
+        return toks, lps, j
 
     def _count_loop(self, steps: int) -> None:
         """One decode-loop call ran ``steps`` steps."""
         self.loop_stats["host_dispatches"] += 1
         self.loop_stats["device_loop_steps"] += steps
-
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def _ids(self, prompt_ids) -> torch.Tensor:
         ids = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64)
@@ -363,27 +439,29 @@ class InferenceEngine:
         """Last-position logits [batch, vocab] (f32) after prefill."""
         ids = self._ids(prompt_ids)
         check_capacity(self.max_seq, ids.shape[1], 0)
-        logits, _ = self._run_prefill(ids, self.new_cache(ids.shape[0]))
-        return logits.float().cpu().numpy()
+        with self._lock:
+            st = self._state(ids.shape[0])
+            logits, _ = self._run_prefill(
+                ids, KVCache(st.cache.keys, st.cache.values, 0))
+            return logits.float().cpu().numpy()
 
     def generate(self, prompt_ids, max_new_tokens: int, seed: int = 0,
                  logprobs: bool = False) -> GenerationResult:
         """Batch generation through the decode loop.  ``seconds`` covers
-        prefill and decode, ending when the tokens are on the host."""
+        prefill and decode, ending when the tokens are on the host; a
+        batch size's first call captures its decode step before."""
         ids = self._ids(prompt_ids)
         b, plen = ids.shape
         check_capacity(self.max_seq, plen, max_new_tokens)
-        gen = self._generator(seed)
-        t0 = time.perf_counter()
-        cache = self.new_cache(b)
-        last_logits, cache = self._run_prefill(ids, cache)
-        toks, lps, _, _, _, steps = self._decode_loop(
-            last_logits, cache, gen, self._eos(),
-            torch.zeros(b, dtype=torch.bool, device=self.device),
-            max_new_tokens, max_new_tokens, logprobs)
-        toks = toks.cpu().numpy().astype(np.int32)
-        lps_np = lps.cpu().numpy() if logprobs else None
-        self._count_loop(steps)
+        with self._lock:
+            self._state(b)      # a new batch size captures here, untimed
+            t0 = time.perf_counter()
+            st, eos = self._start(ids, seed)
+            toks, lps, steps = self._decode_loop(
+                st, eos, max_new_tokens, max_new_tokens, logprobs)
+            toks = toks.cpu().numpy().astype(np.int32)
+            lps_np = lps.cpu().numpy() if logprobs else None
+            self._count_loop(steps)
         return GenerationResult(tokens=toks, prompt_len=plen,
                                 num_new=max_new_tokens,
                                 seconds=time.perf_counter() - t0,
@@ -410,37 +488,34 @@ class InferenceEngine:
         K > 1 each decode-loop call produces up to K tokens, and the
         stream ends as soon as every row is done."""
         ids = self._ids(prompt_ids)
-        b, plen = ids.shape
-        check_capacity(self.max_seq, plen, max_new_tokens)
-        cache = self.new_cache(b)
-        gen = self._generator(seed)
-        logits, cache = self._run_prefill(ids, cache)
-        done = torch.zeros(b, dtype=torch.bool, device=self.device)
-        K = self.stream_block
-        if K > 1:
-            remaining = max_new_tokens
-            while remaining > 0:
-                toks, lps, logits, cache, done, steps = self._decode_loop(
-                    logits, cache, gen, self._eos(), done,
-                    min(K, remaining), K, logprobs)
-                self._count_loop(steps)
-                if steps == 0:      # all rows were already done on entry
-                    return
-                tok_np = toks.cpu().numpy().astype(np.int32)
-                lp_np = lps.cpu().numpy() if logprobs else None
-                for j in range(steps):
-                    yield ((tok_np[:, j], lp_np[:, j]) if logprobs
-                           else tok_np[:, j])
-                remaining -= steps
-                if bool(done.all()):
-                    return
-            return
-        for _ in range(max_new_tokens):
-            tok, lp, logits, cache, done = self._step(
-                logits, cache, gen, self._eos(), done, logprobs)
-            self._count_loop(1)
-            tok_np = tok.cpu().numpy().astype(np.int32)
-            yield (tok_np, lp.cpu().numpy()) if logprobs else tok_np
-            if ((self.eos_id is not None or self._has_stop_ids)
-                    and bool(done.all())):
+        check_capacity(self.max_seq, ids.shape[1], max_new_tokens)
+        with self._lock:
+            st, eos = self._start(ids, seed)
+            K = self.stream_block
+            if K > 1:
+                remaining = max_new_tokens
+                while remaining > 0:
+                    toks, lps, steps = self._decode_loop(
+                        st, eos, min(K, remaining), K, logprobs)
+                    self._count_loop(steps)
+                    if steps == 0:  # all rows were already done on entry
+                        return
+                    tok_np = toks.cpu().numpy().astype(np.int32)
+                    lp_np = lps.cpu().numpy() if logprobs else None
+                    for j in range(steps):
+                        yield ((tok_np[:, j], lp_np[:, j]) if logprobs
+                               else tok_np[:, j])
+                    remaining -= steps
+                    if bool(st.done.all()):
+                        return
                 return
+            can_finish = eos >= 0 or self._has_stop_ids
+            for _ in range(max_new_tokens):
+                st.step()
+                self._count_loop(1)
+                # copies: on the CPU .numpy() views the static buffers
+                tok_np = st.tok.cpu().numpy().astype(np.int32)
+                yield ((tok_np, st.lp.cpu().numpy().copy()) if logprobs
+                       else tok_np)
+                if can_finish and bool(st.done.all()):
+                    return

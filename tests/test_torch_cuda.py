@@ -326,9 +326,11 @@ def test_mixed_int8_engine_goes_through_the_int8_kernels(cuda_device):
     runs = {}
     for backend, kv_dtype in (("auto", "int8"), ("plain", "int8"),
                               ("auto", "int4")):
-        before = _launches()
         with ContinuousBatchingEngine(cfg, params, attn_backend=backend,
                                       kv_dtype=kv_dtype, **kw) as eng:
+            # counted from the built engine: building it runs one decode
+            # step to warm up before capturing it as a CUDA graph
+            before = _launches()
             got = [eng.submit(p, 8).wait(timeout=120).tolist()
                    for p in prompts]
             steps = eng.loop_stats["device_loop_steps"]
@@ -577,9 +579,10 @@ def test_engines_take_the_kernels_at_the_new_head_dims(cuda_device, name):
     mixed = dict(kw, decode_block=4, mixed_token_budget=48, kv_dtype="int8")
     runs = {}
     for backend in ("auto", "plain"):
-        before = _launches()
         with ContinuousBatchingEngine(cfg, params, attn_backend=backend,
                                       **mixed) as eng:
+            # counted from the built engine, as above
+            before = _launches()
             runs[backend] = [eng.submit(p, 8).wait(timeout=120).tolist()
                              for p in prompts]
             steps = eng.loop_stats["device_loop_steps"]
@@ -650,3 +653,111 @@ def test_slab_and_bucket_padded_final_share_the_prefill_kernel(cuda_device,
     slab = run(slab_q, slab_kv, slab_tables, [start, 0, 0, 0])
     torch.cuda.synchronize()
     assert torch.equal(slab[0, :n], serial[0, :n])
+
+
+def _small_llama(cuda_device, dtype: str):
+    cfg = get_model_config("llama-test").replace(
+        hidden_size=256, intermediate_size=512, num_layers=3,
+        dtype_name=dtype)
+    return cfg, init_full_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, cuda_device)
+
+
+GRAPH_CASES = [("float32", "greedy"), ("float32", "sampled"),
+               ("bfloat16", "greedy")]
+
+
+def _sampling(mode: str) -> SamplingParams:
+    return (SamplingParams(greedy=True) if mode == "greedy"
+            else SamplingParams(temperature=0.8, top_k=5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,mode", GRAPH_CASES)
+def test_engine_graph_replay_equals_eager(cuda_device, dtype, mode):
+    """``InferenceEngine`` on the card: the decode steps replayed from
+    the captured graph give the tokens and logprobs of the same step run
+    eagerly (``cuda_graph=False``), bit for bit, through ``generate`` and
+    ``generate_stream`` at ``stream_block`` 1 and 4, over two calls of
+    different prompt lengths; every step of the graph engine is a replay."""
+    cfg, params = _small_llama(cuda_device, dtype)
+    ids = [np.random.RandomState(i).randint(0, cfg.vocab_size, (2, n))
+           for i, n in ((0, 40), (1, 13))]
+    runs = {}
+    for flag in (True, False):
+        eng = InferenceEngine(cfg, params, max_seq=128,
+                              sampling=_sampling(mode), device=cuda_device,
+                              cuda_graph=flag)
+        out = []
+        for x in ids:
+            res = eng.generate(x, 12, seed=3, logprobs=True)
+            out += [res.tokens, res.logprobs]
+            for k in (1, 4):
+                eng.stream_block = k
+                items = list(eng.generate_stream(x, 12, seed=5,
+                                                 logprobs=True))
+                out += [np.stack([t for t, _ in items]),
+                        np.stack([lp for _, lp in items])]
+        runs[flag] = (out, eng.graph_replays,
+                      eng.loop_stats["device_loop_steps"])
+    (got, replays, steps), (want, eager_replays, eager_steps) = (
+        runs[True], runs[False])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert replays == steps == eager_steps == 6 * 12
+    assert eager_replays == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    dict(),
+    dict(decode_block=4),
+    dict(prefill_chunk=16, decode_block=4, mixed_token_budget=32,
+         kv_dtype="int8"),
+], ids=["step", "fused", "mixed-int8"])
+@pytest.mark.parametrize("dtype,mode", GRAPH_CASES)
+def test_batching_graph_replay_equals_eager(cuda_device, dtype, mode,
+                                            extra):
+    """``ContinuousBatchingEngine`` on the card, lockstep, fused and the
+    decode half of the mixed dispatch over int8 pages: tokens and
+    logprobs of the replayed graph equal the eager step's bit for bit;
+    replays equal the decode steps run; the paged decode kernel's launch
+    count under replay equals the eager count and L per decode step.
+    Greedy requests are submitted together, sampled ones one after
+    another (the generator's draws follow the schedule)."""
+    cfg, params = _small_llama(cuda_device, dtype)
+    prompts = [np.random.RandomState(i).randint(0, cfg.vocab_size,
+                                                n).tolist()
+               for i, n in enumerate((10, 40, 70, 5))]
+    int8 = extra.get("kv_dtype") == "int8"
+    runs = {}
+    for flag in (True, False):
+        with ContinuousBatchingEngine(
+                cfg, params, max_seq=128, max_batch=4,
+                sampling=_sampling(mode), kv_block_tokens=16,
+                prompt_buckets=(16, 64), device=cuda_device,
+                cuda_graph=flag, **extra) as eng:
+            before = _launches()
+            if mode == "greedy":
+                reqs = [eng.submit(p, 10) for p in prompts]
+                for r in reqs:
+                    r.wait(timeout=120)
+            else:
+                reqs = []
+                for p in prompts:
+                    reqs.append(eng.submit(p, 10))
+                    reqs[-1].wait(timeout=120)
+            ran = [a - b for a, b in zip(_launches(), before)]
+            runs[flag] = ([r.tokens for r in reqs], [r.lps for r in reqs],
+                          ran[1 if int8 else 0], eng.graph_replays,
+                          eng.loop_stats["device_loop_steps"])
+    toks, lps, launches, replays, steps = runs[True]
+    e_toks, e_lps, e_launches, e_replays, e_steps = runs[False]
+    assert toks == e_toks
+    np.testing.assert_array_equal(np.concatenate(lps),
+                                  np.concatenate(e_lps))
+    assert replays == steps > 0 and e_replays == 0
+    assert launches == cfg.num_layers * steps
+    assert e_launches == cfg.num_layers * e_steps
+    if mode == "sampled":
+        assert steps == e_steps and launches == e_launches
