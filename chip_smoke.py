@@ -77,8 +77,36 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             device's idle share (``torch.profiler``), replays against the
             decode steps, paged decode launches against L per step, and
             greedy bf16 tokens and logprobs of the two equal bit for bit
-            (TinyLlama plain also greedy and sampled at f32);
-9. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+            (TinyLlama plain also greedy and sampled at f32); the dense
+            kernel's launches (none on these float models) against the
+            routing;
+9. quant    int8 / int4 weights through the dequantizing dense kernel
+            (``csrc/quant_dense.cu``).  Its rows (with phase 2): the
+            kernel against its plain version at TinyLlama's seven weight
+            shapes, M = 1, 8 and 256, int8 and int4, bf16 and f32
+            activations, and at llama-3-8b's four, M = 1 and 64, int8,
+            bf16 (every shape the phase serves), each with device ms,
+            eager ms, the plain
+            version's, ``torch.matmul`` over the weight dequantized
+            beforehand (what the bf16 model pays), the bound and the
+            instance's registers and spills.  Then, as phase 8 runs
+            them, with the graph and with ``cuda_graph=False``:
+            tinyllama-1.1b-int8 plain serve and 8-slot batching and
+            tinyllama-1.1b-int4 plain serve: the dense kernel's launches
+            equal 7 x L a forward, tokens and logprobs bit-equal, and
+            prefill and decode logits held against a float twin whose
+            weights are the same codes dequantized (plain serve through
+            the plain engine's forward, batching through the batching
+            engine's paged forward); llama-3-8b-int8 and llama-3-8b
+            plain serve (graph only): init peak memory, ms/token, device
+            ms a step and the dense kernel's share, and the int8 model's
+            logits against its twin;
+            ``serve --model tinyllama-1.1b-int8 --checkpoint DIR`` over a
+            full-width HF state dict written as two safetensors shards:
+            the served codes bit-equal to ``maybe_quantize(
+            params_from_state_dict(...))`` of the same tensors, one
+            greedy request over HTTP;
+10. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout,
@@ -100,9 +128,10 @@ NEW_TOKENS = 32
 # the serve phase's long prompt: its prefill takes the flash kernel's
 # 64-row instance
 LONG_PROMPT_LEN = 1500
-# the graph phase's plain paths: decode rate (t(1 + n) - t(1)) / n and the
-# profiled decode, n steps each
+# the graph phase's plain paths: decode rate (t(1 + n) - t(1)) / n, n
+# steps; the profiled decode, as many steps
 GRAPH_DECODE_TOKENS = 64
+PROFILE_DECODE_STEPS = GRAPH_DECODE_TOKENS
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|, elementwise.
 # f32: both sum the same f32 products in another order (~1e-6 apart).
 # bf16: the plain versions compute in f32 and round once to bf16.  The
@@ -130,6 +159,13 @@ PAGED_REPLACES = {
     "paged_decode": "distributed_inference_demo_tpu/ops/paged_attention.py:136",
     "paged_prefill":
         "distributed_inference_demo_tpu/ops/paged_attention.py:326"}
+QUANT_SOURCE = CSRC + "quant_dense.cu"
+QUANT_REPLACES = ("distributed_inference_demo_tpu/ops/quant.py:333 (dense: "
+                  "the counterpart of an XLA fusion, not of a Pallas kernel)")
+# the quant phase's kernel rows: plain decode, 8-slot decode, a mixed
+# slab's rows (TinyLlama); the large model served b=1 there
+QUANT_ROWS = (1, 8, 256)
+LARGE_MODEL = "llama-3-8b"
 # the int8 instances replace the same kernels' quantized branches
 PAGED_REPLACES["paged_decode_int8"] = PAGED_REPLACES["paged_decode"]
 PAGED_REPLACES["paged_prefill_int8"] = PAGED_REPLACES["paged_prefill"]
@@ -251,14 +287,16 @@ def phase_device(torch, smi: str) -> dict:
     from distributed_inference_demo_tpu_torch.ops import flash_attention as fa
     from distributed_inference_demo_tpu_torch.ops import \
         paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
 
     t0 = time.perf_counter()
-    sources = (fa.SOURCE, pa.SOURCE)
+    sources = (fa.SOURCE, pa.SOURCE, qd.SOURCE)
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     fa._kernel_fn()
     pa._kernel_fns()
+    qd._kernel_fn()
     build_s = time.perf_counter() - t0
     ptxas = {src: ptxas_report(_build.build_logs.get(src, ""))
              for src in sources}
@@ -1635,14 +1673,11 @@ def profile_steps(torch, engine, steps: int, submit,
     of two phases): such a profile is taken again, up to ``attempts``
     times, and if none holds a kernel the busy sum and idle share are
     None, with the reason."""
-    from torch.profiler import ProfilerActivity, profile
-
     for attempt in range(1, attempts + 1):
         reqs = submit()
         try:
             _wait_steps(engine, 4)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with _device_profile() as prof:
                 t0, k0 = time.perf_counter(), engine._step_count
                 _wait_steps(engine, steps)
                 _stop(reqs)
@@ -1662,19 +1697,17 @@ def profile_steps(torch, engine, steps: int, submit,
 
 
 def profile_decode(torch, engine, prompt,
-                   steps: int = GRAPH_DECODE_TOKENS) -> dict:
+                   steps: int = PROFILE_DECODE_STEPS) -> dict:
     """torch.profiler over ``steps`` decode steps of a plain engine and
     nothing else: the prompt is prefilled before the profile starts, and
     the engine's decode loop runs inside it.  Device time by kernel (top
     8), the device-busy sum, the wall time, the idle share."""
-    from torch.profiler import ProfilerActivity, profile
 
     ids = engine._ids(prompt)
     with engine._lock:
         st, eos = engine._start(ids, 0)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _device_profile() as prof:
             t0 = time.perf_counter()
             engine._decode_loop(st, eos, steps, steps)
             torch.cuda.synchronize()
@@ -1689,11 +1722,9 @@ def profile_generate(torch, engine, prompt, new_tokens: int = 16) -> dict:
     generate (prefill + ``new_tokens`` decode steps).  Device time by
     kernel name (top 8), the device-busy sum, and the wall time; the
     device's idle share is 1 - busy / wall."""
-    from torch.profiler import ProfilerActivity, profile
 
     engine.generate(prompt, new_tokens)         # warm
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_profile() as prof:
         t0 = time.perf_counter()
         engine.generate(prompt, new_tokens)
         torch.cuda.synchronize()
@@ -1701,6 +1732,16 @@ def profile_generate(torch, engine, prompt, new_tokens: int = 16) -> dict:
     out = _profile_summary(prof, wall_ms, {"new_tokens": new_tokens})
     _check(out["kernels"] > 0, "torch.profiler recorded no kernel")
     return out
+
+
+def _device_profile():
+    """torch.profiler recording the device's activity only.  Every number
+    read from a profile is a kernel's device time; recording each host op
+    as well cost about a minute of post-processing per eager profile
+    (~130k ops over 64 decode steps) and added its own host time to the
+    wall time that the idle share divides by."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
 
 
 def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
@@ -1721,8 +1762,11 @@ def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
     _check(bool(rows), "torch.profiler recorded no device time")
     kernels = sum(1 for r in rows
                   if not r[1].startswith(("Memcpy", "Memset")))
+    # the dequantizing dense kernel and its split-K reduction
+    dense_ms = sum(r[0] for r in rows if "quant_dense_kernel" in r[1]
+                   or "reduce_splits" in r[1]) / 1e3
     return {**head, "wall_ms": wall_ms, "kernels": kernels,
-            "device_busy_ms": busy_ms,
+            "device_busy_ms": busy_ms, "quant_dense_ms": dense_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n}
                     for us, k, n in rows[:8]]}
@@ -1732,24 +1776,45 @@ def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
 # phase 8: the decode step as a CUDA graph against the same step eager
 # ---------------------------------------------------------------------------
 
+def dense_per_layer(cfg) -> int:
+    """Quantized matmuls in one layer's forward (each one launch of the
+    dense kernel): wq, wk, wv, wo and the MLP's three (bloom: two)."""
+    if cfg.quantization == "none":
+        return 0
+    return 6 if cfg.family == "bloom" else 7
+
+
 def _graph_plain_side(torch, engine, prompt) -> dict:
     """One plain engine's numbers: greedy tokens and logprobs, decode
     ms/token over GRAPH_DECODE_TOKENS, the replays and decode steps of
-    those calls, then a profile of GRAPH_DECODE_TOKENS decode steps."""
+    those calls and the dense kernel's launches against the routing
+    (dense_per_layer x L a forward: the three prefills and every decode
+    step; counted from 0), then a profile of PROFILE_DECODE_STEPS decode
+    steps."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+
     engine.generate(prompt, 2)                   # captures, warms
     r0, s0 = engine.graph_replays, engine.loop_stats["device_loop_steps"]
+    qd.quant_dense.launches = 0
     res = engine.generate(prompt, NEW_TOKENS, logprobs=True)
     t_one = engine.generate(prompt, 1).seconds
     t_many = engine.generate(prompt, 1 + GRAPH_DECODE_TOKENS).seconds
     ms = (t_many - t_one) / GRAPH_DECODE_TOKENS * 1e3
     replays = engine.graph_replays - r0
     steps = engine.loop_stats["device_loop_steps"] - s0
+    dense = qd.quant_dense.launches
+    per_fwd = dense_per_layer(engine.cfg) * engine.cfg.num_layers
     prof = profile_decode(torch, engine, prompt)
     return {"tokens": res.tokens[0].tolist(), "logprobs": res.logprobs,
+            "dense_launches": dense,
+            "predicted_dense_launches": per_fwd * (3 + steps),
+            "device_dense_ms_per_step": prof["quant_dense_ms"]
+            / prof["decode_steps"],
+            "dense_share": prof["quant_dense_ms"] / prof["device_busy_ms"],
             "ms_per_token": ms, "ms_per_step": ms, "tok_s": 1e3 / ms,
             "replays": replays, "decode_steps": steps,
             "device_ms_per_step": prof["device_busy_ms"]
-            / GRAPH_DECODE_TOKENS,
+            / prof["decode_steps"],
             "device_idle_share": prof["device_idle_share"],
             "device_busy_ms": prof["device_busy_ms"],
             "profile_wall_ms": prof["wall_ms"],
@@ -1766,6 +1831,8 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
 
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
+    from distributed_inference_demo_tpu_torch.models.loader import \
+        load_or_init
     from distributed_inference_demo_tpu_torch.models.registry import \
         get_model_config
     from distributed_inference_demo_tpu_torch.ops.sampling import \
@@ -1777,10 +1844,13 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
     greedy = SamplingParams(greedy=True)
     prompt = np.random.RandomState(1).randint(
         0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
-    params = init_full_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    # the CLI's resolution: random weights from seed 0, quantized during
+    # init for an -int8 / -int4 model
+    params = load_or_init(name, cfg, None, seed=0, device="cuda")
     out = {"path": f"{name} plain serve, b=1", "model": name,
            "decode_tokens": GRAPH_DECODE_TOKENS}
+    if cfg.quantization != "none":
+        out["twin_check"] = quant_twin_check(torch, cfg, params)
     for key, flag in (("graph", True), ("eager", False)):
         eng = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
                               device="cuda", cuda_graph=flag)
@@ -1795,6 +1865,10 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
            "differ from the eager step's")
     _check(g["replays"] == g["decode_steps"] > 0 and e["replays"] == 0,
            f"{name}: replays {g['replays']} of {g['decode_steps']} steps")
+    for side in (g, e):
+        _check(side["dense_launches"] == side["predicted_dense_launches"],
+               f"{name}: dense launches {side['dense_launches']}, the "
+               f"routing predicts {side['predicted_dense_launches']}")
     del params
     torch.cuda.empty_cache()
     if f32:
@@ -1827,6 +1901,7 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
     instances)."""
     from distributed_inference_demo_tpu_torch.ops import \
         paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
 
     L = engine.cfg.num_layers
     dec, pre = pa.paged_flash_attention, pa.paged_prefill_attention
@@ -1835,6 +1910,7 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
     c0 = (getattr(dec, attr), getattr(pre, attr))
     r0, s0 = engine.graph_replays, engine.loop_stats["device_loop_steps"]
     f0 = engine.chunk_stats["mixed_slab_forwards"]
+    qd.quant_dense.launches = 0
     reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
     for r in reqs:
         r.wait(timeout=600)
@@ -1851,8 +1927,19 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
     predicted = {"paged_decode": L * steps, "paged_prefill": L * (
         engine.chunk_stats["mixed_slab_forwards"] - f0 if mixed
         else admitted)}
+    # the dense kernel: dense_per_layer x L a forward, each decode step
+    # and each admission (a mixed slab's forwards are not predicted here)
+    per_fwd = dense_per_layer(engine.cfg) * L
+    dense = qd.quant_dense.launches
     prof = window["profile"]
+    busy = prof.get("device_busy_ms")
     return {"tokens": toks, "logprobs": lps,
+            "dense_launches": dense,
+            "predicted_dense_launches": None if mixed and per_fwd else
+            per_fwd * (steps + admitted),
+            "device_dense_ms_per_step": (prof["quant_dense_ms"]
+                                         / prof["steps"] if busy else None),
+            "dense_share": prof["quant_dense_ms"] / busy if busy else None,
             "ms_per_step": window["decode_ms_per_step"],
             "rows": len(prompts), "replays": engine.graph_replays - r0,
             "decode_steps": steps, "launches": launches,
@@ -1872,8 +1959,8 @@ def graph_batching(torch, name: str, mixed: bool = False) -> dict:
     int8 pages, whose decode half is the graph), full width, the decode
     step replayed and eager (one engine each, the same weights): see
     the module docstring, item 8."""
-    from distributed_inference_demo_tpu_torch.models.decoder import \
-        init_full_params
+    from distributed_inference_demo_tpu_torch.models.loader import \
+        load_or_init
     from distributed_inference_demo_tpu_torch.models.registry import \
         get_model_config
     from distributed_inference_demo_tpu_torch.ops.sampling import \
@@ -1882,20 +1969,33 @@ def graph_batching(torch, name: str, mixed: bool = False) -> dict:
         ContinuousBatchingEngine
 
     cfg = get_model_config(name)
-    params = init_full_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    params = load_or_init(name, cfg, None, seed=0, device="cuda")
     prompts = [p[:16] for p in _batch_prompts(cfg.vocab_size)]
     kw = (dict(mixed_token_budget=MIXED_BUDGET, kv_dtype="int8",
                decode_block=MIXED_DECODE_BLOCK) if mixed else {})
     out = {"path": f"{name} {'mixed int8' if mixed else 'batching'}, "
                    f"{SLOTS} slots", "model": name}
+
+    def engine_for(p, flag):
+        return ContinuousBatchingEngine(
+            cfg, p, max_seq=MAX_SEQ, max_batch=SLOTS,
+            sampling=SamplingParams(greedy=True),
+            kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+            device="cuda", cuda_graph=flag, **kw)
+
     for key, flag in (("graph", True), ("eager", False)):
-        with ContinuousBatchingEngine(
-                cfg, params, max_seq=MAX_SEQ, max_batch=SLOTS,
-                sampling=SamplingParams(greedy=True),
-                kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
-                device="cuda", cuda_graph=flag, **kw) as eng:
+        with engine_for(params, flag) as eng:
             out[key] = _graph_batching_side(torch, eng, prompts, mixed)
+    if cfg.quantization != "none":
+        # the 1500-token prompt's first 1008 tokens: 15 chunks of 64, one
+        # of 40, then 8 decode steps
+        with engine_for(dequantized_twin(cfg, params), False) as twin_eng:
+            pass
+        out["twin_check"] = quant_paged_twin_check(
+            torch, eng, twin_eng,
+            _batch_prompts(cfg.vocab_size)[BATCH_PROMPTS.index(1500)][:1008])
+        del twin_eng
+    del eng
     g, e = out["graph"], out["eager"]
     out["bits_equal"] = ((g.pop("tokens"), g.pop("logprobs"))
                          == (e.pop("tokens"), e.pop("logprobs")))
@@ -1906,6 +2006,10 @@ def graph_batching(torch, name: str, mixed: bool = False) -> dict:
         _check(side["launches"] == side["predicted_launches"],
                f"{out['path']}: paged launches {side['launches']}, "
                f"predicted {side['predicted_launches']}")
+        _check(side["predicted_dense_launches"] is None
+               or side["dense_launches"] == side["predicted_dense_launches"],
+               f"{out['path']}: dense launches {side['dense_launches']}, "
+               f"predicted {side['predicted_dense_launches']}")
     _check(g["replays"] == g["decode_steps"] > 0 and e["replays"] == 0,
            f"{out['path']}: replays {g['replays']} of "
            f"{g['decode_steps']} steps")
@@ -1923,6 +2027,468 @@ def phase_graph(torch) -> dict:
              graph_plain(torch, "bloom3b")]
     return {"phase": "graph", "device": torch.cuda.get_device_name(0),
             "paths": paths, "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: int8 / int4 weights through the dequantizing dense kernel
+# ---------------------------------------------------------------------------
+
+def quant_cases():
+    """(model, weight, K, N, M, bits, dtype): TinyLlama's seven matmul
+    weights at M = 1 (plain decode), 8 (8-slot decode) and 256 (a mixed
+    slab's rows), int8 and int4, bf16 and f32 activations; and
+    llama-3-8b's four weight shapes where its int8 plain serve runs them,
+    M = 1 (decode) and PROMPT_LEN (the prefill), int8, bf16."""
+    import torch
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+
+    def shapes(cfg):
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        return (("wq", H, q), ("wk", H, kv), ("wv", H, kv), ("wo", q, H),
+                ("w_gate", H, I), ("w_up", H, I), ("w_down", I, H))
+
+    out = [(SERVE_MODEL, name, k, n, m, bits, dtype)
+           for name, k, n in shapes(get_model_config(SERVE_MODEL))
+           for m in QUANT_ROWS for bits in (8, 4)
+           for dtype in (torch.bfloat16, torch.float32)]
+    # one row per distinct shape: wq and wo, wk and wv, w_gate and w_up
+    # share theirs
+    large, seen = [], {}
+    for name, k, n in shapes(get_model_config(LARGE_MODEL)):
+        if (k, n) in seen:
+            large[seen[(k, n)]][0] += f", {name}"
+        else:
+            seen[(k, n)] = len(large)
+            large.append([name, k, n])
+    out += [(LARGE_MODEL, name, k, n, m, 8, torch.bfloat16)
+            for name, k, n in large for m in (1, PROMPT_LEN)]
+    return out
+
+
+def quant_work(m, k, n, bits, elt):
+    """(flops, bytes) of one product: x and y once, the codes and the
+    scales once (int4: a scale per 64 input rows per column)."""
+    scale_bytes = 4 * n * (1 if bits == 8 else k // 64)
+    nbytes = m * k * elt + k * n * bits // 8 + scale_bytes + m * n * elt
+    return 2 * m * k * n, nbytes
+
+
+def _ptxas_row(rows: list, dtype_name: str, bits: int, block_rows: int):
+    """The ptxas row of one instance of quant_dense_kernel, demangled or
+    not."""
+    t, tm = (("__nv_bfloat16", "13__nv_bfloat16") if dtype_name == "bfloat16"
+             else ("float", "f"))
+    for r in rows:
+        k = r["kernel"]
+        if (f"quant_dense_kernel<{t}, {bits}, {block_rows}>" in k
+                or f"quant_dense_kernelI{tm}Li{bits}ELi{block_rows}E" in k):
+            return r
+    return None
+
+
+def phase_quant_kernels(torch, ptxas: list) -> dict:
+    """The dense kernel against its plain version (x @ w.dequantize) on
+    the same codes, at every quant_cases shape: error, device ms (graph
+    replayed) and eager ms, the plain version's ms, the library
+    yardstick (torch.matmul over the weight dequantized beforehand, what
+    the float model pays), the bound, and the instance's registers and
+    spills."""
+    from distributed_inference_demo_tpu_torch.ops import quant
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases, failures, weights = [], [], {}
+    for model, name, k, n, m, bits, dtype in quant_cases():
+        key = (k, n, bits)
+        if key not in weights:
+            w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+            weights[key] = (quant.quantize_array(w) if bits == 8
+                            else quant.quantize_array4(w))
+        wq = weights[key]
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        dname = str(dtype).split(".")[-1]
+        atol, rtol = TOL[dname]
+        got = qd.quant_dense(x, wq)
+        want = qd.quant_dense_plain(x, wq)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        ok = bool(torch.isfinite(got.float()).all()) and bool(
+            (err <= atol + rtol * want.float().abs()).all())
+        w_deq = wq.dequantize(dtype)
+        lib_err = float((torch.matmul(x, w_deq).float()
+                         - want.float()).abs().max())
+        elt = x.element_size()
+        flops, nbytes = quant_work(m, k, n, bits, elt)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FLOPS[dname] * 1e3
+        rows = qd.block_rows(m, dtype)
+        ms = device_ms(torch, lambda: qd.quant_dense(x, wq))
+        row = {"model": model, "weight": name, "k": k, "n": n, "m": m,
+               "bits": bits,
+               "dtype": dname, "block_rows": rows,
+               "splits": qd.k_splits(m, n, k, bits, rows, torch.cuda.
+                                     get_device_properties(0).
+                                     multi_processor_count),
+               "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
+               "ok": ok, "ms": ms,
+               "eager_ms": eager_ms(torch, lambda: qd.quant_dense(x, wq)),
+               "plain_ms": device_ms(torch,
+                                     lambda: qd.quant_dense_plain(x, wq)),
+               "library_ms": device_ms(torch,
+                                       lambda: torch.matmul(x, w_deq)),
+               "library": "torch.matmul on the weight dequantized "
+                          "beforehand",
+               "library_max_abs_err": lib_err,
+               "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row["roofline_share"] = row["bound_ms"] / ms
+        pt = _ptxas_row(ptxas, dname, bits, rows)
+        row.update(registers=pt and pt["registers"],
+                   spill_stores=pt and pt["spill_stores"],
+                   spill_loads=pt and pt["spill_loads"])
+        cases.append(row)
+        if not ok:
+            failures.append(f"quant_dense {model} {name} m={m} int{bits} "
+                            f"{dname}: max err {row['max_abs_err']}")
+        del x, got, want, w_deq
+    del weights
+    torch.cuda.empty_cache()
+    return {"phase": "quant_kernels", "device": torch.cuda.get_device_name(0),
+            "cases": cases, "failures": failures,
+            "seconds": time.perf_counter() - t0}
+
+
+def _teacher_forced_logits(torch, params, cfg, seq, n_decode: int):
+    """Logits of ``seq`` through ``stage_forward`` as the plain engine runs
+    it (flash hook, KV cache): the prefill of all but the last
+    ``n_decode`` tokens (its last position), then each of those tokens
+    as a one-token decode step.  [n_decode + 1, vocab] f32."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.base import (
+        KVCache, StageSpec)
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        stage_forward
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        make_flash_attn_impl
+
+    L = cfg.num_layers
+    spec, hook = StageSpec(0, 1, 0, L), make_flash_attn_impl()
+    cache = KVCache.create(cfg, L, 1, len(seq), device="cuda")
+    ids = torch.tensor([seq], device="cuda")
+    n_pre = len(seq) - n_decode
+    out = []
+    with torch.no_grad():
+        lg, cache = stage_forward(params, cfg, spec, ids[:, :n_pre], cache,
+                                  torch.arange(n_pre, device="cuda")[None],
+                                  hook, last_logits_only=True)
+        out.append(lg[0, -1].float().cpu().numpy())
+        for t in range(n_pre, len(seq)):
+            lg, cache = stage_forward(params, cfg, spec, ids[:, t:t + 1],
+                                      cache, torch.tensor([[t]],
+                                                          device="cuda"),
+                                      hook, last_logits_only=True)
+            out.append(lg[0, -1].float().cpu().numpy())
+    return np.stack(out)
+
+
+def quant_twin_check(torch, cfg, params, n_decode: int = 8) -> dict:
+    """Prefill (PROMPT_LEN tokens) and ``n_decode`` decode-step logits of
+    the quantized model (the dense kernel) against its float twin, whose
+    weights are the same codes dequantized to the model dtype, held to
+    LOGIT_TOL_REL as the kernels' bf16 logit checks: the reference
+    defines dense as exactly that product, so only the summation order
+    differs."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+
+    twin = dequantized_twin(cfg, params)
+    seq = np.random.RandomState(11).randint(
+        0, cfg.vocab_size, PROMPT_LEN + n_decode).tolist()
+    qd.quant_dense.launches = 0
+    lq = _teacher_forced_logits(torch, params, cfg, seq, n_decode)
+    launches = qd.quant_dense.launches
+    lt = _teacher_forced_logits(torch, twin, cfg, seq, n_decode)
+    del twin
+    torch.cuda.empty_cache()
+    per_fwd = dense_per_layer(cfg) * cfg.num_layers
+    return _twin_verdict(cfg, lq, lt, len(seq), launches,
+                         per_fwd * (1 + n_decode))
+
+
+def dequantized_twin(cfg, params):
+    """The float twin of quantized ``params``: every quantized leaf
+    dequantized to the model dtype, the rest shared."""
+    from distributed_inference_demo_tpu_torch.models.base import StageParams
+    from distributed_inference_demo_tpu_torch.ops import quant
+
+    return StageParams(
+        layers={k: v.dequantize(cfg.dtype) if isinstance(
+            v, quant.AnyQuantized) else v for k, v in params.layers.items()},
+        embed=params.embed, final_norm=params.final_norm,
+        lm_head=params.lm_head)
+
+
+def _twin_verdict(cfg, lq, lt, tokens: int, launches: int,
+                  predicted: int) -> dict:
+    """The quantized model's teacher-forced logits ``lq`` against its
+    twin's ``lt`` ([n_decode + 1, vocab]: the prefill's last position,
+    then each decode step's), held to LOGIT_TOL_REL of the twin's largest
+    logit; the dense kernel's launches against the routing's
+    prediction."""
+    import numpy as np
+
+    scale = max(1.0, float(np.abs(lt).max()))
+    err = np.abs(lq - lt).max(axis=1)
+    res = {"tokens": tokens, "decode_steps": len(err) - 1,
+           "dense_launches": launches,
+           "predicted_dense_launches": predicted,
+           "logit_max_abs_err": float(err.max()),
+           "prefill_logit_max_abs_err": float(err[0]),
+           "logit_scale": scale, "logit_tol": LOGIT_TOL_REL * scale,
+           "argmax_agreement": int((lq.argmax(1) == lt.argmax(1)).sum()),
+           "argmax_agreement_of": len(err)}
+    _check(launches == predicted, f"twin check: {launches} dense launches, "
+           f"predicted {predicted}")
+    _check(bool(np.isfinite(lq).all()), "quantized logits not finite")
+    _check(res["logit_max_abs_err"] <= res["logit_tol"],
+           f"{cfg.quantization} logits differ from the dequantized twin's by "
+           f"{res['logit_max_abs_err']} (> {LOGIT_TOL_REL} x {scale})")
+    return res
+
+
+def quant_paged_twin_check(torch, engine, twin_engine, seq,
+                           n_decode: int = 8) -> dict:
+    """As :func:`quant_twin_check`, through the batching engine's paged
+    forward (:func:`_paged_logits`: ``prefill_chunk``-token chunks, then
+    one-token decode steps): closed ``engine`` on the quantized weights
+    against closed ``twin_engine`` on their dequantized twin."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+
+    cfg = engine.cfg
+    qd.quant_dense.launches = 0
+    lq = _paged_logits(torch, engine, seq, n_decode)
+    launches = qd.quant_dense.launches
+    lt = _paged_logits(torch, twin_engine, seq, n_decode)
+    chunks = -(-(len(seq) - n_decode) // engine.prefill_chunk)
+    per_fwd = dense_per_layer(cfg) * cfg.num_layers
+    return _twin_verdict(cfg, lq, lt, len(seq), launches,
+                         per_fwd * (chunks + n_decode))
+
+
+def quant_serve_large(torch, name: str) -> dict:
+    """Plain serve of ``name`` (llama-3-8b, bf16 or int8) at b=1, full
+    width, the decode step replayed: init peak memory, ms/token, device
+    ms a step and the dense kernel's share of it."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.loader import \
+        load_or_init
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+
+    import gc
+
+    cfg = get_model_config(name)
+    # what earlier phases left allocated is not this init's
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = load_or_init(name, cfg, None, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {"path": f"{name} plain serve, b=1", "model": name,
+           "init_s": time.perf_counter() - t0,
+           "params_bytes": params.nbytes(),
+           "allocated_before_init_bytes": base,
+           "init_peak_mem_bytes": torch.cuda.max_memory_allocated() - base}
+    if cfg.quantization != "none":
+        out["twin_check"] = quant_twin_check(torch, cfg, params)
+    prompt = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
+    eng = InferenceEngine(cfg, params, max_seq=MAX_SEQ,
+                          sampling=SamplingParams(greedy=True),
+                          device="cuda")
+    side = _graph_plain_side(torch, eng, prompt)
+    side.pop("logprobs")
+    out.update(side)
+    _check(side["dense_launches"] == side["predicted_dense_launches"],
+           f"{name}: dense launches {side['dense_launches']}, predicted "
+           f"{side['predicted_dense_launches']}")
+    _check(side["replays"] == side["decode_steps"] > 0,
+           f"{name}: replays {side['replays']} of {side['decode_steps']}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hf_state_dict(torch, cfg, seed: int) -> dict:
+    """A llama-family HF state dict at ``cfg``'s full width, random bf16
+    from ``seed`` (made on the card, held on the host)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def rnd(*shape, scale, shift=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                + shift).to(torch.bfloat16).cpu()
+
+    sd = {"model.embed_tokens.weight": rnd(cfg.vocab_size, H, scale=0.02),
+          "model.norm.weight": rnd(H, scale=0.05, shift=1.0),
+          "lm_head.weight": rnd(cfg.vocab_size, H, scale=H ** -0.5)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": rnd(H, scale=0.05, shift=1.0),
+            p + "post_attention_layernorm.weight": rnd(H, scale=0.05,
+                                                       shift=1.0),
+            p + "self_attn.q_proj.weight": rnd(q, H, scale=H ** -0.5),
+            p + "self_attn.k_proj.weight": rnd(kv, H, scale=H ** -0.5),
+            p + "self_attn.v_proj.weight": rnd(kv, H, scale=H ** -0.5),
+            p + "self_attn.o_proj.weight": rnd(H, q, scale=q ** -0.5),
+            p + "mlp.gate_proj.weight": rnd(I, H, scale=H ** -0.5),
+            p + "mlp.up_proj.weight": rnd(I, H, scale=H ** -0.5),
+            p + "mlp.down_proj.weight": rnd(H, I, scale=I ** -0.5)})
+    return sd
+
+
+def write_safetensors(torch, path: str, tensors: dict) -> None:
+    """The safetensors format: an 8-byte little-endian header length, the
+    JSON header (dtype, shape, data offsets from the end of the header),
+    the data; the header padded with spaces to 8 bytes."""
+    import struct
+    names = list(tensors)
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for n in names:
+        t = tensors[n]
+        size = t.numel() * t.element_size()
+        header[n] = {"dtype": {"torch.bfloat16": "BF16",
+                               "torch.float32": "F32"}[str(t.dtype)],
+                     "shape": list(t.shape), "data_offsets": [off,
+                                                              off + size]}
+        off += size
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for n in names:
+            t = tensors[n].contiguous().reshape(-1)
+            t.view(torch.uint8).numpy().tofile(f)
+
+
+def quant_loader_check(torch) -> dict:
+    """``serve --model tinyllama-1.1b-int8 --checkpoint DIR``: a
+    full-width TinyLlama HF state dict (random bf16 from a seed) written
+    as two safetensors shards, served through the CLI's params resolution
+    (``load_or_init``); the served codes and every other leaf bit-equal
+    to ``maybe_quantize(params_from_state_dict(...))`` of the same
+    tensors in memory; one greedy request over HTTP."""
+    import tempfile
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch import cli
+    from distributed_inference_demo_tpu_torch.models.loader import \
+        params_from_state_dict
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops import quant
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+
+    name = SERVE_MODEL + "-int8"
+    cfg = get_model_config(name)
+    sd = _hf_state_dict(torch, cfg, seed=5)
+    keys = list(sd)
+    half = keys.index(f"model.layers.{cfg.num_layers // 2}.input_layernorm"
+                      ".weight")
+    out = {"path": f"serve --model {name} --checkpoint DIR", "model": name}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        t0 = time.perf_counter()
+        for i, part in enumerate((keys[:half], keys[half:])):
+            write_safetensors(torch,
+                              f"{d}/model-0000{i + 1}-of-00002.safetensors",
+                              {k: sd[k] for k in part})
+        out["write_s"] = time.perf_counter() - t0
+        args = cli._serve_parser().parse_args(
+            ["--model", name, "--checkpoint", d, "--greedy", "--max-seq",
+             str(MAX_SEQ), "--http-port", "0"])
+        t0 = time.perf_counter()
+        _, engine = cli.build_engine(args)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+    want = quant.maybe_quantize(params_from_state_dict(sd, cfg, "cuda"), cfg)
+    del sd
+    same = True
+    for part in ("layers", "embed", "final_norm", "lm_head"):
+        got, exp = getattr(engine.params, part), getattr(want, part)
+        same &= sorted(got) == sorted(exp)
+        for k, v in exp.items():
+            g = got[k]
+            if isinstance(v, quant.AnyQuantized):
+                same &= (type(g) is type(v) and torch.equal(g.q, v.q)
+                         and torch.equal(g.scale, v.scale))
+            else:
+                same &= (g.dtype == v.dtype and torch.equal(g, v))
+    out["codes_bit_equal"] = bool(same)
+    del want
+    torch.cuda.empty_cache()
+    _check(out["codes_bit_equal"], "the checkpoint's served parameters "
+           "differ from maybe_quantize(params_from_state_dict(...))")
+    server = InferenceHTTPServer(engine, "127.0.0.1", 0, model_name=name,
+                                 default_max_new=NEW_TOKENS)
+    server.start()
+    try:
+        prompt = np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
+        qd.quant_dense.launches = 0
+        code, body = _post(server.port, {"prompt_ids": prompt,
+                                         "max_new_tokens": NEW_TOKENS})
+        _check(code == 200, f"checkpoint request: HTTP {code}")
+        toks = json.loads(body)["tokens"]
+        _check(np.asarray(toks).shape == (1, NEW_TOKENS),
+               f"checkpoint tokens shape {np.asarray(toks).shape}")
+        out.update(tokens=toks[0], dense_launches=qd.quant_dense.launches)
+        _check(qd.quant_dense.launches > 0, "the checkpoint's request "
+               "launched no dense kernel")
+    finally:
+        server.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_quant(torch) -> dict:
+    """``-int8`` / ``-int4`` configs end to end (see the module
+    docstring, item 9)."""
+    t0 = time.perf_counter()
+    out = {"phase": "quant", "device": torch.cuda.get_device_name(0)}
+    for key, run in (
+            ("int8_plain", lambda: graph_plain(torch, SERVE_MODEL + "-int8")),
+            ("int8_batching",
+             lambda: graph_batching(torch, SERVE_MODEL + "-int8")),
+            ("int4_plain", lambda: graph_plain(torch, SERVE_MODEL + "-int4")),
+            ("llama3_8b_int8",
+             lambda: quant_serve_large(torch, LARGE_MODEL + "-int8")),
+            ("llama3_8b_bf16", lambda: quant_serve_large(torch, LARGE_MODEL)),
+            ("loader", lambda: quant_loader_check(torch))):
+        t1 = time.perf_counter()
+        out[key] = run()
+        out[key]["seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1951,12 +2517,16 @@ def main(argv) -> int:
     smi = nvidia_smi_line()
     print(smi, flush=True)
     try:
-        emit(phase_device(torch, smi))
+        device = phase_device(torch, smi)
+        emit(device)
         kern = phase_kernels(torch)
         emit(kern)
         paged = phase_paged_kernels(torch)
         emit(paged)
-        failures = kern["failures"] + paged["failures"]
+        qkern = phase_quant_kernels(
+            torch, device["ptxas"]["quant_dense.cu"])
+        emit(qkern)
+        failures = kern["failures"] + paged["failures"] + qkern["failures"]
         if failures:
             raise AssertionError("kernel disagrees with its plain version: "
                                  + "; ".join(failures))
@@ -1980,6 +2550,8 @@ def main(argv) -> int:
         bloom_batching = phase_batching(torch, "bloom3b", f32=None)
         emit(bloom_batching)
         emit(phase_graph(torch))
+        quant_phase = phase_quant(torch)
+        emit(quant_phase)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2052,6 +2624,18 @@ def main(argv) -> int:
                 "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"]}
 
+    def quant_case(m, bits, weight="w_up", model=SERVE_MODEL):
+        return next(c for c in qkern["cases"] if c["model"] == model
+                    and c["weight"] == weight and c["m"] == m
+                    and c["bits"] == bits and c["dtype"] == "bfloat16")
+
+    def quant_entry(name, side, m, bits, shape, **case):
+        e = entry(name, QUANT_SOURCE, QUANT_REPLACES,
+                  side["dense_launches"], quant_case(m, bits, **case), shape)
+        # decode steps replay the graph; prefill forwards launch eagerly
+        e["graph_replayed"] = "decode steps"
+        return e
+
     emit({"kernels": [
         entry("flash_attention", KERNEL_SOURCE, KERNEL_REPLACES,
               serve["launches"], main_case, "64-token prompt at 0"),
@@ -2063,7 +2647,23 @@ def main(argv) -> int:
         for name, model in flash_new] + [
         entry(name, PAGED_SOURCE, PAGED_REPLACES[key], phase["launches"][key],
               case, shape)
-        for name, key, phase, case, shape in paged_main]})
+        for name, key, phase, case, shape in paged_main] + [
+        quant_entry("quant_dense_int8", quant_phase["int8_plain"]["graph"],
+                    1, 8, "TinyLlama w_up [2048, 5632] int8, M = 1 "
+                    "(launches: tinyllama-1.1b-int8 plain serve, every "
+                    "quantized matmul)"),
+        quant_entry("quant_dense_int8_slots8",
+                    quant_phase["int8_batching"]["graph"], 8, 8,
+                    "TinyLlama w_up [2048, 5632] int8, M = 8 (launches: "
+                    "tinyllama-1.1b-int8 8-slot batching)"),
+        quant_entry("quant_dense_int4", quant_phase["int4_plain"]["graph"],
+                    1, 4, "TinyLlama w_up [2048, 5632] int4, M = 1 "
+                    "(launches: tinyllama-1.1b-int4 plain serve)"),
+        quant_entry("quant_dense_int8_llama3_8b",
+                    quant_phase["llama3_8b_int8"], 1, 8,
+                    "llama-3-8b w_down [14336, 4096] int8, M = 1 "
+                    "(launches: llama-3-8b-int8 plain serve)",
+                    weight="w_down", model=LARGE_MODEL)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

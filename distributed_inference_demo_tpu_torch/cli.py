@@ -9,9 +9,13 @@
     python -m distributed_inference_demo_tpu_torch serve \\
         --model tinyllama-1.1b --batch-slots 8 --prefill-chunk 64 \\
         --decode-block 4 --mixed-token-budget 288 --kv-dtype int8
+    python -m distributed_inference_demo_tpu_torch serve \\
+        --model tinyllama-1.1b-int8 --checkpoint /path/to/hf-checkpoint
 
-Two serve modes of the JAX package's CLI, with random weights from
-``--weights-seed`` behind ``InferenceHTTPServer``: plain (one
+Two serve modes of the JAX package's CLI, with the weights of an HF
+safetensors directory (``--checkpoint``) or random weights from
+``--weights-seed``, quantized for an ``-int8`` / ``-int4`` model, behind
+``InferenceHTTPServer``: plain (one
 ``InferenceEngine``) and ``--batch-slots N`` (a ``ContinuousBatchingEngine``
 over the paged KV pool, with ``--kv-cache-blocks``, ``--kv-block-tokens``,
 ``--decode-block``, ``--prefill-chunk``, ``--admission-queue-depth``,
@@ -38,17 +42,19 @@ def _sampling_from_args(args):
 
 
 def _params(args):
-    """(device, cfg, params): random weights from ``--weights-seed``."""
-    import torch
-
+    """(device, cfg, params): ``--checkpoint`` if given, else random
+    weights from ``--weights-seed`` (quantized during init for an
+    ``-int8`` / ``-int4`` model), through ``load_or_init`` as the
+    reference's CLI resolves them, on the plain and the batching path
+    alike."""
     from .device import resolve_device
-    from .models.decoder import init_full_params
+    from .models.loader import load_or_init
     from .models.registry import get_model_config
 
     device = resolve_device(args.device)
     cfg = get_model_config(args.model)
-    gen = torch.Generator(device=device).manual_seed(args.weights_seed)
-    return device, cfg, init_full_params(gen, cfg, device)
+    return device, cfg, load_or_init(args.model, cfg, args.checkpoint,
+                                     seed=args.weights_seed, device=device)
 
 
 def build_batching_engine(args):
@@ -130,6 +136,9 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-seq", type=int, default=1024)
     ap.add_argument("--max-new-tokens", type=int, default=128)
     ap.add_argument("--weights-seed", type=int, default=0)
+    ap.add_argument("--checkpoint", default=None,
+                    help="an HF safetensors checkpoint directory (else "
+                         "random weights from --weights-seed)")
     ap.add_argument("--seed", type=int, default=0,
                     help="with --batch-slots: seeds the engine's one "
                          "sampling stream, and a request's own seed is not "

@@ -162,7 +162,9 @@ class StageParams:
 
     def layer(self, i: int) -> dict:
         """Layer ``i``'s weights as views into the stacked tensors (built
-        once, so a decode step does not re-slice every weight)."""
+        once, so a decode step does not re-slice every weight).  A
+        quantized leaf (``ops.quant.QuantizedArray``/``QuantizedArray4``)
+        indexes every leaf alike."""
         if self._layer_views is None:
             n = next(iter(self.layers.values())).shape[0]
             self._layer_views = [{k: v[j] for k, v in self.layers.items()}
@@ -170,7 +172,8 @@ class StageParams:
         return self._layer_views[i]
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
+        """Bytes of every leaf (a quantized leaf's codes and scales)."""
+        return sum(t.nbytes
                    for part in (self.layers, self.embed, self.final_norm,
                                 self.lm_head) if part for t in part.values())
 

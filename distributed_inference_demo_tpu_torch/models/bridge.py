@@ -3,17 +3,20 @@
 ``params_from_numpy`` takes the JAX package's ``StageParams`` leaves as
 numpy arrays, ``{"layers": {...}, "embed": {...}, "final_norm": {...},
 "lm_head": {...}}``, and returns the port's ``StageParams`` on a device,
-so both packages can run on the same weights.  ``kv_pages_from_numpy``
-does the same for a quantized page pool.  The conversion from JAX arrays
-to numpy happens in the caller, never here: this module does not import
-JAX.
+so both packages can run on the same weights.  A quantized leaf of the
+reference (``QuantizedArray`` / ``QuantizedArray4``) travels as a dict of
+its fields, ``{"q": ..., "scale": ...}`` plus ``"group"`` for int4, and
+becomes the port's class over the same codes and scales.
+``kv_pages_from_numpy`` does the same for a quantized page pool.  The
+conversion from JAX arrays to numpy happens in the caller, never here:
+this module does not import JAX.
 """
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.quant import QuantizedKVPages, require_float_weights
+from ..ops.quant import QuantizedArray, QuantizedArray4, QuantizedKVPages
 from .base import ModelConfig, StageParams
 
 
@@ -33,14 +36,22 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None
                       ) -> StageParams:
     """The reference's parameter tree (numpy leaves) as the port's
     ``StageParams`` on ``device`` (CUDA unless the CPU is asked for)."""
-    require_float_weights(cfg)
     device = resolve_device(device)
+
+    def leaf(v):
+        if not isinstance(v, dict):
+            return tensor_from_numpy(v, device)
+        q = tensor_from_numpy(v["q"], device)
+        scale = tensor_from_numpy(v["scale"], device)
+        if "group" in v:
+            return QuantizedArray4(q=q, scale=scale, group=int(v["group"]))
+        return QuantizedArray(q=q, scale=scale)
 
     def part(name):
         leaves = tree.get(name)
         if leaves is None:
             return None
-        return {k: tensor_from_numpy(v, device) for k, v in leaves.items()}
+        return {k: leaf(v) for k, v in leaves.items()}
 
     return StageParams(layers=part("layers"), embed=part("embed"),
                        final_norm=part("final_norm"),

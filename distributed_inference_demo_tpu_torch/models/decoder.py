@@ -8,9 +8,11 @@ Counterpart of ``distributed_inference_demo_tpu/models/decoder.py``.  One
 - **gemma**: sqrt(H) embedding scale, GeGLU (tanh), decoupled head_dim;
 - **bloom**: LayerNorm with bias, ALiBi, embedding LayerNorm, GELU MLP.
 
-Mixtral's MoE MLP is ported in a later slice and raises here.  The
-reference's ``lax.scan`` over the stacked layers becomes a Python loop
-that writes each layer's cache plane in place.
+Mixtral's MoE MLP is ported in a later slice and raises here.  Int8 and
+int4 weights (``-int8`` / ``-int4`` configs) go through
+``ops.quant.dense``.  The reference's ``lax.scan`` over the stacked
+layers becomes a Python loop that writes each layer's cache plane in
+place.
 """
 
 from typing import Optional, Tuple
@@ -22,7 +24,8 @@ from ..device import resolve_device
 from ..ops.attention import (alibi_slopes, attention, attention_at,
                              update_kv_cache)
 from ..ops.norms import layer_norm, rms_norm
-from ..ops.quant import dense, require_float_weights
+from ..ops.quant import (QuantizedArray, QuantizedArray4, dense,
+                         int4_group_for, quantize_array, quantize_array4)
 from ..ops.rope import apply_rope
 from .base import KVCache, ModelConfig, StageParams, StageSpec
 
@@ -48,15 +51,45 @@ def _dense_init(gen: torch.Generator, shape, dtype, device, scale=None):
     return out
 
 
+def _init_quantized(gen: torch.Generator, shape, dtype, device, mode: str):
+    """Init + quantize (int8 or int4) one layer slice at a time: each
+    layer is drawn by :func:`_dense_init` and quantized, so the codes are
+    those of the float init's weights, and peak memory is the quantized
+    footprint plus one layer's float transient, never the whole tensor
+    at float width."""
+    L, fan_in = shape[0], shape[-2]
+    q = sc = None
+    for i in range(L):
+        w = _dense_init(gen, shape[1:], dtype, device)
+        qa = (quantize_array4(w) if mode == "int4"
+              else quantize_array(w, stacked=False))
+        if q is None:
+            q = torch.empty((L, *qa.q.shape), dtype=qa.q.dtype,
+                            device=device)
+            sc = torch.empty((L, *qa.scale.shape), dtype=qa.scale.dtype,
+                             device=device)
+        q[i].copy_(qa.q)
+        sc[i].copy_(qa.scale)
+        del w, qa     # this layer's float transient goes before the next
+    if mode == "int4":
+        return QuantizedArray4(q=q, scale=sc, group=int4_group_for(fan_in))
+    return QuantizedArray(q=q, scale=sc)
+
+
 def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
-                      num_layers: int, device) -> dict:
+                      num_layers: int, device, quantize=False) -> dict:
     """Stacked per-layer weights, leading dim = num_layers (the
-    reference's names and shapes)."""
+    reference's names and shapes).  With ``quantize`` (True = "int8", or
+    "int8" / "int4"), each big matmul operand is drawn and quantized one
+    layer at a time (:func:`_init_quantized`)."""
     H, nh, nkv, hd = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                       cfg.head_dim)
     I, L, dt = cfg.intermediate_size, num_layers, cfg.dtype
+    mode = "int8" if quantize is True else quantize
 
     def big(shape):
+        if mode:
+            return _init_quantized(gen, shape, dt, device, mode)
         return _dense_init(gen, shape, dt, device)
 
     def ones(*shape):
@@ -96,11 +129,17 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def init_full_params(generator: torch.Generator, cfg: ModelConfig,
-                     device=None) -> StageParams:
+                     device=None, quantize=False) -> StageParams:
     """Random-init full model as a single StageParams (stage 0 of 1), with
     the reference's shapes and scale rules, on ``device`` (CUDA unless
-    the CPU is asked for).  ``generator`` must live on that device."""
-    require_float_weights(cfg)
+    the CPU is asked for).  ``generator`` must live on that device.
+
+    ``quantize=True`` resolves to the config's own mode (int8 or int4),
+    as in the reference; the float tree otherwise, whatever the config.
+    The quantized weights are the codes of the float init's weights from
+    the same generator state."""
+    if quantize is True and cfg.quantization in ("int8", "int4"):
+        quantize = cfg.quantization
     device = resolve_device(device)
     dt = cfg.dtype
     H = cfg.hidden_size
@@ -112,7 +151,8 @@ def init_full_params(generator: torch.Generator, cfg: ModelConfig,
     final_norm = {"w": torch.ones(H, dtype=dt, device=device)}
     if cfg.attn_layernorm:
         final_norm["b"] = torch.zeros(H, dtype=dt, device=device)
-    layers = init_layer_params(generator, cfg, cfg.num_layers, device)
+    layers = init_layer_params(generator, cfg, cfg.num_layers, device,
+                               quantize=quantize)
     if cfg.tie_embeddings:
         lm_head = {}  # reuse embed["tokens"]
     else:

@@ -1,0 +1,286 @@
+"""Weight loading from HF safetensors checkpoints into ``StageParams``.
+
+Counterpart of ``distributed_inference_demo_tpu/models/loader.py``:
+safetensors names map straight onto the stacked layer layout, cast to the
+config's dtype and, for an ``-int8`` / ``-int4`` config, quantized
+(``ops.quant.maybe_quantize``).  ``load_or_init`` is where a checkpoint
+directory or a seed becomes parameters.
+
+The safetensors format is read here, without the ``safetensors``
+package: an 8-byte little-endian header length, a JSON header (its
+``__metadata__`` entry skipped) naming each tensor's dtype, shape and
+``data_offsets`` counted from the end of the header, then the data.
+
+Not ported yet: the mixtral mapper (raises, ROADMAP A5), the CLIP /
+LLaVA vision loader and ``stage_params_to_bytes`` (ROADMAP A11).  The
+JAX package's own orbax checkpoint directories are refused.
+"""
+
+import json
+import os
+import struct
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .base import ModelConfig, StageParams
+from .decoder import init_full_params
+
+ORBAX_META = "framework_meta.json"
+MIXTRAL_LATER = ("the mixtral state-dict mapper waits for the MoE MLP "
+                 "(ROADMAP A5)")
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool}
+
+# safetensors name -> (our key, transpose?); attention/norm subset is
+# shared by every rope-family mapper (llama's dense MLP adds mlp.*)
+_ATTN_NORM_MAP = {
+    "input_layernorm.weight": ("attn_norm_w", False),
+    "self_attn.q_proj.weight": ("wq", True),
+    "self_attn.k_proj.weight": ("wk", True),
+    "self_attn.v_proj.weight": ("wv", True),
+    "self_attn.o_proj.weight": ("wo", True),
+    "post_attention_layernorm.weight": ("mlp_norm_w", False),
+}
+
+_LLAMA_LAYER_MAP = {
+    **_ATTN_NORM_MAP,
+    "mlp.gate_proj.weight": ("w_gate", True),
+    "mlp.up_proj.weight": ("w_up", True),
+    "mlp.down_proj.weight": ("w_down", True),
+}
+
+
+def read_safetensors(path: str, key_filter: Optional[Callable] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The tensors of one ``.safetensors`` file as CPU tensors (views of
+    one buffer holding the file's data)."""
+    with open(path, "rb") as f:
+        (hlen,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(hlen).decode("utf-8"))
+        header.pop("__metadata__", None)
+        data = bytearray(os.fstat(f.fileno()).st_size - 8 - hlen)
+        f.readinto(data)
+    buf = torch.frombuffer(data, dtype=torch.uint8) if data else None
+    out = {}
+    for name, info in header.items():
+        if key_filter is not None and not key_filter(name):
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has unsupported dtype "
+                             f"{info['dtype']}")
+        start, end = info["data_offsets"]
+        raw = (buf[start:end] if end > start
+               else torch.empty(0, dtype=torch.uint8))
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if start % itemsize:
+            raw = raw.clone()       # a view must start on an element
+        out[name] = raw.view(dtype).reshape(info["shape"])
+    return out
+
+
+def load_safetensors_dir(path: str, key_filter: Optional[Callable] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Every ``*.safetensors`` file (shard) of a checkpoint directory, in
+    name order; with ``key_filter`` only the matching tensors."""
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {path}")
+    tensors: Dict[str, torch.Tensor] = {}
+    for fname in files:
+        tensors.update(read_safetensors(os.path.join(path, fname),
+                                        key_filter))
+    return tensors
+
+
+def _as_tensor(v) -> torch.Tensor:
+    """A state-dict leaf (torch tensor or numpy array, bf16 numpy as its
+    uint16 bit pattern) as a CPU tensor."""
+    if isinstance(v, torch.Tensor):
+        return v
+    arr = np.asarray(v)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _get(raw: dict, name: str,
+         prefixes=("model.", "transformer.", "")) -> torch.Tensor:
+    for prefix in prefixes:
+        if prefix + name in raw:
+            return _as_tensor(raw[prefix + name])
+    raise KeyError(name)
+
+
+def _cast(t: torch.Tensor, dt, device) -> torch.Tensor:
+    """To ``device`` and the config's dtype (round to nearest even, as the
+    reference's ``jnp.asarray(..., dt)``)."""
+    return t.to(device).to(dt).contiguous()
+
+
+def _stack(layers: Dict[str, list], dt, device) -> dict:
+    return {k: _cast(torch.stack(v), dt, device) for k, v in layers.items()}
+
+
+def llama_params_from_state_dict(raw: dict, cfg: ModelConfig,
+                                 device=None) -> StageParams:
+    """Map a llama-family HF state dict (``model.layers.{i}.*`` names) onto
+    the stacked layout.  HF stores linears as [out, in]; ours are [in, out]
+    einsum operands, hence the transposes.  Also serves qwen2 (identical
+    names + ``self_attn.{q,k,v}_proj.bias`` under ``attn_qkv_bias``)."""
+    device = resolve_device(device)
+    dt = cfg.dtype
+    layer_map = dict(_LLAMA_LAYER_MAP)
+    if cfg.attn_qkv_bias:
+        layer_map.update({
+            "self_attn.q_proj.bias": ("bq", False),
+            "self_attn.k_proj.bias": ("bk", False),
+            "self_attn.v_proj.bias": ("bv", False)})
+    layers: Dict[str, list] = {}
+    for i in range(cfg.num_layers):
+        for hf_name, (ours, transpose) in layer_map.items():
+            w = _get(raw, f"layers.{i}.{hf_name}")
+            layers.setdefault(ours, []).append(w.T if transpose else w)
+    stacked = _stack(layers, dt, device)
+
+    embed = {"tokens": _cast(_get(raw, "embed_tokens.weight"), dt, device)}
+    final_norm = {"w": _cast(_get(raw, "norm.weight"), dt, device)}
+    if cfg.tie_embeddings:
+        lm_head = {}
+    else:
+        lm_head = {"w": _cast(_get(raw, "lm_head.weight", ("",)).T, dt,
+                              device)}
+    return StageParams(layers=stacked, embed=embed, final_norm=final_norm,
+                       lm_head=lm_head)
+
+
+def bloom_params_from_state_dict(raw: dict, cfg: ModelConfig,
+                                 device=None) -> StageParams:
+    """Map a BloomForCausalLM state dict onto the stacked layout.
+
+    The fused ``query_key_value`` weight is per-head interleaved:
+    [nh, 3, hd, H] after reshape (q/k/v planes alternate within each
+    head), not three contiguous blocks."""
+    device = resolve_device(device)
+    dt = cfg.dtype
+    H, nh, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    layers: Dict[str, list] = {}
+
+    def push(key, val):
+        layers.setdefault(key, []).append(val)
+
+    for i in range(cfg.num_layers):
+        p = f"h.{i}."
+        push("attn_norm_w", _get(raw, p + "input_layernorm.weight"))
+        push("attn_norm_b", _get(raw, p + "input_layernorm.bias"))
+        qkv_w = _get(raw, p + "self_attention.query_key_value.weight")
+        qkv_b = _get(raw, p + "self_attention.query_key_value.bias")
+        w = qkv_w.reshape(nh, 3, hd, H)
+        b = qkv_b.reshape(nh, 3, hd)
+        # [H, nh*hd] per projection (transpose of HF's [out, in])
+        push("wq", w[:, 0].reshape(nh * hd, H).T)
+        push("wk", w[:, 1].reshape(nh * hd, H).T)
+        push("wv", w[:, 2].reshape(nh * hd, H).T)
+        push("bq", b[:, 0].reshape(nh * hd))
+        push("bk", b[:, 1].reshape(nh * hd))
+        push("bv", b[:, 2].reshape(nh * hd))
+        push("wo", _get(raw, p + "self_attention.dense.weight").T)
+        push("bo", _get(raw, p + "self_attention.dense.bias"))
+        push("mlp_norm_w", _get(raw, p + "post_attention_layernorm.weight"))
+        push("mlp_norm_b", _get(raw, p + "post_attention_layernorm.bias"))
+        push("w_up", _get(raw, p + "mlp.dense_h_to_4h.weight").T)
+        push("b_up", _get(raw, p + "mlp.dense_h_to_4h.bias"))
+        push("w_down", _get(raw, p + "mlp.dense_4h_to_h.weight").T)
+        push("b_down", _get(raw, p + "mlp.dense_4h_to_h.bias"))
+    stacked = _stack(layers, dt, device)
+
+    embed = {
+        "tokens": _cast(_get(raw, "word_embeddings.weight"), dt, device),
+        "norm_w": _cast(_get(raw, "word_embeddings_layernorm.weight"), dt,
+                        device),
+        "norm_b": _cast(_get(raw, "word_embeddings_layernorm.bias"), dt,
+                        device),
+    }
+    final_norm = {"w": _cast(_get(raw, "ln_f.weight"), dt, device),
+                  "b": _cast(_get(raw, "ln_f.bias"), dt, device)}
+    return StageParams(layers=stacked, embed=embed, final_norm=final_norm,
+                       lm_head={})  # bloom ties the head to the embedding
+
+
+def mixtral_params_from_state_dict(raw: dict, cfg: ModelConfig,
+                                   device=None) -> StageParams:
+    raise NotImplementedError(MIXTRAL_LATER)
+
+
+def gemma_params_from_state_dict(raw: dict, cfg: ModelConfig,
+                                 device=None) -> StageParams:
+    """Gemma: llama names end to end, but every RMSNorm applies
+    ``(1 + w)``: the +1 is folded into the stored weights here, in f32,
+    and the folded vectors stay f32 (a bf16 re-round of the sum would
+    lose mantissa bits HF keeps)."""
+    p = llama_params_from_state_dict(raw, cfg, device)
+    layers = dict(p.layers)
+    for key in ("attn_norm_w", "mlp_norm_w"):
+        layers[key] = layers[key].float() + 1.0
+    final_norm = dict(p.final_norm)
+    final_norm["w"] = final_norm["w"].float() + 1.0
+    return StageParams(layers=layers, embed=p.embed,
+                       final_norm=final_norm, lm_head=p.lm_head)
+
+
+_SD_MAPPERS = {
+    "llama": llama_params_from_state_dict,
+    "qwen2": llama_params_from_state_dict,   # same names + qkv biases
+    "gemma": gemma_params_from_state_dict,
+    "bloom": bloom_params_from_state_dict,
+    "mixtral": mixtral_params_from_state_dict,
+}
+
+
+def params_from_state_dict(raw: dict, cfg: ModelConfig,
+                           device=None) -> StageParams:
+    """Family dispatch for HF-layout state dicts (torch or numpy leaves),
+    to float ``StageParams`` on ``device`` (CUDA unless the CPU is asked
+    for)."""
+    if cfg.family not in _SD_MAPPERS:
+        raise NotImplementedError(f"no state-dict mapper for {cfg.family!r}")
+    return _SD_MAPPERS[cfg.family](raw, cfg, device)
+
+
+def load_or_init(model_name: str, cfg: ModelConfig,
+                 checkpoint_dir: Optional[str] = None, seed: int = 0,
+                 quantize: bool = True, device=None) -> StageParams:
+    """Load from a local checkpoint directory if one is given and exists,
+    else random-init from ``seed`` (as the reference does).
+
+    A checkpoint is mapped to the float tree and then quantized for an
+    ``-int8`` / ``-int4`` config; the random path quantizes during init,
+    one layer at a time, so peak memory stays near the quantized
+    footprint.  ``quantize=False`` returns the float tree for any config.
+    The JAX package's own orbax directories (``framework_meta.json``) are
+    refused: that format is JAX's.  ``model_name`` is the reference's
+    argument, which only its orbax path reads."""
+    from ..ops.quant import maybe_quantize
+
+    device = resolve_device(device)
+    if checkpoint_dir and os.path.isdir(checkpoint_dir):
+        if os.path.exists(os.path.join(checkpoint_dir, ORBAX_META)):
+            raise ValueError(
+                f"{checkpoint_dir} holds {ORBAX_META}: an orbax checkpoint "
+                "of the JAX package, which this port does not read; point "
+                "--checkpoint at an HF safetensors directory")
+        params = params_from_state_dict(load_safetensors_dir(checkpoint_dir),
+                                        cfg, device)
+        return maybe_quantize(params, cfg) if quantize else params
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_full_params(
+        gen, cfg, device,
+        quantize=quantize and cfg.quantization in ("int8", "int4"))

@@ -1,12 +1,21 @@
-"""Weight contractions and quantized KV pages.
+"""Weight-only int8 / int4 quantization and quantized KV pages.
 
-Counterpart of ``distributed_inference_demo_tpu/ops/quant.py``.  Float
-weights only: ``QuantizedArray`` and ``QuantizedArray4`` are ported in a
-later slice (ROADMAP A2), and until then a quantized configuration is
-refused where weights are made or served.  The KV half is ported:
-``QuantizedKVPages`` (int8, or int4 packed two codes a byte, with a
-per-(token, kv head) f32 scale sidecar), its quantizer and the page-width
-arithmetic.
+Counterpart of ``distributed_inference_demo_tpu/ops/quant.py``.
+
+The weight rails: ``QuantizedArray`` (int8, symmetric per output channel)
+and ``QuantizedArray4`` (int4, symmetric per ``group`` input rows, two
+codes a byte along the input axis), their quantizers in the reference's
+f32 operation order, and ``maybe_quantize``, which rewraps a float tree
+for an ``-int8`` / ``-int4`` configuration.  ``dense`` contracts
+activations with a float or quantized weight: a quantized weight is
+dequantized to the activation dtype right at the contraction, as the
+reference defines it.  On the card that contraction is one hand-written
+kernel (``ops/quant_dense.py``), so the dequantized weight never reaches
+device memory; on the CPU it is that kernel's plain version.
+
+The KV half: ``QuantizedKVPages`` (int8, or int4 packed two codes a byte,
+with a per-(token, kv head) f32 scale sidecar), its quantizer and the
+page-width arithmetic.
 """
 
 import os
@@ -16,8 +25,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-QUANT_LATER = "quantized weights are ported in a later slice"
+from .quant_dense import quant_dense
+
 KV_DTYPES = ("bf16", "int8", "int4")
+EXPERTS_LATER = ("3-D expert weights (mixtral's MoE) are ported with the "
+                 "MoE MLP (ROADMAP A5)")
 
 
 def resolve_kv_dtype(kv_dtype: Optional[str] = None) -> str:
@@ -29,6 +41,179 @@ def resolve_kv_dtype(kv_dtype: Optional[str] = None) -> str:
         raise ValueError(
             f"unknown kv dtype {dt!r}; expected one of {KV_DTYPES}")
     return dt
+
+
+# ---------------------------------------------------------------------------
+# quantized weights
+#
+# Both classes keep the stacked layer axis (and any other leading axis) on
+# every leaf, so ``w[i]`` indexes every leaf alike: a layer's view for
+# ``StageParams.layer`` and a stage's slice for ``slice_stage``.
+
+
+@dataclass
+class QuantizedArray:
+    """int8 values + float32 scale broadcastable over the last axis.
+
+    ``q``: int8, the weight's shape; ``scale``: f32 ``(*1s, out)``, with
+    the layer axis kept when quantized ``stacked``."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    bits = 8
+
+    @property
+    def shape(self):
+        return tuple(self.q.shape)
+
+    @property
+    def nbytes(self):
+        return self.q.nbytes + self.scale.nbytes
+
+    def __getitem__(self, idx) -> "QuantizedArray":
+        return QuantizedArray(q=self.q[idx], scale=self.scale[idx])
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        return (self.q.float() * self.scale).to(dtype)
+
+
+def quantize_array(w: torch.Tensor, stacked: bool = False
+                   ) -> QuantizedArray:
+    """Symmetric per-output-channel (last axis) int8 quantization:
+    ``max(absmax, 1e-8) / 127`` and round half to even, as the
+    reference's.  With ``stacked`` the leading axis is the layer stack
+    and gets its own scales."""
+    wf = w.float()
+    axes = tuple(range(1 if stacked else 0, w.ndim - 1))
+    absmax = wf.abs().amax(dim=axes, keepdim=True) if axes else wf.abs()
+    scale = absmax.clamp_min(1e-8) / 127.0
+    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return QuantizedArray(q=q, scale=scale)
+
+
+@dataclass
+class QuantizedArray4:
+    """Packed int4 values + group-wise float32 scales.
+
+    ``q``: uint8 ``(..., in/2, out)``, two codes a byte along the input
+    axis (low nibble = even input index), each code offset by 8;
+    ``scale``: f32 ``(..., in/group, 1, out)``."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    group: int
+    bits = 4
+
+    @property
+    def shape(self):
+        return (*self.q.shape[:-2], self.q.shape[-2] * 2, self.q.shape[-1])
+
+    @property
+    def nbytes(self):
+        return self.q.nbytes + self.scale.nbytes
+
+    def __getitem__(self, idx) -> "QuantizedArray4":
+        return QuantizedArray4(q=self.q[idx], scale=self.scale[idx],
+                               group=self.group)
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        lo = (self.q & 0xF).to(torch.int8) - 8
+        hi = (self.q >> 4).to(torch.int8) - 8
+        v = torch.stack([lo, hi], dim=-2)          # (..., in/2, 2, out)
+        *lead, half, _, out = v.shape
+        full = half * 2
+        v = v.reshape(*lead, full // self.group, self.group, out).float()
+        v = v * self.scale                         # (..., in/g, 1, out)
+        return v.reshape(*lead, full, out).to(dtype)
+
+
+DEFAULT_INT4_GROUP = 64
+
+
+def int4_group_for(inner: int) -> int:
+    """The group size used for an input dim, shared by the quantizer and
+    the layer-chunked init."""
+    return min(DEFAULT_INT4_GROUP, inner)
+
+
+def quantize_array4(w: torch.Tensor, group: Optional[int] = None
+                    ) -> QuantizedArray4:
+    """Symmetric group-wise int4 quantization along the input axis (axis
+    -2): ``max(absmax, 1e-8) / 7``, round half to even, clip to [-8, 7],
+    offset by 8 and pack two to a byte.  The input size must be even."""
+    wf = w.float()
+    *lead, inner, out = wf.shape
+    if inner % 2:
+        raise ValueError(f"int4 packing needs an even input dim, got "
+                         f"{inner}")
+    group = int4_group_for(inner) if group is None else min(group, inner)
+    if inner % group:
+        raise ValueError(f"group={group} does not divide input dim "
+                         f"{inner}")
+    gw = wf.reshape(*lead, inner // group, group, out)
+    absmax = gw.abs().amax(dim=-2, keepdim=True)
+    scale = absmax.clamp_min(1e-8) / 7.0
+    q = torch.round(gw / scale).clamp(-8, 7).to(torch.int8)
+    pairs = (q.reshape(*lead, inner // 2, 2, out) + 8).to(torch.uint8)
+    packed = pairs[..., 0, :] | (pairs[..., 1, :] << 4)
+    return QuantizedArray4(q=packed, scale=scale, group=group)
+
+
+AnyQuantized = (QuantizedArray, QuantizedArray4)
+
+# the large matmul operands; norm scales and biases keep the model dtype
+_QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_layer_params(layers: dict, mode: str = "int8") -> dict:
+    def quant(v):
+        if mode == "int4":
+            return quantize_array4(v)
+        return quantize_array(v, stacked=True)
+    return {k: (quant(v)
+                if k in _QUANTIZABLE and not isinstance(v, AnyQuantized)
+                else v)
+            for k, v in layers.items()}
+
+
+def maybe_quantize(params, cfg):
+    """Apply the config's quantization mode to a full StageParams tree
+    (no-op for "none")."""
+    if cfg.quantization not in ("int8", "int4"):
+        return params
+    from ..models.base import StageParams
+    return StageParams(layers=quantize_layer_params(params.layers,
+                                                    cfg.quantization),
+                       embed=params.embed, final_norm=params.final_norm,
+                       lm_head=params.lm_head)
+
+
+def _is_matmul(eq: str) -> bool:
+    """``eq`` contracts x's last axis with w's first: ``...k,kn->...n``."""
+    ins, out = eq.replace(" ", "").split("->")
+    a, b = ins.split(",")
+    return (len(b) == 2 and a[-1] == b[0] and b[1] not in a
+            and out == a[:-1] + b[1])
+
+
+def dense(x: torch.Tensor, w, eq: str) -> torch.Tensor:
+    """einsum of activations with a float or quantized weight.
+
+    A quantized weight is dequantized to the activation dtype at the
+    contraction (the reference's definition).  A 2-D quantized weight
+    goes through ``ops/quant_dense.quant_dense``: on the card its kernel,
+    which never writes the dequantized weight to device memory; on the
+    CPU its plain version, ``x @ w.dequantize(x.dtype)``.  A float weight
+    is a plain einsum everywhere."""
+    if not isinstance(w, AnyQuantized):
+        return torch.einsum(eq, x, w)
+    if w.q.ndim != 2:
+        raise NotImplementedError(EXPERTS_LATER)
+    if not _is_matmul(eq):
+        raise ValueError(f"the quantized dense product takes x[..., K] @ "
+                         f"W[K, N]; got {eq!r}")
+    y = quant_dense(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def _itemsize(dtype) -> int:
@@ -180,18 +365,3 @@ def kv_token_head_bytes(head_dim: int, kv_dtype: Optional[str],
 def kv_scale_token_head_bytes(kv_dtype: Optional[str]) -> int:
     """The sidecar-only share of :func:`kv_token_head_bytes`."""
     return {"bf16": 0, "int8": 4, "int4": 8}[resolve_kv_dtype(kv_dtype)]
-
-
-def require_float_weights(cfg) -> None:
-    """Raise for an ``-int8`` / ``-int4`` configuration."""
-    if cfg.quantization != "none":
-        raise NotImplementedError(
-            f"{cfg.quantization} weights: {QUANT_LATER}")
-
-
-def dense(x: torch.Tensor, w: torch.Tensor, eq: str) -> torch.Tensor:
-    """einsum of activations with a float weight (the reference's
-    ``dense`` with the dequantize step left out)."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(QUANT_LATER)
-    return torch.einsum(eq, x, w)

@@ -69,8 +69,7 @@ from ..device import resolve_device
 from ..models.base import (KVCache, ModelConfig, StageParams, StageSpec,
                            pad_cache_capacity)
 from ..ops.paged_attention import BACKENDS as PAGED_BACKENDS
-from ..ops.quant import (alloc_kv_pages, require_float_weights,
-                         resolve_kv_dtype)
+from ..ops.quant import alloc_kv_pages, resolve_kv_dtype
 from ..ops.sampling import SamplingParams, sample_logits
 from ..telemetry._env import env_int
 from ..telemetry.flightrecorder import get_flight_recorder
@@ -196,7 +195,6 @@ class ContinuousBatchingEngine:
         ``num_draft``, ``spec_adaptive`` and ``kv_disk_tier_bytes`` only
         shape a proposer or a tier, so without one they do nothing, as in
         the reference."""
-        require_float_weights(cfg)
         if max_queue_depth is None:
             max_queue_depth = env_int("DWT_MAX_QUEUE_DEPTH", 0)
         self.max_queue_depth = max(0, int(max_queue_depth))

@@ -36,14 +36,13 @@ from ..models.base import KVCache, ModelConfig, StageParams, StageSpec
 from ..models.decoder import stage_forward
 from ..ops.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from ..ops.flash_attention import make_flash_attn_impl
-from ..ops.quant import require_float_weights
 from ..ops.sampling import (SamplingParams, match_stop_ids, pad_stop_ids,
                             sample_logits)
 from .cuda_graph import StepGraph, StepGraphs
 
 KVCACHE_LATER = ("this engine's block KV prefix cache, reduced-precision "
                  "caches and quantized pages are ported in a later slice "
-                 "(ROADMAP A5, A2)")
+                 "(ROADMAP A6)")
 ATTN_BACKENDS = ("auto", "flash", "plain")
 
 
@@ -266,7 +265,6 @@ class InferenceEngine:
         KV-cache pool; ``kv_layout`` takes the reference's only value,
         "paged", which with zero blocks changes nothing.  Other arguments
         as in the reference."""
-        require_float_weights(cfg)
         if (kv_cache_blocks or kv_block_tokens is not None or kv_cache_dtype
                 or kv_dtype):
             raise NotImplementedError(KVCACHE_LATER)

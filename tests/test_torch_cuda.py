@@ -761,3 +761,77 @@ def test_batching_graph_replay_equals_eager(cuda_device, dtype, mode,
     assert e_launches == cfg.num_layers * e_steps
     if mode == "sampled":
         assert steps == e_steps and launches == e_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 2048, 256),     # TinyLlama's wk at decode: split K
+    (37, 512, 272),     # ragged rows and a partial column tile
+])
+def test_quant_dense_matches_plain(cuda_device, bits, dtype, atol, m, k, n):
+    """The dequantizing dense kernel against ``x @ w.dequantize(x.dtype)``
+    on the same codes: one launch a call, f32 exact up to summation
+    order, bf16 within the output's rounding."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    gen = torch.Generator(device=cuda_device).manual_seed(bits + m)
+    w = torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5
+    wq = (quant.quantize_array(w) if bits == 8
+          else quant.quantize_array4(w))
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    before = qd.quant_dense.launches
+    got = qd.quant_dense(x, wq)
+    want = qd.quant_dense_plain(x, wq)
+    torch.cuda.synchronize()
+    assert qd.quant_dense.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_engine_graph_replay_equals_eager(cuda_device, mode):
+    """A small bf16 llama with int8 / int4 weights on the card: every
+    quantized matmul launches the dense kernel (7 a layer a forward,
+    under replay too), the replayed decode equals the eager one bit for
+    bit, and the greedy tokens follow the float twin whose weights are
+    the same codes dequantized."""
+    from distributed_inference_demo_tpu_torch.models.base import StageParams
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    cfg = get_model_config(f"llama-test-{mode}").replace(
+        hidden_size=256, intermediate_size=512, num_layers=3,
+        dtype_name="bfloat16")
+    params = init_full_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, cuda_device,
+        quantize=True)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 20))
+    runs = {}
+    for flag in (True, False):
+        eng = InferenceEngine(cfg, params, max_seq=64,
+                              sampling=SamplingParams(greedy=True),
+                              device=cuda_device, cuda_graph=flag)
+        eng.generate(ids, 2)                     # captures, warms
+        before = qd.quant_dense.launches
+        s0 = eng.loop_stats["device_loop_steps"]
+        res = eng.generate(ids, 10, logprobs=True)
+        steps = eng.loop_stats["device_loop_steps"] - s0
+        assert qd.quant_dense.launches - before == 7 * 3 * (1 + steps)
+        runs[flag] = res
+    np.testing.assert_array_equal(runs[True].tokens, runs[False].tokens)
+    np.testing.assert_array_equal(runs[True].logprobs, runs[False].logprobs)
+    twin = StageParams(
+        layers={k: v.dequantize(cfg.dtype) if isinstance(
+            v, quant.AnyQuantized) else v for k, v in params.layers.items()},
+        embed=params.embed, final_norm=params.final_norm,
+        lm_head=params.lm_head)
+    eng = InferenceEngine(cfg, twin, max_seq=64,
+                          sampling=SamplingParams(greedy=True),
+                          device=cuda_device)
+    lk = InferenceEngine(cfg, params, max_seq=64, device=cuda_device,
+                         sampling=SamplingParams(greedy=True)
+                         ).prefill_logits(ids)
+    lt = eng.prefill_logits(ids)
+    assert np.abs(lk - lt).max() <= 5e-2 * max(1.0, np.abs(lt).max())

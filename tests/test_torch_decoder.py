@@ -26,6 +26,7 @@ from distributed_inference_demo_tpu_torch.models.bridge import (
     params_from_numpy, tensor_from_numpy)
 from distributed_inference_demo_tpu_torch.models.decoder import (
     init_full_params, stage_forward)
+from distributed_inference_demo_tpu_torch.models.loader import load_or_init
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -124,15 +125,16 @@ def test_init_shapes_match_reference(model):
             assert got[name].dtype == torch.bfloat16
 
 
-def test_bridge_carries_bf16_bits_and_refuses_what_is_not_ported():
+def test_bridge_carries_bf16_bits_and_refuses_what_is_not_ported(tmp_path):
     x = np.array([1.0, -2.5, 3.140625, 1e-3], dtype=ml_dtypes.bfloat16)
     t = tensor_from_numpy(x, "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.view(torch.int16).numpy(),
                                   x.view(np.int16))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_full_params(torch.Generator(), get_model_config(
-            "llama-test-int8"), "cpu")
+    (tmp_path / "framework_meta.json").write_text("{}")
+    with pytest.raises(ValueError, match="orbax"):
+        load_or_init("llama-test-int8", get_model_config("llama-test-int8"),
+                     str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         init_full_params(torch.Generator(), get_model_config(
             "mixtral-test"), "cpu")

@@ -191,8 +191,7 @@ def test_engine_refuses_what_this_slice_does_not_port():
         InferenceEngine(cfg, params, kv_cache_dtype="float8_e4m3fn",
                         device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        InferenceEngine(cfg.replace(quantization="int8"), params,
-                        device="cpu")
+        InferenceEngine(cfg, params, kv_dtype="int8", device="cpu")
     eng = InferenceEngine(cfg, params, max_seq=16, kv_layout="paged",
                           device="cpu")
     with pytest.raises(ValueError, match="exceeds KV-cache capacity"):
