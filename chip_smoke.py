@@ -80,20 +80,30 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             (TinyLlama plain also greedy and sampled at f32); the dense
             kernel's launches (none on these float models) against the
             routing;
-9. quant    int8 / int4 weights through the dequantizing dense kernel
-            (``csrc/quant_dense.cu``).  Its rows (with phase 2): the
-            kernel against its plain version at TinyLlama's seven weight
-            shapes, M = 1, 8 and 256, int8 and int4, bf16 and f32
-            activations, and at llama-3-8b's four, M = 1 and 64, int8,
-            bf16 (every shape the phase serves), each with device ms,
-            eager ms, the plain
+9. quant    int8 / int4 weights through the dequantizing dense kernels
+            (``csrc/quant_dense.cu``: the decode kernel for bf16 M <= 16,
+            the prefill kernel above, the f32 kernel for f32).  Its rows
+            (with phase 2): each kernel against its plain version at
+            TinyLlama's seven weight shapes, M = 1, 8 and 256, int8 and
+            int4, bf16 and f32 activations, M = 16 and 17 (the routing
+            boundary) in bf16, M = 1500 for w_up in bf16, and at
+            llama-3-8b's four, M = 1 and 64, int8, bf16 (every shape the
+            phase serves), each naming its kernel and split count, with
+            device ms warm (one weight, replayed) and cold (a captured
+            pass over enough copies of the weight to exceed 100 MB, so
+            every call finds it out of the L2), eager ms, the plain
             version's, ``torch.matmul`` over the weight dequantized
-            beforehand (what the bf16 model pays), the bound and the
-            instance's registers and spills.  Then, as phase 8 runs
-            them, with the graph and with ``cuda_graph=False``:
-            tinyllama-1.1b-int8 plain serve and 8-slot batching and
-            tinyllama-1.1b-int4 plain serve: the dense kernel's launches
-            equal 7 x L a forward, tokens and logprobs bit-equal, and
+            beforehand (what the bf16 model pays) warm and cold, the
+            bound and the instance's registers and spills; every row of
+            an 8-row decode launch bit-equal to the same row launched
+            alone, at TinyLlama's and llama-3-8b's decode shapes; the
+            kernels' SASS conversion counts (``cuobjdump``).  Then, as
+            phase 8 runs them, with the graph and with
+            ``cuda_graph=False``: tinyllama-1.1b-int8 plain serve and
+            8-slot batching and tinyllama-1.1b-int4 plain serve: the
+            dense kernels' launches equal 7 x L a forward (the decode
+            kernel's: 7 x L a decode step), tokens and logprobs
+            bit-equal, and
             prefill and decode logits held against a float twin whose
             weights are the same codes dequantized (plain serve through
             the plain engine's forward, batching through the batching
@@ -163,8 +173,13 @@ QUANT_SOURCE = CSRC + "quant_dense.cu"
 QUANT_REPLACES = ("distributed_inference_demo_tpu/ops/quant.py:333 (dense: "
                   "the counterpart of an XLA fusion, not of a Pallas kernel)")
 # the quant phase's kernel rows: plain decode, 8-slot decode, a mixed
-# slab's rows (TinyLlama); the large model served b=1 there
+# slab's rows (TinyLlama); bf16 only, either side of the routing boundary
+# and a long prompt's chunk (w_up); the large model served b=1 there
 QUANT_ROWS = (1, 8, 256)
+QUANT_BOUNDARY_ROWS = (16, 17)
+QUANT_LONG_ROWS = 1500
+# cold rows: a captured pass over this many bytes of weight copies
+COLD_BYTES = 100_000_000
 LARGE_MODEL = "llama-3-8b"
 # the int8 instances replace the same kernels' quantized branches
 PAGED_REPLACES["paged_decode_int8"] = PAGED_REPLACES["paged_decode"]
@@ -1762,9 +1777,9 @@ def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
     _check(bool(rows), "torch.profiler recorded no device time")
     kernels = sum(1 for r in rows
                   if not r[1].startswith(("Memcpy", "Memset")))
-    # the dequantizing dense kernel and its split-K reduction
-    dense_ms = sum(r[0] for r in rows if "quant_dense_kernel" in r[1]
-                   or "reduce_splits" in r[1]) / 1e3
+    # the dequantizing dense kernels (decode, prefill, f32 and its split
+    # reduction): every symbol of csrc/quant_dense.cu starts quant_dense_
+    dense_ms = sum(r[0] for r in rows if "quant_dense_" in r[1]) / 1e3
     return {**head, "wall_ms": wall_ms, "kernels": kernels,
             "device_busy_ms": busy_ms, "quant_dense_ms": dense_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -1795,7 +1810,7 @@ def _graph_plain_side(torch, engine, prompt) -> dict:
 
     engine.generate(prompt, 2)                   # captures, warms
     r0, s0 = engine.graph_replays, engine.loop_stats["device_loop_steps"]
-    qd.quant_dense.launches = 0
+    qd.quant_dense.launches = qd.quant_dense.decode_launches = 0
     res = engine.generate(prompt, NEW_TOKENS, logprobs=True)
     t_one = engine.generate(prompt, 1).seconds
     t_many = engine.generate(prompt, 1 + GRAPH_DECODE_TOKENS).seconds
@@ -1803,11 +1818,16 @@ def _graph_plain_side(torch, engine, prompt) -> dict:
     replays = engine.graph_replays - r0
     steps = engine.loop_stats["device_loop_steps"] - s0
     dense = qd.quant_dense.launches
+    decode = qd.quant_dense.decode_launches
     per_fwd = dense_per_layer(engine.cfg) * engine.cfg.num_layers
     prof = profile_decode(torch, engine, prompt)
+    # the PROMPT_LEN-token prefills take the prefill kernel, the one-row
+    # decode steps the decode kernel
     return {"tokens": res.tokens[0].tolist(), "logprobs": res.logprobs,
             "dense_launches": dense,
             "predicted_dense_launches": per_fwd * (3 + steps),
+            "decode_launches": decode,
+            "predicted_decode_launches": per_fwd * steps,
             "device_dense_ms_per_step": prof["quant_dense_ms"]
             / prof["decode_steps"],
             "dense_share": prof["quant_dense_ms"] / prof["device_busy_ms"],
@@ -1869,6 +1889,9 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
         _check(side["dense_launches"] == side["predicted_dense_launches"],
                f"{name}: dense launches {side['dense_launches']}, the "
                f"routing predicts {side['predicted_dense_launches']}")
+        _check(side["decode_launches"] == side["predicted_decode_launches"],
+               f"{name}: decode-kernel launches {side['decode_launches']}, "
+               f"the routing predicts {side['predicted_decode_launches']}")
     del params
     torch.cuda.empty_cache()
     if f32:
@@ -1910,7 +1933,7 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
     c0 = (getattr(dec, attr), getattr(pre, attr))
     r0, s0 = engine.graph_replays, engine.loop_stats["device_loop_steps"]
     f0 = engine.chunk_stats["mixed_slab_forwards"]
-    qd.quant_dense.launches = 0
+    qd.quant_dense.launches = qd.quant_dense.decode_launches = 0
     reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
     for r in reqs:
         r.wait(timeout=600)
@@ -1927,8 +1950,10 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
     predicted = {"paged_decode": L * steps, "paged_prefill": L * (
         engine.chunk_stats["mixed_slab_forwards"] - f0 if mixed
         else admitted)}
-    # the dense kernel: dense_per_layer x L a forward, each decode step
-    # and each admission (a mixed slab's forwards are not predicted here)
+    # the dense kernels: dense_per_layer x L a forward, each decode step
+    # and each admission (a mixed slab's forwards are not predicted here);
+    # the decode kernel's: each SLOTS-row decode step (an admission's
+    # 16-token prompt pads to a 32-token bucket: the prefill kernel)
     per_fwd = dense_per_layer(engine.cfg) * L
     dense = qd.quant_dense.launches
     prof = window["profile"]
@@ -1937,6 +1962,9 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
             "dense_launches": dense,
             "predicted_dense_launches": None if mixed and per_fwd else
             per_fwd * (steps + admitted),
+            "decode_launches": qd.quant_dense.decode_launches,
+            "predicted_decode_launches": None if mixed and per_fwd else
+            per_fwd * steps,
             "device_dense_ms_per_step": (prof["quant_dense_ms"]
                                          / prof["steps"] if busy else None),
             "dense_share": prof["quant_dense_ms"] / busy if busy else None,
@@ -2010,6 +2038,12 @@ def graph_batching(torch, name: str, mixed: bool = False) -> dict:
                or side["dense_launches"] == side["predicted_dense_launches"],
                f"{out['path']}: dense launches {side['dense_launches']}, "
                f"predicted {side['predicted_dense_launches']}")
+        _check(side["predicted_decode_launches"] is None
+               or side["decode_launches"]
+               == side["predicted_decode_launches"],
+               f"{out['path']}: decode-kernel launches "
+               f"{side['decode_launches']}, predicted "
+               f"{side['predicted_decode_launches']}")
     _check(g["replays"] == g["decode_steps"] > 0 and e["replays"] == 0,
            f"{out['path']}: replays {g['replays']} of "
            f"{g['decode_steps']} steps")
@@ -2036,9 +2070,11 @@ def phase_graph(torch) -> dict:
 def quant_cases():
     """(model, weight, K, N, M, bits, dtype): TinyLlama's seven matmul
     weights at M = 1 (plain decode), 8 (8-slot decode) and 256 (a mixed
-    slab's rows), int8 and int4, bf16 and f32 activations; and
-    llama-3-8b's four weight shapes where its int8 plain serve runs them,
-    M = 1 (decode) and PROMPT_LEN (the prefill), int8, bf16."""
+    slab's rows), int8 and int4, bf16 and f32 activations, and at M = 16
+    and 17 (the last decode-kernel row count and the first prefill one)
+    in bf16; w_up at M = QUANT_LONG_ROWS (a long prompt's chunk) in bf16;
+    and llama-3-8b's four weight shapes where its int8 plain serve runs
+    them, M = 1 (decode) and PROMPT_LEN (the prefill), int8, bf16."""
     import torch
     from distributed_inference_demo_tpu_torch.models.registry import \
         get_model_config
@@ -2049,10 +2085,16 @@ def quant_cases():
         return (("wq", H, q), ("wk", H, kv), ("wv", H, kv), ("wo", q, H),
                 ("w_gate", H, I), ("w_up", H, I), ("w_down", I, H))
 
+    tiny = shapes(get_model_config(SERVE_MODEL))
     out = [(SERVE_MODEL, name, k, n, m, bits, dtype)
-           for name, k, n in shapes(get_model_config(SERVE_MODEL))
+           for name, k, n in tiny
            for m in QUANT_ROWS for bits in (8, 4)
            for dtype in (torch.bfloat16, torch.float32)]
+    out += [(SERVE_MODEL, name, k, n, m, bits, torch.bfloat16)
+            for name, k, n in tiny for m in QUANT_BOUNDARY_ROWS
+            for bits in (8, 4)]
+    out += [(SERVE_MODEL, name, k, n, QUANT_LONG_ROWS, bits, torch.bfloat16)
+            for name, k, n in tiny if name == "w_up" for bits in (8, 4)]
     # one row per distinct shape: wq and wo, wk and wv, w_gate and w_up
     # share theirs
     large, seen = [], {}
@@ -2075,32 +2117,120 @@ def quant_work(m, k, n, bits, elt):
     return 2 * m * k * n, nbytes
 
 
-def _ptxas_row(rows: list, dtype_name: str, bits: int, block_rows: int):
-    """The ptxas row of one instance of quant_dense_kernel, demangled or
-    not."""
-    t, tm = (("__nv_bfloat16", "13__nv_bfloat16") if dtype_name == "bfloat16"
-             else ("float", "f"))
-    for r in rows:
-        k = r["kernel"]
-        if (f"quant_dense_kernel<{t}, {bits}, {block_rows}>" in k
-                or f"quant_dense_kernelI{tm}Li{bits}ELi{block_rows}E" in k):
-            return r
-    return None
+def _quant_instance(kernel: str, bits: int, m: int) -> tuple:
+    """The template instance of ``kernel`` that a product of ``m`` rows
+    launches: (name, template arguments)."""
+    if kernel == "decode":
+        return "quant_dense_decode_kernel", (bits, 1 if m <= 8 else 2)
+    if kernel == "prefill":
+        return "quant_dense_prefill_kernel", (bits,)
+    return "quant_dense_kernel", (bits,)
+
+
+def _ptxas_row(rows: list, name: str, args: tuple):
+    """The ptxas row of one kernel instance, demangled or not."""
+    demangled = f"{name}<{', '.join(map(str, args))}>"
+    mangled = name + "I" + "".join(f"Li{a}E" for a in args) + "E"
+    return next((r for r in rows if demangled in r["kernel"]
+                 or mangled in r["kernel"]), None)
+
+
+def sass_counts(torch, source: str) -> dict:
+    """Conversion and tensor-core instructions in each kernel of the built
+    ``source`` (``cuobjdump -sass``): I2F (integer to float), F2F and
+    F2FP (float to float, bf16 packing), PRMT (byte permutes), HMMA /
+    HGMMA (mma.sync / wgmma); I2FP (integer to float on the ALU pipe)
+    too.  Kernel names as mangled in the library."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from distributed_inference_demo_tpu_torch.ops import _build
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build(source))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    ops = ("I2F", "I2FP", "F2F", "F2FP", "PRMT", "HMMA", "HGMMA")
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict.fromkeys(ops, 0)
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)[.\s]", ln)
+        if fn and m and m.group(1) in ops:
+            out[fn][m.group(1)] += 1
+    return out
+
+
+def cold_ms(torch, make, nbytes: int, fn) -> float:
+    """Mean device time of ``fn(obj)`` over one captured pass through
+    enough fresh objects ``make()`` (each ``nbytes``) to exceed COLD_BYTES,
+    so that no call finds its weight in the 50 MB L2."""
+    objs = [make() for _ in range(max(2, -(-COLD_BYTES // nbytes)))]
+    fn(objs[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for o in objs:
+            fn(o)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / len(objs)
+    del graph, objs
+    return ms
+
+
+def quant_decode_row_check(torch, weights) -> list:
+    """Every row of an 8-row decode-kernel launch against the same row
+    launched alone, bit for bit, at each distinct bf16 weight shape of
+    the decode rows (TinyLlama's and llama-3-8b's)."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for (k, n, bits), wq in weights.items():
+        x = torch.randn((8, k), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        y8 = qd.quant_dense(x, wq)
+        equal = all(torch.equal(qd.quant_dense(x[r:r + 1], wq)[0], y8[r])
+                    for r in range(8))
+        out.append({"k": k, "n": n, "bits": bits, "rows": 8,
+                    "splits": qd.decode_splits(
+                        k, n, bits, torch.cuda.get_device_properties(0)
+                        .multi_processor_count),
+                    "bit_equal": equal})
+    return out
 
 
 def phase_quant_kernels(torch, ptxas: list) -> dict:
-    """The dense kernel against its plain version (x @ w.dequantize) on
-    the same codes, at every quant_cases shape: error, device ms (graph
-    replayed) and eager ms, the plain version's ms, the library
-    yardstick (torch.matmul over the weight dequantized beforehand, what
-    the float model pays), the bound, and the instance's registers and
-    spills."""
+    """Each dense kernel against its plain version (x @ w.dequantize) on
+    the same codes, at every quant_cases shape: the kernel and split count
+    the routing picks, error, device ms warm (graph replayed on one
+    weight) and cold (:func:`cold_ms`), eager ms, the plain version's ms,
+    the library yardstick (torch.matmul over the weight dequantized
+    beforehand, what the float model pays) warm and cold, the bound, the
+    shares and the instance's registers and spills; then
+    :func:`quant_decode_row_check` and the SASS counts."""
     from distributed_inference_demo_tpu_torch.ops import quant
     from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases, failures, weights = [], [], {}
+
+    def copy_of(wq):
+        return type(wq)(**{**vars(wq), "q": wq.q.clone(),
+                           "scale": wq.scale.clone()})
+
     for model, name, k, n, m, bits, dtype in quant_cases():
         key = (k, n, bits)
         if key not in weights:
@@ -2124,21 +2254,26 @@ def phase_quant_kernels(torch, ptxas: list) -> dict:
         flops, nbytes = quant_work(m, k, n, bits, elt)
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = flops / PEAK_FLOPS[dname] * 1e3
-        rows = qd.block_rows(m, dtype)
+        kernel = qd.route(m, dtype)
+        instance, targs = _quant_instance(kernel, bits, m)
         ms = device_ms(torch, lambda: qd.quant_dense(x, wq))
         row = {"model": model, "weight": name, "k": k, "n": n, "m": m,
-               "bits": bits,
-               "dtype": dname, "block_rows": rows,
-               "splits": qd.k_splits(m, n, k, bits, rows, torch.cuda.
-                                     get_device_properties(0).
-                                     multi_processor_count),
+               "bits": bits, "dtype": dname, "kernel": kernel,
+               "instance": f"{instance}<{', '.join(map(str, targs))}>",
+               "splits": qd.splits_for(kernel, m, k, n, bits, sms),
                "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
                "ok": ok, "ms": ms,
+               "cold_ms": cold_ms(torch, lambda: copy_of(wq),
+                                  wq.nbytes, lambda o: qd.quant_dense(x, o)),
                "eager_ms": eager_ms(torch, lambda: qd.quant_dense(x, wq)),
                "plain_ms": device_ms(torch,
                                      lambda: qd.quant_dense_plain(x, wq)),
                "library_ms": device_ms(torch,
                                        lambda: torch.matmul(x, w_deq)),
+               "library_cold_ms": cold_ms(
+                   torch, w_deq.clone,
+                   w_deq.numel() * w_deq.element_size(),
+                   lambda o: torch.matmul(x, o)),
                "library": "torch.matmul on the weight dequantized "
                           "beforehand",
                "library_max_abs_err": lib_err,
@@ -2146,7 +2281,8 @@ def phase_quant_kernels(torch, ptxas: list) -> dict:
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         row["roofline_share"] = row["bound_ms"] / ms
-        pt = _ptxas_row(ptxas, dname, bits, rows)
+        row["roofline_share_cold"] = row["bound_ms"] / row["cold_ms"]
+        pt = _ptxas_row(ptxas, instance, targs)
         row.update(registers=pt and pt["registers"],
                    spill_stores=pt and pt["spill_stores"],
                    spill_loads=pt and pt["spill_loads"])
@@ -2155,11 +2291,19 @@ def phase_quant_kernels(torch, ptxas: list) -> dict:
             failures.append(f"quant_dense {model} {name} m={m} int{bits} "
                             f"{dname}: max err {row['max_abs_err']}")
         del x, got, want, w_deq
+    decode_rows = quant_decode_row_check(torch, {
+        key: wq for key, wq in weights.items()
+        if any(c["k"] == key[0] and c["n"] == key[1] and c["bits"] == key[2]
+               and c["kernel"] == "decode" for c in cases)})
+    failures += [f"decode kernel rows differ from single-row launches at "
+                 f"K={r['k']} N={r['n']} int{r['bits']}"
+                 for r in decode_rows if not r["bit_equal"]]
     del weights
     torch.cuda.empty_cache()
     return {"phase": "quant_kernels", "device": torch.cuda.get_device_name(0),
-            "cases": cases, "failures": failures,
-            "seconds": time.perf_counter() - t0}
+            "cases": cases, "decode_row_bit_equal": decode_rows,
+            "sass": sass_counts(torch, qd.SOURCE),
+            "failures": failures, "seconds": time.perf_counter() - t0}
 
 
 def _teacher_forced_logits(torch, params, cfg, seq, n_decode: int):
@@ -2325,6 +2469,9 @@ def quant_serve_large(torch, name: str) -> dict:
     _check(side["dense_launches"] == side["predicted_dense_launches"],
            f"{name}: dense launches {side['dense_launches']}, predicted "
            f"{side['predicted_dense_launches']}")
+    _check(side["decode_launches"] == side["predicted_decode_launches"],
+           f"{name}: decode-kernel launches {side['decode_launches']}, "
+           f"predicted {side['predicted_decode_launches']}")
     _check(side["replays"] == side["decode_steps"] > 0,
            f"{name}: replays {side['replays']} of {side['decode_steps']}")
     del eng, params
@@ -2630,10 +2777,17 @@ def main(argv) -> int:
                     and c["bits"] == bits and c["dtype"] == "bfloat16")
 
     def quant_entry(name, side, m, bits, shape, **case):
+        # launches: the decode kernel's on the path (every decode step's
+        # products, replayed from the graph), or the prefill kernel's (the
+        # path's eager prefill forwards)
+        c = quant_case(m, bits, **case)
+        decode = side["decode_launches"]
         e = entry(name, QUANT_SOURCE, QUANT_REPLACES,
-                  side["dense_launches"], quant_case(m, bits, **case), shape)
-        # decode steps replay the graph; prefill forwards launch eagerly
-        e["graph_replayed"] = "decode steps"
+                  decode if c["kernel"] == "decode"
+                  else side["dense_launches"] - decode, c, shape)
+        e.update(kernel=c["instance"], splits=c["splits"],
+                 cold_ms=c["cold_ms"], library_cold_ms=c["library_cold_ms"],
+                 graph_replayed=c["kernel"] == "decode")
         return e
 
     emit({"kernels": [
@@ -2650,8 +2804,9 @@ def main(argv) -> int:
         for name, key, phase, case, shape in paged_main] + [
         quant_entry("quant_dense_int8", quant_phase["int8_plain"]["graph"],
                     1, 8, "TinyLlama w_up [2048, 5632] int8, M = 1 "
-                    "(launches: tinyllama-1.1b-int8 plain serve, every "
-                    "quantized matmul)"),
+                    "(launches: the decode kernel's, tinyllama-1.1b-int8 "
+                    "plain serve, every quantized matmul of a decode "
+                    "step)"),
         quant_entry("quant_dense_int8_slots8",
                     quant_phase["int8_batching"]["graph"], 8, 8,
                     "TinyLlama w_up [2048, 5632] int8, M = 8 (launches: "
@@ -2663,7 +2818,12 @@ def main(argv) -> int:
                     quant_phase["llama3_8b_int8"], 1, 8,
                     "llama-3-8b w_down [14336, 4096] int8, M = 1 "
                     "(launches: llama-3-8b-int8 plain serve)",
-                    weight="w_down", model=LARGE_MODEL)]})
+                    weight="w_down", model=LARGE_MODEL),
+        quant_entry("quant_dense_prefill_int8",
+                    quant_phase["int8_plain"]["graph"], 256, 8,
+                    "TinyLlama w_up [2048, 5632] int8, M = 256 (launches: "
+                    "the prefill kernel's, tinyllama-1.1b-int8 plain "
+                    "serve's 64-token prefills, every quantized matmul)")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,19 @@
-"""The dense product with int8 / int4 weights: the CUDA kernel, its plain
-version, the instance and split rules.
+"""The dense product with int8 / int4 weights: the CUDA kernels, their
+plain version, the routing and split rules.
 
 No Pallas kernel of the JAX package computes this: it stands for the XLA
 fusion of ``distributed_inference_demo_tpu/ops/quant.py::dense``, which
 dequantizes right at the einsum so that device memory sees only the
 quantized bytes.  ``csrc/quant_dense.cu`` does that by hand (its header
-gives the design and what bounds it).  ``quant_dense`` launches it for
-CUDA tensors and raises on anything it does not take; for CPU tensors it
-runs the plain PyTorch version, ``x @ w.dequantize(x.dtype)``.  Its
-integer ``quant_dense.launches`` counts calls that launched the kernel.
+gives the designs and what bounds them).  ``quant_dense`` launches one of
+its kernels for CUDA tensors and raises on anything it does not take; for
+CPU tensors it runs the plain PyTorch version, ``x @ w.dequantize(x.dtype)``.
+
+Routing (``route``): bf16 activations with M <= ``DECODE_MAX_ROWS`` take
+the decode kernel (weight streaming, ``mma.sync`` with swapped operands),
+larger M the prefill kernel (``wgmma`` fed by TMA); f32 activations take
+the f32 kernel on the CUDA cores.  ``quant_dense.launches`` counts every
+launch, ``quant_dense.decode_launches`` the decode kernel's.
 
 ``w`` is an ``ops.quant.QuantizedArray`` (``bits`` 8: int8 ``q`` [K, N],
 f32 ``scale`` [1, N]) or ``QuantizedArray4`` (``bits`` 4: uint8 ``q``
@@ -22,8 +27,20 @@ import threading
 import torch
 
 SOURCE = "quant_dense.cu"
-BLOCK_N = 128     # output columns a block (csrc/quant_dense.cu: BN)
-BLOCK_K = 64      # K rows a step (BK)
+BLOCK_N = 128          # output columns a block, every kernel (csrc: BN)
+BLOCK_K = 64           # K rows a step of the f32 and prefill kernels (BK)
+DECODE_STEP_K = 32     # K rows a step of the decode kernel (DEC_STEP)
+DECODE_MAX_ROWS = 16   # bf16 products up to this M take the decode kernel
+PREFILL_ROWS = 128     # rows a prefill block (PF_BM)
+F32_ROWS = 16          # rows an f32 block (F_BM)
+COUNTERS = 1 << 16     # arrival counters a device (COUNTERS)
+# the decode kernel's split aims at this many blocks an SM (four fit): two
+# for a weight under DECODE_LARGE_BYTES (fewer splits to sum), three from
+# there (more warps to hide each warp's latency; measured on the H100)
+DECODE_BLOCKS_PER_SM = (2, 3)
+DECODE_LARGE_BYTES = 24 << 20
+DECODE_WARPS = 4       # warps a decode block, each its own steps (DEC_WARPS)
+KERNELS = {"f32": 0, "decode": 1, "prefill": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()   # server threads may launch concurrently
 
@@ -33,27 +50,62 @@ def quant_dense_plain(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w.dequantize(x.dtype)
 
 
-def block_rows(m: int, dtype: torch.dtype) -> int:
-    """The kernel instance's rows a block: bf16 takes 16 up to 16 rows
-    (decode) and 64 above; f32 has the 16-row instance only."""
-    return 16 if dtype == torch.float32 or m <= 16 else 64
+def route(m: int, dtype: torch.dtype) -> str:
+    """The kernel a product of ``m`` rows of ``dtype`` activations takes."""
+    if dtype == torch.float32:
+        return "f32"
+    return "decode" if m <= DECODE_MAX_ROWS else "prefill"
 
 
-def k_splits(m: int, n: int, k: int, bits: int, rows: int,
-             sm_count: int) -> int:
-    """How many blocks share one output tile's K steps.  Enough splits
-    that the blocks fill four to an SM (as many as the 16-row instance's
-    registers and shared memory let one SM hold, so that the most weight
-    bytes are in flight), no more than the K steps, and few enough that
-    the f32 partials (splits x M x N x 4 bytes) stay under the weight's
-    own bytes, so large M never splits.  Rounded so that every split
-    holds at least one step."""
-    steps = k // BLOCK_K
-    tiles = -(-n // BLOCK_N) * -(-m // rows)
-    want = min(-(-4 * sm_count // tiles), steps,
-               max(1, k * bits // (32 * m)))
-    per = -(-steps // max(1, want))
+def _even_splits(steps: int, want: int) -> int:
+    """``want`` rounded down so that every split holds at least one of
+    ``steps`` steps (splits == ceil(steps / ceil(steps / splits)))."""
+    per = -(-steps // max(1, min(want, steps)))
     return -(-steps // per)
+
+
+def decode_splits(k: int, n: int, bits: int, sm_count: int) -> int:
+    """The decode kernel's K split: as many blocks as DECODE_BLOCKS_PER_SM
+    an SM give, never more (a second wave would run alone); few enough
+    that every warp of a split has a 32-row step (more splits only add
+    partials to sum) and that the f32 partials at the kernel's most rows
+    (16 x N x 4 bytes a split) stay under the weight's own bytes.  It
+    depends on no M, so a row's result is the same at any M the kernel
+    takes."""
+    tiles = -(-n // BLOCK_N)
+    per_sm = DECODE_BLOCKS_PER_SM[k * n * bits // 8 >= DECODE_LARGE_BYTES]
+    steps = k // DECODE_STEP_K
+    want = min(max(1, per_sm * sm_count // tiles),
+               max(1, k * bits // (32 * DECODE_MAX_ROWS)),
+               max(1, steps // DECODE_WARPS))
+    return _even_splits(steps, want)
+
+
+def prefill_splits(m: int, k: int, n: int, bits: int, sm_count: int) -> int:
+    """The prefill kernel's K split: only where the output tiles leave
+    SMs idle (one block an SM), no more splits than 64-row steps, and
+    few enough that the partials (splits x M x N x 4 bytes) stay under the
+    weight's own bytes."""
+    tiles = -(-m // PREFILL_ROWS) * -(-n // BLOCK_N)
+    want = min(max(1, sm_count // tiles), max(1, k * bits // (32 * m)))
+    return _even_splits(k // BLOCK_K, want)
+
+
+def f32_splits(m: int, k: int, n: int, bits: int, sm_count: int) -> int:
+    """The f32 kernel's K split: enough blocks for four an SM, and the
+    partials under the weight's bytes."""
+    tiles = -(-n // BLOCK_N) * -(-m // F32_ROWS)
+    want = min(-(-4 * sm_count // tiles), max(1, k * bits // (32 * m)))
+    return _even_splits(k // BLOCK_K, want)
+
+
+def splits_for(kernel: str, m: int, k: int, n: int, bits: int,
+               sm_count: int) -> int:
+    if kernel == "decode":
+        return decode_splits(k, n, bits, sm_count)
+    if kernel == "prefill":
+        return prefill_splits(m, k, n, bits, sm_count)
+    return f32_splits(m, k, n, bits, sm_count)
 
 
 @functools.cache
@@ -62,7 +114,7 @@ def _kernel_fn():
     from ._build import load
     lib = load(SOURCE)
     fn = lib.quant_dense_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.quant_dense_error_string.argtypes = [ctypes.c_int]
@@ -73,6 +125,29 @@ def _kernel_fn():
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_counters_lock = threading.Lock()
+_counters: dict = {}
+
+
+def arrival_counters(device: torch.device) -> torch.Tensor:
+    """The device's zeroed split-arrival counters, allocated on the
+    device's first product, outside any graph capture (an engine's
+    warm-up launches before it captures); each launch leaves them at 0."""
+    key = torch.device(device).index
+    if key is None:
+        key = torch.cuda.current_device()
+    with _counters_lock:
+        buf = _counters.get(key)
+        if buf is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "quant_dense: the arrival counters must be allocated "
+                    "before a graph capture (run one product eagerly first)")
+            buf = _counters[key] = torch.zeros(
+                COUNTERS, dtype=torch.int32, device=f"cuda:{key}")
+        return buf
 
 
 def _check_cuda_args(x, w):
@@ -117,8 +192,8 @@ def _check_cuda_args(x, w):
 
 def quant_dense(x: torch.Tensor, w) -> torch.Tensor:
     """``x`` [M, K] @ ``w`` dequantized [K, N] -> [M, N] in x's dtype,
-    with f32 accumulation.  CUDA tensors launch the kernel or raise; CPU
-    tensors take the plain version."""
+    with f32 accumulation.  CUDA tensors launch the kernel ``route``
+    picks or raise; CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return quant_dense_plain(x, w)
     if x.device.type != "cuda":
@@ -126,34 +201,41 @@ def quant_dense(x: torch.Tensor, w) -> torch.Tensor:
     x = x.contiguous()
     _check_cuda_args(x, w)
     m = x.shape[0]
-    rows = block_rows(m, x.dtype)
+    kernel = route(m, x.dtype)
     k, n = w.shape
-    splits = k_splits(m, n, k, w.bits, rows, _sm_count(x.device))
-    return _launch(x, w, rows, splits)
+    return _launch(x, w, kernel, splits_for(kernel, m, k, n, w.bits,
+                                            _sm_count(x.device)))
 
 
-def _launch(x, w, rows: int, splits: int) -> torch.Tensor:
-    """One launch of the ``rows`` instance over ``splits`` K splits
-    (arguments already checked); counts it."""
+def _launch(x, w, kernel: str, splits: int) -> torch.Tensor:
+    """One launch of ``kernel`` over ``splits`` K splits (arguments
+    already checked; the C entry point refuses a kernel the dtype or M
+    does not fit and a split count that leaves a split empty); counts
+    it."""
     m = x.shape[0]
     k, n = w.shape
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     part = (torch.empty((splits, m, n), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
+    counters = arrival_counters(x.device) if kernel != "f32" else None
     fn, err_str = _kernel_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
-                 out.data_ptr(), part.data_ptr() if part is not None
-                 else None, m, n, k, w.bits,
-                 getattr(w, "group", 0), _DTYPE_CODE[x.dtype], rows, splits,
-                 stream)
+                 out.data_ptr(),
+                 part.data_ptr() if part is not None else None,
+                 counters.data_ptr() if counters is not None else None,
+                 m, n, k, w.bits, getattr(w, "group", 0),
+                 _DTYPE_CODE[x.dtype], KERNELS[kernel], splits, stream)
     if err != 0:
-        raise RuntimeError("quant_dense kernel launch failed: "
+        raise RuntimeError(f"quant_dense {kernel} kernel launch failed: "
                            + err_str(err).decode())
     with _count_lock:
         quant_dense.launches += 1
+        if kernel == "decode":
+            quant_dense.decode_launches += 1
     return out
 
 
 quant_dense.launches = 0
+quant_dense.decode_launches = 0

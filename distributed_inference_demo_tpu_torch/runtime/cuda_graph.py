@@ -57,7 +57,7 @@ _COUNTERS = (
     (_pa.paged_prefill_attention, ("launches", "int8_launches"),
      _pa._count_lock),
     (_fa.flash_attention, ("launches", "wide_launches"), _fa._count_lock),
-    (_qd.quant_dense, ("launches",), _qd._count_lock),
+    (_qd.quant_dense, ("launches", "decode_launches"), _qd._count_lock),
 )
 # one capture at a time in the process (CUDA's rule for stream capture);
 # engines may capture from different threads

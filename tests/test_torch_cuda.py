@@ -763,6 +763,12 @@ def test_batching_graph_replay_equals_eager(cuda_device, dtype, mode,
         assert steps == e_steps and launches == e_launches
 
 
+def _quant_weight(bits, k, n, gen, device):
+    w = torch.randn((k, n), generator=gen, device=device) * k ** -0.5
+    return (quant.quantize_array(w) if bits == 8
+            else quant.quantize_array4(w))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
@@ -770,25 +776,82 @@ def test_batching_graph_replay_equals_eager(cuda_device, dtype, mode,
 @pytest.mark.parametrize("m,k,n", [
     (1, 2048, 256),     # TinyLlama's wk at decode: split K
     (37, 512, 272),     # ragged rows and a partial column tile
-])
+] + [(m, k, n) for k, n in ((2048, 256), (512, 272), (2048, 5632))
+     for m in (8, 16, 17, 64, 256)] + [
+    (1, 512, 272), (1, 2048, 5632)])   # TinyLlama's w_up
 def test_quant_dense_matches_plain(cuda_device, bits, dtype, atol, m, k, n):
-    """The dequantizing dense kernel against ``x @ w.dequantize(x.dtype)``
-    on the same codes: one launch a call, f32 exact up to summation
+    """The dequantizing dense kernels against ``x @ w.dequantize(x.dtype)``
+    on the same codes: one launch a call (bf16 up to 16 rows the decode
+    kernel's, above the prefill kernel's), f32 exact up to summation
     order, bf16 within the output's rounding."""
     from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
     gen = torch.Generator(device=cuda_device).manual_seed(bits + m)
-    w = torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5
-    wq = (quant.quantize_array(w) if bits == 8
-          else quant.quantize_array4(w))
+    wq = _quant_weight(bits, k, n, gen, cuda_device)
     x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
     before = qd.quant_dense.launches
+    before_dec = qd.quant_dense.decode_launches
     got = qd.quant_dense(x, wq)
     want = qd.quant_dense_plain(x, wq)
     torch.cuda.synchronize()
     assert qd.quant_dense.launches == before + 1
+    decode = dtype == torch.bfloat16 and m <= qd.DECODE_MAX_ROWS
+    assert qd.quant_dense.decode_launches == before_dec + int(decode)
     assert got.dtype == dtype and got.shape == (m, n)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", [(2048, 256), (2048, 5632), (4096, 1024)])
+def test_quant_decode_row_bit_equal_across_m(cuda_device, bits, k, n):
+    """The decode kernel's split depends on no M and each row is its own
+    n8 column: every row of an 8- and a 16-row launch equals the same row
+    launched alone, bit for bit."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    gen = torch.Generator(device=cuda_device).manual_seed(bits)
+    wq = _quant_weight(bits, k, n, gen, cuda_device)
+    x = torch.randn((16, k), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    y16 = qd.quant_dense(x, wq)
+    y8 = qd.quant_dense(x[:8], wq)
+    for r in range(16):
+        y1 = qd.quant_dense(x[r:r + 1], wq)
+        assert torch.equal(y1[0], y16[r])
+        if r < 8:
+            assert torch.equal(y1[0], y8[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 2048, 256),     # decode kernel, 32 / 16 splits
+    (8, 4096, 1024),    # decode kernel, the 8-slot batch
+    (64, 4096, 512),    # prefill kernel, split K
+    (256, 4096, 512),   # prefill kernel, two row tiles, split K
+])
+def test_quant_dense_graph_replay_bit_equal(cuda_device, bits, m, k, n):
+    """A product captured in a CUDA graph and replayed 20 times equals
+    the eager launch bit for bit at every replay: the split-arrival
+    counters are back at 0 after each launch."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    gen = torch.Generator(device=cuda_device).manual_seed(bits + m)
+    wq = _quant_weight(bits, k, n, gen, cuda_device)
+    x = torch.randn((m, k), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    kernel = qd.route(m, x.dtype)
+    assert qd.splits_for(kernel, m, k, n, bits, qd._sm_count(x.device)) > 1
+    eager = qd.quant_dense(x, wq)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qd.quant_dense(x, wq)
+    for _ in range(20):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    counters = qd.arrival_counters(x.device)
+    assert int(counters.abs().sum()) == 0
 
 
 @pytest.mark.cuda

@@ -302,24 +302,51 @@ def test_layer_chunked_init_quantizes_the_float_init(mode):
 
 
 def test_kernel_instance_and_split_rules():
-    assert qd.block_rows(1, torch.bfloat16) == 16
-    assert qd.block_rows(16, torch.bfloat16) == 16
-    assert qd.block_rows(17, torch.bfloat16) == 64
-    assert qd.block_rows(256, torch.float32) == 16
-    for m in (1, 8, 64, 256, 1500):
-        for k, n in ((2048, 256), (2048, 2048), (2048, 5632), (5632, 2048),
-                     (4096, 14336), (64, 16)):
-            for bits in (8, 4):
-                rows = qd.block_rows(m, torch.bfloat16)
-                s = qd.k_splits(m, n, k, bits, rows, 132)
-                steps = k // qd.BLOCK_K
-                per = -(-steps // s)
-                assert 1 <= s <= steps and -(-steps // per) == s
-                if s > 1:   # partials never outweigh the weight
-                    assert s * m * n * 4 <= k * n * bits // 8
-    # TinyLlama's wk at decode: 2 tiles, split to fill the card
-    assert qd.k_splits(1, 256, 2048, 8, 16, 132) == 32
-    assert qd.k_splits(1500, 5632, 2048, 8, 64, 132) == 1
+    """bf16 products of up to 16 rows take the decode kernel, larger ones
+    the prefill kernel, f32 the f32 kernel; the decode kernel's split
+    depends on no M; every split holds at least one step; partials never
+    outweigh the weight."""
+    assert qd.route(1, torch.bfloat16) == "decode"
+    assert qd.route(8, torch.bfloat16) == "decode"
+    assert qd.route(16, torch.bfloat16) == "decode"
+    assert qd.route(17, torch.bfloat16) == "prefill"
+    assert qd.route(1500, torch.bfloat16) == "prefill"
+    assert qd.route(1, torch.float32) == qd.route(256, torch.float32) == "f32"
+    shapes = ((2048, 256), (2048, 2048), (2048, 5632), (5632, 2048),
+              (4096, 1024), (4096, 4096), (4096, 14336), (14336, 4096),
+              (64, 16))
+    for k, n in shapes:
+        for bits in (8, 4):
+            for sms in (132, 114, 1):
+                dec = {qd.splits_for("decode", m, k, n, bits, sms)
+                       for m in range(1, qd.DECODE_MAX_ROWS + 1)}
+                assert dec == {qd.decode_splits(k, n, bits, sms)}
+            for m in (1, 8, 16, 17, 64, 256, 1500):
+                for kernel in ("decode", "prefill", "f32"):
+                    if kernel == "decode" and m > qd.DECODE_MAX_ROWS:
+                        continue
+                    s = qd.splits_for(kernel, m, k, n, bits, 132)
+                    steps = k // (qd.DECODE_STEP_K if kernel == "decode"
+                                  else qd.BLOCK_K)
+                    per = -(-steps // s)
+                    assert 1 <= s <= steps and -(-steps // per) == s
+                    if s > 1:   # partials never outweigh the weight
+                        rows = (qd.DECODE_MAX_ROWS if kernel == "decode"
+                                else m)
+                        assert s * rows * n * 4 <= k * n * bits // 8
+                    if kernel == "decode":   # a step for every warp
+                        assert s == 1 or steps // s >= qd.DECODE_WARPS
+    # TinyLlama's wk at decode: 2 tiles, split to fill the card, capped
+    # by a step for every warp of a split
+    assert qd.decode_splits(2048, 256, 8, 132) == 16
+    assert qd.decode_splits(2048, 256, 4, 132) == 16
+    # TinyLlama's w_up at decode: 44 tiles, two blocks an SM
+    assert qd.decode_splits(2048, 5632, 8, 132) == 6
+    # prefill: a long chunk's tiles fill the card alone; llama-3-8b's
+    # w_down at a 64-token prefill (32 tiles) splits four ways
+    assert qd.prefill_splits(1500, 2048, 5632, 8, 132) == 1
+    assert qd.prefill_splits(256, 2048, 5632, 8, 132) == 1
+    assert qd.prefill_splits(64, 14336, 4096, 8, 132) == 4
 
 
 def test_catalog_weight_shapes_fit_the_kernel():
