@@ -4,6 +4,9 @@ their plain versions.
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --phase moe     # build + one phase (serve,
+                                          # batching, mixed, graph,
+                                          # quant, moe), no result lines
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -59,7 +62,11 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             tokens agree with the serialized interleave's, on the kernels
             and on the gather path, with the teacher-forced logit gap
             between a prefill chunk run in a mixed slab and run alone,
-            through the kernels and through the gather path;
+            through the kernels and through the gather path; the K/V
+            pages the 1000-, 150- and 20-token prompts write, chunk by
+            chunk, serialized and in a mixed slab, compared bit for bit,
+            with whether layer 0's dense products give a chunk's rows
+            bit-equal at the two row counts (ROADMAP C 2);
 6. serve_model  plain serve, as in phase 3, of each model at the kernels'
             other head dims, at full width: gemma-2b (hd 256), bloom3b
             (hd 80) and bloom1b1 (hd 96): one greedy request, the flash
@@ -116,7 +123,19 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             the served codes bit-equal to ``maybe_quantize(
             params_from_state_dict(...))`` of the same tensors, one
             greedy request over HTTP;
-10. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+10. moe     mixtral at full width (random bf16 weights from seed 0):
+            mixtral-tpu-1b (8 experts of top 2, g = 4, hd 64) plain serve
+            as phase 6 with the LONG_PROMPT_LEN-token prefill too, then
+            as phase 8 (graph and eager bit-equal; ms/token, device ms a
+            step, idle share); its -dense twin the same way, and the
+            ratio of their device ms a step; 8-slot batching as phases 4
+            and 8; mixtral-tpu-1b-int8 plain serve as phase 9 (224 dense
+            launches a decode step, the twin check); mixtral-8x7b-int8
+            plain serve, graph only, as phase 9's llama-3-8b (init peak,
+            896 dense launches a decode step), its twin check on a depth
+            cut of MOE_TWIN_LAYERS layers at full width (its bf16 twin of
+            all 32 layers does not fit the card);
+11. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout,
@@ -206,6 +225,14 @@ SLAB_STARTS = (0, 64, 448, None)
 # and (gemma-2b) the mixed dispatch over int8 pages; bloom1b1 (hd 96,
 # ALiBi) through plain serve
 HEAD_DIM_MODELS = ("gemma-2b", "bloom3b", "bloom1b1")
+# the moe phase: mixtral-tpu-1b (hd 64, 16 q heads on 4 kv heads, 8
+# experts of top 2) and its -dense twin (the same active FLOPs a token)
+# at full width and depth; mixtral-8x7b-int8 (hd 128, g = 4) at full
+# width and depth, its twin check at a depth cut of MOE_TWIN_LAYERS (the
+# bf16 twin of all 32 layers, ~93 GB, does not fit the card)
+MOE_MODEL = "mixtral-tpu-1b"
+MOE_LARGE = "mixtral-8x7b-int8"
+MOE_TWIN_LAYERS = 2
 
 
 def emit(obj) -> None:
@@ -341,8 +368,10 @@ def kernel_cases():
     plain-serve prompt (2048 tokens at 0); ragged rows (bloom-560m, g = 1,
     37 tokens at 7, ALiBi); 256 and 257 tokens at 0, whose 2048 and 2056
     TinyLlama rows sit either side of the instance threshold (32 and 33
-    64-row blocks per kv head, 128 and 132 in all); and the serve prefill
-    (64 tokens at 0) of each HEAD_DIM_MODELS model, at hd 256, 80, 96."""
+    64-row blocks per kv head, 128 and 132 in all); the serve prefill
+    (64 tokens at 0) of each HEAD_DIM_MODELS model, at hd 256, 80, 96;
+    and the moe phase's (mixtral-tpu-1b at 64 and 2048 tokens,
+    mixtral-8x7b at 64)."""
     cases = []
     for b in (1, 4):
         for chunk in (16, 64, 512):
@@ -357,6 +386,13 @@ def kernel_cases():
         cases.append(("tinyllama-threshold", 1, chunk, 0, 32, 4, 64, False))
     for name in HEAD_DIM_MODELS:
         cases.append((name, 1, PROMPT_LEN, 0, *model_heads(name)))
+    # the moe phase's prefills: mixtral-tpu-1b (g = 4, hd 64) at the serve
+    # prompt and the long one's 2048-token bound, mixtral-8x7b (hd 128)
+    # at the serve prompt
+    cases += [(MOE_MODEL, 1, PROMPT_LEN, 0, *model_heads(MOE_MODEL)),
+              (MOE_MODEL + "-long", 1, MAX_SEQ, 0, *model_heads(MOE_MODEL)),
+              ("mixtral-8x7b", 1, PROMPT_LEN, 0,
+               *model_heads("mixtral-8x7b"))]
     return cases
 
 
@@ -507,7 +543,9 @@ def paged_cases():
     keep: the serialized admission's finals padded to 128 tokens); and
     each HEAD_DIM_MODELS model's heads (hd 256, 80, 96) at the 8-slot
     decode and the 64-token chunk at 200 on both page types, and
-    gemma-2b's at the mixed slab over int8 pages."""
+    gemma-2b's at the mixed slab over int8 pages; mixtral-tpu-1b's heads
+    (g = 4) at the 8-slot decode and the 64-token chunk at 200 on
+    full-width pages."""
     from distributed_inference_demo_tpu_torch.ops.paged_attention import \
         KV_SPLIT
     serve = (1, 16, 37, 1999, 512, 130, -300, -5)   # negative: freed slot
@@ -550,6 +588,10 @@ def paged_cases():
                        pages)]
     cases.append(("gemma-2b-slab", "prefill", *model_heads("gemma-2b"),
                   (PREFILL_CHUNK, SLAB_STARTS), "int8"))
+    # the moe phase's 8-slot batching (full-width pages, g = 4)
+    cases += [(MOE_MODEL, "decode", *model_heads(MOE_MODEL), serve, "full"),
+              (MOE_MODEL, "prefill", *model_heads(MOE_MODEL),
+               (PREFILL_CHUNK, (200,)), "full")]
     return cases
 
 
@@ -765,6 +807,89 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+class moe_routing:
+    """Within the block, every MoE routing decision
+    (``models.decoder.moe_route``) in call order: recorded into ``log``
+    (the experts each token chose, and the gap between its k-th and
+    (k+1)-th router logit), or with ``replay`` taken from ``log`` (a
+    softmax over this call's own logits at the recorded experts), so
+    that two paths compare at the same expert choices."""
+
+    def __init__(self, log: list, replay: bool = False):
+        self.log, self.replay = log, replay
+
+    def __enter__(self):
+        import torch
+
+        from distributed_inference_demo_tpu_torch.models import decoder
+        self.decoder, self.real = decoder, decoder.moe_route
+        calls = iter(list(self.log))
+
+        def route(logits, k):
+            # an engine's first call may capture its decode step: the
+            # graph takes the real routing, and the log skips it
+            if logits.is_cuda and torch.cuda.is_current_stream_capturing():
+                return self.real(logits, k)
+            if self.replay:
+                topi = next(calls)["topi"]
+                w = torch.softmax(torch.gather(logits, -1, topi), dim=-1)
+                return torch.zeros_like(logits).scatter(-1, topi, w)
+            v, i = torch.sort(logits, dim=-1, descending=True, stable=True)
+            self.log.append({"topi": i[..., :k],
+                             "gap": v[..., k - 1] - v[..., k]})
+            return self.real(logits, k)
+
+        decoder.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.decoder.moe_route = self.real
+
+
+def moe_pinned(cfg, run_ref, run_test):
+    """(reference logits, test logits, routing report) of two paths over
+    the same tokens.  For a model with experts, the test runs twice:
+    with its own routing (reported: how many of the reference's routing
+    decisions it flipped, the reference's router-logit gap at the top-k
+    boundary at the first call that flips, its logit gap) and with the
+    reference's expert choices pinned, the logits the caller holds to
+    its tolerance.  A top-k choice is discontinuous: where two router
+    logits nearly tie, the two paths' rounding picks different experts
+    and the token's MLP output jumps, which no logit tolerance bounds.
+    Without experts: one run each, no report."""
+    import numpy as np
+
+    if not cfg.num_experts:
+        return run_ref(), run_test(), None
+    # an engine's first forward may capture its decode step after an
+    # eager warm-up step, whose routing is no part of the comparison
+    run_ref()
+    run_test()
+    ref_log, own_log = [], []
+    with moe_routing(ref_log):
+        lr = run_ref()
+    with moe_routing(own_log):
+        own = run_test()
+    with moe_routing(ref_log, replay=True):
+        lt = run_test()
+    flips, first = 0, None
+    for i, (a, b) in enumerate(zip(ref_log, own_log)):
+        d = (a["topi"].sort(-1).values != b["topi"].sort(-1).values).any(-1)
+        flips += int(d.sum())
+        if first is None and bool(d.any()):
+            # the first call that flips: no earlier flip fed its inputs,
+            # so only rounding parted the two paths' router logits
+            first = {"call": i, "flips": int(d.sum()),
+                     "max_router_gap": float(a["gap"][d].max())}
+    return lr, lt, {
+        "routing_decisions": sum(int(x["gap"].numel()) for x in ref_log),
+        "routing_flips": flips, "first_flip": first,
+        "unpinned_logit_max_abs_err": float(np.abs(own - lr).max()),
+        "unpinned_argmax_agreement": int((own.argmax(-1)
+                                          == lr.argmax(-1)).sum()),
+        "held": "logits with the reference path's expert choices"}
+
+
 def phase_serve(torch) -> dict:
     import numpy as np
 
@@ -889,24 +1014,9 @@ def phase_serve(torch) -> dict:
 
     # ---- the long prompt: one whole-prompt prefill, counts from zero;
     # every layer launches the 64-row instance; logits against plain ----
-    flash_attention.launches = flash_attention.wide_launches = 0
-    lk_long = greedy.prefill_logits(long_prompt)
-    long_launches = flash_attention.launches
-    long_wide = flash_attention.wide_launches
-    lp_long = plain.prefill_logits(long_prompt)
-    scale_long = max(1.0, float(np.abs(lp_long).max()))
-    err_long = float(np.abs(lk_long - lp_long).max())
-    out.update(long_prompt_len=LONG_PROMPT_LEN,
-               long_launches=long_launches, long_wide_launches=long_wide,
-               long_logit_max_abs_err=err_long, long_logit_scale=scale_long,
-               long_logit_tol=LOGIT_TOL_REL * scale_long)
-    _check(long_launches == L and long_wide == L,
-           f"the long prefill launched {long_launches}, {long_wide} of "
-           f"them 64-row, expected {L} and {L}")
-    _check(bool(np.isfinite(lk_long).all()), "long-prompt logits not finite")
-    _check(err_long <= LOGIT_TOL_REL * scale_long,
-           f"long-prompt prefill logits differ by {err_long} (> "
-           f"{LOGIT_TOL_REL} x {scale_long})")
+    out.update(long_prefill_check(torch, greedy, plain, long_prompt))
+    _check(out["long_wide_launches"] == L, "the long prefill took the "
+           "16-row instance")
     # wall time of one warm prefill each, host clock (the logits come
     # back to the host, which waits for the card)
     for name, p in (("prefill_s", prompt), ("long_prefill_s", long_prompt)):
@@ -953,14 +1063,60 @@ def phase_serve(torch) -> dict:
     return out
 
 
-def phase_serve_model(torch, name: str) -> dict:
+def long_prefill_check(torch, engine, plain, prompt) -> dict:
+    """One whole-prompt prefill of the long ``prompt`` through the flash
+    engine, counts from zero: every layer launches the kernel once, in
+    the instance its rule names; the logits against ``plain``'s (plain
+    attention, the same weights) at LOGIT_TOL_REL (an MoE model's with
+    the plain engine's expert choices, :func:`moe_pinned`)."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_rows_per_block)
+
+    cfg = engine.cfg
+    L, g = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
+    counts = []
+
+    def kernel():
+        _reset_launches(flash_attention)
+        out = engine.prefill_logits(prompt)
+        counts.append((flash_attention.launches,
+                       flash_attention.wide_launches))
+        return out
+
+    lp, lk, routing = moe_pinned(
+        cfg, lambda: plain.prefill_logits(prompt), kernel)
+    launches, wide = counts[0]
+    scale = max(1.0, float(np.abs(lp).max()))
+    err = float(np.abs(lk - lp).max())
+    rule = flash_rows_per_block(
+        1, cfg.num_kv_heads, len(prompt[0]) * g,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    _check(launches == L and wide == (L if rule == 64 else 0),
+           f"the long prefill launched {launches}, {wide} of them 64-row, "
+           f"expected {L} of the {rule}-row instance")
+    _check(bool(np.isfinite(lk).all()), "long-prompt logits not finite")
+    _check(err <= LOGIT_TOL_REL * scale,
+           f"long-prompt prefill logits differ by {err} (> "
+           f"{LOGIT_TOL_REL} x {scale})")
+    return {"long_prompt_len": len(prompt[0]), "long_launches": launches,
+            "long_wide_launches": wide, "long_rows_per_block": rule,
+            "long_logit_max_abs_err": err, "long_logit_scale": scale,
+            "long_logit_tol": LOGIT_TOL_REL * scale,
+            "long_routing": routing}
+
+
+def phase_serve_model(torch, name: str, long_prompt: bool = False) -> dict:
     """Plain serve of a HEAD_DIM_MODELS model at full width (random
     weights from seed 0): ``InferenceHTTPServer`` over an
     ``InferenceEngine`` on "auto", which resolves to the flash kernel,
     answers one greedy request (a PROMPT_LEN-token prompt, NEW_TOKENS new
     tokens); the counts show every layer's prefill launched the kernel,
     in the instance its rule names; the prefill logits are held against
-    an engine on plain attention; decode ms/token."""
+    an engine on plain attention (an MoE model's with its expert
+    choices, :func:`moe_pinned`; ``long_prompt``: a LONG_PROMPT_LEN-token
+    prompt's too, :func:`long_prefill_check`); decode ms/token."""
     import numpy as np
 
     from distributed_inference_demo_tpu_torch.models.decoder import \
@@ -1021,11 +1177,12 @@ def phase_serve_model(torch, name: str) -> dict:
         server.shutdown()
     plain = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
                             attn_backend="plain", device="cuda")
-    lk, lp = engine.prefill_logits(prompt), plain.prefill_logits(prompt)
+    lp, lk, routing = moe_pinned(cfg, lambda: plain.prefill_logits(prompt),
+                                 lambda: engine.prefill_logits(prompt))
     scale = max(1.0, float(np.abs(lp).max()))
     err = float(np.abs(lk - lp).max())
     plain_toks = plain.generate(prompt, NEW_TOKENS).tokens[0].tolist()
-    out.update(logit_max_abs_err=err, logit_scale=scale,
+    out.update(logit_max_abs_err=err, logit_scale=scale, routing=routing,
                logit_tol=LOGIT_TOL_REL * scale,
                greedy_agreement=sum(a == b for a, b in
                                     zip(plain_toks, toks[0])) / NEW_TOKENS)
@@ -1033,6 +1190,10 @@ def phase_serve_model(torch, name: str) -> dict:
     _check(err <= LOGIT_TOL_REL * scale,
            f"{name}: prefill logits differ by {err} (> {LOGIT_TOL_REL} x "
            f"{scale})")
+    if long_prompt:
+        out.update(long_prefill_check(
+            torch, engine, plain, np.random.RandomState(3).randint(
+                0, cfg.vocab_size, (1, LONG_PROMPT_LEN)).tolist()))
     # ---- decode rate: (t(1 + n) - t(1)) / n, b=1, after warm-up ----
     n = NEW_TOKENS
     engine.generate(prompt, 1)
@@ -1197,10 +1358,13 @@ def paged_logit_check(torch, kernel_engine, plain_engine, seq,
     configuration, ``attn_backend`` "auto" and "plain"); the kernel
     engine's logits must be finite and within LOGIT_TOL_REL of the
     gather path's largest logit, as the serve phase holds the flash
-    kernel."""
+    kernel (an MoE model's with the gather path's expert choices,
+    :func:`moe_pinned`)."""
     import numpy as np
-    lk = _paged_logits(torch, kernel_engine, seq, n_decode)
-    lp = _paged_logits(torch, plain_engine, seq, n_decode)
+    lp, lk, routing = moe_pinned(
+        kernel_engine.cfg,
+        lambda: _paged_logits(torch, plain_engine, seq, n_decode),
+        lambda: _paged_logits(torch, kernel_engine, seq, n_decode))
     scale = max(1.0, float(np.abs(lp).max()))
     err = np.abs(lk - lp).max(axis=1)
     res = {"tokens": len(seq), "decode_steps": n_decode,
@@ -1208,7 +1372,7 @@ def paged_logit_check(torch, kernel_engine, plain_engine, seq,
            "prefill_logit_max_abs_err": float(err[0]),
            "logit_scale": scale, "logit_tol": LOGIT_TOL_REL * scale,
            "argmax_agreement": int((lk.argmax(1) == lp.argmax(1)).sum()),
-           "argmax_agreement_of": len(err)}
+           "argmax_agreement_of": len(err), "routing": routing}
     _check(bool(np.isfinite(lk).all()), "paged kernel logits not finite")
     _check(res["logit_max_abs_err"] <= res["logit_tol"],
            f"paged kernel logits differ from the gather path's by "
@@ -1281,6 +1445,116 @@ def slab_vs_chunk(torch, engine, seq, n_decode: int = 8,
             "argmax_agreement": int((slab.argmax(1)
                                      == chunk.argmax(1)).sum()),
             "argmax_agreement_of": len(err)}
+
+
+def _token_leaves(pool, pages, lo: int, hi: int):
+    """Each leaf of a page pool (a tensor, or an int8/int4 pool's codes,
+    scales and zeros) at tokens ``lo``..``hi`` - 1 of a sequence held on
+    ``pages``: [L, nkv, hi - lo, ·] each."""
+    import torch
+    leaves = pool.leaves() if hasattr(pool, "leaves") else [pool]
+    idx = torch.tensor(pages, device=leaves[0].device)
+    out = []
+    for t in leaves:
+        L, _, nkv, bt, d = t.shape
+        lin = t[:, idx].permute(0, 2, 1, 3, 4).reshape(L, nkv, -1, d)
+        out.append(lin[:, :, lo:hi])
+    return out
+
+
+def kv_pages_slab_vs_chunk(torch, engine, seq) -> dict:
+    """ROADMAP C 2: the prompt ``seq`` admitted twice on one closed
+    engine, chunk by chunk in lockstep, each copy on its own pages: as
+    the serialized admission runs it (one [1, C] forward a chunk, the
+    final one zero-padded to its prompt bucket: every dense product at M
+    = C or the bucket) and as row 0 of a mixed slab (M =
+    ``_mixed_seg_cap`` x C rows, the other rows unused).  After each
+    chunk, the K and V pages it wrote (every leaf, every layer), bit for
+    bit; and whether each of layer 0's seven dense products (random
+    rows, the engine's weights) gives a chunk's rows bit-equal at the
+    two M.  The paged kernels' rows do not depend on other rows, so
+    pages can differ only in chunks where some product's rows do."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.ops.quant import dense
+
+    cfg, mgr, dev = engine.cfg, engine.kv_cache, engine.device
+    C, n_seg, bt = engine.prefill_chunk, engine._mixed_seg_cap, \
+        mgr.block_tokens
+    need = -(-len(seq) // bt) + 1      # + the padded final's spill
+    serial, slab = mgr.alloc(need), mgr.alloc(need)
+    _check(serial is not None and slab is not None,
+           "no free pages for the page comparison")
+    tables = []
+    for rows, pages in ((1, serial), (n_seg, slab)):
+        t = np.full((rows, engine._table_width), engine._page_sentinel,
+                    np.int32)
+        t[0, :need] = pages
+        tables.append(engine._upload(t))
+    lp0 = engine.params.layer(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    probe = {w: torch.randn((n_seg * C, lp0[w].shape[0]), generator=gen,
+                            device=dev).to(cfg.dtype)
+             for w in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+             if w in lp0}
+
+    def rows_equal(width, n):
+        """Each product's first ``n`` rows at M = ``width`` and at the
+        slab's M, bit for bit."""
+        return {w: torch.equal(
+            dense(x[None, :width], lp0[w], "bsh,hd->bsd")[0, :n],
+            dense(x.view(n_seg, C, -1), lp0[w], "bsh,hd->bsd")[0, :n])
+            for w, x in probe.items()}
+
+    per_chunk, start = [], 0
+    try:
+        with torch.no_grad():
+            while start < len(seq):
+                n = min(C, len(seq) - start)
+                width = engine._bucket(n) if start + n == len(seq) and \
+                    n < C else n
+                ids = torch.zeros((1, width), dtype=torch.int64, device=dev)
+                ids[0, :n] = torch.tensor(seq[start:start + n])
+                engine._bind(tables[0])
+                engine._fwd(engine.params, ids, engine._pool(),
+                            start + torch.arange(width, device=dev)[None],
+                            width == n)
+                sids = torch.zeros((n_seg, C), dtype=torch.int64,
+                                   device=dev)
+                sids[0, :n] = ids[0, :n]
+                starts = torch.zeros(n_seg, dtype=torch.int64, device=dev)
+                starts[0] = start
+                engine._slab_body(engine.params, engine._pool(), sids,
+                                  tables[1], starts)
+                differ = [
+                    li for li in range(cfg.num_layers)
+                    if not all(torch.equal(x[li], y[li])
+                               for pool in (engine._pk, engine._pv)
+                               for x, y in zip(
+                                   _token_leaves(pool, serial, start,
+                                                 start + n),
+                                   _token_leaves(pool, slab, start,
+                                                 start + n)))]
+                rows = rows_equal(width, n)
+                per_chunk.append({
+                    "start": start, "tokens": n, "serial_rows": width,
+                    "differing_layers": len(differ),
+                    "first_differing_layer": differ[0] if differ else None,
+                    "dense_rows_differ": [w for w, eq in rows.items()
+                                          if not eq]})
+                start += n
+    finally:
+        mgr.free(serial)
+        mgr.free(slab)
+    differs = [c["differing_layers"] > 0 for c in per_chunk]
+    m_dependent = [bool(c["dense_rows_differ"]) for c in per_chunk]
+    return {"tokens": len(seq), "chunks": len(per_chunk),
+            "layers": cfg.num_layers, "slab_rows": n_seg * C,
+            "pages_bit_equal_chunks": differs.count(False),
+            "m_dependent_chunks": m_dependent.count(True),
+            "pages_differ_only_where_m_differs": all(
+                m for d, m in zip(differs, m_dependent) if d),
+            "per_chunk": per_chunk}
 
 
 def phase_batching(torch, model: str = SERVE_MODEL,
@@ -1568,6 +1842,14 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
         for name, e in (("kernels", engine), ("gather", plain_engine))
         for n, p in ((1000, seq), (100, prompts[BATCH_PROMPTS.index(100)]
                                    + prompts[0][:8]))}
+    # ---- ROADMAP C 2: the K/V pages the 1000-token prompt writes, chunk
+    # by chunk, serialized against in a mixed slab ----
+    # (finals padded to 64 and to 32 rows)
+    out["kv_pages_slab_vs_chunk"] = {
+        f"{name}_{len(p)}": kv_pages_slab_vs_chunk(torch, e, p)
+        for name, e in (("kernels", engine), ("gather", plain_engine))
+        for p in (seq[:1000], prompts[BATCH_PROMPTS.index(150)],
+                  prompts[BATCH_PROMPTS.index(20)])}
     del engine, plain_engine
 
     # ---- the serialized interleave on the same int8 pages: how many of
@@ -1585,17 +1867,12 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
     ser_toks = submit_all(mixed_token_budget=0)
     out["serialized_agreement"] = agreement(toks, ser_toks)
     out["serialized_agreement_of"] = len(prompts) * NEW_TOKENS
-    # per prompt set (seeds 2, the phase's own, to 4), per request
-    out["serialized_agreement_submitted"] = {}
-    for seed in (2, 3, 4):
-        prompts = _batch_prompts(cfg.vocab_size, seed)
-        out["serialized_agreement_submitted"][seed] = {
-            name: [sum(x == y for x, y in zip(r, s_)) for r, s_ in
-                   zip(submit_all(attn_backend=backend),
-                       submit_all(attn_backend=backend,
-                                  mixed_token_budget=0))]
-            for name, backend in (("kernels", "auto"), ("gather", "plain"))}
-    prompts = _batch_prompts(cfg.vocab_size)
+    # per request
+    out["serialized_agreement_submitted"] = {
+        name: [sum(x == y for x, y in zip(r, s_)) for r, s_ in
+               zip(submit_all(attn_backend=backend),
+                   submit_all(attn_backend=backend, mixed_token_budget=0))]
+        for name, backend in (("kernels", "auto"), ("gather", "plain"))}
 
     # ---- an int4 pool: the routing sends it to the gather path ----
     _reset_launches(*wrappers)
@@ -1793,24 +2070,30 @@ def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
 
 def dense_per_layer(cfg) -> int:
     """Quantized matmuls in one layer's forward (each one launch of the
-    dense kernel): wq, wk, wv, wo and the MLP's three (bloom: two)."""
+    dense kernel): wq, wk, wv, wo and the MLP's three (bloom: two; an
+    MoE: three an expert, every expert on every token)."""
     if cfg.quantization == "none":
         return 0
+    if cfg.num_experts:
+        return 4 + 3 * cfg.num_experts
     return 6 if cfg.family == "bloom" else 7
 
 
 def _graph_plain_side(torch, engine, prompt) -> dict:
     """One plain engine's numbers: greedy tokens and logprobs, decode
     ms/token over GRAPH_DECODE_TOKENS, the replays and decode steps of
-    those calls and the dense kernel's launches against the routing
-    (dense_per_layer x L a forward: the three prefills and every decode
-    step; counted from 0), then a profile of PROFILE_DECODE_STEPS decode
-    steps."""
+    those calls, the flash kernel's launches (L a prefill: the three
+    prefills) and the dense kernel's against the routing (dense_per_layer
+    x L a forward: the three prefills and every decode step; counted from
+    0), then a profile of PROFILE_DECODE_STEPS decode steps."""
     from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
 
     engine.generate(prompt, 2)                   # captures, warms
     r0, s0 = engine.graph_replays, engine.loop_stats["device_loop_steps"]
     qd.quant_dense.launches = qd.quant_dense.decode_launches = 0
+    _reset_launches(flash_attention)
     res = engine.generate(prompt, NEW_TOKENS, logprobs=True)
     t_one = engine.generate(prompt, 1).seconds
     t_many = engine.generate(prompt, 1 + GRAPH_DECODE_TOKENS).seconds
@@ -1819,11 +2102,16 @@ def _graph_plain_side(torch, engine, prompt) -> dict:
     steps = engine.loop_stats["device_loop_steps"] - s0
     dense = qd.quant_dense.launches
     decode = qd.quant_dense.decode_launches
-    per_fwd = dense_per_layer(engine.cfg) * engine.cfg.num_layers
+    flash = flash_attention.launches
+    L = engine.cfg.num_layers
+    per_fwd = dense_per_layer(engine.cfg) * L
+    _check(flash == 3 * L, f"{engine.cfg.family}: {flash} flash launches "
+           f"over three prefills of {L} layers")
     prof = profile_decode(torch, engine, prompt)
     # the PROMPT_LEN-token prefills take the prefill kernel, the one-row
     # decode steps the decode kernel
     return {"tokens": res.tokens[0].tolist(), "logprobs": res.logprobs,
+            "flash_launches": flash, "dense_per_forward": per_fwd,
             "dense_launches": dense,
             "predicted_dense_launches": per_fwd * (3 + steps),
             "decode_launches": decode,
@@ -2074,7 +2362,8 @@ def quant_cases():
     and 17 (the last decode-kernel row count and the first prefill one)
     in bf16; w_up at M = QUANT_LONG_ROWS (a long prompt's chunk) in bf16;
     and llama-3-8b's four weight shapes where its int8 plain serve runs
-    them, M = 1 (decode) and PROMPT_LEN (the prefill), int8, bf16."""
+    them, M = 1 (decode) and PROMPT_LEN (the prefill), int8, bf16 (also
+    mixtral-8x7b's), and mixtral-tpu-1b's four the same way."""
     import torch
     from distributed_inference_demo_tpu_torch.models.registry import \
         get_model_config
@@ -2095,17 +2384,27 @@ def quant_cases():
             for bits in (8, 4)]
     out += [(SERVE_MODEL, name, k, n, QUANT_LONG_ROWS, bits, torch.bfloat16)
             for name, k, n in tiny if name == "w_up" for bits in (8, 4)]
-    # one row per distinct shape: wq and wo, wk and wv, w_gate and w_up
-    # share theirs
-    large, seen = [], {}
-    for name, k, n in shapes(get_model_config(LARGE_MODEL)):
-        if (k, n) in seen:
-            large[seen[(k, n)]][0] += f", {name}"
-        else:
-            seen[(k, n)] = len(large)
-            large.append([name, k, n])
+
+    def distinct(weights):
+        """One row per distinct shape, named by every weight of it (wq
+        and wo, wk and wv, w_gate and w_up share theirs)."""
+        rows, seen = [], {}
+        for name, k, n in weights:
+            if (k, n) in seen:
+                rows[seen[(k, n)]][0] += f", {name}"
+            else:
+                seen[(k, n)] = len(rows)
+                rows.append([name, k, n])
+        return rows
+
+    large = distinct(shapes(get_model_config(LARGE_MODEL)))
     out += [(LARGE_MODEL, name, k, n, m, 8, torch.bfloat16)
             for name, k, n in large for m in (1, PROMPT_LEN)]
+    # mixtral-tpu-1b-int8's four shapes (an expert matrix is the MLP's
+    # [H, I] / [I, H]; mixtral-8x7b's are llama-3-8b's four)
+    out += [(MOE_MODEL, name, k, n, m, 8, torch.bfloat16)
+            for name, k, n in distinct(shapes(get_model_config(MOE_MODEL)))
+            for m in (1, PROMPT_LEN)]
     return out
 
 
@@ -2354,15 +2653,22 @@ def quant_twin_check(torch, cfg, params, n_decode: int = 8) -> dict:
     twin = dequantized_twin(cfg, params)
     seq = np.random.RandomState(11).randint(
         0, cfg.vocab_size, PROMPT_LEN + n_decode).tolist()
-    qd.quant_dense.launches = 0
-    lq = _teacher_forced_logits(torch, params, cfg, seq, n_decode)
-    launches = qd.quant_dense.launches
-    lt = _teacher_forced_logits(torch, twin, cfg, seq, n_decode)
+    launches = []
+
+    def quantized():
+        qd.quant_dense.launches = 0
+        out = _teacher_forced_logits(torch, params, cfg, seq, n_decode)
+        launches.append(qd.quant_dense.launches)
+        return out
+
+    lt, lq, routing = moe_pinned(
+        cfg, lambda: _teacher_forced_logits(torch, twin, cfg, seq,
+                                            n_decode), quantized)
     del twin
     torch.cuda.empty_cache()
     per_fwd = dense_per_layer(cfg) * cfg.num_layers
-    return _twin_verdict(cfg, lq, lt, len(seq), launches,
-                         per_fwd * (1 + n_decode))
+    return _twin_verdict(cfg, lq, lt, len(seq), launches[0],
+                         per_fwd * (1 + n_decode), routing)
 
 
 def dequantized_twin(cfg, params):
@@ -2379,12 +2685,13 @@ def dequantized_twin(cfg, params):
 
 
 def _twin_verdict(cfg, lq, lt, tokens: int, launches: int,
-                  predicted: int) -> dict:
+                  predicted: int, routing=None) -> dict:
     """The quantized model's teacher-forced logits ``lq`` against its
     twin's ``lt`` ([n_decode + 1, vocab]: the prefill's last position,
     then each decode step's), held to LOGIT_TOL_REL of the twin's largest
-    logit; the dense kernel's launches against the routing's
-    prediction."""
+    logit (an MoE model's with the twin's expert choices,
+    :func:`moe_pinned`); the dense kernel's launches against the
+    routing's prediction."""
     import numpy as np
 
     scale = max(1.0, float(np.abs(lt).max()))
@@ -2396,7 +2703,7 @@ def _twin_verdict(cfg, lq, lt, tokens: int, launches: int,
            "prefill_logit_max_abs_err": float(err[0]),
            "logit_scale": scale, "logit_tol": LOGIT_TOL_REL * scale,
            "argmax_agreement": int((lq.argmax(1) == lt.argmax(1)).sum()),
-           "argmax_agreement_of": len(err)}
+           "argmax_agreement_of": len(err), "routing": routing}
     _check(launches == predicted, f"twin check: {launches} dense launches, "
            f"predicted {predicted}")
     _check(bool(np.isfinite(lq).all()), "quantized logits not finite")
@@ -2415,20 +2722,32 @@ def quant_paged_twin_check(torch, engine, twin_engine, seq,
     from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
 
     cfg = engine.cfg
-    qd.quant_dense.launches = 0
-    lq = _paged_logits(torch, engine, seq, n_decode)
-    launches = qd.quant_dense.launches
-    lt = _paged_logits(torch, twin_engine, seq, n_decode)
+    launches = []
+
+    def quantized():
+        qd.quant_dense.launches = 0
+        out = _paged_logits(torch, engine, seq, n_decode)
+        launches.append(qd.quant_dense.launches)
+        return out
+
+    lt, lq, routing = moe_pinned(
+        cfg, lambda: _paged_logits(torch, twin_engine, seq, n_decode),
+        quantized)
     chunks = -(-(len(seq) - n_decode) // engine.prefill_chunk)
     per_fwd = dense_per_layer(cfg) * cfg.num_layers
-    return _twin_verdict(cfg, lq, lt, len(seq), launches,
-                         per_fwd * (chunks + n_decode))
+    return _twin_verdict(cfg, lq, lt, len(seq), launches[0],
+                         per_fwd * (chunks + n_decode), routing)
 
 
-def quant_serve_large(torch, name: str) -> dict:
-    """Plain serve of ``name`` (llama-3-8b, bf16 or int8) at b=1, full
-    width, the decode step replayed: init peak memory, ms/token, device
-    ms a step and the dense kernel's share of it."""
+def quant_serve_large(torch, name: str, twin_layers: int | None = None
+                      ) -> dict:
+    """Plain serve of ``name`` (llama-3-8b bf16 or int8, mixtral-8x7b-int8)
+    at b=1, full width, the decode step replayed: init peak memory (an
+    init that does not fit the card fails with its peak), ms/token,
+    device ms a step and the dense kernel's share of it; a quantized
+    model's logits against its dequantized twin, at ``twin_layers`` (a
+    depth cut at full width, initialized from the same seed) where the
+    twin of the full depth does not fit."""
     import numpy as np
 
     from distributed_inference_demo_tpu_torch.models.loader import \
@@ -2443,20 +2762,34 @@ def quant_serve_large(torch, name: str) -> dict:
     import gc
 
     cfg = get_model_config(name)
+    out = {"path": f"{name} plain serve, b=1", "model": name}
+    if twin_layers is not None:
+        cut = cfg.replace(num_layers=twin_layers)
+        params = load_or_init(name, cut, None, seed=0, device="cuda")
+        out["twin_check"] = quant_twin_check(torch, cut, params)
+        out["twin_check"]["depth_cut"] = (
+            f"num_layers {twin_layers} of {cfg.num_layers}, full width, "
+            "seed 0")
+        del params
     # what earlier phases left allocated is not this init's
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = load_or_init(name, cfg, None, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    out = {"path": f"{name} plain serve, b=1", "model": name,
-           "init_s": time.perf_counter() - t0,
-           "params_bytes": params.nbytes(),
-           "allocated_before_init_bytes": base,
-           "init_peak_mem_bytes": torch.cuda.max_memory_allocated() - base}
-    if cfg.quantization != "none":
+    try:
+        params = load_or_init(name, cfg, None, seed=0, device="cuda")
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(
+            f"{name} does not fit the card: init peak "
+            f"{torch.cuda.max_memory_allocated() - base} bytes over "
+            f"{base} allocated before it") from e
+    out.update(init_s=time.perf_counter() - t0,
+               params_bytes=params.nbytes(),
+               allocated_before_init_bytes=base,
+               init_peak_mem_bytes=torch.cuda.max_memory_allocated() - base)
+    if cfg.quantization != "none" and twin_layers is None:
         out["twin_check"] = quant_twin_check(torch, cfg, params)
     prompt = np.random.RandomState(1).randint(
         0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
@@ -2639,6 +2972,44 @@ def phase_quant(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: mixtral, the top-k MoE MLP
+# ---------------------------------------------------------------------------
+
+def phase_moe(torch) -> dict:
+    """Mixtral end to end (see the module docstring, item 10)."""
+    t0 = time.perf_counter()
+    out = {"phase": "moe", "device": torch.cuda.get_device_name(0)}
+    dense_twin = MOE_MODEL + "-dense"
+    for key, run in (
+            ("serve", lambda: phase_serve_model(torch, MOE_MODEL,
+                                                long_prompt=True)),
+            ("graph", lambda: graph_plain(torch, MOE_MODEL)),
+            ("dense_serve", lambda: phase_serve_model(torch, dense_twin,
+                                                      long_prompt=True)),
+            ("dense_graph", lambda: graph_plain(torch, dense_twin)),
+            ("batching", lambda: phase_batching(torch, MOE_MODEL, f32=None)),
+            ("graph_batching", lambda: graph_batching(torch, MOE_MODEL)),
+            ("int8_plain", lambda: graph_plain(torch, MOE_MODEL + "-int8")),
+            ("large_int8", lambda: quant_serve_large(
+                torch, MOE_LARGE, twin_layers=MOE_TWIN_LAYERS))):
+        t1 = time.perf_counter()
+        out[key] = run()
+        out[key]["seconds"] = time.perf_counter() - t1
+    # device ms a decode step, the MoE model over its dense twin (the same
+    # active FLOPs a token; every expert's weights read)
+    out["moe_over_dense_device_ms"] = (
+        out["graph"]["graph"]["device_ms_per_step"]
+        / out["dense_graph"]["graph"]["device_ms_per_step"])
+    for key, want in (("int8_plain", 224), ("large_int8", 896)):
+        side = out[key]["graph"] if key == "int8_plain" else out[key]
+        _check(side["dense_per_forward"] == want,
+               f"{key}: {side['dense_per_forward']} dense launches a "
+               f"forward, expected {want}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv) -> int:
     try:
@@ -2663,9 +3034,16 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     print(smi, flush=True)
+    # --phase NAME: the build, then that phase alone (no result lines)
+    only = argv[argv.index("--phase") + 1] if "--phase" in argv else None
     try:
         device = phase_device(torch, smi)
         emit(device)
+        if only is not None:
+            emit({"serve": phase_serve, "batching": phase_batching,
+                  "mixed": phase_mixed, "graph": phase_graph,
+                  "quant": phase_quant, "moe": phase_moe}[only](torch))
+            return 0
         kern = phase_kernels(torch)
         emit(kern)
         paged = phase_paged_kernels(torch)
@@ -2699,6 +3077,8 @@ def main(argv) -> int:
         emit(phase_graph(torch))
         quant_phase = phase_quant(torch)
         emit(quant_phase)
+        moe = phase_moe(torch)
+        emit(moe)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2756,9 +3136,17 @@ def main(argv) -> int:
         ("paged_decode_hd80", "paged_decode", bloom_batching,
          serve_case("decode", "full", "bloom3b"), "bloom3b, " + rows8),
         ("paged_prefill_hd80", "paged_prefill", bloom_batching,
-         serve_case("prefill", "full", "bloom3b"), "bloom3b, " + chunk200)]
+         serve_case("prefill", "full", "bloom3b"), "bloom3b, " + chunk200),
+        ("paged_decode_mixtral", "paged_decode", moe["batching"],
+         serve_case("decode", "full", MOE_MODEL), f"{MOE_MODEL}, " + rows8),
+        ("paged_prefill_mixtral", "paged_prefill", moe["batching"],
+         serve_case("prefill", "full", MOE_MODEL),
+         f"{MOE_MODEL}, " + chunk200)]
     flash_new = [(f"flash_attention_hd{served[n]['head_dim']}", n)
                  for n in HEAD_DIM_MODELS]
+    moe_long_case = next(c for c in kern["cases"]
+                         if c["case"] == MOE_MODEL + "-long"
+                         and c["dtype"] == "bfloat16")
 
     def entry(name, source, replaces, launches, case, shape):
         return {"name": name, "route": "cuda", "source": source,
@@ -2799,6 +3187,18 @@ def main(argv) -> int:
         entry(name, KERNEL_SOURCE, KERNEL_REPLACES, served[model]["launches"],
               flash_case(model), f"{model}, 64-token prompt at 0")
         for name, model in flash_new] + [
+        entry("flash_attention_mixtral", KERNEL_SOURCE, KERNEL_REPLACES,
+              moe["serve"]["launches"], flash_case(MOE_MODEL),
+              f"{MOE_MODEL} (g = 4), 64-token prompt at 0"),
+        entry("flash_attention_long_mixtral", KERNEL_SOURCE,
+              KERNEL_REPLACES, moe["serve"]["long_wide_launches"],
+              moe_long_case, f"{MOE_MODEL}, 2048-token prompt at 0 "
+              "(launches: the 1500-token prompt)"),
+        entry("flash_attention_mixtral_8x7b", KERNEL_SOURCE,
+              KERNEL_REPLACES, moe["large_int8"]["flash_launches"],
+              flash_case("mixtral-8x7b"), "mixtral-8x7b (hd 128, g = 4), "
+              "64-token prompt at 0 (launches: mixtral-8x7b-int8 plain "
+              "serve, three prefills)")] + [
         entry(name, PAGED_SOURCE, PAGED_REPLACES[key], phase["launches"][key],
               case, shape)
         for name, key, phase, case, shape in paged_main] + [
@@ -2823,7 +3223,24 @@ def main(argv) -> int:
                     quant_phase["int8_plain"]["graph"], 256, 8,
                     "TinyLlama w_up [2048, 5632] int8, M = 256 (launches: "
                     "the prefill kernel's, tinyllama-1.1b-int8 plain "
-                    "serve's 64-token prefills, every quantized matmul)")]})
+                    "serve's 64-token prefills, every quantized matmul)"),
+        quant_entry("quant_dense_int8_mixtral", moe["int8_plain"]["graph"],
+                    1, 8, f"{MOE_MODEL} expert w_gate, w_up [1024, 3584] "
+                    "int8, M = 1 (launches: the decode kernel's, "
+                    f"{MOE_MODEL}-int8 plain serve, 224 a decode step)",
+                    weight="w_gate, w_up", model=MOE_MODEL),
+        quant_entry("quant_dense_prefill_int8_mixtral",
+                    moe["int8_plain"]["graph"], PROMPT_LEN, 8,
+                    f"{MOE_MODEL} expert w_gate, w_up [1024, 3584] int8, "
+                    "M = 64 (launches: the prefill kernel's, "
+                    f"{MOE_MODEL}-int8 plain serve's 64-token prefills)",
+                    weight="w_gate, w_up", model=MOE_MODEL),
+        quant_entry("quant_dense_int8_mixtral_8x7b", moe["large_int8"], 1,
+                    8, "mixtral-8x7b expert w_gate, w_up [4096, 14336] "
+                    "int8, M = 1 (llama-3-8b's row, the same shape; "
+                    "launches: mixtral-8x7b-int8 plain serve, 896 a "
+                    "decode step)", weight="w_gate, w_up",
+                    model=LARGE_MODEL)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

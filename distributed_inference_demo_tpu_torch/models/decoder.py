@@ -1,4 +1,4 @@
-"""One decoder implementation for the dense model families.
+"""One decoder implementation for every model family of the catalog.
 
 Counterpart of ``distributed_inference_demo_tpu/models/decoder.py``.  One
 ``stage_forward`` covers, as flag branches of the same block:
@@ -6,13 +6,15 @@ Counterpart of ``distributed_inference_demo_tpu/models/decoder.py``.  One
 - **llama** (TinyLlama-1.1B, Llama-3-8B): RMSNorm, RoPE, GQA, SwiGLU;
 - **qwen2**: the llama block with q/k/v biases;
 - **gemma**: sqrt(H) embedding scale, GeGLU (tanh), decoupled head_dim;
-- **bloom**: LayerNorm with bias, ALiBi, embedding LayerNorm, GELU MLP.
+- **bloom**: LayerNorm with bias, ALiBi, embedding LayerNorm, GELU MLP;
+- **mixtral**: the llama block with a top-k routed MoE MLP, computed as
+  the reference computes it: every expert on every token, combined by a
+  dense routing matrix that is zero off the top k.
 
-Mixtral's MoE MLP is ported in a later slice and raises here.  Int8 and
-int4 weights (``-int8`` / ``-int4`` configs) go through
-``ops.quant.dense``.  The reference's ``lax.scan`` over the stacked
-layers becomes a Python loop that writes each layer's cache plane in
-place.
+Int8 and int4 weights (``-int8`` / ``-int4`` configs) go through
+``ops.quant.dense``, expert stacks one expert at a time.  The reference's
+``lax.scan`` over the stacked layers becomes a Python loop that writes
+each layer's cache plane in place.
 """
 
 from typing import Optional, Tuple
@@ -29,8 +31,6 @@ from ..ops.quant import (QuantizedArray, QuantizedArray4, dense,
 from ..ops.rope import apply_rope
 from .base import KVCache, ModelConfig, StageParams, StageSpec
 
-MOE_LATER = "mixtral's MoE MLP is ported in a later slice"
-
 
 # ---------------------------------------------------------------------------
 # Initialization
@@ -39,12 +39,13 @@ MOE_LATER = "mixtral's MoE MLP is ported in a later slice"
 def _dense_init(gen: torch.Generator, shape, dtype, device, scale=None):
     """Normal(0, scale) weights, scale = fan_in ** -0.5 unless given (the
     reference's rule; threefry's numbers are not reproduced).  Stacked
-    tensors are filled one layer at a time, so the f32 transient is one
-    layer's, not the whole tensor's."""
+    tensors are filled one matrix (the last two axes) at a time, so the
+    f32 transient is one matrix's, and a layer slice of a stack draws
+    what the stack draws for that layer."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else float(fan_in) ** -0.5
     out = torch.empty(shape, dtype=dtype, device=device)
-    parts = out if len(shape) >= 3 else [out]
+    parts = out.view(-1, *shape[-2:]) if len(shape) >= 3 else [out]
     for part in parts:
         part.copy_(torch.randn(part.shape, generator=gen, device=device,
                                dtype=torch.float32) * scale)
@@ -114,9 +115,13 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
         p["bq"] = zeros(L, nh * hd)
         p["bk"] = zeros(L, nkv * hd)
         p["bv"] = zeros(L, nkv * hd)
-    if cfg.num_experts > 0:
-        raise NotImplementedError(MOE_LATER)
-    if cfg.family == "bloom":  # dense 4H GELU MLP with bias
+    if cfg.num_experts > 0:  # mixtral: E experts, a router over them
+        E = cfg.num_experts
+        p["router"] = _dense_init(gen, (L, H, E), dt, device)
+        p["w_gate"] = big((L, E, H, I))
+        p["w_up"] = big((L, E, H, I))
+        p["w_down"] = big((L, E, I, H))
+    elif cfg.family == "bloom":  # dense 4H GELU MLP with bias
         p["w_up"] = big((L, H, I))
         p["b_up"] = zeros(L, I)
         p["w_down"] = big((L, I, H))
@@ -183,7 +188,7 @@ def embed_tokens(params: StageParams, cfg: ModelConfig,
 
 def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.num_experts > 0:
-        raise NotImplementedError(MOE_LATER)
+        return _moe_mlp(cfg, lp, x)
     if cfg.family == "bloom":
         h = dense(x, lp["w_up"], "bsh,hi->bsi") + lp["b_up"]
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
@@ -194,6 +199,32 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
            else F.silu(gate))
     h = (act * up.float()).to(x.dtype)
     return dense(h, lp["w_down"], "bsi,ih->bsh")
+
+
+def moe_route(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The dense [..., E] f32 routing matrix of f32 router ``logits``: a
+    softmax over the top ``k``, zero elsewhere.  The top k come from a
+    stable descending sort, so equal logits pick the lower expert index,
+    as ``lax.top_k`` does (``torch.topk`` promises no order on ties)."""
+    topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
+    weights = torch.softmax(topv[..., :k], dim=-1)
+    return torch.zeros_like(logits).scatter(-1, topi[..., :k], weights)
+
+
+def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """Top-k routed MoE (mixtral), as the reference computes it: router
+    logits in x's dtype, then f32; the dense routing matrix of
+    :func:`moe_route`; all E experts on every token (SiLU and the gate
+    product in f32, cast to x's dtype); the combine in x's dtype.
+    Nothing here has a data-dependent shape, so a decode step through it
+    is one CUDA graph."""
+    logits = torch.einsum("bsh,he->bse", x, lp["router"]).float()
+    route = moe_route(logits, cfg.experts_per_token)
+    gate = dense(x, lp["w_gate"], "bsh,ehi->besi")
+    up = dense(x, lp["w_up"], "bsh,ehi->besi")
+    h = (F.silu(gate.float()) * up.float()).to(x.dtype)
+    out = dense(h, lp["w_down"], "besi,eih->besh")           # [b, E, s, H]
+    return torch.einsum("besh,bse->bsh", out, route.to(x.dtype))
 
 
 def _default_attn(q, k, v, k_cache, v_cache, positions, cache_start, slopes):

@@ -11,9 +11,9 @@ package: an 8-byte little-endian header length, a JSON header (its
 ``__metadata__`` entry skipped) naming each tensor's dtype, shape and
 ``data_offsets`` counted from the end of the header, then the data.
 
-Not ported yet: the mixtral mapper (raises, ROADMAP A5), the CLIP /
-LLaVA vision loader and ``stage_params_to_bytes`` (ROADMAP A11).  The
-JAX package's own orbax checkpoint directories are refused.
+Not ported yet: the CLIP / LLaVA vision loader and
+``stage_params_to_bytes`` (ROADMAP A11).  The JAX package's own orbax
+checkpoint directories are refused.
 """
 
 import json
@@ -29,8 +29,6 @@ from .base import ModelConfig, StageParams
 from .decoder import init_full_params
 
 ORBAX_META = "framework_meta.json"
-MIXTRAL_LATER = ("the mixtral state-dict mapper waits for the MoE MLP "
-                 "(ROADMAP A5)")
 
 _SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -149,8 +147,14 @@ def llama_params_from_state_dict(raw: dict, cfg: ModelConfig,
         for hf_name, (ours, transpose) in layer_map.items():
             w = _get(raw, f"layers.{i}.{hf_name}")
             layers.setdefault(ours, []).append(w.T if transpose else w)
-    stacked = _stack(layers, dt, device)
+    return _with_llama_ends(raw, cfg, _stack(layers, dt, device), device)
 
+
+def _with_llama_ends(raw: dict, cfg: ModelConfig, layers: dict,
+                     device) -> StageParams:
+    """``layers`` with the llama-named embedding, final norm and (untied)
+    LM head, shared by the llama-family and mixtral mappers."""
+    dt = cfg.dtype
     embed = {"tokens": _cast(_get(raw, "embed_tokens.weight"), dt, device)}
     final_norm = {"w": _cast(_get(raw, "norm.weight"), dt, device)}
     if cfg.tie_embeddings:
@@ -158,7 +162,7 @@ def llama_params_from_state_dict(raw: dict, cfg: ModelConfig,
     else:
         lm_head = {"w": _cast(_get(raw, "lm_head.weight", ("",)).T, dt,
                               device)}
-    return StageParams(layers=stacked, embed=embed, final_norm=final_norm,
+    return StageParams(layers=layers, embed=embed, final_norm=final_norm,
                        lm_head=lm_head)
 
 
@@ -215,9 +219,36 @@ def bloom_params_from_state_dict(raw: dict, cfg: ModelConfig,
                        lm_head={})  # bloom ties the head to the embedding
 
 
+# mixtral's per-expert linears -> our [L, E, in, out] expert stacks
+_MIXTRAL_EXPERT_MAP = {"w1": "w_gate", "w3": "w_up", "w2": "w_down"}
+
+
 def mixtral_params_from_state_dict(raw: dict, cfg: ModelConfig,
                                    device=None) -> StageParams:
-    raise NotImplementedError(MIXTRAL_LATER)
+    """Map a MixtralForCausalLM state dict onto the stacked layout: the
+    llama attention and norm names, ``block_sparse_moe.gate`` -> router
+    [H, E], and the per-expert linears
+    (``block_sparse_moe.experts.{e}.w1/w3/w2``) stacked over e into
+    w_gate, w_up and w_down, then over layers."""
+    device = resolve_device(device)
+    layers: Dict[str, list] = {}
+
+    def push(key, val):
+        layers.setdefault(key, []).append(val)
+
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        for hf_name, (ours, transpose) in _ATTN_NORM_MAP.items():
+            w = _get(raw, p + hf_name)
+            push(ours, w.T if transpose else w)
+        moe = p + "block_sparse_moe."
+        push("router", _get(raw, moe + "gate.weight").T)
+        for hf_name, ours in _MIXTRAL_EXPERT_MAP.items():
+            push(ours, torch.stack([
+                _get(raw, f"{moe}experts.{e}.{hf_name}.weight").T
+                for e in range(cfg.num_experts)]))
+    return _with_llama_ends(raw, cfg, _stack(layers, cfg.dtype, device),
+                            device)
 
 
 def gemma_params_from_state_dict(raw: dict, cfg: ModelConfig,

@@ -2,8 +2,7 @@
 
 A copy of ``distributed_inference_demo_tpu/models/registry.py`` (the port
 keeps its own, since importing the JAX package's ``models`` pulls JAX in).
-``-int8`` / ``-int4`` names resolve to a config as there; the port's
-engines refuse quantized weights until a later slice ports them.
+``-int8`` / ``-int4`` names resolve to a config as there.
 
 Also provides tiny "-test" configs for fast unit tests.
 """

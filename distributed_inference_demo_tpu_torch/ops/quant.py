@@ -28,8 +28,10 @@ import torch
 from .quant_dense import quant_dense
 
 KV_DTYPES = ("bf16", "int8", "int4")
-EXPERTS_LATER = ("3-D expert weights (mixtral's MoE) are ported with the "
-                 "MoE MLP (ROADMAP A5)")
+# the expert products of mixtral's MoE MLP (models/decoder._moe_mlp): a
+# layer's [E, K, N] stack against the shared tokens, then against each
+# expert's own plane of the activations
+EXPERT_EQS = ("bsh,ehi->besi", "besi,eih->besh")
 
 
 def resolve_kv_dtype(kv_dtype: Optional[str] = None) -> str:
@@ -161,7 +163,8 @@ def quantize_array4(w: torch.Tensor, group: Optional[int] = None
 
 AnyQuantized = (QuantizedArray, QuantizedArray4)
 
-# the large matmul operands; norm scales and biases keep the model dtype
+# the large matmul operands (mixtral's [L, E, K, N] expert stacks too);
+# norm scales, biases and the MoE router keep the model dtype
 _QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
@@ -196,6 +199,31 @@ def _is_matmul(eq: str) -> bool:
             and out == a[:-1] + b[1])
 
 
+def expert_weight(w, e: int):
+    """Expert ``e``'s 2-D view of one layer's quantized [E, K, N] stack.
+    An int8 stack's scale is shared by every expert (``[1, 1, N]``: the
+    reference reduces over E and K), so each expert takes its one row;
+    an int4 stack's has the E axis (``[E, K/g, 1, N]``)."""
+    if isinstance(w, QuantizedArray4):
+        return w[e]
+    return QuantizedArray(q=w.q[e],
+                          scale=w.scale[e if w.scale.shape[0] > 1 else 0])
+
+
+def _expert_bmm(x: torch.Tensor, w: torch.Tensor, eq: str) -> torch.Tensor:
+    """A float [E, K, N] expert stack's product, one batched matmul over
+    the experts on the weight as stored (``torch.einsum`` copies the
+    whole stack into [K, E x N] for the first equation, every call)."""
+    E = w.shape[0]
+    if eq == EXPERT_EQS[0]:                      # x [b, s, K], shared
+        b, s, k = x.shape
+        xe = x.reshape(1, b * s, k).expand(E, -1, -1)
+    else:                                        # x [b, E, s, K]
+        b, _, s, k = x.shape
+        xe = x.transpose(0, 1).reshape(E, b * s, k)
+    return torch.bmm(xe, w).view(E, b, s, -1).transpose(0, 1)
+
+
 def dense(x: torch.Tensor, w, eq: str) -> torch.Tensor:
     """einsum of activations with a float or quantized weight.
 
@@ -203,15 +231,28 @@ def dense(x: torch.Tensor, w, eq: str) -> torch.Tensor:
     contraction (the reference's definition).  A 2-D quantized weight
     goes through ``ops/quant_dense.quant_dense``: on the card its kernel,
     which never writes the dequantized weight to device memory; on the
-    CPU its plain version, ``x @ w.dequantize(x.dtype)``.  A float weight
-    is a plain einsum everywhere."""
+    CPU its plain version, ``x @ w.dequantize(x.dtype)``.  A 3-D expert
+    stack takes one such product per expert (``EXPERT_EQS``), stacked on
+    axis 1, so each expert's result is its 2-D product.  A float weight
+    is a plain einsum everywhere, a float expert stack one ``bmm``."""
+    eq = eq.replace(" ", "")
     if not isinstance(w, AnyQuantized):
+        if w.ndim == 3 and eq in EXPERT_EQS:
+            return _expert_bmm(x, w, eq)
         return torch.einsum(eq, x, w)
-    if w.q.ndim != 2:
-        raise NotImplementedError(EXPERTS_LATER)
-    if not _is_matmul(eq):
+    if w.q.ndim == 3 and eq in EXPERT_EQS:
+        shared = eq == EXPERT_EQS[0]
+        outs = []
+        for e in range(w.q.shape[0]):
+            xe = x if shared else x[:, e]
+            y = quant_dense(xe.reshape(-1, xe.shape[-1]),
+                            expert_weight(w, e))
+            outs.append(y.reshape(*xe.shape[:-1], y.shape[-1]))
+        return torch.stack(outs, dim=1)
+    if w.q.ndim != 2 or not _is_matmul(eq):
         raise ValueError(f"the quantized dense product takes x[..., K] @ "
-                         f"W[K, N]; got {eq!r}")
+                         f"W[K, N] or an expert stack ({EXPERT_EQS}); got "
+                         f"{eq!r} over a {w.q.ndim}-D weight")
     y = quant_dense(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 

@@ -898,3 +898,121 @@ def test_quantized_engine_graph_replay_equals_eager(cuda_device, mode):
                          ).prefill_logits(ids)
     lt = eng.prefill_logits(ids)
     assert np.abs(lk - lt).max() <= 5e-2 * max(1.0, np.abs(lt).max())
+
+
+def _small_mixtral(cuda_device, mode: str):
+    """``mixtral-test`` (4 experts, top 2) widened to the kernels' shapes
+    (hd 64, K % 64 == 0), bf16, float or int8 / int4 experts."""
+    name = "mixtral-test" + ("" if mode == "float" else f"-{mode}")
+    cfg = get_model_config(name).replace(
+        hidden_size=256, intermediate_size=512, dtype_name="bfloat16")
+    return cfg, init_full_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, cuda_device,
+        quantize=mode != "float")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 40])
+def test_expert_dense_launches_the_kernel_per_expert(cuda_device, bits, m):
+    """One layer's [E, K, N] quantized stack on the card: each expert's
+    plane of ``dense`` equals that expert's own 2-D kernel product bit
+    for bit (int8 takes the scale row all experts share), E launches."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    gen = torch.Generator(device=cuda_device).manual_seed(bits)
+    w = torch.randn((1, 4, 256, 512), generator=gen,
+                    device=cuda_device) * 256 ** -0.5
+    qw = (quant.quantize_array(w, stacked=True) if bits == 8
+          else quant.quantize_array4(w))[0]
+    x = torch.randn((1, m, 256), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    before = qd.quant_dense.launches
+    got = quant.dense(x, qw, "bsh,ehi->besi")
+    assert qd.quant_dense.launches - before == 4
+    for e in range(4):
+        want = qd.quant_dense(x[0], quant.expert_weight(qw, e))
+        assert torch.equal(got[0, e], want)
+    torch.testing.assert_close(
+        got.float(), torch.einsum("bsh,ehi->besi", x.float(),
+                                  qw.dequantize(torch.float32)),
+        atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefill_chunk", [None, 16])
+@pytest.mark.parametrize("mode", ["float", "int8", "int4"])
+def test_mixtral_engine_graph_replay_equals_eager(cuda_device, mode,
+                                                  prefill_chunk):
+    """A small bf16 mixtral on the card, whole and chunked prefill (three
+    16-token chunks, each through the flash kernel): the replayed decode
+    equals the eager one bit for bit (the MoE routing has no
+    data-dependent shape, so the step captures); quantized, every
+    forward makes (4 + 3 E) x L dense launches, each decode step
+    (4 + 3 E) x L of the decode kernel, under replay too."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    cfg, params = _small_mixtral(cuda_device, mode)
+    L = cfg.num_layers
+    per_fwd = 0 if mode == "float" else (4 + 3 * cfg.num_experts) * L
+    prefills = 1 if prefill_chunk is None else 3
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 48))
+    runs = {}
+    for flag in (True, False):
+        eng = InferenceEngine(cfg, params, max_seq=96,
+                              sampling=SamplingParams(greedy=True),
+                              device=cuda_device, cuda_graph=flag,
+                              prefill_chunk=prefill_chunk)
+        eng.generate(ids, 2)                     # captures, warms
+        before = (qd.quant_dense.launches, qd.quant_dense.decode_launches,
+                  fa.flash_attention.launches)
+        s0, r0 = eng.loop_stats["device_loop_steps"], eng.graph_replays
+        res = eng.generate(ids, 10, logprobs=True)
+        steps = eng.loop_stats["device_loop_steps"] - s0
+        assert fa.flash_attention.launches - before[2] == L * prefills
+        assert qd.quant_dense.launches - before[0] == per_fwd * (
+            prefills + steps)
+        assert qd.quant_dense.decode_launches - before[1] == per_fwd * steps
+        assert eng.graph_replays - r0 == (steps if flag else 0)
+        runs[flag] = res
+    np.testing.assert_array_equal(runs[True].tokens, runs[False].tokens)
+    np.testing.assert_array_equal(runs[True].logprobs, runs[False].logprobs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    dict(),
+    dict(prefill_chunk=16, decode_block=4, mixed_token_budget=32,
+         kv_dtype="int8"),
+], ids=["step", "mixed-int8"])
+def test_mixtral_batching_graph_replay_equals_eager(cuda_device, extra):
+    """A small bf16 mixtral in ``ContinuousBatchingEngine`` on the card:
+    greedy tokens and logprobs of the replayed step equal the eager
+    step's bit for bit; the paged decode kernel launches L times a decode
+    step."""
+    cfg, params = _small_mixtral(cuda_device, "float")
+    prompts = [np.random.RandomState(i).randint(0, cfg.vocab_size,
+                                                n).tolist()
+               for i, n in enumerate((10, 40, 70, 5))]
+    int8 = extra.get("kv_dtype") == "int8"
+    runs = {}
+    for flag in (True, False):
+        with ContinuousBatchingEngine(
+                cfg, params, max_seq=128, max_batch=4,
+                sampling=SamplingParams(greedy=True), kv_block_tokens=16,
+                prompt_buckets=(16, 64), device=cuda_device,
+                cuda_graph=flag, **extra) as eng:
+            before = _launches()
+            reqs = [eng.submit(p, 10) for p in prompts]
+            for r in reqs:
+                r.wait(timeout=120)
+            ran = [a - b for a, b in zip(_launches(), before)]
+            runs[flag] = ([r.tokens for r in reqs], [r.lps for r in reqs],
+                          ran[1 if int8 else 0], eng.graph_replays,
+                          eng.loop_stats["device_loop_steps"])
+    toks, lps, launches, replays, steps = runs[True]
+    e_toks, e_lps, e_launches, e_replays, e_steps = runs[False]
+    assert toks == e_toks
+    np.testing.assert_array_equal(np.concatenate(lps),
+                                  np.concatenate(e_lps))
+    assert replays == steps > 0 and e_replays == 0
+    assert launches == cfg.num_layers * steps
+    assert e_launches == cfg.num_layers * e_steps

@@ -135,6 +135,11 @@ def test_bridge_carries_bf16_bits_and_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="orbax"):
         load_or_init("llama-test-int8", get_model_config("llama-test-int8"),
                      str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_full_params(torch.Generator(), get_model_config(
-            "mixtral-test"), "cpu")
+    # mixtral (ported since) initializes with the reference's leaves
+    moe = init_full_params(torch.Generator(), get_model_config(
+        "mixtral-test"), "cpu")
+    want = jax.eval_shape(lambda k: ref_init_full_params(
+        k, ref_get_model_config("mixtral-test")), jax.random.PRNGKey(0))
+    assert sorted(moe.layers) == sorted(want.layers)
+    for name, leaf in want.layers.items():
+        assert tuple(moe.layers[name].shape) == tuple(leaf.shape), name
