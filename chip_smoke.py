@@ -6,7 +6,8 @@ their plain versions.
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --phase moe     # build + one phase (serve,
                                           # batching, mixed, graph,
-                                          # quant, moe), no result lines
+                                          # quant, kvcache, moe), no
+                                          # result lines
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -135,7 +136,30 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             896 dense launches a decode step), its twin check on a depth
             cut of MOE_TWIN_LAYERS layers at full width (its bf16 twin of
             all 32 layers does not fit the card);
-11. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+11. kvcache  the engines' KV options at TinyLlama's full width:
+            ``InferenceEngine`` with a prefix pool of KV_POOL_BLOCKS
+            16-token pages (bf16, the flash kernel, 64-token chunks):
+            KV_PROMPTS prompts sharing a KV_PREFIX-token prefix; prefill
+            wall time cold, on a miss and warm (one chunk prefilled, L
+            flash launches at q_start KV_PREFIX), the warm logits and a
+            warm request's tokens and logprobs against the cold
+            engine's, a blocking and a streamed HTTP request, hits, pool
+            bytes, no leak; int8 and int4 pools' warm logits against
+            their twin's (the cold engine over the same codes) at the
+            twin tolerance, int8's also against the bf16 pool's (int4's
+            reported); each pool's blocks exported and adopted back
+            bit-equal; 8-slot batching over float8 e4m3 pages as phases
+            4 (the e4m3 instances' launches against the routing, bf16
+            logits against the gather path, f32 tokens against the
+            gather path's: equal, or parting only at near ties) and 8
+            (replayed = eager, ms a step, idle share); the plain engine
+            over a float8 cache (plain attention; ms/token, device ms a
+            step);
+    (phase 2 holds the e4m3 instances to their plain versions at the
+    decode rows, the 64-token chunk at 200, the slab, the split
+    boundaries and gemma-2b's heads, and the flash kernel at the warm
+    prefill's shape)
+12. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout,
@@ -205,6 +229,10 @@ PAGED_REPLACES["paged_decode_int8"] = PAGED_REPLACES["paged_decode"]
 PAGED_REPLACES["paged_prefill_int8"] = PAGED_REPLACES["paged_prefill"]
 # the same int8 prefill instance at the shape the mixed path launches it
 PAGED_REPLACES["paged_prefill_int8_slab"] = PAGED_REPLACES["paged_prefill"]
+# the e4m3 instances replace the same kernels over float8 pages, which
+# they upcast like a page of any dtype
+PAGED_REPLACES["paged_decode_fp8"] = PAGED_REPLACES["paged_decode"]
+PAGED_REPLACES["paged_prefill_fp8"] = PAGED_REPLACES["paged_prefill"]
 # the batching phase: 8 slots, pages of 16 tokens, 64-token admission
 # chunks, 8 concurrent requests of these prompt lengths, 32 new tokens
 SLOTS = 8
@@ -225,6 +253,12 @@ SLAB_STARTS = (0, 64, 448, None)
 # and (gemma-2b) the mixed dispatch over int8 pages; bloom1b1 (hd 96,
 # ALiBi) through plain serve
 HEAD_DIM_MODELS = ("gemma-2b", "bloom3b", "bloom1b1")
+# the kvcache phase: KV_PROMPTS prompts of a shared "system prompt" of
+# KV_PREFIX tokens and PREFILL_CHUNK tokens of their own, a prefix pool
+# of KV_POOL_BLOCKS pages of BLOCK_TOKENS
+KV_PREFIX = 1024
+KV_POOL_BLOCKS = 256
+KV_PROMPTS = 6
 # the moe phase: mixtral-tpu-1b (hd 64, 16 q heads on 4 kv heads, 8
 # experts of top 2) and its -dense twin (the same active FLOPs a token)
 # at full width and depth; mixtral-8x7b-int8 (hd 128, g = 4) at full
@@ -370,8 +404,9 @@ def kernel_cases():
     TinyLlama rows sit either side of the instance threshold (32 and 33
     64-row blocks per kv head, 128 and 132 in all); the serve prefill
     (64 tokens at 0) of each HEAD_DIM_MODELS model, at hd 256, 80, 96;
-    and the moe phase's (mixtral-tpu-1b at 64 and 2048 tokens,
-    mixtral-8x7b at 64)."""
+    the moe phase's (mixtral-tpu-1b at 64 and 2048 tokens, mixtral-8x7b
+    at 64); and the kvcache phase's warm prefill (64 tokens at
+    KV_PREFIX)."""
     cases = []
     for b in (1, 4):
         for chunk in (16, 64, 512):
@@ -380,6 +415,10 @@ def kernel_cases():
                               False))
     cases.append(("bloom560m-alibi", 1, 64, 100, 16, 16, 64, True))
     cases.append(("llama3-8b-hd128", 1, 64, 100, 32, 8, 128, False))
+    # the kvcache phase's warm prefill: the 64-token suffix after a seeded
+    # KV_PREFIX-token prefix
+    cases.append(("tinyllama-prefix-hit", 1, PREFILL_CHUNK, KV_PREFIX, 32, 4,
+                  64, False))
     cases.append(("tinyllama-long", 1, MAX_SEQ, 0, 32, 4, 64, False))
     cases.append(("bloom560m-ragged", 1, 37, 7, 16, 16, 64, True))
     for chunk in (256, 257):
@@ -545,7 +584,9 @@ def paged_cases():
     decode and the 64-token chunk at 200 on both page types, and
     gemma-2b's at the mixed slab over int8 pages; mixtral-tpu-1b's heads
     (g = 4) at the 8-slot decode and the 64-token chunk at 200 on
-    full-width pages."""
+    full-width pages; and float8 e4m3 pages ("fp8", the e4m3 instances) at
+    TinyLlama's decode rows, 64-token chunk at 200, mixed slab and split
+    boundaries, and gemma-2b's decode rows and chunk."""
     from distributed_inference_demo_tpu_torch.ops.paged_attention import \
         KV_SPLIT
     serve = (1, 16, 37, 1999, 512, 130, -300, -5)   # negative: freed slot
@@ -588,6 +629,19 @@ def paged_cases():
                        pages)]
     cases.append(("gemma-2b-slab", "prefill", *model_heads("gemma-2b"),
                   (PREFILL_CHUNK, SLAB_STARTS), "int8"))
+    # the e4m3 instances (the kvcache phase's float8 pool): TinyLlama's
+    # decode rows, its 64-token chunk at 200, the mixed slab and the split
+    # boundaries, and gemma-2b's heads (hd 256)
+    gemma = model_heads("gemma-2b")
+    fp8 = [("tinyllama", "decode", 32, 4, 64, False, serve),
+           ("tinyllama", "prefill", 32, 4, 64, False,
+            (PREFILL_CHUNK, (200,))),
+           ("tinyllama-slab", "prefill", 32, 4, 64, False,
+            (PREFILL_CHUNK, SLAB_STARTS)),
+           ("tinyllama-splits", "decode", 32, 4, 64, False, splits),
+           ("gemma-2b", "decode", *gemma, serve),
+           ("gemma-2b", "prefill", *gemma, (PREFILL_CHUNK, (200,)))]
+    cases += [c + ("fp8",) for c in fp8]
     # the moe phase's 8-slot batching (full-width pages, g = 4)
     cases += [(MOE_MODEL, "decode", *model_heads(MOE_MODEL), serve, "full"),
               (MOE_MODEL, "prefill", *model_heads(MOE_MODEL),
@@ -599,7 +653,8 @@ def _paged_inputs(torch, gen, dev, dtype, lens, nkv, hd, W, pages="full"):
     """A pool holding exactly the live pages of ``lens`` (a negative
     length: a freed slot, all-sentinel table) under shuffled ids, plus a
     few spare pages; tables [b, W] int32 with sentinels N and N + 7.
-    ``pages`` "int8": int8 pages quantized from the same random draw."""
+    ``pages`` "int8": int8 pages quantized from the same random draw;
+    "fp8": float8 e4m3 pages cast from it (``cast_kv``)."""
     bt = BLOCK_TOKENS
     need = [-(-l // bt) if l > 0 else 0 for l in lens]
     N = sum(need) + 5
@@ -617,6 +672,10 @@ def _paged_inputs(torch, gen, dev, dtype, lens, nkv, hd, W, pages="full"):
             quantize_kv_pages
         return (quantize_kv_pages(pk, 8), quantize_kv_pages(pv, 8),
                 tables.to(dev))
+    if pages == "fp8":
+        from distributed_inference_demo_tpu_torch.ops.quant import (
+            FLOAT8, cast_kv)
+        return cast_kv(pk, FLOAT8), cast_kv(pv, FLOAT8), tables.to(dev)
     return pk.to(dtype), pv.to(dtype), tables.to(dev)
 
 
@@ -625,7 +684,8 @@ def paged_work(kind, nh, nkv, hd, elt, lens, chunk=1, pages="full"):
     flops per multiply-add each); q and out once (``elt`` bytes an
     element), each row's live K/V once: ``elt * hd`` bytes per (token, kv
     head) and tensor for full-width pages, ``hd + 4`` (codes and the f32
-    scale) for int8 pages.  Decode ``lens`` as in :func:`paged_cases`: a
+    scale) for int8 pages, ``hd`` for float8 pages.  Decode ``lens`` as in
+    :func:`paged_cases`: a
     freed slot (negative length) computes over its stale length, but
     every key of its all-sentinel table clamps to one page, so it moves
     at most one page of K/V per kv head.  Prefill ``lens`` are the rows'
@@ -641,7 +701,7 @@ def paged_work(kind, nh, nkv, hd, elt, lens, chunk=1, pages="full"):
         kv = sum(s + chunk if s is not None else min(chunk, BLOCK_TOKENS)
                  for s in lens)
         nq = len(lens) * chunk
-    kv_elt = hd + 4 if pages == "int8" else elt * hd
+    kv_elt = {"int8": hd + 4, "fp8": hd}.get(pages, elt * hd)
     return (4 * nh * hd * keys,
             elt * 2 * nq * nh * hd + 2 * nkv * kv_elt * kv)
 
@@ -708,7 +768,8 @@ def phase_paged_kernels(torch) -> dict:
             # ALiBi) mask built outside the timed call
             S = max(lens)
             g = nh // nkv
-            # (int8 pages: gathered, then dequantized, beforehand)
+            # (int8 pages: gathered, then dequantized, beforehand; float8
+            # pages gathered, then upcast)
             kt = pa._linear_view(pk, tables)[:, :, :S].to(
                 dtype).repeat_interleave(g, dim=1)
             vt = pa._linear_view(pv, tables)[:, :, :S].to(
@@ -1302,7 +1363,7 @@ def _serve_all(port: int, prompts) -> list:
 def _reset_launches(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
-        for extra in ("int8_launches", "wide_launches"):
+        for extra in ("int8_launches", "fp8_launches", "wide_launches"):
             if hasattr(w, extra):
                 setattr(w, extra, 0)
 
@@ -1558,12 +1619,16 @@ def kv_pages_slab_vs_chunk(torch, engine, seq) -> dict:
 
 
 def phase_batching(torch, model: str = SERVE_MODEL,
-                   f32: str | None = "engine") -> dict:
+                   f32: str | None = "engine",
+                   kv_cache_dtype: str | None = None) -> dict:
     """The batching path of ``model`` at full width: see the module
     docstring, item 4.  ``f32``: "engine" holds the f32 tokens to a
     plain-attention ``InferenceEngine``'s (requests concurrent), "gather"
     to the same batching configuration's on the gather path (requests
-    one after another, the same schedule for both), None skips it."""
+    one after another, the same schedule for both), None skips it.
+    ``kv_cache_dtype`` "float8_e4m3fn": the pool's pages are float8 and
+    the e4m3 instances launch (launch keys ``paged_*_fp8``); the decode
+    window is left to :func:`graph_batching`."""
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
     from distributed_inference_demo_tpu_torch.models.registry import \
@@ -1588,13 +1653,20 @@ def phase_batching(torch, model: str = SERVE_MODEL,
     greedy = SamplingParams(greedy=True)
     prompts = _batch_prompts(cfg.vocab_size)
 
+    fp8 = kv_cache_dtype is not None
+    # the counts of the instances this pool takes, and of the others
+    attr, other = (("fp8_launches", "launches") if fp8
+                   else ("launches", "fp8_launches"))
+    suffix = "_fp8" if fp8 else ""
+
     def engine_for(c, params, **kw):
         return ContinuousBatchingEngine(
             c, params, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
             kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
-            device="cuda", **kw)
+            kv_cache_dtype=kv_cache_dtype, device="cuda", **kw)
 
     out = {"phase": "batching", "device": torch.cuda.get_device_name(0),
+           "kv_cache_dtype": kv_cache_dtype,
            "model": model, "head_dim": cfg.head_dim, "slots": SLOTS,
            "block_tokens": BLOCK_TOKENS, "prefill_chunk": PREFILL_CHUNK,
            "prompt_lens": list(BATCH_PROMPTS), "new_tokens": NEW_TOKENS}
@@ -1621,14 +1693,17 @@ def phase_batching(torch, model: str = SERVE_MODEL,
         t0 = time.perf_counter()
         toks = _serve_all(server.port, prompts)
         wall = time.perf_counter() - t0
-        launches = {"paged_decode": pa.paged_flash_attention.launches,
-                    "paged_prefill": pa.paged_prefill_attention.launches}
+        launches = {
+            "paged_decode" + suffix: getattr(pa.paged_flash_attention, attr),
+            "paged_prefill" + suffix: getattr(pa.paged_prefill_attention,
+                                              attr)}
         events = flight.snapshot()
         admits = [(e["prompt_len"], e["prefix_reused"]) for e in events
                   if e["kind"] == "batch_admit"]
         ttft = {e["prompt_len"]: e["ttft_s"] for e in events
                 if e["kind"] == "batch_done"}
-        predicted = predicted_paged_launches(engine, admits, L)
+        predicted = {k + suffix: v for k, v in
+                     predicted_paged_launches(engine, admits, L).items()}
         stats = engine.stats()
         out.update(launches=launches, predicted_launches=predicted,
                    flash_launches=flash_attention.launches,
@@ -1643,8 +1718,10 @@ def phase_batching(torch, model: str = SERVE_MODEL,
                f"paged launches {launches}, routing predicts {predicted}")
         _check(flash_attention.launches == 0, "the flash kernel ran")
         _check(pa.paged_flash_attention.int8_launches
-               == pa.paged_prefill_attention.int8_launches == 0,
-               "an int8 instance ran on full-width pages")
+               == pa.paged_prefill_attention.int8_launches
+               == getattr(pa.paged_flash_attention, other)
+               == getattr(pa.paged_prefill_attention, other) == 0,
+               "another page type's instance ran")
         _check(stats["kvcache"]["hits"] == 1
                and stats["kvcache"]["partial_hit_tokens"] == SHARED_PREFIX,
                f"radix hit: {stats['kvcache']}")
@@ -1654,8 +1731,9 @@ def phase_batching(torch, model: str = SERVE_MODEL,
 
         # ---- decode step time and the device's idle share, 8 slots
         # decoding (short prompts, steps counted by the engine) ----
-        out.update(decode_window(torch, engine, prompts))
-        _check(_no_page_leak(engine), "cancelled requests leaked pages")
+        if not fp8:
+            out.update(decode_window(torch, engine, prompts))
+            _check(_no_page_leak(engine), "cancelled requests leaked pages")
     finally:
         server.shutdown()
         engine.close()
@@ -1688,22 +1766,63 @@ def phase_batching(torch, model: str = SERVE_MODEL,
                 for p in prompts]
         del plain
     else:
-        runs = {}
+        runs, engines = {}, {}
         for backend in ("auto", "plain"):
             with engine_for(cfg32, p32, attn_backend=backend) as eng32:
                 runs[backend] = [eng32.submit(p, NEW_TOKENS).wait(
                     timeout=900).tolist() for p in prompts]
                 _check(_no_page_leak(eng32), "f32 run leaked pages")
+            engines[backend] = eng32
         got, want = runs["auto"], runs["plain"]
     agree = [sum(a == b for a, b in zip(g_, w_)) for g_, w_ in
              zip(got, want)]
     out["f32_against"] = f32
     out["f32_greedy_agreement"] = sum(agree) / (len(prompts) * NEW_TOKENS)
     out["f32_agreement_per_request"] = agree
-    _check(got == want, f"f32 batching tokens differ from the {f32} "
-           f"path's: {agree} of {NEW_TOKENS} per request")
+    if fp8 and got != want:
+        # float8 pages: each path writes the pages its own forward
+        # computes, and K/V that differ in their last f32 bits can round
+        # to neighbouring e4m3 codes (1/16 apart), so a greedy stream may
+        # part at a near tie (ROADMAP C).  Each parting must be one (see
+        # fp8_partings)
+        out["f32_partings"] = fp8_partings(torch, engines, prompts, got,
+                                           want)
+        del engines
+    else:
+        _check(got == want, f"f32 batching tokens differ from the {f32} "
+               f"path's: {agree} of {NEW_TOKENS} per request")
     del p32
     torch.cuda.empty_cache()
+    return out
+
+
+def fp8_partings(torch, engines, prompts, got, want) -> list:
+    """Where the f32 greedy streams of the kernels (``got``) and the
+    gather path (``want``) over float8 pages part: for each request that
+    parts, its first differing step, the two paths' teacher-forced
+    logits along the kernels' tokens up to it (:func:`_paged_logits`
+    on the closed engines), their largest gap, and the gap between the
+    two tokens' logits at that step on the gather path.  A parting must
+    sit at a near tie: that margin under the paths' gap, the gap within
+    LOGIT_TOL_REL of the largest logit."""
+    import numpy as np
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(k for k in range(len(g)) if g[k] != w[k])
+        seq = prompts[i] + g[:j + 1]
+        lk = _paged_logits(torch, engines["auto"], seq, j + 1)
+        lp = _paged_logits(torch, engines["plain"], seq, j + 1)
+        gap = float(np.abs(lk[:j + 1] - lp[:j + 1]).max())
+        row = {"request": i, "step": j,
+               "margin": float(abs(lp[j, w[j]] - lp[j, g[j]])),
+               "logit_gap": gap,
+               "logit_tol": LOGIT_TOL_REL * max(1.0,
+                                                float(np.abs(lp).max()))}
+        out.append(row)
+        _check(row["margin"] <= gap <= row["logit_tol"],
+               f"f32 float8 streams part away from a near tie: {row}")
     return out
 
 
@@ -1994,10 +2113,11 @@ def profile_decode(torch, engine, prompt,
     nothing else: the prompt is prefilled before the profile starts, and
     the engine's decode loop runs inside it.  Device time by kernel (top
     8), the device-busy sum, the wall time, the idle share."""
+    import numpy as np
 
     ids = engine._ids(prompt)
     with engine._lock:
-        st, eos = engine._start(ids, 0)
+        st, eos = engine._start(np.asarray(prompt), ids, 0)
         torch.cuda.synchronize()
         with _device_profile() as prof:
             t0 = time.perf_counter()
@@ -2105,8 +2225,9 @@ def _graph_plain_side(torch, engine, prompt) -> dict:
     flash = flash_attention.launches
     L = engine.cfg.num_layers
     per_fwd = dense_per_layer(engine.cfg) * L
-    _check(flash == 3 * L, f"{engine.cfg.family}: {flash} flash launches "
-           f"over three prefills of {L} layers")
+    want = 3 * L if engine.attn_backend == "flash" else 0
+    _check(flash == want, f"{engine.cfg.family}: {flash} flash launches "
+           f"over three prefills of {L} layers ({engine.attn_backend})")
     prof = profile_decode(torch, engine, prompt)
     # the PROMPT_LEN-token prefills take the prefill kernel, the one-row
     # decode steps the decode kernel
@@ -2204,19 +2325,19 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
     return out
 
 
-def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
+def _graph_batching_side(torch, engine, prompts, mixed: bool,
+                         attr: str = "launches") -> dict:
     """One batching engine's numbers: 8 short requests together, greedy,
     NEW_TOKENS each (tokens and logprobs); then :func:`decode_window`;
     the replays, decode steps and paged launches of both against L per
-    step and L per admission (mixed: per slab forward, the int8
-    instances)."""
+    step and L per admission (mixed: per slab forward), counted on the
+    wrappers' ``attr`` (the page type's instances)."""
     from distributed_inference_demo_tpu_torch.ops import \
         paged_attention as pa
     from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
 
     L = engine.cfg.num_layers
     dec, pre = pa.paged_flash_attention, pa.paged_prefill_attention
-    attr = "int8_launches" if mixed else "launches"
     # counted from the idle, built engine to the idle engine at the end
     c0 = (getattr(dec, attr), getattr(pre, attr))
     r0, s0 = engine.graph_replays, engine.loop_stats["device_loop_steps"]
@@ -2270,11 +2391,12 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool) -> dict:
             "profile_top": prof["top"][:3]}
 
 
-def graph_batching(torch, name: str, mixed: bool = False) -> dict:
+def graph_batching(torch, name: str, mixed: bool = False,
+                   kv_cache_dtype: str | None = None) -> dict:
     """8-slot batching of ``name`` (``mixed``: the mixed dispatch over
-    int8 pages, whose decode half is the graph), full width, the decode
-    step replayed and eager (one engine each, the same weights): see
-    the module docstring, item 8."""
+    int8 pages, whose decode half is the graph; ``kv_cache_dtype``: over
+    float8 pages), full width, the decode step replayed and eager (one
+    engine each, the same weights): see the module docstring, item 8."""
     from distributed_inference_demo_tpu_torch.models.loader import \
         load_or_init
     from distributed_inference_demo_tpu_torch.models.registry import \
@@ -2288,9 +2410,14 @@ def graph_batching(torch, name: str, mixed: bool = False) -> dict:
     params = load_or_init(name, cfg, None, seed=0, device="cuda")
     prompts = [p[:16] for p in _batch_prompts(cfg.vocab_size)]
     kw = (dict(mixed_token_budget=MIXED_BUDGET, kv_dtype="int8",
-               decode_block=MIXED_DECODE_BLOCK) if mixed else {})
-    out = {"path": f"{name} {'mixed int8' if mixed else 'batching'}, "
-                   f"{SLOTS} slots", "model": name}
+               decode_block=MIXED_DECODE_BLOCK) if mixed else
+          dict(kv_cache_dtype=kv_cache_dtype))
+    attr = ("int8_launches" if mixed else
+            "fp8_launches" if kv_cache_dtype else "launches")
+    kind = ("mixed int8" if mixed else
+            f"batching over {kv_cache_dtype} pages" if kv_cache_dtype
+            else "batching")
+    out = {"path": f"{name} {kind}, {SLOTS} slots", "model": name}
 
     def engine_for(p, flag):
         return ContinuousBatchingEngine(
@@ -2301,7 +2428,8 @@ def graph_batching(torch, name: str, mixed: bool = False) -> dict:
 
     for key, flag in (("graph", True), ("eager", False)):
         with engine_for(params, flag) as eng:
-            out[key] = _graph_batching_side(torch, eng, prompts, mixed)
+            out[key] = _graph_batching_side(torch, eng, prompts, mixed,
+                                            attr)
     if cfg.quantization != "none":
         # the 1500-token prompt's first 1008 tokens: 15 chunks of 64, one
         # of 40, then 8 decode steps
@@ -3010,6 +3138,291 @@ def phase_moe(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the KV options: InferenceEngine's prefix pool, float8 pages
+# ---------------------------------------------------------------------------
+
+def _kv_prompts(vocab: int):
+    """KV_PROMPTS prompts [[...]]: one KV_PREFIX-token shared prefix (a
+    system prompt) and PREFILL_CHUNK tokens of each prompt's own."""
+    import numpy as np
+    rng = np.random.RandomState(11)
+    shared = rng.randint(0, vocab, KV_PREFIX).tolist()
+    return [[shared + rng.randint(0, vocab, PREFILL_CHUNK).tolist()]
+            for _ in range(KV_PROMPTS)]
+
+
+def _timed_prefill(torch, engine, prompt):
+    """One seeded prefill on the engine's batch-1 state (seed from the
+    pool, the rest chunked, store), host clock with the card
+    synchronized: (seconds, seeded tokens, last logits f32)."""
+    import numpy as np
+    ids_np = np.asarray(prompt)
+    ids, st = engine._ids(ids_np), engine._state(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start, logits = engine._seeded_prefill(ids_np, ids, st)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, start, logits.float().cpu().numpy()
+
+
+def _codes_twin_logits(torch, plain, prompt, bits: int):
+    """The last logits of the pool-less engine's prefill of ``prompt``
+    with its first KV_PREFIX K/V columns replaced by their own quantized
+    codes (int8 or int4), dequantized: what a warm prefill over a pool of
+    those codes computes, through the cold path."""
+    from distributed_inference_demo_tpu_torch.models.base import KVCache
+    from distributed_inference_demo_tpu_torch.ops.quant import \
+        quantize_kv_pages
+    ids, st = plain._ids(prompt), plain._state(1)
+    _, cache = plain._run_prefill(
+        ids[:, :KV_PREFIX], KVCache(st.cache.keys, st.cache.values, 0))
+    for t in (st.cache.keys, st.cache.values):
+        cols = t[:, :, :, :KV_PREFIX]
+        cols.copy_(quantize_kv_pages(cols, bits).dequantize().to(t.dtype))
+    logits, _ = plain._run_prefill(ids, cache, KV_PREFIX)
+    return logits.float().cpu().numpy()
+
+
+def _pool_round_trip(torch, backend, prompt) -> bool:
+    """The blocks the pool holds for ``prompt``, exported, adopted into
+    free pages and exported again: bit-equal, every leaf."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.ops.quant import (
+        QuantizedKVPages, as_bytes)
+    from distributed_inference_demo_tpu_torch.runtime.kvcache.device import (
+        adopt_blocks_into_pages, export_blocks_from_pages)
+    mgr = backend.mgr
+    lease = mgr.match(np.asarray(prompt[0]))
+    _check(lease is not None, "no stored blocks to export")
+    ids = list(lease.block_ids)
+    lease.release()
+    pk, pv = backend.pool
+    blocks = export_blocks_from_pages(pk, pv, ids)
+    new = mgr.alloc(len(ids))
+    _check(new is not None, "no free pages to adopt into")
+    try:
+        adopt_blocks_into_pages(pk, pv, *blocks, new)
+        again = export_blocks_from_pages(pk, pv, new)
+    finally:
+        mgr.free(new)
+
+    def leaves(x):
+        return x.leaves() if isinstance(x, QuantizedKVPages) else [x]
+
+    return all(torch.equal(as_bytes(a), as_bytes(b))
+               for x, y in zip(blocks, again)
+               for a, b in zip(leaves(x), leaves(y)))
+
+
+def kv_prefix_pool(torch) -> dict:
+    """TinyLlama's plain engine at full width (bf16, the flash kernel,
+    CUDA graphs) with a prefix pool of KV_POOL_BLOCKS pages: KV_PROMPTS
+    prompts sharing a KV_PREFIX-token prefix.  Prefill wall time cold
+    (no pool), on a miss and warm (the prefix seeded, one 64-token chunk
+    prefilled: L flash launches); the warm prefill's logits and a warm
+    request's greedy tokens and logprobs against the cold engine's, bit
+    for bit where the chunks align; an HTTP request, blocking and
+    streamed, through ``InferenceHTTPServer``; int8 and int4 pools'
+    warm logits against the bf16 pool's at the twin tolerance; each
+    pool's blocks exported and adopted back bit-equal; hits, the pool's
+    bytes and the leak invariant.  A quantized pool's warm logits are
+    held to their twin's: the cold engine with its prefix K/V replaced by
+    the same codes, dequantized."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+
+    cfg = get_model_config(SERVE_MODEL)
+    L = cfg.num_layers
+    params = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    greedy = SamplingParams(greedy=True)
+    prompts = _kv_prompts(cfg.vocab_size)
+
+    def engine_for(**kw):
+        eng = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
+                              prefill_chunk=PREFILL_CHUNK, device="cuda",
+                              **kw)
+        eng.generate([[1, 2, 3]], 2)       # captures the decode graph
+        return eng
+
+    pool = dict(kv_cache_blocks=KV_POOL_BLOCKS, kv_block_tokens=BLOCK_TOKENS)
+    cold_eng = engine_for()
+    eng = engine_for(**pool)
+    _check(eng.attn_backend == "flash", "the prefix engine's attention")
+    out = {"path": f"{SERVE_MODEL} plain serve, b=1, prefix pool "
+                   f"{KV_POOL_BLOCKS}x{BLOCK_TOKENS}tok",
+           "prefix_tokens": KV_PREFIX, "suffix_tokens": PREFILL_CHUNK,
+           "prefill_chunk": PREFILL_CHUNK}
+    # the main path, counted from 0: a miss stores the prefix, then warm
+    _reset_launches(flash_attention)
+    miss_s, miss_start, _ = _timed_prefill(torch, eng, prompts[0])
+    miss_flash = flash_attention.launches
+    _reset_launches(flash_attention)
+    warm_s, warm_start, warm_logits = _timed_prefill(torch, eng, prompts[1])
+    warm_flash = flash_attention.launches
+    warm2_s, _, _ = _timed_prefill(torch, eng, prompts[2])
+    cold_s, _, cold_logits = _timed_prefill(torch, cold_eng, prompts[1])
+    chunks = -(-(KV_PREFIX + PREFILL_CHUNK) // PREFILL_CHUNK)
+    out.update(miss_prefill_s=miss_s, warm_prefill_s=warm_s,
+               warm_prefill_2_s=warm2_s, cold_prefill_s=cold_s,
+               cold_over_warm=cold_s / warm_s, miss_seeded=miss_start,
+               warm_seeded=warm_start, miss_flash_launches=miss_flash,
+               warm_flash_launches=warm_flash)
+    _check(miss_start == 0 and warm_start == KV_PREFIX,
+           f"seeded {miss_start} then {warm_start} tokens")
+    _check(miss_flash == chunks * L and warm_flash == L,
+           f"flash launches {miss_flash} (miss) and {warm_flash} (warm), "
+           f"predicted {chunks * L} and {L}")
+    scale = max(1.0, float(np.abs(cold_logits).max()))
+    err = float(np.abs(warm_logits - cold_logits).max())
+    out["warm_logits"] = {"bit_equal": bool(np.array_equal(warm_logits,
+                                                           cold_logits)),
+                          "max_abs_err": err, "logit_scale": scale,
+                          "logit_tol": LOGIT_TOL_REL * scale}
+    _check(err <= LOGIT_TOL_REL * scale,
+           f"warm prefill logits differ from the cold ones by {err}")
+    # a warm request's greedy tokens and logprobs, generate and HTTP
+    warm = eng.generate(prompts[3], NEW_TOKENS, logprobs=True)
+    cold = cold_eng.generate(prompts[3], NEW_TOKENS, logprobs=True)
+    out["warm_tokens_bit_equal"] = bool(
+        np.array_equal(warm.tokens, cold.tokens)
+        and np.array_equal(warm.logprobs, cold.logprobs))
+    out["warm_token_agreement"] = int((warm.tokens == cold.tokens).sum())
+    server = InferenceHTTPServer(eng, "127.0.0.1", 0, model_name=SERVE_MODEL,
+                                 default_max_new=NEW_TOKENS)
+    server.start()
+    try:
+        code, text = _post(server.port, {"prompt_ids": prompts[4],
+                                         "max_new_tokens": NEW_TOKENS})
+        _check(code == 200, f"HTTP {code}")
+        served = json.loads(text)["tokens"][0]
+        code, text = _post(server.port, {"prompt_ids": prompts[5],
+                                         "max_new_tokens": NEW_TOKENS,
+                                         "stream": True})
+        _check(code == 200, f"HTTP {code} (stream)")
+        streamed = [json.loads(ln)["tokens"][0] for ln in text.splitlines()
+                    if ln.strip()]
+    finally:
+        server.shutdown()
+    out["http_tokens_equal_cold"] = [
+        served == cold_eng.generate(prompts[4], NEW_TOKENS).tokens[0]
+        .tolist(),
+        streamed == cold_eng.generate(prompts[5], NEW_TOKENS).tokens[0]
+        .tolist()]
+    snap = eng.kv_cache.snapshot()
+    mgr = eng.kv_cache.mgr
+    out.update(kvcache={k: snap[k] for k in (
+        "hits", "misses", "stores", "stored_blocks", "blocks_used",
+        "blocks_total", "device_resident_bytes", "capacity_bytes",
+        "page_dtype")},
+        seed_bytes=2 * L * cfg.num_kv_heads * KV_PREFIX * cfg.head_dim * 2,
+        no_leak=mgr.used_blocks == mgr.tree.block_count)
+    _check(snap["hits"] == KV_PROMPTS - 1 and out["no_leak"],
+           f"prefix pool: {snap}")
+    _check(all(out["http_tokens_equal_cold"]),
+           "served tokens differ from the cold engine's")
+    round_trip = {"bf16": _pool_round_trip(torch, eng.kv_cache, prompts[1])}
+    # int8 / int4 pools: the warm prefill's logits against their twin's
+    # (the cold engine over the same codes, dequantized) and against the
+    # bf16 pool's: held for int8; int4's quantization error alone is
+    # over the twin tolerance on these random weights, so it is reported
+    for kv_dtype, bits in (("int8", 8), ("int4", 4)):
+        q_eng = engine_for(kv_dtype=kv_dtype, **pool)
+        _timed_prefill(torch, q_eng, prompts[0])
+        s, start, logits = _timed_prefill(torch, q_eng, prompts[1])
+        twin = _codes_twin_logits(torch, cold_eng, prompts[1], bits)
+        twin_scale = max(1.0, float(np.abs(twin).max()))
+        twin_err = float(np.abs(logits - twin).max())
+        err = float(np.abs(logits - warm_logits).max())
+        out[kv_dtype] = {"warm_prefill_s": s, "seeded": start,
+                         "twin_logit_max_abs_err": twin_err,
+                         "twin_logit_tol": LOGIT_TOL_REL * twin_scale,
+                         "logit_max_abs_err_vs_bf16_pool": err,
+                         "logit_tol_vs_bf16_pool": LOGIT_TOL_REL * scale,
+                         "held_vs_bf16_pool": kv_dtype == "int8",
+                         "capacity_bytes":
+                         q_eng.kv_cache.snapshot()["capacity_bytes"]}
+        _check(start == KV_PREFIX
+               and twin_err <= LOGIT_TOL_REL * twin_scale,
+               f"{kv_dtype} pool: seeded {start}, logits differ from its "
+               f"twin's by {twin_err}")
+        _check(kv_dtype != "int8" or err <= LOGIT_TOL_REL * scale,
+               f"int8 pool: logits differ from the bf16 pool's by {err}")
+        round_trip[kv_dtype] = _pool_round_trip(torch, q_eng.kv_cache,
+                                                prompts[1])
+        del q_eng
+    out["export_adopt_bit_equal"] = round_trip
+    _check(all(round_trip.values()), f"export/adopt: {round_trip}")
+    del eng, cold_eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kvcache(torch) -> dict:
+    """The engines' KV options at TinyLlama's full width: the plain
+    engine's prefix pool (:func:`kv_prefix_pool`); 8-slot batching over
+    float8 pages, served as phase 4 (the e4m3 instances' launches against
+    the routing, bf16 logits against the gather path, f32 tokens equal
+    the gather path's) and as phase 8 (replayed and eager bit-equal, ms a
+    step, idle share); the plain engine over a float8 cache (plain
+    attention: ms/token, device ms a step)."""
+    from distributed_inference_demo_tpu_torch.models.loader import \
+        load_or_init
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+
+    t0 = time.perf_counter()
+    out = {"phase": "kvcache", "device": torch.cuda.get_device_name(0)}
+    fp8 = "float8_e4m3fn"
+
+    def fp8_plain():
+        import numpy as np
+        cfg = get_model_config(SERVE_MODEL)
+        params = load_or_init(SERVE_MODEL, cfg, None, seed=0, device="cuda")
+        eng = InferenceEngine(cfg, params, max_seq=MAX_SEQ,
+                              sampling=SamplingParams(greedy=True),
+                              kv_cache_dtype=fp8, device="cuda")
+        _check(eng.attn_backend == "plain", "a float8 cache's attention")
+        prompt = np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
+        side = _graph_plain_side(torch, eng, prompt)
+        del side["logprobs"], eng, params
+        torch.cuda.empty_cache()
+        return {"path": f"{SERVE_MODEL} plain serve, b=1, {fp8} cache",
+                "attn_backend": "plain", "graph": side}
+
+    for key, run in (
+            ("prefix_pool", lambda: kv_prefix_pool(torch)),
+            ("batching", lambda: phase_batching(
+                torch, SERVE_MODEL, f32="gather", kv_cache_dtype=fp8)),
+            ("graph_batching", lambda: graph_batching(
+                torch, SERVE_MODEL, kv_cache_dtype=fp8)),
+            ("fp8_plain", fp8_plain)):
+        t1 = time.perf_counter()
+        out[key] = run()
+        out[key]["seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv) -> int:
     try:
@@ -3042,7 +3455,8 @@ def main(argv) -> int:
         if only is not None:
             emit({"serve": phase_serve, "batching": phase_batching,
                   "mixed": phase_mixed, "graph": phase_graph,
-                  "quant": phase_quant, "moe": phase_moe}[only](torch))
+                  "quant": phase_quant, "kvcache": phase_kvcache,
+                  "moe": phase_moe}[only](torch))
             return 0
         kern = phase_kernels(torch)
         emit(kern)
@@ -3077,6 +3491,8 @@ def main(argv) -> int:
         emit(phase_graph(torch))
         quant_phase = phase_quant(torch)
         emit(quant_phase)
+        kvc = phase_kvcache(torch)
+        emit(kvc)
         moe = phase_moe(torch)
         emit(moe)
     except Exception:
@@ -3137,6 +3553,10 @@ def main(argv) -> int:
          serve_case("decode", "full", "bloom3b"), "bloom3b, " + rows8),
         ("paged_prefill_hd80", "paged_prefill", bloom_batching,
          serve_case("prefill", "full", "bloom3b"), "bloom3b, " + chunk200),
+        ("paged_decode_fp8", "paged_decode_fp8", kvc["batching"],
+         serve_case("decode", "fp8"), "float8 e4m3 pages, " + rows8),
+        ("paged_prefill_fp8", "paged_prefill_fp8", kvc["batching"],
+         serve_case("prefill", "fp8"), "float8 e4m3 pages, " + chunk200),
         ("paged_decode_mixtral", "paged_decode", moe["batching"],
          serve_case("decode", "full", MOE_MODEL), f"{MOE_MODEL}, " + rows8),
         ("paged_prefill_mixtral", "paged_prefill", moe["batching"],
@@ -3147,6 +3567,9 @@ def main(argv) -> int:
     moe_long_case = next(c for c in kern["cases"]
                          if c["case"] == MOE_MODEL + "-long"
                          and c["dtype"] == "bfloat16")
+    prefix_case = next(c for c in kern["cases"]
+                       if c["case"] == "tinyllama-prefix-hit"
+                       and c["dtype"] == "bfloat16")
 
     def entry(name, source, replaces, launches, case, shape):
         return {"name": name, "route": "cuda", "source": source,
@@ -3187,6 +3610,10 @@ def main(argv) -> int:
         entry(name, KERNEL_SOURCE, KERNEL_REPLACES, served[model]["launches"],
               flash_case(model), f"{model}, 64-token prompt at 0")
         for name, model in flash_new] + [
+        entry("flash_attention_prefix_hit", KERNEL_SOURCE, KERNEL_REPLACES,
+              kvc["prefix_pool"]["warm_flash_launches"], prefix_case,
+              f"64-token chunk at {KV_PREFIX}, a prefix hit's suffix "
+              "(launches: one warm prefill)"),
         entry("flash_attention_mixtral", KERNEL_SOURCE, KERNEL_REPLACES,
               moe["serve"]["launches"], flash_case(MOE_MODEL),
               f"{MOE_MODEL} (g = 4), 64-token prompt at 0"),

@@ -11,15 +11,20 @@
         --decode-block 4 --mixed-token-budget 288 --kv-dtype int8
     python -m distributed_inference_demo_tpu_torch serve \\
         --model tinyllama-1.1b-int8 --checkpoint /path/to/hf-checkpoint
+    python -m distributed_inference_demo_tpu_torch serve \\
+        --model tinyllama-1.1b --kv-cache-blocks 256 --prefill-chunk 64
 
 Two serve modes of the JAX package's CLI, with the weights of an HF
 safetensors directory (``--checkpoint``) or random weights from
 ``--weights-seed``, quantized for an ``-int8`` / ``-int4`` model, behind
 ``InferenceHTTPServer``: plain (one
-``InferenceEngine``) and ``--batch-slots N`` (a ``ContinuousBatchingEngine``
-over the paged KV pool, with ``--kv-cache-blocks``, ``--kv-block-tokens``,
-``--decode-block``, ``--prefill-chunk``, ``--admission-queue-depth``,
-``--mixed-token-budget`` and ``--kv-dtype``).
+``InferenceEngine``, with its block KV prefix pool under
+``--kv-cache-blocks``) and ``--batch-slots N`` (a
+``ContinuousBatchingEngine`` over the paged KV pool, with
+``--decode-block``, ``--admission-queue-depth`` and
+``--mixed-token-budget``).  Both take ``--kv-cache-blocks``,
+``--kv-block-tokens``, ``--prefill-chunk``, ``--kv-dtype`` and
+``--kv-cache-dtype``.
 It runs on CUDA unless ``--device cpu`` is given.  Every other subcommand
 and mode flag of the JAX package's CLI exits 1 with "not yet ported".
 """
@@ -69,7 +74,7 @@ def build_batching_engine(args):
         prefill_chunk=args.prefill_chunk or None,
         max_queue_depth=args.admission_queue_depth,
         mixed_token_budget=args.mixed_token_budget or None,
-        kv_dtype=args.kv_dtype,
+        kv_dtype=args.kv_dtype, kv_cache_dtype=args.kv_cache_dtype,
         kv_cache_blocks=args.kv_cache_blocks,
         kv_block_tokens=args.kv_block_tokens,
         attn_backend="cuda" if args.attn_backend == "flash"
@@ -88,7 +93,13 @@ def build_engine(args):
         prefill_chunk=args.prefill_chunk or None,
         kv_cache_blocks=args.kv_cache_blocks,
         kv_block_tokens=args.kv_block_tokens, kv_dtype=args.kv_dtype,
+        kv_cache_dtype=args.kv_cache_dtype,
         stream_block=args.stream_block, device=device)
+
+
+def _dtype_name(dtype) -> str:
+    """A storage cast's name for the banner ("none" for the model's)."""
+    return "none" if dtype is None else str(dtype).replace("torch.", "")
 
 
 def cmd_serve(args) -> int:
@@ -106,12 +117,19 @@ def cmd_serve(args) -> int:
         print(f"SERVE_BATCHING {args.model} slots={args.batch_slots} "
               f"kv_cache={kvc.num_blocks}x{kvc.block_tokens}tok "
               f"{engine.kv_layout} kv_dtype={engine.kv_dtype} "
-              f"mixed_token_budget={engine.mixed_token_budget} tp=1 "
+              f"mixed_token_budget={engine.mixed_token_budget} "
+              f"kv_cache_dtype={_dtype_name(engine.kv_cache_dtype)} tp=1 "
               f"attn={engine.attn_backend} device={engine.device}",
               flush=True)
     else:
         cfg, engine = build_engine(args)
+        kvc = engine.kv_cache
+        pool = ("off" if kvc is None else
+                f"{kvc.num_blocks}x{kvc.block_tokens}tok {kvc.layout} "
+                f"kv_dtype={kvc.kv_dtype}")
         print(f"SERVE_ENGINE {args.model} attn={engine.attn_backend} "
+              f"kv_cache={pool} "
+              f"kv_cache_dtype={_dtype_name(engine.kv_cache_dtype)} "
               f"device={engine.device}", flush=True)
     server = InferenceHTTPServer(engine, host=args.http_host,
                                  port=args.http_port, model_name=args.model,
@@ -168,9 +186,10 @@ def _serve_parser() -> argparse.ArgumentParser:
                     help="with --batch-slots: fuse N decode steps per "
                          "dispatch when no admission could land anyway")
     ap.add_argument("--kv-cache-blocks", type=int, default=None,
-                    help="with --batch-slots: page-pool size in blocks "
-                         "(default DWT_KVCACHE_BLOCKS, else slots x "
-                         "table width)")
+                    help="page-pool size in blocks (default "
+                         "DWT_KVCACHE_BLOCKS; else, with --batch-slots, "
+                         "slots x table width, and without, no prefix "
+                         "pool)")
     ap.add_argument("--kv-block-tokens", type=int, default=None,
                     help="tokens per KV page (default "
                          "DWT_KVCACHE_BLOCK_TOKENS, else 16)")
@@ -183,11 +202,16 @@ def _serve_parser() -> argparse.ArgumentParser:
                          "DWT_MIXED_TOKEN_BUDGET or 0 = serialized)")
     ap.add_argument("--kv-dtype", default=None,
                     choices=["bf16", "int8", "int4"],
-                    help="with --batch-slots: the KV page width: bf16 "
-                         "stores full-width pages (the default); int8 / "
-                         "packed int4 quantize each page at write time "
-                         "with a per-token scale beside it.  Default "
-                         "DWT_KV_DTYPE, else bf16")
+                    help="the KV page width: bf16 stores full-width pages "
+                         "(the default); int8 / packed int4 quantize each "
+                         "page at write time with a per-token scale beside "
+                         "it.  Default DWT_KV_DTYPE, else bf16")
+    ap.add_argument("--kv-cache-dtype", default=None,
+                    choices=["float8_e4m3fn"],
+                    help="store the KV cache and pages as float8 e4m3 "
+                         "(half the bytes of bf16; the plain engine then "
+                         "takes plain attention); not with --kv-dtype "
+                         "int8/int4")
     ap.add_argument("--admission-queue-depth", type=int, default=0,
                     help="with --batch-slots: answer 503 + Retry-After "
                          "once this many requests wait for a slot (0 = "

@@ -110,6 +110,15 @@
 // per (64-row tile, kv head, row) for prefill, looping over 32- or
 // 64-key tiles and looking each key's page up as they load.
 //
+// float8 e4m3 pages (a kv_cache_dtype pool).  The Pallas kernels upcast a
+// page of any dtype to f32 after its load; here a third page type streams
+// one byte a value through the same ring (the same odd pitch of 16-byte
+// pieces as int8) and converts each value where it is read: to f32 in the
+// f32-q kernels, and in the bf16-q kernels pairwise (one e4m3x2 -> f16x2
+// cvt) to the bf16 fragments mma.sync takes.  Every e4m3 value, the
+// subnormals included, is exact in f16, f32 and bf16, so the conversion
+// rounds nothing, and e4m3 pages need no scale.
+//
 // int8 pages.  The Pallas kernels' quantized instance streams int8 pages
 // with an f32 [bt, 1] scale block riding the same page index map and
 // dequantizes right after the load; here every instance reads the codes
@@ -131,6 +140,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -146,6 +157,9 @@ constexpr int PREFILL_ROWS = 16;  // regrouped query rows per prefill block
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);   // exact: e4m3 -> f16 -> f32
 }
 __device__ __forceinline__ void store_val(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_val(__nv_bfloat16* p, float x) {
@@ -163,9 +177,9 @@ __device__ __forceinline__ size_t page_row(const int* tab, int pos, int bt,
   return ((size_t)page * nkv + h) * bt + (pos - j * bt);
 }
 
-// Element d of a token row as f32: a full-width page converts, an int8
-// page multiplies its code by the token's scale (sc is unused for
-// full-width pages).
+// Element d of a token row as f32: a full-width or e4m3 page converts,
+// an int8 page multiplies its code by the token's scale (sc is unused
+// for the others).
 template <typename P>
 __device__ __forceinline__ float load_kv(const P* __restrict__ p,
                                          const float* __restrict__ sc,
@@ -520,7 +534,7 @@ static_assert(PREFILL_ROWS == 16 || PREFILL_ROWS == 32 ||
               "PREFILL_ROWS: 16, 32 or 64 rows per block of four warps");
 
 // One ring stage for page type P: K and V rows of TK keys (and, for int8
-// pages, each key's two f32 scales).  The row pitch is an odd count of
+// pages, each key's two f32 scales; e4m3 pages have none).  The row pitch is an odd count of
 // 16-byte pieces, 16 or 32 bytes over the row: every row stays 16-byte
 // aligned for cp.async, and the 8 rows one fragment load touches fall on
 // distinct banks (an even count would put rows r and r + 4, or for int8
@@ -529,6 +543,7 @@ static_assert(PREFILL_ROWS == 16 || PREFILL_ROWS == 32 ||
 template <typename P, int HD>
 struct Stage {
   static constexpr bool Q8 = std::is_same<P, int8_t>::value;
+  static constexpr bool BYTE = sizeof(P) == 1;   // int8 or e4m3 values
   static constexpr int PITCH =
       ((HD * (int)sizeof(P) / 16 + 1) | 1) * 16 / (int)sizeof(P);
   static constexpr size_t KV = (size_t)TK * PITCH * sizeof(P);
@@ -660,25 +675,36 @@ __device__ __forceinline__ void stream_tiles(char* ring, const P* kp,
   __syncthreads();   // every warp is done with the ring
 }
 
+// Two adjacent byte-wide values of a stage row as a bf16 pair: int8
+// codes and e4m3 values are both exact in bf16.
+__device__ __forceinline__ uint32_t pair_bf16(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return pack_bf16((float)c.x, (float)c.y);
+}
+__device__ __forceinline__ uint32_t pair_bf16(const __nv_fp8_e4m3* p) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      *reinterpret_cast<const __nv_fp8x2_storage_t*>(p), __NV_E4M3);
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+  return pack_bf16(f.x, f.y);
+}
+
 // The B operands of S = Q K^T for 16 keys from stage row `key` at head
 // columns [d, d + 16): b[0], b[1] for keys key .. key + 7 and b[2], b[3]
 // for key + 8 .. key + 15 (B[d][n] = K[n][d]).  bf16 pages: one ldmatrix;
 // int8 pages: the codes, exact in bf16 (the key's scale multiplies its
-// score column in f32, see attend).
+// score column in f32, see attend); e4m3 pages: the values, exact too.
 template <typename P, int HD>
 __device__ __forceinline__ void k_frags(char* st, int key, int d,
                                         uint32_t (&b)[4]) {
   using S = Stage<P, HD>;
   const int lane = threadIdx.x & 31;
-  if constexpr (S::Q8) {
+  if constexpr (S::BYTE) {
     const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const P* kr = S::k(st) + (key + 8 * j + gid) * S::PITCH + d + 2 * tig;
-      const char2 c0 = *reinterpret_cast<const char2*>(kr);
-      const char2 c1 = *reinterpret_cast<const char2*>(kr + 8);
-      b[2 * j] = pack_bf16((float)c0.x, (float)c0.y);
-      b[2 * j + 1] = pack_bf16((float)c1.x, (float)c1.y);
+      b[2 * j] = pair_bf16(kr);
+      b[2 * j + 1] = pair_bf16(kr + 8);
     }
   } else {
     const int row = key + (lane & 7) + ((lane >> 4) << 3);
@@ -691,14 +717,14 @@ __device__ __forceinline__ void k_frags(char* st, int key, int d,
 // head columns [d, d + 16): b[0], b[1] for columns d .. d + 7 and b[2],
 // b[3] for d + 8 .. d + 15 (B[k][n] = V[key + k][n]).  bf16 pages: one
 // ldmatrix.trans; int8 pages: the codes (the key's scale multiplies its
-// probability in f32, see attend).
+// probability in f32, see attend); e4m3 pages: the values.
 template <typename P, int HD>
 __device__ __forceinline__ void v_frags(char* st, int key, int d,
                                         uint32_t (&b)[4]) {
   using S = Stage<P, HD>;
   constexpr int PI = S::PITCH;
   const int lane = threadIdx.x & 31;
-  if constexpr (S::Q8) {
+  if constexpr (S::BYTE) {
     const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -1148,7 +1174,7 @@ bool shapes_ok(int b, int chunk, int nh, int nkv, int bt, int num_pages,
 }
 
 // The pages of one launch: data and, for int8, the scale sidecars
-// (null for full-width pages).
+// (null for full-width and e4m3 pages).
 struct Pages {
   const void* k;
   const float* ks;
@@ -1243,12 +1269,27 @@ cudaError_t launch_prefill_mma(const void* q, Pages pg, const int* tables,
   return cudaGetLastError();
 }
 
+// The page types: full width (q's dtype), int8 codes with f32 scales,
+// float8 e4m3 values.
+enum PageKind { FULL = 0, INT8 = 1, FP8 = 2 };
+template <int KIND, typename T>
+struct PageOf {
+  using type = T;
+};
+template <typename T>
+struct PageOf<INT8, T> {
+  using type = int8_t;
+};
+template <typename T>
+struct PageOf<FP8, T> {
+  using type = __nv_fp8_e4m3;
+};
+
 // One decode launch, dispatched on q's dtype (0 = float32, 1 =
-// bfloat16), the page type (full width = q's dtype, or int8) and the head
-// dim.  bf16 q needs the partials' scratch: part_acc [b, splits, nh, hd]
+// bfloat16), the page type (KIND) and the head dim.  bf16 q needs the partials' scratch: part_acc [b, splits, nh, hd]
 // and part_ml [2, b, splits, nh] (m, then l), f32, with splits =
 // ceil(W * bt / KV_SPLIT).
-template <bool INT8>
+template <int KIND>
 int decode_fwd(const void* q, Pages pg, const void* tables,
                const void* kv_lens, const void* slopes, void* out,
                void* part_acc, void* part_ml, int b, int nh, int nkv,
@@ -1265,7 +1306,7 @@ int decode_fwd(const void* q, Pages pg, const void* tables,
         (long long)splits * KV_SPLIT < (long long)W * bt ||
         (long long)(splits - 1) * KV_SPLIT >= (long long)W * bt)
       return (int)cudaErrorInvalidValue;
-    using P = typename std::conditional<INT8, int8_t, bf16>::type;
+    using P = typename PageOf<KIND, bf16>::type;
     float* pa = static_cast<float*>(part_acc);
     float* pm = static_cast<float*>(part_ml);
 #define PD_SPLIT(HD)                                                        \
@@ -1280,9 +1321,8 @@ int decode_fwd(const void* q, Pages pg, const void* tables,
 #undef PD_SPLIT
     return (int)cudaErrorInvalidValue;
   }
-#define PD_CASE(T, HD)                                                     \
-  return (int)launch_decode<T, typename std::conditional<INT8, int8_t,     \
-                                                         T>::type, HD>(    \
+#define PD_CASE(T, HD)                                                  \
+  return (int)launch_decode<T, typename PageOf<KIND, T>::type, HD>(     \
       q, pg, tab, lens, sl, out, b, nh, nkv, bt, num_pages, W, scale, st)
   if (dtype == 0 && hd == 64) PD_CASE(float, 64);
   if (dtype == 0 && hd == 80) PD_CASE(float, 80);
@@ -1293,7 +1333,7 @@ int decode_fwd(const void* q, Pages pg, const void* tables,
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool INT8>
+template <int KIND>
 int prefill_fwd(const void* q, Pages pg, const void* tables,
                 const void* starts, const void* slopes, void* out, int b,
                 int chunk, int nh, int nkv, int hd, int bt, int num_pages,
@@ -1305,7 +1345,7 @@ int prefill_fwd(const void* q, Pages pg, const void* tables,
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    using P = typename std::conditional<INT8, int8_t, bf16>::type;
+    using P = typename PageOf<KIND, bf16>::type;
 #define PP_MMA(HD)                                                         \
   return (int)launch_prefill_mma<P, HD>(q, pg, tab, st0, sl, out, b, chunk, \
                                         nh, nkv, bt, num_pages, W, scale,   \
@@ -1319,8 +1359,7 @@ int prefill_fwd(const void* q, Pages pg, const void* tables,
     return (int)cudaErrorInvalidValue;
   }
 #define PP_CASE(T, HD)                                                     \
-  return (int)launch_prefill<T, typename std::conditional<INT8, int8_t,    \
-                                                          T>::type, HD>(   \
+  return (int)launch_prefill<T, typename PageOf<KIND, T>::type, HD>(       \
       q, pg, tab, st0, sl, out, b, chunk, nh, nkv, bt, num_pages, W, scale, \
       st)
   if (dtype == 0 && hd == 64) PP_CASE(float, 64);
@@ -1348,7 +1387,7 @@ int paged_decode_fwd(const void* q, const void* k_pages,
                      void* part_acc, void* part_ml, int b, int nh, int nkv,
                      int hd, int bt, int num_pages, int W, int splits,
                      float scale, int dtype, void* stream) {
-  return decode_fwd<false>(q, Pages{k_pages, nullptr, v_pages, nullptr},
+  return decode_fwd<FULL>(q, Pages{k_pages, nullptr, v_pages, nullptr},
                            tables, kv_lens, slopes, out, part_acc, part_ml,
                            b, nh, nkv, hd, bt, num_pages, W, splits, scale,
                            dtype, stream);
@@ -1363,7 +1402,7 @@ int paged_decode_int8_fwd(const void* q, const void* k_pages,
                           void* part_acc, void* part_ml, int b, int nh,
                           int nkv, int hd, int bt, int num_pages, int W,
                           int splits, float scale, int dtype, void* stream) {
-  return decode_fwd<true>(
+  return decode_fwd<INT8>(
       q,
       Pages{k_pages, static_cast<const float*>(k_scale), v_pages,
             static_cast<const float*>(v_scale)},
@@ -1379,7 +1418,7 @@ int paged_prefill_fwd(const void* q, const void* k_pages,
                       int b, int chunk, int nh, int nkv, int hd, int bt,
                       int num_pages, int W, float scale, int dtype,
                       void* stream) {
-  return prefill_fwd<false>(q, Pages{k_pages, nullptr, v_pages, nullptr},
+  return prefill_fwd<FULL>(q, Pages{k_pages, nullptr, v_pages, nullptr},
                             tables, starts, slopes, out, b, chunk, nh, nkv,
                             hd, bt, num_pages, W, scale, dtype, stream);
 }
@@ -1392,12 +1431,38 @@ int paged_prefill_int8_fwd(const void* q, const void* k_pages,
                            int b, int chunk, int nh, int nkv, int hd, int bt,
                            int num_pages, int W, float scale, int dtype,
                            void* stream) {
-  return prefill_fwd<true>(
+  return prefill_fwd<INT8>(
       q,
       Pages{k_pages, static_cast<const float*>(k_scale), v_pages,
             static_cast<const float*>(v_scale)},
       tables, starts, slopes, out, b, chunk, nh, nkv, hd, bt, num_pages, W,
       scale, dtype, stream);
+}
+
+// As paged_decode_fwd over float8 e4m3 pages [num_pages, nkv, bt, hd]
+// (one byte a value, no scales); dtype is q's and out's.
+int paged_decode_fp8_fwd(const void* q, const void* k_pages,
+                         const void* v_pages, const void* tables,
+                         const void* kv_lens, const void* slopes, void* out,
+                         void* part_acc, void* part_ml, int b, int nh,
+                         int nkv, int hd, int bt, int num_pages, int W,
+                         int splits, float scale, int dtype, void* stream) {
+  return decode_fwd<FP8>(q, Pages{k_pages, nullptr, v_pages, nullptr},
+                         tables, kv_lens, slopes, out, part_acc, part_ml, b,
+                         nh, nkv, hd, bt, num_pages, W, splits, scale, dtype,
+                         stream);
+}
+
+// As paged_prefill_fwd over float8 e4m3 pages.
+int paged_prefill_fp8_fwd(const void* q, const void* k_pages,
+                          const void* v_pages, const void* tables,
+                          const void* starts, const void* slopes, void* out,
+                          int b, int chunk, int nh, int nkv, int hd, int bt,
+                          int num_pages, int W, float scale, int dtype,
+                          void* stream) {
+  return prefill_fwd<FP8>(q, Pages{k_pages, nullptr, v_pages, nullptr},
+                          tables, starts, slopes, out, b, chunk, nh, nkv, hd,
+                          bt, num_pages, W, scale, dtype, stream);
 }
 
 const char* paged_attention_error_string(int err) {

@@ -12,6 +12,10 @@ stops at the valid length (O(length)).  The fixed-shape form
 (:func:`attention_at`), which a captured CUDA graph replays, takes the
 length as a device scalar: it writes at a device index and reads all
 ``max_seq`` columns under the causal mask, as the reference does.
+
+A cache may be stored as float8 e4m3 (``kv_cache_dtype``): every write
+casts the chunk as the reference does (``ops.quant.cast_kv``) and every
+read upcasts to f32.
 """
 
 import functools
@@ -20,6 +24,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .quant import as_bytes, cast_kv
 
 
 def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
@@ -109,7 +115,8 @@ def attention(
 def prepare_kv_chunk(k_new: torch.Tensor, v_new: torch.Tensor,
                      k_dtype, v_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """Validate + cast a projection-layout ``[batch, chunk, nkv, hd]`` K/V
-    chunk for a cache write.  Write contract (the reference's stale-slot
+    chunk for a cache write (to float8 as the reference rounds,
+    :func:`ops.quant.cast_kv`).  Write contract (the reference's stale-slot
     invariant): a write may land garbage at positions >= the row's valid
     length, provided every position is rewritten before any query attends
     it; it never touches a position below the valid length."""
@@ -117,7 +124,7 @@ def prepare_kv_chunk(k_new: torch.Tensor, v_new: torch.Tensor,
         raise ValueError(
             "KV chunk must be projection-layout [batch, chunk, nkv, hd]; "
             f"got {tuple(k_new.shape)} / {tuple(v_new.shape)}")
-    return k_new.to(k_dtype), v_new.to(v_dtype)
+    return cast_kv(k_new, k_dtype), cast_kv(v_new, v_dtype)
 
 
 def attention_at(q, k, v, k_cache, v_cache, positions, start: torch.Tensor,
@@ -127,13 +134,15 @@ def attention_at(q, k, v, k_cache, v_cache, positions, start: torch.Tensor,
     tensor; ``index_copy_`` along the sequence axis), then attend over
     every cache column (``attention`` with ``cache_len`` None).  No shape
     or host value depends on the length, so a CUDA graph can replay it.
+    A float8 cache is written through its bytes (``ops.quant.as_bytes``:
+    torch has no float8 ``index_copy_`` on the CPU).
     No host bounds check, unlike :func:`update_kv_cache`: the engine
     bounds every step before its loop (``check_capacity``), and on the
     card an index past the buffer is a device-side error."""
     k, v = prepare_kv_chunk(k, v, k_cache.dtype, v_cache.dtype)
     idx = start.reshape(1) + torch.arange(k.shape[1], device=k.device)
-    k_cache.index_copy_(2, idx, k.transpose(1, 2))
-    v_cache.index_copy_(2, idx, v.transpose(1, 2))
+    as_bytes(k_cache).index_copy_(2, idx, as_bytes(k.transpose(1, 2)))
+    as_bytes(v_cache).index_copy_(2, idx, as_bytes(v.transpose(1, 2)))
     return attention(q, k_cache, v_cache, positions, None, slopes)
 
 

@@ -15,10 +15,12 @@ writes land there, which no read reaches and which costs no host sync
 clamped page is causally masked, and pool pages always hold finite
 values, so it contributes exact zeros.
 
-A pool is a tensor of the model's dtype (bf16 or f32) or, for
-``kv_dtype`` int8/int4, an ``ops.quant.QuantizedKVPages`` whose leaves
-share the page layout: writes quantize once, per token over ``hd``, and
-every read dequantizes ``code * scale (+ zero)`` in f32.
+A pool is a tensor of the model's dtype (bf16 or f32), a float8 e4m3
+tensor (``kv_cache_dtype``: writes cast as the reference rounds,
+``ops.quant.cast_kv``, reads upcast to f32) or, for ``kv_dtype``
+int8/int4, an ``ops.quant.QuantizedKVPages`` whose leaves share the page
+layout: writes quantize once, per token over ``hd``, and every read
+dequantizes ``code * scale (+ zero)`` in f32.
 
 Three compute paths with the same numerics as ``ops.attention``:
 
@@ -32,15 +34,16 @@ Three compute paths with the same numerics as ``ops.attention``:
   the CUDA kernel ``paged_prefill_fwd``, which replaces
   ``_paged_prefill_kernel``.
 
-Each kernel has a full-width instance (f32 or bf16 pages of q's dtype)
-and an int8 instance (int8 pages with their f32 scales).  The two kernel
-wrappers launch their kernel for CUDA tensors and raise on anything it
-does not take (int4 pages included); for CPU tensors they run their
-plain PyTorch version (``paged_flash_attention_plain``,
-``paged_prefill_attention_plain``).  Each has integer counts of kernel
-launches: ``.launches`` (full-width instance) and ``.int8_launches``,
-one per wrapper call (a bf16 decode call is two CUDA launches, the
-split pass and its merge).
+Each kernel has three page types: full width (f32 or bf16 pages of q's
+dtype), int8 (int8 pages with their f32 scales) and float8 e4m3 (under
+f32 or bf16 q).  The two kernel wrappers launch their kernel for CUDA
+tensors and raise on anything it does not take (int4 pages included);
+for CPU tensors they run their plain PyTorch version
+(``paged_flash_attention_plain``, ``paged_prefill_attention_plain``).
+Each has integer counts of kernel launches: ``.launches`` (full-width
+pages), ``.int8_launches`` and ``.fp8_launches``, one per wrapper call
+(a bf16 decode call is two CUDA launches, the split pass and its
+merge).
 
 Under bf16 q the decode kernel splits each row's keys at fixed positions
 ``KV_SPLIT`` apart (flash-decoding) and merges the splits' partial
@@ -57,7 +60,7 @@ import numpy as np
 import torch
 
 from .attention import attention, prepare_kv_chunk
-from .quant import QuantizedKVPages, quantize_kv_like
+from .quant import FLOAT8, QuantizedKVPages, as_bytes, quantize_kv_like
 
 SOURCE = "paged_attention.cu"
 # the head dims of the catalog's models, each an instance of the kernels
@@ -74,6 +77,12 @@ KV_SPLIT = 128
 PREFILL_KERNEL_MAX_ROWS = 512
 BACKENDS = ("auto", "plain", "cuda")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the page types of the kernels' instances, each with its own entry
+# points (paged_{decode,prefill}{"", _int8, _fp8}_fwd) and launch count
+PAGE_TYPES = ("full", "int8", "fp8")
+_SUFFIX = {"full": "", "int8": "_int8", "fp8": "_fp8"}
+_COUNTER = {"full": "launches", "int8": "int8_launches",
+            "fp8": "fp8_launches"}
 _NEG = -1e30
 _count_lock = threading.Lock()   # server threads may launch concurrently
 
@@ -99,7 +108,8 @@ def _scatter(k_pages, v_pages, k_new, v_new, page, off) -> None:
     """Advanced indices at dims (0, 2) around the head slice: the indexed
     layout [b, s, nkv, ·] is the projection layout the chunk arrives in.
     A quantized pool takes the chunk quantized ONCE, per token over hd,
-    from f32; its data, scale and zero leaves take the same slots."""
+    from f32; its data, scale and zero leaves take the same slots.  A
+    float8 pool is written through its bytes (``ops.quant.as_bytes``)."""
     quant = isinstance(k_pages, QuantizedKVPages)
     k_new, v_new = prepare_kv_chunk(
         k_new, v_new, torch.float32 if quant else k_pages.dtype,
@@ -107,7 +117,7 @@ def _scatter(k_pages, v_pages, k_new, v_new, page, off) -> None:
     for pool, new in ((k_pages, k_new), (v_pages, v_new)):
         for dst, src in zip(_leaves(pool),
                             _leaves(quantize_kv_like(pool, new))):
-            dst[page, :, off] = src
+            as_bytes(dst)[page, :, off] = as_bytes(src)
 
 
 def write_paged_kv(k_pages, v_pages,
@@ -148,9 +158,10 @@ def _linear_view(pages, tables: torch.Tensor) -> torch.Tensor:
     n, nkv, bt, hd = pages.shape
     b, W = tables.shape
     safe = tables.long().clamp(0, n - 1)
-    lin = pages[safe]
-    if isinstance(lin, QuantizedKVPages):
-        lin = lin.dequantize(torch.float32)
+    if isinstance(pages, QuantizedKVPages):
+        lin = pages[safe].dequantize(torch.float32)
+    else:   # a float8 pool through its bytes
+        lin = as_bytes(pages)[safe].view(pages.dtype)
     return lin.permute(0, 2, 1, 3, 4).reshape(b, nkv, W * bt, hd)
 
 
@@ -280,9 +291,10 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, tables, q_positions,
 
 @functools.cache
 def _kernel_fns() -> dict:
-    """The C functions, built and bound once: ``(kind, int8)`` -> the
-    launch function of that kernel instance ("decode" or "prefill", full
-    width or int8 pages), "error" -> the error-string function."""
+    """The C functions, built and bound once: ``(kind, page)`` -> the
+    launch function of that kernel instance ("decode" or "prefill", a
+    page type of :data:`PAGE_TYPES`), "error" -> the error-string
+    function."""
     from ._build import load
     lib = load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -292,11 +304,12 @@ def _kernel_fns() -> dict:
     # nkv, hd, bt, num_pages, W, splits.  prefill: q, pages, tables,
     # starts, slopes, out; b, chunk, nh, nkv, hd, bt, num_pages, W
     for kind, n_ptr, n_int in (("decode", 9, 8), ("prefill", 7, 8)):
-        for int8 in (False, True):
-            fn = getattr(lib, f"paged_{kind}{'_int8' if int8 else ''}_fwd")
-            fn.argtypes = [ptr] * (n_ptr + 2 * int8) + [i32] * n_int + tail
+        for page in PAGE_TYPES:
+            fn = getattr(lib, f"paged_{kind}{_SUFFIX[page]}_fwd")
+            n_scales = 2 if page == "int8" else 0
+            fn.argtypes = [ptr] * (n_ptr + n_scales) + [i32] * n_int + tail
             fn.restype = i32
-            fns[kind, int8] = fn
+            fns[kind, page] = fn
     lib.paged_attention_error_string.argtypes = [i32]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     fns["error"] = lib.paged_attention_error_string
@@ -306,16 +319,18 @@ def _kernel_fns() -> dict:
 def _check_pages(k_pages, v_pages, q_dtype) -> bool:
     """Raise on page pools the kernels do not take; True for int8 pools
     (data int8 [N, nkv, bt, hd] + f32 scales [N, nkv, bt, 1]), False for
-    full-width pools of q's dtype."""
+    full-width pools of q's dtype and for float8 e4m3 pools."""
     quant = isinstance(k_pages, QuantizedKVPages)
     if quant != isinstance(v_pages, QuantizedKVPages):
         raise ValueError("the K and V pools must both be quantized or "
                          "both full width")
     if not quant:
+        if k_pages.dtype == v_pages.dtype == FLOAT8:
+            return False
         if not q_dtype == k_pages.dtype == v_pages.dtype:
             raise ValueError(
                 "the CUDA paged kernels take float32 or bfloat16 q and "
-                f"full-width pages of q's dtype; got {q_dtype}, "
+                f"pages of q's dtype or float8_e4m3fn; got {q_dtype}, "
                 f"{k_pages.dtype}, {v_pages.dtype}")
         return False
     if k_pages.bits != 8 or v_pages.bits != 8:
@@ -330,8 +345,8 @@ def _check_pages(k_pages, v_pages, q_dtype) -> bool:
 
 
 def _check_cuda_args(name, q, k_pages, v_pages, tables, per_row, slopes):
-    """Raise on what the kernels do not take; return whether the pages
-    are int8, and the int32 tables and per-row vector the kernel reads."""
+    """Raise on what the kernels do not take; return the page type, and
+    the int32 tables and per-row vector the kernel reads."""
     if (q.ndim != 4 or len(k_pages.shape) != 4
             or tuple(k_pages.shape) != tuple(v_pages.shape)):
         raise ValueError(
@@ -349,7 +364,8 @@ def _check_cuda_args(name, q, k_pages, v_pages, tables, per_row, slopes):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the CUDA paged kernels take float32 or bfloat16 "
                          f"q, got {q.dtype}")
-    int8 = _check_pages(k_pages, v_pages, q.dtype)
+    page = ("int8" if _check_pages(k_pages, v_pages, q.dtype)
+            else "fp8" if k_pages.dtype == FLOAT8 else "full")
     pools = ([("k_pages", t) for t in _leaves(k_pages)]
              + [("v_pages", t) for t in _leaves(v_pages)])
     if tables.ndim != 2 or tables.shape[0] != b or per_row.shape != (b,):
@@ -370,7 +386,7 @@ def _check_cuda_args(name, q, k_pages, v_pages, tables, per_row, slopes):
     if slopes is not None and (slopes.shape != (nh,)
                                or slopes.device != q.device):
         raise ValueError(f"slopes must be [{nh}] on {q.device}")
-    return (int8, tables.to(torch.int32).contiguous(),
+    return (page, tables.to(torch.int32).contiguous(),
             per_row.to(torch.int32).contiguous())
 
 
@@ -378,30 +394,28 @@ def _leaves(pages):
     return pages.leaves() if isinstance(pages, QuantizedKVPages) else [pages]
 
 
-def _page_ptrs(k_pages, v_pages, int8: bool) -> tuple:
-    """The page pointers of a launch: (k, v) for full-width pages,
-    (k data, k scale, v data, v scale) for int8 pages."""
-    if int8:
+def _page_ptrs(k_pages, v_pages, page: str) -> tuple:
+    """The page pointers of a launch: (k, v) for full-width and float8
+    pages, (k data, k scale, v data, v scale) for int8 pages."""
+    if page == "int8":
         return (k_pages.data.data_ptr(), k_pages.scale.data_ptr(),
                 v_pages.data.data_ptr(), v_pages.scale.data_ptr())
     return k_pages.data_ptr(), v_pages.data_ptr()
 
 
-def _launch(kind: str, int8: bool, q, args, fns: dict) -> None:
+def _launch(kind: str, page: str, q, args, fns: dict) -> None:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fns[kind, int8](*args, stream)
+        err = fns[kind, page](*args, stream)
     if err != 0:
         raise RuntimeError("paged attention kernel launch failed: "
                            + fns["error"](err).decode())
 
 
-def _count(wrapper, int8: bool) -> None:
+def _count(wrapper, page: str) -> None:
     with _count_lock:
-        if int8:
-            wrapper.int8_launches += 1
-        else:
-            wrapper.launches += 1
+        name = _COUNTER[page]
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _scale(hd: int) -> float:
@@ -415,8 +429,8 @@ def paged_flash_attention(q: torch.Tensor, k_pages, v_pages,
     """Paged decode attention: ``q`` [b, 1, nh, hd], each row's query at
     position ``kv_lens[b] - 1`` (``kv_lens`` [b]: valid length including
     this token) over its table row of ``tables`` [b, W]; ``slopes`` [nh]
-    adds ALiBi.  The pages are full width (q's dtype) or int8
-    ``QuantizedKVPages``.  Returns [b, 1, nh, hd] in q's dtype.
+    adds ALiBi.  The pages are full width (q's dtype), float8 e4m3 or
+    int8 ``QuantizedKVPages``.  Returns [b, 1, nh, hd] in q's dtype.
 
     CUDA tensors launch the kernel or raise; CPU tensors take the plain
     version."""
@@ -429,7 +443,7 @@ def paged_flash_attention(q: torch.Tensor, k_pages, v_pages,
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention: unsupported device "
                          f"{q.device}")
-    int8, tables, kv_lens = _check_cuda_args(
+    page, tables, kv_lens = _check_cuda_args(
         "paged_flash_attention", q, k_pages, v_pages, tables, kv_lens,
         slopes)
     b, _, nh, hd = q.shape
@@ -452,18 +466,19 @@ def paged_flash_attention(q: torch.Tensor, k_pages, v_pages,
                               dtype=torch.float32, device=q.device)
         part_acc = scratch.data_ptr()
         part_ml = part_acc + 4 * n_acc
-    _launch("decode", int8, q, (
-        q.data_ptr(), *_page_ptrs(k_pages, v_pages, int8),
+    _launch("decode", page, q, (
+        q.data_ptr(), *_page_ptrs(k_pages, v_pages, page),
         tables.data_ptr(), kv_lens.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, out.data_ptr(),
         part_acc, part_ml, b, nh, nkv, hd, bt, num_pages, W, splits,
         _scale(hd), _DTYPE_CODE[q.dtype]), _kernel_fns())
-    _count(paged_flash_attention, int8)
+    _count(paged_flash_attention, page)
     return out
 
 
 paged_flash_attention.launches = 0
 paged_flash_attention.int8_launches = 0
+paged_flash_attention.fp8_launches = 0
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
@@ -474,7 +489,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
     nh, hd] at positions ``q_positions[b, 0] + arange(chunk)`` (the
     callers' contract; only the first column is read) attends causally
     over its table row's pages, which already hold the chunk's own K/V.
-    The pages are full width (q's dtype) or int8 ``QuantizedKVPages``.
+    The pages are full width (q's dtype), float8 e4m3 or int8
+    ``QuantizedKVPages``.
     Returns [b, chunk, nh, hd] in q's dtype.
 
     CUDA tensors launch the kernel or raise; CPU tensors take the plain
@@ -486,25 +502,26 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device "
                          f"{q.device}")
-    int8, tables, starts = _check_cuda_args(
+    page, tables, starts = _check_cuda_args(
         "paged_prefill_attention", q, k_pages, v_pages, tables,
         q_positions[:, 0], slopes)
     num_pages, nkv, bt, _ = k_pages.shape
     if slopes is not None:
         slopes = slopes.float().contiguous()
     out = torch.empty_like(q)
-    _launch("prefill", int8, q, (
-        q.data_ptr(), *_page_ptrs(k_pages, v_pages, int8),
+    _launch("prefill", page, q, (
+        q.data_ptr(), *_page_ptrs(k_pages, v_pages, page),
         tables.data_ptr(), starts.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, out.data_ptr(),
         b, chunk, nh, nkv, hd, bt, num_pages, tables.shape[1], _scale(hd),
         _DTYPE_CODE[q.dtype]), _kernel_fns())
-    _count(paged_prefill_attention, int8)
+    _count(paged_prefill_attention, page)
     return out
 
 
 paged_prefill_attention.launches = 0
 paged_prefill_attention.int8_launches = 0
+paged_prefill_attention.fp8_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -554,10 +571,10 @@ def paged_route(use_kernels: bool, chunk: int, groups: int,
     chunk, "prefill" (the prefill kernel) for a longer contiguous chunk
     of at most ``max_rows`` 8-padded query rows (None: any), "gather"
     otherwise.  The kernels need pages of a multiple of 8 tokens, full
-    width or int8 (``kv_bits`` 8); int4 pools (``kv_bits`` 4) always
-    gather.  The reference's extra rule for int8, pages of a multiple of
-    32 tokens off its forced backend, is the TPU's int8 tile and is not
-    kept (ROADMAP C)."""
+    width, float8 or int8 (``kv_bits`` 8); int4 pools (``kv_bits`` 4)
+    always gather.  The reference's extra rule for int8, pages of a
+    multiple of 32 tokens off its forced backend, is the TPU's int8 tile
+    and is not kept (ROADMAP C)."""
     if use_kernels and block_tokens % 8 == 0 and kv_bits != 4:
         if chunk == 1:
             return "decode"

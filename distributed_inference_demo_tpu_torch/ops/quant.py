@@ -15,7 +15,8 @@ device memory; on the CPU it is that kernel's plain version.
 
 The KV half: ``QuantizedKVPages`` (int8, or int4 packed two codes a byte,
 with a per-(token, kv head) f32 scale sidecar), its quantizer and the
-page-width arithmetic.
+page-width arithmetic; and the ``kv_cache_dtype`` storage cast to
+float8 e4m3 (:func:`cast_kv`), which rounds as the reference's does.
 """
 
 import os
@@ -32,6 +33,55 @@ KV_DTYPES = ("bf16", "int8", "int4")
 # layer's [E, K, N] stack against the shared tokens, then against each
 # expert's own plane of the activations
 EXPERT_EQS = ("bsh,ehi->besi", "besi,eih->besh")
+
+
+# the one reduced-precision storage the kv_cache_dtype knob takes: float8
+# e4m3 (no inf; 0x7f / 0xff are NaN), half a bf16 cache's bytes
+FLOAT8 = torch.float8_e4m3fn
+KV_CACHE_DTYPES = ("float8_e4m3fn",)
+_F8_MAX = 448.0          # the largest finite e4m3 value (code 0x7e)
+_F8_OVERFLOW = 464.0     # halfway to the next step: past it, NaN
+
+
+def resolve_kv_cache_dtype(kv_cache_dtype) -> Optional[torch.dtype]:
+    """The ``kv_cache_dtype`` storage cast as a torch dtype, or None (the
+    model's own dtype).  Takes "float8_e4m3fn" or ``torch.float8_e4m3fn``;
+    anything else raises."""
+    if not kv_cache_dtype:
+        return None
+    name = (str(kv_cache_dtype).replace("torch.", "")
+            if isinstance(kv_cache_dtype, torch.dtype) else kv_cache_dtype)
+    if name not in KV_CACHE_DTYPES:
+        raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r}; "
+                         f"expected one of {KV_CACHE_DTYPES}")
+    return FLOAT8
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A float8 tensor's uint8 view (the same bytes, so every indexing op
+    torch has for uint8 works: some have no float8 kernel, on the CPU
+    ``index_copy_`` and ``gather``); any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == FLOAT8 else t
+
+
+def cast_kv(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` as ``dtype``, for a KV write.  To float8 e4m3 it rounds as
+    the reference's ``astype(float8_e4m3fn)`` (ml_dtypes, XLA) does:
+    to nearest even, subnormals included, and a value past 464 in
+    magnitude, an infinity or a NaN becomes NaN with its sign (0x7f /
+    0xff).  torch's own cast saturates to +-448 instead (on the CPU), so
+    the codes past 448 are set here and torch's are kept only below,
+    where the two agree.  Elementwise on the device: no host sync."""
+    if dtype != FLOAT8 or x.dtype == FLOAT8:
+        return x.to(dtype)
+    xf = x.float()
+    mag = xf.abs()
+    codes = xf.to(FLOAT8).view(torch.uint8)
+    sign = torch.signbit(xf).to(torch.uint8) << 7
+    codes = torch.where(mag > _F8_MAX, sign | 0x7E, codes)
+    codes = torch.where((mag > _F8_OVERFLOW) | torch.isnan(xf), sign | 0x7F,
+                        codes)
+    return codes.view(FLOAT8)
 
 
 def resolve_kv_dtype(kv_dtype: Optional[str] = None) -> str:
@@ -326,17 +376,30 @@ class QuantizedKVPages:
         return (v * self.scale + self.zero).to(dtype)
 
 
-def quantize_kv_pages(x: torch.Tensor, bits: int) -> QuantizedKVPages:
+def _levels(span: torch.Tensor, levels: float,
+            compiled: bool) -> torch.Tensor:
+    """``span / levels``, or ``span * (1 / levels)`` with the reciprocal
+    rounded to f32 first, as XLA rewrites the division by a constant in
+    the reference's compiled programs."""
+    if compiled:
+        return span * float(np.float32(1.0) / np.float32(levels))
+    return span / levels
+
+
+def quantize_kv_pages(x: torch.Tensor, bits: int,
+                      compiled: bool = False) -> QuantizedKVPages:
     """Per-(..., token) quantization over the LAST axis (head_dim), in
     the reference's f32 operation order, so the same f32 input gives the
     same codes, scales and zeros.  int8 is symmetric, absmax / 127; int4
     is asymmetric over [min, max] in 15 levels, two codes a byte, the
     even lane in the low nibble.  ``torch.round`` rounds half to even,
-    as ``jnp.round`` does."""
+    as ``jnp.round`` does.  ``compiled``: the scales of the reference's
+    jitted programs (its kvcache seam), where XLA multiplies by the
+    reciprocal of 127 or 15 instead of dividing (one ulp apart at most)."""
     xf = x.float()
     if bits == 8:
         absmax = xf.abs().amax(dim=-1, keepdim=True)
-        scale = absmax.clamp_min(1e-8) / 127.0
+        scale = _levels(absmax.clamp_min(1e-8), 127.0, compiled)
         q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
         return QuantizedKVPages(data=q, scale=scale, zero=None, bits=8)
     if bits != 4:
@@ -346,19 +409,20 @@ def quantize_kv_pages(x: torch.Tensor, bits: int) -> QuantizedKVPages:
         raise ValueError(f"int4 packing needs an even head_dim, got {d}")
     mn = xf.amin(dim=-1, keepdim=True)
     mx = xf.amax(dim=-1, keepdim=True)
-    scale = (mx - mn).clamp_min(1e-8) / 15.0
+    scale = _levels((mx - mn).clamp_min(1e-8), 15.0, compiled)
     q = torch.round((xf - mn) / scale).clamp(0, 15).to(torch.uint8)
     pairs = q.reshape(*q.shape[:-1], d // 2, 2)
     packed = pairs[..., 0] | (pairs[..., 1] << 4)
     return QuantizedKVPages(data=packed, scale=scale, zero=mn, bits=4)
 
 
-def quantize_kv_like(ref, x: torch.Tensor):
-    """Payload matching the pool tensor ``ref``: a dtype cast for a plain
-    pool, quantized leaves for a quantized one."""
+def quantize_kv_like(ref, x: torch.Tensor, compiled: bool = False):
+    """Payload matching the pool tensor ``ref``: a dtype cast
+    (:func:`cast_kv`) for a plain pool, quantized leaves (see
+    :func:`quantize_kv_pages` for ``compiled``) for a quantized one."""
     if isinstance(ref, QuantizedKVPages):
-        return quantize_kv_pages(x, ref.bits)
-    return x.to(ref.dtype)
+        return quantize_kv_pages(x, ref.bits, compiled)
+    return cast_kv(x, ref.dtype)
 
 
 def dequantize_kv(x, dtype=torch.float32) -> torch.Tensor:
@@ -370,7 +434,8 @@ def dequantize_kv(x, dtype=torch.float32) -> torch.Tensor:
 
 def alloc_kv_pages(shape, kv_dtype: Optional[str], base_dtype, device=None):
     """One zeroed pool for a ``(..., pages, nkv, bt, head_dim)`` shape: a
-    plain ``base_dtype`` tensor for "bf16", :class:`QuantizedKVPages` for
+    plain ``base_dtype`` tensor for "bf16" (the model's dtype, or float8
+    under a ``kv_cache_dtype`` cast), :class:`QuantizedKVPages` for
     int8/int4.  ``shape`` counts every page the pool holds, the port's
     drop page included (``ops/paged_attention.write_paged_kv``); zeros
     keep every page, the drop page too, finite for the reads that clamp

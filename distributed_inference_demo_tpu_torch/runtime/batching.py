@@ -15,7 +15,9 @@ between two decode steps.
   ``N`` is the drop page: writes through sentinel entries land there
   (``ops/paged_attention``).
   ``kv_dtype`` int8/int4 makes the pool ``ops.quant.QuantizedKVPages``,
-  quantized once per token as it is written.
+  quantized once per token as it is written; ``kv_cache_dtype``
+  "float8_e4m3fn" makes it float8 pages, cast as the reference rounds
+  (``ops.quant.cast_kv``); the paged kernels have an instance for each.
 - **Every step runs all slots.**  An ``active`` mask keeps freed and
   empty slots harmless: their tables are all-sentinel, so their writes
   drop, and their outputs are discarded.
@@ -47,8 +49,8 @@ seeds are not honored, and greedy decoding is bit-exact against
 ``InferenceEngine``.
 
 Not ported yet, each refused where it is asked for: the draft-model and
-prompt-lookup proposers, tiered KV, migration and resume,
-reduced-precision caches and tp meshes.
+prompt-lookup proposers, tiered KV, migration and resume, and tp
+meshes.
 """
 
 from __future__ import annotations
@@ -69,20 +71,19 @@ from ..device import resolve_device
 from ..models.base import (KVCache, ModelConfig, StageParams, StageSpec,
                            pad_cache_capacity)
 from ..ops.paged_attention import BACKENDS as PAGED_BACKENDS
-from ..ops.quant import alloc_kv_pages, resolve_kv_dtype
+from ..ops.quant import (alloc_kv_pages, resolve_kv_cache_dtype,
+                         resolve_kv_dtype)
 from ..ops.sampling import SamplingParams, sample_logits
 from ..telemetry._env import env_int
 from ..telemetry.flightrecorder import get_flight_recorder
 from .engine import (GenerationResult, check_capacity,
                      make_paged_chunk_programs, validate_prefill_chunk)
 from .cuda_graph import StepGraphs
+from .kvcache import refuse_tiers
 from .overload import SchedulerOverloaded
 
 SPEC_LATER = ("the draft-model and prompt-lookup proposers are ported in a "
               "later slice (ROADMAP A11)")
-TIER_LATER = "tiered KV is ported in a later slice (ROADMAP A12)"
-KV_CAST_LATER = ("reduced-precision KV caches (kv_cache_dtype) are ported "
-                 "in a later slice (ROADMAP A5)")
 TP_LATER = "tensor-parallel meshes are ported in a later slice (ROADMAP A13)"
 
 
@@ -187,11 +188,12 @@ class ContinuousBatchingEngine:
         ``mixed_token_budget`` > 0 (needs ``prefill_chunk``, at least one
         chunk): the mixed prefill+decode dispatch, see
         :meth:`_dispatch_mixed`.  ``kv_dtype`` "int8"/"int4": a quantized
-        page pool; it does not compose with ``kv_cache_dtype``.
+        page pool; it does not compose with ``kv_cache_dtype``
+        ("float8_e4m3fn": float8 pages, the reference's page dtype rule
+        ``kv_cache_dtype or cfg.dtype``).
 
         Refused until their slice: the proposers (``draft_cfg``,
-        ``prompt_lookup``), the tier knobs, ``kv_cache_dtype`` and a tp
-        ``mesh``.
+        ``prompt_lookup``), the tier knobs and a tp ``mesh``.
         ``num_draft``, ``spec_adaptive`` and ``kv_disk_tier_bytes`` only
         shape a proposer or a tier, so without one they do nothing, as in
         the reference."""
@@ -203,21 +205,17 @@ class ContinuousBatchingEngine:
         self.mixed_token_budget = max(0, int(mixed_token_budget))
         if draft_cfg is not None or draft_params is not None or prompt_lookup:
             raise NotImplementedError(SPEC_LATER)
-        if kv_host_tier_bytes is None:
-            kv_host_tier_bytes = env_int("DWT_KV_HOST_TIER_BYTES", 0)
-        if int(kv_host_tier_bytes) > 0 or kv_disk_tier_path:
-            raise NotImplementedError(TIER_LATER)
+        refuse_tiers(kv_host_tier_bytes, kv_disk_tier_path)
         # kv_dtype quantizes the page pool; the kv_cache_dtype storage
         # cast is another grid for the same full-width layout: one knob
         # or the other, as in the reference
+        self.kv_cache_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
-        if self.kv_dtype != "bf16" and kv_cache_dtype:
+        if self.kv_dtype != "bf16" and self.kv_cache_dtype is not None:
             raise ValueError(
                 f"kv_dtype={self.kv_dtype!r} quantizes the page pool and "
                 "cannot compose with a kv_cache_dtype storage cast; drop "
                 "one of the two knobs")
-        if kv_cache_dtype:
-            raise NotImplementedError(KV_CAST_LATER)
         if mesh is not None and dict(mesh.shape).get("tp", 1) > 1:
             raise NotImplementedError(TP_LATER)
         if attn_backend not in PAGED_BACKENDS:
@@ -271,14 +269,16 @@ class ContinuousBatchingEngine:
         n_blocks = (n_blocks_arg if n_blocks_arg >= 1
                     else B * self._table_width)
         self.kv_cache = PagedKVCacheManager.for_model(
-            cfg, n_blocks, bt, kv_dtype=self.kv_dtype)
+            cfg, n_blocks, bt, dtype=self.kv_cache_dtype,
+            kv_dtype=self.kv_dtype)
         N = self.kv_cache.num_blocks
         self._page_sentinel = N
         # N pages a table may name + the drop page N
         shape = (cfg.num_layers, N + 1, cfg.num_kv_heads, bt, cfg.head_dim)
-        self._pk = alloc_kv_pages(shape, self.kv_dtype, cfg.dtype,
+        page_dtype = self.kv_cache_dtype or cfg.dtype
+        self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
                                   self.device)
-        self._pv = alloc_kv_pages(shape, self.kv_dtype, cfg.dtype,
+        self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
                                   self.device)
         self._tables = np.full((B, self._table_width), N, np.int32)
 

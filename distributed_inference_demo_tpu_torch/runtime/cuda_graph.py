@@ -53,9 +53,10 @@ from ..ops import quant_dense as _qd
 
 # every kernel wrapper's counts, with the lock its wrapper counts under
 _COUNTERS = (
-    (_pa.paged_flash_attention, ("launches", "int8_launches"), _pa._count_lock),
-    (_pa.paged_prefill_attention, ("launches", "int8_launches"),
-     _pa._count_lock),
+    (_pa.paged_flash_attention, ("launches", "int8_launches",
+                                 "fp8_launches"), _pa._count_lock),
+    (_pa.paged_prefill_attention, ("launches", "int8_launches",
+                                   "fp8_launches"), _pa._count_lock),
     (_fa.flash_attention, ("launches", "wide_launches"), _fa._count_lock),
     (_qd.quant_dense, ("launches", "decode_launches"), _qd._count_lock),
 )

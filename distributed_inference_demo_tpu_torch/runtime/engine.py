@@ -9,7 +9,11 @@ Counterpart of ``distributed_inference_demo_tpu/runtime/engine.py``'s
   stop-id matching, early exit once every row is done, ``steps_computed``,
   raw log-softmax logprobs, one generator draw per sampled step;
 - ``generate`` / ``generate_stream`` (``stream_block`` 1 or K) /
-  ``classify``, and the ``loop_stats`` dispatch accounting.
+  ``classify``, and the ``loop_stats`` dispatch accounting;
+- the block KV prefix cache (``kv_cache_blocks``, ``kv_block_tokens``,
+  ``kv_dtype``; ``runtime/kvcache/backend.py``) around the batch-1
+  prefill of ``generate`` and ``generate_stream``, and the float8
+  ``kv_cache_dtype`` storage cast.
 
 The reference's decode loop is one jitted program.  Here the host runs
 the loop, and each decode step is the counterpart of the compiled
@@ -36,13 +40,12 @@ from ..models.base import KVCache, ModelConfig, StageParams, StageSpec
 from ..models.decoder import stage_forward
 from ..ops.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from ..ops.flash_attention import make_flash_attn_impl
+from ..ops.quant import resolve_kv_cache_dtype
 from ..ops.sampling import (SamplingParams, match_stop_ids, pad_stop_ids,
                             sample_logits)
 from .cuda_graph import StepGraph, StepGraphs
+from .kvcache import make_kv_backend, resolve_kv_layout
 
-KVCACHE_LATER = ("this engine's block KV prefix cache, reduced-precision "
-                 "caches and quantized pages are ported in a later slice "
-                 "(ROADMAP A6)")
 ATTN_BACKENDS = ("auto", "flash", "plain")
 
 
@@ -108,6 +111,23 @@ def resolve_attn_backend(attn_backend: str, device_type: str,
                 f"not {head_dim}; ask for plain attention on the card with "
                 "attn_backend='plain' (--attn-backend plain)")
     return attn_backend
+
+
+def resolve_cache_dtype_backend(kv_cache_dtype, attn_backend: str):
+    """The reduced-precision-cache rule, as the reference's: a float8
+    cache takes plain attention (the flash kernel reads no float8
+    cache), so "auto" resolves to "plain" and an explicit "flash"
+    raises.  Returns ``(torch.dtype | None, attn_backend)``; decided at
+    construction and shown in the engine's ``attn_backend``."""
+    dt = resolve_kv_cache_dtype(kv_cache_dtype)
+    if dt is not None:
+        if attn_backend not in ("auto", "plain"):
+            raise ValueError(
+                f"attn_backend={attn_backend!r} is incompatible with "
+                "kv_cache_dtype (the flash kernel reads no reduced-"
+                "precision cache); use 'auto' or 'plain'")
+        attn_backend = "plain"
+    return dt, attn_backend
 
 
 def validate_prefill_chunk(prefill_chunk, max_seq: int):
@@ -207,11 +227,12 @@ class DecodeState:
     call's eos id (-1 = none).  ``step`` runs one decode step on it (a
     replayed graph on the card)."""
 
-    def __init__(self, cfg: ModelConfig, batch: int, max_seq: int, device):
+    def __init__(self, cfg: ModelConfig, batch: int, max_seq: int, device,
+                 cache_dtype=None):
         def zeros(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=device)
         self.cache = KVCache.create(cfg, cfg.num_layers, batch, max_seq,
-                                    device=device)
+                                    dtype=cache_dtype, device=device)
         self.cache.length = zeros()
         self.logits = zeros(batch, cfg.vocab_size, dtype=cfg.dtype)
         self.tok = zeros(batch)
@@ -260,17 +281,24 @@ class InferenceEngine:
         eagerly (the comparison for the graph).  A capture that fails
         raises.  On the CPU the step always runs eagerly.
 
-        ``kv_cache_blocks`` > 0, ``kv_block_tokens``, ``kv_cache_dtype``
-        and ``kv_dtype`` are refused until the slice that ports the
-        KV-cache pool; ``kv_layout`` takes the reference's only value,
-        "paged", which with zero blocks changes nothing.  Other arguments
-        as in the reference."""
-        if (kv_cache_blocks or kv_block_tokens is not None or kv_cache_dtype
-                or kv_dtype):
-            raise NotImplementedError(KVCACHE_LATER)
-        if (kv_layout or "paged") != "paged":
-            raise ValueError(f"unknown kv layout {kv_layout!r}; expected "
-                             "'paged'")
+        ``kv_cache_blocks`` / ``kv_block_tokens`` (None: the
+        ``DWT_KVCACHE_*`` knobs; default off): the block KV prefix cache,
+        a device page pool behind ``runtime/kvcache/backend.py``.  A
+        batch-1 ``generate`` / ``generate_stream`` prompt that shares
+        whole leading blocks with an earlier one seeds its cache from
+        them, in place, and prefills only the suffix; every such prefill
+        stores its full blocks.  ``kv_dtype`` ("bf16", "int8", "int4";
+        None: ``DWT_KV_DTYPE``) is the pool's page width: the working
+        cache stays full width, stores quantize and seeds dequantize.
+        ``kv_cache_dtype`` "float8_e4m3fn" stores the working cache (and
+        the pool's pages) as float8, cast as the reference rounds, read
+        in f32; it takes plain attention
+        (:func:`resolve_cache_dtype_backend`) and does not compose with
+        ``kv_dtype`` int8/int4.  The tier knobs
+        (``DWT_KV_HOST_TIER_BYTES``) raise.  ``kv_layout`` takes the
+        reference's only value, "paged".  Other arguments as in the
+        reference."""
+        self.kv_layout = resolve_kv_layout(kv_layout)
         self.device = resolve_device(device)
         p_dev = params.embed["tokens"].device
         if p_dev.type != self.device.type:
@@ -296,10 +324,16 @@ class InferenceEngine:
         self._states = {}
         self._lock = threading.Lock()
 
+        self.kv_cache_dtype, attn_backend = resolve_cache_dtype_backend(
+            kv_cache_dtype, attn_backend)
         self.attn_backend = resolve_attn_backend(
             attn_backend, self.device.type, cfg.head_dim)
         self._attn_impl = (make_flash_attn_impl()
                            if self.attn_backend == "flash" else None)
+        self.kv_cache = make_kv_backend(
+            cfg, kv_cache_blocks, kv_block_tokens, layout=self.kv_layout,
+            dtype=self.kv_cache_dtype, kv_dtype=kv_dtype, default_blocks=0,
+            device=self.device)
 
     # -- forward programs ----------------------------------------------
 
@@ -331,13 +365,54 @@ class InferenceEngine:
                                   False)
         return logits[:, gather_idx], cache
 
-    def _run_prefill(self, ids, cache):
-        """Whole-prompt or chunked prefill -> (last_logits [b, V], cache)."""
+    def _run_prefill(self, ids, cache, start: int = 0):
+        """Whole-prompt or chunked prefill -> (last_logits [b, V], cache).
+        ``start`` > 0 is the seeded suffix: ``ids`` is still the whole
+        prompt, the cache's columns ``[0, start)`` already hold its
+        prefix's K/V, and only ``ids[:, start:]`` runs, chunked, or in
+        one final-chunk forward (the reference's ``run_seeded_prefill``)."""
+        if start:
+            suffix = ids[:, start:]
+            if self.prefill_chunk is not None:
+                return run_chunked_prefill(suffix, cache, self.prefill_chunk,
+                                           self.max_seq, self._chunk_mid,
+                                           self._chunk_last, start=start)
+            last, cache = self._chunk_last(
+                suffix, KVCache(cache.keys, cache.values, start), start,
+                suffix.shape[1] - 1)
+            return last, KVCache(cache.keys, cache.values, ids.shape[1])
         if self.prefill_chunk is None:
             return self._prefill(ids, cache)
         return run_chunked_prefill(ids, cache, self.prefill_chunk,
                                    self.max_seq, self._chunk_mid,
                                    self._chunk_last)
+
+    # -- block KV cache (runtime/kvcache) seams ------------------------
+
+    def _kv_seed(self, ids, cache: KVCache):
+        """(start, cache): seed the cache from the longest cached block
+        prefix of a batch-1 prompt, in place, or (0, cache) on a miss
+        (or with the pool off)."""
+        if self.kv_cache is None:
+            return 0, cache
+        return self.kv_cache.seed(ids, cache)
+
+    def _kv_store(self, ids, cache: KVCache) -> None:
+        """Store the prefilled batch-1 prompt's full blocks; it reads the
+        cache after the prefill, before the first decode step (the same
+        stream orders the two)."""
+        if self.kv_cache is not None:
+            self.kv_cache.store(ids, cache)
+
+    def _seeded_prefill(self, prompt: np.ndarray, ids, st: "DecodeState"):
+        """Seed, prefill the rest and store, into ``st``'s cache:
+        ``prompt`` is the host copy of ``ids``, which the radix tree
+        reads without a device sync.  Returns (start, last logits)."""
+        start, cache = self._kv_seed(
+            prompt, KVCache(st.cache.keys, st.cache.values, 0))
+        logits, cache = self._run_prefill(ids, cache, start)
+        self._kv_store(prompt, cache)
+        return start, logits
 
     # -- decode --------------------------------------------------------
 
@@ -373,7 +448,8 @@ class InferenceEngine:
         0, before any prefill fills it."""
         st = self._states.get(batch)
         if st is None:
-            st = DecodeState(self.cfg, batch, self.max_seq, self.device)
+            st = DecodeState(self.cfg, batch, self.max_seq, self.device,
+                             self.kv_cache_dtype)
             st.step = self._graphs.capture(lambda: self._decode_step(st))
             self._states[batch] = st
         return st
@@ -383,14 +459,13 @@ class InferenceEngine:
         """Decode steps replayed from a captured graph, over all states."""
         return self._graphs.replays
 
-    def _start(self, ids, seed: int):
+    def _start(self, prompt: np.ndarray, ids, seed: int):
         """The call's state, its generator seeded, the prompt prefilled
-        into the state.  Returns (state, eos)."""
+        into the state through the prefix cache.  Returns (state, eos)."""
         st = self._state(ids.shape[0])
         self._gen.manual_seed(int(seed))
         eos = self._eos()
-        logits, _ = self._run_prefill(
-            ids, KVCache(st.cache.keys, st.cache.values, 0))
+        _, logits = self._seeded_prefill(prompt, ids, st)
         st.begin(logits, ids.shape[1], eos)
         return st, eos
 
@@ -429,7 +504,8 @@ class InferenceEngine:
 
     def new_cache(self, batch: int) -> KVCache:
         return KVCache.create(self.cfg, self.cfg.num_layers, batch,
-                              self.max_seq, device=self.device)
+                              self.max_seq, dtype=self.kv_cache_dtype,
+                              device=self.device)
 
     # -- public surface ------------------------------------------------
 
@@ -454,7 +530,7 @@ class InferenceEngine:
         with self._lock:
             self._state(b)      # a new batch size captures here, untimed
             t0 = time.perf_counter()
-            st, eos = self._start(ids, seed)
+            st, eos = self._start(np.asarray(prompt_ids), ids, seed)
             toks, lps, steps = self._decode_loop(
                 st, eos, max_new_tokens, max_new_tokens, logprobs)
             toks = toks.cpu().numpy().astype(np.int32)
@@ -488,7 +564,7 @@ class InferenceEngine:
         ids = self._ids(prompt_ids)
         check_capacity(self.max_seq, ids.shape[1], max_new_tokens)
         with self._lock:
-            st, eos = self._start(ids, seed)
+            st, eos = self._start(np.asarray(prompt_ids), ids, seed)
             K = self.stream_block
             if K > 1:
                 remaining = max_new_tokens

@@ -1,15 +1,16 @@
 """Block-level KV cache with radix-tree prefix sharing, paged layout.
 
-Counterpart of ``distributed_inference_demo_tpu/runtime/kvcache``, as
-far as the continuous-batching engine needs it: the page-id manager
-(:class:`PagedKVCacheManager`, radix tree, LRU eviction, adoption
-stores), the host block pool and radix tree it is built from, and the
-config resolution.  These modules do no device work and are copies of
-the JAX package's.
+Counterpart of ``distributed_inference_demo_tpu/runtime/kvcache``: the
+page-id manager (:class:`PagedKVCacheManager`, radix tree, LRU eviction,
+adoption stores), the host block pool and radix tree it is built from,
+and the config resolution, which do no device work and are copies of
+the JAX package's; the device side of the seam (``device.py``: seeds,
+stores, block export and adoption as torch index ops) and the
+single-request engines' prefix pool behind it (``backend.py``:
+:class:`PagedKVBackend`, :func:`make_kv_backend`).
 
-Not ported yet: the single-request engines' device prefix pool
-(``device.py``, ``backend.py``; ROADMAP A5) and the tiered host/disk
-store (``tiered.py``).
+Not ported yet: the tiered host/disk store (``tiered.py``, ROADMAP A9);
+its knobs raise :data:`TIER_LATER`.
 
 Layout selection: the ``kv_layout`` engine kwarg / ``--kv-layout`` flag
 over the ``DWT_KV_LAYOUT`` env knob over the default ``paged`` — all
@@ -19,6 +20,8 @@ three funnel through :func:`resolve_kv_layout`.
 import os
 
 from ...ops.quant import KV_DTYPES, resolve_kv_dtype
+from .backend import (TIER_LATER, PagedKVBackend, make_kv_backend,
+                      refuse_tiers)
 from .manager import (DEFAULT_BLOCK_TOKENS, apply_byte_budget,
                       resolve_kvcache_config)
 from .paged import PagedBlockLease, PagedKVCacheManager
@@ -45,7 +48,8 @@ def resolve_kv_layout(kv_layout=None) -> str:
     return layout
 
 
-__all__ = ["KVBlockPool", "PagedBlockLease", "PagedKVCacheManager",
-           "RadixTree", "apply_byte_budget", "resolve_kvcache_config",
-           "resolve_kv_layout", "resolve_kv_dtype", "DEFAULT_BLOCK_TOKENS",
-           "KV_LAYOUTS", "KV_DTYPES"]
+__all__ = ["KVBlockPool", "PagedBlockLease", "PagedKVBackend",
+           "PagedKVCacheManager", "RadixTree", "TIER_LATER",
+           "apply_byte_budget", "make_kv_backend", "refuse_tiers",
+           "resolve_kvcache_config", "resolve_kv_layout", "resolve_kv_dtype",
+           "DEFAULT_BLOCK_TOKENS", "KV_LAYOUTS", "KV_DTYPES"]

@@ -14,6 +14,7 @@ the CPU, where its paged kernels run their plain versions.
 """
 
 import time
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -314,7 +315,7 @@ def test_sampled_rows_and_streams(weights, oracle):
     (dict(prompt_lookup=True), "A11"),
     (dict(kv_dtype="int8", kv_cache_dtype="float8_e4m3fn"),
      "cannot compose"),
-    (dict(kv_cache_dtype="float8_e4m3fn"), "A5"),
+    (dict(mesh=SimpleNamespace(shape={"tp": 2})), "A13"),
     (dict(kv_host_tier_bytes=1 << 20), "A12"),
     (dict(kv_layout="dense"), "removed"),
     (dict(attn_backend="cuda"), "CUDA kernels"),

@@ -237,7 +237,11 @@ def test_cli_batching_flags(capsys, monkeypatch):
     # what this slice leaves out exits 1
     for extra in (["--batch-slots", "2", "--tp", "2"],
                   ["--batch-slots", "2", "--draft-model", "llama-test"],
-                  ["--kv-cache-blocks", "4"]):
+                  ["--prompt-lookup"]):
         assert cli.main(["serve", "--model", "llama-test", "--device",
                          "cpu", *extra]) == 1
         assert "not yet ported" in capsys.readouterr().err
+    # the plain engine's prefix pool is ported: --kv-cache-blocks serves
+    assert cli.main(["serve", "--model", "llama-test", "--device", "cpu",
+                     "--kv-cache-blocks", "4", "--http-port", "0"]) == 0
+    assert "kv_cache=4x16tok paged" in capsys.readouterr().out

@@ -176,22 +176,27 @@ def test_sampled_generation_is_seeded_and_scores_raw_logprobs():
     np.testing.assert_array_equal(np.stack(streamed, 1), a.tokens)
 
 
-def test_engine_refuses_what_this_slice_does_not_port():
+def test_engine_refuses_what_this_slice_does_not_port(monkeypatch):
     cfg = get_model_config("llama-test")
     params = init_full_params(torch.Generator().manual_seed(0), cfg, "cpu")
     with pytest.raises(ValueError, match="CUDA kernel"):
         InferenceEngine(cfg, params, attn_backend="flash", device="cpu")
     with pytest.raises(ValueError, match="attn_backend"):
         InferenceEngine(cfg, params, attn_backend="jnp", device="cpu")
+    # the KV options are ported: each builds its pool or cast
+    assert InferenceEngine(cfg, params, kv_cache_blocks=4,
+                           device="cpu").kv_cache.num_blocks == 4
+    assert InferenceEngine(cfg, params, kv_block_tokens=16,
+                           device="cpu").kv_cache is None
+    assert InferenceEngine(cfg, params, kv_cache_dtype="float8_e4m3fn",
+                           device="cpu").attn_backend == "plain"
+    assert InferenceEngine(cfg, params, kv_cache_blocks=4, kv_dtype="int8",
+                           device="cpu").kv_cache.kv_dtype == "int8"
+    # the tier below the pool is not (ROADMAP A12 in the tag's numbering)
+    monkeypatch.setenv("DWT_KV_HOST_TIER_BYTES", str(1 << 20))
     with pytest.raises(NotImplementedError, match="later slice"):
         InferenceEngine(cfg, params, kv_cache_blocks=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        InferenceEngine(cfg, params, kv_block_tokens=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        InferenceEngine(cfg, params, kv_cache_dtype="float8_e4m3fn",
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        InferenceEngine(cfg, params, kv_dtype="int8", device="cpu")
+    monkeypatch.delenv("DWT_KV_HOST_TIER_BYTES")
     eng = InferenceEngine(cfg, params, max_seq=16, kv_layout="paged",
                           device="cpu")
     with pytest.raises(ValueError, match="exceeds KV-cache capacity"):

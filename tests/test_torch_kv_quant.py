@@ -9,6 +9,8 @@ reference's gather and its Pallas kernels in interpret mode to rtol/atol
 always gathers) and the ``kv_dtype`` + ``kv_cache_dtype`` refusal match.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -373,7 +375,7 @@ def weights():
 
 def test_kv_dtype_refuses_a_storage_cast(weights):
     """``kv_dtype`` int8/int4 with ``kv_cache_dtype`` is the reference's
-    ValueError, raised before the cast's own not-yet-ported refusal."""
+    ValueError, raised before the tp mesh's not-yet-ported refusal."""
     rcfg, rp, cfg, params = weights
     kw = dict(max_seq=64, kv_block_tokens=8, kv_dtype="int8",
               kv_cache_dtype="float8_e4m3fn")
@@ -382,6 +384,10 @@ def test_kv_dtype_refuses_a_storage_cast(weights):
     with pytest.raises(ValueError, match="cannot compose") as got:
         ContinuousBatchingEngine(cfg, params, device="cpu", **kw)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="cannot compose"):
+        ContinuousBatchingEngine(cfg, params, device="cpu",
+                                 mesh=SimpleNamespace(shape={"tp": 2}),
+                                 **kw)
+    with pytest.raises(NotImplementedError, match="A13"):
         ContinuousBatchingEngine(cfg, params, device="cpu", max_seq=64,
-                                 kv_cache_dtype="float8_e4m3fn")
+                                 mesh=SimpleNamespace(shape={"tp": 2}))

@@ -305,10 +305,15 @@ def test_stats_route_and_cli_serve_mixed_int8(weights, capsys,
     assert mixed["token_budget"] == 32 and mixed["dispatches"] > 0
     assert mixed["prefill_tokens"] == 39
     assert seen["stats"]["kvcache"]["page_dtype"] == "int8"
-    # --kv-dtype without --batch-slots stays unported (ROADMAP A5)
+    # --kv-dtype without --batch-slots serves too: the plain engine's
+    # prefix pool takes int8 pages
+    seen.clear()
     assert cli.main(["serve", "--model", "llama-test", "--device", "cpu",
-                     "--kv-dtype", "int8"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+                     "--kv-cache-blocks", "16", "--kv-block-tokens", "8",
+                     "--kv-dtype", "int8", "--greedy", "--http-port",
+                     "0"]) == 0
+    assert "kv_cache=16x8tok paged kv_dtype=int8" in capsys.readouterr().out
+    assert np.asarray(seen["tokens"]).shape == (1, 5)
 
 
 @pytest.mark.slow
