@@ -6,8 +6,8 @@ their plain versions.
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --phase moe     # build + one phase (serve,
                                           # batching, mixed, graph,
-                                          # quant, kvcache, moe), no
-                                          # result lines
+                                          # quant, kvcache, surface,
+                                          # moe), no result lines
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -159,11 +159,33 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
     decode rows, the 64-token chunk at 200, the slab, the split
     boundaries and gemma-2b's heads, and the flash kernel at the warm
     prefill's shape)
-12. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+12. surface  the serving surface at TinyLlama's full width: a crafted
+            32000-piece sentencepiece model (``build_model_proto``)
+            written to a file and loaded as ``--tokenizer`` does; an
+            ``InferenceHTTPServer`` over a plain engine (the flash
+            kernel) and one over an 8-slot batching engine (the paged
+            kernels), both with it: text prompts equal their ids,
+            ``text`` their decode and stream deltas the blocking text
+            (24- and 1500-token prompts); a stop string from mid-output
+            cuts blocking and streamed answers alike, with logprobs too,
+            leaving no slot or page held; ``/metrics`` counters equal
+            what the phase sent, traced requests' spans sit within their
+            e2e, one ``/timeline`` record a request, ``/debugz`` and a
+            byte-stable ``/sketch``; the paged kernels' launches for 8
+            concurrent text requests against the routing's prediction,
+            the flash kernel's for the plain server's; the ``generate``,
+            ``classify`` and ``chat --ids`` commands as subprocesses;
+            the sampled dispatch profiler's decode step at least
+            PROFILER_SYNC_SHARE of torch.profiler's device ms a step;
+            encode ms, TTFT of text against ids, tok/s, and the decode
+            ms a step at every profiler cadence (the default's is the
+            telemetry-on step);
+13. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
-Exits non-zero, printing no result, without CUDA or outside a checkout,
-and on any failed check.
+Phases 10 to 12 run in the order 11, 12, 10: the moe phase last, after
+the earlier phases freed their memory.  Exits non-zero, printing no
+result, without CUDA or outside a checkout, and on any failed check.
 """
 
 import json
@@ -2043,12 +2065,13 @@ def _stop(reqs) -> None:
 
 
 def decode_window(torch, engine, prompts, steps: int = 32,
-                  profiled: int = 16) -> dict:
+                  profiled: int = 16, on_timed=None) -> dict:
     """SLOTS rows of a batching engine decoding (each prompt's first 16
     tokens, DECODE_WINDOW_NEW new): the host-clock ms per engine step over
     ``steps`` steps, then :func:`profile_steps` over ``profiled`` more.
     Every request is cancelled and done when it returns;
-    ``window_requests`` counts the requests it made."""
+    ``window_requests`` counts the requests it made.  ``on_timed()``, if
+    given, runs once the timed steps are done, before the profile."""
     def submit():
         return [engine.submit(p[:16], DECODE_WINDOW_NEW)
                 for p in prompts[:SLOTS]]
@@ -2065,6 +2088,8 @@ def decode_window(torch, engine, prompts, steps: int = 32,
         t0, k0 = time.perf_counter(), engine._step_count
         _wait_steps(engine, steps)
         ms = (time.perf_counter() - t0) * 1e3 / (engine._step_count - k0)
+        if on_timed is not None:
+            on_timed()
     finally:
         _stop(reqs)
     prof = profile_steps(torch, engine, profiled, counted)
@@ -3423,6 +3448,561 @@ def phase_kvcache(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the serving surface (tokenizer, text, stop strings, telemetry,
+# the generate / classify / chat commands)
+# ---------------------------------------------------------------------------
+
+# the surface phase: a crafted sentencepiece model of TinyLlama's vocab
+# size, prompts of whole-word pieces (one token a word): a short one, a
+# long one, and the batching phase's eight lengths
+SURFACE_PIECES = 32000
+SURFACE_SHORT_WORDS = 24
+SURFACE_LONG_WORDS = LONG_PROMPT_LEN
+# the sampled profiler's mean decode step against torch.profiler's device
+# ms a step over the same window: at least this share
+PROFILER_SYNC_SHARE = 0.8
+# the decode windows' cadences: every step, none, the default
+PROFILE_CADENCES = (1, 0, 64)
+
+
+def surface_model_proto(seed: int = 0):
+    """A SURFACE_PIECES-piece unigram sentencepiece model made here with
+    ``sp_tokenizer.build_model_proto``: ``<unk>``, ``<s>``, ``</s>``, the
+    256 ``<0xXX>`` byte pieces, the letters with and without the word
+    marker, and pieces drawn from ``seed``: words (with the marker) and
+    word endings (without).  Returns (the
+    model's bytes, the words)."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.sp_tokenizer import (
+        BYTE, CONTROL, NORMAL, UNKNOWN, build_model_proto)
+    rng = np.random.RandomState(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL),
+              ("</s>", 0.0, CONTROL), ("▁", -13.0, NORMAL)]
+    pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
+    for c in letters:
+        pieces += [(c, -12.0, NORMAL), ("▁" + c, -11.0, NORMAL)]
+    seen = {p for p, _, _ in pieces}
+    words = []
+    while len(pieces) < SURFACE_PIECES:
+        w = "".join(letters[i] for i in rng.randint(0, 26, rng.randint(2, 9)))
+        piece = "▁" + w if rng.rand() < 0.7 else w
+        if piece in seen:
+            continue
+        seen.add(piece)
+        # a word piece outscores a word piece plus any other piece, so
+        # each word of the list is one token
+        word = piece.startswith("▁")
+        pieces.append((piece, -float(rng.uniform(1.0, 2.0) if word
+                                     else rng.uniform(15.0, 20.0)), NORMAL))
+        if word:
+            words.append(w)
+    return build_model_proto(pieces), words
+
+
+def _post_stream(port: int, body: dict, headers=None):
+    """POST /generate, reading the answer as it arrives: (status, the
+    seconds to its first line, its text)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", body=json.dumps(body),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        first = resp.readline()
+        ttft = time.perf_counter() - t0
+        return resp.status, ttft, (first + resp.read()).decode()
+    finally:
+        conn.close()
+
+
+def _get_text(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _exposition(text: str) -> dict:
+    """Prometheus text exposition -> {series with labels: value}."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            key, val = ln.rsplit(" ", 1)
+            out[key] = float(val)
+    return out
+
+
+def _unique_stop(text: str, n: int = 4) -> int:
+    """The first position p >= len(text) // 2 where text[p:p + n] is
+    letters and spaces and occurs nowhere else in ``text``."""
+    for p in range(len(text) // 2, len(text) - n + 1):
+        s = text[p:p + n]
+        if all(c.isascii() and (c.isalpha() or c == " ") for c in s) \
+                and text.find(s) == p:
+            return p
+    raise AssertionError(f"no stop string in the output {text!r}")
+
+
+def phase_surface(torch, model: str = SERVE_MODEL) -> dict:
+    """The serving surface at TinyLlama's full width (bf16, random weights
+    from seed 0): a crafted 32000-piece sentencepiece model written to a
+    file and loaded as ``--tokenizer`` loads it; an
+    ``InferenceHTTPServer`` over a plain engine and one over an 8-slot
+    batching engine, both with that tokenizer; (a) text prompts equal
+    their ids, ``text`` their decode, stream deltas the blocking text,
+    short and long; (b) a stop string taken mid-output cuts blocking and
+    streamed answers alike (also with logprobs), with no slot or page
+    left held; (c) ``/metrics`` counters equal what the phase sent and
+    received; (d) traced requests' spans within their e2e; (e) one
+    ``/timeline`` record per request; (f) ``/debugz`` and
+    ``/sketch``; (g) the sampled profiler's decode step against
+    torch.profiler's; (h) the paged kernels' launches against the
+    routing's prediction for 8 concurrent text requests, the flash
+    kernel's for the plain server's; (i) ``generate``, ``classify`` and
+    ``chat --ids`` as subprocesses; (j) encode ms, TTFT text against
+    ids, tok/s of the 8 text requests, the telemetry-on ms a step."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch import cli
+    from distributed_inference_demo_tpu_torch.models.loader import \
+        load_or_init
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+    from distributed_inference_demo_tpu_torch.telemetry import profiling
+    from distributed_inference_demo_tpu_torch.telemetry import slo
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(model)
+    L = cfg.num_layers
+    greedy = SamplingParams(greedy=True)
+    out = {"phase": "surface", "device": torch.cuda.get_device_name(0),
+           "model": model, "slots": SLOTS, "block_tokens": BLOCK_TOKENS,
+           "prefill_chunk": PREFILL_CHUNK, "new_tokens": NEW_TOKENS}
+    # the phase's own ledgers: sketch, profiler, compile ledger, timelines
+    profiling.reset_observatory()
+    slo.set_slo_ledger(None)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_surface_")
+    procs = []
+    servers = {}
+    batching = None
+    try:
+        # ---- the tokenizer, written and loaded as --tokenizer does ----
+        blob, words = surface_model_proto()
+        tok_path = os.path.join(tmp, "tokenizer.model")
+        with open(tok_path, "wb") as f:
+            f.write(blob)
+        tok = cli._load_tokenizer(tok_path)
+        _check(tok.vocab_size() == cfg.vocab_size == SURFACE_PIECES,
+               f"tokenizer vocab {tok.vocab_size()}")
+        rng = np.random.RandomState(5)
+        short = " ".join(rng.choice(words, SURFACE_SHORT_WORDS))
+        long_text = " ".join(rng.choice(words, SURFACE_LONG_WORDS))
+        batch_texts = [" ".join(rng.choice(words, n)) for n in BATCH_PROMPTS]
+        encode_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            long_ids = tok.encode(long_text)
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+        short_ids = tok.encode(short)
+        _check(len(short_ids) == SURFACE_SHORT_WORDS
+               and len(long_ids) == SURFACE_LONG_WORDS,
+               f"prompt tokens {len(short_ids)}, {len(long_ids)}")
+        out.update(tokenizer_pieces=tok.vocab_size(),
+                   tokenizer_bytes=len(blob),
+                   prompt_tokens={"short": len(short_ids),
+                                  "long": len(long_ids)},
+                   encode_ms_long=sorted(encode_ms)[2])
+
+        # ---- the CLI's generate and classify, in their own processes
+        # (they build their own engines on the same seed), started now
+        # and read before any timed part of the phase ----
+        csv_texts = [" ".join(rng.choice(words, 20 + i)) for i in range(4)]
+        csv_path = os.path.join(tmp, "rows.csv")
+        with open(csv_path, "w") as f:
+            f.write("".join(f"{t},{lab}\n" for t, lab in
+                            zip(csv_texts, ("yes", "no", "yes", "no"))))
+        label_ids = [int(tok.token_to_id("▁" + w)) for w in words[:2]]
+        common = [sys.executable, "-m", "distributed_inference_demo_tpu_torch"]
+        engine_flags = ["--model", model, "--tokenizer", tok_path,
+                        "--max-seq", str(MAX_SEQ), "--greedy"]
+        for argv in ([*common, "generate", *engine_flags, "--prompt", short,
+                      "--max-new-tokens", str(NEW_TOKENS)],
+                     [*common, "classify", *engine_flags, "--dataset",
+                      csv_path, "--label-token-ids",
+                      ",".join(map(str, label_ids))]):
+            procs.append(subprocess.Popen(argv, cwd=repo, text=True,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE))
+
+        # ---- the engines and servers ----
+        params = load_or_init(model, cfg, None, seed=0, device="cuda")
+        plain = InferenceEngine(cfg, params, max_seq=MAX_SEQ,
+                                sampling=greedy, device="cuda")
+        batching = ContinuousBatchingEngine(
+            cfg, params, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
+            kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+            device="cuda")
+        _check(plain.attn_backend == "flash"
+               and batching.attn_backend == "auto", "attention backends")
+        for name, eng in (("plain", plain), ("batching", batching)):
+            servers[name] = InferenceHTTPServer(
+                eng, "127.0.0.1", 0, tokenizer=tok, model_name=model,
+                default_max_new=NEW_TOKENS)
+            servers[name].start()
+        port = {k: s.port for k, s in servers.items()}
+        metrics0 = _exposition(_get_text(port["batching"], "/metrics")[1])
+        # what the phase sends: blocking 200s, their tokens, and the
+        # batching server's requests (each one an engine request)
+        sent = {"blocking_200": 0, "generated_tokens": 0, "batching": 0}
+        lock = threading.Lock()
+
+        def call(kind, body, headers=None):
+            """One request; the parsed JSON (blocking) or lines (stream)."""
+            code, ttft, text = _post_stream(port[kind], body, headers)
+            _check(code == 200, f"{kind} {body.get('stream')}: HTTP {code}")
+            lines = [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+            with lock:
+                sent["batching"] += kind == "batching"
+                if not body.get("stream"):
+                    sent["blocking_200"] += 1
+                    if "stop" not in body:
+                        sent["generated_tokens"] += sum(
+                            len(r) for r in lines[0]["tokens"])
+            return (lines if body.get("stream") else lines[0]), ttft
+
+        # warm each path once: captures, allocator, first launches
+        for kind in port:
+            call(kind, {"prompt": short, "max_new_tokens": 2})
+
+        # ---- (a) text prompts: the plain server counts its flash
+        # launches from zero (every prompt here is >= 16 tokens) ----
+        _reset_launches(flash_attention)
+        plain_prefills = 0
+        texts = {}
+        for kind in ("plain", "batching"):
+            for name, text, ids in (("short", short, short_ids),
+                                    ("long", long_text, long_ids)):
+                body = {"prompt": text, "max_new_tokens": NEW_TOKENS}
+                if kind == "batching":
+                    # the later requests all see the same cached prefix
+                    call(kind, body)
+                blk, _ = call(kind, body)
+                by_ids, _ = call(kind, {"prompt_ids": [ids],
+                                        "max_new_tokens": NEW_TOKENS})
+                lines, _ = call(kind, dict(body, stream=True))
+                plain_prefills += 3 * (kind == "plain")
+                toks = blk["tokens"][0]
+                _check(toks == by_ids["tokens"][0],
+                       f"{kind} {name}: text and ids prompts differ")
+                _check(blk["text"] == [tok.decode(toks)],
+                       f"{kind} {name}: text is not decode(tokens)")
+                _check([ln["tokens"][0] for ln in lines if ln["tokens"]]
+                       == toks, f"{kind} {name}: streamed tokens")
+                _check("".join(ln["text"][0] for ln in lines)
+                       == blk["text"][0], f"{kind} {name}: stream deltas")
+                texts[(kind, name)] = (toks, blk["text"][0])
+        flash_launches = flash_attention.launches
+        _check(flash_launches == L * plain_prefills,
+               f"flash launches {flash_launches}, predicted "
+               f"{L * plain_prefills}")
+        out["text_prompts"] = {
+            f"{k}_{n}": {"tokens": t, "chars": len(x)}
+            for (k, n), (t, x) in texts.items()}
+
+        # ---- (b) stop strings: a substring from mid-output of the
+        # greedy run with no stop ----
+        stops = {}
+        for kind in ("plain", "batching"):
+            toks, text = texts[(kind, "short")]
+            p = _unique_stop(text)
+            stop = text[p:p + 4]
+            body = {"prompt": short, "max_new_tokens": NEW_TOKENS,
+                    "stop": stop}
+            got = {}
+            for mode in ("blocking", "stream", "blocking_lp", "stream_lp"):
+                b = dict(body, stream=mode.startswith("stream"),
+                         logprobs=mode.endswith("_lp"))
+                r, _ = call(kind, b)
+                final = r[-1] if b["stream"] else r
+                cut = ("".join(ln["text"][0] for ln in r[:-1])
+                       if b["stream"] else final["text"][0])
+                got[mode] = (final["tokens"][0], cut,
+                             final["stop_reason"][0],
+                             final.get("logprobs", [None])[0])
+                _check(cut == text[:p] and final["stop_reason"] == ["stop"],
+                       f"{kind} {mode}: stop cut {cut!r}, want {text[:p]!r}")
+                _check(final["tokens"][0] == toks[:len(final["tokens"][0])],
+                       f"{kind} {mode}: stopped tokens not a prefix")
+            _check(got["blocking"][:3] == got["stream"][:3]
+                   == got["blocking_lp"][:3] == got["stream_lp"][:3],
+                   f"{kind}: blocking and streamed stops differ")
+            _check(got["blocking_lp"][3] == got["stream_lp"][3]
+                   and len(got["blocking_lp"][3]) == len(got["blocking"][0]),
+                   f"{kind}: logprobs of the stopped answers differ")
+            stops[kind] = {"stop": stop, "cut_at": p, "chars": len(text),
+                           "tokens_kept": len(got["blocking"][0]),
+                           "tokens_run": len(toks)}
+        # a stop ends the stream early: the scheduler frees the slot
+        # within a step, and every page is free or an evictable leaf
+        t_end = time.monotonic() + 60
+        while batching.stats()["active_slots"] and time.monotonic() < t_end:
+            time.sleep(0.005)
+        _check(batching.stats()["active_slots"] == 0, "a stopped slot held")
+        stops["no_page_leak"] = _no_page_leak(batching)
+        _check(stops["no_page_leak"], "a stopped request leaked pages")
+        out["stop"] = stops
+
+        # ---- (d) traced requests, blocking and streamed ----
+        _get_text(port["batching"], "/trace")             # drain
+        trace_ids = {}
+        for stream in (False, True):
+            tid = f"{0x5eed0 + stream:x}"
+            call("batching", {"prompt": short, "max_new_tokens": NEW_TOKENS,
+                              "stream": stream},
+                 headers={"X-DWT-Trace-Id": tid, "X-DWT-Tenant": "surface"})
+            trace_ids[int(tid, 16)] = stream
+
+        # ---- (i) the CLI: generate and classify (started above), chat
+        # --ids against the running plain server ----
+        results = []
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            _check(proc.returncode == 0,
+                   f"{proc.args[3]} exited {proc.returncode}: "
+                   f"{stderr[-2000:]}")
+            results.append(json.loads(stdout.strip().splitlines()[-1]))
+        gen, cls = results
+        _check(gen["tokens"] == [texts[("plain", "short")][0]],
+               "generate's tokens differ from the server's")
+        want_labels = [int(plain.classify([tok.encode(t)], label_ids)[0])
+                       for t in csv_texts]
+        _check(cls["predictions"] == want_labels,
+               f"classify {cls['predictions']}, engine {want_labels}")
+        chat_ids = ",".join(map(str, short_ids))
+        chat = subprocess.run(
+            [*common, "chat", "--url", f"http://127.0.0.1:{port['plain']}",
+             "--ids", "--max-new-tokens", str(NEW_TOKENS)],
+            cwd=repo, text=True, capture_output=True, timeout=300,
+            input=f"{chat_ids}\n/quit\n")
+        _check(chat.returncode == 0 and texts[("plain", "short")][1]
+               in chat.stdout, f"chat: {chat.returncode} {chat.stderr[-500:]}")
+        out["cli"] = {"generate_tokens": len(gen["tokens"][0]),
+                      "generate_tok_s": gen["tokens_per_second"],
+                      "classify_predictions": cls["predictions"],
+                      "classify_accuracy": cls["accuracy"],
+                      "chat_chars": len(chat.stdout)}
+
+        # ---- (j) TTFT, a text prompt against the same prompt's ids,
+        # streamed, on the plain server ----
+        ttft = {"text": [], "ids": []}
+        for _ in range(3):
+            for key, b in (("text", {"prompt": long_text}),
+                           ("ids", {"prompt_ids": [long_ids]})):
+                _, t = call("plain", dict(b, max_new_tokens=4, stream=True))
+                ttft[key].append(t)
+        out["ttft_long_s"] = {k: sorted(v)[1] for k, v in ttft.items()}
+
+        # ---- (h) the main path: 8 concurrent text requests on the
+        # batching server, kernel counts from zero ----
+        batching.reset_stats()
+        flight = get_flight_recorder()
+        flight.clear()
+        _reset_launches(pa.paged_flash_attention, pa.paged_prefill_attention,
+                        flash_attention)
+        results = [None] * len(batch_texts)
+
+        def one(i):
+            results[i], _ = call("batching", {"prompt": batch_texts[i],
+                                              "max_new_tokens": NEW_TOKENS})
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(batch_texts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        _check(all(r is not None and len(r["tokens"][0]) == NEW_TOKENS
+                   for r in results), "a text request did not complete")
+        launches = {"paged_decode": pa.paged_flash_attention.launches,
+                    "paged_prefill": pa.paged_prefill_attention.launches}
+        admits = [(e["prompt_len"], e["prefix_reused"])
+                  for e in flight.snapshot() if e["kind"] == "batch_admit"]
+        predicted = predicted_paged_launches(batching, admits, L)
+        _check(launches == predicted and min(launches.values()) > 0,
+               f"paged launches {launches}, routing predicts {predicted}")
+        _check(flash_attention.launches == 0, "the flash kernel ran")
+        _check(sorted(a for a, _ in admits)
+               == sorted(len(tok.encode(t)) for t in batch_texts),
+               f"admissions {admits}")
+        out["text_batch"] = {"prompt_tokens": list(BATCH_PROMPTS),
+                             "wall_s": wall,
+                             "tok_s": len(batch_texts) * NEW_TOKENS / wall,
+                             "launches": launches,
+                             "predicted_launches": predicted,
+                             "decode_steps":
+                                 batching.loop_stats["device_loop_steps"]}
+        out.update(launches=launches, flash_launches=flash_launches)
+
+        # a request's timeline closes on the scheduler thread just after
+        # its answer is released: wait for the last ones
+        t_end = time.monotonic() + 30
+        while (len(slo.get_slo_ledger().recent(1024)) < sent["batching"]
+               and time.monotonic() < t_end):
+            time.sleep(0.005)
+
+        # ---- (c) /metrics: what the phase sent and received ----
+        code, text = _get_text(port["batching"], "/metrics")
+        _check(code == 200, f"/metrics: HTTP {code}")
+        metrics = _exposition(text)
+        _check(all(k.startswith("dwt_") for k in metrics),
+               "a series outside dwt_*")
+
+        def delta(key):
+            return metrics.get(key, 0.0) - metrics0.get(key, 0.0)
+
+        slo_requests = sum(v - metrics0.get(k, 0.0) for k, v in
+                           metrics.items()
+                           if k.startswith("dwt_slo_requests_total{"))
+        counters = {
+            "http_generate_200": delta(
+                'dwt_http_requests_total{route="/generate",code="200"}'),
+            "generated_tokens": delta("dwt_http_generated_tokens_total"),
+            "slo_requests": slo_requests,
+            "batching_completed": metrics.get(
+                "dwt_batching_completed_requests_total")}
+        _check(counters["http_generate_200"] == sent["blocking_200"]
+               and counters["generated_tokens"] == sent["generated_tokens"]
+               and counters["slo_requests"] == sent["batching"]
+               and counters["batching_completed"] == len(batch_texts),
+               f"metrics {counters}, sent {sent}")
+        out["metrics"] = {"series": len(metrics), "counters": counters,
+                          "sent": dict(sent)}
+
+        # ---- (e) /timeline: one record per request, ttft <= e2e ----
+        code, text = _get_text(port["batching"], "/timeline?n=1024")
+        recent = json.loads(text)["recent"]
+        _check(code == 200 and len(recent) == sent["batching"],
+               f"timeline: {len(recent)} records, {sent['batching']} sent")
+        _check(all(r["ttft_s"] <= r["e2e_s"] for r in recent),
+               "a timeline with ttft > e2e")
+        e2e = {int(r["trace_id"], 16): r["e2e_s"] for r in recent
+               if r["trace_id"]}
+
+        # ---- (d) the traced requests' spans ----
+        code, text = _get_text(port["batching"], "/trace")
+        spans = [e for e in json.loads(text)["traceEvents"]
+                 if e["ph"] == "X"]
+        for tid in trace_ids:
+            mine = {e["name"]: e for e in spans
+                    if int(e["args"]["trace_id"], 16) == tid}
+            _check(sorted(mine) == ["engine.decode", "engine.prefill"],
+                   f"trace {tid:x}: spans {sorted(mine)}")
+            _check(all(e["dur"] <= e2e[tid] * 1e6 + 1
+                       for e in mine.values()),
+                   f"trace {tid:x}: a span longer than its request")
+        out["trace"] = {"traced_requests": len(trace_ids),
+                        "spans": len(spans)}
+
+        # ---- (f) /debugz and /sketch ----
+        code, text = _get_text(port["batching"], "/debugz")
+        debugz = json.loads(text)
+        _check(code == 200 and {"flight", "backend", "postmortem"}
+               <= set(debugz), f"/debugz: {code} {sorted(debugz)}")
+        c1, sketch1 = _get_text(port["batching"], "/sketch")
+        c2, sketch2 = _get_text(port["batching"], "/sketch")
+        sketch = json.loads(sketch1)
+        _check(c1 == c2 == 200 and sketch1 == sketch2,
+               "/sketch: two GETs differ")
+        _check(sketch["prompt_tokens"]["count"] == sent["batching"],
+               f"sketch counts {sketch['prompt_tokens']['count']} prompts, "
+               f"{sent['batching']} sent")
+        out["sketch_requests"] = sketch["requests"]
+
+        # ---- (g) the sampled profiler syncs the card: the same decode
+        # window at every cadence, the profiler rebuilt from the knob; its
+        # snapshot is read when the host-timed steps end, before
+        # torch.profiler starts (which slows the steps it records) ----
+        prompts = [tok.encode(t) for t in batch_texts]
+        windows = {}
+        sig = profiling.dispatch_signature("paged_step", batch=SLOTS,
+                                           chunk=1, kv_dtype="bf16")
+        for n in PROFILE_CADENCES:
+            os.environ["DWT_PROFILE_SAMPLE_N"] = str(n)
+            profiling.reset_observatory()
+            batching._prof = profiling.get_profiler()
+            timed = {}
+            w = decode_window(torch, batching, prompts, on_timed=lambda: (
+                timed.update(batching._prof.snapshot().get(sig, {}))))
+            whole = batching._prof.snapshot().get(sig, {})
+            prof = w["profile"]
+            dev = (prof["device_busy_ms"] / prof["steps"]
+                   if prof.get("device_busy_ms") else None)
+            windows[n] = {"decode_ms_per_step": w["decode_ms_per_step"],
+                          "device_ms_per_step": dev,
+                          "device_idle_share": prof["device_idle_share"],
+                          "sampled_steps": timed.get("samples", 0),
+                          "sampled_mean_ms": timed.get("mean_ms"),
+                          "sampled_p50_ms": timed.get("p50_ms"),
+                          # the profiled steps included
+                          "sampled_steps_all": whole.get("samples", 0),
+                          "sampled_mean_ms_all": whole.get("mean_ms")}
+        sampled = windows[1]
+        _check(sampled["device_ms_per_step"] is not None,
+               "torch.profiler recorded no device time")
+        _check(sampled["sampled_mean_ms"] >= PROFILER_SYNC_SHARE
+               * sampled["device_ms_per_step"],
+               f"sampled step {sampled['sampled_mean_ms']} ms against "
+               f"{sampled['device_ms_per_step']} device ms")
+        _check(windows[0]["sampled_steps"] == 0, "sample_n 0 sampled")
+        out["profiler"] = {"signature": sig, "windows": {
+            str(n): w for n, w in windows.items()},
+            "sync_share": sampled["sampled_mean_ms"]
+            / sampled["device_ms_per_step"]}
+        out["telemetry_on_ms_per_step"] = windows[64]["decode_ms_per_step"]
+        _check(_no_page_leak(batching), "the decode windows leaked pages")
+    finally:
+        os.environ.pop("DWT_PROFILE_SAMPLE_N", None)
+        profiling.reset_observatory()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for s in servers.values():
+            s.shutdown()
+        if batching is not None:
+            batching.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv) -> int:
     try:
@@ -3456,7 +4036,7 @@ def main(argv) -> int:
             emit({"serve": phase_serve, "batching": phase_batching,
                   "mixed": phase_mixed, "graph": phase_graph,
                   "quant": phase_quant, "kvcache": phase_kvcache,
-                  "moe": phase_moe}[only](torch))
+                  "surface": phase_surface, "moe": phase_moe}[only](torch))
             return 0
         kern = phase_kernels(torch)
         emit(kern)
@@ -3493,6 +4073,8 @@ def main(argv) -> int:
         emit(quant_phase)
         kvc = phase_kvcache(torch)
         emit(kvc)
+        surface = phase_surface(torch)
+        emit(surface)
         moe = phase_moe(torch)
         emit(moe)
     except Exception:
@@ -3557,6 +4139,12 @@ def main(argv) -> int:
          serve_case("decode", "fp8"), "float8 e4m3 pages, " + rows8),
         ("paged_prefill_fp8", "paged_prefill_fp8", kvc["batching"],
          serve_case("prefill", "fp8"), "float8 e4m3 pages, " + chunk200),
+        ("paged_decode_surface", "paged_decode", surface,
+         serve_case("decode", "full"), rows8 + " (launches: 8 concurrent "
+         "text requests of the surface phase)"),
+        ("paged_prefill_surface", "paged_prefill", surface,
+         serve_case("prefill", "full"), chunk200 + " (launches: the same "
+         "8 text requests' admissions)"),
         ("paged_decode_mixtral", "paged_decode", moe["batching"],
          serve_case("decode", "full", MOE_MODEL), f"{MOE_MODEL}, " + rows8),
         ("paged_prefill_mixtral", "paged_prefill", moe["batching"],
@@ -3614,6 +4202,10 @@ def main(argv) -> int:
               kvc["prefix_pool"]["warm_flash_launches"], prefix_case,
               f"64-token chunk at {KV_PREFIX}, a prefix hit's suffix "
               "(launches: one warm prefill)"),
+        entry("flash_attention_surface", KERNEL_SOURCE, KERNEL_REPLACES,
+              surface["flash_launches"], main_case,
+              "64-token prompt at 0 (launches: the surface phase's text "
+              "prompts of 24 and 1500 tokens on the plain server)"),
         entry("flash_attention_mixtral", KERNEL_SOURCE, KERNEL_REPLACES,
               moe["serve"]["launches"], flash_case(MOE_MODEL),
               f"{MOE_MODEL} (g = 4), 64-token prompt at 0"),

@@ -1,4 +1,4 @@
-"""Command line: ``python -m distributed_inference_demo_tpu_torch serve``.
+"""Command line: ``python -m distributed_inference_demo_tpu_torch CMD``.
 
     python -m distributed_inference_demo_tpu_torch serve \\
         --model tinyllama-1.1b --http-port 5000
@@ -13,6 +13,15 @@
         --model tinyllama-1.1b-int8 --checkpoint /path/to/hf-checkpoint
     python -m distributed_inference_demo_tpu_torch serve \\
         --model tinyllama-1.1b --kv-cache-blocks 256 --prefill-chunk 64
+    python -m distributed_inference_demo_tpu_torch serve \\
+        --model llama-test --device cpu --tokenizer tokenizer.model
+    python -m distributed_inference_demo_tpu_torch generate \\
+        --model llama-test --device cpu --prompt-ids 5,17,99 --greedy
+    python -m distributed_inference_demo_tpu_torch classify \\
+        --model llama-test --device cpu --dataset rows.csv \\
+        --label-token-ids 4,9
+    python -m distributed_inference_demo_tpu_torch chat \\
+        --url http://127.0.0.1:5000
 
 Two serve modes of the JAX package's CLI, with the weights of an HF
 safetensors directory (``--checkpoint``) or random weights from
@@ -24,18 +33,38 @@ safetensors directory (``--checkpoint``) or random weights from
 ``--decode-block``, ``--admission-queue-depth`` and
 ``--mixed-token-budget``).  Both take ``--kv-cache-blocks``,
 ``--kv-block-tokens``, ``--prefill-chunk``, ``--kv-dtype`` and
-``--kv-cache-dtype``.
-It runs on CUDA unless ``--device cpu`` is given.  Every other subcommand
-and mode flag of the JAX package's CLI exits 1 with "not yet ported".
+``--kv-cache-dtype``.  ``--tokenizer`` (an HF ``tokenizer.json`` or a
+sentencepiece ``.model``) lets requests carry text and stop strings;
+``--run-log`` appends JSONL run-log events; ``--postmortem-dir`` writes
+postmortem bundles (and installs the crash handler, as does
+``DWT_POSTMORTEM_DIR``).
+
+``generate`` runs one prompt (``--prompt-ids`` or ``--prompt`` with
+``--tokenizer``) through an ``InferenceEngine`` and prints its tokens as
+JSON; ``classify`` runs a ``text,label`` CSV through
+``InferenceEngine.classify`` and prints the accuracy and predictions;
+``chat`` is the streaming REPL client of a running server.  The engine
+commands run on CUDA unless ``--device cpu`` is given.  Every other
+subcommand and mode flag of the JAX package's CLI exits 1 with "not yet
+ported".
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+from typing import Optional
 
-NOT_PORTED_COMMANDS = ("gateway", "server", "worker", "plan", "chat",
-                       "generate", "bench", "classify")
+NOT_PORTED_COMMANDS = ("gateway", "server", "worker", "plan", "bench")
+
+
+def _load_tokenizer(path: Optional[str]):
+    if not path:
+        return None
+    from .tokenizer import Tokenizer
+    # auto-detects sentencepiece .model protobufs vs HF tokenizer.json
+    return Tokenizer.from_file(path)
 
 
 def _sampling_from_args(args):
@@ -99,19 +128,36 @@ def build_engine(args):
 
 def _dtype_name(dtype) -> str:
     """A storage cast's name for the banner ("none" for the model's)."""
-    return "none" if dtype is None else str(dtype).replace("torch.", "")
+    from .runtime.engine import dtype_name
+    return "none" if dtype is None else dtype_name(dtype)
 
 
 def cmd_serve(args) -> int:
     from .runtime.http_server import InferenceHTTPServer
 
+    if args.batch_slots and args.stream_block is not None:
+        # the scheduler's fused block is --decode-block; a second K knob
+        # is rejected, never silently ignored
+        print("--stream-block is not supported with --batch-slots "
+              "(use --decode-block)", file=sys.stderr)
+        return 1
+    if args.run_log:
+        from .telemetry.runlog import RunLog, set_run_log
+        rl = RunLog(args.run_log)
+        set_run_log(rl)
+        rl.event("serve_start", model=args.model, max_seq=args.max_seq,
+                 chain=False, batch_slots=args.batch_slots)
+    # black-box capture for this serving process: --postmortem-dir
+    # installs the writer; DWT_POSTMORTEM_DIR alone is honored too, and
+    # either configuration gets the crash handler
+    from .telemetry import postmortem
+    if args.postmortem_dir:
+        postmortem.set_postmortem_writer(
+            postmortem.PostmortemWriter(args.postmortem_dir))
+    if postmortem.get_postmortem_writer() is not None:
+        postmortem.install_crash_handler(config=dict(vars(args)))
+    tokenizer = _load_tokenizer(args.tokenizer)
     if args.batch_slots:
-        if args.stream_block is not None:
-            # the scheduler's fused block is --decode-block; a second K
-            # knob is rejected, never silently ignored
-            print("--stream-block is not supported with --batch-slots "
-                  "(use --decode-block)", file=sys.stderr)
-            return 1
         cfg, engine = build_batching_engine(args)
         kvc = engine.kv_cache
         print(f"SERVE_BATCHING {args.model} slots={args.batch_slots} "
@@ -132,7 +178,8 @@ def cmd_serve(args) -> int:
               f"kv_cache_dtype={_dtype_name(engine.kv_cache_dtype)} "
               f"device={engine.device}", flush=True)
     server = InferenceHTTPServer(engine, host=args.http_host,
-                                 port=args.http_port, model_name=args.model,
+                                 port=args.http_port, tokenizer=tokenizer,
+                                 model_name=args.model,
                                  default_max_new=args.max_new_tokens)
     print(f"HTTP_READY http://{server.host}:{server.port}", flush=True)
     try:
@@ -143,13 +190,14 @@ def cmd_serve(args) -> int:
         server.shutdown()
         if args.batch_slots:
             engine.close()
+        if args.run_log:
+            set_run_log(None)
+            rl.close()
     return 0
 
 
-def _serve_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        prog="distributed_inference_demo_tpu_torch serve",
-        description="HTTP inference server (PyTorch/CUDA port)")
+def _add_engine_args(ap: argparse.ArgumentParser) -> None:
+    """The flags of the engine commands (serve, generate, classify)."""
     ap.add_argument("--model", required=True)
     ap.add_argument("--max-seq", type=int, default=1024)
     ap.add_argument("--max-new-tokens", type=int, default=128)
@@ -157,11 +205,13 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint", default=None,
                     help="an HF safetensors checkpoint directory (else "
                          "random weights from --weights-seed)")
+    ap.add_argument("--tokenizer", default="",
+                    help="tokenizer.json or sentencepiece .model path for "
+                         "text in/out")
     ap.add_argument("--seed", type=int, default=0,
-                    help="with --batch-slots: seeds the engine's one "
-                         "sampling stream, and a request's own seed is not "
-                         "honored; otherwise unused, requests carry their "
-                         "own seed")
+                    help="sampling seed; with serve --batch-slots it seeds "
+                         "the engine's one sampling stream, and a "
+                         "request's own seed is not honored")
     ap.add_argument("--greedy", action="store_true")
     ap.add_argument("--temperature", type=float, default=0.7)
     ap.add_argument("--top-k", type=int, default=7)
@@ -178,13 +228,6 @@ def _serve_parser() -> argparse.ArgumentParser:
                     help="auto: the CUDA kernels on the card; flash: the "
                          "CUDA kernels, card only; plain: PyTorch attention "
                          "(with --batch-slots, the paged gather path)")
-    ap.add_argument("--batch-slots", type=int, default=0,
-                    help="continuous batching with N slots: concurrent "
-                         "requests join the running decode batch between "
-                         "steps")
-    ap.add_argument("--decode-block", type=int, default=1,
-                    help="with --batch-slots: fuse N decode steps per "
-                         "dispatch when no admission could land anyway")
     ap.add_argument("--kv-cache-blocks", type=int, default=None,
                     help="page-pool size in blocks (default "
                          "DWT_KVCACHE_BLOCKS; else, with --batch-slots, "
@@ -193,13 +236,6 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-block-tokens", type=int, default=None,
                     help="tokens per KV page (default "
                          "DWT_KVCACHE_BLOCK_TOKENS, else 16)")
-    ap.add_argument("--mixed-token-budget", type=int, default=0,
-                    help="with --batch-slots and --prefill-chunk: pack "
-                         "prefill chunk tokens from admitting prompts "
-                         "into the SAME dispatch as the fused decode "
-                         "block, up to N tokens total per step (decode "
-                         "fusion survives admission; default "
-                         "DWT_MIXED_TOKEN_BUDGET or 0 = serialized)")
     ap.add_argument("--kv-dtype", default=None,
                     choices=["bf16", "int8", "int4"],
                     help="the KV page width: bf16 stores full-width pages "
@@ -212,38 +248,297 @@ def _serve_parser() -> argparse.ArgumentParser:
                          "(half the bytes of bf16; the plain engine then "
                          "takes plain attention); not with --kv-dtype "
                          "int8/int4")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+
+def _serve_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="distributed_inference_demo_tpu_torch serve",
+        description="HTTP inference server (PyTorch/CUDA port)")
+    _add_engine_args(ap)
+    ap.add_argument("--batch-slots", type=int, default=0,
+                    help="continuous batching with N slots: concurrent "
+                         "requests join the running decode batch between "
+                         "steps")
+    ap.add_argument("--decode-block", type=int, default=1,
+                    help="with --batch-slots: fuse N decode steps per "
+                         "dispatch when no admission could land anyway")
+    ap.add_argument("--mixed-token-budget", type=int, default=0,
+                    help="with --batch-slots and --prefill-chunk: pack "
+                         "prefill chunk tokens from admitting prompts "
+                         "into the SAME dispatch as the fused decode "
+                         "block, up to N tokens total per step (decode "
+                         "fusion survives admission; default "
+                         "DWT_MIXED_TOKEN_BUDGET or 0 = serialized)")
     ap.add_argument("--admission-queue-depth", type=int, default=0,
                     help="with --batch-slots: answer 503 + Retry-After "
                          "once this many requests wait for a slot (0 = "
                          "unbounded)")
     ap.add_argument("--http-host", default="127.0.0.1")
     ap.add_argument("--http-port", type=int, default=5000)
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--run-log", default="",
+                    help="append structured JSONL run-log events "
+                         "(serve start, per-request generate/classify "
+                         "summaries) to this file")
+    ap.add_argument("--postmortem-dir", default="",
+                    help="write postmortem bundles (flight-recorder ring "
+                         "+ metrics + trace + run-log tail) here on "
+                         "anomalies, scheduler stalls and crashes (default "
+                         "DWT_POSTMORTEM_DIR)")
     return ap
+
+
+def _generate_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="distributed_inference_demo_tpu_torch generate",
+        description="one-shot local generation")
+    _add_engine_args(ap)
+    ap.add_argument("--prompt-ids", default="")
+    ap.add_argument("--prompt", default=None)
+    return ap
+
+
+def _classify_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="distributed_inference_demo_tpu_torch classify",
+        description="CSV dataset classification accuracy run")
+    _add_engine_args(ap)
+    ap.add_argument("--dataset", required=True,
+                    help="CSV file of text,label rows")
+    ap.add_argument("--label-token-ids", required=True,
+                    help="comma list: one verbalizer token id per class, "
+                         "in dataset label-name order")
+    ap.add_argument("--batch", type=int, default=8)
+    return ap
+
+
+def _chat_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="distributed_inference_demo_tpu_torch chat",
+        description="streaming chat REPL against a serve HTTP endpoint")
+    ap.add_argument("--url", default="http://127.0.0.1:5000")
+    ap.add_argument("--max-new-tokens", type=int, default=128)
+    ap.add_argument("--stop", action="append", default=None,
+                    help="stop sequence (repeatable); needs a server-side "
+                         "tokenizer: generation ends at the earliest "
+                         "match, which is not rendered")
+    ap.add_argument("--tokenizer", default="",
+                    help="local tokenizer for encode/decode (else the "
+                         "server's tokenizer handles text)")
+    ap.add_argument("--ids", action="store_true",
+                    help="input lines are comma-separated token ids")
+    ap.add_argument("--template", default="User: {msg}. Response:",
+                    help="prompt template")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+# ---------------------------------------------------------------------------
+# generate / classify / chat
+# ---------------------------------------------------------------------------
+
+def cmd_generate(args) -> int:
+    """One-shot local generation (ids in, ids/text out)."""
+    import numpy as np
+
+    tokenizer = _load_tokenizer(args.tokenizer)
+    if args.prompt_ids:
+        ids = np.asarray([[int(t) for t in args.prompt_ids.split(",")]],
+                         dtype=np.int32)
+    elif args.prompt is not None:
+        if tokenizer is None:
+            print("--prompt requires --tokenizer", file=sys.stderr)
+            return 1
+        ids = np.asarray([tokenizer.encode(args.prompt)], dtype=np.int32)
+    else:
+        print("need --prompt-ids or --prompt", file=sys.stderr)
+        return 1
+    _, engine = build_engine(args)
+    res = engine.generate(ids, args.max_new_tokens, seed=args.seed)
+    out = {"tokens": res.tokens.tolist(),
+           "tokens_per_second": res.tokens_per_second}
+    if tokenizer is not None:
+        out["text"] = [tokenizer.decode(r) for r in res.tokens.tolist()]
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_classify(args) -> int:
+    """Dataset classification accuracy run: CSV ``text,label`` rows in,
+    accuracy and predictions out.  With ``--tokenizer`` the text is
+    encoded, otherwise it must be space-separated token ids."""
+    import numpy as np
+
+    from .tasks import evaluate_classifier, load_csv_dataset
+
+    ds = load_csv_dataset(args.dataset)
+    tokenizer = _load_tokenizer(args.tokenizer)
+    prompts = []
+    for text in ds.texts:
+        if tokenizer is not None:
+            ids = tokenizer.encode(text)
+        else:
+            try:
+                ids = [int(t) for t in text.split()]
+            except ValueError:
+                print("without --tokenizer, dataset text must be "
+                      "space-separated token ids", file=sys.stderr)
+                return 1
+        prompts.append(np.asarray([ids], dtype=np.int32))
+
+    label_ids = [int(t) for t in args.label_token_ids.split(",")]
+    if len(label_ids) != len(ds.label_names):
+        print(f"--label-token-ids has {len(label_ids)} entries but the "
+              f"dataset has {len(ds.label_names)} classes "
+              f"({ds.label_names})", file=sys.stderr)
+        return 1
+
+    _, engine = build_engine(args)
+    result = evaluate_classifier(
+        lambda batch: engine.classify(batch, label_ids),
+        prompts, ds.labels, batch_size=args.batch)
+    result["label_names"] = ds.label_names
+    print(json.dumps(result))
+    return 0
+
+
+def _parse_url(url: str):
+    from urllib.parse import urlparse
+    u = urlparse(url if "//" in url else f"http://{url}")
+    return u.hostname or "127.0.0.1", u.port or 5000
+
+
+def stream_generate(host: str, port: int, payload: dict,
+                    timeout: float = 600):
+    """POST /generate with stream=true; yield each JSONL line as a dict
+    the moment its chunk arrives."""
+    import http.client
+
+    payload = dict(payload, stream=True)
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", "/generate", body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise RuntimeError(
+                f"HTTP {resp.status}: {resp.read().decode(errors='replace')}")
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.strip()
+            if line:
+                yield json.loads(line)
+    finally:
+        conn.close()
+
+
+def cmd_chat(args) -> int:
+    """Terminal chat REPL over the streaming HTTP endpoint: one message
+    per line, POSTed with ``stream: true``, rendered as each chunk
+    arrives.  With ``--ids`` the input line is comma-separated token ids
+    (drives tokenizer-less servers); otherwise the message is wrapped in
+    ``--template`` and tokenized locally (``--tokenizer``) or by the
+    server."""
+    import http.client
+
+    from .tokenizer import StreamDetokenizer
+
+    tokenizer = _load_tokenizer(args.tokenizer)
+    host, port = _parse_url(args.url)
+
+    print(f"chat -> http://{host}:{port}  (/quit to exit)", flush=True)
+    while True:
+        sys.stdout.write("> ")
+        sys.stdout.flush()
+        line = sys.stdin.readline()
+        if not line:
+            break                       # EOF
+        line = line.strip()
+        if not line:
+            continue
+        if line in ("/quit", "/exit"):
+            break
+
+        payload = {"max_new_tokens": args.max_new_tokens, "seed": args.seed}
+        if args.stop:
+            payload["stop"] = args.stop
+        if args.ids:
+            try:
+                payload["prompt_ids"] = [[int(t) for t in line.split(",")]]
+            except ValueError:
+                print("[error] --ids mode expects comma-separated ints",
+                      file=sys.stderr)
+                continue
+        else:
+            prompt = args.template.format(msg=line)
+            if tokenizer is not None:
+                payload["prompt_ids"] = [tokenizer.encode(prompt)]
+            else:
+                payload["prompt"] = prompt   # server-side tokenizer
+
+        try:
+            detok = (StreamDetokenizer(tokenizer)
+                     if tokenizer is not None else None)
+            for item in stream_generate(host, port, payload):
+                if "error" in item:
+                    # a mid-stream server failure arrives as an error line
+                    raise RuntimeError(item["error"])
+                if item.get("done"):
+                    break              # stop-mode summary line
+                if "text" in item:
+                    piece = item["text"][0]
+                elif detok is not None:
+                    piece = detok.push(int(item["tokens"][0]))
+                else:
+                    piece = ("" if item["step"] == 0 else " ") + \
+                        str(item["tokens"][0])
+                sys.stdout.write(piece)
+                sys.stdout.flush()
+            if detok is not None:
+                sys.stdout.write(detok.flush())
+                sys.stdout.flush()
+        except (ConnectionError, OSError, RuntimeError,
+                http.client.HTTPException, json.JSONDecodeError) as e:
+            # a server dying mid-stream must not kill the REPL: report
+            # and take the next prompt
+            print(f"\n[error] {e}", file=sys.stderr)
+            continue
+        sys.stdout.write("\n")
+        sys.stdout.flush()
+    return 0
+
+
+COMMANDS = {"serve": (_serve_parser, cmd_serve),
+            "generate": (_generate_parser, cmd_generate),
+            "classify": (_classify_parser, cmd_classify),
+            "chat": (_chat_parser, cmd_chat)}
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: python -m distributed_inference_demo_tpu_torch serve "
-              "--model MODEL [options]  (see serve --help)")
+        print("usage: python -m distributed_inference_demo_tpu_torch "
+              "{serve,generate,classify,chat} [options]  (see CMD --help)")
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
     if cmd in NOT_PORTED_COMMANDS:
         print(f"error: the '{cmd}' command is not yet ported",
               file=sys.stderr)
         return 1
-    if cmd != "serve":
+    if cmd not in COMMANDS:
         print(f"error: unknown command {cmd!r}", file=sys.stderr)
         return 2
-    args, unknown = _serve_parser().parse_known_args(rest)
+    parser, fn = COMMANDS[cmd]
+    args, unknown = parser().parse_known_args(rest)
     if unknown:
         flags = [a for a in unknown if a.startswith("-")] or unknown
-        print(f"error: serve {' '.join(flags)}: not yet ported",
+        print(f"error: {cmd} {' '.join(flags)}: not yet ported",
               file=sys.stderr)
         return 1
     try:
-        return cmd_serve(args)
+        return fn(args)
     except NotImplementedError as e:
         print(f"error: not yet ported: {e}", file=sys.stderr)
         return 1

@@ -42,6 +42,20 @@ between two decode steps.
   installs the finals, and runs the fused decode block over every
   active row, so decode fusion survives admission.
 
+Telemetry as in the reference: each request carries a ``tenant`` and a
+``trace_id`` and closes into the process SLO ledger (``/timeline``);
+with a trace id it leaves ``engine.prefill`` and ``engine.decode`` spans
+in the engine's :class:`TraceRecorder` (:meth:`export_trace`, ``GET
+/trace``); ``stats()`` feeds an :class:`AnomalyMonitor` and carries the
+compile and SLO fragments; admission, the decode dispatches and the
+mixed dispatch run under sampled dispatch signatures; the pool's
+resident bytes feed the HBM watermarks and requests the workload sketch
+(``telemetry/profiling``); a scheduler crash writes a postmortem.  The
+decode step's graph capture is booked as a compile of the reference's
+program (``paged_step``, ``paged_multi_step`` or ``mixed_step``).  A
+span or a timeline closes after the readback that already syncs the
+step; telemetry adds no sync of its own.
+
 The reference's other jitted programs (admission prefill, the mixed
 slab) run eagerly.  Sampling noise comes from one ``torch.Generator``
 seeded with ``seed`` (the reference's single rng stream): per-request
@@ -56,10 +70,12 @@ meshes.
 from __future__ import annotations
 
 import copy
+import itertools
 import math
 import queue
 import threading
 import time
+import uuid
 from collections import deque
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -74,9 +90,14 @@ from ..ops.paged_attention import BACKENDS as PAGED_BACKENDS
 from ..ops.quant import (alloc_kv_pages, resolve_kv_cache_dtype,
                          resolve_kv_dtype)
 from ..ops.sampling import SamplingParams, sample_logits
+from ..telemetry import postmortem
+from ..telemetry import profiling as _profiling
 from ..telemetry._env import env_int
+from ..telemetry.anomaly import AnomalyMonitor
 from ..telemetry.flightrecorder import get_flight_recorder
-from .engine import (GenerationResult, check_capacity,
+from ..telemetry.slo import get_slo_ledger, sanitize_tenant
+from ..telemetry.tracing import TraceRecorder, to_chrome_trace
+from .engine import (GenerationResult, check_capacity, count_device_loop,
                      make_paged_chunk_programs, validate_prefill_chunk)
 from .cuda_graph import StepGraphs
 from .kvcache import refuse_tiers
@@ -125,6 +146,13 @@ class Request:
     done: threading.Event = field(default_factory=threading.Event)
     error: Optional[BaseException] = None
     cancelled: bool = False
+    # engine-unique request id (``r<salt>-<n>``), the SLO record's rid
+    rid: Optional[str] = None
+    # tenant identity and the gateway-propagated trace id; the wall-clock
+    # submit time anchors the request's spans
+    tenant: str = "default"
+    trace_id: int = 0
+    t_submit_wall: float = 0.0
 
     def wait(self, timeout: Optional[float] = None) -> np.ndarray:
         if not self.done.wait(timeout):
@@ -312,8 +340,16 @@ class ContinuousBatchingEngine:
         # thread starts and before any server can hand this engine a
         # request; the warm-up step runs with every slot inactive and
         # every table sentinel, so it changes no slot state
+        # the capture is booked as a compile of the reference's program
+        # for this mode; paged_multi_step and mixed_step carry the
+        # reference's two-variant budget
+        program = ("mixed_step" if self.mixed_token_budget > 0 else
+                   "paged_multi_step" if decode_block > 1 else "paged_step")
+        _profiling.get_compile_tracker().register(
+            program, variant_budget=None if program == "paged_step" else 2)
         self._decode = StepGraphs(self.device, self._gen,
-                                  cuda_graph).capture(self._decode_step)
+                                  cuda_graph).capture(self._decode_step,
+                                                      program=program)
         self._step_count = 0
         # one host dispatch per step or fused block; device_loop_steps
         # counts the steps that ran in it (early exit shows here)
@@ -332,7 +368,34 @@ class ContinuousBatchingEngine:
         self._completed = 0
         self._slots: List[Optional[Request]] = [None] * B
         self._queue: "queue.Queue" = queue.Queue()
+        self._rid_salt = uuid.uuid4().hex[:8]
+        self._rid_counter = itertools.count()
         self._flight = get_flight_recorder()
+        # per-engine span sink (GET /trace): prefill/decode spans tagged
+        # with the request's trace id; the rid salt keeps proc rows
+        # distinct when several engines share a process
+        self.tracer = TraceRecorder(f"engine:{self._rid_salt}")
+        # co-located span sources drain through export_trace too
+        self._aux_tracers: list = []
+        # online anomaly watch over the stats() surface; throttled to
+        # ~1 Hz inside the scheduler loop
+        self.anomaly = AnomalyMonitor(config={
+            "engine": type(self).__name__, "max_batch": max_batch,
+            "max_seq": self.max_seq, "decode_block": decode_block,
+            "prefill_chunk": prefill_chunk,
+            "mixed_token_budget": self.mixed_token_budget})
+        # cost observatory handles: the sampled dispatch profiler (an
+        # unsampled dispatch is one dict increment, no sync), the HBM
+        # watermark ledger (this engine's owners reset on close()), and
+        # the workload sketch behind GET /sketch
+        self._prof = _profiling.get_profiler()
+        self._sketch = _profiling.get_sketch()
+        self._hbm = _profiling.get_hbm_watermarks()
+        self._hbm_owners: set = set()
+        # per-token KV bytes (K+V over all layers, sidecar included) for
+        # the achieved-GB/s attribution
+        self._kv_bytes_per_token = max(
+            1, self.kv_cache.block_bytes // self.kv_cache.block_tokens)
         self._running = True
         # serializes submit() against close(): no request can be enqueued
         # after close() returns, so none can slip past the shutdown drain
@@ -343,7 +406,9 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------------
     # public API
 
-    def submit(self, prompt_ids, max_new_tokens: int) -> Request:
+    def submit(self, prompt_ids, max_new_tokens: int,
+               tenant: Optional[str] = None,
+               trace_id: int = 0) -> Request:
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         check_capacity(self.max_seq, len(prompt), max_new_tokens)
         if len(prompt) == 0:
@@ -373,16 +438,25 @@ class ContinuousBatchingEngine:
                     "shedding instead of queueing unboundedly",
                     retry_after_s=1.0)
         req = Request(prompt=prompt, max_new=max_new_tokens,
-                      t_submit=time.perf_counter())
+                      t_submit=time.perf_counter(),
+                      t_submit_wall=time.time(),
+                      tenant=sanitize_tenant(tenant),
+                      trace_id=int(trace_id or 0))
+        req.rid = f"r{self._rid_salt}-{next(self._rid_counter)}"
         with self._submit_lock:
             if not self._running:
                 raise RuntimeError("engine is closed")
             self._queue.put(req)
+        # workload sketch: admitted arrivals only (a shed request never
+        # became workload); t_submit doubles as the interarrival clock
+        self._sketch.record_request(len(prompt), tenant=req.tenant,
+                                    now=req.t_submit)
         return req
 
     def generate(self, prompt_ids: np.ndarray, max_new_tokens: int,
                  seed: int = 0, timeout: Optional[float] = None,
-                 logprobs: bool = False) -> GenerationResult:
+                 logprobs: bool = False, tenant: Optional[str] = None,
+                 trace_id: int = 0) -> GenerationResult:
         """Submit each row as its own request (they batch with whatever
         else is in flight) and wait for all.  ``seed`` is accepted for
         surface compatibility but not honored (one engine rng stream).
@@ -393,7 +467,8 @@ class ContinuousBatchingEngine:
         if ids.ndim == 1:
             ids = ids[None, :]
         t0 = time.perf_counter()
-        reqs = self._submit_rows(ids, max_new_tokens)
+        reqs = self._submit_rows(ids, max_new_tokens, tenant=tenant,
+                                 trace_id=trace_id)
         try:
             rows = [r.wait(timeout=timeout) for r in reqs]
         except TimeoutError:
@@ -413,13 +488,16 @@ class ContinuousBatchingEngine:
                                 seconds=time.perf_counter() - t0,
                                 logprobs=lps)
 
-    def _submit_rows(self, ids: np.ndarray, max_new_tokens: int) -> list:
+    def _submit_rows(self, ids: np.ndarray, max_new_tokens: int,
+                     tenant: Optional[str] = None,
+                     trace_id: int = 0) -> list:
         """Submit every row or none: rows already admitted are cancelled
         before a later row's rejection (e.g. a shed) propagates."""
         reqs = []
         try:
             for row in ids:
-                reqs.append(self.submit(row, max_new_tokens))
+                reqs.append(self.submit(row, max_new_tokens,
+                                        tenant=tenant, trace_id=trace_id))
         except Exception:
             for r in reqs:
                 r.cancel()
@@ -428,19 +506,23 @@ class ContinuousBatchingEngine:
 
     def generate_stream(self, prompt_ids: np.ndarray, max_new_tokens: int,
                         seed: int = 0, timeout: Optional[float] = None,
-                        logprobs: bool = False):
+                        logprobs: bool = False,
+                        tenant: Optional[str] = None, trace_id: int = 0):
         """Yield one [batch] token array per step (the HTTP streaming
         surface); with ``logprobs=True``, ([batch] tokens, [batch]
         logprobs) pairs.  Multi-row prompts stream in lockstep of the
         slowest row; finished rows pad with eos (0 without one) and
-        logprob 0.0.  An abandoned stream cancels its in-flight requests.
+        logprob 0.0.  An abandoned stream (a client gone, or a stop
+        string closing the generator) cancels its in-flight requests,
+        which frees their slots and pages after the current step.
         ``timeout``: an overall deadline, after which the requests are
         cancelled and TimeoutError raised."""
         ids = np.asarray(prompt_ids)
         if ids.ndim == 1:
             ids = ids[None, :]
         deadline = None if not timeout else time.monotonic() + timeout
-        reqs = self._submit_rows(ids, max_new_tokens)
+        reqs = self._submit_rows(ids, max_new_tokens, tenant=tenant,
+                                 trace_id=trace_id)
         fetched = [[] for _ in reqs]
         finished = [False] * len(reqs)   # row's None sentinel was consumed
         pad = self.eos_id if self.eos_id is not None else 0
@@ -535,7 +617,46 @@ class ContinuousBatchingEngine:
                     round(cs["mixed_packed_tokens"]
                           / cs["mixed_budget_tokens"], 4)
                     if cs["mixed_budget_tokens"] else None)}
+        # the compile ledger: the recompile_storm detector below reads it
+        compile_snap = _profiling.get_compile_tracker().snapshot()
+        if compile_snap:
+            out["compile"] = compile_snap
+        # the per-tenant SLO rollup (goodput + burn rates)
+        try:
+            out["slo"] = get_slo_ledger().summary()
+        except Exception:
+            pass
+        # the anomaly watch rides every stats() reader as well as the
+        # scheduler loop (a /metrics scrape runs on its own thread, so
+        # the stall watchdog still fires when the scheduler is wedged);
+        # the monitor's throttle swallows the observation its own
+        # stats() call would trigger
+        self.anomaly.observe(out)
         return out
+
+    def debug_state(self) -> dict:
+        """Backend fragment of ``GET /debugz``: anomaly-detector state,
+        the observatory and the KV cache picture."""
+        return {"anomaly": self.anomaly.state(),
+                "observatory": _profiling.observatory_state(),
+                "kvcache": self.kv_cache.debug_state()}
+
+    def register_aux_tracer(self, tracer) -> None:
+        """Attach a co-located recorder so :meth:`export_trace` drains it
+        with the engine's own spans."""
+        self._aux_tracers.append(tracer)
+
+    def export_trace(self) -> dict:
+        """Chrome trace of the engine's spans and any registered
+        auxiliary recorders (``GET /trace``).  Drains: each span exports
+        once."""
+        spans = self.tracer.drain()
+        for t in self._aux_tracers:
+            try:
+                spans.extend(t.drain())
+            except Exception:
+                pass
+        return to_chrome_trace(spans)
 
     def reset_stats(self) -> None:
         self._step_count = 0
@@ -561,6 +682,11 @@ class ContinuousBatchingEngine:
         self._running = False
         self._queue.put(None)              # wake the scheduler
         self._thread.join(timeout=30)
+        # reset-on-close: this engine's pool owners leave the process
+        # watermark ledger
+        for owner in self._hbm_owners:
+            self._hbm.reset(owner)
+        self._hbm_owners.clear()
 
     def __enter__(self):
         return self
@@ -700,6 +826,9 @@ class ContinuousBatchingEngine:
         req._pkv = {"lease": lease, "store_lease": None,
                     "private": private, "adopted": (), "n_pref": n_pref,
                     "table": table, "released": False}
+        # workload sketch: prefix-hit share, once per successful
+        # reservation (a blocked retry must not count twice)
+        self._sketch.record_prefix(m, plen)
         return m
 
     def _release_request_kv(self, req: Request) -> None:
@@ -780,9 +909,15 @@ class ContinuousBatchingEngine:
                 head = torch.from_numpy(
                     np.asarray(a["suffix"][:C], np.int64)[None]).to(
                         self.device)
+                sig = _profiling.dispatch_signature(
+                    "paged_chunk_mid", batch=1, chunk=C,
+                    kv_dtype=self.kv_cache.kv_dtype)
+                t0 = self._prof.begin(sig)
                 self._paged_chunk_mid(self.params, self._pk, self._pv, head,
                                       self._upload(req._pkv["table"][None]),
                                       a["start"])
+                self._prof.end(sig, t0, out=self.device,
+                               hbm_bytes=C * self._kv_bytes_per_token)
             except BaseException as e:
                 # a per-request failure fails that request, never the
                 # engine
@@ -812,9 +947,15 @@ class ContinuousBatchingEngine:
         bucket = self._bucket(len(suffix))
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :len(suffix)] = suffix
+        sig = _profiling.dispatch_signature(
+            "paged_prefill", batch=1, chunk=bucket,
+            kv_dtype=self.kv_cache.kv_dtype)
+        t0 = self._prof.begin(sig)
         tok, lp0 = self._paged_prefill(
             torch.from_numpy(padded).to(self.device),
             self._upload(st["table"][None]), start, len(suffix))
+        self._prof.end(sig, t0, out=tok,
+                       hbm_bytes=len(suffix) * self._kv_bytes_per_token)
         # store at PREFILL time, by adoption: the tree takes ownership of
         # the full-prompt pages it was missing, so the next request with
         # this prefix references the very pages this one decodes against
@@ -865,6 +1006,8 @@ class ContinuousBatchingEngine:
                     (req.t_done - req.t_first) / (len(req.tokens) - 1))
             req.stream.put(None)
             req.done.set()
+            # workload sketch: realized decode length at completion
+            self._sketch.record_decode(len(req.tokens))
             self._slots[slot] = None
             # completion frees the pages: pins released, private
             # non-adopted pages back to the pool, the slot's table row
@@ -876,6 +1019,7 @@ class ContinuousBatchingEngine:
                                 tokens=len(req.tokens),
                                 ttft_s=req.t_first - req.t_submit,
                                 reason="eos" if hit_eos else "length")
+            self._close_timeline(req)
 
     def _fail_request(self, req: Request, err: Optional[BaseException]):
         """Finish a request with an error, or cleanly for err=None (a
@@ -888,6 +1032,50 @@ class ContinuousBatchingEngine:
         if err is not None:
             self._flight.record("batch_fail", error=type(err).__name__,
                                 tokens=len(req.tokens))
+        self._close_timeline(
+            req, error=(type(err).__name__ if err is not None
+                        else ("cancelled" if req.cancelled else None)))
+
+    def _close_timeline(self, req: Request,
+                        error: Optional[str] = None) -> None:
+        """Close ``req`` into the process SLO ledger exactly once
+        (completion, failure and cancel all funnel here) and, with a
+        trace id, record its ``engine.prefill`` / ``engine.decode``
+        spans.  Best-effort: accounting never fails a request."""
+        if getattr(req, "_timeline_closed", False):
+            return
+        req._timeline_closed = True
+        t_done = req.t_done if req.t_done else time.perf_counter()
+        t_first = req.t_first if req.t_first else t_done
+        t_sched = req.t_sched if req.t_sched else t_first
+        try:
+            get_slo_ledger().close_request(
+                rid=req.rid or "", tenant=req.tenant,
+                trace_id=req.trace_id,
+                t_submit_wall=req.t_submit_wall,
+                queue_wait_s=max(0.0, t_sched - req.t_submit),
+                ttft_s=max(0.0, t_first - req.t_submit),
+                e2e_s=max(0.0, t_done - req.t_submit),
+                tokens=len(req.tokens), replica=self.tracer.proc,
+                error=error)
+            if req.trace_id:
+                # wall-clock starts from the submit wall time + the
+                # perf_counter offsets, so no span mixes clocks
+                base = req.t_submit_wall or (time.time()
+                                             - (t_done - req.t_submit))
+                self.tracer.record(
+                    "engine.prefill", req.trace_id,
+                    ts=base + max(0.0, t_sched - req.t_submit),
+                    dur=max(0.0, t_first - t_sched),
+                    rid=req.rid, tenant=req.tenant)
+                if t_done > t_first and len(req.tokens) > 1:
+                    self.tracer.record(
+                        "engine.decode", req.trace_id,
+                        ts=base + max(0.0, t_first - req.t_submit),
+                        dur=t_done - t_first, rid=req.rid,
+                        tenant=req.tenant, tokens=len(req.tokens))
+        except Exception:
+            pass
 
     def _drain_all(self, err: BaseException):
         """Fail every in-flight slot, mid-admission, backlogged and
@@ -937,16 +1125,46 @@ class ContinuousBatchingEngine:
     def _count_loop(self, steps: int) -> None:
         self.loop_stats["host_dispatches"] += 1
         self.loop_stats["device_loop_steps"] += steps
+        count_device_loop(type(self).__name__, steps)
+
+    def _sample_hbm(self) -> None:
+        """Feed the HBM watermark ledger one scheduler-iteration sample of
+        the page pool (host-side integers, no device sync)."""
+        snap = self.kv_cache.snapshot()
+        self._hbm.sample("kv_page_pool",
+                         snap.get("device_resident_bytes", 0)
+                         + snap.get("quant_scale_bytes", 0))
+        self._hbm_owners.add("kv_page_pool")
+
+    def _decode_kv_bytes(self, active_mask, steps: int) -> int:
+        """KV bytes one decode dispatch touched (achieved-GB/s
+        attribution, sampled dispatches only: the lengths readback is a
+        sync the unsampled path never pays): every active row re-reads
+        its history each step and writes one token per step."""
+        lens = self._lengths.cpu().numpy()[active_mask]
+        return int((int(lens.sum()) + active_mask.sum())
+                   * max(1, steps) * self._kv_bytes_per_token)
 
     def _step_active(self, rounds: int) -> None:
         """Run up to ``rounds`` lockstep decode steps over the occupied
         slots and record the emitted tokens.  The fused block may run
         fewer (every row eos'd or out of budget); the steps that ran
         drive the drain."""
-        self._load_decode(np.array([s is not None for s in self._slots]))
+        active_mask = np.array([s is not None for s in self._slots])
+        self._load_decode(active_mask)
+        sig = _profiling.dispatch_signature(
+            "paged_multi_step" if rounds > 1 else "paged_step",
+            batch=int(active_mask.sum()), chunk=rounds,
+            kv_dtype=self.kv_cache.kv_dtype)
+        t0 = self._prof.begin(sig)
         if rounds > 1:
             toks, lps, steps = self._paged_multi_step(
                 self._eos(), self._budget_vec(), rounds)
+            if t0 is not None:
+                # sampled only: the KV attribution reads the lengths
+                self._prof.end(sig, t0, out=toks,
+                               hbm_bytes=self._decode_kv_bytes(
+                                   active_mask, steps))
             self._count_loop(steps)
             self._step_count += steps
             self._record_row_blocks(toks.cpu().numpy(),
@@ -954,6 +1172,10 @@ class ContinuousBatchingEngine:
                                     lps.cpu().numpy())
         else:
             self._decode()
+            if t0 is not None:
+                self._prof.end(sig, t0, out=self._last_tok,
+                               hbm_bytes=self._decode_kv_bytes(
+                                   active_mask, 1))
             self._count_loop(1)
             tok_np, lp_np = self._last_tok.tolist(), self._step_lp.tolist()
             self._step_count += 1
@@ -1143,12 +1365,22 @@ class ContinuousBatchingEngine:
                 active_mask[slot] = True
                 budget_vec[slot] = a["req"].max_new - 1
         dev = self.device
+        sig = _profiling.dispatch_signature(
+            "mixed_step", batch=int(active_mask.sum()),
+            chunk=self.decode_block, kv_dtype=self.kv_cache.kv_dtype)
+        t0 = self._prof.begin(sig)
         try:
             final_toks, final_lps, toks, lps, steps = self._mixed_step(
                 torch.from_numpy(seg_ids).to(dev) if packed else None,
                 self._upload(seg_tables), torch.from_numpy(seg_starts).to(dev),
                 finals, active_mask, self._eos(),
                 torch.from_numpy(budget_vec).to(dev), self.decode_block)
+            if t0 is not None:
+                # sampled only: packed prefill writes + every active
+                # row's per-step history read
+                self._prof.end(sig, t0, out=toks, hbm_bytes=(
+                    prefill_tokens * self._kv_bytes_per_token
+                    + self._decode_kv_bytes(active_mask, steps)))
         except BaseException as e:
             if not packed:
                 raise
@@ -1208,6 +1440,12 @@ class ContinuousBatchingEngine:
             # drain after any submit that already saw _running True.
             self._flight.record("scheduler_crash", error=type(e).__name__,
                                 detail=str(e))
+            postmortem.trigger(
+                "scheduler_crash",
+                detail={"error": f"{type(e).__name__}: {e}",
+                        "active_slots": sum(1 for s in self._slots
+                                            if s is not None),
+                        "steps": self._step_count})
             with self._submit_lock:
                 self._running = False
                 self._drain_all(e)
@@ -1217,11 +1455,17 @@ class ContinuousBatchingEngine:
             # one token-budget dispatch per iteration; the serialized
             # loop below is the bit-identity reference
             while self._running:
+                self.anomaly.observe(self.stats)
+                self._sample_hbm()
                 self._mixed_iteration()
             self._drain_all(
                 RuntimeError("engine closed while request in flight"))
             return
         while self._running:
+            # the anomaly watch (throttled; stats() is built only when an
+            # observation is due) and one watermark sample an iteration
+            self.anomaly.observe(self.stats)
+            self._sample_hbm()
             free = [i for i, s in enumerate(self._slots) if s is None]
             # one dispatch of the in-progress chunked admission (if any)
             self._advance_admission(free)

@@ -34,6 +34,10 @@ caller fills before a replay and reads after it.  :class:`StepGraph`
   runs at capture only, so the capture's count is taken back and added
   again at every replay;
 - counts replays (``replays``);
+- books each capture in the process compile ledger under the
+  reference's program name, when the caller names one
+  (``telemetry/profiling.CompileTracker``: a capture is the card's
+  counterpart of a compile);
 - runs the step eagerly when the device is the CPU, or when the caller
   asks for eager steps (``enabled`` False).
 
@@ -43,6 +47,7 @@ There is no fallback to eager steps.
 
 import gc
 import threading
+import time
 from typing import Callable, Optional
 
 import torch
@@ -172,13 +177,25 @@ class StepGraphs:
         self.enabled = bool(enabled)
         self.steps = []
         self._pool = None
+        self._held = {}         # program -> graphs captured for it
 
-    def capture(self, step: Callable[[], None]) -> StepGraph:
+    def capture(self, step: Callable[[], None],
+                program: Optional[str] = None) -> StepGraph:
+        """``step`` as a :class:`StepGraph`.  A graph actually captured
+        for a named ``program`` is booked in the compile ledger with
+        its warm-up + capture seconds."""
         if self.enabled and _on_card(self.device) and self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
         graph = StepGraph(step, self.device, self.generator, self.enabled,
                           self._pool)
         self.steps.append(graph)
+        if program is not None and graph.graph is not None:
+            from ..telemetry.profiling import get_compile_tracker
+            self._held[program] = self._held.get(program, 0) + 1
+            get_compile_tracker().note_compile(
+                program, seconds=time.perf_counter() - t0,
+                cache_entries=self._held[program])
         return graph
 
     @property

@@ -15,6 +15,14 @@ Counterpart of ``distributed_inference_demo_tpu/runtime/engine.py``'s
   prefill of ``generate`` and ``generate_stream``, and the float8
   ``kv_cache_dtype`` storage cast.
 
+Telemetry as in the reference: the ``dwt_engine_*`` device-loop pair
+(:func:`count_device_loop`), sampled dispatch signatures around the
+prefill and each decode dispatch (``telemetry/profiling``), the run-log
+and flight-recorder events of ``generate`` and ``classify``, the
+``/metrics`` fragment (:meth:`InferenceEngine.scrape_stats`) and the
+``/debugz`` fragment with the observatory
+(:meth:`InferenceEngine.debug_state`).
+
 The reference's decode loop is one jitted program.  Here the host runs
 the loop, and each decode step is the counterpart of the compiled
 program: on the card a CUDA graph captured once per batch size and
@@ -43,6 +51,9 @@ from ..ops.flash_attention import make_flash_attn_impl
 from ..ops.quant import resolve_kv_cache_dtype
 from ..ops.sampling import (SamplingParams, match_stop_ids, pad_stop_ids,
                             sample_logits)
+from ..telemetry import profiling as _profiling
+from ..telemetry.flightrecorder import get_flight_recorder
+from ..telemetry.runlog import get_run_log
 from .cuda_graph import StepGraph, StepGraphs
 from .kvcache import make_kv_backend, resolve_kv_layout
 
@@ -58,6 +69,22 @@ def resolve_stream_block(stream_block) -> int:
     if stream_block < 1:
         raise ValueError(f"stream_block must be >= 1, got {stream_block}")
     return stream_block
+
+
+def count_device_loop(engine_name: str, steps: int,
+                      dispatches: int = 1) -> None:
+    """Feed the device-loop telemetry pair: one host DISPATCH issued,
+    ``steps`` decode steps executed inside it."""
+    from ..telemetry.catalog import (ENGINE_DEVICE_LOOP_STEPS,
+                                     ENGINE_HOST_DISPATCHES)
+    ENGINE_HOST_DISPATCHES.inc(dispatches, engine=engine_name)
+    ENGINE_DEVICE_LOOP_STEPS.inc(steps, engine=engine_name)
+
+
+def dtype_name(dtype) -> str:
+    """A torch dtype's name without the module ("bfloat16"), the
+    reference's ``np.dtype(...).name`` in dispatch signatures."""
+    return str(dtype).replace("torch.", "")
 
 
 def check_capacity(max_seq: int, prompt_len: int, max_new_tokens: int):
@@ -334,6 +361,17 @@ class InferenceEngine:
             cfg, kv_cache_blocks, kv_block_tokens, layout=self.kv_layout,
             dtype=self.kv_cache_dtype, kv_dtype=kv_dtype, default_blocks=0,
             device=self.device)
+        # observatory seams: the decode step's graph captures book under
+        # "decode_loop" (no variant budget: it forks per batch size), and
+        # the sampled dispatch profiler
+        _profiling.get_compile_tracker().register("decode_loop")
+        self._prof = _profiling.get_profiler()
+        cache_dtype = self.kv_cache_dtype or cfg.dtype
+        self._cache_dtype_name = dtype_name(cache_dtype)
+        # dense-cache attribution: KV bytes one (row, token) touches
+        self._kv_token_bytes = _profiling.kv_dispatch_bytes(
+            1, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, None,
+            cache_dtype)
 
     # -- forward programs ----------------------------------------------
 
@@ -366,6 +404,19 @@ class InferenceEngine:
         return logits[:, gather_idx], cache
 
     def _run_prefill(self, ids, cache, start: int = 0):
+        """:meth:`_prefill_dispatch` under its sampled dispatch
+        signature (``prefill``, the prompt's rows and chunk)."""
+        b, plen = ids.shape
+        sig = _profiling.dispatch_signature(
+            "prefill", batch=b, chunk=self.prefill_chunk or plen,
+            kv_dtype=self._cache_dtype_name)
+        t0 = self._prof.begin(sig)
+        logits, cache = self._prefill_dispatch(ids, cache, start)
+        self._prof.end(sig, t0, out=logits, hbm_bytes=(
+            b * (plen - start) * self._kv_token_bytes))
+        return logits, cache
+
+    def _prefill_dispatch(self, ids, cache, start: int = 0):
         """Whole-prompt or chunked prefill -> (last_logits [b, V], cache).
         ``start`` > 0 is the seeded suffix: ``ids`` is still the whole
         prompt, the cache's columns ``[0, start)`` already hold its
@@ -450,7 +501,8 @@ class InferenceEngine:
         if st is None:
             st = DecodeState(self.cfg, batch, self.max_seq, self.device,
                              self.kv_cache_dtype)
-            st.step = self._graphs.capture(lambda: self._decode_step(st))
+            st.step = self._graphs.capture(lambda: self._decode_step(st),
+                                           program="decode_loop")
             self._states[batch] = st
         return st
 
@@ -492,9 +544,46 @@ class InferenceEngine:
         return toks, lps, j
 
     def _count_loop(self, steps: int) -> None:
-        """One decode-loop call ran ``steps`` steps."""
+        """One decode-loop call ran ``steps`` steps: the instance
+        counters and the ``dwt_engine_*`` series."""
         self.loop_stats["host_dispatches"] += 1
         self.loop_stats["device_loop_steps"] += steps
+        count_device_loop(type(self).__name__, steps)
+
+    def _profiled_loop(self, st: DecodeState, eos: int, limit: int,
+                       num_steps: int, with_logprobs: bool, kv_len: int):
+        """:meth:`_decode_loop` as one ``decode_loop`` dispatch under its
+        sampled signature; rows enter at length ``kv_len``.  A sampled
+        dispatch waits for the card before the clock stops; an unsampled
+        one adds no sync."""
+        b = st.tok.shape[0]
+        sig = _profiling.dispatch_signature(
+            "decode_loop", batch=b, chunk=num_steps,
+            kv_dtype=self._cache_dtype_name)
+        t0 = self._prof.begin(sig)
+        toks, lps, steps = self._decode_loop(st, eos, limit, num_steps,
+                                             with_logprobs)
+        self._prof.end(sig, t0, out=toks, hbm_bytes=(
+            b * (kv_len + 1) * steps * self._kv_token_bytes))
+        self._count_loop(steps)
+        return toks, lps, steps
+
+    def scrape_stats(self) -> dict:
+        """Metrics-scrape fragment (``telemetry/catalog.scrape``): the
+        prefix pool's counters, when the pool is on.  Not ``stats()``:
+        the ``/stats`` route keeps its engine-less shape."""
+        return ({"kvcache": self.kv_cache.snapshot()}
+                if self.kv_cache is not None else {})
+
+    def debug_state(self) -> dict:
+        """``GET /debugz`` fragment: the device-loop dispatch accounting,
+        the observatory and the prefix pool's picture."""
+        out = {"device_loop": dict(self.loop_stats,
+                                   stream_block=self.stream_block),
+               "observatory": _profiling.observatory_state()}
+        if self.kv_cache is not None:
+            out["kvcache"] = self.kv_cache.debug_state()
+        return out
 
     def _ids(self, prompt_ids) -> torch.Tensor:
         ids = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64)
@@ -531,15 +620,26 @@ class InferenceEngine:
             self._state(b)      # a new batch size captures here, untimed
             t0 = time.perf_counter()
             st, eos = self._start(np.asarray(prompt_ids), ids, seed)
-            toks, lps, steps = self._decode_loop(
-                st, eos, max_new_tokens, max_new_tokens, logprobs)
+            toks, lps, steps = self._profiled_loop(
+                st, eos, max_new_tokens, max_new_tokens, logprobs, plen)
             toks = toks.cpu().numpy().astype(np.int32)
             lps_np = lps.cpu().numpy() if logprobs else None
-            self._count_loop(steps)
-        return GenerationResult(tokens=toks, prompt_len=plen,
-                                num_new=max_new_tokens,
-                                seconds=time.perf_counter() - t0,
-                                logprobs=lps_np, steps_computed=steps)
+        dt = time.perf_counter() - t0
+        result = GenerationResult(tokens=toks, prompt_len=plen,
+                                  num_new=max_new_tokens, seconds=dt,
+                                  logprobs=lps_np, steps_computed=steps)
+        rl = get_run_log()
+        if rl.enabled:   # per-request summary in the structured run log
+            rl.event("generate", engine=type(self).__name__,
+                     batch=b, prompt_len=plen,
+                     new_tokens=max_new_tokens,
+                     seconds=round(dt, 6),
+                     tokens_per_sec=round(result.tokens_per_second, 2))
+        get_flight_recorder().record(
+            "engine_generate", engine=type(self).__name__, batch=b,
+            prompt_len=plen, new_tokens=max_new_tokens,
+            seconds=round(dt, 6))
+        return result
 
     def classify(self, prompt_ids, label_token_ids) -> np.ndarray:
         """Argmax of the last-position logits restricted to
@@ -552,7 +652,17 @@ class InferenceEngine:
             raise ValueError(
                 f"label_token_ids out of range [0, {self.cfg.vocab_size})")
         sub = self.prefill_logits(prompt_ids)[:, label_ids]
-        return np.argmax(sub, axis=-1).astype(np.int32)
+        pred = np.argmax(sub, axis=-1).astype(np.int32)
+        b, plen = np.shape(prompt_ids)
+        rl = get_run_log()
+        if rl.enabled:
+            rl.event("classify", engine=type(self).__name__,
+                     batch=int(b), prompt_len=int(plen),
+                     num_labels=int(label_ids.size))
+        get_flight_recorder().record(
+            "engine_classify", engine=type(self).__name__,
+            batch=int(b), prompt_len=int(plen))
+        return pred
 
     def generate_stream(self, prompt_ids, max_new_tokens: int,
                         seed: int = 0,
@@ -566,12 +676,13 @@ class InferenceEngine:
         with self._lock:
             st, eos = self._start(np.asarray(prompt_ids), ids, seed)
             K = self.stream_block
+            plen = ids.shape[1]
             if K > 1:
                 remaining = max_new_tokens
                 while remaining > 0:
-                    toks, lps, steps = self._decode_loop(
-                        st, eos, min(K, remaining), K, logprobs)
-                    self._count_loop(steps)
+                    toks, lps, steps = self._profiled_loop(
+                        st, eos, min(K, remaining), K, logprobs,
+                        plen + max_new_tokens - remaining)
                     if steps == 0:  # all rows were already done on entry
                         return
                     tok_np = toks.cpu().numpy().astype(np.int32)
@@ -584,8 +695,14 @@ class InferenceEngine:
                         return
                 return
             can_finish = eos >= 0 or self._has_stop_ids
-            for _ in range(max_new_tokens):
+            sig = _profiling.dispatch_signature(
+                "decode_one", batch=ids.shape[0], chunk=1,
+                kv_dtype=self._cache_dtype_name)
+            for i in range(max_new_tokens):
+                t0 = self._prof.begin(sig)
                 st.step()
+                self._prof.end(sig, t0, out=st.tok, hbm_bytes=(
+                    ids.shape[0] * (plen + i + 1) * self._kv_token_bytes))
                 self._count_loop(1)
                 # copies: on the CPU .numpy() views the static buffers
                 tok_np = st.tok.cpu().numpy().astype(np.int32)
