@@ -7,7 +7,8 @@ their plain versions.
     python3 chip_smoke.py --phase moe     # build + one phase (serve,
                                           # batching, mixed, graph,
                                           # quant, kvcache, surface,
-                                          # moe), no result lines
+                                          # speculative, moe), no
+                                          # result lines
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -180,11 +181,48 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             encode ms, TTFT of text against ids, tok/s, and the decode
             ms a step at every profiler cadence (the default's is the
             telemetry-on step);
-13. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+13. speculative  speculation at TinyLlama's full width, the catalog's
+            8-layer ``mixtral-tpu-1b-dense`` as the draft (hd 64, g = 4,
+            TinyLlama's vocab), K = 4: ``SpeculativeEngine`` with that
+            draft and with TinyLlama as its own draft, and
+            ``PromptLookupEngine`` on a 64-token span repeated four
+            times, b=1, 128 new tokens: acceptance, tokens a round, ms
+            per emitted token against a plain engine's, device ms a
+            round and idle share (SPEC_ROUNDS_PROFILED rounds), the
+            flash kernel's launches = L a prefill, the first 32 tokens
+            replayed = eager bit for bit, bf16 greedy streams equal to
+            the plain engine's or parting at a reported near tie
+            (``spec_partings``), f32 token-exact; 8-slot batching over
+            the batching phase's prompts with either proposer,
+            serialized (``decode_block`` 4) and mixed over int8 pages
+            (budget 288, adaptive K), and prompt lookup over float8
+            pages: the paged kernels' launches against the routing
+            (``rounds_by_width``: the draft's decode kernel L_d x (k + 1)
+            a round, the verify's prefill kernel L a round, the
+            admissions'), and in the window after the last admission,
+            read between two dispatches on the scheduler's thread, the
+            verify's own launches = L x that window's rounds; no page
+            left in either pool, the ``/stats`` fragment, the K_row
+            buckets visited, greedy tokens against the plain batching
+            engine's (partings at near ties, ``_batch_partings``),
+            replayed = eager, tok/s, ms a round, idle share; in f32, 8
+            concurrent requests of either proposer, serialized and
+            mixed, token-exact against a plain batching engine's, and
+            the kernels against the gather path; ``serve
+            --draft-model`` and ``serve --batch-slots 8
+            --prompt-lookup`` over HTTP, blocking and streamed (the
+            streamed request's prefix hit beside the plain ``serve
+            --batch-slots 8`` server's own blocking/streamed pair);
+            ``generate --prompt-lookup`` on tinyllama-1.1b-int8 (the
+            dense kernels under the verify: 7 x L a round);
+    (phase 2 holds the paged prefill kernel at the verify shape, 8 rows
+    of K + 1 tokens at starts 20-1999 with one freed slot, on full-width,
+    int8 and e4m3 pages, and the draft's decode rows on int8 pages)
+14. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
-Phases 10 to 12 run in the order 11, 12, 10: the moe phase last, after
-the earlier phases freed their memory.  Exits non-zero, printing no
+Phases 10 to 13 run in the order 11, 12, 13, 10: the moe phase last,
+after the earlier phases freed their memory.  Exits non-zero, printing no
 result, without CUDA or outside a checkout, and on any failed check.
 """
 
@@ -289,6 +327,18 @@ KV_PROMPTS = 6
 MOE_MODEL = "mixtral-tpu-1b"
 MOE_LARGE = "mixtral-8x7b-int8"
 MOE_TWIN_LAYERS = 2
+# the speculative phase: TinyLlama with the catalog's 8-layer dense
+# llama as its draft (hd 64, g = 4, TinyLlama's vocab), K proposals a
+# round; the prompt-lookup prompt repeats a SPEC_SPAN-token span; the
+# verify kernel case: 8 rows of K + 1 tokens at per-row starts, one freed
+SPEC_DRAFT = "mixtral-tpu-1b-dense"
+SPEC_K = 4
+SPEC_NEW = 128
+SPEC_SPAN = 64
+SPEC_REPEATS = 4
+SPEC_ROUNDS_PROFILED = 4
+SPEC_EAGER_NEW = 16      # tokens of an eager run held to the graph's
+VERIFY_STARTS = (20, 150, 300, 600, 1000, 1500, 1999, None)
 
 
 def emit(obj) -> None:
@@ -668,6 +718,14 @@ def paged_cases():
     cases += [(MOE_MODEL, "decode", *model_heads(MOE_MODEL), serve, "full"),
               (MOE_MODEL, "prefill", *model_heads(MOE_MODEL),
                (PREFILL_CHUNK, (200,)), "full")]
+    # the speculative phase: the [8, K+1] verify on every page type, and
+    # the draft's decode rows (g = 4, hd 64, as MOE_MODEL's) on int8
+    # pages, the mixed speculative dispatch's draft pool
+    cases += [("tinyllama-verify", "prefill", 32, 4, 64, False,
+               (SPEC_K + 1, VERIFY_STARTS), pages)
+              for pages in ("full", "int8", "fp8")]
+    cases.append((SPEC_DRAFT, "decode", *model_heads(SPEC_DRAFT), serve,
+                  "int8"))
     return cases
 
 
@@ -4004,6 +4062,620 @@ def phase_surface(torch, model: str = SERVE_MODEL) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 13: speculation on the card
+# ---------------------------------------------------------------------------
+
+def profile_rounds(torch, engine, prompt, rounds: int) -> dict:
+    """torch.profiler over ``rounds`` rounds of a single-request
+    speculative engine (one dispatch, the prompt prefilled before):
+    device ms a round and the device's idle share."""
+    import numpy as np
+    ids = engine._ids(prompt)
+    with engine._lock:
+        st = engine._begin(np.asarray(prompt), ids, 0)
+        torch.cuda.synchronize()
+        with _device_profile() as prof:
+            t0 = time.perf_counter()
+            engine._dispatch(st, rounds)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    out = _profile_summary(prof, wall_ms, {"rounds": rounds})
+    _check(out["kernels"] > 0, "torch.profiler recorded no kernel")
+    out["device_ms_per_round"] = out["device_busy_ms"] / rounds
+    return out
+
+
+def _spec_plain_side(torch, engine, prompt, flash_per_prefill: int) -> dict:
+    """One single-request speculative engine: greedy tokens and stats
+    over SPEC_NEW tokens, the flash kernel's launches (one prefill:
+    ``flash_per_prefill``), the replays, ms per emitted token ((t(1 +
+    SPEC_NEW) - t(1)) / SPEC_NEW, prefill cancelled out), and a profile
+    of SPEC_ROUNDS_PROFILED rounds; and the tokens and stats of
+    SPEC_EAGER_NEW tokens, which the eager twin runs (a host-bound
+    eager round costs ~0.1 s)."""
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
+    res, stats = engine.generate(prompt, SPEC_EAGER_NEW)   # captures
+    short = {"tokens": res.tokens[0].tolist(), "stats": vars(stats)}
+    if not engine.cuda_graph:
+        return {"short": short, "replays": engine.graph_replays}
+    _reset_launches(flash_attention)
+    r0 = engine.graph_replays
+    res, stats = engine.generate(prompt, SPEC_NEW)
+    flash, replays = flash_attention.launches, engine.graph_replays - r0
+    _check(flash == flash_per_prefill,
+           f"{flash} flash launches over one prefill, {flash_per_prefill} "
+           "predicted")
+    t_one = engine.generate(prompt, 1)[0].seconds
+    t_many = engine.generate(prompt, 1 + SPEC_NEW)[0].seconds
+    ms = (t_many - t_one) / SPEC_NEW * 1e3
+    prof = profile_rounds(torch, engine, prompt, SPEC_ROUNDS_PROFILED)
+    return {"tokens": res.tokens[0].tolist(), "short": short,
+            "rounds": stats.rounds,
+            "acceptance_rate": stats.acceptance_rate,
+            "tokens_per_round": stats.tokens_per_round,
+            "flash_launches": flash, "replays": replays,
+            "ms_per_token": ms, "tok_s": 1e3 / ms,
+            "device_ms_per_round": prof["device_ms_per_round"],
+            "device_idle_share": prof["device_idle_share"],
+            "profile_top": prof["top"][:3]}
+
+
+def _teacher_logits(torch, engine, seq, plen: int, width: int):
+    """The plain engine's logits at the last position of ``seq``, teacher
+    forced: the prompt ``seq[:plen]`` prefilled, then the rest fed
+    ``width`` tokens a forward (1: decode's M, K+1: the verify's)."""
+    ids = torch.tensor([seq], device="cuda")
+    cache = engine.new_cache(1)
+    logits, cache = engine._prefill(ids[:, :plen], cache)
+    start = plen
+    while start < len(seq):
+        n = min(width, len(seq) - start)
+        lg, cache = engine._fwd(ids[:, start:start + n], cache,
+                                engine._positions(1, n, start), False)
+        logits, start = lg[:, -1], start + n
+    return logits[0].float().cpu().numpy()
+
+
+def spec_partings(torch, engine, prompt, got, want) -> list:
+    """Where a speculative engine's greedy stream ``got`` parts from the
+    plain engine's ``want``: the first differing step, the top-two gap
+    there on the plain path (``margin``), and the teacher-forced gap
+    between the plain engine's logits fed one token a forward and fed
+    SPEC_K + 1 a forward (the verify's row count).  A parting must sit at
+    a near tie: the margin within LOGIT_TOL_REL of the largest logit."""
+    import numpy as np
+    if got == want:
+        return []
+    j = next(k for k in range(len(got)) if got[k] != want[k])
+    seq = list(prompt) + want[:j]
+    one = _teacher_logits(torch, engine, seq, len(prompt), 1)
+    wide = _teacher_logits(torch, engine, seq, len(prompt), SPEC_K + 1)
+    row = {"step": j, "margin": float(abs(one[want[j]] - one[got[j]])),
+           "teacher_forced_gap": float(np.abs(one - wide).max()),
+           "logit_tol": LOGIT_TOL_REL * max(1.0, float(np.abs(one).max()))}
+    _check(row["margin"] <= row["logit_tol"],
+           f"a speculative stream parts away from a near tie: {row}")
+    return [row]
+
+
+def _spec_batching_run(torch, engine, prompts, draft_layers: int = 0,
+                       poll_k: bool = False) -> dict:
+    """One counted run of a speculative batching engine from zero: the
+    prompts together, NEW_TOKENS each, the paged kernels' launches
+    against the routing's prediction (the draft's decode kernel L_d x
+    (k + 1) a round of width k; the verify's prefill kernel L a round;
+    admission: the serialized chunks and finals, or L a mixed slab
+    forward), no page leaked in either pool.  Also the verify window:
+    the counts read on the scheduler's thread between two dispatches,
+    at the first iteration after every request is admitted, and again
+    once all are done; in that window no admission runs, so the prefill
+    kernel's launches are the verify's own, L a round
+    (``verify_launches``), and the decode kernel's the draft steps'."""
+    import threading
+
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
+
+    attr = ("int8_launches" if engine.kv_dtype == "int8" else
+            "fp8_launches" if engine.kv_cache_dtype is not None
+            else "launches")
+    engine.submit(list(range(16)), 2).wait(timeout=300)     # warm
+    engine.reset_stats()
+    flight = get_flight_recorder()
+    flight.clear()
+    _reset_launches(pa.paged_flash_attention, pa.paged_prefill_attention,
+                    flash_attention)
+    r0 = engine.graph_replays
+    seen, polling = set(), [True]
+
+    def poll():
+        while polling[0]:
+            seen.update(int(engine._spec_krow[i])
+                        for i, r in enumerate(engine._slots) if r is not None)
+            time.sleep(0.002)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    if poll_k:
+        poller.start()
+
+    def counts():
+        rbw = dict(engine.rounds_by_width)
+        return {"paged_decode": getattr(pa.paged_flash_attention, attr),
+                "paged_prefill": getattr(pa.paged_prefill_attention, attr),
+                "rounds": sum(rbw.values()),
+                "draft_steps": sum((k + 1) * n for k, n in rbw.items())}
+
+    reqs, window = [], []
+    sample_hbm = engine._sample_hbm
+
+    def between_dispatches():
+        # the top of a scheduler iteration: no dispatch in flight
+        if (not window and len(reqs) == len(prompts)
+                and all(len(r.tokens) or r.done.is_set() for r in reqs)
+                and engine._adm is None and not engine._adms
+                and not engine._pending and engine._queue.empty()):
+            window.append(counts())
+        sample_hbm()
+
+    engine._sample_hbm = between_dispatches
+    t0 = time.perf_counter()
+    try:
+        reqs.extend(engine.submit(p, NEW_TOKENS) for p in prompts)
+        toks = [r.wait(timeout=900).tolist() for r in reqs]
+    finally:
+        polling[0] = False
+        engine._sample_hbm = sample_hbm
+    wall = time.perf_counter() - t0
+    L = engine.cfg.num_layers
+    rbw = dict(engine.rounds_by_width)
+    rounds = sum(rbw.values())
+    if engine.mixed_token_budget:
+        admission = L * engine.chunk_stats["mixed_slab_forwards"]
+    else:
+        admits = [(e["prompt_len"], e["prefix_reused"])
+                  for e in flight.snapshot() if e["kind"] == "batch_admit"]
+        admission = predicted_paged_launches(engine, admits,
+                                             L)["paged_prefill"]
+    launches = {"paged_decode": getattr(pa.paged_flash_attention, attr),
+                "paged_prefill": getattr(pa.paged_prefill_attention, attr)}
+    predicted = {"paged_decode": draft_layers * sum(
+                     (k + 1) * n for k, n in rbw.items()),
+                 "paged_prefill": L * rounds + admission}
+    stats = engine.stats()
+    out = {"tokens": toks, "wall_s": wall,
+           "tok_s": len(prompts) * NEW_TOKENS / wall,
+           "launch_attr": attr, "launches": launches,
+           "predicted_launches": predicted,
+           "rounds_by_width": {str(k): n for k, n in sorted(rbw.items())},
+           "graph_replays": engine.graph_replays - r0,
+           "speculative": stats["speculative"],
+           "device_loop": stats["device_loop"]}
+    if poll_k:
+        out["k_row_buckets_visited"] = sorted(seen)
+    if engine.mixed_token_budget:
+        out["mixed"] = stats["mixed"]
+    _check(launches == predicted, f"paged launches {launches}, the "
+           f"routing predicts {predicted}")
+    _check(bool(window), "no scheduler iteration after the last admission")
+    end = counts()
+    w = {k: end[k] - window[0][k] for k in end}
+    out["verify_window"] = w
+    out["verify_launches"] = w["paged_prefill"]
+    _check(w["rounds"] > 0 and w["paged_prefill"] == L * w["rounds"]
+           and w["paged_decode"] == draft_layers * w["draft_steps"],
+           f"verify window: launches {w}, the routing predicts {L} x "
+           f"rounds prefill, {draft_layers} x draft steps decode")
+    _check(flash_attention.launches == 0, "the flash kernel ran")
+    out["no_page_leak"] = _no_page_leak(engine) and (
+        engine._proposer != "draft"
+        or engine._dmgr.free_blocks == engine._dmgr.num_blocks)
+    _check(out["no_page_leak"], "pages leaked after the drain")
+    return out
+
+
+def _batch_partings(torch, engines, prompts, got, want) -> list:
+    """Where a speculative batching stream parts from the plain batching
+    engine's: the first differing step and the gap between the two
+    tokens' logits there, teacher forced through the speculative
+    engine's chunked path (``_paged_logits``); for the first parting
+    also the gap between that path and the plain engine's one-token
+    decode steps over the same tokens (host bound: one eager forward a
+    token).  A parting must sit at a near tie (the margin within
+    LOGIT_TOL_REL of the largest logit)."""
+    import numpy as np
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(k for k in range(min(len(g), len(w))) if g[k] != w[k])
+        seq = prompts[i] + w[:j]
+        ls = _paged_logits(torch, engines["spec"], seq, 0)[0]
+        gap = None
+        if not out:
+            lp = _paged_logits(torch, engines["plain"], seq, j)[j]
+            gap = float(np.abs(lp - ls).max())
+        row = {"request": i, "step": j,
+               "margin": float(abs(ls[w[j]] - ls[g[j]])),
+               "teacher_forced_gap": gap,
+               "logit_tol": LOGIT_TOL_REL * max(1.0,
+                                                float(np.abs(ls).max()))}
+        out.append(row)
+        _check(row["margin"] <= row["logit_tol"],
+               f"speculative batching parts away from a near tie: {row}")
+    return out
+
+
+def phase_speculative(torch, ptxas: list) -> dict:
+    """Speculation at TinyLlama's full width (random bf16 weights, seed
+    0), the draft SPEC_DRAFT (8 layers, hd 64, g = 4, TinyLlama's
+    vocab), K = SPEC_K.  See the module docstring, item 13."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch import cli
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.loader import \
+        load_or_init
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+    from distributed_inference_demo_tpu_torch.runtime.prompt_lookup import \
+        PromptLookupEngine
+    from distributed_inference_demo_tpu_torch.runtime.speculative import (
+        SpeculativeBackend, SpeculativeEngine)
+
+    t_phase = time.perf_counter()
+    laps, t_lap = {}, [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
+    greedy = SamplingParams(greedy=True)
+    cfg, dcfg = get_model_config(SERVE_MODEL), get_model_config(SPEC_DRAFT)
+    Lt, Ld = cfg.num_layers, dcfg.num_layers
+    out = {"phase": "speculative", "device": torch.cuda.get_device_name(0),
+           "model": SERVE_MODEL, "draft": SPEC_DRAFT, "num_draft": SPEC_K,
+           "new_tokens": SPEC_NEW,
+           "ptxas": [r for r in ptxas if "64" in r["kernel"] and (
+               "prefill" in r["kernel"] or "decode" in r["kernel"])]}
+    params = load_or_init(SERVE_MODEL, cfg, None, seed=0, device="cuda")
+    dparams = load_or_init(SPEC_DRAFT, dcfg, None, seed=0, device="cuda")
+    prompt = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, PROMPT_LEN).tolist()
+    span = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                            SPEC_SPAN).tolist()
+    rep = span * SPEC_REPEATS
+    lap("weights")
+
+    # ---- the single-request engines, graph and eager ----
+    plain = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
+                            device="cuda")
+    want = {p: plain.generate([q], SPEC_NEW).tokens[0].tolist()
+            for p, q in (("draft", prompt), ("rep", rep))}
+    t_one = plain.generate([prompt], 1).seconds
+    t_many = plain.generate([prompt], 1 + SPEC_NEW).seconds
+    out["plain_ms_per_token"] = (t_many - t_one) / SPEC_NEW * 1e3
+    lap("plain_engine")
+    kw = dict(max_seq=MAX_SEQ, sampling=greedy, num_draft=SPEC_K,
+              device="cuda")
+    plain_paths = {
+        "draft": (lambda f: SpeculativeEngine(cfg, params, dcfg, dparams,
+                                              cuda_graph=f, **kw),
+                  prompt, want["draft"], Lt + Ld),
+        "self_draft": (lambda f: SpeculativeEngine(cfg, params, cfg, params,
+                                                   cuda_graph=f, **kw),
+                       prompt, want["draft"], 2 * Lt),
+        "prompt_lookup": (lambda f: PromptLookupEngine(
+            cfg, params, cuda_graph=f, **kw), rep, want["rep"], Lt)}
+    partings = {}
+    for name, (make, p, w, flash) in plain_paths.items():
+        res = {}
+        for key, flag in (("graph", True), ("eager", False)):
+            eng = make(flag)
+            res[key] = _spec_plain_side(torch, eng, [p], flash)
+            del eng
+            lap(f"{name}_{key}")
+        g, e = res["graph"], res["eager"]
+        res["bits_equal"] = g["short"] == e["short"]
+        _check(res["bits_equal"], f"{name}: replayed rounds differ from "
+               "eager ones")
+        _check(g["replays"] >= g["rounds"] > 0 and e["replays"] == 0,
+               f"{name}: {g['replays']} replays, {g['rounds']} rounds")
+        # TinyLlama as its own draft gives the draft-model engine's stream
+        key = (str(p), str(g["tokens"]))
+        if key not in partings:
+            partings[key] = spec_partings(torch, plain, p, g["tokens"], w)
+        res["partings"] = partings[key]
+        lap(f"{name}_partings")
+        res["greedy_agreement"] = sum(
+            a == b for a, b in zip(g["tokens"], w)) / SPEC_NEW
+        res["ms_per_token_vs_plain"] = (g["ms_per_token"]
+                                        / out["plain_ms_per_token"])
+        out[name] = res
+    del plain
+    lap("single_request_engines")
+    # f32: the draft-model and prompt-lookup engines token-exact against
+    # the plain engine (each on its own weights from seed 0)
+    cfg32, dcfg32 = (c.replace(dtype_name="float32") for c in (cfg, dcfg))
+    p32 = init_full_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg32, "cuda")
+    d32 = init_full_params(torch.Generator(device="cuda").manual_seed(0),
+                           dcfg32, "cuda")
+    plain32 = InferenceEngine(cfg32, p32, max_seq=MAX_SEQ, sampling=greedy,
+                              device="cuda")
+    for name, eng, p in (
+            ("draft", SpeculativeEngine(cfg32, p32, dcfg32, d32, **kw),
+             prompt),
+            ("prompt_lookup", PromptLookupEngine(cfg32, p32, **kw), rep)):
+        got = eng.generate([p], SPEC_NEW)[0].tokens[0].tolist()
+        w = plain32.generate([p], SPEC_NEW).tokens[0].tolist()
+        out[name]["f32_token_exact"] = got == w
+        _check(got == w, f"{name} f32 greedy tokens differ from the plain "
+               "engine's")
+        del eng
+    del plain32, p32, d32
+    torch.cuda.empty_cache()
+    lap("single_request_f32")
+
+    # ---- serve --draft-model over HTTP: blocking and streamed ----
+    def http_pair(backend, ids):
+        server = InferenceHTTPServer(backend, "127.0.0.1", 0,
+                                     model_name=SERVE_MODEL,
+                                     default_max_new=NEW_TOKENS)
+        server.start()
+        try:
+            code, text = _post(server.port, {"prompt_ids": [ids],
+                                             "max_new_tokens": NEW_TOKENS})
+            _check(code == 200, f"HTTP {code}")
+            blocking = json.loads(text)["tokens"][0]
+            code, text = _post(server.port, {"prompt_ids": [ids],
+                                             "max_new_tokens": NEW_TOKENS,
+                                             "stream": True})
+            _check(code == 200, f"HTTP {code}")
+            streamed = [json.loads(ln)["tokens"][0]
+                        for ln in text.splitlines() if ln.strip()]
+            stats = _get(server.port, "/stats")[1]
+        finally:
+            server.shutdown()
+        return {"tokens": blocking, "streamed": streamed, "stats": stats}
+
+    sargs = ["--model", SERVE_MODEL, "--max-seq", str(MAX_SEQ), "--greedy",
+             "--http-port", "0"]
+    args = cli._serve_parser().parse_args(sargs + ["--draft-model",
+                                                   SPEC_DRAFT])
+    backend = SpeculativeBackend(cli.build_spec_engine(args))
+    serve = http_pair(backend, prompt)
+    _check(serve.pop("streamed") == serve["tokens"],
+           "streamed tokens differ from blocking")
+    _check(serve["tokens"] == out["draft"]["graph"]["tokens"][:NEW_TOKENS],
+           "serve --draft-model tokens differ from the engine's")
+    _check(serve["stats"]["speculative"]["rounds"] > 0, "no /stats rounds")
+    out["serve_draft_model"] = serve
+    del backend
+    lap("serve_draft_model")
+
+    # ---- batching: 8 slots, the batching phase's 8 prompts ----
+    prompts = _batch_prompts(cfg.vocab_size)
+    # the replay-vs-eager and f32 checks: requests one after another, the
+    # same schedule for both sides (an eager 8-slot round is host bound)
+    seq1 = [prompts[BATCH_PROMPTS.index(150)]]
+
+    def batching(c=cfg, p=params, **kw2):
+        return ContinuousBatchingEngine(
+            c, p, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
+            kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+            decode_block=MIXED_DECODE_BLOCK, num_draft=SPEC_K,
+            device="cuda", **kw2)
+
+    draft_kw = dict(draft_cfg=dcfg, draft_params=dparams)
+    pld_kw = dict(prompt_lookup=True)
+    mixed_kw = dict(mixed_token_budget=MIXED_BUDGET, kv_dtype="int8")
+    modes = {"draft_serialized": (draft_kw, {}),
+             "pld_serialized": (pld_kw, {}),
+             "draft_mixed_int8": (draft_kw, mixed_kw),
+             "pld_mixed_int8": (pld_kw, mixed_kw)}
+    plain_toks = {}
+    for key, extra in (("bf16", {}), ("int8_mixed", mixed_kw)):
+        with batching(**extra) as eng:
+            reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+            plain_toks[key] = [r.wait(timeout=900).tolist() for r in reqs]
+        out.setdefault("plain_batching_engines", []).append(key)
+    lap("plain_batching")
+    # closed plain engines for the partings, and the partings computed
+    batch, closed, partings = {}, {}, {}
+    for name, (prop, extra) in modes.items():
+        ref_key = "int8_mixed" if extra else "bf16"
+        with batching(**prop, **extra) as eng:
+            run = _spec_batching_run(
+                torch, eng, prompts, poll_k=bool(extra),
+                draft_layers=Ld if "draft_cfg" in prop else 0)
+            lap(f"{name}_run")
+            got, w = run["tokens"], plain_toks[ref_key]
+            run["greedy_agreement"] = sum(
+                sum(a == b for a, b in zip(g_, w_))
+                for g_, w_ in zip(got, w)) / (len(prompts) * NEW_TOKENS)
+            # both proposers give the same greedy streams on a page type:
+            # a parting is computed once
+            key = (ref_key, str(got))
+            if got != w and key not in partings:
+                if ref_key not in closed:
+                    with batching(**extra) as closed[ref_key]:
+                        pass
+                partings[key] = _batch_partings(
+                    torch, {"plain": closed[ref_key], "spec": eng}, prompts,
+                    got, w)
+            run["partings"] = partings.get(key, [])
+            lap(f"{name}_partings")
+            run.update(decode_window(torch, eng, prompts, steps=8,
+                                     profiled=4))
+            _check(_no_page_leak(eng), "cancelled requests leaked pages")
+            lap(f"{name}_window")
+            replayed = [eng.submit(p, SPEC_EAGER_NEW // 2).wait(
+                timeout=900).tolist() for p in seq1]
+        with batching(**prop, **extra, cuda_graph=False) as eager:
+            eager_toks = [eager.submit(p, SPEC_EAGER_NEW // 2).wait(
+                timeout=900).tolist() for p in seq1]
+            _check(eager.graph_replays == 0, "the eager engine replayed")
+        run["replay_equals_eager"] = replayed == eager_toks
+        _check(run["replay_equals_eager"], f"{name}: replayed tokens "
+               "differ from the eager rounds'")
+        run.pop("tokens")
+        batch[name] = run
+        del eng, eager
+        torch.cuda.empty_cache()
+        lap(name)
+    # float8 e4m3 pages: prompt lookup, serialized (the e4m3 verify
+    # instances on the path)
+    with batching(**pld_kw, kv_cache_dtype="float8_e4m3fn") as eng:
+        run = _spec_batching_run(torch, eng, prompts)
+    run.pop("tokens")
+    batch["pld_serialized_fp8"] = run
+    del eng, closed
+    lap("pld_serialized_fp8")
+    # f32, 8 concurrent requests: the draft model serialized and prompt
+    # lookup mixed, each token-exact against a plain batching engine's
+    # (the round logic), kernels and gather path alike (the attention)
+    p32 = init_full_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg32, "cuda")
+    d32 = init_full_params(torch.Generator(device="cuda").manual_seed(0),
+                           dcfg32, "cuda")
+    mixed32 = dict(mixed_token_budget=MIXED_BUDGET)
+
+    def together(**kw2):
+        with batching(cfg32, p32, **kw2) as eng:
+            reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+            got = [r.wait(timeout=900).tolist() for r in reqs]
+        return got
+
+    want32 = together()
+    f32 = {}
+    for name, prop, disp, extra in (
+            ("draft", dict(draft_cfg=dcfg32, draft_params=d32),
+             "serialized", {}),
+            ("prompt_lookup", pld_kw, "mixed", mixed32)):
+        for backend in ("auto", "plain"):
+            got = together(attn_backend=backend, **prop, **extra)
+            parted = [(i, next(j for j, (a, b) in enumerate(zip(g, w))
+                               if a != b))
+                      for i, (g, w) in enumerate(zip(got, want32))
+                      if g != w]
+            key = f"{name}_{disp}" + ("_gather" if backend == "plain"
+                                      else "")
+            f32[key] = {"token_exact": not parted,
+                        "partings": parted}
+            _check(not parted, f"f32 {key}: tokens part from the "
+                   f"plain batching engine's at (request, step) "
+                   f"{parted}")
+    out["batching_f32_vs_plain"] = f32
+    del p32, d32
+    torch.cuda.empty_cache()
+    out["batching"] = batch
+    lap("batching_f32")
+
+    # ---- serve --batch-slots 8 --prompt-lookup over HTTP ----
+    args = cli._serve_parser().parse_args(sargs + [
+        "--batch-slots", str(SLOTS), "--prompt-lookup", "--prefill-chunk",
+        str(PREFILL_CHUNK), "--kv-block-tokens", str(BLOCK_TOKENS)])
+    _, eng = cli.build_batching_engine(args)
+    try:
+        serve = http_pair(eng, rep)
+        _check(serve["stats"]["speculative"]["proposer"] == "prompt_lookup"
+               and serve["stats"]["speculative"]["rounds"] > 0,
+               f"/stats: {serve['stats'].get('speculative')}")
+        _check(_no_page_leak(eng), "serve --prompt-lookup leaked pages")
+    finally:
+        eng.close()
+    # the streamed request hits the blocking one's prompt in the radix
+    # tree and prefills only its last chunk: at bf16 its stream may part
+    # from the blocking one at a near tie, as the plain batching
+    # server's own pair may
+    out["serve_batching_prompt_lookup"] = {
+        "tokens": serve["tokens"],
+        "streamed_equal": serve["streamed"] == serve["tokens"],
+        "partings": _batch_partings(
+            torch, {"plain": eng, "spec": eng}, [rep], [serve["streamed"]],
+            [serve["tokens"]]),
+        "speculative": serve["stats"]["speculative"]}
+    args = cli._serve_parser().parse_args(sargs + [
+        "--batch-slots", str(SLOTS), "--prefill-chunk", str(PREFILL_CHUNK),
+        "--kv-block-tokens", str(BLOCK_TOKENS)])
+    _, eng = cli.build_batching_engine(args)
+    try:
+        plain_pair = http_pair(eng, rep)
+        _check(_no_page_leak(eng), "serve --batch-slots leaked pages")
+    finally:
+        eng.close()
+    out["serve_batching_plain_pair"] = {
+        "tokens": plain_pair["tokens"],
+        "streamed_equal": plain_pair["streamed"] == plain_pair["tokens"],
+        "partings": _batch_partings(
+            torch, {"plain": eng, "spec": eng}, [rep],
+            [plain_pair["streamed"]], [plain_pair["tokens"]]),
+        "prompt_lookup_blocking_equal": plain_pair["tokens"]
+        == serve["tokens"]}
+    del eng, params, dparams
+    torch.cuda.empty_cache()
+    lap("serve_batching_prompt_lookup")
+
+    # ---- generate --prompt-lookup on tinyllama-1.1b-int8: the dense
+    # kernels under the verify forward (M = K + 1: the decode kernel) ----
+    name8 = SERVE_MODEL + "-int8"
+    gargs = ["--model", name8, "--max-seq", str(MAX_SEQ), "--greedy",
+             "--prompt-ids", ",".join(map(str, rep)), "--prompt-lookup",
+             "--max-new-tokens", str(NEW_TOKENS)]
+    eng = cli.build_prompt_lookup_engine(cli._generate_parser().parse_args(
+        gargs))
+    eng.generate([rep], 2)                       # captures, warms
+    qd.quant_dense.launches = qd.quant_dense.decode_launches = 0
+    r0 = eng.graph_replays
+    res, stats = eng.generate([rep], NEW_TOKENS)
+    per_fwd = dense_per_layer(eng.cfg) * eng.cfg.num_layers
+    rounds = eng.graph_replays - r0
+    int8 = {"rounds": stats.rounds, "replays": rounds,
+            "acceptance_rate": stats.acceptance_rate,
+            "dense_launches": qd.quant_dense.launches,
+            "decode_launches": qd.quant_dense.decode_launches,
+            "predicted_dense_launches": per_fwd * (1 + rounds),
+            "predicted_decode_launches": per_fwd * rounds}
+    _check(int8["decode_launches"] == int8["predicted_decode_launches"]
+           and int8["dense_launches"] == int8["predicted_dense_launches"],
+           f"{name8} generate --prompt-lookup: dense launches {int8}")
+    del eng
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["generate", *gargs])
+    cli_out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    int8["cli_rc"] = rc
+    int8["cli_tokens_equal"] = cli_out["tokens"][0] == res.tokens[0].tolist()
+    int8["cli_speculative"] = cli_out["speculative"]
+    _check(rc == 0 and int8["cli_tokens_equal"],
+           f"generate --prompt-lookup on {name8}: rc {rc}")
+    out["generate_prompt_lookup_int8"] = int8
+    torch.cuda.empty_cache()
+    lap("generate_prompt_lookup_int8")
+    out["section_s"] = laps
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -4036,7 +4708,9 @@ def main(argv) -> int:
             emit({"serve": phase_serve, "batching": phase_batching,
                   "mixed": phase_mixed, "graph": phase_graph,
                   "quant": phase_quant, "kvcache": phase_kvcache,
-                  "surface": phase_surface, "moe": phase_moe}[only](torch))
+                  "surface": phase_surface, "moe": phase_moe,
+                  "speculative": lambda t: phase_speculative(
+                      t, device["ptxas"]["paged_attention.cu"])}[only](torch))
             return 0
         kern = phase_kernels(torch)
         emit(kern)
@@ -4075,6 +4749,9 @@ def main(argv) -> int:
         emit(kvc)
         surface = phase_surface(torch)
         emit(surface)
+        spec = phase_speculative(torch,
+                                 device["ptxas"]["paged_attention.cu"])
+        emit(spec)
         moe = phase_moe(torch)
         emit(moe)
     except Exception:
@@ -4150,6 +4827,39 @@ def main(argv) -> int:
         ("paged_prefill_mixtral", "paged_prefill", moe["batching"],
          serve_case("prefill", "full", MOE_MODEL),
          f"{MOE_MODEL}, " + chunk200)]
+    # the speculative phase: the [8, K+1] verify on each page type (its
+    # launches: a batching run's verify window over that pool, after
+    # its last admission),
+    # the draft's decode rows (its launches: the draft steps)
+    sb = spec["batching"]
+    verify = f"verify: 8 rows of {SPEC_K + 1} tokens at 20-1999, one freed"
+    verify_case = {p: next(c for c in paged["cases"]
+                           if c["case"] == "tinyllama-verify"
+                           and c["dtype"] == "bfloat16" and c["pages"] == p)
+                   for p in ("full", "int8", "fp8")}
+    paged_spec = [
+        ("paged_prefill_verify", "paged_prefill",
+         sb["draft_serialized"]["verify_launches"], verify_case["full"],
+         verify + " (launches: the verify window of the draft-model "
+         "serialized batching run)"),
+        ("paged_prefill_verify_int8", "paged_prefill_int8",
+         sb["draft_mixed_int8"]["verify_launches"], verify_case["int8"],
+         "int8 pages, " + verify + " (launches: the verify window of the "
+         "draft-model mixed batching run)"),
+        ("paged_prefill_verify_fp8", "paged_prefill_fp8",
+         sb["pld_serialized_fp8"]["verify_launches"], verify_case["fp8"],
+         "float8 e4m3 pages, " + verify + " (launches: the verify window "
+         "of the prompt-lookup serialized batching run)"),
+        ("paged_decode_draft", "paged_decode",
+         sb["draft_serialized"]["launches"]["paged_decode"],
+         serve_case("decode", "full", MOE_MODEL),
+         f"{SPEC_DRAFT} (hd 64, g = 4), " + rows8 + " (launches: the "
+         "draft steps of the draft-model serialized batching run)"),
+        ("paged_decode_draft_int8", "paged_decode_int8",
+         sb["draft_mixed_int8"]["launches"]["paged_decode"],
+         serve_case("decode", "int8", SPEC_DRAFT),
+         f"{SPEC_DRAFT}, int8 pages, " + rows8 + " (launches: the draft "
+         "steps of the draft-model mixed batching run)")]
     flash_new = [(f"flash_attention_hd{served[n]['head_dim']}", n)
                  for n in HEAD_DIM_MODELS]
     moe_long_case = next(c for c in kern["cases"]
@@ -4221,6 +4931,10 @@ def main(argv) -> int:
         entry(name, PAGED_SOURCE, PAGED_REPLACES[key], phase["launches"][key],
               case, shape)
         for name, key, phase, case, shape in paged_main] + [
+        # every verify and draft step is a replay of a round's graph
+        {**entry(name, PAGED_SOURCE, PAGED_REPLACES[key], launches, case,
+                 shape), "graph_replayed": True}
+        for name, key, launches, case, shape in paged_spec] + [
         quant_entry("quant_dense_int8", quant_phase["int8_plain"]["graph"],
                     1, 8, "TinyLlama w_up [2048, 5632] int8, M = 1 "
                     "(launches: the decode kernel's, tinyllama-1.1b-int8 "

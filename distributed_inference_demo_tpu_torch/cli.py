@@ -15,6 +15,10 @@
         --model tinyllama-1.1b --kv-cache-blocks 256 --prefill-chunk 64
     python -m distributed_inference_demo_tpu_torch serve \\
         --model llama-test --device cpu --tokenizer tokenizer.model
+    python -m distributed_inference_demo_tpu_torch serve \\
+        --model tinyllama-1.1b --draft-model mixtral-tpu-1b-dense
+    python -m distributed_inference_demo_tpu_torch serve \\
+        --model tinyllama-1.1b --batch-slots 8 --prompt-lookup
     python -m distributed_inference_demo_tpu_torch generate \\
         --model llama-test --device cpu --prompt-ids 5,17,99 --greedy
     python -m distributed_inference_demo_tpu_torch classify \\
@@ -23,25 +27,28 @@
     python -m distributed_inference_demo_tpu_torch chat \\
         --url http://127.0.0.1:5000
 
-Two serve modes of the JAX package's CLI, with the weights of an HF
-safetensors directory (``--checkpoint``) or random weights from
+The single-node serve modes of the JAX package's CLI, with the weights
+of an HF safetensors directory (``--checkpoint``) or random weights from
 ``--weights-seed``, quantized for an ``-int8`` / ``-int4`` model, behind
 ``InferenceHTTPServer``: plain (one
 ``InferenceEngine``, with its block KV prefix pool under
-``--kv-cache-blocks``) and ``--batch-slots N`` (a
+``--kv-cache-blocks``), ``--draft-model M`` (a ``SpeculativeEngine``;
+``--draft-checkpoint``, ``--num-draft``), ``--prompt-lookup`` (a
+``PromptLookupEngine``) and ``--batch-slots N`` (a
 ``ContinuousBatchingEngine`` over the paged KV pool, with
-``--decode-block``, ``--admission-queue-depth`` and
-``--mixed-token-budget``).  Both take ``--kv-cache-blocks``,
-``--kv-block-tokens``, ``--prefill-chunk``, ``--kv-dtype`` and
-``--kv-cache-dtype``.  ``--tokenizer`` (an HF ``tokenizer.json`` or a
+``--decode-block``, ``--admission-queue-depth``,
+``--mixed-token-budget``, and either proposer, ``--no-spec-adaptive``
+pinning the mixed dispatch's draft length).  Each takes
+``--kv-cache-blocks``, ``--kv-block-tokens``, ``--prefill-chunk``,
+``--kv-dtype`` and ``--kv-cache-dtype``.  ``--tokenizer`` (an HF ``tokenizer.json`` or a
 sentencepiece ``.model``) lets requests carry text and stop strings;
 ``--run-log`` appends JSONL run-log events; ``--postmortem-dir`` writes
 postmortem bundles (and installs the crash handler, as does
 ``DWT_POSTMORTEM_DIR``).
 
 ``generate`` runs one prompt (``--prompt-ids`` or ``--prompt`` with
-``--tokenizer``) through an ``InferenceEngine`` and prints its tokens as
-JSON; ``classify`` runs a ``text,label`` CSV through
+``--tokenizer``) through an ``InferenceEngine`` (or either speculative
+engine, whose acceptance stats it adds) and prints its tokens as JSON; ``classify`` runs a ``text,label`` CSV through
 ``InferenceEngine.classify`` and prints the accuracy and predictions;
 ``chat`` is the streaming REPL client of a running server.  The engine
 commands run on CUDA unless ``--device cpu`` is given.  Every other
@@ -91,15 +98,76 @@ def _params(args):
                                      seed=args.weights_seed, device=device)
 
 
+def _draft_params(args, device):
+    """(draft_cfg, draft_params) from ``--draft-model`` /
+    ``--draft-checkpoint``, as the target's are resolved (random weights
+    from the same ``--weights-seed`` without a checkpoint)."""
+    from .models.loader import load_or_init
+    from .models.registry import get_model_config
+
+    dcfg = get_model_config(args.draft_model)
+    return dcfg, load_or_init(args.draft_model, dcfg,
+                              args.draft_checkpoint or None,
+                              seed=args.weights_seed, device=device)
+
+
+def _refuse_stream_block(args, flag: str) -> None:
+    if args.stream_block is not None:
+        raise ValueError(
+            f"--stream-block is not supported with {flag} (the "
+            "draft/verify round is already the fused dispatch unit)")
+
+
+def _spec_engine_kwargs(args, device) -> dict:
+    """The engine flags both speculative engines take."""
+    return dict(max_seq=args.max_seq, sampling=_sampling_from_args(args),
+                num_draft=args.num_draft, attn_backend=args.attn_backend,
+                eos_id=args.eos_id, kv_cache_dtype=args.kv_cache_dtype,
+                prefill_chunk=args.prefill_chunk or None,
+                kv_cache_blocks=args.kv_cache_blocks,
+                kv_block_tokens=args.kv_block_tokens,
+                kv_dtype=args.kv_dtype, device=device)
+
+
+def build_spec_engine(args):
+    """The ``SpeculativeEngine`` of ``generate`` / ``serve
+    --draft-model``."""
+    from .runtime.speculative import SpeculativeEngine
+
+    _refuse_stream_block(args, "--draft-model")
+    device, cfg, params = _params(args)
+    dcfg, dparams = _draft_params(args, device)
+    return SpeculativeEngine(cfg, params, dcfg, dparams,
+                             **_spec_engine_kwargs(args, device))
+
+
+def build_prompt_lookup_engine(args):
+    """The ``PromptLookupEngine`` of ``generate`` / ``serve
+    --prompt-lookup``."""
+    from .runtime.prompt_lookup import PromptLookupEngine
+
+    _refuse_stream_block(args, "--prompt-lookup")
+    device, cfg, params = _params(args)
+    return PromptLookupEngine(cfg, params,
+                              **_spec_engine_kwargs(args, device))
+
+
 def build_batching_engine(args):
-    """(cfg, ContinuousBatchingEngine) for ``serve --batch-slots N``."""
+    """(cfg, ContinuousBatchingEngine) for ``serve --batch-slots N``, with
+    the draft model or prompt lookup when asked for."""
     from .runtime.batching import ContinuousBatchingEngine
 
     device, cfg, params = _params(args)
+    dcfg = dparams = None
+    if args.draft_model:
+        dcfg, dparams = _draft_params(args, device)
     return cfg, ContinuousBatchingEngine(
         cfg, params, max_seq=args.max_seq, max_batch=args.batch_slots,
         sampling=_sampling_from_args(args), seed=args.seed,
         eos_id=args.eos_id, decode_block=args.decode_block,
+        draft_cfg=dcfg, draft_params=dparams, num_draft=args.num_draft,
+        prompt_lookup=args.prompt_lookup,
+        spec_adaptive=not args.no_spec_adaptive,
         prefill_chunk=args.prefill_chunk or None,
         max_queue_depth=args.admission_queue_depth,
         mixed_token_budget=args.mixed_token_budget or None,
@@ -135,6 +203,24 @@ def _dtype_name(dtype) -> str:
 def cmd_serve(args) -> int:
     from .runtime.http_server import InferenceHTTPServer
 
+    modes = [name for name, on in [("--draft-model", args.draft_model),
+                                   ("--prompt-lookup", args.prompt_lookup),
+                                   ("--batch-slots", args.batch_slots)]
+             if on]
+    # --batch-slots composes with --draft-model OR --prompt-lookup
+    if len(modes) > 1 and set(modes) not in (
+            {"--batch-slots", "--draft-model"},
+            {"--batch-slots", "--prompt-lookup"}):
+        print(f"choose one serve mode, got {' + '.join(modes)}",
+              file=sys.stderr)
+        return 1
+    if args.no_spec_adaptive and not (
+            args.batch_slots and (args.draft_model or args.prompt_lookup)):
+        # adaptive K_row lives in the mixed slot loop; anywhere else the
+        # flag would silently do nothing
+        print("--no-spec-adaptive requires --batch-slots with "
+              "--draft-model or --prompt-lookup", file=sys.stderr)
+        return 1
     if args.batch_slots and args.stream_block is not None:
         # the scheduler's fused block is --decode-block; a second K knob
         # is rejected, never silently ignored
@@ -160,13 +246,28 @@ def cmd_serve(args) -> int:
     if args.batch_slots:
         cfg, engine = build_batching_engine(args)
         kvc = engine.kv_cache
+        spec = ((f" draft={args.draft_model} k={args.num_draft}"
+                 if args.draft_model else "")
+                + (f" prompt_lookup k={args.num_draft}"
+                   if args.prompt_lookup else "")
+                + (" k_adaptive" if engine.spec_adaptive else ""))
         print(f"SERVE_BATCHING {args.model} slots={args.batch_slots} "
               f"kv_cache={kvc.num_blocks}x{kvc.block_tokens}tok "
               f"{engine.kv_layout} kv_dtype={engine.kv_dtype} "
               f"mixed_token_budget={engine.mixed_token_budget} "
               f"kv_cache_dtype={_dtype_name(engine.kv_cache_dtype)} tp=1 "
-              f"attn={engine.attn_backend} device={engine.device}",
+              f"attn={engine.attn_backend} device={engine.device}{spec}",
               flush=True)
+    elif args.draft_model or args.prompt_lookup:
+        from .runtime.speculative import SpeculativeBackend
+        engine = SpeculativeBackend(
+            build_spec_engine(args) if args.draft_model
+            else build_prompt_lookup_engine(args))
+        print((f"SERVE_SPECULATIVE {args.model} draft={args.draft_model} "
+               if args.draft_model else
+               f"SERVE_PROMPT_LOOKUP {args.model} ")
+              + f"k={args.num_draft} attn={engine.engine.attn_backend} "
+              f"device={engine.device}", flush=True)
     else:
         cfg, engine = build_engine(args)
         kvc = engine.kv_cache
@@ -251,11 +352,30 @@ def _add_engine_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
 
+def _add_draft_args(ap: argparse.ArgumentParser) -> None:
+    """Speculative-decoding flags, shared by generate and serve."""
+    ap.add_argument("--draft-model", default="",
+                    help="speculative decoding: draft model name (must "
+                         "share the target's vocab)")
+    ap.add_argument("--draft-checkpoint", default="",
+                    help="checkpoint for the draft model weights")
+    ap.add_argument("--num-draft", type=int, default=4,
+                    help="draft tokens proposed per verify round")
+    ap.add_argument("--prompt-lookup", action="store_true",
+                    help="draft-free speculation: n-gram lookup over the "
+                         "context proposes, the target verifies")
+    ap.add_argument("--no-spec-adaptive", action="store_true",
+                    help="pin K_row = --num-draft in the mixed dispatch "
+                         "instead of adapting per-row draft length to "
+                         "measured acceptance (serve --batch-slots only)")
+
+
 def _serve_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="distributed_inference_demo_tpu_torch serve",
         description="HTTP inference server (PyTorch/CUDA port)")
     _add_engine_args(ap)
+    _add_draft_args(ap)
     ap.add_argument("--batch-slots", type=int, default=0,
                     help="continuous batching with N slots: concurrent "
                          "requests join the running decode batch between "
@@ -293,6 +413,7 @@ def _generate_parser() -> argparse.ArgumentParser:
         prog="distributed_inference_demo_tpu_torch generate",
         description="one-shot local generation")
     _add_engine_args(ap)
+    _add_draft_args(ap)
     ap.add_argument("--prompt-ids", default="")
     ap.add_argument("--prompt", default=None)
     return ap
@@ -341,6 +462,10 @@ def cmd_generate(args) -> int:
     """One-shot local generation (ids in, ids/text out)."""
     import numpy as np
 
+    if args.no_spec_adaptive:
+        print("--no-spec-adaptive requires serve --batch-slots with "
+              "--draft-model or --prompt-lookup", file=sys.stderr)
+        return 1
     tokenizer = _load_tokenizer(args.tokenizer)
     if args.prompt_ids:
         ids = np.asarray([[int(t) for t in args.prompt_ids.split(",")]],
@@ -353,10 +478,25 @@ def cmd_generate(args) -> int:
     else:
         print("need --prompt-ids or --prompt", file=sys.stderr)
         return 1
-    _, engine = build_engine(args)
-    res = engine.generate(ids, args.max_new_tokens, seed=args.seed)
+    if args.draft_model and args.prompt_lookup:
+        print("choose one of --draft-model / --prompt-lookup",
+              file=sys.stderr)
+        return 1
+    stats = None
+    if args.prompt_lookup:
+        res, stats = build_prompt_lookup_engine(args).generate(
+            ids, args.max_new_tokens, seed=args.seed)
+    elif args.draft_model:
+        res, stats = build_spec_engine(args).generate(
+            ids, args.max_new_tokens, seed=args.seed)
+    else:
+        _, engine = build_engine(args)
+        res = engine.generate(ids, args.max_new_tokens, seed=args.seed)
     out = {"tokens": res.tokens.tolist(),
            "tokens_per_second": res.tokens_per_second}
+    if stats is not None:
+        from .runtime.speculative import stats_json
+        out["speculative"] = stats_json(stats, args.num_draft)
     if tokenizer is not None:
         out["text"] = [tokenizer.decode(r) for r in res.tokens.tolist()]
     print(json.dumps(out))

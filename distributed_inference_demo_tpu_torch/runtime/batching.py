@@ -1,10 +1,11 @@
 """Continuous batching: requests join and leave a running decode batch.
 
 Counterpart of ``distributed_inference_demo_tpu/runtime/batching.py``'s
-``ContinuousBatchingEngine`` in plain mode (no proposer): the serialized
-interleave and the mixed prefill+decode dispatch.  A fixed pool of batch
-SLOTS decodes in lockstep; a new request is admitted into a free slot
-between two decode steps.
+``ContinuousBatchingEngine``: plain decode and the draft-model and
+prompt-lookup proposers, each in the serialized interleave and the mixed
+prefill+decode dispatch.  A fixed pool of batch SLOTS decodes in
+lockstep; a new request is admitted into a free slot between two decode
+steps.
 
 - **Paged slot cache.**  K/V live in one device page pool
   ``[L, N + 1, nkv, block_tokens, hd]`` addressed through per-slot block
@@ -41,6 +42,22 @@ between two decode steps.
   several concurrent admissions into an ``[n_seg, C]`` slab, samples and
   installs the finals, and runs the fused decode block over every
   active row, so decode fusion survives admission.
+- **Speculation** (``draft_cfg`` or ``prompt_lookup``): each decode step
+  becomes a draft/verify ROUND over all slots: K proposals per row (the
+  draft model's K+1 one-token paged steps over its own scratch page
+  pool, or an n-gram match over the row's device history), ONE target
+  verify over ``[B, K+1]`` through the paged hook (on the card the
+  prefill kernel), the per-row accept rule
+  (``runtime/speculative.verify_emit_per_row``), each row advancing by
+  its own count.  A fused dispatch runs ``decode_block`` rounds; every
+  reservation carries ``decode_block * (K+1)`` slack tokens, so a
+  round's writes past a row's drained length land in its own pages.
+  The round is a step over static buffers, captured as a CUDA graph
+  per draft width (K serialized; each adaptive bucket {1, K/2, K} in
+  the mixed dispatch, whose rows price ``(K_row + 1) * decode_block``
+  budget tokens and move K_row by an acceptance EWMA) and replayed once
+  per round, each round's block and counts copied into the dispatch's
+  ``[R, B, K+1]`` buffer, with one host sync per dispatch.
 
 Telemetry as in the reference: each request carries a ``tenant`` and a
 ``trace_id`` and closes into the process SLO ledger (``/timeline``);
@@ -57,14 +74,13 @@ span or a timeline closes after the readback that already syncs the
 step; telemetry adds no sync of its own.
 
 The reference's other jitted programs (admission prefill, the mixed
-slab) run eagerly.  Sampling noise comes from one ``torch.Generator``
-seeded with ``seed`` (the reference's single rng stream): per-request
-seeds are not honored, and greedy decoding is bit-exact against
-``InferenceEngine``.
+slab, the draft's dense admission prefill) run eagerly.  Sampling noise
+comes from one ``torch.Generator`` seeded with ``seed`` (the reference's
+single rng stream): per-request seeds are not honored, and greedy
+decoding is bit-exact against ``InferenceEngine``.
 
-Not ported yet, each refused where it is asked for: the draft-model and
-prompt-lookup proposers, tiered KV, migration and resume, and tp
-meshes.
+Not ported yet, each refused where it is asked for: tiered KV,
+migration and resume, and tp meshes.
 """
 
 from __future__ import annotations
@@ -86,8 +102,10 @@ import torch
 from ..device import resolve_device
 from ..models.base import (KVCache, ModelConfig, StageParams, StageSpec,
                            pad_cache_capacity)
+from ..models.decoder import stage_forward
+from ..ops.attention import attention, prepare_kv_chunk
 from ..ops.paged_attention import BACKENDS as PAGED_BACKENDS
-from ..ops.quant import (alloc_kv_pages, resolve_kv_cache_dtype,
+from ..ops.quant import (alloc_kv_pages, as_bytes, resolve_kv_cache_dtype,
                          resolve_kv_dtype)
 from ..ops.sampling import SamplingParams, sample_logits
 from ..telemetry import postmortem
@@ -101,11 +119,30 @@ from .engine import (GenerationResult, check_capacity, count_device_loop,
                      make_paged_chunk_programs, validate_prefill_chunk)
 from .cuda_graph import StepGraphs
 from .kvcache import refuse_tiers
+from .kvcache.device import write_row_to_pages
 from .overload import SchedulerOverloaded
+from .prompt_lookup import ngram_propose
+from .speculative import draw_noise, propose_token, verify_emit_per_row
 
-SPEC_LATER = ("the draft-model and prompt-lookup proposers are ported in a "
-              "later slice (ROADMAP A11)")
 TP_LATER = "tensor-parallel meshes are ported in a later slice (ROADMAP A13)"
+
+
+def slot_attention_impl(q, k, v, k_cache, v_cache, positions, cache_start,
+                        slopes):
+    """Attention hook for ragged per-slot cache offsets (the draft's dense
+    admission row): ignores ``cache_start``; ``positions`` [b, s] carries
+    each row's insert offsets.  K/V land through an advanced-index
+    scatter, in place, and every row attends over the whole row buffer,
+    bounded by its own query positions."""
+    b, s = positions.shape
+    k, v = prepare_kv_chunk(k, v, k_cache.dtype, v_cache.dtype)
+    rows = torch.arange(b, device=positions.device)[:, None]
+    # [b, s, nkv, hd] through indices (0, 2) of [b, nkv, S, hd]
+    as_bytes(k_cache).permute(0, 2, 1, 3)[rows, positions] = as_bytes(k)
+    as_bytes(v_cache).permute(0, 2, 1, 3)[rows, positions] = as_bytes(v)
+    out = attention(q, k_cache, v_cache, positions, k_cache.shape[2],
+                    slopes)
+    return out, k_cache, v_cache
 
 
 class _BlocksExhausted(Exception):
@@ -220,19 +257,38 @@ class ContinuousBatchingEngine:
         ("float8_e4m3fn": float8 pages, the reference's page dtype rule
         ``kv_cache_dtype or cfg.dtype``).
 
-        Refused until their slice: the proposers (``draft_cfg``,
-        ``prompt_lookup``), the tier knobs and a tp ``mesh``.
-        ``num_draft``, ``spec_adaptive`` and ``kv_disk_tier_bytes`` only
-        shape a proposer or a tier, so without one they do nothing, as in
-        the reference."""
+        ``draft_cfg`` / ``draft_params`` (a draft model sharing the
+        target's vocab; its params on the engine's device) or
+        ``prompt_lookup`` (exclusive): speculative slot decoding with
+        ``num_draft`` proposals a round; the draft gets its own scratch
+        page pool of the target's page type, reserved and freed with each
+        request.  ``spec_adaptive``: the mixed dispatch's per-row draft
+        length (False pins K_row = ``num_draft``).  Logprobs are refused
+        with a proposer, as in the reference.
+
+        Refused until their slice: the tier knobs and a tp ``mesh``.
+        ``kv_disk_tier_bytes`` only shapes a tier, so without one it does
+        nothing, as in the reference."""
         if max_queue_depth is None:
             max_queue_depth = env_int("DWT_MAX_QUEUE_DEPTH", 0)
         self.max_queue_depth = max(0, int(max_queue_depth))
         if mixed_token_budget is None:
             mixed_token_budget = env_int("DWT_MIXED_TOKEN_BUDGET", 0)
         self.mixed_token_budget = max(0, int(mixed_token_budget))
-        if draft_cfg is not None or draft_params is not None or prompt_lookup:
-            raise NotImplementedError(SPEC_LATER)
+        if prompt_lookup and draft_cfg is not None:
+            raise ValueError(
+                "prompt_lookup and draft_cfg are exclusive proposers")
+        if (draft_cfg is None) != (draft_params is None):
+            raise ValueError("draft_cfg and draft_params go together")
+        if draft_cfg is not None and draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab ({draft_cfg.vocab_size}) != target vocab "
+                f"({cfg.vocab_size}); speculative decoding needs a "
+                "shared token space")
+        self._proposer = ("prompt_lookup" if prompt_lookup else
+                          "draft" if draft_cfg is not None else None)
+        if self._proposer is not None and num_draft < 1:
+            raise ValueError("num_draft must be >= 1")
         refuse_tiers(kv_host_tier_bytes, kv_disk_tier_path)
         # kv_dtype quantizes the page pool; the kv_cache_dtype storage
         # cast is another grid for the same full-width layout: one knob
@@ -254,7 +310,15 @@ class ContinuousBatchingEngine:
         if p_dev.type != self.device.type:
             raise ValueError(f"params live on {p_dev}, the engine on "
                              f"{self.device}")
+        if (draft_params is not None and draft_params.embed["tokens"]
+                .device.type != self.device.type):
+            raise ValueError("the draft's params live on "
+                             f"{draft_params.embed['tokens'].device}, the "
+                             f"engine on {self.device}")
         self.cfg, self.params = cfg, params
+        self.draft_cfg, self.draft_params = draft_cfg, draft_params
+        self.num_draft = num_draft
+        self.prompt_lookup = prompt_lookup
         self.max_seq = max_seq or cfg.max_seq_len
         self.max_batch = max_batch
         self.sampling = sampling
@@ -289,10 +353,26 @@ class ContinuousBatchingEngine:
 
         # the table width covers the caller's max_seq padded to the
         # sublane granule and to the page size (lcm keeps both), as the
-        # reference's buffer capacity S
+        # reference's buffer capacity S.  The speculative modes fold in
+        # SLACK: a fused dispatch may write decode_block * (K+1)
+        # positions past a row's drained length before the host learns
+        # the accepted counts, and each such write must land in a page
+        # the request reserved (else it drops, and a later round attends
+        # the missing K/V)
         B, bt = max_batch, block_tokens
+        self._slack_tokens = (decode_block * (num_draft + 1)
+                              if self._proposer else 0)
+        # adaptive per-row draft length (the mixed dispatch): K_row moves
+        # within these buckets by an EWMA of the row's acceptance
+        K0 = max(1, int(num_draft))
+        self._spec_buckets = tuple(sorted({1, max(1, K0 // 2), K0}))
+        self.spec_adaptive = bool(spec_adaptive) and bool(self._proposer)
+        self._spec_krow = np.full((B,), K0, np.int32)
+        self._spec_ewma = np.ones((B,), np.float64)
+        self._spec_ewma_alpha = 0.5
         gran = math.lcm(8, bt)
-        S = -(-pad_cache_capacity(self.max_seq) // gran) * gran
+        S = -(-(pad_cache_capacity(self.max_seq) + self._slack_tokens)
+              // gran) * gran
         self._table_width = S // bt
         n_blocks = (n_blocks_arg if n_blocks_arg >= 1
                     else B * self._table_width)
@@ -336,6 +416,8 @@ class ContinuousBatchingEngine:
                                     device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed))
+        if self._proposer is not None:
+            self._init_spec(S, n_blocks, page_dtype)
         # captured here, on the constructing thread, before the scheduler
         # thread starts and before any server can hand this engine a
         # request; the warm-up step runs with every slot inactive and
@@ -343,13 +425,22 @@ class ContinuousBatchingEngine:
         # the capture is booked as a compile of the reference's program
         # for this mode; paged_multi_step and mixed_step carry the
         # reference's two-variant budget
-        program = ("mixed_step" if self.mixed_token_budget > 0 else
-                   "paged_multi_step" if decode_block > 1 else "paged_step")
-        _profiling.get_compile_tracker().register(
-            program, variant_budget=None if program == "paged_step" else 2)
-        self._decode = StepGraphs(self.device, self._gen,
-                                  cuda_graph).capture(self._decode_step,
-                                                      program=program)
+        self._graphs = StepGraphs(self.device, self._gen, cuda_graph)
+        if self._proposer is None:
+            program = ("mixed_step" if self.mixed_token_budget > 0 else
+                       "paged_multi_step" if decode_block > 1
+                       else "paged_step")
+            _profiling.get_compile_tracker().register(
+                program,
+                variant_budget=None if program == "paged_step" else 2)
+            self._decode = self._graphs.capture(self._decode_step,
+                                                program=program)
+        else:
+            self._capture_rounds()
+        self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
+        # port-only: the rounds run at each draft width (every round, the
+        # ones past a finished row's end too), which price the launches
+        self.rounds_by_width = {}
         self._step_count = 0
         # one host dispatch per step or fused block; device_loop_steps
         # counts the steps that ran in it (early exit shows here)
@@ -418,15 +509,21 @@ class ContinuousBatchingEngine:
             # so a 0-token request would still produce one
             raise ValueError("max_new_tokens must be >= 1")
         # the page-pool twin of check_capacity: a request whose full
-        # table can never be allocated would wait in pending forever
+        # table (with the speculative modes' slack) can never be
+        # allocated would wait in pending forever
         bt = self.kv_cache.block_tokens
-        need = -(-(len(prompt) + max_new_tokens) // bt)
-        if need > self.kv_cache.num_blocks:
+        need = -(-(len(prompt) + max_new_tokens
+                   + self._slack_tokens) // bt)
+        pool_bound = self.kv_cache.num_blocks
+        if self._proposer == "draft":
+            # the draft pool cannot evict (no tree), so it binds too
+            pool_bound = min(pool_bound, self._dmgr.num_blocks)
+        if need > pool_bound:
             raise ValueError(
                 f"request needs {need} KV blocks (prompt {len(prompt)} + "
-                f"new {max_new_tokens} at {bt} tokens/block) but the "
-                f"paged pool holds only {self.kv_cache.num_blocks}; raise "
-                "kv_cache_blocks")
+                f"new {max_new_tokens} + slack {self._slack_tokens} at "
+                f"{bt} tokens/block) but the paged pool holds only "
+                f"{pool_bound}; raise kv_cache_blocks")
         if self.max_queue_depth:
             depth = self._queue.qsize() + len(self._pending)
             if depth >= self.max_queue_depth:
@@ -462,7 +559,13 @@ class ContinuousBatchingEngine:
         surface compatibility but not honored (one engine rng stream).
         On ``timeout`` the requests are cancelled before TimeoutError
         propagates.  Rows that finished early pad their tokens with eos
-        (0 without one) and their logprobs with 0.0."""
+        (0 without one) and their logprobs with 0.0.  Logprobs are plain
+        slot decoding only: the proposers' verify rounds score no
+        emitted token."""
+        if logprobs and self._proposer is not None:
+            raise ValueError(
+                "logprobs are not supported with speculative slot "
+                "decoding (draft or prompt-lookup proposers)")
         ids = np.asarray(prompt_ids)
         if ids.ndim == 1:
             ids = ids[None, :]
@@ -580,10 +683,24 @@ class ContinuousBatchingEngine:
             total += max(0, len(a["req"].prompt) - a["start"])
         return total
 
+    def _spec_backlog_tokens(self) -> int:
+        """Per-iteration speculative token cost of the active rows,
+        sum of (K_row + 1) * decode_block (racy snapshot of scheduler
+        state: a gauge)."""
+        if self._proposer is None:
+            return 0
+        total = 0
+        for i, r in enumerate(self._slots):
+            if r is not None:
+                k = (int(self._spec_krow[i]) if self.spec_adaptive
+                     else int(self._spec_buckets[-1]))
+                total += (k + 1) * self.decode_block
+        return total
+
     def stats(self) -> dict:
         """Scheduler counters for the HTTP ``/stats`` surface: the slot,
-        queue, kv-cache, device-loop, latency, chunked-prefill and mixed
-        fragments of the reference's ``stats()``."""
+        queue, kv-cache, device-loop, latency, chunked-prefill, mixed and
+        speculative fragments of the reference's ``stats()``."""
         out = {"slots": self.max_batch, "steps": self._step_count,
                "kv_layout": self.kv_layout,
                "queue_depth": self._queue.qsize() + len(self._pending),
@@ -621,6 +738,24 @@ class ContinuousBatchingEngine:
         compile_snap = _profiling.get_compile_tracker().snapshot()
         if compile_snap:
             out["compile"] = compile_snap
+        if self._proposer is not None:
+            s = self.spec_stats
+            # per-bucket occupancy of the active rows' adaptive K_row:
+            # a low-acceptance workload walks mass toward bucket 1
+            k_buckets = {
+                str(b): int(sum(
+                    1 for i, r in enumerate(self._slots)
+                    if r is not None and int(self._spec_krow[i]) == b))
+                for b in self._spec_buckets}
+            out["speculative"] = {
+                "proposer": self._proposer,
+                "num_draft": self.num_draft, "rounds": s["rounds"],
+                "drafted": s["drafted"], "accepted": s["accepted"],
+                "adaptive": bool(self.spec_adaptive),
+                "k_row_buckets": k_buckets,
+                "acceptance_rate": (round(s["accepted"] / s["drafted"], 4)
+                                    if s["drafted"] else None)}
+            out["spec_backlog_tokens"] = self._spec_backlog_tokens()
         # the per-tenant SLO rollup (goodput + burn rates)
         try:
             out["slo"] = get_slo_ledger().summary()
@@ -662,6 +797,8 @@ class ContinuousBatchingEngine:
         self._step_count = 0
         self.loop_stats = {"host_dispatches": 0, "device_loop_steps": 0}
         self.kv_cache.reset_stats()
+        self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
+        self.rounds_by_width = {}
         self._reset_chunk_stats()
         self._completed = 0
         for res in self._lat.values():
@@ -710,8 +847,9 @@ class ContinuousBatchingEngine:
 
     @property
     def graph_replays(self) -> int:
-        """Decode steps replayed from the captured graph."""
-        return self._decode.replays
+        """Decode steps (or speculative rounds) replayed from a captured
+        graph."""
+        return self._graphs.replays
 
     def _decode_step(self) -> None:
         """One lockstep decode step over all slots, on the static buffers
@@ -783,6 +921,203 @@ class ContinuousBatchingEngine:
         return tok[0], _emitted_logprob(last, tok)[0]
 
     # ------------------------------------------------------------------
+    # speculative slot decoding: the proposers' state and the round
+
+    def _init_spec(self, S: int, n_blocks: int, page_dtype) -> None:
+        """The proposer's device state and the round's static buffers.
+        Draft model: a forward over the draft's own page pool (pure
+        per-request scratch: no tree adopts its pages, so its manager is
+        used for the free list only and holds no page while no request is
+        in flight), its decode tables, and a dense forward for the
+        draft's admission prefill into a temp row (the reference's slot
+        impl).  Prompt lookup: the ``[B, S + 1]`` history (prompt +
+        emitted per row) plus a dump column that inactive rows' writes
+        go to (the reference's out-of-bounds scatter, which drops)."""
+        from ..parallel.tensor import make_paged_forward_seam
+        from .kvcache import PagedKVCacheManager
+        B, K, dev = self.max_batch, self.num_draft, self.device
+        bt = self.kv_cache.block_tokens
+        self._S = S
+        if self._proposer == "draft":
+            dcfg = self.draft_cfg
+            self.draft_spec = StageSpec(0, 1, 0, dcfg.num_layers)
+            self._dmgr = PagedKVCacheManager.for_model(
+                dcfg, n_blocks, bt, dtype=self.kv_cache_dtype,
+                kv_dtype=self.kv_dtype)
+            ND = self._dmgr.num_blocks
+            self._dpage_sentinel = ND
+            dshape = (dcfg.num_layers, ND + 1, dcfg.num_kv_heads, bt,
+                      dcfg.head_dim)
+            self._dpk = alloc_kv_pages(dshape, self.kv_dtype, page_dtype,
+                                       dev)
+            self._dpv = alloc_kv_pages(dshape, self.kv_dtype, page_dtype,
+                                       dev)
+            self._dtables = np.full((B, self._table_width), ND, np.int32)
+            self._dec_dtables = torch.full((B, self._table_width), ND,
+                                           dtype=torch.int32, device=dev)
+            self._fwd_dp, self._bind_d, _ = make_paged_forward_seam(
+                dcfg, self.draft_spec, None, self.draft_params, bt,
+                self.attn_backend, num_pages=ND, device_type=dev.type)
+        else:
+            self._hcap = S + 1
+            self._history = torch.zeros((B, self._hcap + 1),
+                                        dtype=torch.int64, device=dev)
+        # a round's outputs: the emitted block (the first k_disp + 1
+        # columns), each row's advance; the per-row cap of the mixed
+        # dispatch's adaptive K
+        self._round_em = torch.zeros((B, K + 1), dtype=torch.int64,
+                                     device=dev)
+        self._round_n = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._krow = torch.full((B,), K, dtype=torch.int64, device=dev)
+
+    def _capture_rounds(self) -> None:
+        """The round graphs, one per draft width a dispatch can take:
+        ``num_draft`` serialized; each bucket (only K without adaptive K)
+        in the mixed dispatch, whose slab and finals run eagerly.  Booked
+        as compiles of the reference's programs; the mixed ones carry its
+        variant budget ``2 * (len(buckets) + 1)``."""
+        mixed = self.mixed_token_budget > 0
+        program = (("mixed_pld_step" if mixed else "pld_step")
+                   if self._proposer == "prompt_lookup"
+                   else ("mixed_spec_step" if mixed else "spec_step"))
+        _profiling.get_compile_tracker().register(
+            program, variant_budget=(2 * (len(self._spec_buckets) + 1)
+                                     if mixed else None))
+        widths = ((self._spec_buckets if self.spec_adaptive
+                   else (self._spec_buckets[-1],)) if mixed
+                  else (self.num_draft,))
+        self._rounds = {
+            k: self._graphs.capture(
+                lambda k=k: self._spec_round(k, capped=mixed),
+                program=program)
+            for k in widths}
+
+    def _dpool(self) -> KVCache:
+        return KVCache(self._dpk, self._dpv, 0)
+
+    def _spec_round(self, k: int, capped: bool) -> None:
+        """One speculative round over all slots, on the static buffers and
+        in place (the reference's ``one_round`` of ``spec_step`` /
+        ``pld_step`` and their mixed twins): ``k`` proposals per row,
+        the ``[B, k+1]`` verify through the decode tables, the per-row
+        accept (capped by ``_krow`` when ``capped``), inactive rows
+        advancing by 0 and keeping their last token.  After it
+        ``_round_em[:, :k+1]`` holds the emitted blocks and ``_round_n``
+        the counts.  Draft: k+1 one-token paged steps at ``lengths + j``
+        through the draft tables (the extra one inserts d_k's K/V).
+        Prompt lookup: propose from the history, then append the emitted
+        block to each active row's history."""
+        lengths, last, active = self._lengths, self._last_tok, self._active
+        B, dev, samp = self.max_batch, self.device, self.sampling
+        q_logits = None
+        if self._proposer == "draft":
+            self._bind_d(self._dec_dtables)
+            tok, ds, qs = last, [], []
+            for j in range(k + 1):
+                logits, _ = self._fwd_dp(self.draft_params, tok[:, None],
+                                         self._dpool(),
+                                         (lengths + j)[:, None], True)
+                tok, q = propose_token(logits[:, 0], samp, self._gen)
+                ds.append(tok)
+                qs.append(q)
+            drafts = torch.stack(ds[:k], dim=1)
+            if not samp.greedy:
+                q_logits = torch.stack(qs[:k], dim=1)
+        else:
+            # history = prompt + emitted: its valid length is the row's
+            # cache length plus the last token
+            hist_len = torch.clamp_max(lengths + 1, self._hcap)
+            drafts = ngram_propose(self._history[:, :self._hcap], hist_len,
+                                   k)
+        self._bind(self._dec_tables)
+        cols = torch.arange(k + 1, device=dev)
+        verify_in = torch.cat([last[:, None], drafts], dim=1)
+        t_logits, _ = self._fwd(self.params, verify_in, self._pool(),
+                                lengths[:, None] + cols, False)
+        u = g = None
+        if not samp.greedy:
+            u, g = draw_noise(B, k, t_logits.shape[-1], self._gen, dev)
+        emitted, n, new_last = verify_emit_per_row(
+            t_logits, drafts, q_logits, samp, u, g,
+            k_cap=self._krow if capped else None)
+        n = torch.where(active, n, 0)
+        if self._proposer == "prompt_lookup":
+            # inactive rows' (and overflowing) writes go to the dump
+            # column, so a freed slot's stale length cannot corrupt its
+            # row before re-admission rewrites it
+            hc = hist_len[:, None] + cols
+            hc = torch.where(active[:, None] & (hc < self._hcap), hc,
+                             self._hcap)
+            self._history.scatter_(1, hc, emitted)
+        self._round_em[:, :k + 1].copy_(emitted)
+        self._round_n.copy_(n)
+        self._last_tok.copy_(torch.where(active, new_last, last))
+        self._lengths.add_(n)
+
+    def _load_spec(self, active_mask: np.ndarray) -> None:
+        """A speculative dispatch's inputs: the decode tables and active
+        mask, and the draft's tables."""
+        self._load_decode(active_mask)
+        if self._proposer == "draft":
+            self._dec_dtables.copy_(torch.from_numpy(self._dtables))
+
+    def _run_rounds(self, k: int, rounds: int):
+        """``rounds`` replays of the width-``k`` round, each one's block
+        and counts copied into slot r of the dispatch's buffers; returns
+        them on the host ([R, B, k+1], [R, B]): one sync."""
+        B = self.max_batch
+        em = torch.zeros((rounds, B, k + 1), dtype=torch.int64,
+                         device=self.device)
+        ns = torch.zeros((rounds, B), dtype=torch.int64, device=self.device)
+        step = self._rounds[k]
+        self.rounds_by_width[k] = self.rounds_by_width.get(k, 0) + rounds
+        for r in range(rounds):
+            step()
+            em[r].copy_(self._round_em[:, :k + 1])
+            ns[r].copy_(self._round_n)
+        return em.cpu().numpy(), ns.cpu().numpy()
+
+    def _draft_admit(self, slot: int, req: Request) -> None:
+        """The draft side of an admission: the FULL prompt (prefix reuse
+        is a target-side property; the draft is cheap) prefilled into a
+        dense temp row through :func:`slot_attention_impl`, padded to its
+        bucket, and scattered into the request's reserved draft pages;
+        the pad tail's garbage is overwritten by the draft steps before
+        any query attends it."""
+        dcfg, plen = self.draft_cfg, len(req.prompt)
+        dpad = np.zeros((1, self._bucket(plen)), np.int64)
+        dpad[0, :plen] = req.prompt
+        ids = torch.from_numpy(dpad).to(self.device)
+        row = KVCache.create(dcfg, dcfg.num_layers, 1, self._S,
+                             dtype=self.kv_cache_dtype, device=self.device)
+        pos = torch.arange(ids.shape[1], device=self.device)[None, :]
+        stage_forward(self.draft_params, dcfg, self.draft_spec, ids, row,
+                      pos, attn_impl=slot_attention_impl,
+                      last_logits_only=True)
+        write_row_to_pages(self._dpk, self._dpv, row.keys, row.values,
+                           req._pkv["dtable"],
+                           num_pages=self._dpage_sentinel)
+        self._dtables[slot] = req._pkv["dtable"]
+
+    def _seed_proposer(self, slot: int, req: Request, tok: int) -> None:
+        """A freshly installed row's proposer state, host-driven after its
+        first token is known: the draft's pages, or the history row
+        (prompt + token #1, padded to its bucket; the tail past it is
+        masked by the history length until overwritten).  A fresh row's
+        K_row starts at the widest bucket."""
+        if self._proposer == "draft":
+            self._draft_admit(slot, req)
+        else:
+            plen = len(req.prompt)
+            hpad = np.zeros((self._bucket(plen),), np.int64)
+            hpad[:plen] = req.prompt
+            hpad = torch.from_numpy(hpad).to(self.device)
+            self._history[slot, :hpad.shape[0]] = hpad
+            self._history[slot, plen] = int(tok)
+        self._spec_krow[slot] = self._spec_buckets[-1]
+        self._spec_ewma[slot] = 1.0
+
+    # ------------------------------------------------------------------
     # scheduler
 
     def _bucket(self, n: int) -> int:
@@ -802,7 +1137,7 @@ class ContinuousBatchingEngine:
         mgr = self.kv_cache
         bt = mgr.block_tokens
         plen = len(req.prompt)
-        n_total = -(-(plen + req.max_new) // bt)
+        n_total = -(-(plen + req.max_new + self._slack_tokens) // bt)
         # retry gate for a blocked admission: re-attempt only once the
         # pool could have changed, so a waiting request does not re-run
         # match() (and its counters) every scheduler iteration
@@ -818,6 +1153,21 @@ class ContinuousBatchingEngine:
                 lease.release()
             req._pkv_blocked = (mgr.epoch, mgr.free_blocks)
             raise _BlocksExhausted()
+        dprivate = dtable = None
+        if self._proposer == "draft":
+            # draft scratch pages, reserved atomically with the target's:
+            # a half-reserved admission must not wedge pages while it
+            # waits for the other pool
+            dprivate = self._dmgr.alloc(n_total)
+            if dprivate is None:
+                mgr.free(private)
+                if lease is not None:
+                    lease.release()
+                req._pkv_blocked = (mgr.epoch, mgr.free_blocks)
+                raise _BlocksExhausted()
+            dtable = np.full((self._table_width,), self._dpage_sentinel,
+                             np.int32)
+            dtable[:n_total] = dprivate
         req._pkv_blocked = None
         table = np.full((self._table_width,), self._page_sentinel, np.int32)
         if lease is not None:
@@ -825,7 +1175,8 @@ class ContinuousBatchingEngine:
         table[n_pref:n_total] = private
         req._pkv = {"lease": lease, "store_lease": None,
                     "private": private, "adopted": (), "n_pref": n_pref,
-                    "table": table, "released": False}
+                    "table": table, "dprivate": dprivate, "dtable": dtable,
+                    "released": False}
         # workload sketch: prefix-hit share, once per successful
         # reservation (a blocked retry must not count twice)
         self._sketch.record_prefix(m, plen)
@@ -833,8 +1184,8 @@ class ContinuousBatchingEngine:
 
     def _release_request_kv(self, req: Request) -> None:
         """Return a request's KV resources: release its pins (matched
-        prefix + stored path) and free the private pages the tree did not
-        adopt.  Idempotent: completion, cancel, failure and the shutdown
+        prefix + stored path), free the private pages the tree did not
+        adopt and the draft's scratch pages.  Idempotent: completion, cancel, failure and the shutdown
         drain all funnel here."""
         st = getattr(req, "_pkv", None)
         if st is None or st["released"]:
@@ -846,6 +1197,8 @@ class ContinuousBatchingEngine:
             st["store_lease"].release()
         adopted = set(st["adopted"])
         self.kv_cache.free([b for b in st["private"] if b not in adopted])
+        if st["dprivate"] is not None:
+            self._dmgr.free(st["dprivate"])
 
     def _needs_stream(self, req: Request) -> bool:
         """Does this prompt need the one-at-a-time chunk stream, or can
@@ -968,24 +1321,63 @@ class ContinuousBatchingEngine:
         self._tables[slot] = st["table"]
         self._lengths[slot] = plen
         self._last_tok[slot] = tok
+        if self._proposer is not None:
+            self._seed_proposer(slot, req, int(tok))
         self._slots[slot] = req
         self._flight.record("batch_admit", slot=slot, prompt_len=plen,
                             max_new=req.max_new,
                             prefix_reused=(start if prefix_reused is None
                                            else prefix_reused))
-        self._record_token(slot, req, int(tok), float(lp0))
+        # the speculative drains score no token, so lps stay empty
+        self._record_token(slot, req, int(tok),
+                           float(lp0) if self._proposer is None else None)
 
-    def _record_row_blocks(self, em_np, counts, lps_np) -> None:
+    def _record_row_blocks(self, em_np, counts, lps_np=None) -> None:
         """Record per-row token blocks (``counts[i]`` tokens of row i),
-        stopping a row the moment it finishes mid-block."""
+        stopping a row the moment it finishes mid-block.  ``lps_np``: the
+        tokens' logprobs (plain mode; the speculative drains pass none)."""
         for i, req in enumerate(self._slots):
             if req is None:
                 continue
             for j in range(int(counts[i])):
                 if self._slots[i] is None:
                     break              # row hit max_new or eos mid-block
-                self._record_token(i, req, int(em_np[i, j]),
-                                   float(lps_np[i, j]))
+                self._record_token(
+                    i, req, int(em_np[i, j]),
+                    None if lps_np is None else float(lps_np[i, j]))
+
+    def _drain_spec_blocks(self, em_np, ns_np, k_vec=None) -> None:
+        """Record one speculative round's per-row blocks and acceptance
+        counters, both from the slots still OCCUPIED at drain time (a
+        row that finished mid-block counts in neither).  ``k_vec``: the
+        mixed dispatch's per-row draft widths, which price ``drafted``."""
+        self._step_count += 1
+        self.spec_stats["rounds"] += 1
+        live = [i for i, r in enumerate(self._slots) if r is not None]
+        self.spec_stats["drafted"] += (
+            self.num_draft * len(live) if k_vec is None
+            else int(sum(int(k_vec[i]) for i in live)))
+        self.spec_stats["accepted"] += int(
+            sum(int(ns_np[i]) - 1 for i in live))
+        self._record_row_blocks(em_np, ns_np)
+
+    def _update_spec_krow(self, live0, k_vec, ns_np, num_rounds: int
+                          ) -> None:
+        """EWMA acceptance feedback: fold one dispatch's realized
+        acceptance rate (per row live at its start: extra tokens kept
+        over drafts offered) into the row's EWMA, then re-bucket K_row to
+        the smallest bucket covering ``ewma * num_draft``."""
+        buckets = self._spec_buckets
+        alpha = self._spec_ewma_alpha
+        for i in live0:
+            offered = num_rounds * max(1, int(k_vec[i]))
+            kept = int(ns_np[:, i].sum()) - num_rounds
+            rate = min(1.0, max(0.0, kept / offered))
+            self._spec_ewma[i] = ((1.0 - alpha) * self._spec_ewma[i]
+                                  + alpha * rate)
+            want = self._spec_ewma[i] * self.num_draft
+            self._spec_krow[i] = next(
+                (b for b in buckets if b >= want), buckets[-1])
 
     def _record_token(self, slot: int, req: Request, tok: int,
                       lp: Optional[float] = None):
@@ -1110,8 +1502,12 @@ class ContinuousBatchingEngine:
                 self._sentinel_slot(i)
 
     def _sentinel_slot(self, slot: int) -> None:
-        """Route a freed slot's future writes to the drop page."""
+        """Route a freed slot's future writes to the drop page: its target
+        table and, with a draft model, its draft table (every round runs
+        the draft's steps over all B rows)."""
         self._tables[slot] = self._page_sentinel
+        if self._proposer == "draft":
+            self._dtables[slot] = self._dpage_sentinel
 
     def _eos(self) -> int:
         return self.eos_id if self.eos_id is not None else -1
@@ -1135,6 +1531,12 @@ class ContinuousBatchingEngine:
                          snap.get("device_resident_bytes", 0)
                          + snap.get("quant_scale_bytes", 0))
         self._hbm_owners.add("kv_page_pool")
+        if self._proposer == "draft":
+            d = self._dmgr.snapshot()
+            self._hbm.sample("draft_scratch",
+                             d.get("device_resident_bytes", 0)
+                             + d.get("quant_scale_bytes", 0))
+            self._hbm_owners.add("draft_scratch")
 
     def _decode_kv_bytes(self, active_mask, steps: int) -> int:
         """KV bytes one decode dispatch touched (achieved-GB/s
@@ -1149,8 +1551,18 @@ class ContinuousBatchingEngine:
         """Run up to ``rounds`` lockstep decode steps over the occupied
         slots and record the emitted tokens.  The fused block may run
         fewer (every row eos'd or out of budget); the steps that ran
-        drive the drain."""
+        drive the drain.  With a proposer each step is a speculative
+        round, and all ``rounds`` run (no early exit); a row that
+        finishes mid-block stops recording, its writes landing in its
+        slack."""
         active_mask = np.array([s is not None for s in self._slots])
+        if self._proposer is not None:
+            self._load_spec(active_mask)
+            em_np, ns_np = self._run_rounds(self.num_draft, rounds)
+            self._count_loop(rounds)
+            for r in range(rounds):
+                self._drain_spec_blocks(em_np[r], ns_np[r])
+            return
         self._load_decode(active_mask)
         sig = _profiling.dispatch_signature(
             "paged_multi_step" if rounds > 1 else "paged_step",
@@ -1309,11 +1721,26 @@ class ContinuousBatchingEngine:
         serialized schedule's order.  The slab tables are uploaded
         once, the decode tables copied once into the static buffer.  A
         failure with packed segments fails the packed requests only; one
-        with nothing packed is an engine failure."""
+        with nothing packed is an engine failure.  With a proposer a row
+        is priced at ``(K_row + 1) * decode_block`` budget tokens and the
+        decode half runs speculative rounds
+        (:meth:`_mixed_spec_step`)."""
         B, C = self.max_batch, self.prefill_chunk
         n_seg = self._mixed_seg_cap
-        n_active = sum(1 for s in self._slots if s is not None)
-        room = max(0, self.mixed_token_budget - n_active * self.decode_block)
+        live0 = [i for i, s in enumerate(self._slots) if s is not None]
+        n_active = len(live0)
+        k_vec = None
+        if self._proposer is not None:
+            # K_row drafts + the verify/bonus token per round, times the
+            # fused rounds; adaptive K shrinks a collapsing acceptor
+            # toward K_row = 1 so the slab can use the budget
+            k_vec = (self._spec_krow.copy() if self.spec_adaptive
+                     else np.full((B,), self._spec_buckets[-1], np.int32))
+            room = max(0, self.mixed_token_budget - sum(
+                (int(k_vec[i]) + 1) * self.decode_block for i in live0))
+        else:
+            room = max(0, self.mixed_token_budget
+                       - n_active * self.decode_block)
         want = min(n_seg, max(1, room // C)) if self._adms else 0
         seg_ids = np.zeros((n_seg, C), np.int64)
         seg_tables = np.full((n_seg, self._table_width), self._page_sentinel,
@@ -1355,80 +1782,161 @@ class ContinuousBatchingEngine:
             finals.append((r, n, slot, len(a["req"].prompt)))
             prefill_tokens += n
             r += 1
+        spec = self._proposer is not None
         active_mask = np.array([s is not None for s in self._slots])
-        # the remaining-token budget per row; an installed final has
-        # max_new - 1 left (token #1 comes from its slab logits)
-        budget_vec = np.array([(s.max_new - len(s.tokens)) if s is not None
-                               else 0 for s in self._slots], np.int64)
-        for _, a, is_final, slot in packed:
-            if is_final:
-                active_mask[slot] = True
-                budget_vec[slot] = a["req"].max_new - 1
         dev = self.device
+        if spec:
+            # a fresh final stays out of this dispatch's rounds
+            rounds = self.decode_block if live0 else 0
+            k_disp = (max(int(k_vec[i]) for i in live0) if live0
+                      else int(self._spec_buckets[-1]))
+            prog = ("mixed_pld_step" if self._proposer == "prompt_lookup"
+                    else "mixed_spec_step")
+        else:
+            # the remaining-token budget per row; an installed final has
+            # max_new - 1 left (token #1 comes from its slab logits)
+            budget_vec = np.array([(s.max_new - len(s.tokens))
+                                   if s is not None else 0
+                                   for s in self._slots], np.int64)
+            for _, a, is_final, slot in packed:
+                if is_final:
+                    active_mask[slot] = True
+                    budget_vec[slot] = a["req"].max_new - 1
+            prog = "mixed_step"
         sig = _profiling.dispatch_signature(
-            "mixed_step", batch=int(active_mask.sum()),
-            chunk=self.decode_block, kv_dtype=self.kv_cache.kv_dtype)
+            prog, batch=int(active_mask.sum()), chunk=self.decode_block,
+            kv_dtype=self.kv_cache.kv_dtype)
         t0 = self._prof.begin(sig)
+        seg = (torch.from_numpy(seg_ids).to(dev) if packed else None,
+               self._upload(seg_tables), torch.from_numpy(seg_starts).to(dev))
         try:
-            final_toks, final_lps, toks, lps, steps = self._mixed_step(
-                torch.from_numpy(seg_ids).to(dev) if packed else None,
-                self._upload(seg_tables), torch.from_numpy(seg_starts).to(dev),
-                finals, active_mask, self._eos(),
-                torch.from_numpy(budget_vec).to(dev), self.decode_block)
+            if spec:
+                final_toks, em_np, ns_np = self._mixed_spec_step(
+                    *seg, finals, active_mask, k_vec, k_disp, rounds)
+                final_lps, steps = None, rounds
+                decoded = int(ns_np[:, live0].sum()) if rounds else 0
+                kv_steps, out = rounds * (k_disp + 1), self._last_tok
+            else:
+                final_toks, final_lps, toks, lps, steps = self._mixed_step(
+                    *seg, finals, active_mask, self._eos(),
+                    torch.from_numpy(budget_vec).to(dev), self.decode_block)
+                decoded, kv_steps, out = n_active * steps, steps, toks
             if t0 is not None:
                 # sampled only: packed prefill writes + every active
                 # row's per-step history read
-                self._prof.end(sig, t0, out=toks, hbm_bytes=(
+                self._prof.end(sig, t0, out=out, hbm_bytes=(
                     prefill_tokens * self._kv_bytes_per_token
-                    + self._decode_kv_bytes(active_mask, steps)))
+                    + self._decode_kv_bytes(active_mask, kv_steps)))
         except BaseException as e:
             if not packed:
                 raise
-            failed = []
-            for _, a, is_final, slot in packed:
-                if not any(a["req"] is f for f in failed):
-                    failed.append(a["req"])
-                if is_final:
-                    self._sentinel_slot(slot)
-            self._adms = [a for a in self._adms
-                          if not any(a["req"] is f for f in failed)]
-            for req in failed:
-                self._fail_request(req, e)
+            self._fail_packed(packed, e)
             return
         cs = self.chunk_stats
         cs["mixed_dispatches"] += 1
         cs["mixed_prefill_tokens"] += prefill_tokens
         cs["mixed_budget_tokens"] += self.mixed_token_budget
         cs["mixed_slab_forwards"] += bool(packed)
-        # finals first: slot install, radix adoption (only now: the tree
-        # must never serve pages whose K/V is not written), token #1
+        # finals first: slot install, radix adoption, token #1
         if finals:
-            ft, fl = final_toks.cpu().numpy(), final_lps.cpu().numpy()
-            installed = [(a, slot) for _, a, f, slot in packed if f]
-            for i, (a, slot) in enumerate(installed):
-                req = a["req"]
-                self._adms = [x for x in self._adms if x is not a]
-                st = req._pkv
-                plen = len(req.prompt)
-                bt = self.kv_cache.block_tokens
-                if plen // bt >= 1:
-                    adopted, store_lease = self.kv_cache.store_shared(
-                        req.prompt, st["table"][:plen // bt])
-                    st["adopted"] = adopted
-                    st["store_lease"] = store_lease
-                self._slots[slot] = req
-                self._flight.record("batch_admit", slot=slot,
-                                    prompt_len=plen, max_new=req.max_new,
-                                    prefix_reused=a["m"])
-                self._record_token(slot, req, int(ft[i]), float(fl[i]))
-        cs["mixed_packed_tokens"] += prefill_tokens + n_active * steps
+            self._install_finals(
+                packed, final_toks.cpu().numpy(),
+                None if final_lps is None else final_lps.cpu().numpy())
+        cs["mixed_packed_tokens"] += prefill_tokens + decoded
         if steps > 0:
             self._count_loop(steps)
-            self._step_count += steps
-            self._record_row_blocks(toks.cpu().numpy(), np.full(B, steps),
-                                    lps.cpu().numpy())
+            if spec:
+                for r in range(steps):
+                    self._drain_spec_blocks(em_np[r], ns_np[r], k_vec=k_vec)
+                if self.spec_adaptive:
+                    self._update_spec_krow(live0, k_vec, ns_np, steps)
+            else:
+                self._step_count += steps
+                self._record_row_blocks(toks.cpu().numpy(),
+                                        np.full(B, steps), lps.cpu().numpy())
             if self._adms:
                 cs["interleaved_steps"] += 1
+
+    def _fail_packed(self, packed: list, err: BaseException) -> None:
+        """A mixed dispatch failed with packed segments: fail the packed
+        requests only, their installed slots' tables back to sentinel."""
+        failed = []
+        for _, a, is_final, slot in packed:
+            if not any(a["req"] is f for f in failed):
+                failed.append(a["req"])
+            if is_final:
+                self._sentinel_slot(slot)
+        self._adms = [a for a in self._adms
+                      if not any(a["req"] is f for f in failed)]
+        for req in failed:
+            self._fail_request(req, err)
+
+    def _install_finals(self, packed: list, final_toks, final_lps) -> None:
+        """The dispatch's finals in pack order: slot install, radix
+        adoption (only now: the tree must never serve pages whose K/V is
+        not written), the proposer's seeding, token #1."""
+        installed = [(a, slot) for _, a, f, slot in packed if f]
+        for i, (a, slot) in enumerate(installed):
+            req = a["req"]
+            self._adms = [x for x in self._adms if x is not a]
+            st = req._pkv
+            plen = len(req.prompt)
+            bt = self.kv_cache.block_tokens
+            if plen // bt >= 1:
+                adopted, store_lease = self.kv_cache.store_shared(
+                    req.prompt, st["table"][:plen // bt])
+                st["adopted"] = adopted
+                st["store_lease"] = store_lease
+            if self._proposer is not None:
+                # during the dispatch its draft table was all-sentinel
+                # and its history untouched: nothing stale survives
+                self._seed_proposer(slot, req, int(final_toks[i]))
+            self._slots[slot] = req
+            self._flight.record("batch_admit", slot=slot,
+                                prompt_len=plen, max_new=req.max_new,
+                                prefix_reused=a["m"])
+            self._record_token(slot, req, int(final_toks[i]),
+                               None if final_lps is None
+                               else float(final_lps[i]))
+
+    def _mixed_spec_step(self, seg_ids: Optional[torch.Tensor],
+                         seg_tables: torch.Tensor, seg_starts: torch.Tensor,
+                         finals: list, active_mask: np.ndarray,
+                         k_vec: np.ndarray, k_disp: int, rounds: int):
+        """One mixed SPECULATIVE dispatch (the reference's
+        ``mixed_spec_step`` / ``mixed_pld_step``): the slab and its
+        finals as :meth:`_mixed_step` runs them, except that a fresh
+        final sets only its row's length and last token and stays out of
+        this dispatch's rounds (its proposer seeds host-side after, the
+        serialized admission's timing); then ``rounds`` rounds over the
+        rows of ``active_mask``, at the dispatch-wide width ``k_disp`` =
+        the widest live K_row, each row's acceptance capped at its own
+        K_row.  The generator draws the finals' batch-1 draws in pack
+        order, then the rounds'.  On failure the row state is as before
+        the call.  Returns (final toks [F] or None, the rounds' blocks
+        [R, B, k_disp+1] and counts [R, B] on the host, or None)."""
+        lengths0, last0 = self._lengths.clone(), self._last_tok.clone()
+        final_toks = em_np = ns_np = None
+        try:
+            if seg_ids is not None:
+                logits, _ = self._slab_body(self.params, self._pool(),
+                                            seg_ids, seg_tables, seg_starts)
+            if finals:
+                final_toks, _ = self._slab_finals(logits, finals)
+                idx = torch.tensor([f[2] for f in finals],
+                                   device=self.device)
+                self._lengths[idx] = torch.tensor([f[3] for f in finals],
+                                                  device=self.device)
+                self._last_tok[idx] = final_toks
+            if rounds:
+                self._load_spec(active_mask)
+                self._krow.copy_(torch.from_numpy(k_vec.astype(np.int64)))
+                em_np, ns_np = self._run_rounds(k_disp, rounds)
+        except BaseException:
+            self._lengths.copy_(lengths0)
+            self._last_tok.copy_(last0)
+            raise
+        return final_toks, em_np, ns_np
 
     def _loop(self):
         try:

@@ -3,7 +3,10 @@
 No module of the JAX package corresponds to this one: it stands for
 ``jax.jit`` of the reference's decode programs (``runtime/engine.py``'s
 ``decode_loop`` / ``decode_one``, ``runtime/batching.py``'s
-``paged_step`` / ``paged_multi_step``).  A jitted program costs the host
+``paged_step`` / ``paged_multi_step``) and of its speculative rounds
+(``runtime/speculative.py``'s and ``prompt_lookup.py``'s ``rounds``,
+``runtime/batching.py``'s ``spec_step`` / ``pld_step`` and their mixed
+twins).  A jitted program costs the host
 one dispatch; PyTorch runs eagerly, so a decode step costs the host one
 launch per kernel (~1900 for a TinyLlama step).  On CUDA the counterpart
 of the compiled program is a captured graph: the step's kernels are

@@ -244,6 +244,63 @@ def run_chunked_prefill(ids: torch.Tensor, cache: KVCache, C: int,
     return last, KVCache(cache.keys, cache.values, start + plen)
 
 
+def prefill_programs(fwd, device):
+    """``(whole, chunk_mid, chunk_last)``: the prefill programs over a
+    forward ``fwd(ids, cache, positions, last_logits_only)``, as
+    :class:`InferenceEngine` runs them (the reference's shared factory,
+    so the engines' programs cannot drift).  ``whole`` returns the last
+    position's logits; ``chunk_mid`` drops them; ``chunk_last`` takes
+    them at the prompt's true last position in the chunk."""
+
+    def positions(b, s, start):
+        return (start + torch.arange(s, device=device)).expand(b, s)
+
+    def whole(ids, cache):
+        b, s = ids.shape
+        logits, cache = fwd(ids, cache, positions(b, s, 0), True)
+        return logits[:, -1], cache
+
+    def chunk_mid(ids, cache, start):
+        b, s = ids.shape
+        _, cache = fwd(ids, cache, positions(b, s, start), True)
+        return cache
+
+    def chunk_last(ids, cache, start, gather_idx):
+        b, s = ids.shape
+        logits, cache = fwd(ids, cache, positions(b, s, start), False)
+        return logits[:, gather_idx], cache
+
+    return whole, chunk_mid, chunk_last
+
+
+def run_seeded_prefill(ids, cache: KVCache, C: Optional[int], max_seq: int,
+                       programs, start: int = 0, logits: bool = True):
+    """Whole-prompt or chunked prefill -> (last logits [b, V] or None,
+    cache), through ``programs`` (:func:`prefill_programs`).  ``start``
+    > 0 is the seeded suffix: ``ids`` is still the whole prompt, the
+    cache's columns ``[0, start)`` already hold its prefix's K/V, and
+    only ``ids[:, start:]`` runs, chunked, or in one final-chunk forward
+    (the reference's ``run_seeded_prefill``).  ``logits=False`` (a draft
+    model's prefill) returns no logits; a chunked run's final chunk then
+    takes ``chunk_mid``."""
+    whole, chunk_mid, chunk_last = programs
+    if start:
+        suffix = ids[:, start:]
+        if C is not None:
+            return run_chunked_prefill(suffix, cache, C, max_seq, chunk_mid,
+                                       chunk_last if logits else None,
+                                       start=start)
+        last, cache = chunk_last(
+            suffix, KVCache(cache.keys, cache.values, start), start,
+            suffix.shape[1] - 1)
+        return last, KVCache(cache.keys, cache.values, ids.shape[1])
+    if C is None:
+        last, cache = whole(ids, cache)
+        return (last if logits else None), cache
+    return run_chunked_prefill(ids, cache, C, max_seq, chunk_mid,
+                               chunk_last if logits else None)
+
+
 class DecodeState:
     """The static decode state of one batch size: what a decode step
     reads and writes in place, at addresses that stay fixed for the
@@ -421,22 +478,10 @@ class InferenceEngine:
         ``start`` > 0 is the seeded suffix: ``ids`` is still the whole
         prompt, the cache's columns ``[0, start)`` already hold its
         prefix's K/V, and only ``ids[:, start:]`` runs, chunked, or in
-        one final-chunk forward (the reference's ``run_seeded_prefill``)."""
-        if start:
-            suffix = ids[:, start:]
-            if self.prefill_chunk is not None:
-                return run_chunked_prefill(suffix, cache, self.prefill_chunk,
-                                           self.max_seq, self._chunk_mid,
-                                           self._chunk_last, start=start)
-            last, cache = self._chunk_last(
-                suffix, KVCache(cache.keys, cache.values, start), start,
-                suffix.shape[1] - 1)
-            return last, KVCache(cache.keys, cache.values, ids.shape[1])
-        if self.prefill_chunk is None:
-            return self._prefill(ids, cache)
-        return run_chunked_prefill(ids, cache, self.prefill_chunk,
-                                   self.max_seq, self._chunk_mid,
-                                   self._chunk_last)
+        one final-chunk forward (:func:`run_seeded_prefill`)."""
+        return run_seeded_prefill(
+            ids, cache, self.prefill_chunk, self.max_seq,
+            (self._prefill, self._chunk_mid, self._chunk_last), start=start)
 
     # -- block KV cache (runtime/kvcache) seams ------------------------
 

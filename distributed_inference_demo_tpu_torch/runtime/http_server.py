@@ -2,9 +2,11 @@
 
 Counterpart of ``distributed_inference_demo_tpu/runtime/http_server.py``'s
 ``InferenceHTTPServer``, with the same routes, JSON shapes and
-validation answers.  The backend is an ``InferenceEngine`` or a
-``ContinuousBatchingEngine``; the server holds no lock around it, so
-concurrent requests reach the batching engine together and batch there.
+validation answers.  The backend is an ``InferenceEngine``, a
+``ContinuousBatchingEngine`` or a ``SpeculativeBackend`` (whose
+``/stats`` is the ``speculative`` fragment); the server holds no lock
+around it, so concurrent requests reach the batching engine together
+and batch there.
 
 - ``GET  /health``    model, backend, device, capacity
 - ``GET  /stats``     the backend's ``stats()``, else ``{"stages": []}``
@@ -544,8 +546,21 @@ class InferenceHTTPServer:
                         self._internal_error(e)
                     return
                 logprobs = bool(req.get("logprobs"))
+                # honor-or-reject: a backend without logprobs (the
+                # speculative engines) answers 501, never drops them
                 if req.get("stream"):
+                    if logprobs and not _accepts_kwarg(
+                            outer.backend.generate_stream, "logprobs"):
+                        self._json(501, {
+                            "error": "backend does not support "
+                                     "logprobs with stream"})
+                        return
                     self._stream(ids, max_new, seed, logprobs)
+                    return
+                if logprobs and not _accepts_kwarg(outer.backend.generate,
+                                                   "logprobs"):
+                    self._json(501, {"error": "backend does not support "
+                                              "logprobs"})
                     return
                 try:
                     kwargs = {"logprobs": True} if logprobs else {}

@@ -312,7 +312,8 @@ def test_sampled_rows_and_streams(weights, oracle):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(mixed_token_budget=32), "needs prefill_chunk"),
-    (dict(prompt_lookup=True), "A11"),
+    (dict(prompt_lookup=True, draft_cfg=get_model_config("llama-test")),
+     "exclusive"),
     (dict(kv_dtype="int8", kv_cache_dtype="float8_e4m3fn"),
      "cannot compose"),
     (dict(mesh=SimpleNamespace(shape={"tp": 2})), "A13"),

@@ -236,8 +236,8 @@ def test_cli_batching_flags(capsys, monkeypatch):
     assert "--decode-block" in capsys.readouterr().err
     # what this slice leaves out exits 1
     for extra in (["--batch-slots", "2", "--tp", "2"],
-                  ["--batch-slots", "2", "--draft-model", "llama-test"],
-                  ["--prompt-lookup"]):
+                  ["--batch-slots", "2", "--kv-disk-tier-bytes", "1024"],
+                  ["--sp", "2"]):
         assert cli.main(["serve", "--model", "llama-test", "--device",
                          "cpu", *extra]) == 1
         assert "not yet ported" in capsys.readouterr().err

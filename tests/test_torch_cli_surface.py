@@ -124,9 +124,8 @@ def test_generate_refusals_equal_reference(bridged):
         assert rc == rrc == 1 and err == rerr and err
     # a flag of a mode not ported yet names itself
     rc, _, err = _run(cli.main, ["generate", *ENGINE_ARGS, "--device", "cpu",
-                                 "--prompt-ids", "1,2", "--draft-model",
-                                 "llama-test"])
-    assert rc == 1 and "--draft-model" in err and "not yet ported" in err
+                                 "--prompt-ids", "1,2", "--sp", "2"])
+    assert rc == 1 and "--sp" in err and "not yet ported" in err
 
 
 def _dataset(tmp_path, weights, names=("a", "b", "c")):

@@ -1016,3 +1016,137 @@ def test_mixtral_batching_graph_replay_equals_eager(cuda_device, extra):
     assert replays == steps > 0 and e_replays == 0
     assert launches == cfg.num_layers * steps
     assert e_launches == cfg.num_layers * e_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["full", "int8", "fp8"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_paged_prefill_verify_shape_matches_plain(cuda_device, pages, dtype,
+                                                  atol):
+    """The speculative verify through the prefill kernel: 8 rows of K + 1
+    = 5 tokens at per-row starts from 20 to 1999 (TinyLlama heads,
+    16-token pages), the last a freed slot (all-sentinel table, start
+    0), on each page type."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    nh, nkv, hd, bt, chunk = 32, 4, 64, 16, 5
+    W = 2048 // bt
+    starts = [20, 150, 300, 600, 1000, 1500, 1999, 0]
+    lens = [s + chunk for s in starts[:7]] + [-1]
+    if pages == "fp8":
+        pk, pv, tables = _paged_pool(gen, cuda_device, torch.float32, lens,
+                                     nkv, hd, bt, W)
+        pk, pv = quant.cast_kv(pk, quant.FLOAT8), quant.cast_kv(pv,
+                                                                quant.FLOAT8)
+    else:
+        pk, pv, tables = _paged_pool(gen, cuda_device,
+                                     "int8" if pages == "int8" else dtype,
+                                     lens, nkv, hd, bt, W)
+    q = torch.randn((8, chunk, nh, hd), generator=gen,
+                    device=cuda_device).to(dtype)
+    pos = (torch.tensor(starts, device=cuda_device)[:, None]
+           + torch.arange(chunk, device=cuda_device))
+    got = pa.paged_prefill_attention(q, pk, pv, tables, pos)
+    want = pa.paged_prefill_attention_plain(q, pk, pv, tables, pos)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,mode", GRAPH_CASES)
+def test_speculative_engines_graph_replay_equals_eager(cuda_device, dtype,
+                                                       mode):
+    """``SpeculativeEngine`` (a 1-layer draft) and ``PromptLookupEngine``
+    on the card: rounds replayed from the captured graph give the tokens
+    and stats of the same round run eagerly, bit for bit; every round of
+    the graph engine is a replay; greedy tokens equal the plain
+    engine's at f32."""
+    from distributed_inference_demo_tpu_torch.runtime.prompt_lookup import \
+        PromptLookupEngine
+    from distributed_inference_demo_tpu_torch.runtime.speculative import \
+        SpeculativeEngine
+    cfg, params = _small_llama(cuda_device, dtype)
+    dcfg = cfg.replace(num_layers=1)
+    dparams = init_full_params(
+        torch.Generator(device=cuda_device).manual_seed(1), dcfg,
+        cuda_device)
+    motif = np.random.RandomState(0).randint(0, cfg.vocab_size, 16)
+    ids = np.tile(motif, (2, 3))
+    runs = {}
+    for flag in (True, False):
+        kw = dict(max_seq=128, sampling=_sampling(mode), device=cuda_device,
+                  cuda_graph=flag)
+        out = []
+        for eng in (SpeculativeEngine(cfg, params, dcfg, dparams, **kw),
+                    PromptLookupEngine(cfg, params, **kw)):
+            res, st = eng.generate(ids, 20, seed=3)
+            out.append((res.tokens.tolist(), vars(st),
+                        np.stack(list(eng.generate_stream(ids, 20, seed=3)),
+                                 1).tolist(), eng.graph_replays))
+        runs[flag] = out
+    for (t, st, s, replays), (et, est, es, e_replays) in zip(runs[True],
+                                                             runs[False]):
+        assert t == et and st == est and s == es
+        assert replays >= st["rounds"] > 0 and e_replays == 0
+    if dtype == "float32" and mode == "greedy":
+        plain = InferenceEngine(cfg, params, max_seq=128,
+                                sampling=_sampling(mode), device=cuda_device)
+        want = plain.generate(ids, 20).tokens.tolist()
+        assert all(t == want for t, _, _, _ in runs[True])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    dict(prompt_lookup=True, decode_block=3),
+    dict(draft=True, decode_block=3),
+    dict(prompt_lookup=True, prefill_chunk=16, decode_block=4,
+         mixed_token_budget=40, kv_dtype="int8"),
+    dict(draft=True, prefill_chunk=16, decode_block=4,
+         mixed_token_budget=40),
+], ids=["pld", "draft", "pld-mixed-int8", "draft-mixed"])
+@pytest.mark.parametrize("dtype,mode", GRAPH_CASES)
+def test_spec_batching_graph_replay_equals_eager(cuda_device, dtype, mode,
+                                                 extra):
+    """The batching engine's proposers on the card, serialized and mixed:
+    tokens of the replayed round graphs equal the eager rounds' bit for
+    bit (requests one after another, so both sample the same schedule);
+    the draft's decode-kernel launches equal L_d x (k + 1) a round of
+    width k, the prefill kernel takes at least the verify's L a round,
+    under replay and eager alike."""
+    cfg, params = _small_llama(cuda_device, dtype)
+    extra = dict(extra)
+    if extra.pop("draft", False):
+        dcfg = cfg.replace(num_layers=1)
+        extra.update(draft_cfg=dcfg, draft_params=init_full_params(
+            torch.Generator(device=cuda_device).manual_seed(1), dcfg,
+            cuda_device))
+    int8 = extra.get("kv_dtype") == "int8"
+    prompts = [np.random.RandomState(i).randint(0, cfg.vocab_size,
+                                                n).tolist()
+               for i, n in enumerate((10, 40, 5))]
+    runs = {}
+    for flag in (True, False):
+        with ContinuousBatchingEngine(
+                cfg, params, max_seq=128, max_batch=4,
+                sampling=_sampling(mode), kv_block_tokens=16,
+                prompt_buckets=(16, 64), num_draft=3, device=cuda_device,
+                cuda_graph=flag, **extra) as eng:
+            eng.submit([1, 2, 3], 2).wait(timeout=120)      # warm
+            eng.reset_stats()
+            before = _launches()
+            toks = [eng.submit(p, 10).wait(timeout=120).tolist()
+                    for p in prompts]
+            ran = [a - b for a, b in zip(_launches(), before)]
+            rbw = dict(eng.rounds_by_width)
+            draft_l = extra["draft_cfg"].num_layers if "draft_cfg" in \
+                extra else 0
+            decode, prefill = ran[1 if int8 else 0], ran[3 if int8 else 2]
+            assert decode == draft_l * sum((k + 1) * n
+                                           for k, n in rbw.items())
+            assert prefill >= cfg.num_layers * sum(rbw.values()) > 0
+            runs[flag] = (toks, eng.graph_replays > 0, rbw, decode, prefill)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] and not runs[False][1]
+    assert runs[True][2:] == runs[False][2:]
