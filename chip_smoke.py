@@ -7,8 +7,8 @@ their plain versions.
     python3 chip_smoke.py --phase moe     # build + one phase (serve,
                                           # batching, mixed, graph,
                                           # quant, kvcache, surface,
-                                          # speculative, moe), no
-                                          # result lines
+                                          # speculative, fleet, moe),
+                                          # no result lines
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -205,7 +205,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             left in either pool, the ``/stats`` fragment, the K_row
             buckets visited, greedy tokens against the plain batching
             engine's (partings at near ties, ``_batch_partings``),
-            replayed = eager, tok/s, ms a round, idle share; in f32, 8
+            replayed = eager, tok/s, ms a round, idle share; in f32, 6
             concurrent requests of either proposer, serialized and
             mixed, token-exact against a plain batching engine's, and
             the kernels against the gather path; ``serve
@@ -218,11 +218,40 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
     (phase 2 holds the paged prefill kernel at the verify shape, 8 rows
     of K + 1 tokens at starts 20-1999 with one freed slot, on full-width,
     int8 and e4m3 pages, and the draft's decode rows on int8 pages)
-14. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+14. fleet   KV movement and the fleet at TinyLlama's full width (bf16,
+            random weights from seed 0, 8 slots, 16-token pages, one
+            loopback fabric): (a) a 96-block pool with a host ring and a
+            disk segment below it (16 and 64 MiB of bf16 blocks, the
+            same block counts over int8 pages): a 1088-token prompt, 3
+            prompts that evict its 1024-token prefix, then a prompt
+            sharing it, whose blocks promote, some from the disk; the
+            promoted pages bit-equal to their bits at demotion, tokens
+            and logprobs bit-equal to a device prefix hit's,
+            ``dwt_kvcache_h2d_bytes_total`` = promoted blocks x block
+            bytes, the tier's accounting; TTFT promoted, re-prefilled
+            and hit, demote and promote ms; (b) a ``PrefillWorker`` (the
+            flash kernel, L x chunks) streaming 4 requests of 20-1500
+            tokens to a ``DecodeWorker`` on a fresh engine (every
+            prompt block adopted and decoded over, the paged kernels
+            as the routing predicts, 0 bytes host to device), tokens
+            against a colocated engine's (bf16 partings at near ties
+            only; f32 on two requests, exact); (c) a request decoding
+            beside 3 others moves between two engines at its 16th
+            token, over bf16 and int8 pages: the stream unbroken,
+            tokens bit-equal to the unmigrated run, at most one step
+            replayed, no page leaked; the handoff pause, each phase's
+            bytes; (d) ``GatewayHTTPServer`` over two
+            ``InferenceHTTPServer`` replicas: A dies mid-stream (a
+            ``comm/faults`` ``crash_after`` rule), greedy and sampled
+            streams resume on B equal to the unfailed answer; death to
+            the first resumed token; a prefix A's tier holds routes to
+            A (``host_tier``, from its ``/stats`` digest) and promotes;
+15. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
-Phases 10 to 13 run in the order 11, 12, 13, 10: the moe phase last,
-after the earlier phases freed their memory.  Exits non-zero, printing no
+Phases 10 to 14 run in the order 11, 12, 13, 14, 10: the moe phase last,
+after the earlier phases freed their memory.  Every phase line carries
+its wall ``seconds``.  Exits non-zero, printing no
 result, without CUDA or outside a checkout, and on any failed check.
 """
 
@@ -245,6 +274,12 @@ LONG_PROMPT_LEN = 1500
 # steps; the profiled decode, as many steps
 GRAPH_DECODE_TOKENS = 64
 PROFILE_DECODE_STEPS = GRAPH_DECODE_TOKENS
+# the eager twins' depth: an eager step is host bound (35-60 ms for
+# TinyLlama, twice that on a slow host), so the eager side of the graph
+# comparisons times and profiles fewer steps; its tokens and logprobs are
+# still held to the replayed side's over NEW_TOKENS
+EAGER_DECODE_TOKENS = 16
+EAGER_WINDOW_STEPS = (8, 4)      # decode_window's timed, profiled steps
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|, elementwise.
 # f32: both sum the same f32 products in another order (~1e-6 apart).
 # bf16: the plain versions compute in f32 and round once to bf16.  The
@@ -370,13 +405,22 @@ def eager_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_counters(torch):
+    """The dense kernel's arrival counters of one timing graph, allocated
+    before its capture (a capture of a dense product needs its own)."""
+    from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
+    return qd.counters_scope(qd.new_counters(
+        torch.device("cuda", torch.cuda.current_device())))
+
+
 def device_ms(torch, fn, iters: int = 50) -> float:
     """Mean device time of ``fn``: ``iters`` calls captured in one CUDA
     graph and replayed, so no host launch cost sits between them."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # the graph keeps the counters' address: they live while it does
+    with _graph_counters(torch) as counters, torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -2239,10 +2283,34 @@ def _device_profile():
     return profile(activities=[ProfilerActivity.CUDA])
 
 
-def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
-    """Device time by kernel name (top 8), the device-busy sum, the wall
-    time and the device's idle share from a finished profile, and how
-    many of its device rows are kernels (not copies or fills)."""
+# the trace event categories of device work (kernels, copies, fills)
+DEVICE_TRACE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _trace_rows(prof) -> list:
+    """(device us, name, count) per device row, summed from the
+    profile's Chrome trace, which kineto writes in C++."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    totals = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in DEVICE_TRACE_CATS:
+            us, n = totals.get(ev["name"], (0.0, 0))
+            totals[ev["name"]] = (us + float(ev.get("dur", 0)), n + 1)
+    return [(us, name, n) for name, (us, n) in totals.items() if us > 0]
+
+
+def _key_average_rows(prof) -> list:
+    """The same rows from ``key_averages()``, which builds a Python
+    object for each of a profile's events first."""
     rows = []
     for ev in prof.key_averages():
         # kernel rows only: a CPU op's row would count its kernels twice
@@ -2252,15 +2320,35 @@ def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0:
             rows.append((dev_us, ev.key, ev.count))
+    return rows
+
+
+def _profile_summary(prof, wall_ms: float, head: dict) -> dict:
+    """Device time by kernel name (top 8), the device-busy sum, the wall
+    time and the device's idle share from a finished profile, and how
+    many of its device rows are kernels (not copies or fills; 0 when it
+    recorded none: the callers check or take the profile again).  The
+    rows come from the profile's Chrome trace (``rows_from`` "trace"),
+    or, where that holds no kernel row, from ``key_averages()``, which
+    gives the same sums (the same kineto records) at several seconds a
+    profile of a decode step's ~2000 kernels: on the H100 the trace of
+    an eager mixed dispatch on the scheduler thread held its copies and
+    none of its kernels."""
+    def n_kernels(rows):
+        return sum(1 for r in rows
+                   if not r[1].startswith(("Memcpy", "Memset")))
+
+    rows, rows_from = _trace_rows(prof), "trace"
+    if not n_kernels(rows):
+        rows, rows_from = _key_average_rows(prof), "key_averages"
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    _check(bool(rows), "torch.profiler recorded no device time")
-    kernels = sum(1 for r in rows
-                  if not r[1].startswith(("Memcpy", "Memset")))
+    kernels = n_kernels(rows)
     # the dequantizing dense kernels (decode, prefill, f32 and its split
     # reduction): every symbol of csrc/quant_dense.cu starts quant_dense_
     dense_ms = sum(r[0] for r in rows if "quant_dense_" in r[1]) / 1e3
     return {**head, "wall_ms": wall_ms, "kernels": kernels,
+            "rows_from": rows_from,
             "device_busy_ms": busy_ms, "quant_dense_ms": dense_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n}
@@ -2298,9 +2386,10 @@ def _graph_plain_side(torch, engine, prompt) -> dict:
     qd.quant_dense.launches = qd.quant_dense.decode_launches = 0
     _reset_launches(flash_attention)
     res = engine.generate(prompt, NEW_TOKENS, logprobs=True)
+    n = GRAPH_DECODE_TOKENS if engine.cuda_graph else EAGER_DECODE_TOKENS
     t_one = engine.generate(prompt, 1).seconds
-    t_many = engine.generate(prompt, 1 + GRAPH_DECODE_TOKENS).seconds
-    ms = (t_many - t_one) / GRAPH_DECODE_TOKENS * 1e3
+    t_many = engine.generate(prompt, 1 + n).seconds
+    ms = (t_many - t_one) / n * 1e3
     replays = engine.graph_replays - r0
     steps = engine.loop_stats["device_loop_steps"] - s0
     dense = qd.quant_dense.launches
@@ -2311,7 +2400,9 @@ def _graph_plain_side(torch, engine, prompt) -> dict:
     want = 3 * L if engine.attn_backend == "flash" else 0
     _check(flash == want, f"{engine.cfg.family}: {flash} flash launches "
            f"over three prefills of {L} layers ({engine.attn_backend})")
-    prof = profile_decode(torch, engine, prompt)
+    prof = profile_decode(torch, engine, prompt,
+                          PROFILE_DECODE_STEPS if engine.cuda_graph
+                          else EAGER_DECODE_TOKENS)
     # the PROMPT_LEN-token prefills take the prefill kernel, the one-row
     # decode steps the decode kernel
     return {"tokens": res.tokens[0].tolist(), "logprobs": res.logprobs,
@@ -2360,7 +2451,8 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
     # init for an -int8 / -int4 model
     params = load_or_init(name, cfg, None, seed=0, device="cuda")
     out = {"path": f"{name} plain serve, b=1", "model": name,
-           "decode_tokens": GRAPH_DECODE_TOKENS}
+           "decode_tokens": GRAPH_DECODE_TOKENS,
+           "eager_decode_tokens": EAGER_DECODE_TOKENS}
     if cfg.quantization != "none":
         out["twin_check"] = quant_twin_check(torch, cfg, params)
     for key, flag in (("graph", True), ("eager", False)):
@@ -2431,7 +2523,9 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool,
         r.wait(timeout=600)
     toks = [r.tokens for r in reqs]
     lps = [r.lps for r in reqs]
-    window = decode_window(torch, engine, prompts)
+    window = decode_window(torch, engine, prompts,
+                           *((32, 16) if engine._graphs.enabled
+                             else EAGER_WINDOW_STEPS))
     steps = engine.loop_stats["device_loop_steps"] - s0
     launches = {"paged_decode": getattr(dec, attr) - c0[0],
                 "paged_prefill": getattr(pre, attr) - c0[1]}
@@ -2682,7 +2776,7 @@ def cold_ms(torch, make, nbytes: int, fn) -> float:
     fn(objs[0])
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with _graph_counters(torch) as counters, torch.cuda.graph(graph):
         for o in objs:
             fn(o)
     graph.replay()
@@ -2694,7 +2788,7 @@ def cold_ms(torch, make, nbytes: int, fn) -> float:
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / len(objs)
-    del graph, objs
+    del graph, objs, counters
     return ms
 
 
@@ -4676,6 +4770,709 @@ def phase_speculative(torch, ptxas: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: KV movement and the fleet (tiered KV, disaggregated prefill and
+# decode, live migration, failover through the gateway)
+# ---------------------------------------------------------------------------
+
+FLEET_POOL_BLOCKS = 96      # the tiered engine's page pool
+FLEET_HOST_BLOCKS = 46      # 16 MiB of TinyLlama's 352 KiB bf16 blocks
+FLEET_DISK_BLOCKS = 186     # 64 MiB of them
+FLEET_SHARED = 1024         # the tier prompts' shared prefix
+FLEET_TAIL = 64             # ... and each one's own tail: 1088 tokens
+FLEET_FILLERS = 3           # 1024-token prompts that evict the prefix
+FLEET_NEW = 16
+DISAGG_PROMPTS = (20, 150, 600, 1500)
+DISAGG_F32_PROMPTS = (20, 300)
+MIGRATION_PROMPTS = (64, 100, 150, 300)
+MIGRATION_NEW = 48
+MIGRATION_AT = 16           # the moving request's tokens at the move
+FAILOVER_PROMPT = 15        # under one page: no prefix is stored
+FAILOVER_NEW = 8
+FAILOVER_CRASH_AFTER = 3
+
+
+def _fleet_engine(torch, cfg, params, dev, **kw):
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+    kw.setdefault("sampling", SamplingParams(greedy=True))
+    kw.setdefault("max_seq", MAX_SEQ)
+    return ContinuousBatchingEngine(
+        cfg, params, max_batch=SLOTS, kv_block_tokens=BLOCK_TOKENS,
+        prefill_chunk=PREFILL_CHUNK, device=dev, **kw)
+
+
+def _idle_pages(engine) -> bool:
+    """Idle, every allocated page is tree-owned (bounded wait for the
+    scheduler's completions)."""
+    t_end = time.monotonic() + 30
+    while True:
+        s = engine.kv_cache.snapshot()
+        if s["blocks_used"] == s["tree_blocks"]:
+            return True
+        if time.monotonic() > t_end:
+            return False
+        time.sleep(0.01)
+
+
+def _run(engine, prompt, n, **kw):
+    """Submit one request and wait: (tokens, logprobs, TTFT seconds)."""
+    r = engine.submit(prompt, n, **kw)
+    r.wait(timeout=600)
+    return list(r.tokens), list(r.lps), r.t_first - r.t_submit
+
+
+def _h2d_metric(stats) -> float:
+    """``dwt_kvcache_h2d_bytes_total`` after bridging ``stats``' kvcache
+    fragment, as a ``/metrics`` scrape does."""
+    from distributed_inference_demo_tpu_torch.telemetry import catalog
+    catalog.update_kvcache_series(stats["kvcache"])
+    return sum(v for _, _, v in catalog.KVCACHE_H2D_BYTES.samples())
+
+
+def _bits(torch, x) -> list:
+    from distributed_inference_demo_tpu_torch.ops.quant import \
+        QuantizedKVPages
+    leaves = x.leaves() if isinstance(x, QuantizedKVPages) else [x]
+    return [t.detach().cpu().contiguous().view(torch.uint8) for t in leaves]
+
+
+def fleet_tier(torch, cfg, params, kv_dtype, tmp, dev, hit_engine) -> dict:
+    """(a) The tier below a 96-block pool: a 1088-token prompt (1024
+    shared), FLEET_FILLERS prompts that evict its prefix into the host
+    ring and through it to the disk segment, then a prompt sharing the
+    prefix, whose blocks promote (some from the disk).  The promoted
+    pages are the bits exported at demotion; its tokens and logprobs
+    equal the same two prompts' on ``hit_engine`` (a pool that keeps the
+    prefix: a device hit); ``dwt_kvcache_h2d_bytes_total`` is promoted
+    blocks x block bytes; the tier's accounting checks.  Returns (the
+    tier engine, the migration source of this page type; its prompts;
+    the numbers)."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.runtime.kvcache import \
+        PagedKVCacheManager
+    from distributed_inference_demo_tpu_torch.runtime.kvcache.device \
+        import export_blocks_from_pages, payload_to
+    from distributed_inference_demo_tpu_torch.runtime.kvcache.tiered \
+        import chain_digests
+
+    rs = np.random.RandomState(5)
+    shared = rs.randint(0, cfg.vocab_size, FLEET_SHARED).tolist()
+    first, warm = (shared + rs.randint(0, cfg.vocab_size,
+                                       FLEET_TAIL).tolist()
+                   for _ in range(2))
+    fillers = [rs.randint(0, cfg.vocab_size, FLEET_SHARED).tolist()
+               for _ in range(FLEET_FILLERS)]
+    block_bytes = PagedKVCacheManager.for_model(
+        cfg, 8, BLOCK_TOKENS, kv_dtype=kv_dtype).block_bytes
+    eng = _fleet_engine(
+        torch, cfg, params, dev, kv_dtype=kv_dtype,
+        kv_cache_blocks=FLEET_POOL_BLOCKS,
+        kv_host_tier_bytes=FLEET_HOST_BLOCKS * block_bytes,
+        kv_disk_tier_path=os.path.join(tmp, f"tier-{kv_dtype}"),
+        kv_disk_tier_bytes=FLEET_DISK_BLOCKS * block_bytes)
+    tier = eng._kv_tier
+    _check(tier is not None, "the tier engine has no tier")
+    # the bits each block had when it was demoted, by chain digest; the
+    # hook's time (export gather + copy to the host + insert)
+    demoted, demote_ms = {}, []
+    real_demote, real_hook = tier.demote, eng.kv_cache.demote_hook
+
+    def demote(path_keys, kb, vb):
+        n = int(kb.shape[0])
+        for j, dg in enumerate(chain_digests(path_keys)[len(path_keys) - n:]):
+            demoted[dg] = _bits(torch, payload_to(kb[j:j + 1], "cpu")) + \
+                _bits(torch, payload_to(vb[j:j + 1], "cpu"))
+        return real_demote(path_keys, kb, vb)
+
+    def hook(path_keys, block_ids):
+        t0 = time.perf_counter()
+        real_hook(path_keys, block_ids)
+        demote_ms.append((time.perf_counter() - t0) * 1e3)
+
+    promote_ms = []
+    real_note = tier.note_promoted
+
+    def note(blocks, nbytes, seconds):
+        promote_ms.append(seconds * 1e3)
+        return real_note(blocks, nbytes, seconds)
+
+    tier.demote, tier.note_promoted = demote, note
+    eng.kv_cache.demote_hook = hook
+    _, _, ttft_cold = _run(eng, first, FLEET_NEW)
+    for f in fillers:
+        _run(eng, f, FLEET_NEW)
+    st0 = dict(tier.stats)
+    _check(st0["spilled_blocks"] > 0, f"nothing spilled to disk: {st0}")
+    h2d0 = eng.stats()["kvcache"]["h2d_bytes"]
+    toks, lps, ttft_promoted = _run(eng, warm, FLEET_NEW)
+    st = dict(tier.stats)
+    promoted = st["promoted_blocks"] - st0["promoted_blocks"]
+    _check(promoted > 0 and st["disk_hits"] > 0,
+           f"the warm prompt promoted {promoted} blocks, "
+           f"{st['disk_hits']} tier reads from the disk")
+    stats = eng.stats()
+    h2d = stats["kvcache"]["h2d_bytes"] - h2d0
+    _check(h2d == promoted * block_bytes,
+           f"h2d bytes {h2d} != {promoted} promoted x {block_bytes}")
+    metric = _h2d_metric(stats)
+    _check(metric == stats["kvcache"]["h2d_bytes"],
+           f"dwt_kvcache_h2d_bytes_total {metric}")
+    # the promoted pages, bit for bit: the warm prompt's device run
+    bt = BLOCK_TOKENS
+    keys = [tuple(warm[i * bt:(i + 1) * bt]) for i in range(len(warm) // bt)]
+    digests = chain_digests(keys)
+    lease = eng.kv_cache.match(np.asarray(warm, np.int32))
+    _check(lease is not None, "the promoted prefix is not in the tree")
+    try:
+        ids = list(lease.block_ids)
+        kb, vb = export_blocks_from_pages(eng._pk, eng._pv, ids)
+        checked = 0
+        for j, dg in enumerate(digests[:len(ids)]):
+            if dg not in demoted:
+                continue
+            got = (_bits(torch, payload_to(kb[j:j + 1], "cpu"))
+                   + _bits(torch, payload_to(vb[j:j + 1], "cpu")))
+            _check(all(torch.equal(a, b) for a, b in zip(got, demoted[dg])),
+                   f"promoted block {j} differs from its demoted bits")
+            checked += 1
+    finally:
+        lease.release()
+    _check(checked >= promoted, f"{checked} promoted blocks compared")
+    tier.check()
+    _check(_idle_pages(eng), "the tier engine leaked pages")
+    # the device hit: the same two prompts on a pool that keeps them
+    _, _, ttft_hit_first = _run(hit_engine, first, FLEET_NEW)
+    h_toks, h_lps, ttft_hit = _run(hit_engine, warm, FLEET_NEW)
+    _check(h_toks == toks and h_lps == lps,
+           f"promoted tokens / logprobs differ from a device hit's "
+           f"({kv_dtype} pages)")
+    return eng, [first, warm] + fillers, {
+        "kv_dtype": kv_dtype, "pool_blocks": FLEET_POOL_BLOCKS,
+        "block_bytes": block_bytes,
+        "host_tier_bytes": FLEET_HOST_BLOCKS * block_bytes,
+        "disk_tier_bytes": FLEET_DISK_BLOCKS * block_bytes,
+        "prompt_tokens": len(first), "shared_tokens": FLEET_SHARED,
+        "promoted_blocks": promoted, "promoted_pages_bit_equal": checked,
+        "disk_hits": st["disk_hits"], "host_hits": st["host_hits"],
+        "demoted_blocks": st["demoted_blocks"],
+        "spilled_blocks": st["spilled_blocks"],
+        "dropped_blocks": st["dropped_blocks"], "h2d_bytes": h2d,
+        "h2d_metric": metric, "bit_equal_to_device_hit": True,
+        "ttft_promoted_s": ttft_promoted, "ttft_reprefilled_s": ttft_cold,
+        "ttft_device_hit_s": ttft_hit,
+        "demote_ms_median": float(np.median(demote_ms)),
+        "demote_ms_max": max(demote_ms), "demotions": len(demote_ms),
+        "promote_ms": promote_ms,
+        "tier": {k: v for k, v in eng.stats()["kvcache"]["tier"].items()
+                 if k != "digest"}}
+
+
+class _Tally:
+    """A transport wrapper that books every frame it sends: (tag, bytes)."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.sent = []
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def send(self, peer, tag, payload):
+        self.sent.append((tag, len(payload)))
+        return self._inner.send(peer, tag, payload)
+
+
+def _partings(torch, engine, prompts, got, want) -> list:
+    """Where bf16 streams part from ``want``: the first differing step
+    and the margin between the two tokens' logits there, teacher forced
+    through ``engine``'s chunked path; each must sit at a near tie."""
+    import numpy as np
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(k for k in range(min(len(g), len(w))) if g[k] != w[k])
+        ls = _paged_logits(torch, engine, list(prompts[i]) + w[:j], 0)[0]
+        row = {"request": i, "step": j,
+               "margin": float(abs(ls[w[j]] - ls[g[j]])),
+               "logit_tol": LOGIT_TOL_REL * max(1.0,
+                                                float(np.abs(ls).max()))}
+        out.append(row)
+        _check(row["margin"] <= row["logit_tol"],
+               f"a stream parts away from a near tie: {row}")
+    return out
+
+
+def fleet_disagg(torch, cfg, params, dev, colocated, decoder, lens, new,
+                 exact: bool) -> dict:
+    """(b) A ``PrefillWorker`` (chunked prefill over a dense row: the
+    flash kernel) streams each prompt's whole blocks to a
+    ``DecodeWorker`` over ``decoder`` (a fresh 8-slot batching engine),
+    a ``DisaggCoordinator`` handing out the requests, one process, one
+    loopback fabric.  The same prompts first run colocated on
+    ``colocated``, an engine of the same build: the decode side's pool
+    holds none of their pages, so every whole prompt block it decodes
+    over is one the prefill worker wrote (adopted pages = migrated
+    pages, every request premigrated, each admission reusing its
+    adopted blocks).  The flash kernel launches L x the prefill chunks,
+    the paged kernels what the routing predicts for the decode side's
+    joins, the decode side moves no byte host to device; tokens equal
+    the colocated run's (``exact``), or part only at near ties."""
+    import threading
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.comm.transport import (
+        LoopbackNetwork, LoopbackTransport)
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
+    from distributed_inference_demo_tpu_torch.ops.paged_attention import \
+        paged_route
+    from distributed_inference_demo_tpu_torch.runtime.disagg import (
+        DecodeWorker, DisaggCoordinator, PrefillWorker)
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
+
+    L = cfg.num_layers
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in lens]
+    reqs = [colocated.submit(p, new) for p in prompts]
+    want = [r.wait(timeout=900).tolist() for r in reqs]
+    ttft_colo = [r.t_first - r.t_submit for r in reqs]
+    net = LoopbackNetwork()
+    tp = _Tally(LoopbackTransport("p0", net))
+    pw = PrefillWorker(cfg, params, tp, max_seq=MAX_SEQ,
+                       prefill_chunk=PREFILL_CHUNK,
+                       kv_block_tokens=BLOCK_TOKENS, device=dev)
+    _check(pw.attn_backend == ("flash" if dev == "cuda" else "plain"),
+           f"the prefill worker's attention: {pw.attn_backend}")
+    dw = DecodeWorker(decoder, LoopbackTransport("d0", net))
+    coord = DisaggCoordinator(LoopbackTransport("coord", net), ["p0"], "d0")
+    threads = [threading.Thread(target=w.serve_forever, daemon=True)
+               for w in (pw, dw)]
+    for t in threads:
+        t.start()
+    flight = get_flight_recorder()
+    flight.clear()
+    _check(decoder.kv_cache.snapshot()["tree_blocks"] == 0,
+           "the decode engine's pool is not empty")
+    h2d0 = decoder.stats()["kvcache"]["h2d_bytes"]
+    s0 = decoder.loop_stats["device_loop_steps"]
+    # counted as differences: the phase counts from its own start
+    c0 = (flash_attention.launches, pa.paged_flash_attention.launches,
+          pa.paged_prefill_attention.launches)
+    try:
+        dreqs = [coord.submit(p, new) for p in prompts]
+        got = [d.wait(timeout=900).tolist() for d in dreqs]
+        t_end = time.monotonic() + 30
+        while pw._inflight_rid is not None or pw._backlog:
+            _check(time.monotonic() < t_end, "the prefill worker hung")
+            time.sleep(0.01)
+        flash = flash_attention.launches - c0[0]
+        launches = {
+            "paged_decode": pa.paged_flash_attention.launches - c0[1],
+            "paged_prefill": pa.paged_prefill_attention.launches - c0[2]}
+        steps = decoder.loop_stats["device_loop_steps"] - s0
+    finally:
+        pw.stop()
+        dw.stop()
+        for t in threads:
+            t.join(timeout=30)
+        coord.close()
+    bt, C = BLOCK_TOKENS, PREFILL_CHUNK
+    n_mig = [(len(p) - 1) // bt for p in prompts]
+    chunks = sum(-(-(n * bt) // C) for n in n_mig)
+    card = dev == "cuda"       # the wrappers count launches on the card
+    _check(not card or flash == L * chunks,
+           f"prefill-side flash launches {flash}, L x chunks {L * chunks}")
+    admits = [(e["prompt_len"], e["prefix_reused"])
+              for e in flight.snapshot() if e["kind"] == "batch_admit"]
+    g = cfg.num_heads // cfg.num_kv_heads
+    pre = sum(paged_route(True, decoder._bucket(plen - m), g, bt,
+                          max_rows=None) == "prefill" for plen, m in admits)
+    predicted = {"paged_decode": L * steps, "paged_prefill": L * pre}
+    _check(len(admits) == len(prompts)
+           and (not card or launches == predicted),
+           f"decode-side paged launches {launches}, predicted {predicted} "
+           f"({admits})")
+    # the decode side ran over the prefill worker's pages, and only
+    ds = decoder.disagg_stats
+    _check(ds["adopted_pages"] == dw.stats["adopted_pages"]
+           == pw.stats["migrated_pages"] == sum(n_mig) > 0
+           and ds["premigrated_requests"] == len(prompts)
+           and sorted(m for _, m in admits) == sorted(n * bt for n in n_mig),
+           f"adopted {ds}, {dw.stats['adopted_pages']} pages, migrated "
+           f"{pw.stats['migrated_pages']} of {sum(n_mig)} prompt blocks; "
+           f"admissions (prompt, reused) {admits}")
+    h2d = decoder.stats()["kvcache"]["h2d_bytes"] - h2d0
+    _check(h2d == 0, f"the decode side moved {h2d} bytes host to device")
+    _check(_idle_pages(decoder), "the decode engine leaked pages")
+    frames = [(t, n) for t, n in tp.sent if t.startswith("pg:")]
+    out = {"prompt_lens": list(lens), "new_tokens": new,
+           "flash_launches": flash, "prefill_chunks": chunks,
+           "launches": launches, "predicted_launches": predicted,
+           "h2d_bytes": h2d, "page_frames": len(frames),
+           "frame_bytes": sum(n for _, n in frames),
+           "migrated_pages": pw.stats["migrated_pages"],
+           "adopted_pages": ds["adopted_pages"],
+           "premigrated_requests": ds["premigrated_requests"],
+           "prefix_reused": [m for _, m in admits],
+           "migrated_bytes": pw.stats["migrated_bytes"],
+           "ttft_disagg_s": [d.ttft_s for d in dreqs],
+           "ttft_colocated_s": ttft_colo,
+           "tokens_equal": sum(a == b for a, b in zip(got, want))}
+    if exact:
+        _check(got == want, "f32 disaggregated tokens differ from the "
+               "colocated engine's")
+    else:
+        out["partings"] = _partings(torch, colocated, prompts, got, want)
+    return out
+
+
+def fleet_migration(torch, cfg, src, dst, kv_dtype) -> dict:
+    """(c) A request decoding beside 3 others on ``src`` moves to ``dst``
+    (both 8-slot engines of this page type, ``MigrationWorker`` each, one
+    loopback fabric) once it holds MIGRATION_AT tokens.  Its client
+    stream never breaks and equals the same request's unmigrated stream
+    (the same 4 requests on ``dst`` first), at most one step replays and
+    none is skipped, no page leaks on either engine.  The handoff pause
+    and the bytes of each phase."""
+    import queue
+    import threading
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.comm.transport import (
+        LoopbackNetwork, LoopbackTransport)
+    from distributed_inference_demo_tpu_torch.runtime.migration import \
+        MigrationWorker
+
+    rs = np.random.RandomState(11)
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist()
+               for n in MIGRATION_PROMPTS]
+    reqs = [dst.submit(p, MIGRATION_NEW) for p in prompts]
+    want = [r.wait(timeout=900).tolist() for r in reqs]
+    net = LoopbackNetwork()
+    t_src = _Tally(LoopbackTransport("src", net))
+    src_w = MigrationWorker(src, t_src, ack_timeout=30.0)
+    dst_w = MigrationWorker(dst, LoopbackTransport("dst", net),
+                            ack_timeout=30.0)
+    threads = [threading.Thread(target=w.serve_forever, daemon=True)
+               for w in (src_w, dst_w)]
+    for t in threads:
+        t.start()
+    try:
+        reqs = [src.submit(p, MIGRATION_NEW, request_id=f"m{i}")
+                for i, p in enumerate(prompts)]
+        moving = reqs[0]
+        streamed = []
+
+        def drain():
+            while True:
+                try:
+                    tok = moving.stream.get(timeout=600)
+                except queue.Empty:
+                    return
+                if tok is None:
+                    return
+                streamed.append(tok)
+
+        reader = threading.Thread(target=drain, daemon=True)
+        reader.start()
+        t_end = time.monotonic() + 300
+        while len(moving.tokens) < MIGRATION_AT:
+            _check(time.monotonic() < t_end, "the request did not decode")
+            time.sleep(0.001)
+        before = len(moving.tokens)
+        replay0 = src_w.stats["replayed_steps"]
+        _check(src_w.migrate_out("m0", "dst") is True, "migrate_out failed")
+        got = [r.wait(timeout=900).tolist() for r in reqs]
+        reader.join(timeout=60)
+        replayed = src_w.stats["replayed_steps"] - replay0
+    finally:
+        src_w.stop()
+        dst_w.stop()
+        for t in threads:
+            t.join(timeout=30)
+    _check(moving.error is None and streamed == got[0],
+           "the client stream broke across the move")
+    _check(got == want, f"{kv_dtype}: migrated tokens differ from the "
+           "unmigrated run's")
+    _check(replayed <= 1, f"{replayed} steps replayed")
+    _check(_idle_pages(src) and _idle_pages(dst), "pages leaked")
+    _check(dst_w.stager._staged == {} and dst_w.staged_bytes == 0,
+           "the target's staging did not drain")
+    sent = t_src.sent
+    cut = next(i for i, (t, _) in enumerate(sent) if t.startswith("rs:"))
+    phase1 = sum(n for _, n in sent[:cut + 1])
+    phase2 = sum(n for t, n in sent[cut + 1:]
+                 if t.startswith(("pg:", "rsd:")))
+    return {"kv_dtype": kv_dtype, "prompt_lens": list(MIGRATION_PROMPTS),
+            "new_tokens": MIGRATION_NEW, "tokens_at_move": before,
+            "bit_equal": True, "replayed_steps": replayed,
+            "handoff_pause_ms": moving.migration_pause * 1e3,
+            "phase1_bytes": phase1, "phase2_bytes": phase2,
+            "moved_pages": src_w.stats["moved_pages"],
+            "moved_bytes": src_w.stats["moved_bytes"],
+            "migration_ms": src_w.stats["last_migration_ms"]}
+
+
+class _CrashyBackend:
+    """An engine whose token stream consults a ``comm/faults`` plan: its
+    ``crash_after`` rule raises mid-stream (a replica dying between decode
+    steps), which the replica's server turns into an error line."""
+
+    def __init__(self, inner, plan, rid):
+        self._inner, self._plan, self._rid = inner, plan, rid
+        self.crashed_at = None
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def generate_stream(self, *a, **kw):
+        from distributed_inference_demo_tpu_torch.comm.faults import \
+            InjectedCrash
+        for item in self._inner.generate_stream(*a, **kw):
+            if self._plan.on_recv(self._rid) is not None:
+                self.crashed_at = time.perf_counter()
+                raise InjectedCrash(f"{self._rid}: injected crash_after")
+            yield item
+
+
+def _stream_lines(port: int, body: dict):
+    """POST a streamed /generate: (status, headers, [(arrival, line)])."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/generate", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        lines = []
+        while True:
+            ln = resp.readline()
+            if not ln:
+                break
+            if ln.strip():
+                lines.append((time.perf_counter(), json.loads(ln)))
+        return resp.status, dict(resp.getheaders()), lines
+    finally:
+        conn.close()
+
+
+def fleet_failover(torch, cfg, engines, sampled: bool,
+                   tier_prompts=None) -> dict:
+    """(d) The port's ``GatewayHTTPServer`` in front of two
+    ``InferenceHTTPServer`` replicas over 8-slot batching engines, in
+    this process.  Replica A dies mid-stream (a ``crash_after`` rule after
+    FAILOVER_CRASH_AFTER tokens); the gateway resumes the stream on B.
+    The client's streamed answer equals the unfailed one (B asked
+    directly first), steps continuous, B counts one resumed request.
+    With ``tier_prompts`` (the prompts A's tier saw), then the tier
+    route (:func:`_tier_route`)."""
+    import threading
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.comm.faults import (
+        FaultPlan, FaultRule)
+    from distributed_inference_demo_tpu_torch.runtime.gateway import (
+        GatewayHTTPServer, PrefixAwareRouter, ReplicaRegistry)
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+
+    plan = FaultPlan(seed=7, rules=[FaultRule(
+        kind="crash_after", n_msgs=FAILOVER_CRASH_AFTER, max_count=1)])
+    crashy = _CrashyBackend(engines[0], plan, "replicaA")
+    servers = [InferenceHTTPServer(b, port=0) for b in (crashy, engines[1])]
+    for s in servers:
+        s.start()
+    registry = ReplicaRegistry([(s.host, s.port) for s in servers],
+                               readmit_cooldown_s=60.0)
+    router = PrefixAwareRouter(registry, min_prefix_tokens=8,
+                               block_tokens=8)
+    gw = GatewayHTTPServer(registry, router, port=0, retry_limit=1,
+                           resume_limit=1)
+    threading.Thread(target=gw.httpd.serve_forever, daemon=True).start()
+    rid_a = f"{servers[0].host}:{servers[0].port}"
+    resumed0 = engines[1].stats().get("resumed", {}).get("requests", 0)
+    try:
+        toks = np.random.RandomState(13 + sampled).randint(
+            0, cfg.vocab_size, FAILOVER_PROMPT).tolist()
+        router.record(rid_a, toks)
+        body = {"prompt_ids": [toks], "max_new_tokens": FAILOVER_NEW,
+                "stream": True}
+        st, _, ref_lines = _stream_lines(servers[1].port, body)
+        _check(st == 200, f"replica B: HTTP {st}")
+        want = [ln["tokens"][0] for _, ln in ref_lines]
+        st, headers, lines = _stream_lines(gw.port, body)
+        _check(st == 200 and not any("error" in ln for _, ln in lines),
+               f"gateway stream: HTTP {st}, {lines}")
+        got = [ln["tokens"][0] for _, ln in lines]
+        _check([e["kind"] for e in plan.events] == ["crash_after"],
+               f"fault events {plan.events}")
+        _check(got == want and [ln["step"] for _, ln in lines]
+               == list(range(FAILOVER_NEW)),
+               f"resumed stream {got} != unfailed {want}")
+        st1 = engines[1].stats()["resumed"]
+        _check(st1["requests"] == resumed0 + 1 and st1["diverged"] == 0,
+               f"survivor resume stats {st1}")
+        resumed_ms = (lines[FAILOVER_CRASH_AFTER][0]
+                      - crashy.crashed_at) * 1e3
+        out = {"sampled": sampled, "bit_equal": True,
+               "death_to_first_resumed_token_ms": resumed_ms,
+               "tokens": FAILOVER_NEW, "crash_after": FAILOVER_CRASH_AFTER}
+        if tier_prompts is not None:
+            out["tier_route"] = _tier_route(registry, router, gw, servers,
+                                            engines[0], tier_prompts)
+        return out
+    finally:
+        gw.shutdown()
+        for s in servers:
+            s.shutdown()
+
+
+def _tier_route(registry, router, gw, servers, engine, prompts) -> dict:
+    """The tier second chance end to end: replica A's ``/stats`` publishes
+    the digest of what its tier holds; a request sharing the longest such
+    prefix routes to A (policy host_tier) and promotes it there."""
+    registry.probe_all()
+    rid_a = f"{servers[0].host}:{servers[0].port}"
+    tier = engine._kv_tier
+    best, best_tokens = None, 0
+    for seq in prompts:
+        n = router.tier_match_tokens(rid_a, seq)
+        if n > best_tokens:
+            best, best_tokens = seq, n
+    _check(best_tokens >= 32, f"A's tier digest covers {best_tokens} tokens")
+    req = best[:best_tokens] + [1, 2, 3]
+    d = router.route(req)
+    _check(d.policy == "host_tier" and d.rid == rid_a,
+           f"route {d.policy} -> {d.rid}")
+    p0 = tier.stats["promoted_blocks"]
+    st, headers, lines = _stream_lines(gw.port, {
+        "prompt_ids": [req], "max_new_tokens": 2, "stream": True})
+    _check(st == 200 and headers.get("X-DWT-Replica") == rid_a,
+           f"the shared-prefix request went to {headers}")
+    promoted = tier.stats["promoted_blocks"] - p0
+    _check(promoted > 0, "the routed request promoted nothing")
+    return {"policy": d.policy, "match_tokens": d.match_tokens,
+            "promoted_blocks": promoted}
+
+
+def phase_fleet(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
+    """KV movement and the fleet at full width (bf16, random weights from
+    seed 0, 16-token pages, 8 slots, loopback transport): (a) the tiered
+    KV over bf16 and int8 pages, (b) disaggregated prefill / decode (and
+    f32 on two requests), (c) live migration over bf16 and int8 pages,
+    (d) failover through the gateway, greedy and sampled, and the tier
+    route.  The flash and paged kernels' launches are counted from 0 at
+    the phase's start to the end of (d) (the kernels line's ``*_fleet``
+    entries: bf16 and int8 pages); the f32 disaggregation counts its
+    own (``disagg_f32``, the ``*_f32`` entries)."""
+    import shutil
+    import tempfile
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import \
+        flash_attention
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(model)
+    out = {"phase": "fleet", "device": torch.cuda.get_device_name(0)
+           if dev == "cuda" else dev, "model": model, "slots": SLOTS,
+           "block_tokens": BLOCK_TOKENS, "prefill_chunk": PREFILL_CHUNK}
+    params = init_full_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    tmp = tempfile.mkdtemp(prefix="fleet-tier-")
+    engines = []
+    try:
+        _reset_launches(flash_attention, pa.paged_flash_attention,
+                        pa.paged_prefill_attention)
+        pairs, tier_prompts = {}, None
+        for kv_dtype in ("bf16", "int8"):
+            t1 = time.perf_counter()
+            hit = _fleet_engine(torch, cfg, params, dev, kv_dtype=kv_dtype)
+            engines.append(hit)
+            tier_eng, prompts, res = fleet_tier(torch, cfg, params, kv_dtype,
+                                                tmp, dev, hit)
+            engines.append(tier_eng)
+            pairs[kv_dtype] = (tier_eng, hit)
+            tier_prompts = tier_prompts or prompts
+            res["seconds"] = time.perf_counter() - t1
+            out[f"tier_{kv_dtype}"] = res
+        t1 = time.perf_counter()
+        decoder = _fleet_engine(torch, cfg, params, dev, kv_dtype="bf16")
+        engines.append(decoder)
+        out["disagg"] = fleet_disagg(torch, cfg, params, dev,
+                                     pairs["bf16"][1], decoder,
+                                     DISAGG_PROMPTS, FLEET_NEW, exact=False)
+        out["disagg"]["seconds"] = time.perf_counter() - t1
+        for kv_dtype in ("bf16", "int8"):
+            t1 = time.perf_counter()
+            res = fleet_migration(torch, cfg, *pairs[kv_dtype], kv_dtype)
+            res["seconds"] = time.perf_counter() - t1
+            out[f"migration_{kv_dtype}"] = res
+        t1 = time.perf_counter()
+        out["failover_greedy"] = fleet_failover(
+            torch, cfg, list(pairs["bf16"]), sampled=False,
+            tier_prompts=tier_prompts)
+        for e in engines:
+            e.close()
+        engines = [_fleet_engine(
+            torch, cfg, params, dev, max_seq=512, seed=3,
+            sampling=SamplingParams(temperature=0.9, top_k=40))
+            for _ in range(2)]
+        out["failover_sampled"] = fleet_failover(torch, cfg, engines,
+                                                 sampled=True)
+        out["failover_seconds"] = time.perf_counter() - t1
+        for e in engines:
+            e.close()
+        # the bf16 and int8 runs' launches (the f32 run counts its own)
+        out["launches"] = {
+            "flash": flash_attention.launches,
+            "paged_decode": pa.paged_flash_attention.launches,
+            "paged_prefill": pa.paged_prefill_attention.launches,
+            "paged_decode_int8": pa.paged_flash_attention.int8_launches,
+            "paged_prefill_int8": pa.paged_prefill_attention.int8_launches}
+        _check(dev != "cuda" or min(out["launches"].values()) > 0,
+               f"a kernel did not launch: {out['launches']}")
+        # f32 disaggregation on two requests: the decode side's tokens
+        # equal the colocated engine's exactly
+        t1 = time.perf_counter()
+        cfg32 = cfg.replace(dtype_name="float32")
+        p32 = init_full_params(
+            torch.Generator(device=dev).manual_seed(0), cfg32, dev)
+        engines = [_fleet_engine(torch, cfg32, p32, dev, max_seq=512)
+                   for _ in range(2)]
+        out["disagg_f32"] = fleet_disagg(torch, cfg32, p32, dev, *engines,
+                                         DISAGG_F32_PROMPTS, FLEET_NEW,
+                                         exact=True)
+        _check(dev != "cuda" or min(
+            out["disagg_f32"]["flash_launches"],
+            *out["disagg_f32"]["launches"].values()) > 0,
+            f"an f32 kernel did not launch: {out['disagg_f32']}")
+        out["disagg_f32"]["seconds"] = time.perf_counter() - t1
+    finally:
+        for e in engines:
+            e.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -4699,25 +5496,36 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     print(smi, flush=True)
+
+    def timed(fn, *args, **kw):
+        """``fn``'s phase line, with its wall seconds if it has none."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        out.setdefault("seconds", time.perf_counter() - t0)
+        return out
+
     # --phase NAME: the build, then that phase alone (no result lines)
     only = argv[argv.index("--phase") + 1] if "--phase" in argv else None
     try:
-        device = phase_device(torch, smi)
+        device = timed(phase_device, torch, smi)
         emit(device)
         if only is not None:
-            emit({"serve": phase_serve, "batching": phase_batching,
-                  "mixed": phase_mixed, "graph": phase_graph,
-                  "quant": phase_quant, "kvcache": phase_kvcache,
-                  "surface": phase_surface, "moe": phase_moe,
-                  "speculative": lambda t: phase_speculative(
-                      t, device["ptxas"]["paged_attention.cu"])}[only](torch))
+            emit(timed({
+                "serve": phase_serve, "batching": phase_batching,
+                "mixed": phase_mixed, "graph": phase_graph,
+                "quant": phase_quant, "kvcache": phase_kvcache,
+                "surface": phase_surface, "moe": phase_moe,
+                "fleet": phase_fleet,
+                "speculative": lambda t: phase_speculative(
+                    t, device["ptxas"]["paged_attention.cu"])}[only],
+                torch))
             return 0
-        kern = phase_kernels(torch)
+        kern = timed(phase_kernels, torch)
         emit(kern)
-        paged = phase_paged_kernels(torch)
+        paged = timed(phase_paged_kernels, torch)
         emit(paged)
-        qkern = phase_quant_kernels(
-            torch, device["ptxas"]["quant_dense.cu"])
+        qkern = timed(phase_quant_kernels, torch,
+                      device["ptxas"]["quant_dense.cu"])
         emit(qkern)
         failures = kern["failures"] + paged["failures"] + qkern["failures"]
         if failures:
@@ -4725,43 +5533,46 @@ def main(argv) -> int:
                                  + "; ".join(failures))
         if "--kernels-only" in argv:
             return 0
-        serve = phase_serve(torch)
+        serve = timed(phase_serve, torch)
         emit(serve)
-        batching = phase_batching(torch)
+        batching = timed(phase_batching, torch)
         emit(batching)
-        mixed = phase_mixed(torch)
+        mixed = timed(phase_mixed, torch)
         emit(mixed)
         # the catalog's models at the kernels' other head dims
         served = {}
         for name in HEAD_DIM_MODELS:
-            served[name] = phase_serve_model(torch, name)
+            served[name] = timed(phase_serve_model, torch, name)
             emit(served[name])
-        gemma_batching = phase_batching(torch, "gemma-2b", f32="gather")
+        gemma_batching = timed(phase_batching, torch, "gemma-2b",
+                               f32="gather")
         emit(gemma_batching)
-        gemma_mixed = phase_mixed(torch, "gemma-2b", extras=False)
+        gemma_mixed = timed(phase_mixed, torch, "gemma-2b", extras=False)
         emit(gemma_mixed)
-        bloom_batching = phase_batching(torch, "bloom3b", f32=None)
+        bloom_batching = timed(phase_batching, torch, "bloom3b", f32=None)
         emit(bloom_batching)
-        emit(phase_graph(torch))
-        quant_phase = phase_quant(torch)
+        emit(timed(phase_graph, torch))
+        quant_phase = timed(phase_quant, torch)
         emit(quant_phase)
-        kvc = phase_kvcache(torch)
+        kvc = timed(phase_kvcache, torch)
         emit(kvc)
-        surface = phase_surface(torch)
+        surface = timed(phase_surface, torch)
         emit(surface)
-        spec = phase_speculative(torch,
-                                 device["ptxas"]["paged_attention.cu"])
+        spec = timed(phase_speculative, torch,
+                     device["ptxas"]["paged_attention.cu"])
         emit(spec)
-        moe = phase_moe(torch)
+        fleet = timed(phase_fleet, torch)
+        emit(fleet)
+        moe = timed(phase_moe, torch)
         emit(moe)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    def flash_case(case):
+    def flash_case(case, dtype="bfloat16"):
         return next(c for c in kern["cases"]
-                    if c["case"] == case and c["dtype"] == "bfloat16"
+                    if c["case"] == case and c["dtype"] == dtype
                     and c["b"] == 1 and c["chunk"] == PROMPT_LEN
                     and c["q_start"] == 0)
 
@@ -4774,9 +5585,9 @@ def main(argv) -> int:
     # (full-width pages for the batching path, int8 pages for the mixed),
     # and the mixed path's own prefill shape, the 4-row slab, which every
     # one of its int8 prefill launches has
-    def serve_case(kind, pages, case="tinyllama"):
+    def serve_case(kind, pages, case="tinyllama", dtype="bfloat16"):
         return next(c for c in paged["cases"] if c["case"] == case
-                    and c["kind"] == kind and c["dtype"] == "bfloat16"
+                    and c["kind"] == kind and c["dtype"] == dtype
                     and c["pages"] == pages
                     and (c["b"] == SLOTS if kind == "decode" else
                          c["chunk"] == PREFILL_CHUNK
@@ -4822,6 +5633,29 @@ def main(argv) -> int:
         ("paged_prefill_surface", "paged_prefill", surface,
          serve_case("prefill", "full"), chunk200 + " (launches: the same "
          "8 text requests' admissions)"),
+        ("paged_decode_fleet", "paged_decode", fleet,
+         serve_case("decode", "full"), rows8 + " (launches: the fleet "
+         "phase's bf16 pages: the tier, disaggregation, migration and "
+         "failover engines)"),
+        ("paged_prefill_fleet", "paged_prefill", fleet,
+         serve_case("prefill", "full"), chunk200 + " (launches: the "
+         "fleet phase's bf16 pages: suffix prefills after an adopt or a "
+         "promotion, resumed admissions)"),
+        ("paged_decode_fleet_int8", "paged_decode_int8", fleet,
+         serve_case("decode", "int8"), "int8 pages, " + rows8 +
+         " (launches: the fleet phase's int8 tier and migration engines)"),
+        ("paged_prefill_fleet_int8", "paged_prefill_int8", fleet,
+         serve_case("prefill", "int8"), "int8 pages, " + chunk200 +
+         " (launches: the fleet phase's int8 suffix prefills after a "
+         "promotion or a migration)"),
+        ("paged_decode_fleet_f32", "paged_decode", fleet["disagg_f32"],
+         serve_case("decode", "full", dtype="float32"), "f32, " + rows8 +
+         " (launches: the decode side of the fleet phase's f32 "
+         "disaggregation)"),
+        ("paged_prefill_fleet_f32", "paged_prefill", fleet["disagg_f32"],
+         serve_case("prefill", "full", dtype="float32"), "f32, " +
+         chunk200 + " (launches: the same decode side's suffix prefills "
+         "after an adopt)"),
         ("paged_decode_mixtral", "paged_decode", moe["batching"],
          serve_case("decode", "full", MOE_MODEL), f"{MOE_MODEL}, " + rows8),
         ("paged_prefill_mixtral", "paged_prefill", moe["batching"],
@@ -4916,6 +5750,16 @@ def main(argv) -> int:
               surface["flash_launches"], main_case,
               "64-token prompt at 0 (launches: the surface phase's text "
               "prompts of 24 and 1500 tokens on the plain server)"),
+        entry("flash_attention_disagg", KERNEL_SOURCE, KERNEL_REPLACES,
+              fleet["disagg"]["flash_launches"], main_case,
+              "64-token prompt at 0 (launches: the prefill worker's "
+              "64-token chunks of the fleet phase's four bf16 "
+              "disaggregated requests, L x chunks)"),
+        entry("flash_attention_disagg_f32", KERNEL_SOURCE, KERNEL_REPLACES,
+              fleet["disagg_f32"]["flash_launches"],
+              flash_case("tinyllama", "float32"), "f32, 64-token prompt at "
+              "0 (launches: the prefill worker's 64-token chunks of the "
+              "fleet phase's two f32 disaggregated requests, L x chunks)"),
         entry("flash_attention_mixtral", KERNEL_SOURCE, KERNEL_REPLACES,
               moe["serve"]["launches"], flash_case(MOE_MODEL),
               f"{MOE_MODEL} (g = 4), 64-token prompt at 0"),

@@ -26,6 +26,11 @@
         --label-token-ids 4,9
     python -m distributed_inference_demo_tpu_torch chat \\
         --url http://127.0.0.1:5000
+    python -m distributed_inference_demo_tpu_torch serve \\
+        --model tinyllama-1.1b --batch-slots 8 \\
+        --kv-host-tier-bytes 1073741824
+    python -m distributed_inference_demo_tpu_torch gateway \\
+        --replicas 127.0.0.1:5000,127.0.0.1:5001 --http-port 5080
 
 The single-node serve modes of the JAX package's CLI, with the weights
 of an HF safetensors directory (``--checkpoint``) or random weights from
@@ -40,7 +45,11 @@ of an HF safetensors directory (``--checkpoint``) or random weights from
 ``--mixed-token-budget``, and either proposer, ``--no-spec-adaptive``
 pinning the mixed dispatch's draft length).  Each takes
 ``--kv-cache-blocks``, ``--kv-block-tokens``, ``--prefill-chunk``,
-``--kv-dtype`` and ``--kv-cache-dtype``.  ``--tokenizer`` (an HF ``tokenizer.json`` or a
+``--kv-dtype`` and ``--kv-cache-dtype``, and the tier below the
+page pool, ``--kv-host-tier-bytes`` with an optional
+``--kv-disk-tier-path`` / ``--kv-disk-tier-bytes`` segment (the flags
+also set their ``DWT_KV_*_TIER_*`` env knobs, which every engine's pool
+reads).  ``--tokenizer`` (an HF ``tokenizer.json`` or a
 sentencepiece ``.model``) lets requests carry text and stop strings;
 ``--run-log`` appends JSONL run-log events; ``--postmortem-dir`` writes
 postmortem bundles (and installs the crash handler, as does
@@ -50,7 +59,10 @@ postmortem bundles (and installs the crash handler, as does
 ``--tokenizer``) through an ``InferenceEngine`` (or either speculative
 engine, whose acceptance stats it adds) and prints its tokens as JSON; ``classify`` runs a ``text,label`` CSV through
 ``InferenceEngine.classify`` and prints the accuracy and predictions;
-``chat`` is the streaming REPL client of a running server.  The engine
+``chat`` is the streaming REPL client of a running server;
+``gateway`` is the prefix-aware router over running ``serve`` replicas
+(``runtime/gateway``), with ``--drain`` / ``--undrain`` as its client
+mode.  The engine
 commands run on CUDA unless ``--device cpu`` is given.  Every other
 subcommand and mode flag of the JAX package's CLI exits 1 with "not yet
 ported".
@@ -63,7 +75,7 @@ import json
 import sys
 from typing import Optional
 
-NOT_PORTED_COMMANDS = ("gateway", "server", "worker", "plan", "bench")
+NOT_PORTED_COMMANDS = ("server", "worker", "plan", "bench")
 
 
 def _load_tokenizer(path: Optional[str]):
@@ -109,6 +121,27 @@ def _draft_params(args, device):
     return dcfg, load_or_init(args.draft_model, dcfg,
                               args.draft_checkpoint or None,
                               seed=args.weights_seed, device=device)
+
+
+def _kv_tier_from_args(args) -> dict:
+    """The tier kwargs of the one engine that takes them explicitly
+    (``ContinuousBatchingEngine``); every other pool reads the env knobs
+    :func:`_export_kv_tier_env` sets."""
+    return {"kv_host_tier_bytes": args.kv_host_tier_bytes,
+            "kv_disk_tier_path": args.kv_disk_tier_path or None,
+            "kv_disk_tier_bytes": args.kv_disk_tier_bytes}
+
+
+def _export_kv_tier_env(args) -> None:
+    """The tier flags over their env knobs, through the env: every
+    ``make_kv_backend`` call resolves the tier from there."""
+    import os
+    if args.kv_host_tier_bytes is not None:
+        os.environ["DWT_KV_HOST_TIER_BYTES"] = str(args.kv_host_tier_bytes)
+    if args.kv_disk_tier_path:
+        os.environ["DWT_KV_DISK_TIER_PATH"] = args.kv_disk_tier_path
+    if args.kv_disk_tier_bytes is not None:
+        os.environ["DWT_KV_DISK_TIER_BYTES"] = str(args.kv_disk_tier_bytes)
 
 
 def _refuse_stream_block(args, flag: str) -> None:
@@ -173,7 +206,7 @@ def build_batching_engine(args):
         mixed_token_budget=args.mixed_token_budget or None,
         kv_dtype=args.kv_dtype, kv_cache_dtype=args.kv_cache_dtype,
         kv_cache_blocks=args.kv_cache_blocks,
-        kv_block_tokens=args.kv_block_tokens,
+        kv_block_tokens=args.kv_block_tokens, **_kv_tier_from_args(args),
         attn_backend="cuda" if args.attn_backend == "flash"
         else args.attn_backend, device=device)
 
@@ -203,6 +236,7 @@ def _dtype_name(dtype) -> str:
 def cmd_serve(args) -> int:
     from .runtime.http_server import InferenceHTTPServer
 
+    _export_kv_tier_env(args)
     modes = [name for name, on in [("--draft-model", args.draft_model),
                                    ("--prompt-lookup", args.prompt_lookup),
                                    ("--batch-slots", args.batch_slots)]
@@ -337,6 +371,21 @@ def _add_engine_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--kv-block-tokens", type=int, default=None,
                     help="tokens per KV page (default "
                          "DWT_KVCACHE_BLOCK_TOKENS, else 16)")
+    ap.add_argument("--kv-host-tier-bytes", type=int, default=None,
+                    help="tiered KV: byte budget of the host-RAM ring "
+                         "that catches KV blocks evicted from the page "
+                         "pool; a prompt whose prefix sits demoted "
+                         "promotes it back instead of re-prefilling.  "
+                         "Default DWT_KV_HOST_TIER_BYTES, else 0 (off)")
+    ap.add_argument("--kv-disk-tier-path", default=None,
+                    help="optional mmap'd disk segment below the host "
+                         "ring (host overflow spills here, oldest first); "
+                         "needs --kv-host-tier-bytes > 0 and "
+                         "--kv-disk-tier-bytes.  Default "
+                         "DWT_KV_DISK_TIER_PATH")
+    ap.add_argument("--kv-disk-tier-bytes", type=int, default=None,
+                    help="byte budget of the disk segment (0 = no disk "
+                         "tier; default DWT_KV_DISK_TIER_BYTES)")
     ap.add_argument("--kv-dtype", default=None,
                     choices=["bf16", "int8", "int4"],
                     help="the KV page width: bf16 stores full-width pages "
@@ -462,6 +511,7 @@ def cmd_generate(args) -> int:
     """One-shot local generation (ids in, ids/text out)."""
     import numpy as np
 
+    _export_kv_tier_env(args)
     if args.no_spec_adaptive:
         print("--no-spec-adaptive requires serve --batch-slots with "
               "--draft-model or --prompt-lookup", file=sys.stderr)
@@ -650,17 +700,147 @@ def cmd_chat(args) -> int:
     return 0
 
 
+def _parse_replicas(spec: str):
+    """``host:port,host:port,...`` -> ``[(host, port), ...]``."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, _, port = part.rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(f"bad replica {part!r}: expected host:port")
+        out.append((host, int(port)))
+    if not out:
+        raise ValueError("--replicas needs at least one host:port")
+    return out
+
+
+def cmd_gateway(args) -> int:
+    """The prefix-aware replicated serving gateway: spread /generate
+    traffic across N ``serve`` replicas, routing each request to the
+    replica most likely to hold its prompt prefix.  Holds no engine:
+    start the replicas first, then point the gateway at them."""
+    from .runtime.gateway import (GatewayHTTPServer, PrefixAwareRouter,
+                                  ReplicaRegistry)
+
+    if args.drain or args.undrain:
+        # client mode: flip the drain flag on a running gateway at
+        # --http-host/--http-port, print its answer, exit
+        from http.client import HTTPConnection
+        rid = args.drain or args.undrain
+        body = json.dumps({"replica": rid,
+                           "draining": bool(args.drain)}).encode()
+        conn = HTTPConnection(args.http_host, args.http_port, timeout=5.0)
+        try:
+            conn.request("POST", "/drain", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            print(resp.read().decode("utf-8", "replace"))
+            return 0 if resp.status == 200 else 1
+        except OSError as e:
+            print(f"gateway at {args.http_host}:{args.http_port} "
+                  f"unreachable: {e}", file=sys.stderr)
+            return 1
+        finally:
+            conn.close()
+    if not args.replicas:
+        print("--replicas is required (except with --drain/--undrain)",
+              file=sys.stderr)
+        return 1
+    try:
+        replicas = _parse_replicas(args.replicas)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    registry = ReplicaRegistry(
+        replicas, sustain=args.evict_sustain,
+        readmit_cooldown_s=args.readmit_cooldown,
+        probe_interval_s=args.health_interval,
+        probe_timeout_s=args.probe_timeout)
+    router = PrefixAwareRouter(
+        registry, min_prefix_tokens=args.min_prefix_tokens,
+        block_tokens=args.route_block_tokens,
+        load_factor=args.load_factor)
+    server = GatewayHTTPServer(
+        registry, router, host=args.http_host, port=args.http_port,
+        retry_limit=args.retry_limit, resume_limit=args.resume_limit,
+        proxy_timeout_s=args.proxy_timeout or None)
+    print(f"GATEWAY_READY http://{server.host}:{server.port} "
+          f"replicas={','.join(registry.replica_ids())}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+    return 0
+
+
+def _gateway_parser() -> argparse.ArgumentParser:
+    gw = argparse.ArgumentParser(
+        prog="distributed_inference_demo_tpu_torch gateway",
+        description="replicated serving gateway: prefix-aware routing "
+                    "over N serve replicas")
+    gw.add_argument("--replicas", default="",
+                    help="comma list of replica host:port (each a running "
+                         "'serve' process); required except with "
+                         "--drain/--undrain")
+    gw.add_argument("--drain", default="",
+                    help="client mode: mark REPLICA (host:port) draining "
+                         "on the running gateway at --http-host/--http-"
+                         "port: new requests stop routing to it while "
+                         "in-flight streams finish")
+    gw.add_argument("--undrain", default="",
+                    help="client mode: clear REPLICA's draining flag")
+    gw.add_argument("--http-host", default="127.0.0.1")
+    gw.add_argument("--http-port", type=int, default=5080)
+    gw.add_argument("--health-interval", type=float, default=1.0,
+                    help="seconds between /stats health probes")
+    gw.add_argument("--probe-timeout", type=float, default=2.0)
+    gw.add_argument("--evict-sustain", type=int, default=3,
+                    help="consecutive failures before a replica is "
+                         "evicted from routing")
+    gw.add_argument("--readmit-cooldown", type=float, default=5.0,
+                    help="seconds a recovered replica must wait before "
+                         "readmission")
+    gw.add_argument("--min-prefix-tokens", type=int, default=16,
+                    help="shortest prefix match that beats the hash "
+                         "fallback")
+    gw.add_argument("--route-block-tokens", type=int, default=16,
+                    help="prefix-index granularity in tokens (match the "
+                         "replicas' --kv-block-tokens)")
+    gw.add_argument("--load-factor", type=float, default=2.0,
+                    help="hashed picks above load_factor x (1 + fleet "
+                         "mean load) are skipped down the rendezvous "
+                         "order")
+    gw.add_argument("--retry-limit", type=int, default=1,
+                    help="alternate replicas tried when the routed one "
+                         "dies before first token")
+    gw.add_argument("--resume-limit", type=int, default=1,
+                    help="mid-stream failover attempts: a replica dying "
+                         "after first token is resumed on a survivor "
+                         "this many times before the error-line "
+                         "fallback (0 = disable)")
+    gw.add_argument("--proxy-timeout", type=float, default=0.0,
+                    help="per-socket replica timeout in seconds "
+                         "(0 = none)")
+    return gw
+
+
 COMMANDS = {"serve": (_serve_parser, cmd_serve),
             "generate": (_generate_parser, cmd_generate),
             "classify": (_classify_parser, cmd_classify),
-            "chat": (_chat_parser, cmd_chat)}
+            "chat": (_chat_parser, cmd_chat),
+            "gateway": (_gateway_parser, cmd_gateway)}
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m distributed_inference_demo_tpu_torch "
-              "{serve,generate,classify,chat} [options]  (see CMD --help)")
+              "{serve,generate,classify,chat,gateway} [options]  "
+              "(see CMD --help)")
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
     if cmd in NOT_PORTED_COMMANDS:

@@ -84,9 +84,11 @@
 // last block of a tile to arrive (a per-tile arrival counter, which that
 // block resets to 0 for the next launch and the next graph replay) sums
 // them in split order and rounds once.  Deterministic: no float atomics.
-// The counters are one zeroed buffer per device, allocated by the wrapper
-// outside any capture; two products running at once on two streams of
-// one device would share them, which nothing in the port does.
+// The counters are zeroed buffers allocated by the wrapper outside any
+// capture (ops/quant_dense.arrival_counters): one per (device, stream) for
+// eager products, so two products running at once on two streams of one
+// device never share a counter, and one per engine for its captured
+// graphs, which replay one at a time.
 
 #include <cuda.h>
 #include <cuda_bf16.h>

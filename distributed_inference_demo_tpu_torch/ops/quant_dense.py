@@ -20,9 +20,11 @@ f32 ``scale`` [1, N]) or ``QuantizedArray4`` (``bits`` 4: uint8 ``q``
 [K/2, N], f32 ``scale`` [K/group, 1, N]): one layer's 2-D view.
 """
 
+import contextlib
 import ctypes
 import functools
 import threading
+from typing import Optional
 
 import torch
 
@@ -33,7 +35,7 @@ DECODE_STEP_K = 32     # K rows a step of the decode kernel (DEC_STEP)
 DECODE_MAX_ROWS = 16   # bf16 products up to this M take the decode kernel
 PREFILL_ROWS = 128     # rows a prefill block (PF_BM)
 F32_ROWS = 16          # rows an f32 block (F_BM)
-COUNTERS = 1 << 16     # arrival counters a device (COUNTERS)
+COUNTERS = 1 << 16     # arrival counters a buffer (COUNTERS)
 # the decode kernel's split aims at this many blocks an SM (four fit): two
 # for a weight under DECODE_LARGE_BYTES (fewer splits to sum), three from
 # there (more warps to hide each warp's latency; measured on the H100)
@@ -129,24 +131,59 @@ def _sm_count(device: torch.device) -> int:
 
 _counters_lock = threading.Lock()
 _counters: dict = {}
+_scope = threading.local()
 
 
-def arrival_counters(device: torch.device) -> torch.Tensor:
-    """The device's zeroed split-arrival counters, allocated on the
-    device's first product, outside any graph capture (an engine's
-    warm-up launches before it captures); each launch leaves them at 0."""
-    key = torch.device(device).index
-    if key is None:
-        key = torch.cuda.current_device()
+def new_counters(device: torch.device) -> torch.Tensor:
+    """A zeroed buffer of split-arrival counters on ``device``."""
+    return torch.zeros(COUNTERS, dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def counters_scope(counters: torch.Tensor):
+    """This thread's products use ``counters`` while the block runs.  A
+    graph capture runs in one: the graph keeps the buffer's address, and
+    replays go to whatever stream is current then, so a buffer keyed by
+    the capture stream could be shared with another graph replaying
+    beside it.  The graph runner (``runtime/cuda_graph.StepGraphs``)
+    gives each engine's graphs a buffer of their own, allocated before
+    its first capture; one engine replays its graphs one at a time."""
+    prev = getattr(_scope, "counters", None)
+    _scope.counters = counters
+    try:
+        yield counters
+    finally:
+        _scope.counters = prev
+
+
+def arrival_counters(device: torch.device,
+                     stream: Optional[torch.cuda.Stream] = None
+                     ) -> torch.Tensor:
+    """The zeroed split-arrival counters a product on ``stream`` (None:
+    the device's current stream) uses: those of the enclosing
+    :func:`counters_scope`, else one buffer for each (device, stream),
+    allocated at that stream's first product, so eager products running
+    at once on two streams never share a counter (two streams with one
+    handle are one stream, whose products run in order).  Each launch
+    leaves its counters at 0.  A graph capture outside a scope raises:
+    nothing may be allocated there, and the graph must own its buffer."""
+    scoped = getattr(_scope, "counters", None)
+    if scoped is not None:
+        return scoped
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "quant_dense: a graph capture needs arrival counters of its "
+            "own (capture inside counters_scope(new_counters(device)))")
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if stream is None:
+        stream = torch.cuda.current_stream(index)
+    key = (index, stream.cuda_stream)
     with _counters_lock:
         buf = _counters.get(key)
         if buf is None:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    "quant_dense: the arrival counters must be allocated "
-                    "before a graph capture (run one product eagerly first)")
-            buf = _counters[key] = torch.zeros(
-                COUNTERS, dtype=torch.int32, device=f"cuda:{key}")
+            buf = _counters[key] = new_counters(f"cuda:{index}")
         return buf
 
 
@@ -217,16 +254,18 @@ def _launch(x, w, kernel: str, splits: int) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     part = (torch.empty((splits, m, n), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
-    counters = arrival_counters(x.device) if kernel != "f32" else None
+    stream = torch.cuda.current_stream(x.device)
+    counters = (arrival_counters(x.device, stream) if kernel != "f32"
+                else None)
     fn, err_str = _kernel_fn()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
                  out.data_ptr(),
                  part.data_ptr() if part is not None else None,
                  counters.data_ptr() if counters is not None else None,
                  m, n, k, w.bits, getattr(w, "group", 0),
-                 _DTYPE_CODE[x.dtype], KERNELS[kernel], splits, stream)
+                 _DTYPE_CODE[x.dtype], KERNELS[kernel], splits,
+                 stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"quant_dense {kernel} kernel launch failed: "
                            + err_str(err).decode())

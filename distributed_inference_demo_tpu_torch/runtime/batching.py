@@ -79,8 +79,23 @@ comes from one ``torch.Generator`` seeded with ``seed`` (the reference's
 single rng stream): per-request seeds are not honored, and greedy
 decoding is bit-exact against ``InferenceEngine``.
 
-Not ported yet, each refused where it is asked for: tiered KV,
-migration and resume, and tp meshes.
+KV movement, as in the reference: the host/disk tier below the pool
+(``kvcache/tiered.py``: evicted leaves demote through the export seam,
+admission promotes a demoted continuation before its ``match``);
+:meth:`submit_premigrated` (a disaggregated prefill's blocks adopted
+into the tree before admission); :meth:`export_request` /
+:meth:`import_request` (live migration: a step-consistent checkpoint
+taken on the scheduler thread between dispatches, pages verbatim, the
+generator's state in place of the reference's rng key); and
+:meth:`submit_resumed` (gateway-failover resume: the delivered prefix
+re-derived through ordinary admission and verified token by token, a
+sampled stream's generator rewound to its constructor seed right
+before the request's first draw).  Exports and imports run on the
+scheduler thread, so they are ordered with the graph replays on the
+engine's stream: an export reads pages the last replay finished
+writing, an adopt lands before the next replay reads the tables.
+
+Not ported yet, refused where it is asked for: tp meshes.
 """
 
 from __future__ import annotations
@@ -118,13 +133,18 @@ from ..telemetry.tracing import TraceRecorder, to_chrome_trace
 from .engine import (GenerationResult, check_capacity, count_device_loop,
                      make_paged_chunk_programs, validate_prefill_chunk)
 from .cuda_graph import StepGraphs
-from .kvcache import refuse_tiers
-from .kvcache.device import write_row_to_pages
+from .kvcache.device import (adopt_blocks_into_pages,
+                             export_blocks_from_pages, payload_to,
+                             write_row_to_pages)
 from .overload import SchedulerOverloaded
 from .prompt_lookup import ngram_propose
 from .speculative import draw_noise, propose_token, verify_emit_per_row
 
 TP_LATER = "tensor-parallel meshes are ported in a later slice (ROADMAP A13)"
+
+# queue nudge from export_request: wakes an idle scheduler so it services
+# the export mailbox
+_WAKE = object()
 
 
 def slot_attention_impl(q, k, v, k_cache, v_cache, positions, cache_start,
@@ -190,6 +210,16 @@ class Request:
     tenant: str = "default"
     trace_id: int = 0
     t_submit_wall: float = 0.0
+    # live migration: accumulated seconds frozen between a detaching
+    # export and the first relayed token; adopted (migrated-in) requests
+    # never close a timeline here (the source keeps the client)
+    migration_pause: float = 0.0
+    migrated: bool = False
+    adopted: bool = False
+    # gateway-failover resume: admitted through submit_resumed; the
+    # replay window (first recorded to first visible token)
+    resumed: bool = False
+    resume_pause: float = 0.0
 
     def wait(self, timeout: Optional[float] = None) -> np.ndarray:
         if not self.done.wait(timeout):
@@ -266,9 +296,11 @@ class ContinuousBatchingEngine:
         length (False pins K_row = ``num_draft``).  Logprobs are refused
         with a proposer, as in the reference.
 
-        Refused until their slice: the tier knobs and a tp ``mesh``.
-        ``kv_disk_tier_bytes`` only shapes a tier, so without one it does
-        nothing, as in the reference."""
+        ``kv_host_tier_bytes`` / ``kv_disk_tier_path`` /
+        ``kv_disk_tier_bytes`` (over their ``DWT_KV_*_TIER_*`` env
+        knobs): the host ring and disk segment below the page pool.
+
+        Refused until its slice: a tp ``mesh``."""
         if max_queue_depth is None:
             max_queue_depth = env_int("DWT_MAX_QUEUE_DEPTH", 0)
         self.max_queue_depth = max(0, int(max_queue_depth))
@@ -289,7 +321,6 @@ class ContinuousBatchingEngine:
                           "draft" if draft_cfg is not None else None)
         if self._proposer is not None and num_draft < 1:
             raise ValueError("num_draft must be >= 1")
-        refuse_tiers(kv_host_tier_bytes, kv_disk_tier_path)
         # kv_dtype quantizes the page pool; the kv_cache_dtype storage
         # cast is another grid for the same full-width layout: one knob
         # or the other, as in the reference
@@ -390,6 +421,21 @@ class ContinuousBatchingEngine:
                                   self.device)
         self._tables = np.full((B, self._table_width), N, np.int32)
 
+        # the host/disk tier below the pool: the demote hook gathers the
+        # victim's pages out of the live pools; promotion runs in
+        # _reserve_pages, before the match
+        from .kvcache import (TieredKVStore, make_demote_hook,
+                              resolve_tier_config)
+        tier_host, tier_path, tier_disk = resolve_tier_config(
+            kv_host_tier_bytes, kv_disk_tier_path, kv_disk_tier_bytes)
+        self._kv_tier = None
+        if tier_host > 0:
+            self._kv_tier = TieredKVStore(tier_host, bt, disk_path=tier_path,
+                                          disk_bytes=tier_disk)
+            self.kv_cache.tier = self._kv_tier
+            self.kv_cache.demote_hook = make_demote_hook(
+                self._kv_tier, lambda: (self._pk, self._pv))
+
         from ..parallel.tensor import make_paged_forward_seam
         self.attn_backend = attn_backend
         self._fwd, self._bind, _ = make_paged_forward_seam(
@@ -416,6 +462,8 @@ class ContinuousBatchingEngine:
                                     device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed))
+        # the constructor seed's state, which a sampled resume rewinds to
+        self._gen_seed_state = self._gen.get_state()
         if self._proposer is not None:
             self._init_spec(S, n_blocks, page_dtype)
         # captured here, on the constructing thread, before the scheduler
@@ -438,6 +486,17 @@ class ContinuousBatchingEngine:
         else:
             self._capture_rounds()
         self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
+        # disaggregated joins, failover resumes and live migrations
+        self.disagg_stats = {"premigrated_requests": 0, "adopted_pages": 0}
+        self.resume_stats = {"requests": 0, "replayed_tokens": 0,
+                             "diverged": 0}
+        self.migration_stats = {"exported_requests": 0,
+                                "imported_requests": 0,
+                                "detached_requests": 0}
+        # rid -> live Request (export_request / get_request addressing)
+        # and the export mailbox the scheduler services between dispatches
+        self._by_rid: dict = {}
+        self._export_q: "deque" = deque()
         # port-only: the rounds run at each draft width (every round, the
         # ones past a finished row's end too), which price the launches
         self.rounds_by_width = {}
@@ -499,7 +558,15 @@ class ContinuousBatchingEngine:
 
     def submit(self, prompt_ids, max_new_tokens: int,
                tenant: Optional[str] = None,
-               trace_id: int = 0) -> Request:
+               trace_id: int = 0,
+               request_id: Optional[str] = None,
+               _staged: Optional[dict] = None,
+               _replay: Optional[dict] = None) -> Request:
+        """Queue one request.  ``request_id``: the migration-addressable
+        id (no ``:``, the frame tags' delimiter), else an engine-salted
+        one.  ``_staged`` / ``_replay``: premigrated blocks and resume
+        replay state (:meth:`submit_premigrated`,
+        :meth:`submit_resumed`), attached before the queue put."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         check_capacity(self.max_seq, len(prompt), max_new_tokens)
         if len(prompt) == 0:
@@ -539,16 +606,398 @@ class ContinuousBatchingEngine:
                       t_submit_wall=time.time(),
                       tenant=sanitize_tenant(tenant),
                       trace_id=int(trace_id or 0))
-        req.rid = f"r{self._rid_salt}-{next(self._rid_counter)}"
+        if request_id is not None and ":" in request_id:
+            raise ValueError(f"request_id {request_id!r} contains ':'")
+        req.rid = (request_id if request_id is not None
+                   else f"r{self._rid_salt}-{next(self._rid_counter)}")
+        if _staged is not None:
+            req._staged = _staged
+        if _replay is not None:
+            req.resumed = True
+            req._suppress = _replay["suppress"]
+            req._rng_rewind = _replay["rewind"]
         with self._submit_lock:
             if not self._running:
                 raise RuntimeError("engine is closed")
+            self._by_rid[req.rid] = req
             self._queue.put(req)
         # workload sketch: admitted arrivals only (a shed request never
         # became workload); t_submit doubles as the interarrival clock
         self._sketch.record_request(len(prompt), tenant=req.tenant,
                                     now=req.t_submit)
         return req
+
+    def submit_premigrated(self, prompt_ids, max_new_tokens: int,
+                           k_blocks, v_blocks) -> Request:
+        """Decode-side join of a disaggregated request: the prompt's
+        whole-block K/V, computed by a prefill worker, arrives as host
+        block payloads ``[n, L, H, bt, D]`` (CPU tensors, or
+        ``QuantizedKVPages`` of them).  Admission first adopts them into
+        the pool and the radix tree (:meth:`_import_staged`, on the
+        scheduler thread), then admits through the ordinary paged path,
+        whose ``match`` finds the adopted prefix: only the suffix
+        prefills here.  ``k_blocks=None`` (no whole block) is a plain
+        :meth:`submit`.  A quantized payload needs a pool of its width
+        and adopts verbatim; a full-width one into a quantized pool
+        quantizes at the adopt."""
+        if k_blocks is None:
+            return self.submit(prompt_ids, max_new_tokens)
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        from ..ops.quant import QuantizedKVPages
+        if isinstance(k_blocks, QuantizedKVPages):
+            if (not isinstance(self._pk, QuantizedKVPages)
+                    or self._pk.bits != k_blocks.bits):
+                raise ValueError(
+                    f"premigrated int{k_blocks.bits} blocks need a "
+                    f"matching quantized pool; this engine's pages are "
+                    f"kv_dtype={self.kv_dtype!r}")
+        else:
+            k_blocks = torch.as_tensor(k_blocks)
+            v_blocks = torch.as_tensor(v_blocks)
+        bt = self.kv_cache.block_tokens
+        want = (self.cfg.num_layers, self.cfg.num_kv_heads, bt,
+                self.cfg.head_dim)
+        if (tuple(k_blocks.shape) != tuple(v_blocks.shape)
+                or k_blocks.ndim != 5 or tuple(k_blocks.shape[1:]) != want):
+            raise ValueError(
+                f"premigrated blocks must be [n, L, H, bt, D] = "
+                f"[n, {want[0]}, {want[1]}, {want[2]}, {want[3]}]; got "
+                f"K {tuple(k_blocks.shape)} / V {tuple(v_blocks.shape)}")
+        if k_blocks.shape[0] > len(prompt) // bt:
+            raise ValueError(
+                f"{k_blocks.shape[0]} migrated blocks exceed the "
+                f"prompt's {len(prompt) // bt} whole blocks")
+        return self.submit(prompt, max_new_tokens,
+                           _staged={"k": k_blocks, "v": v_blocks,
+                                    "imported": False})
+
+    def submit_resumed(self, prompt_ids, max_new_tokens: int,
+                       delivered_tokens, *,
+                       request_id: Optional[str] = None,
+                       tenant: Optional[str] = None,
+                       trace_id: int = 0) -> Request:
+        """Admit a stream that already delivered tokens on a dead
+        replica: re-derive the delivered prefix through ordinary
+        admission, verify it token by token (the suppress queue), and
+        stream only the suffix.  ``prompt_ids`` / ``max_new_tokens`` are
+        the original request's.
+
+        - greedy: the prompt is extended with ``delivered[:-1]``;
+          admission re-derives ``delivered[-1]``, which the suppress
+          queue verifies.  Exact on any survivor.
+        - sampled: the original prompt, with the engine's generator
+          rewound to its constructor seed right before this request's
+          first draw, so the draws that produced the delivered tokens
+          repeat.  Exact when the survivor replays the original run's
+          dispatch pattern (same config and seed, the request decoding
+          alone from slot 0); a deviation fails the request instead of
+          streaming a wrong suffix.
+
+        Replayed tokens append to ``tokens`` but never reach the
+        stream; the replay window is recorded as ``resume_pause``."""
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        delivered = [int(t) for t in
+                     np.asarray(delivered_tokens, np.int64).reshape(-1)]
+        k = len(delivered)
+        if k == 0:
+            raise ValueError("resume needs at least one delivered token")
+        if k >= max_new_tokens:
+            raise ValueError(
+                f"{k} delivered tokens leave nothing to resume "
+                f"(max_new_tokens={max_new_tokens})")
+        if self.eos_id is not None and self.eos_id in delivered:
+            raise ValueError(
+                "delivered tokens contain eos — the stream already "
+                "completed and has nothing to resume")
+        if self.sampling.greedy:
+            ext = np.concatenate(
+                [prompt, np.asarray(delivered[:-1], np.int32)])
+            replay = {"suppress": deque([delivered[-1]]), "rewind": False}
+            req = self.submit(ext, max_new_tokens - (k - 1),
+                              _replay=replay, request_id=request_id,
+                              tenant=tenant, trace_id=trace_id)
+        else:
+            replay = {"suppress": deque(delivered), "rewind": True}
+            req = self.submit(prompt, max_new_tokens, _replay=replay,
+                              request_id=request_id, tenant=tenant,
+                              trace_id=trace_id)
+        self.resume_stats["requests"] += 1
+        self._flight.record("resume_admit", rid=req.rid, delivered=k,
+                            greedy=bool(self.sampling.greedy))
+        return req
+
+    def _import_staged(self, req: Request) -> None:
+        """Land a premigrated request's staged blocks in the pool and
+        adopt them into the tree: scheduler thread only, once, before
+        the admission's ``match``.  On pool pressure the request goes
+        back to pending (:class:`_BlocksExhausted`), staged data
+        intact."""
+        st = getattr(req, "_staged", None)
+        if st is None or st["imported"]:
+            return
+        mgr = self.kv_cache
+        n = st["k"].shape[0]
+        ids = mgr.alloc(n)
+        if ids is None:
+            req._pkv_blocked = (mgr.epoch, mgr.free_blocks)
+            raise _BlocksExhausted()
+        bt = mgr.block_tokens
+        sig = _profiling.dispatch_signature(
+            "disagg_adopt", batch=n, chunk=bt, kv_dtype=self.kv_dtype)
+        t0 = self._prof.begin(sig)
+        adopt_blocks_into_pages(
+            self._pk, self._pv, payload_to(st["k"], self.device),
+            payload_to(st["v"], self.device),
+            np.asarray(ids, np.int64), num_pages=self._page_sentinel)
+        self._prof.end(sig, t0, out=self.device,
+                       hbm_bytes=n * bt * self._kv_bytes_per_token)
+        adopted, lease = mgr.store_shared(req.prompt[:n * bt], ids)
+        adopted_set = set(adopted)
+        leftovers = [b for b in ids if b not in adopted_set]
+        if leftovers:
+            # another request's store covered some blocks first: the tree
+            # kept the incumbent's pages
+            mgr.free(leftovers)
+        if lease is not None:
+            # the admission's own match() re-pins them on this thread
+            lease.release()
+        st["imported"] = True
+        st["k"] = st["v"] = None
+        self.disagg_stats["premigrated_requests"] += 1
+        self.disagg_stats["adopted_pages"] += len(adopted)
+        self._flight.record("disagg_engine_adopt", blocks=len(adopted),
+                            prompt_len=len(req.prompt))
+
+    # ------------------------------------------------------------------
+    # live migration: checkpoint a decoding row out of this engine, or
+    # adopt one into it
+
+    def export_request(self, rid, *, detach: bool = False,
+                       timeout: Optional[float] = 30.0) -> dict:
+        """Snapshot everything a decoding row owns as a host checkpoint
+        :meth:`import_request` resumes from: its used KV pages (verbatim,
+        quantized pools included, as CPU tensors), emitted tokens and
+        logprobs, the generator's state, length, last token, budget and
+        page-width tags.
+
+        Runs on the scheduler thread between dispatches (a mailbox; the
+        caller blocks up to ``timeout``), so the snapshot is
+        step-consistent and its page gather is queued after the last
+        replay on the engine's stream.  A box the scheduler has not
+        claimed when ``timeout`` passes is abandoned (a late service is a
+        no-op) and TimeoutError raised.
+
+        ``detach=True`` also removes the request (slot freed, tables back
+        to sentinel, pages released) and leaves its ``stream`` open: the
+        caller owns delivery from here.  The row decodes up to the
+        snapshot and never after it, so a target resuming at the
+        snapshot replays at most the in-flight step and skips none.
+
+        Speculative rows export at a verify boundary (between
+        dispatches): the checkpoint carries the row's adaptive K and its
+        acceptance EWMA, not the draft pages or n-gram history, which the
+        importer rebuilds from prompt + tokens."""
+        req = rid if isinstance(rid, Request) else self._by_rid.get(rid)
+        if req is None:
+            raise KeyError(f"unknown request id {rid!r}")
+        box = {"req": req, "detach": detach, "ckpt": None, "err": None,
+               "claimed": False, "abandoned": False,
+               "event": threading.Event()}
+        with self._submit_lock:
+            if not self._running:
+                raise RuntimeError("engine is closed")
+            self._export_q.append(box)
+            self._queue.put(_WAKE)
+        if not box["event"].wait(timeout):
+            with self._submit_lock:
+                if not box["claimed"]:
+                    box["abandoned"] = True
+            if box["abandoned"]:
+                raise TimeoutError(
+                    "export_request timed out waiting for the "
+                    "scheduler; the export was abandoned and the "
+                    "request left untouched")
+            box["event"].wait()
+        if box["err"] is not None:
+            raise box["err"]
+        return box["ckpt"]
+
+    def _service_exports(self) -> None:
+        """Serve queued export mailboxes (scheduler thread, between
+        dispatches).  The claimed/abandoned handshake under
+        ``_submit_lock`` makes a timed-out caller's box a no-op."""
+        while self._export_q:
+            box = self._export_q.popleft()
+            with self._submit_lock:
+                if box.get("abandoned"):
+                    continue
+                box["claimed"] = True
+            try:
+                box["ckpt"] = self._export_one(box["req"], box["detach"])
+            except BaseException as e:
+                box["err"] = e
+            box["event"].set()
+
+    def _export_one(self, req: Request, detach: bool) -> dict:
+        if req.done.is_set():
+            raise ValueError(f"request {req.rid!r} already finished")
+        if req.cancelled:
+            raise ValueError(f"request {req.rid!r} was cancelled")
+        slot = next((i for i, r in enumerate(self._slots) if r is req),
+                    None)
+        mid_adm = ((self._adm is not None and self._adm["req"] is req)
+                   or any(a["req"] is req for a in self._adms))
+        if slot is None and mid_adm:
+            raise ValueError(
+                f"request {req.rid!r} is mid-chunked-admission; retry "
+                "after its final prefill lands")
+        ckpt = {"rid": req.rid,
+                "prompt": np.asarray(req.prompt, np.int32),
+                "max_new": int(req.max_new),
+                "tokens": list(req.tokens), "lps": list(req.lps),
+                "kv_dtype": self.kv_dtype,
+                "block_tokens": int(self.kv_cache.block_tokens),
+                "eos_id": self.eos_id,
+                "tenant": req.tenant, "trace_id": int(req.trace_id),
+                "t_submit_wall": float(req.t_submit_wall),
+                "migration_pause": float(req.migration_pause)}
+        if slot is None:
+            # still queued: a cold checkpoint, which the importer turns
+            # into a plain submit
+            ckpt.update(length=0, last_tok=0, k=None, v=None, rng=None)
+            n_used = 0
+        else:
+            # after T emitted tokens the row's length is plen + T - 1 and
+            # K/V [0, length) is valid; the partial tail block ships
+            # verbatim (decode rewrites its columns past the length
+            # before any query attends them)
+            length = int(self._lengths[slot])
+            last_tok = int(self._last_tok[slot])
+            bt = self.kv_cache.block_tokens
+            n_used = -(-length // bt)
+            ids = np.asarray(self._tables[slot][:n_used], np.int64)
+            k_run, v_run = export_blocks_from_pages(self._pk, self._pv, ids)
+            ckpt.update(length=length, last_tok=last_tok,
+                        k=payload_to(k_run, "cpu"),
+                        v=payload_to(v_run, "cpu"),
+                        rng=self._gen.get_state().clone())
+            if self._proposer is not None:
+                ckpt["spec_k"] = int(self._spec_krow[slot])
+                ckpt["spec_ewma"] = float(self._spec_ewma[slot])
+        self.migration_stats["exported_requests"] += 1
+        if detach:
+            if slot is not None:
+                self._slots[slot] = None
+                self._sentinel_slot(slot)
+                self._release_request_kv(req)
+            else:
+                try:
+                    self._pending.remove(req)
+                except ValueError:
+                    pass
+            if req.rid is not None and self._by_rid.get(req.rid) is req:
+                del self._by_rid[req.rid]
+            req._detached = True
+            # the migration pause runs from here to the first relayed
+            # token (the relay closes it)
+            req.migrated = True
+            req._pause_t0 = time.perf_counter()
+            self.migration_stats["detached_requests"] += 1
+        self._flight.record("migration_export", rid=req.rid,
+                            tokens=len(req.tokens), blocks=n_used,
+                            detach=detach)
+        return ckpt
+
+    def import_request(self, ckpt: dict,
+                       request_id: Optional[str] = None) -> Request:
+        """Adopt an :meth:`export_request` checkpoint: the shipped pages
+        land in freshly allocated pages (the adopt scatter premigrated
+        prefills use), whole-prompt blocks join the radix tree (pages
+        holding generated tokens stay private), and decode resumes at
+        the checkpointed length with no prefill.  The generator's state
+        comes with it, so a single-request resume samples exactly;
+        greedy streams are bit-identical regardless."""
+        rid = request_id if request_id is not None else ckpt.get("rid")
+        if not ckpt.get("tokens") or int(ckpt.get("length") or 0) <= 0:
+            # cold checkpoint: plain admission (still adopted: the source
+            # relay owns the client-visible timeline)
+            req = self.submit(ckpt["prompt"], ckpt["max_new"],
+                              request_id=rid,
+                              tenant=ckpt.get("tenant"),
+                              trace_id=int(ckpt.get("trace_id") or 0))
+            req.adopted = True
+            return req
+        if ckpt.get("kv_dtype", "bf16") != self.kv_dtype:
+            raise ValueError(
+                f"checkpoint kv_dtype {ckpt.get('kv_dtype')!r} does not "
+                f"match this engine's {self.kv_dtype!r} pages")
+        bt = self.kv_cache.block_tokens
+        if int(ckpt.get("block_tokens", bt)) != bt:
+            raise ValueError(
+                f"checkpoint block_tokens {ckpt.get('block_tokens')} != "
+                f"pool block_tokens {bt}")
+        prompt = np.asarray(ckpt["prompt"], np.int32).reshape(-1)
+        max_new = int(ckpt["max_new"])
+        tokens = [int(t) for t in ckpt["tokens"]]
+        if len(tokens) >= max_new:
+            raise ValueError("checkpointed request has no budget left")
+        check_capacity(self.max_seq, len(prompt), max_new)
+        need = -(-(len(prompt) + max_new + self._slack_tokens) // bt)
+        if need > self.kv_cache.num_blocks:
+            raise ValueError(
+                f"checkpoint needs {need} KV blocks but the pool holds "
+                f"only {self.kv_cache.num_blocks}")
+        length = int(ckpt["length"])
+        if length != len(prompt) + len(tokens) - 1:
+            raise ValueError(
+                f"checkpoint length {length} != prompt {len(prompt)} + "
+                f"emitted {len(tokens)} - 1")
+        n_used = -(-length // bt)
+        n_shipped = int(ckpt["k"].shape[0])
+        if n_shipped != n_used:
+            raise ValueError(
+                f"checkpoint ships {n_shipped} blocks; length "
+                f"{length} needs {n_used}")
+        req = Request(prompt=prompt, max_new=max_new,
+                      t_submit=time.perf_counter(),
+                      tenant=sanitize_tenant(ckpt.get("tenant")),
+                      trace_id=int(ckpt.get("trace_id") or 0),
+                      t_submit_wall=float(ckpt.get("t_submit_wall") or 0),
+                      migration_pause=float(
+                          ckpt.get("migration_pause") or 0),
+                      migrated=True, adopted=True)
+        req.rid = rid
+        req.tokens = tokens
+        req.lps = [float(x) for x in (ckpt.get("lps") or [])]
+        req.t_first = time.perf_counter()
+        req._resume = {"k": ckpt["k"], "v": ckpt["v"], "length": length,
+                       "last_tok": int(ckpt["last_tok"]),
+                       "rng": ckpt.get("rng"),
+                       "spec_k": int(ckpt.get("spec_k") or 0),
+                       "spec_ewma": float(ckpt.get("spec_ewma") or 0.0)}
+        with self._submit_lock:
+            if not self._running:
+                raise RuntimeError("engine is closed")
+            if rid is not None:
+                self._by_rid[rid] = req
+            self._queue.put(req)
+        return req
+
+    def get_request(self, rid: str) -> Optional[Request]:
+        """The live Request registered under ``rid`` (None once it
+        finished or was detached)."""
+        return self._by_rid.get(rid)
+
+    def active_requests(self) -> list:
+        """``[(rid, emitted, remaining)]`` of the decoding slots (a racy
+        read-only snapshot; rows mid-admission or queued are left
+        out)."""
+        out = []
+        for r in list(self._slots):
+            if r is not None and r.rid is not None and not r.cancelled:
+                out.append((r.rid, len(r.tokens),
+                            r.max_new - len(r.tokens)))
+        return out
 
     def generate(self, prompt_ids: np.ndarray, max_new_tokens: int,
                  seed: int = 0, timeout: Optional[float] = None,
@@ -610,7 +1059,8 @@ class ContinuousBatchingEngine:
     def generate_stream(self, prompt_ids: np.ndarray, max_new_tokens: int,
                         seed: int = 0, timeout: Optional[float] = None,
                         logprobs: bool = False,
-                        tenant: Optional[str] = None, trace_id: int = 0):
+                        tenant: Optional[str] = None, trace_id: int = 0,
+                        resume: Optional[dict] = None):
         """Yield one [batch] token array per step (the HTTP streaming
         surface); with ``logprobs=True``, ([batch] tokens, [batch]
         logprobs) pairs.  Multi-row prompts stream in lockstep of the
@@ -619,13 +1069,35 @@ class ContinuousBatchingEngine:
         string closing the generator) cancels its in-flight requests,
         which frees their slots and pages after the current step.
         ``timeout``: an overall deadline, after which the requests are
-        cancelled and TimeoutError raised."""
+        cancelled and TimeoutError raised.
+
+        ``resume``: ``{"delivered_tokens": [...], "rng_step_offset": N}``
+        (gateway-failover resumption, one row only): the stream yields
+        only the tokens after the delivered prefix, which
+        :meth:`submit_resumed` re-derives and verifies."""
         ids = np.asarray(prompt_ids)
         if ids.ndim == 1:
             ids = ids[None, :]
         deadline = None if not timeout else time.monotonic() + timeout
-        reqs = self._submit_rows(ids, max_new_tokens, tenant=tenant,
-                                 trace_id=trace_id)
+        if resume is not None:
+            if ids.shape[0] != 1:
+                raise ValueError("resume supports a single prompt row")
+            delivered = resume.get("delivered_tokens")
+            if not isinstance(delivered, (list, tuple)) or not delivered:
+                raise ValueError(
+                    "resume.delivered_tokens must be a non-empty list")
+            off = resume.get("rng_step_offset", len(delivered))
+            if int(off) != len(delivered):
+                raise ValueError(
+                    f"resume.rng_step_offset ({off}) must equal "
+                    f"len(delivered_tokens) ({len(delivered)}) — the "
+                    "rng schedule is derived from the delivered count")
+            reqs = [self.submit_resumed(ids[0], max_new_tokens,
+                                        delivered, tenant=tenant,
+                                        trace_id=trace_id)]
+        else:
+            reqs = self._submit_rows(ids, max_new_tokens, tenant=tenant,
+                                     trace_id=trace_id)
         fetched = [[] for _ in reqs]
         finished = [False] * len(reqs)   # row's None sentinel was consumed
         pad = self.eos_id if self.eos_id is not None else 0
@@ -734,6 +1206,12 @@ class ContinuousBatchingEngine:
                     round(cs["mixed_packed_tokens"]
                           / cs["mixed_budget_tokens"], 4)
                     if cs["mixed_budget_tokens"] else None)}
+        if self.disagg_stats["premigrated_requests"]:
+            out["disagg"] = dict(self.disagg_stats)
+        if self.resume_stats["requests"]:
+            out["resumed"] = dict(self.resume_stats)
+        if any(self.migration_stats.values()):
+            out["migration"] = dict(self.migration_stats)
         # the compile ledger: the recompile_storm detector below reads it
         compile_snap = _profiling.get_compile_tracker().snapshot()
         if compile_snap:
@@ -772,9 +1250,14 @@ class ContinuousBatchingEngine:
     def debug_state(self) -> dict:
         """Backend fragment of ``GET /debugz``: anomaly-detector state,
         the observatory and the KV cache picture."""
-        return {"anomaly": self.anomaly.state(),
-                "observatory": _profiling.observatory_state(),
-                "kvcache": self.kv_cache.debug_state()}
+        out = {"anomaly": self.anomaly.state(),
+               "observatory": _profiling.observatory_state(),
+               "kvcache": self.kv_cache.debug_state()}
+        if self.disagg_stats["premigrated_requests"]:
+            out["disagg"] = dict(self.disagg_stats)
+        if any(self.migration_stats.values()):
+            out["migration"] = dict(self.migration_stats)
+        return out
 
     def register_aux_tracer(self, tracer) -> None:
         """Attach a co-located recorder so :meth:`export_trace` drains it
@@ -819,6 +1302,11 @@ class ContinuousBatchingEngine:
         self._running = False
         self._queue.put(None)              # wake the scheduler
         self._thread.join(timeout=30)
+        # the tier dies with its pool: its entries reference this pool's
+        # page layout, and the host ring / disk segment must not outlive
+        # the engine that budgeted them
+        if self._kv_tier is not None:
+            self._kv_tier.close()
         # reset-on-close: this engine's pool owners leave the process
         # watermark ledger
         for owner in self._hbm_owners:
@@ -1084,9 +1572,15 @@ class ContinuousBatchingEngine:
         bucket, and scattered into the request's reserved draft pages;
         the pad tail's garbage is overwritten by the draft steps before
         any query attends it."""
-        dcfg, plen = self.draft_cfg, len(req.prompt)
+        self._draft_prefill(req.prompt, req._pkv["dtable"])
+        self._dtables[slot] = req._pkv["dtable"]
+
+    def _draft_prefill(self, hist: np.ndarray, dtable: np.ndarray) -> None:
+        """Prefill ``hist`` through the draft into a dense temp row and
+        scatter it into the draft pages of ``dtable``."""
+        dcfg, plen = self.draft_cfg, len(hist)
         dpad = np.zeros((1, self._bucket(plen)), np.int64)
-        dpad[0, :plen] = req.prompt
+        dpad[0, :plen] = hist
         ids = torch.from_numpy(dpad).to(self.device)
         row = KVCache.create(dcfg, dcfg.num_layers, 1, self._S,
                              dtype=self.kv_cache_dtype, device=self.device)
@@ -1095,9 +1589,23 @@ class ContinuousBatchingEngine:
                       pos, attn_impl=slot_attention_impl,
                       last_logits_only=True)
         write_row_to_pages(self._dpk, self._dpv, row.keys, row.values,
-                           req._pkv["dtable"],
-                           num_pages=self._dpage_sentinel)
-        self._dtables[slot] = req._pkv["dtable"]
+                           dtable, num_pages=self._dpage_sentinel)
+
+    def _seed_history(self, slot: int, hist: np.ndarray, dtable, tok: int
+                      ) -> None:
+        """A resumed row's proposer state from its history (prompt +
+        emitted tokens but the last): the draft's pages, or the n-gram
+        history row with ``tok`` after it."""
+        if self._proposer == "draft":
+            self._draft_prefill(hist, dtable)
+            self._dtables[slot] = dtable
+        else:
+            n = len(hist)
+            hpad = np.zeros((self._bucket(n),), np.int64)
+            hpad[:n] = hist
+            hpad = torch.from_numpy(hpad).to(self.device)
+            self._history[slot, :hpad.shape[0]] = hpad
+            self._history[slot, n] = int(tok)
 
     def _seed_proposer(self, slot: int, req: Request, tok: int) -> None:
         """A freshly installed row's proposer state, host-driven after its
@@ -1144,6 +1652,15 @@ class ContinuousBatchingEngine:
         state = (mgr.epoch, mgr.free_blocks)
         if getattr(req, "_pkv_blocked", None) == state:
             raise _BlocksExhausted()
+        # disaggregated join: land migrated blocks and adopt them before
+        # the match below, which then finds them as a prefix hit
+        self._import_staged(req)
+        # tier promotion rides the same seam, best-effort: pool pressure
+        # skips it and the suffix prefills
+        if self._kv_tier is not None:
+            from .kvcache import promote_prefix
+            promote_prefix(mgr, self._kv_tier, self._pk, self._pv,
+                           req.prompt, profiler=self._prof)
         lease = mgr.match(req.prompt)
         m = lease.tokens if lease is not None else 0
         n_pref = m // bt
@@ -1208,6 +1725,14 @@ class ContinuousBatchingEngine:
         C = self.prefill_chunk
         if C is None:
             return False
+        if getattr(req, "_resume", None) is not None:
+            # a live-migration resume never prefills
+            return False
+        st = getattr(req, "_staged", None)
+        if st is not None and not st["imported"]:
+            # a premigrated join's suffix after the adopt
+            return (len(req.prompt)
+                    - st["k"].shape[0] * self.kv_cache.block_tokens) > C
         epoch = self.kv_cache.epoch
         cls = getattr(req, "_stream_cls", None)
         if cls is not None and cls[0] == epoch:
@@ -1223,8 +1748,89 @@ class ContinuousBatchingEngine:
     def _admit_request(self, slot: int, req: Request):
         if req.t_sched == 0.0:
             req.t_sched = time.perf_counter()
+        if getattr(req, "_resume", None) is not None:
+            self._admit_resume(slot, req)
+            return
         start = self._reserve_pages(req)
         self._finish_admission(slot, req, start, req.prompt[start:])
+
+    def _admit_resume(self, slot: int, req: Request) -> None:
+        """Adopt a live-migration checkpoint into a free slot: scatter
+        the shipped blocks into freshly allocated pages, adopt the
+        whole-prompt blocks into the radix tree, and install the slot at
+        the checkpointed length and last token: no prefill, decode
+        resumes where the source froze.  The generator takes the
+        checkpoint's state."""
+        rs = req._resume
+        mgr = self.kv_cache
+        bt = mgr.block_tokens
+        plen = len(req.prompt)
+        n_total = -(-(plen + req.max_new + self._slack_tokens) // bt)
+        state = (mgr.epoch, mgr.free_blocks)
+        if getattr(req, "_pkv_blocked", None) == state:
+            raise _BlocksExhausted()
+        ids = mgr.alloc(n_total)
+        if ids is None:
+            req._pkv_blocked = state
+            raise _BlocksExhausted()
+        dids = None
+        if self._proposer == "draft":
+            # draft scratch, atomically with the target's pages; the
+            # draft's K/V is rebuilt below from prompt + tokens
+            dids = self._dmgr.alloc(n_total)
+            if dids is None:
+                mgr.free(ids)
+                req._pkv_blocked = state
+                raise _BlocksExhausted()
+        req._pkv_blocked = None
+        length = rs["length"]
+        n_used = -(-length // bt)
+        adopt_blocks_into_pages(
+            self._pk, self._pv, payload_to(rs["k"], self.device),
+            payload_to(rs["v"], self.device),
+            np.asarray(ids[:n_used], np.int64),
+            num_pages=self._page_sentinel)
+        adopted, store_lease = (), None
+        if plen // bt >= 1:
+            adopted, store_lease = mgr.store_shared(req.prompt,
+                                                    ids[:plen // bt])
+        table = np.full((self._table_width,), self._page_sentinel, np.int32)
+        table[:n_total] = ids
+        dtable = None
+        if dids is not None:
+            dtable = np.full((self._table_width,), self._dpage_sentinel,
+                             np.int32)
+            dtable[:n_total] = dids
+        req._pkv = {"lease": None, "store_lease": store_lease,
+                    "private": ids, "adopted": tuple(adopted),
+                    "n_pref": 0, "table": table, "dprivate": dids,
+                    "dtable": dtable, "released": False}
+        self._tables[slot] = table
+        self._lengths[slot] = length
+        self._last_tok[slot] = int(rs["last_tok"])
+        if rs.get("rng") is not None:
+            self._gen.set_state(torch.as_tensor(rs["rng"]))
+        if self._proposer is not None:
+            # the proposer's state is rebuilt from prompt + emitted
+            # tokens: K/V [0, length) = prompt + tokens[:-1], and
+            # tokens[-1] is the last token the next round's verify writes
+            hist = np.concatenate(
+                [np.asarray(req.prompt, np.int32),
+                 np.asarray(req.tokens[:-1], np.int32)])
+            self._seed_history(slot, hist, dtable, int(rs["last_tok"]))
+            k = int(rs.get("spec_k") or 0)
+            self._spec_krow[slot] = next(
+                (b for b in self._spec_buckets if b >= k),
+                self._spec_buckets[-1]) if k > 0 \
+                else self._spec_buckets[-1]
+            self._spec_ewma[slot] = (float(rs.get("spec_ewma") or 0.0)
+                                     or 1.0)
+        self._slots[slot] = req
+        req._resume = None
+        self.migration_stats["imported_requests"] += 1
+        self._flight.record("migration_import", slot=slot, rid=req.rid,
+                            length=length, tokens=len(req.tokens),
+                            blocks=n_used)
 
     def _start_admission(self, req: Request) -> bool:
         """Park a chunk-needing prompt as the in-progress admission the
@@ -1300,6 +1906,8 @@ class ContinuousBatchingEngine:
         bucket = self._bucket(len(suffix))
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :len(suffix)] = suffix
+        if self._take_rewind(req):
+            self._rewind_generator()
         sig = _profiling.dispatch_signature(
             "paged_prefill", batch=1, chunk=bucket,
             kv_dtype=self.kv_cache.kv_dtype)
@@ -1331,6 +1939,20 @@ class ContinuousBatchingEngine:
         # the speculative drains score no token, so lps stay empty
         self._record_token(slot, req, int(tok),
                            float(lp0) if self._proposer is None else None)
+
+    @staticmethod
+    def _take_rewind(req: Request) -> bool:
+        """Whether ``req`` is a sampled resume whose first draw is next
+        (once)."""
+        rewind = getattr(req, "_rng_rewind", False)
+        req._rng_rewind = False
+        return rewind
+
+    def _rewind_generator(self) -> None:
+        """Sampled resume: the generator back at its constructor seed,
+        right before the resumed request's first draw, so the draws that
+        produced its delivered tokens repeat."""
+        self._gen.set_state(self._gen_seed_state)
 
     def _record_row_blocks(self, em_np, counts, lps_np=None) -> None:
         """Record per-row token blocks (``counts[i]`` tokens of row i),
@@ -1381,6 +2003,37 @@ class ContinuousBatchingEngine:
 
     def _record_token(self, slot: int, req: Request, tok: int,
                       lp: Optional[float] = None):
+        sup = getattr(req, "_suppress", None)
+        if sup:
+            # resume replay: the regenerated token must match the
+            # journal; it counts in tokens (budget and pages) but is
+            # never streamed again.  A mismatch fails the request rather
+            # than stream a wrong suffix.
+            expect = sup.popleft()
+            if tok != expect:
+                self.resume_stats["diverged"] += 1
+                self._flight.record("resume_diverged", slot=slot,
+                                    expect=expect, got=tok,
+                                    replayed=len(req.tokens))
+                self._slots[slot] = None
+                self._fail_request(req, RuntimeError(
+                    f"resume replay diverged at replayed token "
+                    f"{len(req.tokens) + 1}: journal says {expect}, "
+                    f"survivor regenerated {tok} (engine config/seed or "
+                    "rng schedule differs from the original replica)"))
+                self._sentinel_slot(slot)
+                return
+            req.tokens.append(tok)
+            if lp is not None:
+                req.lps.append(lp)
+            if len(req.tokens) == 1:
+                req.t_first = time.perf_counter()
+            self.resume_stats["replayed_tokens"] += 1
+            return
+        if req.resumed and req.resume_pause == 0.0 and req.t_first:
+            # first visible token of a resumed stream: the replay window
+            # ends here
+            req.resume_pause = max(1e-9, time.perf_counter() - req.t_first)
         req.tokens.append(tok)
         if lp is not None:
             req.lps.append(lp)
@@ -1396,10 +2049,10 @@ class ContinuousBatchingEngine:
             if len(req.tokens) > 1:
                 self._lat["per_token"].append(
                     (req.t_done - req.t_first) / (len(req.tokens) - 1))
-            req.stream.put(None)
-            req.done.set()
             # workload sketch: realized decode length at completion
             self._sketch.record_decode(len(req.tokens))
+            if req.rid is not None and self._by_rid.get(req.rid) is req:
+                del self._by_rid[req.rid]
             self._slots[slot] = None
             # completion frees the pages: pins released, private
             # non-adopted pages back to the pool, the slot's table row
@@ -1412,6 +2065,10 @@ class ContinuousBatchingEngine:
                                 ttft_s=req.t_first - req.t_submit,
                                 reason="eos" if hit_eos else "length")
             self._close_timeline(req)
+            # the waiter wakes last: a request seen done has its pages
+            # back in the pool and its accounting closed
+            req.stream.put(None)
+            req.done.set()
 
     def _fail_request(self, req: Request, err: Optional[BaseException]):
         """Finish a request with an error, or cleanly for err=None (a
@@ -1421,6 +2078,8 @@ class ContinuousBatchingEngine:
         req.error = err
         req.stream.put(None)
         req.done.set()
+        if req.rid is not None and self._by_rid.get(req.rid) is req:
+            del self._by_rid[req.rid]
         if err is not None:
             self._flight.record("batch_fail", error=type(err).__name__,
                                 tokens=len(req.tokens))
@@ -1433,8 +2092,10 @@ class ContinuousBatchingEngine:
         """Close ``req`` into the process SLO ledger exactly once
         (completion, failure and cancel all funnel here) and, with a
         trace id, record its ``engine.prefill`` / ``engine.decode``
-        spans.  Best-effort: accounting never fails a request."""
-        if getattr(req, "_timeline_closed", False):
+        spans.  Adopted (migrated-in) requests are skipped: the source
+        replica keeps the client, so a tenant's tokens count once across
+        the fleet.  Best-effort: accounting never fails a request."""
+        if req.adopted or getattr(req, "_timeline_closed", False):
             return
         req._timeline_closed = True
         t_done = req.t_done if req.t_done else time.perf_counter()
@@ -1448,7 +2109,11 @@ class ContinuousBatchingEngine:
                 queue_wait_s=max(0.0, t_sched - req.t_submit),
                 ttft_s=max(0.0, t_first - req.t_submit),
                 e2e_s=max(0.0, t_done - req.t_submit),
-                tokens=len(req.tokens), replica=self.tracer.proc,
+                tokens=len(req.tokens),
+                migration_pause_s=req.migration_pause,
+                migrated=req.migrated,
+                resume_pause_s=req.resume_pause,
+                resumed=req.resumed, replica=self.tracer.proc,
                 error=error)
             if req.trace_id:
                 # wall-clock starts from the submit wall time + the
@@ -1485,12 +2150,16 @@ class ContinuousBatchingEngine:
         self._adms = []
         while self._pending:
             self._fail_request(self._pending.popleft(), err)
+        while self._export_q:
+            box = self._export_q.popleft()
+            box["err"] = err
+            box["event"].set()
         while True:
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 return
-            if req is not None:
+            if req is not None and req is not _WAKE:
                 self._fail_request(req, err)
 
     def _sweep_cancelled(self) -> None:
@@ -1537,6 +2206,11 @@ class ContinuousBatchingEngine:
                              d.get("device_resident_bytes", 0)
                              + d.get("quant_scale_bytes", 0))
             self._hbm_owners.add("draft_scratch")
+        if self._kv_tier is not None:
+            # host RAM, booked in the same ledger and retired with the
+            # engine's other owners
+            self._hbm.sample("host_tier", self._kv_tier.host_resident_bytes)
+            self._hbm_owners.add("host_tier")
 
     def _decode_kv_bytes(self, active_mask, steps: int) -> int:
         """KV bytes one decode dispatch touched (achieved-GB/s
@@ -1600,11 +2274,14 @@ class ContinuousBatchingEngine:
     # the mixed prefill+decode dispatch
 
     def _slab_finals(self, logits: torch.Tensor, finals: list):
-        """Token #1 of each packed final ``(row, n, slot, plen)``, in pack
-        order: one batch-1 draw at the row's last real position, the
-        serialized final prefill's draw.  Returns ([F] toks, [F] lps)."""
+        """Token #1 of each packed final ``(row, n, slot, plen, rewind)``,
+        in pack order: one batch-1 draw at the row's last real position,
+        the serialized final prefill's draw (a sampled resume's rewinds
+        the generator first).  Returns ([F] toks, [F] lps)."""
         toks, lps = [], []
-        for r, n, _, _ in finals:
+        for r, n, _, _, rewind in finals:
+            if rewind:
+                self._rewind_generator()
             last = logits[r, n - 1][None]                   # [1, V]
             tok = sample_logits(last, self._gen, self.sampling)
             toks.append(tok[0])
@@ -1672,14 +2349,30 @@ class ContinuousBatchingEngine:
             except queue.Empty:
                 break
             timeout = 0.0
+            if req is _WAKE:               # export_request nudge
+                continue
             if req is None:                # close() sentinel
                 break
             self._pending.append(req)
-        # serve pending FIFO; serviceable requests pass blocked ones
+        # serve pending FIFO: live-migration resumes adopt straight into
+        # a free slot (no prefill to pack); serviceable requests pass
+        # blocked ones
         still: "deque[Request]" = deque()
         for req in self._pending:
             if req.cancelled:              # dropped while waiting
                 self._fail_request(req, None)
+            elif getattr(req, "_resume", None) is not None:
+                if free:
+                    slot = free.pop(0)
+                    try:
+                        self._admit_request(slot, req)
+                    except _BlocksExhausted:
+                        free.insert(0, slot)
+                        still.append(req)
+                    except BaseException as e:
+                        self._fail_request(req, e)
+                else:
+                    still.append(req)
             elif len(self._adms) < max(1, len(free)):
                 if req.t_sched == 0.0:
                     req.t_sched = time.perf_counter()
@@ -1701,6 +2394,8 @@ class ContinuousBatchingEngine:
             self._adms = [x for x in self._adms if x is not a]
             self._fail_request(a["req"], None)
         self._sweep_cancelled()
+        # exports between dispatches: step-consistent snapshots
+        self._service_exports()
         if not any(self._slots) and not self._adms:
             return
         self._dispatch_mixed(
@@ -1779,7 +2474,8 @@ class ContinuousBatchingEngine:
             # adoption waits until its pages hold data
             self._tables[slot] = table
             packed.append((r, a, True, slot))
-            finals.append((r, n, slot, len(a["req"].prompt)))
+            finals.append((r, n, slot, len(a["req"].prompt),
+                           self._take_rewind(a["req"])))
             prefill_tokens += n
             r += 1
         spec = self._proposer is not None
@@ -1987,6 +2683,8 @@ class ContinuousBatchingEngine:
                 except queue.Empty:
                     break
                 timeout = 0.0
+                if req is _WAKE:           # export_request nudge
+                    continue
                 if req is None:            # close() sentinel
                     break
                 self._pending.append(req)
@@ -2019,6 +2717,8 @@ class ContinuousBatchingEngine:
                     still.append(req)      # waiting for a slot
             self._pending = still
             self._sweep_cancelled()
+            # exports between dispatches: step-consistent snapshots
+            self._service_exports()
             if not any(self._slots):
                 continue
             # fuse a block whenever no admission dispatch could land

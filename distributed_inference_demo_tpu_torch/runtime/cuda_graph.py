@@ -23,7 +23,10 @@ caller fills before a replay and reads after it.  :class:`StepGraph`
   writes the static buffers like any step, so the caller captures
   before it fills them;
 - captures into one memory pool shared by the graphs of one engine
-  (:class:`StepGraphs`, ``torch.cuda.graph_pool_handle``).  A pool
+  (:class:`StepGraphs`, ``torch.cuda.graph_pool_handle``), with the
+  dense kernel's arrival counters of that engine, a buffer allocated
+  before its first capture (``ops/quant_dense.counters_scope``): two
+  engines' graphs never share a counter.  A pool
   lives while a graph captured into it does, so it belongs to the
   engine, not to the process: once every graph of a pool is gone, a
   new capture into it fails.  Replays go to the current stream, in
@@ -119,7 +122,10 @@ def _capture(step: Callable[[], None], generator: Optional[torch.Generator],
 class StepGraph:
     """``step`` (a callable over static buffers) as a replayable graph on
     the card, or run eagerly on the CPU or with ``enabled`` False.
-    Calling the object runs one step."""
+    Calling the object runs one step.  The warm-up and the capture use
+    the dense kernel's arrival counters of the enclosing
+    ``ops/quant_dense.counters_scope`` (``StepGraphs`` opens its
+    engine's; outside one a capture of a dense product raises)."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
                  generator: Optional[torch.Generator] = None,
@@ -170,8 +176,9 @@ class StepGraph:
 
 class StepGraphs:
     """The decode steps of one engine and the memory pool their graphs
-    share, made at the first capture.  ``enabled`` False (the engines'
-    ``cuda_graph=False``) runs every step eagerly."""
+    share, made at the first capture with the dense kernel's arrival
+    counters they own.  ``enabled`` False (the engines' ``cuda_graph=False``)
+    runs every step eagerly."""
 
     def __init__(self, device: torch.device,
                  generator: Optional[torch.Generator] = None,
@@ -180,6 +187,7 @@ class StepGraphs:
         self.enabled = bool(enabled)
         self.steps = []
         self._pool = None
+        self._counters = None
         self._held = {}         # program -> graphs captured for it
 
     def capture(self, step: Callable[[], None],
@@ -189,9 +197,12 @@ class StepGraphs:
         its warm-up + capture seconds."""
         if self.enabled and _on_card(self.device) and self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+            self._counters = _qd.new_counters(self.device)
         t0 = time.perf_counter()
-        graph = StepGraph(step, self.device, self.generator, self.enabled,
-                          self._pool)
+        # the graphs keep the counters' address: they live with the pool
+        with _qd.counters_scope(self._counters):
+            graph = StepGraph(step, self.device, self.generator,
+                              self.enabled, self._pool)
         self.steps.append(graph)
         if program is not None and graph.graph is not None:
             from ..telemetry.profiling import get_compile_tracker

@@ -378,8 +378,9 @@ class InferenceEngine:
         the pool's pages) as float8, cast as the reference rounds, read
         in f32; it takes plain attention
         (:func:`resolve_cache_dtype_backend`) and does not compose with
-        ``kv_dtype`` int8/int4.  The tier knobs
-        (``DWT_KV_HOST_TIER_BYTES``) raise.  ``kv_layout`` takes the
+        ``kv_dtype`` int8/int4.  The host / disk tier below the pool
+        comes from the ``DWT_KV_*_TIER_*`` knobs (``kvcache/tiered.py``).
+        ``kv_layout`` takes the
         reference's only value, "paged".  Other arguments as in the
         reference."""
         self.kv_layout = resolve_kv_layout(kv_layout)

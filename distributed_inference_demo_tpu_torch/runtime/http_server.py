@@ -38,8 +38,12 @@ and batch there.
 - ``POST /classify``  ``{"prompt_ids" | "prompt", "label_token_ids"}``
   -> ``{"labels": [...]}``
 
-``resume`` (gateway failover) and ``image`` (multimodal) answer 501 "not
-yet ported".
+  A streamed request may carry ``resume`` (``{"delivered_tokens": [...],
+  "rng_step_offset": N}``, gateway failover): a backend with the
+  batching engine's resume path replays the delivered prefix silently
+  and streams the rest, numbering steps from ``len(delivered_tokens)``.
+
+``image`` (multimodal) answers 501 "not yet ported".
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ import numpy as np
 from ..telemetry import catalog as _metrics
 from .overload import SchedulerOverloaded
 
-NOT_PORTED_FIELDS = ("resume", "image")
+NOT_PORTED_FIELDS = ("image",)
 
 
 def _round_lps(row) -> list:
@@ -503,6 +507,45 @@ class InferenceHTTPServer:
                     if req.get(field) is not None:
                         self._not_ported(f"'{field}'")
                         return
+                resume = req.get("resume")
+                if resume is not None:
+                    # mid-stream failover resumption: the gateway
+                    # re-POSTs the journaled request with the delivered
+                    # prefix.  Honor-or-reject: only a backend with the
+                    # submit_resumed path takes it
+                    err_code, err = None, None
+                    if not req.get("stream"):
+                        err_code, err = 400, "resume requires stream"
+                    elif (req.get("stop") is not None
+                          or req.get("logprobs")):
+                        err_code, err = 501, ("resume does not support "
+                                              "image, stop, or logprobs")
+                    elif not _accepts_kwarg(outer.backend.generate_stream,
+                                            "resume"):
+                        err_code, err = 501, ("backend does not support "
+                                              "resume")
+                    elif not isinstance(resume, dict):
+                        err_code, err = 400, "resume must be an object"
+                    if err is None:
+                        delivered = resume.get("delivered_tokens")
+                        if (not isinstance(delivered, (list, tuple))
+                                or not delivered
+                                or not all(isinstance(t, int)
+                                           for t in delivered)):
+                            err_code, err = 400, (
+                                "resume.delivered_tokens must be a "
+                                "non-empty list of token ids")
+                        elif int(resume.get("rng_step_offset",
+                                            len(delivered))) \
+                                != len(delivered):
+                            # one draw schedule per delivered token: an
+                            # offset that disagrees cannot be exact
+                            err_code, err = 400, (
+                                "resume.rng_step_offset must equal "
+                                "len(delivered_tokens)")
+                    if err is not None:
+                        self._json(err_code, {"error": err})
+                        return
                 stop = req.get("stop")
                 if stop is not None:
                     if isinstance(stop, str):
@@ -555,7 +598,8 @@ class InferenceHTTPServer:
                             "error": "backend does not support "
                                      "logprobs with stream"})
                         return
-                    self._stream(ids, max_new, seed, logprobs)
+                    self._stream(ids, max_new, seed, logprobs,
+                                 resume=resume)
                     return
                 if logprobs and not _accepts_kwarg(outer.backend.generate,
                                                    "logprobs"):
@@ -746,12 +790,18 @@ class InferenceHTTPServer:
                 except OSError:
                     pass
 
-            def _stream(self, ids, max_new, seed, logprobs=False):
+            def _stream(self, ids, max_new, seed, logprobs=False,
+                        resume=None):
                 kwargs = {"logprobs": True} if logprobs else {}
+                if resume is not None:
+                    kwargs["resume"] = resume
                 kwargs.update(
                     self._obs_kwargs(outer.backend.generate_stream))
                 gen = outer.backend.generate_stream(ids, max_new, seed=seed,
                                                     **kwargs)
+                # a resumed stream continues the dead replica's step
+                # numbering (the delivered prefix ends at step k-1)
+                step0 = len(resume["delivered_tokens"]) if resume else 0
 
                 def lines(items, gen):
                     # per-row printable text deltas (StreamDetokenizer:
@@ -767,7 +817,7 @@ class InferenceHTTPServer:
                     n_steps = 0
                     for i, item in enumerate(items):
                         toks, lps = item if logprobs else (item, None)
-                        line = {"step": i,
+                        line = {"step": step0 + i,
                                 "tokens": np.asarray(toks).tolist()}
                         if lps is not None:
                             line["logprobs"] = _round_lps(np.asarray(lps))
@@ -784,7 +834,7 @@ class InferenceHTTPServer:
                         rem = [detoks[r].flush() if r in detoks else ""
                                for r in range(max(detoks) + 1)]
                         if any(rem):
-                            yield {"step": n_steps, "tokens": [],
+                            yield {"step": step0 + n_steps, "tokens": [],
                                    "text": rem}
 
                 self._stream_lines(gen, lines)

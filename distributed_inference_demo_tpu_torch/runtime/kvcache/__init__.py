@@ -9,8 +9,8 @@ stores, block export and adoption as torch index ops) and the
 single-request engines' prefix pool behind it (``backend.py``:
 :class:`PagedKVBackend`, :func:`make_kv_backend`).
 
-Not ported yet: the tiered host/disk store (``tiered.py``, ROADMAP A9);
-its knobs raise :data:`TIER_LATER`.
+The tiered host/disk store below the pool (``tiered.py``): demotion
+on eviction, promotion at admission, chain digests for the gateway.
 
 Layout selection: the ``kv_layout`` engine kwarg / ``--kv-layout`` flag
 over the ``DWT_KV_LAYOUT`` env knob over the default ``paged`` — all
@@ -20,13 +20,14 @@ three funnel through :func:`resolve_kv_layout`.
 import os
 
 from ...ops.quant import KV_DTYPES, resolve_kv_dtype
-from .backend import (TIER_LATER, PagedKVBackend, make_kv_backend,
-                      refuse_tiers)
+from .backend import PagedKVBackend, make_kv_backend
 from .manager import (DEFAULT_BLOCK_TOKENS, apply_byte_budget,
                       resolve_kvcache_config)
 from .paged import PagedBlockLease, PagedKVCacheManager
 from .pool import KVBlockPool
 from .radix import RadixTree
+from .tiered import (TieredKVStore, make_demote_hook, promote_prefix,
+                     resolve_tier_config)
 
 KV_LAYOUTS = ("paged",)
 
@@ -49,7 +50,9 @@ def resolve_kv_layout(kv_layout=None) -> str:
 
 
 __all__ = ["KVBlockPool", "PagedBlockLease", "PagedKVBackend",
-           "PagedKVCacheManager", "RadixTree", "TIER_LATER",
-           "apply_byte_budget", "make_kv_backend", "refuse_tiers",
+           "PagedKVCacheManager", "RadixTree",
+           "apply_byte_budget", "make_kv_backend",
            "resolve_kvcache_config", "resolve_kv_layout", "resolve_kv_dtype",
-           "DEFAULT_BLOCK_TOKENS", "KV_LAYOUTS", "KV_DTYPES"]
+           "DEFAULT_BLOCK_TOKENS", "KV_LAYOUTS", "KV_DTYPES",
+           "TieredKVStore", "make_demote_hook", "promote_prefix",
+           "resolve_tier_config"]

@@ -20,8 +20,10 @@ prompts that share a prefix share its pages.  After every ``seed`` /
 ``store`` the leak invariant holds: ``used == tree.block_count`` with no
 live lease.
 
-The host / disk tiers below the pool (``tiered.py``) are not ported;
-their knobs raise :data:`TIER_LATER`.
+With a host tier (``tiered.py``), evicted tree leaves demote into the
+host ring and ``seed`` promotes a demoted continuation back before its
+match: the one path that moves bytes host to device, counted in
+``h2d_bytes``.
 """
 
 from __future__ import annotations
@@ -31,22 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...telemetry._env import env_int
 from .manager import apply_byte_budget, resolve_kvcache_config
 from .paged import PagedKVCacheManager
-
-TIER_LATER = "tiered KV is ported in a later slice (ROADMAP A12)"
-
-
-def refuse_tiers(kv_host_tier_bytes: Optional[int] = None,
-                 kv_disk_tier_path: Optional[str] = None) -> None:
-    """Raise :data:`TIER_LATER` where a host or disk tier is asked for,
-    by argument or by ``DWT_KV_HOST_TIER_BYTES``."""
-    if kv_host_tier_bytes is None:
-        kv_host_tier_bytes = env_int("DWT_KV_HOST_TIER_BYTES", 0)
-    if int(kv_host_tier_bytes) > 0 or kv_disk_tier_path:
-        raise NotImplementedError(TIER_LATER)
-
 
 def _prompt(ids) -> np.ndarray:
     """Row 0 of the prompt ids on the host (a device tensor is copied)."""
@@ -67,10 +55,13 @@ class PagedKVBackend:
                  kv_disk_tier_bytes: Optional[int] = None):
         """``dtype``: the pages' storage cast (float8 e4m3), None for the
         model's dtype; ``kv_dtype``: the page width ("bf16", "int8",
-        "int4"); ``device``: where the pool lives.  The tier knobs raise
-        (``kv_disk_tier_bytes`` only sizes a disk tier)."""
+        "int4"); ``device``: where the pool lives; the tier knobs over
+        their env knobs (``tiered.resolve_tier_config``)."""
         from ...ops.quant import alloc_kv_pages, resolve_kv_dtype
-        refuse_tiers(kv_host_tier_bytes, kv_disk_tier_path)
+        from .tiered import (TieredKVStore, make_demote_hook,
+                             resolve_tier_config)
+        tier_host, tier_path, tier_disk = resolve_tier_config(
+            kv_host_tier_bytes, kv_disk_tier_path, kv_disk_tier_bytes)
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
         self.mgr = PagedKVCacheManager.for_model(
             cfg, num_blocks, block_tokens, dtype=dtype,
@@ -84,6 +75,13 @@ class PagedKVBackend:
         self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype, device)
         self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype, device)
         self.tier = None
+        if tier_host > 0:
+            self.tier = TieredKVStore(tier_host, self.block_tokens,
+                                      disk_path=tier_path,
+                                      disk_bytes=tier_disk)
+            self.mgr.tier = self.tier
+            self.mgr.demote_hook = make_demote_hook(
+                self.tier, lambda: (self._pk, self._pv))
 
     def seed(self, ids, cache):
         """Match, then gather out of the pool into ``cache``'s leading
@@ -96,6 +94,10 @@ class PagedKVBackend:
         from .device import seed_cache_from_pages
         if ids.shape[0] != 1:
             return 0, cache
+        if self.tier is not None:
+            from .tiered import promote_prefix
+            promote_prefix(self.mgr, self.tier, self._pk, self._pv,
+                           _prompt(ids))
         lease = self.mgr.match(_prompt(ids))
         if lease is None:
             return 0, cache
@@ -153,7 +155,14 @@ class PagedKVBackend:
         self.mgr.reset_stats()
 
     def close(self) -> None:
-        """Nothing to release: there is no tier below the pool."""
+        """Drop the host/disk tier with the pool it shadows: demoted
+        entries reference a page layout a successor backend may not
+        share."""
+        if self.tier is not None:
+            self.mgr.demote_hook = None
+            self.mgr.tier = None
+            self.tier.close()
+            self.tier = None
 
 
 def make_kv_backend(cfg, kv_cache_blocks: Optional[int],

@@ -211,6 +211,19 @@ def export_blocks_from_pages(pk, pv, table):
     return export(pk), export(pv)
 
 
+def payload_to(blocks, device):
+    """A block payload (a tensor, or a ``QuantizedKVPages`` of them)
+    moved to ``device``: the host copy of an export (``"cpu"``, which
+    waits for the gather queued before it) or the device copy an adopt
+    scatters."""
+    if isinstance(blocks, QuantizedKVPages):
+        return QuantizedKVPages(
+            *[None if t is None else t.to(device)
+              for t in (blocks.data, blocks.scale, blocks.zero)],
+            bits=blocks.bits)
+    return blocks.to(device)
+
+
 def write_row_to_pages(pk, pv, row_k: torch.Tensor, row_v: torch.Tensor,
                        table, *, num_pages: Optional[int] = None):
     """Scatter a dense row ``[L, 1, H, W*bt, D]`` into the pool at

@@ -9,6 +9,7 @@ flags reach the engine.
 """
 
 import json
+import os
 import threading
 import time
 import urllib.error
@@ -236,11 +237,25 @@ def test_cli_batching_flags(capsys, monkeypatch):
     assert "--decode-block" in capsys.readouterr().err
     # what this slice leaves out exits 1
     for extra in (["--batch-slots", "2", "--tp", "2"],
-                  ["--batch-slots", "2", "--kv-disk-tier-bytes", "1024"],
                   ["--sp", "2"]):
         assert cli.main(["serve", "--model", "llama-test", "--device",
                          "cpu", *extra]) == 1
         assert "not yet ported" in capsys.readouterr().err
+    # the tier flags are served; a disk segment without the host ring
+    # above it is the reference's own refusal (the flags set their env
+    # knobs: cleared here, whatever the outcome, and any earlier value
+    # restored by monkeypatch)
+    knobs = ("DWT_KV_DISK_TIER_PATH", "DWT_KV_DISK_TIER_BYTES")
+    for knob in knobs:
+        monkeypatch.delenv(knob, raising=False)
+    try:
+        assert cli.main(["serve", "--model", "llama-test", "--device",
+                         "cpu", "--batch-slots", "2", "--kv-disk-tier-path",
+                         "/x", "--kv-disk-tier-bytes", "1024"]) == 1
+    finally:
+        for knob in knobs:
+            os.environ.pop(knob, None)
+    assert "BELOW the host ring" in capsys.readouterr().err
     # the plain engine's prefix pool is ported: --kv-cache-blocks serves
     assert cli.main(["serve", "--model", "llama-test", "--device", "cpu",
                      "--kv-cache-blocks", "4", "--http-port", "0"]) == 0

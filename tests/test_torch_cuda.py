@@ -843,15 +843,17 @@ def test_quant_dense_graph_replay_bit_equal(cuda_device, bits, m, k, n):
     assert qd.splits_for(kernel, m, k, n, bits, qd._sm_count(x.device)) > 1
     eager = qd.quant_dense(x, wq)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # a capture owns its counters (outside a scope it raises)
+    with qd.counters_scope(qd.new_counters(x.device)) as counters, \
+            torch.cuda.graph(graph):
         out = qd.quant_dense(x, wq)
     for _ in range(20):
         out.zero_()
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
-    counters = qd.arrival_counters(x.device)
     assert int(counters.abs().sum()) == 0
+    assert int(qd.arrival_counters(x.device).abs().sum()) == 0
 
 
 @pytest.mark.cuda

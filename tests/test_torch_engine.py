@@ -192,11 +192,18 @@ def test_engine_refuses_what_this_slice_does_not_port(monkeypatch):
                            device="cpu").attn_backend == "plain"
     assert InferenceEngine(cfg, params, kv_cache_blocks=4, kv_dtype="int8",
                            device="cpu").kv_cache.kv_dtype == "int8"
-    # the tier below the pool is not (ROADMAP A12 in the tag's numbering)
+    # so is the tier below the pool, from its env knob; a disk segment
+    # without the host ring above it is the reference's own refusal
     monkeypatch.setenv("DWT_KV_HOST_TIER_BYTES", str(1 << 20))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        InferenceEngine(cfg, params, kv_cache_blocks=4, device="cpu")
+    assert InferenceEngine(cfg, params, kv_cache_blocks=4,
+                           device="cpu").kv_cache.tier is not None
     monkeypatch.delenv("DWT_KV_HOST_TIER_BYTES")
+    monkeypatch.setenv("DWT_KV_DISK_TIER_PATH", "/x")
+    monkeypatch.setenv("DWT_KV_DISK_TIER_BYTES", "1024")
+    with pytest.raises(ValueError, match="BELOW the host ring"):
+        InferenceEngine(cfg, params, kv_cache_blocks=4, device="cpu")
+    monkeypatch.delenv("DWT_KV_DISK_TIER_PATH")
+    monkeypatch.delenv("DWT_KV_DISK_TIER_BYTES")
     eng = InferenceEngine(cfg, params, max_seq=16, kv_layout="paged",
                           device="cpu")
     with pytest.raises(ValueError, match="exceeds KV-cache capacity"):

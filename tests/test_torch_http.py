@@ -129,11 +129,16 @@ def test_health_stats_and_unported_routes(servers):
         (rc, rbody), (pc, pbody) = (_request(p, path, body) for p in servers)
         assert pc == rc and json.loads(pbody) == json.loads(rbody)
         assert "not yet ported" not in pbody
-    # gateway resume and images are not ported yet
-    for field in ("resume", "image"):
-        code, body = _request(port, "/generate", {"prompt_ids": [[1, 2]],
-                                                  "stream": True, field: {}})
-        assert code == 501 and "not yet ported" in body
+    # a plain engine has no resume path: the reference's 501; images are
+    # not ported yet
+    (rc, rbody), (pc, pbody) = (
+        _request(p, "/generate", {"prompt_ids": [[1, 2]], "stream": True,
+                                  "resume": {"delivered_tokens": [3]}})
+        for p in servers)
+    assert pc == rc == 501 and json.loads(pbody) == json.loads(rbody)
+    code, body = _request(port, "/generate", {"prompt_ids": [[1, 2]],
+                                              "stream": True, "image": {}})
+    assert code == 501 and "not yet ported" in body
     code, _ = _request(port, "/generate", {"prompt_ids": [[1] * 60],
                                            "max_new_tokens": 10})
     assert code == 400          # past the KV capacity, as the reference
@@ -147,7 +152,7 @@ def test_cli_serve_flags(capsys, monkeypatch):
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["serve", "--model", "llama-test"])
     assert cli.main(["serve", "--model", "llama-test", "--batch-slots",
-                     "4", "--kv-host-tier-bytes", "1048576"]) == 1
+                     "4", "--tp", "2"]) == 1
     assert "not yet ported" in capsys.readouterr().err
     assert cli.main(["worker", "--model", "llama-test"]) == 1
     assert "not yet ported" in capsys.readouterr().err

@@ -6,7 +6,7 @@ against the JAX package's.
   leak invariant holds (``used == tree.block_count``, no live lease), as
   the reference's ``tests/test_kv_backend.py`` pins it; the byte budget
   counts each page width; the "cannot compose" error is the reference's;
-  the tier knobs raise.
+  the tier knobs build the tier, or refuse as the reference does.
 - ``InferenceEngine`` on f32 ``llama-test`` with a pool: cold and
   radix-primed runs give the same tokens (a prefix hit is a memory
   optimization, never a semantics change), equal to the reference
@@ -41,7 +41,7 @@ from distributed_inference_demo_tpu_torch.ops.sampling import SamplingParams
 from distributed_inference_demo_tpu_torch.runtime.engine import \
     InferenceEngine
 from distributed_inference_demo_tpu_torch.runtime.kvcache import (
-    TIER_LATER, PagedKVBackend, make_kv_backend)
+    PagedKVBackend, make_kv_backend)
 
 POOL = dict(kv_cache_blocks=32, kv_block_tokens=4)
 SHARED = list(range(2, 22))                  # 20 tokens = 5 blocks
@@ -156,14 +156,20 @@ def test_kv_dtype_and_storage_cast_and_tiers_are_refused(weights,
                         kv_cache_dtype="float8_e4m3fn", device="cpu")
     with pytest.raises(ValueError, match="paged is the only layout"):
         make_kv_backend(cfg, 8, 4, layout="dense")
-    with pytest.raises(NotImplementedError, match="A12") as tier:
-        make_kv_backend(cfg, 8, 4, layout="paged", kv_disk_tier_path="/x")
-    assert str(tier.value) == TIER_LATER
+    # a disk segment without the host ring above it: the reference's
+    # own refusal, word for word
+    with pytest.raises(ValueError, match="BELOW the host ring") as want:
+        ref_make_kv_backend(rcfg, 8, 4, layout="paged",
+                            kv_disk_tier_path="/x", kv_disk_tier_bytes=64)
+    with pytest.raises(ValueError, match="BELOW the host ring") as tier:
+        make_kv_backend(cfg, 8, 4, layout="paged", kv_disk_tier_path="/x",
+                        kv_disk_tier_bytes=64)
+    assert str(tier.value) == str(want.value)
     monkeypatch.setenv("DWT_KV_HOST_TIER_BYTES", str(1 << 20))
-    with pytest.raises(NotImplementedError, match="A12"):
-        InferenceEngine(cfg, params, device="cpu", **POOL)
-    # no pool, no tier to refuse (the reference builds none either)
-    InferenceEngine(cfg, params, device="cpu")
+    assert InferenceEngine(cfg, params, device="cpu",
+                           **POOL).kv_cache.tier is not None
+    # no pool, no tier (the reference builds none either)
+    assert InferenceEngine(cfg, params, device="cpu").kv_cache is None
 
 
 def _engines(weights, **kw):
