@@ -7,8 +7,8 @@ their plain versions.
     python3 chip_smoke.py --phase moe     # build + one phase (serve,
                                           # batching, mixed, graph,
                                           # quant, kvcache, surface,
-                                          # speculative, fleet, moe),
-                                          # no result lines
+                                          # speculative, fleet, parallel,
+                                          # moe), no result lines
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -246,11 +246,37 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             streams resume on B equal to the unfailed answer; death to
             the first resumed token; a prefix A's tier holds routes to
             A (``host_tier``, from its ``/stats`` digest) and promotes;
-15. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+15. parallel  multiple devices on ``torch.distributed``, on the one card
+            (it prints ``torch.cuda.device_count()``; the ranks are
+            processes, rank 0 drives, gloo through pinned host memory,
+            since NCCL refuses two ranks on one device), each check on a
+            line of its own: an NCCL group of size 1 whose all-reduce,
+            all-gather and all-to-all at TinyLlama's 8-slot shapes are
+            captured in a CUDA graph and replayed equal to eager;
+            TinyLlama bf16 tp=2 8-slot ``--batch-slots`` serving of the
+            batching phase's 8 requests over HTTP: tokens against the
+            tp=1 engine on the card (partings at near ties only), both
+            ranks' paged launches against the routing, no page leak, ms a
+            step at tp=2 and tp=1 (both eager), rank 0's device ms a step
+            and idle share, the collectives' ms and staged bytes, an f32
+            cross-check on two prompts; llama-3-8b and llama-3-8b-int8
+            plain ``generate`` at tp=2: prefill logits against tp=1
+            within the bf16 tolerance, tokens (partings at near ties),
+            both ranks' flash launches (L a prefill) and dense launches
+            (7 x L a forward, on the sliced int8 weights), ms/token at
+            both widths; mixtral-tpu-1b f32 at ep=2 (4 experts a rank)
+            against the all-experts path; TinyLlama f32 sp=2, ring and
+            Ulysses, on a SP_PROMPT_LEN-token prompt: tokens equal the
+            single-device engine's, Ulysses' flash launches (L a rank);
+    (phase 2 holds the per-rank instances: one tp=2 rank of TinyLlama's
+    heads at the paged kernels' 8-slot decode and 64-token chunk, of
+    llama-3-8b's at the flash kernel's 64-token prompt, and llama-3-8b's
+    sliced int8 weights at the dense kernels)
+16. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
-Phases 10 to 14 run in the order 11, 12, 13, 14, 10: the moe phase last,
-after the earlier phases freed their memory.  Every phase line carries
+Phases 10 to 15 run in the order 11, 12, 13, 14, 15, 10: the moe phase
+last, after the earlier phases freed their memory.  Every phase line carries
 its wall ``seconds``.  Exits non-zero, printing no
 result, without CUDA or outside a checkout, and on any failed check.
 """
@@ -374,6 +400,14 @@ SPEC_REPEATS = 4
 SPEC_ROUNDS_PROFILED = 4
 SPEC_EAGER_NEW = 16      # tokens of an eager run held to the graph's
 VERIFY_STARTS = (20, 150, 300, 600, 1000, 1500, 1999, None)
+# the parallel phase: tp=2 ranks as processes on the one card (gloo
+# through host memory; NCCL refuses two ranks on one device), ep=2 on
+# mixtral-tpu-1b, sp=2 ring and Ulysses on a SP_PROMPT_LEN-token prompt
+PAR_TP = 2
+PAR_GENERATE_NEW = 16
+SP_PROMPT_LEN = 3072
+SP_NEW = 8
+SP_MAX_SEQ = 3200
 
 
 def emit(obj) -> None:
@@ -548,6 +582,11 @@ def kernel_cases():
               (MOE_MODEL + "-long", 1, MAX_SEQ, 0, *model_heads(MOE_MODEL)),
               ("mixtral-8x7b", 1, PROMPT_LEN, 0,
                *model_heads("mixtral-8x7b"))]
+    # the parallel phase: one tp=2 rank of llama-3-8b (16 q heads on 4 kv
+    # heads) at its generate prompt
+    nh, nkv, hd, alibi = model_heads(LARGE_MODEL)
+    cases.append((LARGE_MODEL + "-tp2", 1, PROMPT_LEN, 0, nh // PAR_TP,
+                  nkv // PAR_TP, hd, alibi))
     return cases
 
 
@@ -770,6 +809,13 @@ def paged_cases():
               for pages in ("full", "int8", "fp8")]
     cases.append((SPEC_DRAFT, "decode", *model_heads(SPEC_DRAFT), serve,
                   "int8"))
+    # the parallel phase: one tp=2 rank of TinyLlama (16 q heads on 2 kv
+    # heads) at the 8-slot decode and the 64-token chunk at 200
+    nh, nkv, hd, alibi = model_heads(SERVE_MODEL)
+    tp2 = (SERVE_MODEL + "-tp2", nh // PAR_TP, nkv // PAR_TP, hd, alibi)
+    cases += [(tp2[0], "decode", *tp2[1:], serve, "full"),
+              (tp2[0], "prefill", *tp2[1:], (PREFILL_CHUNK, (200,)),
+               "full")]
     return cases
 
 
@@ -2710,6 +2756,15 @@ def quant_cases():
     out += [(MOE_MODEL, name, k, n, m, 8, torch.bfloat16)
             for name, k, n in distinct(shapes(get_model_config(MOE_MODEL)))
             for m in (1, PROMPT_LEN)]
+    # the parallel phase: one tp=2 rank of llama-3-8b-int8, the column
+    # slices at N / 2 (wq, wk, wv, w_gate, w_up), the row slices at K / 2
+    # (wo, w_down; their scales stay whole)
+    rows = {"wq", "wk", "wv", "w_gate", "w_up"}
+    sliced = [(name, k, n // PAR_TP) if name in rows
+              else (name, k // PAR_TP, n)
+              for name, k, n in shapes(get_model_config(LARGE_MODEL))]
+    out += [(LARGE_MODEL + "-tp2", name, k, n, m, 8, torch.bfloat16)
+            for name, k, n in distinct(sliced) for m in (1, PROMPT_LEN)]
     return out
 
 
@@ -5473,6 +5528,505 @@ def phase_fleet(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: multiple devices on torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_NOTE = ("tp/ep/sp ranks are processes sharing the one card over "
+                 "gloo, every collective staged through pinned host "
+                 "memory; these times say nothing of NCCL across cards")
+
+
+def _mesh_delta(mesh, before: dict) -> dict:
+    """The mesh's collectives since ``before`` (a copy of its stats):
+    count, host-timed ms, bytes staged through host memory."""
+    st = mesh.stats
+    return {"collectives": st["collectives"] - before["collectives"],
+            "collective_ms": (st["collective_s"]
+                              - before["collective_s"]) * 1e3,
+            "staged_bytes": st["staged_bytes"] - before["staged_bytes"]}
+
+
+def parallel_nccl(torch) -> dict:
+    """An NCCL group of size 1 (the card machine has one card): the tp
+    step's collectives at TinyLlama's 8-slot shapes, the attention / MLP
+    all-reduce, the logits' all-gather and an all-to-all, captured in a
+    CUDA graph and replayed, held bit for bit to the same calls eager."""
+    import datetime
+    from types import SimpleNamespace
+
+    from torch.distributed import PrefixStore, TCPStore
+
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.parallel.mesh import (
+        AxisGroup, _make_pg)
+
+    cfg = get_model_config(SERVE_MODEL)
+    timeout = datetime.timedelta(seconds=120)
+    dev = torch.device("cuda", 0)
+    store = TCPStore("127.0.0.1", 0, 1, True, timeout=timeout,
+                     wait_for_workers=False)
+    pg = _make_pg("nccl", PrefixStore("nccl", store), 0, 1, timeout, dev)
+    holder = SimpleNamespace(backend="nccl", stats={
+        "staged_bytes": 0, "collectives": 0, "collective_s": 0.0})
+    grp = AxisGroup(holder, "tp", pg, 1, 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    ar = rnd(SLOTS, 1, cfg.hidden_size)
+    ag = rnd(SLOTS, 1, cfg.vocab_size // PAR_TP)
+    aa = rnd(1, SLOTS, 1, cfg.hidden_size)
+
+    def step():
+        return (grp.all_reduce(ar.clone()), grp.all_gather(ag, dim=-1),
+                grp.all_to_all(aa))
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(out, eager))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    res = {"check": "nccl_graph", "world": 1, "backend": "nccl",
+           "replay_equals_eager": equal,
+           "replay_ms": start.elapsed_time(end) / 20,
+           "shapes": {"all_reduce": list(ar.shape),
+                      "all_gather": list(ag.shape),
+                      "all_to_all": list(aa.shape)}}
+    _check(equal, "NCCL graph replay differs from eager")
+    del graph
+    pg.shutdown() if hasattr(pg, "shutdown") else None
+    return res
+
+
+def parallel_tp_batching(torch) -> dict:
+    """TinyLlama bf16 at full width, tp=2 over gloo on the one card: 8-slot
+    ``--batch-slots`` serving over HTTP of the batching phase's 8
+    requests; tokens against the tp=1 engine on the card (partings only
+    at near ties, ``_partings``); both ranks' paged launches against the
+    routing's prediction; no page leak; ms a step at tp=2 against tp=1
+    (both eager: a gloo step cannot be captured), rank 0's device ms a
+    step and idle share, the collectives' ms and staged bytes; then an
+    f32 cross-check on three of the prompts."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.parallel.mesh import \
+        local_tp_mesh
+    from distributed_inference_demo_tpu_torch.parallel.tensor import \
+        rank_launches
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
+
+    cfg = get_model_config(SERVE_MODEL)
+    L = cfg.num_layers
+    prompts = _batch_prompts(cfg.vocab_size)
+    kw = dict(max_seq=MAX_SEQ, max_batch=SLOTS,
+              sampling=SamplingParams(greedy=True),
+              kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+              device="cuda", cuda_graph=False)
+    out = {"check": "tp_batching", "model": SERVE_MODEL, "tp": PAR_TP,
+           "dtype": "bfloat16", "slots": SLOTS,
+           "prompt_lens": list(BATCH_PROMPTS), "new_tokens": NEW_TOKENS,
+           "graph": "off on both sides (a gloo collective cannot be "
+                    "captured)"}
+    params = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    one = ContinuousBatchingEngine(cfg, params, **kw)
+    try:
+        reqs = [one.submit(p, NEW_TOKENS) for p in prompts]
+        want = [r.wait(timeout=900).tolist() for r in reqs]
+        out["tp1_window"] = decode_window(torch, one, prompts, steps=8,
+                                          profiled=4)
+    finally:
+        one.close()
+    flight = get_flight_recorder()
+    mesh = local_tp_mesh(PAR_TP, "cuda")
+    try:
+        out["mesh"] = mesh.describe()
+        eng = ContinuousBatchingEngine(cfg, params, mesh=mesh, **kw)
+        server = InferenceHTTPServer(eng, "127.0.0.1", 0,
+                                     model_name=SERVE_MODEL,
+                                     default_max_new=NEW_TOKENS)
+        server.start()
+        try:
+            _post(server.port, {"prompt_ids": [list(range(16))],
+                                "max_new_tokens": 2})
+            eng.reset_stats()
+            flight.clear()
+            rank_launches(mesh, reset=True)
+            before = dict(mesh.stats)
+            t0 = time.perf_counter()
+            toks = _serve_all(server.port, prompts)
+            wall = time.perf_counter() - t0
+            comm = _mesh_delta(mesh, before)
+            per_rank = rank_launches(mesh)
+            events = flight.snapshot()
+            admits = [(e["prompt_len"], e["prefix_reused"]) for e in events
+                      if e["kind"] == "batch_admit"]
+            predicted = predicted_paged_launches(eng, admits, L)
+            launches = [{"paged_decode": r["paged_decode"]["launches"],
+                         "paged_prefill": r["paged_prefill"]["launches"]}
+                        for r in per_rank]
+            steps = eng.loop_stats["device_loop_steps"]
+            out.update(launches_by_rank=launches, predicted=predicted,
+                       wall_s=wall, tok_s=len(prompts) * NEW_TOKENS / wall,
+                       decode_steps=steps, comm=comm,
+                       comm_per_step_ms=comm["collective_ms"] / max(1, steps),
+                       admissions=admits)
+            _check(all(x == predicted for x in launches)
+                   and min(predicted.values()) > 0,
+                   f"per-rank paged launches {launches}, routing "
+                   f"predicts {predicted}")
+            out["no_page_leak"] = _no_page_leak(eng)
+            _check(out["no_page_leak"], "pages leaked after the drain")
+            out["tp2_window"] = decode_window(torch, eng, prompts,
+                                              steps=8, profiled=4)
+            _check(_no_page_leak(eng), "the window leaked pages")
+        finally:
+            server.shutdown()
+            eng.close()
+        out["tokens_equal"] = sum(g == w for g, w in zip(toks, want))
+        out["partings"] = _partings(torch, one, prompts, toks, want)
+        out["ms_per_step"] = {
+            "tp1": out["tp1_window"]["decode_ms_per_step"],
+            "tp2": out["tp2_window"]["decode_ms_per_step"]}
+        out["rank0_profile"] = {
+            k: out["tp2_window"]["profile"].get(k)
+            for k in ("device_busy_ms", "wall_ms", "device_idle_share",
+                      "steps", "kernels")}
+        del params, one
+        torch.cuda.empty_cache()
+        # ---- f32 cross-check, three of the prompts ----
+        cfg32 = cfg.replace(dtype_name="float32")
+        p32 = init_full_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
+        few = [prompts[BATCH_PROMPTS.index(n)] for n in (20, 150)]
+        one32 = ContinuousBatchingEngine(cfg32, p32, **kw)
+        try:
+            want32 = [r.wait(timeout=900).tolist()
+                      for r in [one32.submit(p, NEW_TOKENS) for p in few]]
+        finally:
+            one32.close()
+        eng32 = ContinuousBatchingEngine(cfg32, p32, mesh=mesh, **kw)
+        try:
+            got32 = [r.wait(timeout=900).tolist()
+                     for r in [eng32.submit(p, NEW_TOKENS) for p in few]]
+            _check(_no_page_leak(eng32), "f32 run leaked pages")
+        finally:
+            eng32.close()
+        out["f32_tokens_equal"] = sum(g == w for g, w in zip(got32, want32))
+        out["f32_partings"] = _partings(torch, one32, few, got32, want32)
+        del p32
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_tp_generate(torch, name: str) -> dict:
+    """Plain ``generate`` of ``name`` (llama-3-8b or its -int8) at tp=2:
+    the prefill logits held to the tp=1 engine's within the bf16 logit
+    tolerance, the greedy tokens against tp=1's (a parting only at a near
+    tie, margin from the tp=1 engine teacher forced), the flash kernel's
+    launches (L a prefill) and, int8, the dense kernel's (7 x L a forward,
+    on the sliced weights) on both ranks, ms/token tp=2 against tp=1
+    (both eager), rank 0's device ms a step and idle share, and the
+    collectives."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.parallel.mesh import \
+        local_tp_mesh
+    from distributed_inference_demo_tpu_torch.parallel.tensor import \
+        rank_launches
+    from distributed_inference_demo_tpu_torch.runtime.engine import (
+        InferenceEngine, shard_engine_params)
+
+    cfg = get_model_config(name)
+    L = cfg.num_layers
+    n = PAR_GENERATE_NEW
+    kw = dict(max_seq=MAX_SEQ, sampling=SamplingParams(greedy=True),
+              device="cuda", cuda_graph=False)
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                              (1, PROMPT_LEN))
+    out = {"check": "tp_generate", "model": name, "tp": PAR_TP,
+           "prompt_len": PROMPT_LEN, "new_tokens": n}
+    params = init_full_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, "cuda",
+                              quantize=cfg.quantization != "none")
+
+    def ms_per_token(engine):
+        t1 = engine.generate(prompt, 1).seconds
+        tn = engine.generate(prompt, 1 + n).seconds
+        return (tn - t1) * 1e3 / n
+
+    one = InferenceEngine(cfg, params, **kw)
+    lp1 = one.prefill_logits(prompt)[0]
+    want = one.generate(prompt, n).tokens[0].tolist()
+    out["tp1_ms_per_token"] = ms_per_token(one)
+    mesh = local_tp_mesh(PAR_TP, "cuda")
+    try:
+        out["mesh"] = mesh.describe()
+        t0 = time.perf_counter()
+        sharded = shard_engine_params(params, cfg, mesh)
+        out["shard_s"] = time.perf_counter() - t0
+        out["shard_sent_bytes"] = mesh.stats["staged_bytes"]
+        eng = InferenceEngine(cfg, sharded, mesh=mesh, **kw)
+        rank_launches(mesh, reset=True)
+        before = dict(mesh.stats)
+        lp2 = eng.prefill_logits(prompt)[0]
+        got = eng.generate(prompt, n).tokens[0].tolist()
+        comm = _mesh_delta(mesh, before)
+        per_rank = rank_launches(mesh, reset=True)
+        forwards = 2 + n        # prefill_logits, generate's prefill, n steps
+        tol = LOGIT_TOL_REL * max(1.0, float(np.abs(lp1).max()))
+        err = float(np.abs(lp2 - lp1).max())
+        out.update(logit_max_abs_err=err, logit_tol=tol,
+                   argmax_equal=int(lp2.argmax()) == int(lp1.argmax()),
+                   tokens_equal=got == want, comm=comm,
+                   comm_per_forward_ms=comm["collective_ms"] / forwards,
+                   launches_by_rank=[
+                       {"flash": r["flash"]["launches"],
+                        "quant_dense": r["quant_dense"]["launches"],
+                        "quant_dense_decode":
+                            r["quant_dense"]["decode_launches"]}
+                       for r in per_rank])
+        _check(err <= tol, f"tp=2 prefill logits off by {err} > {tol}")
+        if got != want:
+            j = next(k for k in range(n) if got[k] != want[k])
+            ls = one.prefill_logits(np.asarray([prompt[0].tolist()
+                                                + want[:j]]))[0]
+            out["parting"] = {"step": j,
+                              "margin": float(abs(ls[want[j]] - ls[got[j]])),
+                              "logit_tol": tol}
+            _check(out["parting"]["margin"] <= tol,
+                   f"a tp=2 stream parts away from a near tie: "
+                   f"{out['parting']}")
+        dense = 7 * L * forwards if cfg.quantization == "int8" else 0
+        for r in out["launches_by_rank"]:
+            _check(r["flash"] == 2 * L and r["quant_dense"] == dense,
+                   f"per-rank launches {out['launches_by_rank']}: flash "
+                   f"{2 * L}, dense {dense} expected")
+        out["tp2_ms_per_token"] = ms_per_token(eng)
+        out["rank0_profile"] = profile_decode(torch, eng, prompt, steps=8)
+        del eng, sharded
+    finally:
+        mesh.close()
+    del one, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_ep(torch) -> dict:
+    """mixtral-tpu-1b at ep=2 (4 experts a rank, the batch data-parallel),
+    f32 at full width and depth, capacity factor E (no token drops): the
+    prefill logits and one decode step's held to the all-experts path
+    (``stage_forward``) within the f32 logit tolerance; the argmax
+    agreement; ms of the two prefills; the all-to-alls' ms and bytes."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.base import (
+        KVCache, StageSpec)
+    from distributed_inference_demo_tpu_torch.models.decoder import (
+        init_full_params, stage_forward)
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.parallel.expert import (
+        distribute_ep_params, make_ep_stage_fn, new_ep_cache)
+    from distributed_inference_demo_tpu_torch.parallel.mesh import (
+        MeshConfig, local_mesh)
+
+    base = get_model_config(MOE_MODEL)
+    cfg = base.replace(dtype_name="float32",
+                       moe_capacity_factor=float(base.num_experts))
+    L, b = cfg.num_layers, 2
+    spec = StageSpec(0, 1, 0, L)
+    params = init_full_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, "cuda")
+    ids = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (b, PROMPT_LEN))).cuda()
+    pos = torch.arange(PROMPT_LEN, device="cuda").expand(b, PROMPT_LEN)
+
+    def full(inp, cache, p):
+        return stage_forward(params, cfg, spec, inp, cache, p)
+
+    cache1 = KVCache.create(cfg, L, b, 128, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, cache1 = full(ids, cache1, pos)
+    torch.cuda.synchronize()
+    ms1 = (time.perf_counter() - t0) * 1e3
+    nxt = ref[:, -1].argmax(-1)[:, None]
+    dpos = torch.full((b, 1), PROMPT_LEN, device="cuda")
+    ref2, _ = full(nxt, cache1, dpos)
+    out = {"check": "ep", "model": MOE_MODEL, "ep": 2, "dtype": "float32",
+           "experts_per_rank": cfg.num_experts // 2, "batch": b,
+           "prompt_len": PROMPT_LEN,
+           "capacity_factor": cfg.moe_capacity_factor}
+    mesh = local_mesh(MeshConfig(ep=2), "cuda")
+    try:
+        out["mesh"] = mesh.describe()
+        ep_params = distribute_ep_params(params, cfg, mesh)
+        fn = make_ep_stage_fn(cfg, spec, mesh, ep_params)
+        cache = new_ep_cache(cfg, mesh, L, b, 128)
+        fn(ep_params, ids, cache, pos)          # warm
+        cache = new_ep_cache(cfg, mesh, L, b, 128)
+        before = dict(mesh.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, cache = fn(ep_params, ids, cache, pos)
+        torch.cuda.synchronize()
+        ms2 = (time.perf_counter() - t0) * 1e3
+        comm = _mesh_delta(mesh, before)
+        got2, _ = fn(ep_params, nxt, cache, dpos)
+    finally:
+        mesh.close()
+    r, g = ref.float().cpu().numpy(), got.float().cpu().numpy()
+    r2, g2 = ref2.float().cpu().numpy(), got2.float().cpu().numpy()
+    tol = LOGIT_TOL_F32 * max(1.0, float(np.abs(r).max()))
+    out.update(prefill_max_abs_err=float(np.abs(g - r).max()),
+               decode_max_abs_err=float(np.abs(g2 - r2).max()),
+               logit_tol=tol,
+               argmax_agreement=float((g.argmax(-1) == r.argmax(-1))
+                                      .mean()),
+               prefill_ms={"all_experts": ms1, "ep2": ms2},
+               comm_prefill=comm)
+    _check(out["prefill_max_abs_err"] <= tol
+           and out["decode_max_abs_err"] <= tol,
+           f"ep=2 logits off: {out['prefill_max_abs_err']}, "
+           f"{out['decode_max_abs_err']} > {tol}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_sp(torch) -> dict:
+    """TinyLlama f32 at sp=2, ring and Ulysses, on a SP_PROMPT_LEN-token
+    prompt: SP_NEW greedy tokens equal the single-device engine's at the
+    same max_seq; each strategy's seconds against the engine's, Ulysses'
+    flash launches (L a prefill on each rank: its head blocks attend
+    through the kernel), the collectives' ms and staged bytes."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.parallel.mesh import \
+        local_sp_mesh
+    from distributed_inference_demo_tpu_torch.parallel.sequence import (
+        make_sp_generate_fn, replicate_params)
+    from distributed_inference_demo_tpu_torch.parallel.tensor import \
+        rank_launches
+    from distributed_inference_demo_tpu_torch.parallel.ulysses import \
+        make_ulysses_generate_fn
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+
+    cfg = get_model_config(SERVE_MODEL).replace(dtype_name="float32")
+    L = cfg.num_layers
+    params = init_full_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, "cuda")
+    prompt = np.random.RandomState(4).randint(0, cfg.vocab_size,
+                                              (1, SP_PROMPT_LEN))
+    one = InferenceEngine(cfg, params, max_seq=SP_MAX_SEQ,
+                          sampling=SamplingParams(greedy=True),
+                          device="cuda", cuda_graph=False)
+    res = one.generate(prompt, SP_NEW)
+    want = res.tokens.tolist()
+    out = {"check": "sp", "model": SERVE_MODEL, "sp": 2, "dtype": "float32",
+           "prompt_len": SP_PROMPT_LEN, "new_tokens": SP_NEW,
+           "max_seq": SP_MAX_SEQ, "single_s": res.seconds}
+    del one
+    mesh = local_sp_mesh(2, "cuda")
+    try:
+        out["mesh"] = mesh.describe()
+        rep = replicate_params(params, cfg, mesh)
+        for name, make in (("ring", make_sp_generate_fn),
+                           ("ulysses", make_ulysses_generate_fn)):
+            gen = make(cfg, mesh, max_seq=SP_MAX_SEQ, num_new_tokens=SP_NEW)
+            rank_launches(mesh, reset=True)
+            before = dict(mesh.stats)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = gen(rep, prompt, 0).tolist()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            flash = [r["flash"]["launches"] for r in rank_launches(mesh)]
+            out[name] = {"seconds": dt, "tokens_equal": got == want,
+                         "flash_launches_by_rank": flash,
+                         "comm": _mesh_delta(mesh, before)}
+            _check(got == want, f"sp {name} tokens {got} != {want}")
+            _check(flash == ([L] * 2 if name == "ulysses" else [0, 0]),
+                   f"sp {name} flash launches {flash}")
+    finally:
+        mesh.close()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(torch) -> dict:
+    """Multiple devices on torch.distributed, on the one card: see the
+    module docstring, item 15.  Each check prints its own line."""
+    t0 = time.perf_counter()
+    out = {"phase": "parallel", "device": torch.cuda.get_device_name(0),
+           "device_count": torch.cuda.device_count(),
+           "power": nvidia_smi_line(), "note": PARALLEL_NOTE}
+    print(f"parallel: torch.cuda.device_count() = "
+          f"{torch.cuda.device_count()}", flush=True)
+    for key, fn, args in (("nccl", parallel_nccl, ()),
+                          ("tp_batching", parallel_tp_batching, ()),
+                          ("tp_llama3_8b", parallel_tp_generate,
+                           (LARGE_MODEL,)),
+                          ("tp_llama3_8b_int8", parallel_tp_generate,
+                           (LARGE_MODEL + "-int8",)),
+                          ("ep", parallel_ep, ()),
+                          ("sp", parallel_sp, ())):
+        t1 = time.perf_counter()
+        res = fn(torch, *args)
+        res["seconds"] = time.perf_counter() - t1
+        emit(res)
+        out[key] = res
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -5515,7 +6069,7 @@ def main(argv) -> int:
                 "mixed": phase_mixed, "graph": phase_graph,
                 "quant": phase_quant, "kvcache": phase_kvcache,
                 "surface": phase_surface, "moe": phase_moe,
-                "fleet": phase_fleet,
+                "fleet": phase_fleet, "parallel": phase_parallel,
                 "speculative": lambda t: phase_speculative(
                     t, device["ptxas"]["paged_attention.cu"])}[only],
                 torch))
@@ -5563,6 +6117,8 @@ def main(argv) -> int:
         emit(spec)
         fleet = timed(phase_fleet, torch)
         emit(fleet)
+        par = timed(phase_parallel, torch)
+        emit(par)
         moe = timed(phase_moe, torch)
         emit(moe)
     except Exception:
@@ -5660,7 +6216,17 @@ def main(argv) -> int:
          serve_case("decode", "full", MOE_MODEL), f"{MOE_MODEL}, " + rows8),
         ("paged_prefill_mixtral", "paged_prefill", moe["batching"],
          serve_case("prefill", "full", MOE_MODEL),
-         f"{MOE_MODEL}, " + chunk200)]
+         f"{MOE_MODEL}, " + chunk200),
+        # one tp=2 rank's heads; launches: rank 0's in the parallel
+        # phase's 8-slot serve (rank 1 launched as many)
+        ("paged_decode_tp2", "paged_decode",
+         {"launches": par["tp_batching"]["launches_by_rank"][0]},
+         serve_case("decode", "full", SERVE_MODEL + "-tp2"),
+         "one tp=2 rank (16 q heads on 2 kv heads), " + rows8),
+        ("paged_prefill_tp2", "paged_prefill",
+         {"launches": par["tp_batching"]["launches_by_rank"][0]},
+         serve_case("prefill", "full", SERVE_MODEL + "-tp2"),
+         "one tp=2 rank (16 q heads on 2 kv heads), " + chunk200)]
     # the speculative phase: the [8, K+1] verify on each page type (its
     # launches: a batching run's verify window over that pool, after
     # its last admission),
@@ -5708,11 +6274,16 @@ def main(argv) -> int:
                 "replaces": replaces, "shape": shape, "launches": launches,
                 # the decode kernel's launches all come from replays of
                 # the captured decode step
-                "graph_replayed": name.startswith("paged_decode"),
+                "graph_replayed": (name.startswith("paged_decode")
+                                   and not name.endswith("_tp2")),
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"]}
+
+    r0 = par["tp_llama3_8b_int8"]["launches_by_rank"][0]
+    tp2_int8 = {"decode_launches": r0["quant_dense_decode"],
+                "dense_launches": r0["quant_dense"]}
 
     def quant_case(m, bits, weight="w_up", model=SERVE_MODEL):
         return next(c for c in qkern["cases"] if c["model"] == model
@@ -5817,7 +6388,23 @@ def main(argv) -> int:
                     "int8, M = 1 (llama-3-8b's row, the same shape; "
                     "launches: mixtral-8x7b-int8 plain serve, 896 a "
                     "decode step)", weight="w_gate, w_up",
-                    model=LARGE_MODEL)]})
+                    model=LARGE_MODEL),
+        # a multi-rank step runs eagerly: no launch here is a replay
+        {**quant_entry("quant_dense_int8_tp2_llama3_8b", tp2_int8, 1, 8,
+                       "one tp=2 rank of llama-3-8b, w_down row slice "
+                       "[7168, 4096] int8, M = 1 (launches: rank 0's "
+                       "decode-kernel launches, the parallel phase's "
+                       "llama-3-8b-int8 tp=2 generate, 7 x L a decode "
+                       "step on the sliced weights)", weight="w_down",
+                       model=LARGE_MODEL + "-tp2"),
+         "graph_replayed": False},
+        entry("flash_attention_tp2_llama3_8b", KERNEL_SOURCE,
+              KERNEL_REPLACES,
+              par["tp_llama3_8b"]["launches_by_rank"][0]["flash"],
+              flash_case(LARGE_MODEL + "-tp2"), "one tp=2 rank of "
+              "llama-3-8b (16 q heads on 4 kv heads, hd 128), 64-token "
+              "prompt at 0 (launches: rank 0's, the tp=2 generate's two "
+              "prefills)")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

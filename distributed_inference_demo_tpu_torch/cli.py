@@ -63,7 +63,18 @@ engine, whose acceptance stats it adds) and prints its tokens as JSON; ``classif
 ``gateway`` is the prefix-aware router over running ``serve`` replicas
 (``runtime/gateway``), with ``--drain`` / ``--undrain`` as its client
 mode.  The engine
-commands run on CUDA unless ``--device cpu`` is given.  Every other
+commands run on CUDA unless ``--device cpu`` is given.
+
+Multiple devices (``parallel/``): ``--tp N`` runs ``serve`` (plain and
+``--batch-slots``), ``generate`` and ``classify`` tensor-parallel over N
+local ranks (rank 0 here, N - 1 spawned followers; gloo on the CPU and
+on one shared card, NCCL where each rank has its own card; the step
+runs eagerly, ``graph=off``); ``--sp N --sp-strategy ring|ulysses``
+runs ``generate`` and ``serve`` sequence-parallel
+(``runtime/sp_backend.py``, ``--sp-queue-depth``).  The leading
+``--jax-coordinator`` / ``--jax-num-processes`` / ``--jax-process-id``
+(the reference's names) join a multi-host group: process 0 drives, the
+others serve as followers.  Every other
 subcommand and mode flag of the JAX package's CLI exits 1 with "not yet
 ported".
 """
@@ -76,6 +87,37 @@ import sys
 from typing import Optional
 
 NOT_PORTED_COMMANDS = ("server", "worker", "plan", "bench")
+
+
+class _FollowerDone(Exception):
+    """A multi-host follower served its mesh until rank 0 closed it."""
+
+
+def _mesh_from_args(args, device, axis: str = "tp"):
+    """The ``--tp`` / ``--sp`` mesh (``parallel.mesh`` owns the rule), or
+    None for 1.  Prints the mesh line once: backend and the step's graph
+    mode."""
+    n = getattr(args, axis, 1)
+    if n <= 1:
+        return None
+    from .parallel.mesh import MeshConfig, local_mesh, multihost_mesh
+    mcfg = MeshConfig(**{axis: n})
+    mh = getattr(args, "multihost", None)
+    mesh = (multihost_mesh(mcfg, mh, device) if mh is not None
+            else local_mesh(mcfg, device))
+    if mesh is None:
+        raise _FollowerDone()
+    print(f"MESH {mesh.describe()} graph=off ({mesh.backend})", flush=True)
+    return mesh
+
+
+def _refuse_tp_with_proposer(args) -> None:
+    """tp under the speculative engines and proposers is a later slice."""
+    if getattr(args, "tp", 1) > 1 and (args.draft_model
+                                       or args.prompt_lookup):
+        from .parallel.tensor import TP_LATER
+        raise NotImplementedError(
+            f"--tp with --draft-model/--prompt-lookup: {TP_LATER}")
 
 
 def _load_tokenizer(path: Optional[str]):
@@ -185,12 +227,29 @@ def build_prompt_lookup_engine(args):
                               **_spec_engine_kwargs(args, device))
 
 
+def _params_for_mesh(args):
+    """(device, cfg, params, mesh): :func:`_params`, sharded onto the
+    ``--tp`` mesh when one is asked for (the full tree is dropped, so
+    each rank keeps its slice only)."""
+    device, cfg, params = _params(args)
+    mesh = _mesh_from_args(args, device)
+    if mesh is not None:
+        from .runtime.engine import shard_engine_params
+        try:
+            params = shard_engine_params(params, cfg, mesh)
+        except BaseException:
+            mesh.close()
+            raise
+    return device, cfg, params, mesh
+
+
 def build_batching_engine(args):
     """(cfg, ContinuousBatchingEngine) for ``serve --batch-slots N``, with
-    the draft model or prompt lookup when asked for."""
+    the draft model or prompt lookup when asked for, over the ``--tp``
+    mesh when one is asked for (``engine.mesh``)."""
     from .runtime.batching import ContinuousBatchingEngine
 
-    device, cfg, params = _params(args)
+    device, cfg, params, mesh = _params_for_mesh(args)
     dcfg = dparams = None
     if args.draft_model:
         dcfg, dparams = _draft_params(args, device)
@@ -208,14 +267,16 @@ def build_batching_engine(args):
         kv_cache_blocks=args.kv_cache_blocks,
         kv_block_tokens=args.kv_block_tokens, **_kv_tier_from_args(args),
         attn_backend="cuda" if args.attn_backend == "flash"
-        else args.attn_backend, device=device)
+        else args.attn_backend, device=device, mesh=mesh,
+        cuda_graph=mesh is None)
 
 
 def build_engine(args):
-    """(cfg, InferenceEngine) for the parsed plain serve flags."""
+    """(cfg, InferenceEngine) for the parsed plain serve flags, over the
+    ``--tp`` mesh when one is asked for (``engine.mesh``)."""
     from .runtime.engine import InferenceEngine
 
-    device, cfg, params = _params(args)
+    device, cfg, params, mesh = _params_for_mesh(args)
     return cfg, InferenceEngine(
         cfg, params, max_seq=args.max_seq,
         sampling=_sampling_from_args(args),
@@ -224,7 +285,32 @@ def build_engine(args):
         kv_cache_blocks=args.kv_cache_blocks,
         kv_block_tokens=args.kv_block_tokens, kv_dtype=args.kv_dtype,
         kv_cache_dtype=args.kv_cache_dtype,
-        stream_block=args.stream_block, device=device)
+        stream_block=args.stream_block, device=device, mesh=mesh,
+        cuda_graph=mesh is None)
+
+
+def _close_mesh(engine) -> None:
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None:
+        mesh.close()
+
+
+def _sp_unsupported_flags(args, allow_eos: bool = False) -> list:
+    """Engine flags the sp paths have no plumbing for, one rule for
+    ``generate --sp`` and ``serve --sp`` (the reference's); ``serve``
+    allows ``--eos-id`` (its backend stops through the stream
+    programs)."""
+    return [flag for flag, on in [
+        ("--eos-id", not allow_eos and args.eos_id is not None),
+        ("--prefill-chunk", bool(args.prefill_chunk)),
+        ("--stream-block", args.stream_block is not None),
+        ("--kv-cache-blocks", _kvcache_flags_set(args)),
+        ("--attn-backend", args.attn_backend != "auto")] if on]
+
+
+def _kvcache_flags_set(args) -> bool:
+    return (args.kv_cache_blocks is not None
+            or args.kv_block_tokens is not None)
 
 
 def _dtype_name(dtype) -> str:
@@ -237,9 +323,12 @@ def cmd_serve(args) -> int:
     from .runtime.http_server import InferenceHTTPServer
 
     _export_kv_tier_env(args)
-    modes = [name for name, on in [("--draft-model", args.draft_model),
+    modes = [name for name, on in [("--chain", args.chain),
+                                   ("--draft-model", args.draft_model),
                                    ("--prompt-lookup", args.prompt_lookup),
-                                   ("--batch-slots", args.batch_slots)]
+                                   ("--batch-slots", args.batch_slots),
+                                   ("--sp", args.sp > 1),
+                                   ("--vision", args.vision)]
              if on]
     # --batch-slots composes with --draft-model OR --prompt-lookup
     if len(modes) > 1 and set(modes) not in (
@@ -255,6 +344,34 @@ def cmd_serve(args) -> int:
         print("--no-spec-adaptive requires --batch-slots with "
               "--draft-model or --prompt-lookup", file=sys.stderr)
         return 1
+    if args.tp > 1 and "--chain" in modes:
+        print("--tp is not supported with --chain (stages are whole-model "
+              "slices per worker)", file=sys.stderr)
+        return 1
+    if args.sp > 1:
+        if args.tp > 1:
+            print("--sp is exclusive with --tp", file=sys.stderr)
+            return 1
+        unsupported = _sp_unsupported_flags(args, allow_eos=True)
+        if unsupported:
+            print(f"{'/'.join(unsupported)} not supported with --sp",
+                  file=sys.stderr)
+            return 1
+    if args.vision:
+        unsupported = [flag for flag, on in [
+            ("--kv-cache-dtype", bool(args.kv_cache_dtype)),
+            ("--prefill-chunk", bool(args.prefill_chunk)),
+            ("--stream-block", args.stream_block is not None),
+            ("--kv-cache-blocks", _kvcache_flags_set(args)),
+            ("--tp", args.tp > 1)] if on]
+        if unsupported:
+            print(f"{'/'.join(unsupported)} not supported with --vision",
+                  file=sys.stderr)
+            return 1
+    for flag, on in (("--chain", args.chain), ("--vision", args.vision)):
+        if on:
+            raise NotImplementedError(f"serve {flag} (ROADMAP A11)")
+    _refuse_tp_with_proposer(args)
     if args.batch_slots and args.stream_block is not None:
         # the scheduler's fused block is --decode-block; a second K knob
         # is rejected, never silently ignored
@@ -289,8 +406,14 @@ def cmd_serve(args) -> int:
               f"kv_cache={kvc.num_blocks}x{kvc.block_tokens}tok "
               f"{engine.kv_layout} kv_dtype={engine.kv_dtype} "
               f"mixed_token_budget={engine.mixed_token_budget} "
-              f"kv_cache_dtype={_dtype_name(engine.kv_cache_dtype)} tp=1 "
+              f"kv_cache_dtype={_dtype_name(engine.kv_cache_dtype)} "
+              f"tp={args.tp} "
               f"attn={engine.attn_backend} device={engine.device}{spec}",
+              flush=True)
+    elif args.sp > 1:
+        engine = build_sp_backend(args)
+        print(f"SERVE_SP {args.model} sp={args.sp} "
+              f"strategy={args.sp_strategy} max_seq={args.max_seq}",
               flush=True)
     elif args.draft_model or args.prompt_lookup:
         from .runtime.speculative import SpeculativeBackend
@@ -311,11 +434,16 @@ def cmd_serve(args) -> int:
         print(f"SERVE_ENGINE {args.model} attn={engine.attn_backend} "
               f"kv_cache={pool} "
               f"kv_cache_dtype={_dtype_name(engine.kv_cache_dtype)} "
-              f"device={engine.device}", flush=True)
-    server = InferenceHTTPServer(engine, host=args.http_host,
-                                 port=args.http_port, tokenizer=tokenizer,
-                                 model_name=args.model,
-                                 default_max_new=args.max_new_tokens)
+              f"device={engine.device} tp={args.tp}", flush=True)
+    try:
+        server = InferenceHTTPServer(engine, host=args.http_host,
+                                     port=args.http_port,
+                                     tokenizer=tokenizer,
+                                     model_name=args.model,
+                                     default_max_new=args.max_new_tokens)
+    except BaseException:
+        _close_mesh(engine)
+        raise
     print(f"HTTP_READY http://{server.host}:{server.port}", flush=True)
     try:
         server.serve_forever()
@@ -325,6 +453,7 @@ def cmd_serve(args) -> int:
         server.shutdown()
         if args.batch_slots:
             engine.close()
+        _close_mesh(engine)
         if args.run_log:
             set_run_log(None)
             rl.close()
@@ -398,7 +527,49 @@ def _add_engine_args(ap: argparse.ArgumentParser) -> None:
                          "(half the bytes of bf16; the plain engine then "
                          "takes plain attention); not with --kv-dtype "
                          "int8/int4")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism over N local ranks "
+                         "(Megatron-sliced weights, kv-head-sharded cache "
+                         "and pages; rank 0 drives, N - 1 followers are "
+                         "spawned)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+
+def build_sp_backend(args):
+    """``SequenceParallelBackend`` over the ``--sp`` mesh (``serve
+    --sp``); its ``mesh`` closes with the server."""
+    from .runtime.sp_backend import SequenceParallelBackend
+    device, cfg, params = _params(args)
+    mesh = _mesh_from_args(args, device, "sp")
+    try:
+        return SequenceParallelBackend(
+            cfg, params, mesh, max_seq=args.max_seq,
+            strategy=args.sp_strategy, sampling=_sampling_from_args(args),
+            kv_cache_dtype=args.kv_cache_dtype, eos_id=args.eos_id,
+            max_queue_depth=args.sp_queue_depth)
+    except BaseException:
+        mesh.close()
+        raise
+
+
+def _add_sp_args(ap: argparse.ArgumentParser) -> None:
+    """Sequence-parallel flags, shared by generate and serve."""
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence parallelism over N local ranks for long "
+                         "prompts: the prompt shards by contiguous chunk, "
+                         "prefill runs ring attention (or Ulysses), the KV "
+                         "cache stays sharded; prompt length must divide "
+                         "by N")
+    ap.add_argument("--sp-strategy", default="ring",
+                    choices=["ring", "ulysses"],
+                    help="ring = sequence-sharded cache + ring-attention "
+                         "prefill; ulysses = all-to-all to head-sharded "
+                         "attention (needs heads divisible by N)")
+    ap.add_argument("--sp-queue-depth", type=int, default=None,
+                    help="serve --sp: max requests allowed to wait behind "
+                         "the one running before arrivals get 429 + "
+                         "Retry-After; default DWT_SP_QUEUE_DEPTH or 8, 0 "
+                         "= unbounded")
 
 
 def _add_draft_args(ap: argparse.ArgumentParser) -> None:
@@ -425,6 +596,11 @@ def _serve_parser() -> argparse.ArgumentParser:
         description="HTTP inference server (PyTorch/CUDA port)")
     _add_engine_args(ap)
     _add_draft_args(ap)
+    _add_sp_args(ap)
+    ap.add_argument("--chain", default="",
+                    help="the socket pipeline (ROADMAP A11: refused)")
+    ap.add_argument("--vision", action="store_true",
+                    help="multimodal serving (ROADMAP A11: refused)")
     ap.add_argument("--batch-slots", type=int, default=0,
                     help="continuous batching with N slots: concurrent "
                          "requests join the running decode batch between "
@@ -463,6 +639,7 @@ def _generate_parser() -> argparse.ArgumentParser:
         description="one-shot local generation")
     _add_engine_args(ap)
     _add_draft_args(ap)
+    _add_sp_args(ap)
     ap.add_argument("--prompt-ids", default="")
     ap.add_argument("--prompt", default=None)
     return ap
@@ -532,6 +709,13 @@ def cmd_generate(args) -> int:
         print("choose one of --draft-model / --prompt-lookup",
               file=sys.stderr)
         return 1
+    if args.sp > 1:
+        if args.draft_model or args.prompt_lookup or args.tp > 1:
+            print("--sp is exclusive with --draft-model/--prompt-lookup/"
+                  "--tp", file=sys.stderr)
+            return 1
+        return _generate_sp(args, ids, tokenizer)
+    _refuse_tp_with_proposer(args)
     stats = None
     if args.prompt_lookup:
         res, stats = build_prompt_lookup_engine(args).generate(
@@ -541,7 +725,10 @@ def cmd_generate(args) -> int:
             ids, args.max_new_tokens, seed=args.seed)
     else:
         _, engine = build_engine(args)
-        res = engine.generate(ids, args.max_new_tokens, seed=args.seed)
+        try:
+            res = engine.generate(ids, args.max_new_tokens, seed=args.seed)
+        finally:
+            _close_mesh(engine)
     out = {"tokens": res.tokens.tolist(),
            "tokens_per_second": res.tokens_per_second}
     if stats is not None:
@@ -549,6 +736,47 @@ def cmd_generate(args) -> int:
         out["speculative"] = stats_json(stats, args.num_draft)
     if tokenizer is not None:
         out["text"] = [tokenizer.decode(r) for r in res.tokens.tolist()]
+    print(json.dumps(out))
+    return 0
+
+
+def _generate_sp(args, ids, tokenizer) -> int:
+    """``generate --sp N``: one-shot long-context generation over a local
+    sequence-parallel mesh (``--sp-strategy ring`` or ``ulysses``).  The
+    prompt length must be a multiple of N."""
+    import time as _time
+
+    from .parallel.sequence import validate_sp_prompt
+
+    unsupported = _sp_unsupported_flags(args)
+    if unsupported:
+        print(f"{'/'.join(unsupported)} not supported with --sp",
+              file=sys.stderr)
+        return 1
+    # the shared rule fails fast, before the weights load
+    validate_sp_prompt(ids.shape[1], args.sp, args.max_seq,
+                       args.max_new_tokens)
+    device, cfg, params = _params(args)
+    mesh = _mesh_from_args(args, device, "sp")
+    try:
+        kw = dict(max_seq=args.max_seq, num_new_tokens=args.max_new_tokens,
+                  sampling=_sampling_from_args(args),
+                  kv_cache_dtype=args.kv_cache_dtype)
+        if args.sp_strategy == "ring":
+            from .parallel.sequence import make_sp_generate_fn
+            gen = make_sp_generate_fn(cfg, mesh, **kw)
+        else:
+            from .parallel.ulysses import make_ulysses_generate_fn
+            gen = make_ulysses_generate_fn(cfg, mesh, **kw)
+        t0 = _time.perf_counter()
+        toks = gen(params, ids, args.seed).cpu().numpy()
+        dt = _time.perf_counter() - t0
+    finally:
+        mesh.close()
+    out = {"tokens": toks.tolist(), "tokens_per_second": toks.size / dt,
+           "sp": args.sp, "sp_strategy": args.sp_strategy}
+    if tokenizer is not None:
+        out["text"] = [tokenizer.decode(r) for r in toks.tolist()]
     print(json.dumps(out))
     return 0
 
@@ -584,9 +812,12 @@ def cmd_classify(args) -> int:
         return 1
 
     _, engine = build_engine(args)
-    result = evaluate_classifier(
-        lambda batch: engine.classify(batch, label_ids),
-        prompts, ds.labels, batch_size=args.batch)
+    try:
+        result = evaluate_classifier(
+            lambda batch: engine.classify(batch, label_ids),
+            prompts, ds.labels, batch_size=args.batch)
+    finally:
+        _close_mesh(engine)
     result["label_names"] = ds.label_names
     print(json.dumps(result))
     return 0
@@ -835,8 +1066,37 @@ COMMANDS = {"serve": (_serve_parser, cmd_serve),
             "gateway": (_gateway_parser, cmd_gateway)}
 
 
+def _global_parser() -> argparse.ArgumentParser:
+    """The flags before the command: the reference's multi-host trio."""
+    ap = argparse.ArgumentParser(prog="distributed_inference_demo_tpu_torch",
+                                 add_help=False)
+    ap.add_argument("--jax-coordinator", default="",
+                    help="host:port of process 0 (its TCPStore): joins a "
+                         "multi-host group")
+    ap.add_argument("--jax-num-processes", type=int, default=1)
+    ap.add_argument("--jax-process-id", type=int, default=0)
+    return ap
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    lead = []
+    while argv and argv[0].startswith("--jax-"):
+        lead.append(argv.pop(0))
+        if "=" not in lead[-1] and argv:
+            lead.append(argv.pop(0))
+    gargs = _global_parser().parse_args(lead)
+    multihost = None
+    if gargs.jax_coordinator:
+        from .parallel.mesh import init_multihost
+        multihost = init_multihost(gargs.jax_coordinator,
+                                   gargs.jax_num_processes,
+                                   gargs.jax_process_id)
+    elif gargs.jax_num_processes != 1 or gargs.jax_process_id != 0:
+        # a forgotten coordinator must not silently run single-host
+        print("error: --jax-num-processes/--jax-process-id require "
+              "--jax-coordinator", file=sys.stderr)
+        return 2
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m distributed_inference_demo_tpu_torch "
               "{serve,generate,classify,chat,gateway} [options]  "
@@ -852,6 +1112,7 @@ def main(argv=None) -> int:
         return 2
     parser, fn = COMMANDS[cmd]
     args, unknown = parser().parse_known_args(rest)
+    args.multihost = multihost
     if unknown:
         flags = [a for a in unknown if a.startswith("-")] or unknown
         print(f"error: {cmd} {' '.join(flags)}: not yet ported",
@@ -859,6 +1120,8 @@ def main(argv=None) -> int:
         return 1
     try:
         return fn(args)
+    except _FollowerDone:
+        return 0
     except NotImplementedError as e:
         print(f"error: not yet ported: {e}", file=sys.stderr)
         return 1

@@ -7,7 +7,9 @@ so both packages can run on the same weights.  A quantized leaf of the
 reference (``QuantizedArray`` / ``QuantizedArray4``) travels as a dict of
 its fields, ``{"q": ..., "scale": ...}`` plus ``"group"`` for int4, and
 becomes the port's class over the same codes and scales.
-``kv_pages_from_numpy`` does the same for a quantized page pool.  The
+``kv_pages_from_numpy`` does the same for a quantized page pool, and
+``shard_from_numpy`` cuts the tree into one rank's tensor-parallel (or
+expert-parallel) slice.  The
 conversion from JAX arrays to numpy happens in the caller, never here:
 this module does not import JAX.
 """
@@ -56,6 +58,50 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None
     return StageParams(layers=part("layers"), embed=part("embed"),
                        final_norm=part("final_norm"),
                        lm_head=part("lm_head"))
+
+
+def shard_from_numpy(tree: dict, cfg: ModelConfig, shape: dict, rank: int,
+                     device=None, specs=None) -> StageParams:
+    """Rank ``rank``'s slice of the reference's parameter tree (numpy
+    leaves, as :func:`params_from_numpy` takes them) on a mesh of axis
+    sizes ``shape`` (``{"tp": 2}``): the tree cut by the port's spec tree
+    (``parallel/sharding.py``; default the engines' tp layout, replicated
+    embed, vocab-parallel head), then carried across.  A rank's slice
+    equals the reference's ``shard_params`` shard on the mesh's device
+    ``rank``."""
+    from ..parallel.sharding import (rank_coords, shard_tree,
+                                     stage_param_spec_tree)
+
+    def leaf(v):
+        if not isinstance(v, dict):
+            return np.asarray(v)
+        if "group" in v:
+            return QuantizedArray4(q=np.asarray(v["q"]),
+                                   scale=np.asarray(v["scale"]),
+                                   group=int(v["group"]))
+        return QuantizedArray(q=np.asarray(v["q"]),
+                              scale=np.asarray(v["scale"]))
+
+    full = StageParams(**{n: (None if tree.get(n) is None else
+                              {k: leaf(v) for k, v in tree[n].items()})
+                          for n in ("layers", "embed", "final_norm",
+                                    "lm_head")})
+    if specs is None:
+        specs = stage_param_spec_tree(full, cfg, vocab_parallel_embed=False)
+    part = shard_tree(full, specs, rank_coords(shape, rank), shape)
+
+    def back(v):
+        if isinstance(v, QuantizedArray4):
+            return {"q": v.q, "scale": v.scale, "group": v.group}
+        if isinstance(v, QuantizedArray):
+            return {"q": v.q, "scale": v.scale}
+        return v
+
+    return params_from_numpy(
+        {n: (None if getattr(part, n) is None else
+             {k: back(v) for k, v in getattr(part, n).items()})
+         for n in ("layers", "embed", "final_norm", "lm_head")},
+        cfg, device)
 
 
 def kv_pages_from_numpy(data: np.ndarray, scale: np.ndarray,

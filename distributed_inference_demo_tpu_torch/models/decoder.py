@@ -15,8 +15,17 @@ Int8 and int4 weights (``-int8`` / ``-int4`` configs) go through
 ``ops.quant.dense``, expert stacks one expert at a time.  The reference's
 ``lax.scan`` over the stacked layers becomes a Python loop that writes
 each layer's cache plane in place.
+
+Under tensor parallelism (``tp``, a ``parallel.mesh.AxisGroup``: this
+rank's slice of the weights, ``parallel/sharding.py``) the block sums
+its partial products with an all-reduce after ``wo`` and ``w_down``,
+adds biases once after the reduction, slices ALiBi slopes by rank, takes
+its slice of the MoE routing matrix, and all-gathers vocab-parallel
+logits at the sampling boundary, as the reference's ``tp_axis`` branch.
+``ep`` selects the expert-parallel dispatch (:func:`_moe_mlp_ep`).
 """
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -186,19 +195,32 @@ def embed_tokens(params: StageParams, cfg: ModelConfig,
     return x
 
 
-def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, tp=None,
+         ep=None) -> torch.Tensor:
+    """MLP block.  Under ``tp``, w_gate/w_up arrive column-sliced and
+    w_down row-sliced: the partial products are summed with an
+    all-reduce; biases are added once, after it."""
     if cfg.num_experts > 0:
-        return _moe_mlp(cfg, lp, x)
+        if ep is not None:
+            return _moe_mlp_ep(cfg, lp, x, ep)
+        return _moe_mlp(cfg, lp, x, tp)
     if cfg.family == "bloom":
+        # b_up arrives column-sliced with w_up's local columns
         h = dense(x, lp["w_up"], "bsh,hi->bsi") + lp["b_up"]
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        return dense(h, lp["w_down"], "bsi,ih->bsh") + lp["b_down"]
+        out = dense(h, lp["w_down"], "bsi,ih->bsh")
+        if tp is not None:
+            out = tp.all_reduce(out)
+        return out + lp["b_down"]
     gate = dense(x, lp["w_gate"], "bsh,hi->bsi").float()
     up = dense(x, lp["w_up"], "bsh,hi->bsi")
     act = (F.gelu(gate, approximate="tanh") if cfg.mlp_act == "gelu_tanh"
            else F.silu(gate))
     h = (act * up.float()).to(x.dtype)
-    return dense(h, lp["w_down"], "bsi,ih->bsh")
+    out = dense(h, lp["w_down"], "bsi,ih->bsh")
+    if tp is not None:
+        out = tp.all_reduce(out)
+    return out
 
 
 def moe_route(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -211,20 +233,92 @@ def moe_route(logits: torch.Tensor, k: int) -> torch.Tensor:
     return torch.zeros_like(logits).scatter(-1, topi[..., :k], weights)
 
 
-def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+             tp=None) -> torch.Tensor:
     """Top-k routed MoE (mixtral), as the reference computes it: router
     logits in x's dtype, then f32; the dense routing matrix of
     :func:`moe_route`; all E experts on every token (SiLU and the gate
     product in f32, cast to x's dtype); the combine in x's dtype.
     Nothing here has a data-dependent shape, so a decode step through it
-    is one CUDA graph."""
+    is one CUDA graph.  Under ``tp`` this rank holds E/tp experts: it
+    takes its slice of the routing matrix, and the partial outputs are
+    all-reduced."""
     logits = torch.einsum("bsh,he->bse", x, lp["router"]).float()
     route = moe_route(logits, cfg.experts_per_token)
+    if tp is not None:
+        e_local = lp["w_gate"].shape[0]
+        route = route[..., tp.rank * e_local:(tp.rank + 1) * e_local]
     gate = dense(x, lp["w_gate"], "bsh,ehi->besi")
     up = dense(x, lp["w_up"], "bsh,ehi->besi")
     h = (F.silu(gate.float()) * up.float()).to(x.dtype)
     out = dense(h, lp["w_down"], "besi,eih->besh")           # [b, E, s, H]
-    return torch.einsum("besh,bse->bsh", out, route.to(x.dtype))
+    out = torch.einsum("besh,bse->bsh", out, route.to(x.dtype))
+    if tp is not None:
+        out = tp.all_reduce(out)
+    return out
+
+
+def _expert_each(x: torch.Tensor, w) -> torch.Tensor:
+    """``einsum("eck,ekn->ecn")``: each expert's rows through its own
+    weight.  A quantized stack takes one dense product per expert (the
+    dense kernel on the card), a float stack one ``bmm``."""
+    if not isinstance(w, (QuantizedArray, QuantizedArray4)):
+        return torch.bmm(x, w)
+    from ..ops.quant import expert_weight
+    return torch.stack([dense(x[e], expert_weight(w, e), "ck,kn->cn")
+                        for e in range(x.shape[0])])
+
+
+def _moe_mlp_ep(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                ep) -> torch.Tensor:
+    """Expert-parallel MoE: GShard capacity dispatch and two all-to-alls
+    over ``ep`` (the reference's ``_moe_mlp_ep``).  This rank holds E/n
+    experts' weights and its own tokens; each token's top-k experts take
+    it into per-expert capacity slots (``C = ceil(T*k/E *
+    moe_capacity_factor)``; over-capacity tokens drop, zero output), one
+    all-to-all ships the slot buffers to the expert owners, the experts
+    run batched, and a second brings the outputs home for the weighted
+    combine.  Dispatch and combine are one-hot einsums, as the
+    reference's."""
+    b, s, H = x.shape
+    T = b * s
+    E, k = cfg.num_experts, cfg.experts_per_token
+    n = ep.size
+    e_loc = lp["w_gate"].shape[0]
+    if e_loc * n != E:
+        raise ValueError(f"{e_loc} local experts x ep={n} != {E}")
+    xt = x.reshape(T, H)
+
+    logits = dense(xt, lp["router"], "th,he->te").float()
+    topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]                   # [T, k]
+    weights = torch.softmax(topv, dim=-1)
+
+    C = int(math.ceil(T * k / E * cfg.moe_capacity_factor))
+    onehot = F.one_hot(topi, E).to(torch.int32)             # [T, k, E]
+    flat = onehot.reshape(T * k, E)
+    pos = torch.cumsum(flat, dim=0) - 1                     # slot per expert
+    keep = (flat > 0) & (pos < C)
+    slot = torch.where(keep, pos, torch.full_like(pos, C))  # C -> dropped
+    disp = F.one_hot(slot.long(), C + 1)[..., :C].float()   # [T*k, E, C]
+    disp_t = disp.reshape(T, k, E, C).sum(1)                # [T, E, C]
+    comb = (disp * weights.reshape(T * k)[:, None, None]
+            ).reshape(T, k, E, C).sum(1)                    # [T, E, C]
+
+    expert_in = torch.einsum("tec,th->ech", disp_t, xt.float())  # [E, C, H]
+    ein = ep.all_to_all(expert_in.reshape(n, e_loc, C, H).contiguous())
+    h_in = ein.transpose(0, 1).reshape(e_loc, n * C, H).to(x.dtype)
+
+    gate = _expert_each(h_in, lp["w_gate"])
+    up = _expert_each(h_in, lp["w_up"])
+    hh = (F.silu(gate.float()) * up.float()).to(x.dtype)
+    out = _expert_each(hh, lp["w_down"])                    # [e_loc, n*C, H]
+
+    out = out.reshape(e_loc, n, C, H).transpose(0, 1).contiguous()
+    out = ep.all_to_all(out)
+    expert_out = out.reshape(E, C, H).float()
+    y = torch.einsum("tec,ech->th", comb, expert_out)
+    return y.reshape(b, s, H).to(x.dtype)
 
 
 def _default_attn(q, k, v, k_cache, v_cache, positions, cache_start, slopes):
@@ -244,9 +338,11 @@ def _default_attn(q, k, v, k_cache, v_cache, positions, cache_start, slopes):
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
            k_cache: torch.Tensor, v_cache: torch.Tensor,
            positions: torch.Tensor, cache_start,
-           slopes: Optional[torch.Tensor], attn_impl=None
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One decoder block. x: [b, s, H]. Returns (x', k_cache, v_cache)."""
+           slopes: Optional[torch.Tensor], attn_impl=None, tp=None,
+           ep=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decoder block. x: [b, s, H]. Returns (x', k_cache, v_cache).
+    Head counts derive from the weights, so under ``tp`` this rank runs
+    nh/tp query heads and nkv/tp kv heads on its cache plane."""
     b, s, H = x.shape
     hd = cfg.head_dim
     nh = lp["wq"].shape[-1] // hd
@@ -274,6 +370,8 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     attn, k_cache, v_cache = attn_fn(
         q, k, v, k_cache, v_cache, positions, cache_start, slopes)
     attn = dense(attn.reshape(b, s, nh * hd), lp["wo"], "bsd,dh->bsh")
+    if tp is not None:
+        attn = tp.all_reduce(attn)
     if cfg.attn_layernorm:
         attn = attn + lp["bo"]
     x = x + attn
@@ -282,7 +380,7 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
         h = layer_norm(x, lp["mlp_norm_w"], lp["mlp_norm_b"], cfg.norm_eps)
     else:
         h = rms_norm(x, lp["mlp_norm_w"], cfg.norm_eps)
-    return x + _mlp(cfg, lp, h), k_cache, v_cache
+    return x + _mlp(cfg, lp, h, tp, ep), k_cache, v_cache
 
 
 def stage_forward(
@@ -294,6 +392,8 @@ def stage_forward(
     positions: torch.Tensor,     # [b, s] absolute positions of the chunk
     attn_impl=None,              # attention hook (see _default_attn)
     last_logits_only: bool = False,  # head over the final position only
+    tp=None,                     # tensor-parallel AxisGroup (a rank's slice)
+    ep=None,                     # expert-parallel AxisGroup
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run this stage's layer range.  Returns (hidden or logits, cache).
 
@@ -308,6 +408,9 @@ def stage_forward(
 
     slopes = (alibi_slopes(cfg.num_heads, device=x.device)
               if cfg.use_alibi else None)
+    if slopes is not None and tp is not None:
+        nh_local = params.layers["wq"].shape[-1] // cfg.head_dim
+        slopes = slopes[tp.rank * nh_local:(tp.rank + 1) * nh_local]
     # a length held as a device scalar passes through (the fixed-shape
     # decode step); a host length stays a Python int
     cache_start = (cache.length if torch.is_tensor(cache.length)
@@ -317,7 +420,7 @@ def stage_forward(
         # (update_kv_cache), so the returned planes need no copy back
         x, _, _ = _layer(cfg, params.layer(li), x, cache.keys[li],
                          cache.values[li], positions, cache_start, slopes,
-                         attn_impl)
+                         attn_impl, tp, ep)
     new_cache = KVCache(cache.keys, cache.values,
                         cache_start + inputs.shape[1])
 
@@ -332,4 +435,7 @@ def stage_forward(
         head = (params.embed["tokens"].T if cfg.tie_embeddings
                 else params.lm_head["w"])
         x = torch.einsum("bsh,hv->bsv", x, head)
+        if tp is not None and x.shape[-1] != cfg.vocab_size:
+            # vocab-parallel head: every rank sees full logits
+            x = tp.all_gather(x, dim=-1)
     return x, new_cache

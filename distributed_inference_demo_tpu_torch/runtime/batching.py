@@ -95,7 +95,13 @@ scheduler thread, so they are ordered with the graph replays on the
 engine's stream: an export reads pages the last replay finished
 writing, an adopt lands before the next replay reads the tables.
 
-Not ported yet, refused where it is asked for: tp meshes.
+Over a tensor-parallel ``mesh`` (``parallel/tensor.py``) every rank
+holds its kv-head plane of the page pool and runs the paged hook (the
+paged kernels on the card) on it; rank 0 owns the scheduler, the page
+allocator and sampling, and each forward goes out with its block
+tables.  The step runs eagerly there.  Refused under a tp mesh until
+their slice: the speculative proposers, the host / disk tier, and the
+fleet's page movement (premigrated joins, export / import, resumes).
 """
 
 from __future__ import annotations
@@ -140,7 +146,7 @@ from .overload import SchedulerOverloaded
 from .prompt_lookup import ngram_propose
 from .speculative import draw_noise, propose_token, verify_emit_per_row
 
-TP_LATER = "tensor-parallel meshes are ported in a later slice (ROADMAP A13)"
+from ..parallel.tensor import TP_LATER
 
 # queue nudge from export_request: wakes an idle scheduler so it services
 # the export mailbox
@@ -300,7 +306,10 @@ class ContinuousBatchingEngine:
         ``kv_disk_tier_bytes`` (over their ``DWT_KV_*_TIER_*`` env
         knobs): the host ring and disk segment below the page pool.
 
-        Refused until its slice: a tp ``mesh``."""
+        ``mesh``: a ``parallel.mesh.Mesh`` with a tp axis; see the
+        module docstring for what it shards and what it refuses.  The
+        params may be a full tree (sharded here) or
+        ``engine.shard_engine_params``' result."""
         if max_queue_depth is None:
             max_queue_depth = env_int("DWT_MAX_QUEUE_DEPTH", 0)
         self.max_queue_depth = max(0, int(max_queue_depth))
@@ -331,8 +340,12 @@ class ContinuousBatchingEngine:
                 f"kv_dtype={self.kv_dtype!r} quantizes the page pool and "
                 "cannot compose with a kv_cache_dtype storage cast; drop "
                 "one of the two knobs")
-        if mesh is not None and dict(mesh.shape).get("tp", 1) > 1:
-            raise NotImplementedError(TP_LATER)
+        from ..parallel.tensor import check_graph_under_mesh, validate_tp
+        self.mesh = mesh
+        self._tp = validate_tp(cfg, mesh)
+        if self._tp > 1 and self._proposer is not None:
+            raise NotImplementedError(
+                f"speculative proposers under a tp mesh: {TP_LATER}")
         if attn_backend not in PAGED_BACKENDS:
             raise ValueError(f"unknown attn_backend {attn_backend!r}; "
                              f"expected one of {PAGED_BACKENDS}")
@@ -346,6 +359,10 @@ class ContinuousBatchingEngine:
             raise ValueError("the draft's params live on "
                              f"{draft_params.embed['tokens'].device}, the "
                              f"engine on {self.device}")
+        check_graph_under_mesh(mesh, cuda_graph, self.device)
+        if self._tp > 1:
+            from .engine import engine_params_for_mesh
+            params = engine_params_for_mesh(params, cfg, mesh)
         self.cfg, self.params = cfg, params
         self.draft_cfg, self.draft_params = draft_cfg, draft_params
         self.num_draft = num_draft
@@ -415,10 +432,16 @@ class ContinuousBatchingEngine:
         # N pages a table may name + the drop page N
         shape = (cfg.num_layers, N + 1, cfg.num_kv_heads, bt, cfg.head_dim)
         page_dtype = self.kv_cache_dtype or cfg.dtype
-        self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
-                                  self.device)
-        self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
-                                  self.device)
+        if self._tp > 1:
+            # every rank's kv-head plane (sidecars with their pages)
+            from ..parallel.tensor import alloc_tp_kv
+            self._pk, self._pv = alloc_tp_kv(mesh, "pages", shape,
+                                             page_dtype, self.kv_dtype)
+        else:
+            self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
+                                      self.device)
+            self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
+                                      self.device)
         self._tables = np.full((B, self._table_width), N, np.int32)
 
         # the host/disk tier below the pool: the demote hook gathers the
@@ -429,6 +452,9 @@ class ContinuousBatchingEngine:
         tier_host, tier_path, tier_disk = resolve_tier_config(
             kv_host_tier_bytes, kv_disk_tier_path, kv_disk_tier_bytes)
         self._kv_tier = None
+        if tier_host > 0 and self._tp > 1:
+            raise NotImplementedError(
+                f"the host / disk tier under a tp mesh: {TP_LATER}")
         if tier_host > 0:
             self._kv_tier = TieredKVStore(tier_host, bt, disk_path=tier_path,
                                           disk_bytes=tier_disk)
@@ -439,7 +465,7 @@ class ContinuousBatchingEngine:
         from ..parallel.tensor import make_paged_forward_seam
         self.attn_backend = attn_backend
         self._fwd, self._bind, _ = make_paged_forward_seam(
-            cfg, self.spec, None, params, bt, self.attn_backend,
+            cfg, self.spec, mesh, params, bt, self.attn_backend,
             num_pages=N, device_type=self.device.type)
         self._paged_chunk_mid, self._slab_body = make_paged_chunk_programs(
             self._fwd, self._bind)
@@ -640,6 +666,7 @@ class ContinuousBatchingEngine:
         :meth:`submit`.  A quantized payload needs a pool of its width
         and adopts verbatim; a full-width one into a quantized pool
         quantizes at the adopt."""
+        self._refuse_under_tp("submit_premigrated")
         if k_blocks is None:
             return self.submit(prompt_ids, max_new_tokens)
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -695,6 +722,7 @@ class ContinuousBatchingEngine:
 
         Replayed tokens append to ``tokens`` but never reach the
         stream; the replay window is recorded as ``resume_pause``."""
+        self._refuse_under_tp("submit_resumed")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         delivered = [int(t) for t in
                      np.asarray(delivered_tokens, np.int64).reshape(-1)]
@@ -797,6 +825,7 @@ class ContinuousBatchingEngine:
         dispatches): the checkpoint carries the row's adaptive K and its
         acceptance EWMA, not the draft pages or n-gram history, which the
         importer rebuilds from prompt + tokens."""
+        self._refuse_under_tp("export_request")
         req = rid if isinstance(rid, Request) else self._by_rid.get(rid)
         if req is None:
             raise KeyError(f"unknown request id {rid!r}")
@@ -917,6 +946,7 @@ class ContinuousBatchingEngine:
         the checkpointed length with no prefill.  The generator's state
         comes with it, so a single-request resume samples exactly;
         greedy streams are bit-identical regardless."""
+        self._refuse_under_tp("import_request")
         rid = request_id if request_id is not None else ckpt.get("rid")
         if not ckpt.get("tokens") or int(ckpt.get("length") or 0) <= 0:
             # cold checkpoint: plain admission (still adopted: the source
@@ -982,6 +1012,10 @@ class ContinuousBatchingEngine:
                 self._by_rid[rid] = req
             self._queue.put(req)
         return req
+
+    def _refuse_under_tp(self, what: str) -> None:
+        if self._tp > 1:
+            raise NotImplementedError(f"{what} under a tp mesh: {TP_LATER}")
 
     def get_request(self, rid: str) -> Optional[Request]:
         """The live Request registered under ``rid`` (None once it
@@ -1307,6 +1341,10 @@ class ContinuousBatchingEngine:
         # the engine that budgeted them
         if self._kv_tier is not None:
             self._kv_tier.close()
+        if self._tp > 1 and not self._thread.is_alive():
+            # every rank's plane of the pool goes with the engine
+            from ..parallel.tensor import free_tp
+            free_tp(self.mesh, self._pk, self._pv)
         # reset-on-close: this engine's pool owners leave the process
         # watermark ledger
         for owner in self._hbm_owners:
@@ -2016,12 +2054,12 @@ class ContinuousBatchingEngine:
                                     expect=expect, got=tok,
                                     replayed=len(req.tokens))
                 self._slots[slot] = None
+                self._sentinel_slot(slot)
                 self._fail_request(req, RuntimeError(
                     f"resume replay diverged at replayed token "
                     f"{len(req.tokens) + 1}: journal says {expect}, "
                     f"survivor regenerated {tok} (engine config/seed or "
                     "rng schedule differs from the original replica)"))
-                self._sentinel_slot(slot)
                 return
             req.tokens.append(tok)
             if lp is not None:
@@ -2073,11 +2111,10 @@ class ContinuousBatchingEngine:
     def _fail_request(self, req: Request, err: Optional[BaseException]):
         """Finish a request with an error, or cleanly for err=None (a
         cancel), releasing its pages and pins.  The slot's table row is
-        reset by the callers that own one."""
+        reset by the callers that own one, before they call here.  The
+        waiter wakes last, as on completion: a request seen done is out
+        of ``get_request``, its pages are back and its timeline closed."""
         self._release_request_kv(req)
-        req.error = err
-        req.stream.put(None)
-        req.done.set()
         if req.rid is not None and self._by_rid.get(req.rid) is req:
             del self._by_rid[req.rid]
         if err is not None:
@@ -2086,6 +2123,9 @@ class ContinuousBatchingEngine:
         self._close_timeline(
             req, error=(type(err).__name__ if err is not None
                         else ("cancelled" if req.cancelled else None)))
+        req.error = err
+        req.stream.put(None)
+        req.done.set()
 
     def _close_timeline(self, req: Request,
                         error: Optional[str] = None) -> None:
@@ -2139,9 +2179,9 @@ class ContinuousBatchingEngine:
         queued request with ``err``."""
         for i, req in enumerate(self._slots):
             if req is not None:
-                self._fail_request(req, err)
                 self._slots[i] = None
                 self._sentinel_slot(i)
+                self._fail_request(req, err)
         if self._adm is not None:
             self._fail_request(self._adm["req"], err)
             self._adm = None
@@ -2166,9 +2206,9 @@ class ContinuousBatchingEngine:
         """Free the slots of requests cancelled mid-flight."""
         for i, req in enumerate(self._slots):
             if req is not None and req.cancelled:
-                self._fail_request(req, None)
                 self._slots[i] = None
                 self._sentinel_slot(i)
+                self._fail_request(req, None)
 
     def _sentinel_slot(self, slot: int) -> None:
         """Route a freed slot's future writes to the drop page: its target

@@ -87,6 +87,30 @@ def dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def shard_engine_params(params: StageParams, cfg: ModelConfig, mesh):
+    """Send a full parameter tree's tp slices to the mesh's ranks in the
+    engine's layout (Megatron-sliced weights, replicated embed,
+    vocab-parallel head: the forward seam's specs), the companion to
+    ``InferenceEngine(mesh=...)``.  Returns rank 0's slice
+    (``parallel.tensor.ShardedParams``); the caller may drop the full
+    tree afterwards, so each rank holds 1/tp of the sliced weights."""
+    from ..parallel.tensor import distribute_params, validate_tp
+    validate_tp(cfg, mesh)
+    return distribute_params(params, cfg, mesh)
+
+
+def engine_params_for_mesh(params: StageParams, cfg: ModelConfig, mesh):
+    """``params`` as an engine over ``mesh`` runs them: unchanged off a
+    tp mesh, sharded (:func:`shard_engine_params`) unless they already
+    are, for that mesh."""
+    from ..parallel.tensor import tp_size
+    if tp_size(mesh) <= 1:
+        return params
+    if getattr(params, "mesh", None) is mesh:
+        return params
+    return shard_engine_params(params, cfg, mesh)
+
+
 def check_capacity(max_seq: int, prompt_len: int, max_new_tokens: int):
     """Host-side KV capacity bound: prompt + new tokens <= max_seq."""
     need = prompt_len + max_new_tokens
@@ -301,6 +325,18 @@ def run_seeded_prefill(ids, cache: KVCache, C: Optional[int], max_seq: int,
                                chunk_last if logits else None)
 
 
+def _new_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device,
+               mesh) -> KVCache:
+    """A dense working cache: on ``device``, or, over a tp mesh, every
+    rank's kv-head plane (rank 0's returned)."""
+    from ..parallel.tensor import new_tp_cache, tp_size
+    if tp_size(mesh) > 1:
+        return new_tp_cache(cfg, mesh, cfg.num_layers, batch, max_seq,
+                            dtype)
+    return KVCache.create(cfg, cfg.num_layers, batch, max_seq, dtype=dtype,
+                          device=device)
+
+
 class DecodeState:
     """The static decode state of one batch size: what a decode step
     reads and writes in place, at addresses that stay fixed for the
@@ -312,11 +348,11 @@ class DecodeState:
     replayed graph on the card)."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_seq: int, device,
-                 cache_dtype=None):
+                 cache_dtype=None, mesh=None):
         def zeros(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=device)
-        self.cache = KVCache.create(cfg, cfg.num_layers, batch, max_seq,
-                                    dtype=cache_dtype, device=device)
+        self.cache = _new_cache(cfg, batch, max_seq, cache_dtype, device,
+                                mesh)
         self.cache.length = zeros()
         self.logits = zeros(batch, cfg.vocab_size, dtype=cfg.dtype)
         self.tok = zeros(batch)
@@ -344,6 +380,7 @@ class InferenceEngine:
                  attn_backend: str = "auto",
                  kv_cache_dtype: Optional[str] = None,
                  prefill_chunk: Optional[int] = None,
+                 mesh=None,
                  kv_cache_blocks: Optional[int] = None,
                  kv_block_tokens: Optional[int] = None,
                  kv_layout: Optional[str] = None,
@@ -381,10 +418,32 @@ class InferenceEngine:
         ``kv_dtype`` int8/int4.  The host / disk tier below the pool
         comes from the ``DWT_KV_*_TIER_*`` knobs (``kvcache/tiered.py``).
         ``kv_layout`` takes the
-        reference's only value, "paged".  Other arguments as in the
-        reference."""
+        reference's only value, "paged".
+
+        ``mesh``: a ``parallel.mesh.Mesh`` with a ``tp`` axis: every
+        forward then runs on every rank with Megatron-sliced weights
+        (:func:`shard_engine_params`; a full tree is sharded here) and a
+        kv-head-sharded cache and prefix pool, through the seam of
+        ``parallel/tensor.py``; logits come back replicated, so sampling
+        and the decode loop are unchanged.  Each rank's attention hook is
+        the engine's backend at its head counts (the flash kernel on the
+        card).  The step runs eagerly: ``cuda_graph=True`` on the card
+        raises (``parallel.tensor.check_graph_under_mesh``).  Other
+        arguments as in the reference."""
         self.kv_layout = resolve_kv_layout(kv_layout)
         self.device = resolve_device(device)
+        from ..parallel.tensor import (check_graph_under_mesh,
+                                       make_forward_seam,
+                                       resolve_tp_attn_backend, TPPoolOps,
+                                       validate_tp)
+        self.mesh = mesh
+        tp = validate_tp(cfg, mesh)
+        check_graph_under_mesh(mesh, cuda_graph, self.device)
+        if tp > 1 and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device}, the engine "
+                             f"on {self.device}")
+        attn_backend = resolve_tp_attn_backend(tp, attn_backend)
+        params = engine_params_for_mesh(params, cfg, mesh)
         p_dev = params.embed["tokens"].device
         if p_dev.type != self.device.type:
             raise ValueError(f"params live on {p_dev}, the engine on "
@@ -415,10 +474,16 @@ class InferenceEngine:
             attn_backend, self.device.type, cfg.head_dim)
         self._attn_impl = (make_flash_attn_impl()
                            if self.attn_backend == "flash" else None)
+        self._seam = None
+        if tp > 1:
+            self._seam, _ = make_forward_seam(
+                cfg, self.spec, mesh, params,
+                attn_backend=self.attn_backend)
         self.kv_cache = make_kv_backend(
             cfg, kv_cache_blocks, kv_block_tokens, layout=self.kv_layout,
             dtype=self.kv_cache_dtype, kv_dtype=kv_dtype, default_blocks=0,
-            device=self.device)
+            device=self.device,
+            device_ops=TPPoolOps(mesh) if tp > 1 else None)
         # observatory seams: the decode step's graph captures book under
         # "decode_loop" (no variant budget: it forks per batch size), and
         # the sampled dispatch profiler
@@ -434,6 +499,9 @@ class InferenceEngine:
     # -- forward programs ----------------------------------------------
 
     def _fwd(self, ids, cache, pos, last_logits_only):
+        if self._seam is not None:
+            return self._seam(self.params, ids, cache, pos,
+                              last_logits_only)
         return stage_forward(self.params, self.cfg, self.spec, ids, cache,
                              pos, attn_impl=self._attn_impl,
                              last_logits_only=last_logits_only)
@@ -546,7 +614,7 @@ class InferenceEngine:
         st = self._states.get(batch)
         if st is None:
             st = DecodeState(self.cfg, batch, self.max_seq, self.device,
-                             self.kv_cache_dtype)
+                             self.kv_cache_dtype, self.mesh)
             st.step = self._graphs.capture(lambda: self._decode_step(st),
                                            program="decode_loop")
             self._states[batch] = st
@@ -638,9 +706,8 @@ class InferenceEngine:
         return ids.to(self.device)
 
     def new_cache(self, batch: int) -> KVCache:
-        return KVCache.create(self.cfg, self.cfg.num_layers, batch,
-                              self.max_seq, dtype=self.kv_cache_dtype,
-                              device=self.device)
+        return _new_cache(self.cfg, batch, self.max_seq, self.kv_cache_dtype,
+                          self.device, self.mesh)
 
     # -- public surface ------------------------------------------------
 

@@ -52,11 +52,16 @@ class PagedKVBackend:
                  dtype=None, kv_dtype=None, device=None,
                  kv_host_tier_bytes: Optional[int] = None,
                  kv_disk_tier_path: Optional[str] = None,
-                 kv_disk_tier_bytes: Optional[int] = None):
+                 kv_disk_tier_bytes: Optional[int] = None,
+                 device_ops=None):
         """``dtype``: the pages' storage cast (float8 e4m3), None for the
         model's dtype; ``kv_dtype``: the page width ("bf16", "int8",
         "int4"); ``device``: where the pool lives; the tier knobs over
-        their env knobs (``tiered.resolve_tier_config``)."""
+        their env knobs (``tiered.resolve_tier_config``).
+        ``device_ops``: the pool's allocation, seed gather and store
+        scatter (``alloc`` / ``seed`` / ``store``) when the pool is
+        sharded over a tp mesh (``parallel.tensor.TPPoolOps``: every
+        rank's kv-head plane); None runs them here."""
         from ...ops.quant import alloc_kv_pages, resolve_kv_dtype
         from .tiered import (TieredKVStore, make_demote_hook,
                              resolve_tier_config)
@@ -72,9 +77,20 @@ class PagedKVBackend:
         # N pages a table may name + the drop page N
         shape = (cfg.num_layers, self.num_blocks + 1, cfg.num_kv_heads,
                  self.block_tokens, cfg.head_dim)
-        self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype, device)
-        self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype, device)
+        self._ops = device_ops
+        if device_ops is not None:
+            self._pk, self._pv = device_ops.alloc(shape, self.kv_dtype,
+                                                  page_dtype, device)
+        else:
+            self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
+                                      device)
+            self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
+                                      device)
         self.tier = None
+        if tier_host > 0 and device_ops is not None:
+            from ...parallel.tensor import TP_LATER
+            raise NotImplementedError(f"the host tier under a tp mesh: "
+                                      f"{TP_LATER}")
         if tier_host > 0:
             self.tier = TieredKVStore(tier_host, self.block_tokens,
                                       disk_path=tier_path,
@@ -102,8 +118,9 @@ class PagedKVBackend:
         if lease is None:
             return 0, cache
         m = lease.tokens
-        seed_cache_from_pages(cache.keys, cache.values, self._pk, self._pv,
-                              lease.block_ids)
+        seed = (self._ops.seed if self._ops is not None
+                else seed_cache_from_pages)
+        seed(cache.keys, cache.values, self._pk, self._pv, lease.block_ids)
         lease.release()
         return m, KVCache(cache.keys, cache.values, m)
 
@@ -126,8 +143,10 @@ class PagedKVBackend:
         block_ids = self.mgr.alloc(missing)
         if block_ids is None:
             return
-        store_cache_to_pages(self._pk, self._pv, cache.keys, cache.values,
-                             block_ids, covered)
+        store = (self._ops.store if self._ops is not None
+                 else store_cache_to_pages)
+        store(self._pk, self._pv, cache.keys, cache.values, block_ids,
+              covered)
         adopted, lease = self.mgr.store_shared(
             prompt, [None] * covered + list(block_ids))
         if lease is not None:
@@ -171,7 +190,8 @@ def make_kv_backend(cfg, kv_cache_blocks: Optional[int],
                     device=None,
                     kv_host_tier_bytes: Optional[int] = None,
                     kv_disk_tier_path: Optional[str] = None,
-                    kv_disk_tier_bytes: Optional[int] = None):
+                    kv_disk_tier_bytes: Optional[int] = None,
+                    device_ops=None):
     """The one constructor every engine calls: resolve the block-count /
     block-tokens knobs (argument over env over ``default_blocks``) and
     build the pool, or None when it is off (0 blocks, or a
@@ -208,4 +228,5 @@ def make_kv_backend(cfg, kv_cache_blocks: Optional[int],
                           kv_dtype=kv_dtype, device=device,
                           kv_host_tier_bytes=kv_host_tier_bytes,
                           kv_disk_tier_path=kv_disk_tier_path,
-                          kv_disk_tier_bytes=kv_disk_tier_bytes)
+                          kv_disk_tier_bytes=kv_disk_tier_bytes,
+                          device_ops=device_ops)

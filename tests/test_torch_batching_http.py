@@ -235,12 +235,16 @@ def test_cli_batching_flags(capsys, monkeypatch):
     assert cli.main(["serve", "--model", "llama-test", "--device", "cpu",
                      "--batch-slots", "2", "--stream-block", "4"]) == 1
     assert "--decode-block" in capsys.readouterr().err
-    # what this slice leaves out exits 1
-    for extra in (["--batch-slots", "2", "--tp", "2"],
-                  ["--sp", "2"]):
+    # what this slice leaves out exits 1 (tp under a draft model), and
+    # --sp pairs with no other serve mode (the reference's text)
+    for extra, err in (
+            (["--batch-slots", "2", "--tp", "2", "--draft-model",
+              "llama-test"], "not yet ported"),
+            (["--sp", "2", "--batch-slots", "2"],
+             "choose one serve mode, got --batch-slots + --sp")):
         assert cli.main(["serve", "--model", "llama-test", "--device",
                          "cpu", *extra]) == 1
-        assert "not yet ported" in capsys.readouterr().err
+        assert err in capsys.readouterr().err
     # the tier flags are served; a disk segment without the host ring
     # above it is the reference's own refusal (the flags set their env
     # knobs: cleared here, whatever the outcome, and any earlier value

@@ -122,10 +122,12 @@ def test_generate_refusals_equal_reference(bridged):
                                      "cpu", *argv])
         rrc, _, rerr = _run(ref_cli.main, ["generate", *ENGINE_ARGS, *argv])
         assert rc == rrc == 1 and err == rerr and err
-    # a flag of a mode not ported yet names itself
+    # --sp is exclusive with --tp: the reference's text
+    argv = ["--prompt-ids", "1,2", "--sp", "2", "--tp", "2"]
     rc, _, err = _run(cli.main, ["generate", *ENGINE_ARGS, "--device", "cpu",
-                                 "--prompt-ids", "1,2", "--sp", "2"])
-    assert rc == 1 and "--sp" in err and "not yet ported" in err
+                                 *argv])
+    rrc, _, rerr = _run(ref_cli.main, ["generate", *ENGINE_ARGS, *argv])
+    assert rc == rrc == 1 and "--sp" in err and err == rerr
 
 
 def _dataset(tmp_path, weights, names=("a", "b", "c")):

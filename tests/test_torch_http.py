@@ -151,8 +151,9 @@ def test_cli_serve_flags(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["serve", "--model", "llama-test"])
+    # tp under a proposer is the next slice's (tp itself is served)
     assert cli.main(["serve", "--model", "llama-test", "--batch-slots",
-                     "4", "--tp", "2"]) == 1
+                     "4", "--tp", "2", "--prompt-lookup"]) == 1
     assert "not yet ported" in capsys.readouterr().err
     assert cli.main(["worker", "--model", "llama-test"]) == 1
     assert "not yet ported" in capsys.readouterr().err

@@ -390,4 +390,5 @@ def test_kv_dtype_refuses_a_storage_cast(weights):
                                  **kw)
     with pytest.raises(NotImplementedError, match="A13"):
         ContinuousBatchingEngine(cfg, params, device="cpu", max_seq=64,
+                                 kv_dtype="int8", prompt_lookup=True,
                                  mesh=SimpleNamespace(shape={"tp": 2}))

@@ -87,3 +87,43 @@ def test_port_imports_with_zmq_and_ml_dtypes_blocked():
     assert res.returncode == 0, res.stderr
     out = res.stdout.split()
     assert out[0] == "zmq-lazy" and int(out[1]) >= 25
+
+
+def test_mesh_follower_entry_point_imports_no_jax():
+    """A spawned follower (``parallel.mesh._follower_main``) and the
+    commands it runs (a tp forward, an sp generation, an ep MLP) import
+    neither JAX nor the JAX package, with both blocked in rank 0."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'distributed_inference_demo_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from distributed_inference_demo_tpu_torch.models import "
+        "get_model_config\n"
+        "from distributed_inference_demo_tpu_torch.models.decoder import "
+        "init_full_params\n"
+        "from distributed_inference_demo_tpu_torch.parallel import mesh "
+        "as M, tensor as T, sequence as S\n"
+        "from distributed_inference_demo_tpu_torch.runtime.engine import "
+        "InferenceEngine\n"
+        "if __name__ == '__main__':\n"
+        "    cfg = get_model_config('llama-test')\n"
+        "    p = init_full_params(torch.Generator().manual_seed(0), cfg, "
+        "'cpu')\n"
+        "    with M.local_tp_mesh(2, 'cpu', 60) as mesh:\n"
+        "        InferenceEngine(cfg, p, device='cpu', mesh=mesh"
+        ").generate([[1, 2, 3, 4]], 2)\n"
+        "        mods = M.loaded_modules(mesh)\n"
+        "    with M.local_sp_mesh(2, 'cpu', 60) as mesh:\n"
+        "        S.make_sp_generate_fn(cfg, mesh, max_seq=16, "
+        "num_new_tokens=2)(p, [[1, 2, 3, 4]])\n"
+        "        mods += M.loaded_modules(mesh)\n"
+        "    bad = sorted({n for ms in mods for n in ms\n"
+        "                  if n.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                  'distributed_inference_demo_tpu')})\n"
+        "    print('BAD', bad, len(mods))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("BAD")]
+    assert line == ["BAD [] 4"], res.stdout
