@@ -8,8 +8,9 @@ their plain versions.
                                           # batching, mixed, graph,
                                           # quant, kvcache, surface,
                                           # speculative, fleet, chain,
-                                          # server, parallel, moe), no
-                                          # result lines
+                                          # server, vision, native,
+                                          # parallel, moe), no result
+                                          # lines
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -206,10 +207,11 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             left in either pool, the ``/stats`` fragment, the K_row
             buckets visited, greedy tokens against the plain batching
             engine's (partings at near ties, ``_batch_partings``),
-            replayed = eager, tok/s, ms a round, idle share; in f32, 6
-            concurrent requests of either proposer, serialized and
-            mixed, token-exact against a plain batching engine's, and
-            the kernels against the gather path; ``serve
+            replayed = eager, tok/s, ms a round, idle share; in f32
+            (the target at SPEC_F32_LAYERS, 6, of its 22 layers, full
+            width), the batching phase's requests with either proposer,
+            serialized and mixed, token-exact against a plain batching
+            engine's, and the kernels against the gather path; ``serve
             --draft-model`` and ``serve --batch-slots 8
             --prompt-lookup`` over HTTP, blocking and streamed (the
             streamed request's prefix hit beside the plain ``serve
@@ -268,16 +270,20 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             both ranks' flash launches (L a prefill) and dense launches
             (7 x L a forward, on the sliced int8 weights), ms/token at
             both widths; mixtral-tpu-1b f32 at ep=2 (4 experts a rank)
-            against the all-experts path; TinyLlama f32 sp=2, ring and
+            against the all-experts path; TinyLlama f32 sp=2 at
+            SP_LAYERS (6) of its 22 layers, full width, ring and
             Ulysses, on a SP_PROMPT_LEN-token prompt: tokens equal the
-            single-device engine's, Ulysses' flash launches (L a rank);
+            single-device engine's at that depth, Ulysses' flash
+            launches (L a rank);
     (phase 2 holds the per-rank instances: one tp=2 rank of TinyLlama's
     heads at the paged kernels' 8-slot decode and 64-token chunk, of
     llama-3-8b's at the flash kernel's 64-token prompt, and llama-3-8b's
     sliced int8 weights at the dense kernels)
-16. chain   the ring pipeline at TinyLlama's full width and depth (bf16,
-            random weights from seed 0): CHAIN_STAGES elastic stages of
-            ``split_layer_ranges(22, 3)``, each on the card in a thread
+16. chain   the ring pipeline at TinyLlama's full width and CHAIN_LAYERS
+            (6) of its 22 layers (bf16, random weights from seed 0; the
+            engines it is held to at the same depth): CHAIN_STAGES
+            elastic stages of ``split_layer_ranges(6, 3)``, each on the
+            card in a thread
             of this process over ``LoopbackTransport`` (the card machine
             has no pyzmq), under an ``ElasticHeader``; four greedy
             requests of 20-1500 tokens, 32 new each, interleaved
@@ -320,11 +326,46 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             stage's dense decode launches = its layers x 7 x its hops;
             ``cli bench`` in process: flash launches = L x prefills;
     (phase 2 holds the flash kernel at bench's shape, 8 rows of 64 tokens)
-18. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+18. vision  ``serve --vision --vision-preset llava15`` at full width and
+            depth: the CLIP-ViT-L/14-336 tower (24 layers of 1024, 576
+            patches, bf16) and its projector in front of TinyLlama,
+            random weights from ``--weights-seed`` 0, built by the CLI's
+            ``build_vision_backend``.  Over HTTP, counted from 0, a
+            336 x 336 x 3 JSON image request and a text request: flash
+            launches = L x 2 prefills (the image's 600-row prefix in one
+            forward), graph replays = the decode steps, the image answer
+            = ``MultimodalEngine.generate``'s tokens and the text answer
+            = a plain ``InferenceEngine``'s, exactly; ``/stats``, a bad
+            shape's 400 and an image stream's 501.  The bf16 tower
+            against its weights in f32 on the card (max |diff| within
+            VISION_TOWER_TOL_REL of the largest value, relative RMS
+            within VISION_TOWER_RMS_REL); the prefix logits through the
+            flash kernel against plain attention on the same embeds
+            (bf16 tolerance), the greedy image stream against plain
+            attention's (near ties only); ``MultimodalHeader`` +
+            ``VisionWorker`` + a ``PipelineWorker`` (two paged stages)
+            over ``LoopbackTransport`` threads: an image and a text
+            request, tokens = the engine's up to near ties, each stage's
+            paged launches = its layers x chunks and x hops, pools
+            whole.  Reported: the tower's ms an image, the prefix
+            prefill's ms, the graph decode's ms a token, the host's
+            seconds to parse the JSON image;
+    (phase 2 holds the flash kernel at the 600-row prefix, and the paged
+    kernels at the ring stages' prefix chunk and last decode token)
+19. native  the native library (``comm/native``) built with g++ from the
+            port's own sources into ``build/native/``: codec frames =
+            ``comm/wire.py``'s byte for byte on every wire dtype (a bf16
+            hidden chunk from the card included), decoded back equal, a
+            corrupted frame rejected; native tokenizer ids and text =
+            the python backend's on a bytelevel and a metaspace
+            ``tokenizer.json`` the phase writes (special tokens, byte
+            fallback); the build's seconds, each codec's µs a frame and
+            each tokenizer backend's encode µs per 1 KB of text;
+20. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
-Phases 10 to 17 run in the order 11, 12, 13, 14, 16, 17, 15, 10: the moe
-phase last, after the earlier phases freed their memory.  Every phase line carries
+Phases 10 to 19 run in the order 11, 12, 13, 14, 16, 17, 18, 19, 15, 10:
+the moe phase last, after the earlier phases freed their memory.  Every phase line carries
 its wall ``seconds``.  Exits non-zero, printing no
 result, without CUDA or outside a checkout, and on any failed check.
 """
@@ -335,6 +376,7 @@ import subprocess
 import sys
 import time
 import traceback
+import urllib.error
 import urllib.request
 
 SERVE_MODEL = "tinyllama-1.1b"
@@ -446,6 +488,7 @@ SPEC_NEW = 128
 SPEC_SPAN = 64
 SPEC_REPEATS = 4
 SPEC_ROUNDS_PROFILED = 4
+SPEC_F32_LAYERS = 6      # the f32 speculative batching check's depth cut
 SPEC_EAGER_NEW = 16      # tokens of an eager run held to the graph's
 VERIFY_STARTS = (20, 150, 300, 600, 1000, 1500, 1999, None)
 # the parallel phase: tp=2 ranks as processes on the one card (gloo
@@ -459,6 +502,12 @@ PAR_GENERATE_NEW = 16
 PAR_GENERATE_LAYERS = 4
 PAR_BATCHING_LAYERS = 6
 SP_PROMPT_LEN = 3072
+SP_LAYERS = 6          # the sp check's depth cut (full width, f32)
+# the vision phase's prefix: the llava15 tower's 576 patches and the text
+VISION_PATCHES = 576
+VISION_TEXT = 24
+VISION_NEW = 32
+VISION_PREFIX = VISION_PATCHES + VISION_TEXT
 SP_NEW = 8
 SP_MAX_SEQ = 3200
 
@@ -625,6 +674,10 @@ def kernel_cases():
     cases.append(("tinyllama-long", 1, MAX_SEQ, 0, 32, 4, 64, False))
     # the server phase's bench: 8 rows of a PROMPT_LEN-token prompt
     cases.append(("tinyllama-bench", 8, PROMPT_LEN, 0, 32, 4, 64, False))
+    # the vision phase's multimodal prefix: 576 patches + the text, one
+    # prefill at 0
+    cases.append(("tinyllama-vision", 1, VISION_PREFIX, 0, 32, 4, 64,
+                  False))
     cases.append(("bloom560m-ragged", 1, 37, 7, 16, 16, 64, True))
     for chunk in (256, 257):
         cases.append(("tinyllama-threshold", 1, chunk, 0, 32, 4, 64, False))
@@ -879,6 +932,12 @@ def paged_cases():
                (longest + CHAIN_NEW - 1,), "full"),
               (SERVE_MODEL + "-chain", "prefill", nh, nkv, hd, alibi,
                (longest, (0,)), "full")]
+    # the vision phase's ring stages: the multimodal prefix's chunk at 0,
+    # and one token at its last length
+    cases += [(SERVE_MODEL + "-vision", "decode", nh, nkv, hd, alibi,
+               (VISION_PREFIX + VISION_NEW - 1,), "full"),
+              (SERVE_MODEL + "-vision", "prefill", nh, nkv, hd, alibi,
+               (VISION_PREFIX, (0,)), "full")]
     return cases
 
 
@@ -1092,6 +1151,15 @@ def _post_path(port: int, path: str, body: dict):
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=600) as resp:
         return resp.status, resp.read().decode()
+
+
+def _post_status(port: int, body: dict):
+    """``POST /generate`` that returns an error status instead of raising
+    it: (status, body text)."""
+    try:
+        return _post(port, body)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
 
 
 def _get(port: int, path: str):
@@ -4768,15 +4836,18 @@ def phase_speculative(torch, ptxas: list) -> dict:
     lap("pld_serialized_fp8")
     # f32, 8 concurrent requests: the draft model serialized and prompt
     # lookup mixed, each token-exact against a plain batching engine's
-    # (the round logic), kernels and gather path alike (the attention)
+    # (the round logic), kernels and gather path alike (the attention);
+    # the target at SPEC_F32_LAYERS of its layers, full width (the check
+    # holds at any depth)
+    cut32 = cfg32.replace(num_layers=SPEC_F32_LAYERS)
     p32 = init_full_params(torch.Generator(device="cuda").manual_seed(0),
-                           cfg32, "cuda")
+                           cut32, "cuda")
     d32 = init_full_params(torch.Generator(device="cuda").manual_seed(0),
                            dcfg32, "cuda")
     mixed32 = dict(mixed_token_budget=MIXED_BUDGET)
 
     def together(**kw2):
-        with batching(cfg32, p32, **kw2) as eng:
+        with batching(cut32, p32, **kw2) as eng:
             reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
             got = [r.wait(timeout=900).tolist() for r in reqs]
         return got
@@ -4800,7 +4871,8 @@ def phase_speculative(torch, ptxas: list) -> dict:
             _check(not parted, f"f32 {key}: tokens part from the "
                    f"plain batching engine's at (request, step) "
                    f"{parted}")
-    out["batching_f32_vs_plain"] = f32
+    out["batching_f32_vs_plain"] = dict(
+        f32, layers=SPEC_F32_LAYERS, layers_of_the_model=cfg.num_layers)
     del p32, d32
     torch.cuda.empty_cache()
     out["batching"] = batch
@@ -6009,7 +6081,7 @@ def parallel_ep(torch) -> dict:
 
 def parallel_sp(torch) -> dict:
     """TinyLlama f32 at sp=2, ring and Ulysses, on a SP_PROMPT_LEN-token
-    prompt: SP_NEW greedy tokens equal the single-device engine's at the
+    prompt, at SP_LAYERS of its layers (full width): SP_NEW greedy tokens equal the single-device engine's at the
     same max_seq; each strategy's seconds against the engine's, Ulysses'
     flash launches (L a prefill on each rank: its head blocks attend
     through the kernel), the collectives' ms and staged bytes."""
@@ -6032,7 +6104,8 @@ def parallel_sp(torch) -> dict:
     from distributed_inference_demo_tpu_torch.runtime.engine import \
         InferenceEngine
 
-    cfg = get_model_config(SERVE_MODEL).replace(dtype_name="float32")
+    full = get_model_config(SERVE_MODEL)
+    cfg = full.replace(dtype_name="float32", num_layers=SP_LAYERS)
     L = cfg.num_layers
     params = init_full_params(torch.Generator(device="cuda").manual_seed(0),
                               cfg, "cuda")
@@ -6044,6 +6117,7 @@ def parallel_sp(torch) -> dict:
     res = one.generate(prompt, SP_NEW)
     want = res.tokens.tolist()
     out = {"check": "sp", "model": SERVE_MODEL, "sp": 2, "dtype": "float32",
+           "layers": L, "layers_of_the_model": full.num_layers,
            "prompt_len": SP_PROMPT_LEN, "new_tokens": SP_NEW,
            "max_seq": SP_MAX_SEQ, "single_s": res.seconds}
     del one
@@ -6106,6 +6180,11 @@ def phase_parallel(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 CHAIN_STAGES = 3
+# the chain phase's depth cut (full width): every check holds at any depth
+# (per-stage launches = layers x chunks, tokens against the engine at the
+# same depth, the reshards, f32 exact), and the eager stages' time scales
+# with it
+CHAIN_LAYERS = 6
 CHAIN_PROMPTS = (20, 150, 600, 1500)
 CHAIN_NEW = 32
 CHAIN_HTTP = (20, 150)           # the prompts also served over HTTP
@@ -6259,8 +6338,10 @@ def _chain_hop_stats(header, workers) -> list:
 
 
 def phase_chain(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
-    """The ring pipeline at full width and depth (bf16, random weights
-    from seed 0, ``max_seq`` MAX_SEQ): CHAIN_STAGES elastic stages, each
+    """The ring pipeline at full width and CHAIN_LAYERS of the model's
+    layers (bf16, random weights from seed 0, ``max_seq`` MAX_SEQ; the
+    single-device engines it is held to at the same depth):
+    CHAIN_STAGES elastic stages, each
     on the card in its own thread, under an ``ElasticHeader``.  The
     main path: CHAIN_PROMPTS' greedy requests, CHAIN_NEW new tokens
     each, interleaved through ``generate_many`` (``pool_size`` 4), then
@@ -6293,13 +6374,15 @@ def phase_chain(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
 
     t_phase = time.perf_counter()
     greedy = SamplingParams(greedy=True)
-    cfg = get_model_config(model)
+    full_depth = get_model_config(model).num_layers
+    cfg = get_model_config(model).replace(num_layers=CHAIN_LAYERS)
     rng = np.random.RandomState(7)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)[None]
                for n in CHAIN_PROMPTS]
     timing_prompt = rng.randint(0, cfg.vocab_size, PROMPT_LEN).astype(
         np.int32)[None]
-    out = {"phase": "chain", "device": torch.cuda.get_device_name(0)
+    out = {"phase": "chain", "layers": CHAIN_LAYERS,
+           "layers_of_the_model": full_depth, "device": torch.cuda.get_device_name(0)
            if dev == "cuda" else dev, "power": nvidia_smi_line()
            if dev == "cuda" else None, "model": model,
            "stages": CHAIN_STAGES, "prompts": list(CHAIN_PROMPTS),
@@ -6919,6 +7002,541 @@ def phase_server(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: multimodal serving (the LLaVA tower in front of the decoder)
+# ---------------------------------------------------------------------------
+
+VISION_PRESET = "llava15"       # CLIP-ViT-L/14-336: 24 x 1024, 576 patches
+VISION_SEED = 11
+# the bf16 tower against the same weights in f32: max |diff| within
+# VISION_TOWER_TOL_REL of max(1, max |f32|), and the relative RMS within
+# VISION_TOWER_RMS_REL
+VISION_TOWER_TOL_REL = 5e-2
+VISION_TOWER_RMS_REL = 3e-2
+VISION_TIMED = 10               # calls timed for the tower and the prefill
+
+
+def _mm_teacher_logits(torch, engine, embeds, tokens) -> "np.ndarray":
+    """Last logits after the multimodal prefix ``embeds`` and ``tokens``
+    (the stream so far), one forward through ``engine`` (an
+    ``InferenceEngine``)."""
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        embed_tokens
+    ids = torch.tensor([tokens], dtype=torch.int64, device=embeds.device)
+    with torch.no_grad():
+        x = torch.cat([embeds, embed_tokens(engine.params, engine.cfg, ids)],
+                      dim=1)
+    return engine.prefill_embeds_logits(x)[0]
+
+
+def mm_partings(torch, engine, embeds, got, want) -> list:
+    """Where the bf16 stream ``got`` parts from ``want`` after the
+    multimodal prefix: the first differing step and the gap between the
+    two tokens' logits there, teacher forced through the plain-attention
+    ``engine``; a parting must sit at a near tie (LOGIT_TOL_REL of the
+    largest logit)."""
+    import numpy as np
+    if got == want:
+        return []
+    j = next(k for k in range(min(len(got), len(want))) if got[k] != want[k])
+    ls = _mm_teacher_logits(torch, engine, embeds, want[:j])
+    row = {"step": j, "margin": float(abs(ls[want[j]] - ls[got[j]])),
+           "logit_tol": LOGIT_TOL_REL * max(1.0, float(np.abs(ls).max()))}
+    _check(row["margin"] <= row["logit_tol"],
+           f"a multimodal stream parts away from a near tie: {row}")
+    return [row]
+
+
+def _vision_ring(torch, mm, dev: str):
+    """(header, workers, vision, threads): ``MultimodalHeader`` and one
+    ``PipelineWorker`` over ``split_layer_ranges(L, 2)`` on paged stage
+    pools, and a ``VisionWorker`` on ``mm``'s tower, each worker's loop on
+    a thread of this process over ``LoopbackTransport``."""
+    import threading
+
+    from distributed_inference_demo_tpu_torch.comm.transport import (
+        LoopbackNetwork, LoopbackTransport)
+    from distributed_inference_demo_tpu_torch.models.base import (
+        slice_stage, split_layer_ranges)
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.distributed import (
+        PipelineWorker, StageRuntime)
+    from distributed_inference_demo_tpu_torch.runtime.multimodal import (
+        MultimodalHeader, VisionWorker)
+
+    greedy = SamplingParams(greedy=True)
+    cfg, params = mm.cfg, mm.engine.params
+    net = LoopbackNetwork()
+    specs = split_layer_ranges(cfg.num_layers, 2)
+    rts = [StageRuntime(cfg, s, slice_stage(params, cfg, s), MAX_SEQ, greedy,
+                        kv_layout="paged", device=dev) for s in specs]
+    workers = [PipelineWorker(rts[1], LoopbackTransport("s1", net),
+                              next_id=None, header_id="s0",
+                              step_timeout=600)]
+    vision = VisionWorker(mm.vparams, mm.vcfg, LoopbackTransport("vis", net),
+                          header_id="s0", step_timeout=600)
+    threads = [threading.Thread(target=w.serve_forever, daemon=True)
+               for w in workers + [vision]]
+    for t in threads:
+        t.start()
+    header = MultimodalHeader(rts[0], LoopbackTransport("s0", net), "s1",
+                              "vis", step_timeout=600)
+    return header, workers, vision, threads
+
+
+def phase_vision(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
+    """``serve --vision --vision-preset llava15`` at full width and depth:
+    the CLIP-ViT-L/14-336 tower (24 layers of 1024, 576 patches, bf16) and
+    its projector in front of TinyLlama (bf16), random weights from
+    ``--weights-seed`` 0, built by the CLI's own ``build_vision_backend``.
+    The main path, counted from 0: ``POST /generate`` with a 336 x 336 x 3
+    JSON image and one without, through ``InferenceHTTPServer`` over that
+    backend: the flash kernel's launches = L x prefills (the image
+    request's 576 + VISION_TEXT-row prefix in one forward), the decode
+    steps graph replays, the image answer equal to ``MultimodalEngine.
+    generate`` and the text answer to a plain ``InferenceEngine``'s
+    tokens, exactly; ``/stats``.  Then: (a) the bf16 tower against the
+    same weights in f32 on the card; (b) the prefix logits through the
+    flash kernel against a plain-attention engine on the same embeds
+    (bf16 tolerance), and the greedy image stream against that engine's
+    (partings at near ties only); (e) ``MultimodalHeader`` +
+    ``VisionWorker`` + one ``PipelineWorker`` (two paged stages) over
+    ``LoopbackTransport`` threads: an image and a text request, tokens
+    equal the engine's up to near ties, each stage's paged launches =
+    its layers x chunks and x hops, pools whole.  Reported: the tower's
+    ms for one image, the prefix prefill's ms, the graph decode's ms a
+    token, the host's seconds to parse the JSON image."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch import cli
+    from distributed_inference_demo_tpu_torch.models.vision import \
+        vision_forward
+    from distributed_inference_demo_tpu_torch.ops import flash_attention as fa
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+    from distributed_inference_demo_tpu_torch.runtime.http_server import \
+        InferenceHTTPServer
+    from distributed_inference_demo_tpu_torch.runtime.multimodal import \
+        MultimodalEngine
+
+    t_phase = time.perf_counter()
+    on_card = dev == "cuda"
+    args = cli._serve_parser().parse_args([
+        "--model", model, "--vision", "--vision-preset", VISION_PRESET,
+        "--greedy", "--max-seq", str(MAX_SEQ), "--weights-seed", "0",
+        "--device", dev])
+    t1 = time.perf_counter()
+    backend = cli.build_vision_backend(args)
+    mm = backend.mm
+    eng, cfg, vcfg = mm.engine, mm.cfg, mm.vcfg
+    L = cfg.num_layers
+    out = {"phase": "vision", "device": torch.cuda.get_device_name(0)
+           if on_card else dev, "power": nvidia_smi_line()
+           if on_card else None, "model": model, "tower": VISION_PRESET,
+           "tower_layers": vcfg.num_layers, "tower_hidden": vcfg.hidden_size,
+           "patches": vcfg.num_patches, "text_tokens": VISION_TEXT,
+           "new_tokens": VISION_NEW, "attn": eng.attn_backend,
+           "build_s": time.perf_counter() - t1}
+    _check(eng.attn_backend == ("flash" if on_card else "plain"),
+           f"the vision engine's attention is {eng.attn_backend}")
+    rng = np.random.RandomState(VISION_SEED)
+    shape = (vcfg.image_size, vcfg.image_size, vcfg.channels)
+    image = rng.rand(1, *shape).astype(np.float32)
+    text = rng.randint(0, cfg.vocab_size, (1, VISION_TEXT)).astype(np.int32)
+    n_prefix = vcfg.num_patches + VISION_TEXT
+    _check(not on_card or n_prefix == VISION_PREFIX,
+           f"the {VISION_PRESET} prefix is {n_prefix} rows, the kernel "
+           f"rows assume {VISION_PREFIX}")
+    plain_text = InferenceEngine(cfg, eng.params, max_seq=MAX_SEQ,
+                                 sampling=eng.sampling, device=dev)
+    server = InferenceHTTPServer(backend, model_name=model,
+                                 default_max_new=VISION_NEW)
+    server.start()
+    try:
+        # ---- the main path: counts from zero, an image and a text
+        # request over HTTP ----
+        image_body = {"prompt_ids": text.tolist(),
+                      "image": image[0].tolist(),
+                      "max_new_tokens": VISION_NEW}
+        replays0 = eng.graph_replays
+        fa.flash_attention.launches = fa.flash_attention.wide_launches = 0
+        t1 = time.perf_counter()
+        code, body = _post(server.port, image_body)
+        out["image_request_s"] = time.perf_counter() - t1
+        _check(code == 200, f"image request: HTTP {code} {body[:200]}")
+        image_toks = json.loads(body)["tokens"]
+        code, body = _post(server.port, {"prompt_ids": text.tolist(),
+                                         "max_new_tokens": VISION_NEW})
+        _check(code == 200, f"text request: HTTP {code}")
+        text_toks = json.loads(body)["tokens"]
+        out["launches"] = {"flash": fa.flash_attention.launches,
+                           "flash_wide": fa.flash_attention.wide_launches}
+        out["graph_replays"] = eng.graph_replays - replays0
+        if on_card:
+            _check(out["launches"]["flash"] == 2 * L,
+                   f"{out['launches']} flash launches, expected {2 * L} "
+                   "(L x 2 prefills)")
+            _check(out["graph_replays"] == 2 * VISION_NEW,
+                   f"{out['graph_replays']} replays, expected "
+                   f"{2 * VISION_NEW}")
+        code, stats = _get(server.port, "/stats")
+        _check(code == 200 and stats["mode"] == "multimodal"
+               and stats["requests_image"] == 1
+               and stats["requests_text"] == 1
+               and stats["patches_per_image"] == vcfg.num_patches,
+               f"/stats {stats}")
+        # a bad shape is the reference's 400, an image with stream 501
+        code, _ = _post_status(server.port, {**image_body, "image": [[0.0]]})
+        _check(code == 400, f"a bad image answered {code}")
+        code, _ = _post_status(server.port, {**image_body, "stream": True})
+        _check(code == 501, f"an image with stream answered {code}")
+    finally:
+        server.shutdown()
+    want_image = mm.generate(image, text, VISION_NEW).tokens.tolist()
+    _check(image_toks == want_image, "the HTTP image answer differs from "
+           "MultimodalEngine.generate's tokens")
+    # (c) text-only through the backend = the plain engine, exactly
+    want_text = plain_text.generate(text, VISION_NEW).tokens.tolist()
+    _check(text_toks == want_text, "the text answer differs from the plain "
+           "engine's tokens")
+    out["tokens_image"] = image_toks[0]
+    del plain_text
+
+    # the host's cost of a JSON image: parse the body and make the array
+    raw = json.dumps(image_body)
+    t1 = time.perf_counter()
+    parsed = np.asarray(json.loads(raw)["image"], np.float32)
+    out["json_image"] = {"bytes": len(raw),
+                         "parse_s": time.perf_counter() - t1}
+    _check(np.array_equal(parsed, image[0]), "the JSON image round trip")
+
+    # (a) the bf16 tower against the same weights in f32
+    img_t = torch.from_numpy(image).to(dev)
+    with torch.no_grad():
+        h16 = vision_forward(mm.vparams, vcfg, img_t)
+        v32 = {k: ({n: t.float() for n, t in v.items()}
+                   if isinstance(v, dict) else v.float())
+               for k, v in mm.vparams.items()}
+        h32 = vision_forward(v32, dataclasses.replace(
+            vcfg, dtype_name="float32"), img_t)
+        diff = h16.float() - h32
+        scale = max(1.0, float(h32.abs().max()))
+        tower = {"dtype": str(h16.dtype).split(".")[-1],
+                 "shape": list(h16.shape),
+                 "max_abs_err": float(diff.abs().max()), "scale": scale,
+                 "tol": VISION_TOWER_TOL_REL * scale,
+                 "rel_rms": float(diff.norm() / h32.norm()),
+                 "rms_tol": VISION_TOWER_RMS_REL}
+        del v32, h32, diff
+    _check(tower["shape"] == [1, vcfg.num_patches, cfg.hidden_size]
+           and bool(torch.isfinite(h16).all()), f"tower output {tower}")
+    _check(tower["max_abs_err"] <= tower["tol"]
+           and tower["rel_rms"] <= VISION_TOWER_RMS_REL,
+           f"the bf16 tower differs from f32: {tower}")
+    out["tower"] = tower
+
+    # (b) the prefix logits, flash against plain attention, same embeds
+    embeds = mm.encode(image, text)
+    _check(tuple(embeds.shape) == (1, n_prefix, cfg.hidden_size),
+           f"prefix embeds {tuple(embeds.shape)}")
+    plain = MultimodalEngine(cfg, eng.params, vcfg, mm.vparams,
+                             max_seq=MAX_SEQ, sampling=eng.sampling,
+                             attn_backend="plain", device=dev)
+    fa.flash_attention.launches = fa.flash_attention.wide_launches = 0
+    lk = eng.prefill_embeds_logits(embeds)
+    prefix_launches = (fa.flash_attention.launches,
+                       fa.flash_attention.wide_launches)
+    lp = plain.engine.prefill_embeds_logits(embeds)
+    scale = max(1.0, float(np.abs(lp).max()))
+    out["prefix_logits"] = {"rows": n_prefix,
+                            "max_abs_err": float(np.abs(lk - lp).max()),
+                            "scale": scale, "tol": LOGIT_TOL_REL * scale,
+                            "flash_launches": prefix_launches[0],
+                            "wide_launches": prefix_launches[1]}
+    if on_card:
+        # one launch a layer, the 64-row instance at 600 x 8 rows
+        _check(prefix_launches == (L, L) and fa.flash_attention.launches
+               == L, f"the prefix prefill launched {prefix_launches}, "
+               f"expected ({L}, {L}); plain attention launched "
+               f"{fa.flash_attention.launches - L}")
+    _check(bool(np.isfinite(lk).all()), "prefix logits not finite")
+    _check(out["prefix_logits"]["max_abs_err"] <= LOGIT_TOL_REL * scale,
+           f"prefix logits differ: {out['prefix_logits']}")
+    # the image conditions the prefix: a flat grey image moves the
+    # logits by more than the kernel's rounding does
+    grey = np.full_like(image, 0.5)
+    moved = float(np.abs(eng.prefill_embeds_logits(
+        mm.encode(grey, text)) - lk).max())
+    out["prefix_logits"]["moved_by_a_grey_image"] = moved
+    _check(moved > out["prefix_logits"]["max_abs_err"],
+           f"a grey image moved the prefix logits by only {moved}")
+    plain_image = plain.generate(image, text, VISION_NEW).tokens[0].tolist()
+    out["plain_partings"] = mm_partings(torch, plain.engine, embeds,
+                                        image_toks[0], plain_image)
+
+    # reported: tower ms, prefix prefill ms, graph decode ms a token
+    st = eng._state(1)
+    with torch.no_grad():
+        if on_card:
+            out["tower_ms"] = eager_ms(
+                torch, lambda: vision_forward(mm.vparams, vcfg, img_t),
+                iters=VISION_TIMED, warmup=2)
+            out["prefix_prefill_ms"] = eager_ms(
+                torch, lambda: eng._embeds_prefill(embeds, st),
+                iters=VISION_TIMED, warmup=2)
+    eng.generate_embeds(embeds, 1)
+    t_one = eng.generate_embeds(embeds, 1).seconds
+    t_many = eng.generate_embeds(embeds, 1 + VISION_NEW).seconds
+    out["decode_ms_per_token"] = (t_many - t_one) / VISION_NEW * 1e3
+    out["image_generate_s"] = mm.generate(image, text, VISION_NEW).seconds
+    del plain
+
+    # (e) the ring: MultimodalHeader + VisionWorker + two paged stages
+    header, workers, vision, threads = _vision_ring(torch, mm, dev)
+    stages = [header.rt] + [w.rt for w in workers]
+    image2 = rng.rand(1, *shape).astype(np.float32)
+    try:
+        for rt in stages:
+            rt.launches.update(decode=0, prefill=0)
+        _reset_launches(pa.paged_flash_attention, pa.paged_prefill_attention)
+        t1 = time.perf_counter()
+        ring_image = header.generate_mm(image2, text, VISION_NEW)[0].tolist()
+        out["ring_image_s"] = time.perf_counter() - t1
+        ring_text = header.generate(text, VISION_NEW)[0].tolist()
+        per_stage = [dict(rt.launches) for rt in stages]
+        predicted = [{"decode": rt.spec.num_layers * 2 * (VISION_NEW - 1),
+                      "prefill": rt.spec.num_layers * 2} for rt in stages]
+        out["ring"] = {
+            "ranges": [[r.spec.layer_start, r.spec.layer_end]
+                       for r in stages],
+            "launches_by_stage": per_stage,
+            "launches_predicted": predicted,
+            "images_encoded": vision.images,
+            "hops": _chain_hop_stats(header, workers)}
+        out["launches"].update(
+            paged_decode=pa.paged_flash_attention.launches,
+            paged_prefill=pa.paged_prefill_attention.launches)
+        if on_card:
+            _check(per_stage == predicted,
+                   f"stage launches {per_stage} != {predicted}")
+            _check(out["launches"]["paged_decode"]
+                   == sum(n["decode"] for n in per_stage)
+                   and out["launches"]["paged_prefill"]
+                   == sum(n["prefill"] for n in per_stage),
+                   f"wrapper launches {out['launches']} != the stages' sum")
+        _check(vision.images == 1, f"{vision.images} images encoded")
+        _check(_chain_pools_whole(header, workers),
+               "a stage pool leaked pages")
+        _check(not header._mm_prefix, "the header kept a stashed prefix")
+    finally:
+        header.shutdown_pipeline()
+        header.transport.send("vis", "stop", b"")
+        for t in threads:
+            t.join(timeout=60)
+    embeds2 = mm.encode(image2, text)
+    want2 = mm.generate(image2, text, VISION_NEW).tokens[0].tolist()
+    out["ring"]["partings"] = (
+        mm_partings(torch, eng, embeds2, ring_image, want2)
+        + [dict(p, request="text") for p in chain_partings(
+            torch, eng, [text], [ring_text], [want_text[0]])])
+    out["ring"]["tokens_equal"] = [ring_image == want2,
+                                   ring_text == want_text[0]]
+    del header, workers, vision, threads, stages, backend, mm, eng
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the native codec and tokenizer (g++, no card)
+# ---------------------------------------------------------------------------
+
+NATIVE_TEXT = ("The quick brown fox jumps over the lazy dog near the river "
+               "bank, while héllo wörld 🙂 and the cat sat on the mat. ")
+NATIVE_ENCODE_REPS = 50
+
+
+def native_tokenizer_json(scheme: str) -> str:
+    """A ``tokenizer.json`` written here (the card machine has no
+    ``tokenizers`` package): ``bytelevel`` (GPT-2's byte alphabet, merges
+    of common English pairs, ``<s>`` / ``</s>``) or ``metaspace``
+    (letters, ``<0xXX>`` byte fallback, word pieces, the same
+    specials)."""
+    from distributed_inference_demo_tpu_torch.tokenizer import \
+        _byte_to_unicode
+    words = ["the", "quick", "brown", "fox", "over", "lazy", "dog", "river",
+             "cat", "sat", "mat", "while", "near", "bank", "and", "jumps"]
+    specials = ["<s>", "</s>"]
+    merges, vocab = [], {}
+    if scheme == "bytelevel":
+        for t in specials + sorted(set(_byte_to_unicode().values())):
+            vocab.setdefault(t, len(vocab))
+        sp = "Ġ"
+    else:
+        for t in (["<unk>"] + specials + [f"<0x{b:02X}>" for b in range(256)]
+                  + list("▁abcdefghijklmnopqrstuvwxyz.,'")):
+            vocab.setdefault(t, len(vocab))
+        sp = "▁"
+    for w in words:
+        piece = w[0]
+        for c in w[1:]:
+            merges.append(f"{piece} {c}")
+            piece += c
+            vocab.setdefault(piece, len(vocab))
+        merges.append(f"{sp} {w}")
+        vocab.setdefault(sp + w, len(vocab))
+    added = [{"id": vocab[c], "content": c, "special": True,
+              "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False} for c in specials]
+    if scheme == "bytelevel":
+        return json.dumps({
+            "model": {"type": "BPE", "vocab": vocab, "merges": merges},
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False},
+            "decoder": {"type": "ByteLevel"}, "added_tokens": added})
+    return json.dumps({
+        "model": {"type": "BPE", "vocab": vocab, "merges": merges,
+                  "unk_token": "<unk>", "byte_fallback": True},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                          "prepend_scheme": "always", "split": True},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "added_tokens": added})
+
+
+def phase_native(torch, dev: str = "cuda") -> dict:
+    """The native library (``comm/native``), built here with g++ from the
+    port's own sources into ``build/native/`` (asked for explicitly: a
+    failed build raises with g++'s output).  The codec's frames equal
+    ``comm/wire.py``'s byte for byte on the port's wire dtypes (a bf16
+    hidden chunk of TinyLlama's width copied from the card included) and
+    decode to the same arrays; a corrupted frame is rejected by its
+    checksum.  The native tokenizer's ids and text equal the python
+    backend's on a bytelevel and a metaspace ``tokenizer.json`` this phase
+    writes (special tokens and byte fallback in the texts).  Reported:
+    the build's seconds, encode and decode µs a frame of the hidden chunk
+    for both codecs, and encode µs per 1 KB of text for both tokenizer
+    backends."""
+    import tempfile
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.comm import native_codec, wire
+    from distributed_inference_demo_tpu_torch.comm.native import build
+    from distributed_inference_demo_tpu_torch.runtime.disagg import _to_wire
+    from distributed_inference_demo_tpu_torch.tokenizer import Tokenizer
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {"phase": "native", "power": nvidia_smi_line()
+           if dev == "cuda" else None, "sources": [
+               os.path.relpath(build.SRC_DIR / s, root)
+               for s in build.SOURCES]}
+    t1 = time.perf_counter()
+    path = build.build()
+    out["build_s"] = time.perf_counter() - t1
+    out["library"] = os.path.relpath(path, root)
+    _check(path.parent == build.BUILD_DIR and native_codec.available(),
+           f"the library is not under build/native: {path}")
+    # the codec: every wire dtype, and a bf16 hidden chunk from the card
+    rng = np.random.RandomState(0)
+    hidden = torch.randn(1, 600, 2048, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0)
+                         ).to(torch.bfloat16)
+    arrays = [_to_wire(hidden), rng.randn(3, 5).astype(np.float32),
+              rng.randn(4).astype(np.float64),
+              rng.randn(2, 2).astype(np.float16),
+              rng.randint(-128, 127, 7).astype(np.int8),
+              rng.randint(-999, 999, 5).astype(np.int16),
+              rng.randint(0, 32000, (1, 9)).astype(np.int32),
+              np.arange(6, dtype=np.int64).reshape(2, 3),
+              rng.randint(0, 255, 11).astype(np.uint8),
+              rng.randint(0, 1 << 16, 3).astype(np.uint16),
+              rng.randint(0, 1 << 30, 3).astype(np.uint32),
+              np.array([1, 1 << 63], dtype=np.uint64),
+              np.array([True, False]), np.array(7, np.int32),
+              np.zeros((0, 4), np.float32)]
+    _check(isinstance(arrays[0], wire.Bf16Bits), "the hidden chunk's bits")
+    for a in arrays:
+        frame = native_codec.serialize_tensors([a])
+        _check(frame == wire.serialize_tensors([a]),
+               f"native frame differs from wire.py's for {a.dtype}")
+        [got] = native_codec.deserialize_tensors(frame).tensors
+        _check(type(got) is type(a) and got.dtype == a.dtype
+               and np.array_equal(got, a), f"native decode of {a.dtype}")
+    frame = bytearray(native_codec.serialize_tensors(arrays))
+    _check(bytes(frame) == wire.serialize_tensors(arrays),
+           "the multi-tensor frame differs")
+    frame[len(frame) // 2] ^= 0x01
+    try:
+        native_codec.deserialize_tensors(bytes(frame))
+        rejected = False
+    except wire.WireIntegrityError:
+        rejected = True
+    _check(rejected, "the native codec decoded a corrupted frame")
+    chunk = [arrays[0]]
+    frame = wire.serialize_tensors(chunk)
+
+    def per_call_us(fn, reps=20):
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) / reps * 1e6
+
+    out["codec"] = {
+        "dtypes": len(arrays), "frame_bytes": len(frame),
+        "corrupt_rejected": rejected,
+        "encode_us": {"native": per_call_us(
+            lambda: native_codec.serialize_tensors(chunk)),
+            "python": per_call_us(lambda: wire.serialize_tensors(chunk))},
+        "decode_us": {"native": per_call_us(
+            lambda: native_codec.deserialize_tensors(frame)),
+            "python": per_call_us(lambda: wire.deserialize_tensors(frame))}}
+    # the tokenizer: native ids = python ids, both schemes
+    texts = [NATIVE_TEXT, "<s>the quick</s> fox <s>", "snow ☃ 日本語 \x00 end",
+             "  spaces\tand\nnewlines  ", "", "x"]
+    kb_text = (NATIVE_TEXT * 16)[:1024]
+    kb = len(kb_text.encode("utf-8")) / 1024
+    tok_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for scheme in ("bytelevel", "metaspace"):
+            p = os.path.join(tmp, f"{scheme}.json")
+            with open(p, "w") as f:
+                f.write(native_tokenizer_json(scheme))
+            native = Tokenizer.from_file(p, backend="native")
+            python = Tokenizer.from_file(p, backend="python")
+            _check(native.backend == "native", "native backend")
+            for t in texts + [kb_text]:
+                ids = native.encode(t, add_bos=True)
+                _check(ids == python.encode(t, add_bos=True),
+                       f"{scheme}: native ids differ on {t[:30]!r}")
+                _check(native.decode(ids) == python.decode(ids),
+                       f"{scheme}: native decode differs on {t[:30]!r}")
+            ids = native.encode(texts[1])
+            _check(ids.count(native.token_to_id("<s>")) == 2,
+                   f"{scheme}: special tokens not split out")
+            if scheme == "metaspace":
+                _check(native.token_to_id("<0xE2>") in native.encode("☃"),
+                       "metaspace: no byte fallback")
+            tok_out[scheme] = {
+                "vocab": native.vocab_size(),
+                "encode_us_per_kb": {
+                    b: per_call_us(lambda t=t: t.encode(kb_text),
+                                   NATIVE_ENCODE_REPS) / kb
+                    for b, t in (("native", native), ("python", python))}}
+    out["tokenizer"] = tok_out
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -6963,6 +7581,7 @@ def main(argv) -> int:
                 "surface": phase_surface, "moe": phase_moe,
                 "fleet": phase_fleet, "parallel": phase_parallel,
                 "chain": phase_chain, "server": phase_server,
+                "vision": phase_vision, "native": phase_native,
                 "speculative": lambda t: phase_speculative(
                     t, device["ptxas"]["paged_attention.cu"])}[only],
                 torch))
@@ -7014,6 +7633,9 @@ def main(argv) -> int:
         emit(chain)
         server = timed(phase_server, torch)
         emit(server)
+        vision = timed(phase_vision, torch)
+        emit(vision)
+        emit(timed(phase_native, torch))
         par = timed(phase_parallel, torch)
         emit(par)
         moe = timed(phase_moe, torch)
@@ -7046,9 +7668,9 @@ def main(argv) -> int:
                          c["chunk"] == PREFILL_CHUNK
                          and (case != "tinyllama" or c["starts"] == [200])))
 
-    def chain_case(kind):
+    def chain_case(kind, case=SERVE_MODEL + "-chain"):
         return next(c for c in paged["cases"]
-                    if c["case"] == SERVE_MODEL + "-chain"
+                    if c["case"] == case
                     and c["kind"] == kind and c["dtype"] == "bfloat16")
 
     rows8 = "8 rows, lengths 1-1999, 2 freed"
@@ -7191,6 +7813,9 @@ def main(argv) -> int:
     bench_case = next(c for c in kern["cases"]
                       if c["case"] == "tinyllama-bench"
                       and c["dtype"] == "bfloat16")
+    vision_case = next(c for c in kern["cases"]
+                       if c["case"] == "tinyllama-vision"
+                       and c["dtype"] == "bfloat16")
     r0 = par["tp_llama3_8b_int8"]["launches_by_rank"][0]
     tp2_int8 = {"decode_launches": r0["quant_dense_decode"],
                 "dense_launches": r0["quant_dense"]}
@@ -7350,6 +7975,30 @@ def main(argv) -> int:
               f"8 rows of a {PROMPT_LEN}-token prompt at 0 (launches: the "
               "server phase's in-process `bench`, its warm and timed "
               "prefills)"),
+        entry("flash_attention_vision", KERNEL_SOURCE, KERNEL_REPLACES,
+              vision["launches"]["flash"], vision_case,
+              f"b=1, the {VISION_PREFIX}-row multimodal prefix "
+              f"({VISION_PATCHES} llava15 patches + {VISION_TEXT} text "
+              "tokens) at 0 (launches: `serve --vision`'s image and text "
+              "requests over HTTP, L x 2 prefills)"),
+        # the vision ring's stages run eagerly
+        {**entry("paged_prefill_vision", PAGED_SOURCE,
+                 PAGED_REPLACES["paged_prefill"],
+                 vision["launches"]["paged_prefill"],
+                 chain_case("prefill", SERVE_MODEL + "-vision"),
+                 f"b=1, the {VISION_PREFIX}-row multimodal prefix chunk at "
+                 "0 (launches: the vision phase's MultimodalHeader ring, "
+                 "two stages, each its layers x its chunks of an image and "
+                 "a text request, summed)"),
+         "graph_replayed": False},
+        {**entry("paged_decode_vision", PAGED_SOURCE,
+                 PAGED_REPLACES["paged_decode"],
+                 vision["launches"]["paged_decode"],
+                 chain_case("decode", SERVE_MODEL + "-vision"),
+                 f"b=1, one token at {VISION_PREFIX + VISION_NEW - 1} "
+                 "(launches: the same ring's one-token hops, each stage "
+                 "its layers x its hops, summed)"),
+         "graph_replayed": False},
         entry("flash_attention_tp2_llama3_8b", KERNEL_SOURCE,
               KERNEL_REPLACES,
               par["tp_llama3_8b"]["launches_by_rank"][0]["flash"],

@@ -112,7 +112,12 @@ runs ``generate`` and ``serve`` sequence-parallel
 (``runtime/sp_backend.py``, ``--sp-queue-depth``).  The leading
 ``--jax-coordinator`` / ``--jax-num-processes`` / ``--jax-process-id``
 (the reference's names) join a multi-host group: process 0 drives, the
-others serve as followers.  Every other mode flag of the JAX package's
+others serve as followers.
+
+``serve --vision`` serves a LLaVA-style tower (``--vision-preset``,
+``--vision-checkpoint``) in front of the decoder
+(``runtime/multimodal.py``): ``/generate`` takes an ``image`` field.
+Every other mode flag of the JAX package's
 CLI exits 1 with "not yet ported".
 """
 
@@ -329,6 +334,59 @@ def build_engine(args):
         cuda_graph=mesh is None)
 
 
+def vision_config(preset: str):
+    """The ``--vision-preset`` tower geometry (the reference's three)."""
+    from .models.vision import VisionConfig
+    if preset == "llava15":
+        # the CLIP-ViT-L/14-336 geometry LLaVA-1.5 ships: class token,
+        # pre-layernorm, projection biases, quick_gelu, penultimate-layer
+        # feature select; HF CLIP / LLaVA checkpoints load as they are
+        return VisionConfig(image_size=336, patch_size=14, hidden_size=1024,
+                            num_layers=24, num_heads=16,
+                            intermediate_size=4096, dtype_name="bfloat16",
+                            clip_arch=True, feature_layer=-2,
+                            hidden_act="quick_gelu")
+    if preset == "clip-test":
+        # the same architecture flags at toy scale, for tests and drives
+        return VisionConfig(image_size=28, patch_size=14, hidden_size=32,
+                            num_layers=3, num_heads=4, intermediate_size=64,
+                            dtype_name="float32", clip_arch=True,
+                            feature_layer=-2, hidden_act="quick_gelu")
+    # "small": a CLIP-base-like tower for modest decoders
+    return VisionConfig(image_size=224, patch_size=14, hidden_size=256,
+                        num_layers=6, num_heads=8, intermediate_size=1024,
+                        dtype_name="bfloat16")
+
+
+def build_vision_backend(args):
+    """``MultimodalBackend`` for ``serve --vision``: the decoder's params
+    as every engine command resolves them, the tower from
+    ``--vision-checkpoint`` or, without one, drawn from
+    ``--weights-seed`` (so one seed reproduces the whole model whatever
+    the sampling ``--seed``)."""
+    import torch
+
+    from .models.loader import load_vision_params
+    from .models.vision import init_vision_params
+    from .runtime.multimodal import MultimodalBackend, MultimodalEngine
+
+    device, cfg, params = _params(args)
+    vcfg = vision_config(args.vision_preset)
+    if args.vision_checkpoint:
+        vparams = load_vision_params(args.vision_checkpoint, vcfg,
+                                     cfg.hidden_size,
+                                     seed=args.weights_seed, device=device)
+    else:
+        vparams = init_vision_params(
+            torch.Generator(device=device).manual_seed(args.weights_seed),
+            vcfg, cfg.hidden_size, device)
+    return MultimodalBackend(MultimodalEngine(
+        cfg, params, vcfg, vparams, max_seq=args.max_seq,
+        sampling=_sampling_from_args(args), eos_id=args.eos_id,
+        attn_backend=args.attn_backend, kv_layout=args.kv_layout,
+        kv_dtype=args.kv_dtype, device=device))
+
+
 def _close_mesh(engine) -> None:
     mesh = getattr(engine, "mesh", None)
     if mesh is not None:
@@ -487,8 +545,6 @@ def cmd_serve(args) -> int:
             print(f"{'/'.join(unsupported)} not supported with --vision",
                   file=sys.stderr)
             return 1
-    if args.vision:
-        raise NotImplementedError("serve --vision (ROADMAP A11)")
     _refuse_tp_with_proposer(args)
     if args.batch_slots and args.stream_block is not None:
         # the scheduler's fused block is --decode-block; a second K knob
@@ -544,6 +600,12 @@ def cmd_serve(args) -> int:
               f"kv_cache_dtype={_dtype_name(engine.kv_cache_dtype)} "
               f"tp={args.tp} "
               f"attn={engine.attn_backend} device={engine.device}{spec}",
+              flush=True)
+    elif args.vision:
+        engine = build_vision_backend(args)
+        vcfg = engine.mm.vcfg
+        print(f"SERVE_VISION {args.model} tower={args.vision_preset} "
+              f"image={vcfg.image_size} patches={vcfg.num_patches}",
               flush=True)
     elif args.sp > 1:
         engine = build_sp_backend(args)
@@ -771,7 +833,21 @@ def _serve_parser() -> argparse.ArgumentParser:
                          "--fault-plan/DWT_FAULT_PLAN are rejected "
                          "without it")
     ap.add_argument("--vision", action="store_true",
-                    help="multimodal serving (ROADMAP A11: refused)")
+                    help="LLaVA-style multimodal serving: /generate takes "
+                         "an optional 'image' field ([H][W][C] floats); "
+                         "text-only requests serve unchanged")
+    ap.add_argument("--vision-preset", default="small",
+                    choices=["small", "llava15", "clip-test"],
+                    help="ViT tower geometry: small = 224px/6 layers, "
+                         "llava15 = CLIP-ViT-L/14-336 (class token, "
+                         "pre-layernorm, quick_gelu, penultimate feature "
+                         "select), clip-test = a tiny tower of the same "
+                         "architecture for tests")
+    ap.add_argument("--vision-checkpoint", default="",
+                    help="safetensors dir with HF CLIP/LLaVA vision tower "
+                         "weights (vision_model.* names; LLaVA's "
+                         "multi_modal_projector loads too when present); "
+                         "empty = random init from --weights-seed")
     ap.add_argument("--batch-slots", type=int, default=0,
                     help="continuous batching with N slots: concurrent "
                          "requests join the running decode batch between "

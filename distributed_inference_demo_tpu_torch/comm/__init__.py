@@ -6,8 +6,9 @@ control plane talk over sockets.  This package owns that socket side —
 replacing the reference's ZeroMQ + hand-rolled binary framing
 (``utils.cpp:124-368``, ``Communication.java``).
 
-Counterpart of ``distributed_inference_demo_tpu/comm/`` (the native
-codec is not ported): the wire's frames are byte for byte the JAX
+Counterpart of ``distributed_inference_demo_tpu/comm/``, the native
+codec (``native_codec.py`` over ``native/codec.cc``) included: the wire's
+frames are byte for byte the JAX
 package's, so the two packages' workers, replicas and gateways talk to
 each other.
 """

@@ -9,7 +9,8 @@ its fields, ``{"q": ..., "scale": ...}`` plus ``"group"`` for int4, and
 becomes the port's class over the same codes and scales.
 ``kv_pages_from_numpy`` does the same for a quantized page pool, and
 ``shard_from_numpy`` cuts the tree into one rank's tensor-parallel (or
-expert-parallel) slice.  The
+expert-parallel) slice, and ``vision_params_from_numpy`` carries the
+reference's vision tower and projector (``models/vision.py``).  The
 conversion from JAX arrays to numpy happens in the caller, never here:
 this module does not import JAX.  :func:`save_npz_tree` writes such a
 tree to one ``.npz`` file, and ``params_from_numpy`` takes that file's
@@ -114,6 +115,16 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> StageParams:
     return StageParams(layers=part("layers"), embed=part("embed"),
                        final_norm=part("final_norm"),
                        lm_head=part("lm_head"))
+
+
+def vision_params_from_numpy(tree: dict, device=None) -> dict:
+    """The reference's vision params (``init_vision_params``'s tree:
+    top-level leaves and a ``layers`` dict of stacked leaves, as numpy
+    arrays) as the port's ``models/vision.py`` tree on ``device``."""
+    device = resolve_device(device)
+    return {k: ({n: tensor_from_numpy(a, device) for n, a in v.items()}
+                if isinstance(v, dict) else tensor_from_numpy(v, device))
+            for k, v in tree.items()}
 
 
 def shard_from_numpy(tree: dict, cfg: ModelConfig, shape: dict, rank: int,

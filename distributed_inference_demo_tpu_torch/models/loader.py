@@ -12,8 +12,9 @@ package: an 8-byte little-endian header length, a JSON header (its
 ``data_offsets`` counted from the end of the header, then the data.
 
 ``stage_params_to_bytes`` / ``stage_params_from_bytes`` are the control
-plane's stage blobs, byte-equal to the JAX package's.  Not ported yet:
-the CLIP / LLaVA vision loader (ROADMAP A11).  The JAX package's own
+plane's stage blobs, byte-equal to the JAX package's.
+``load_vision_params`` reads a CLIP / LLaVA vision tower (and LLaVA's
+projector) into ``models/vision.py``'s tree.  The JAX package's own
 orbax checkpoint directories are refused.
 """
 
@@ -375,3 +376,125 @@ def load_or_init(model_name: str, cfg: ModelConfig,
     return init_full_params(
         gen, cfg, device,
         quantize=quantize and cfg.quantization in ("int8", "int4"))
+
+
+# ---------------------------------------------------------------------------
+# vision tower (CLIP-ViT / LLaVA checkpoints)
+
+_CLIP_LAYER_MAP = {
+    "layer_norm1.weight": ("norm1_w", False),
+    "layer_norm1.bias": ("norm1_b", False),
+    "self_attn.q_proj.weight": ("wq", True),
+    "self_attn.q_proj.bias": ("bq", False),
+    "self_attn.k_proj.weight": ("wk", True),
+    "self_attn.k_proj.bias": ("bk", False),
+    "self_attn.v_proj.weight": ("wv", True),
+    "self_attn.v_proj.bias": ("bv", False),
+    "self_attn.out_proj.weight": ("wo", True),
+    "self_attn.out_proj.bias": ("bo", False),
+    "layer_norm2.weight": ("norm2_w", False),
+    "layer_norm2.bias": ("norm2_b", False),
+    "mlp.fc1.weight": ("w_up", True),
+    "mlp.fc1.bias": ("b_up", False),
+    "mlp.fc2.weight": ("w_down", True),
+    "mlp.fc2.bias": ("b_down", False),
+}
+
+_PROJECTOR_MAP = (("multi_modal_projector.linear_1.weight", "proj_w1", True),
+                  ("multi_modal_projector.linear_1.bias", "proj_b1", False),
+                  ("multi_modal_projector.linear_2.weight", "proj_w2", True),
+                  ("multi_modal_projector.linear_2.bias", "proj_b2", False))
+
+
+def vision_params_from_clip_state_dict(raw: dict, vcfg, decoder_hidden: int,
+                                       seed: int = 0, device=None) -> dict:
+    """Map an HF CLIP vision tower (``vision_model.*`` names: standalone
+    ``CLIPVisionModel`` exports and LLaVA bundles alike) onto the stacked
+    ``models/vision.py`` layout on ``device``.  Requires
+    ``vcfg.clip_arch``.  LLaVA's ``multi_modal_projector`` weights are
+    mapped when present; otherwise the projector stays initialized from
+    ``seed`` (a plain CLIP export has no projector into the decoder's
+    space).
+
+    HF stores linears as [out, in]; ours are [in, out] operands, hence
+    the transposes.  The patch "conv" [H, C, p, p] flattens to the
+    patchify order (row in patch, column in patch, channel)."""
+    from .vision import init_vision_params
+
+    if not vcfg.clip_arch:
+        raise ValueError(
+            "CLIP checkpoints need VisionConfig(clip_arch=True) — the "
+            "plain tower has no class token / pre-layernorm to load into")
+    device = resolve_device(device)
+    dt = vcfg.dtype
+
+    def get(name):
+        return _get(raw, name, prefixes=(
+            "vision_model.",                         # CLIPVisionModel
+            "vision_tower.vision_model.",            # LLaVA bundles
+            "model.vision_tower.vision_model.", ""))
+
+    layers: Dict[str, list] = {}
+    for i in range(vcfg.num_layers):
+        for hf_name, (ours, transpose) in _CLIP_LAYER_MAP.items():
+            w = get(f"encoder.layers.{i}.{hf_name}")
+            layers.setdefault(ours, []).append(w.T if transpose else w)
+    p_ = vcfg.patch_size
+    patch = get("embeddings.patch_embedding.weight")     # [H, C, p, p]
+    patch = patch.permute(2, 3, 1, 0).reshape(p_ * p_ * vcfg.channels,
+                                              vcfg.hidden_size)
+    # the projector from the seed, as the fallback; checkpoint weights
+    # overwrite it
+    out = init_vision_params(torch.Generator(device=device).manual_seed(seed),
+                             vcfg, decoder_hidden, device)
+    out.update({
+        "patch_embed": _cast(patch, dt, device),
+        "pos_embed": _cast(get("embeddings.position_embedding.weight"), dt,
+                           device),
+        "cls_embed": _cast(get("embeddings.class_embedding").reshape(-1),
+                           dt, device),
+        "pre_norm_w": _cast(get("pre_layrnorm.weight"), dt, device),
+        "pre_norm_b": _cast(get("pre_layrnorm.bias"), dt, device),
+        "post_norm_w": _cast(get("post_layernorm.weight"), dt, device),
+        "post_norm_b": _cast(get("post_layernorm.bias"), dt, device),
+        "layers": _stack(layers, dt, device),
+    })
+    for hf_name, ours, transpose in _PROJECTOR_MAP:
+        for prefix in ("", "model."):
+            if prefix + hf_name in raw:
+                w = _as_tensor(raw[prefix + hf_name])
+                out[ours] = _cast(w.T if transpose else w, dt, device)
+                break
+    if out["pos_embed"].shape[0] != vcfg.num_positions:
+        raise ValueError(
+            f"checkpoint position table has {out['pos_embed'].shape[0]} "
+            f"rows; VisionConfig expects {vcfg.num_positions} "
+            f"(image {vcfg.image_size} / patch {vcfg.patch_size} + cls)")
+    # a projector sized for another decoder fails here, with the shapes
+    # spelled out, not as a matmul error on the first request
+    want1 = (vcfg.hidden_size, decoder_hidden)
+    want2 = (decoder_hidden, decoder_hidden)
+    got1, got2 = tuple(out["proj_w1"].shape), tuple(out["proj_w2"].shape)
+    if got1 != want1 or got2 != want2:
+        raise ValueError(
+            f"checkpoint projector maps {got1} -> {got2}; this "
+            f"tower/decoder pairing needs {want1} -> {want2} (decoder "
+            f"hidden {decoder_hidden})")
+    return out
+
+
+_VISION_KEY_PREFIXES = ("vision_model.", "vision_tower.",
+                        "model.vision_tower.", "multi_modal_projector.",
+                        "model.multi_modal_projector.")
+
+
+def load_vision_params(path: str, vcfg, decoder_hidden: int, seed: int = 0,
+                       device=None) -> dict:
+    """CLIP / LLaVA vision weights from a safetensors checkpoint
+    directory.  Only the tower's and projector's tensors are read out of
+    the files, so a full LLaVA bundle's language model is never copied
+    to extract the tower."""
+    tensors = load_safetensors_dir(
+        path, key_filter=lambda k: k.startswith(_VISION_KEY_PREFIXES))
+    return vision_params_from_clip_state_dict(tensors, vcfg, decoder_hidden,
+                                              seed=seed, device=device)

@@ -13,7 +13,10 @@ Counterpart of ``distributed_inference_demo_tpu/runtime/engine.py``'s
 - the block KV prefix cache (``kv_cache_blocks``, ``kv_block_tokens``,
   ``kv_dtype``; ``runtime/kvcache/backend.py``) around the batch-1
   prefill of ``generate`` and ``generate_stream``, and the float8
-  ``kv_cache_dtype`` storage cast.
+  ``kv_cache_dtype`` storage cast;
+- ``generate_embeds`` / ``prefill_embeds_logits``: a pre-embedded prefix
+  (``runtime/multimodal.py``'s image patches and text) prefilled into
+  the same static decode state, then the same decode loop.
 
 Telemetry as in the reference: the ``dwt_engine_*`` device-loop pair
 (:func:`count_device_loop`), sampled dispatch signatures around the
@@ -578,6 +581,60 @@ class InferenceEngine:
         logits, cache = self._run_prefill(ids, cache, start)
         self._kv_store(prompt, cache)
         return start, logits
+
+    def _embeds_prefill(self, embeds: torch.Tensor, st: "DecodeState"):
+        """A pre-embedded prefix ([b, s, H] float: the multimodal input)
+        into ``st``'s cache from column 0, in one forward through the
+        engine's attention (the flash kernel on the card).  The prefix
+        pool is not consulted: there are no token ids to key blocks by.
+        Returns the last position's logits."""
+        b, s = embeds.shape[0], embeds.shape[1]
+        sig = _profiling.dispatch_signature(
+            "prefill", batch=b, chunk=s, kv_dtype=self._cache_dtype_name)
+        t0 = self._prof.begin(sig)
+        logits, _ = self._fwd(embeds, KVCache(st.cache.keys, st.cache.values,
+                                              0),
+                              self._positions(b, s, 0), True)
+        logits = logits[:, -1]
+        self._prof.end(sig, t0, out=logits,
+                       hbm_bytes=b * s * self._kv_token_bytes)
+        return logits
+
+    def _embeds(self, embeds) -> torch.Tensor:
+        if embeds.ndim != 3 or not torch.is_floating_point(embeds):
+            raise ValueError("embeds must be float [batch, seq, hidden]")
+        return embeds.to(self.device)
+
+    def prefill_embeds_logits(self, embeds) -> np.ndarray:
+        """Last-position logits [batch, vocab] (f32) after prefilling a
+        pre-embedded prefix."""
+        embeds = self._embeds(embeds)
+        check_capacity(self.max_seq, embeds.shape[1], 0)
+        with self._lock:
+            st = self._state(embeds.shape[0])
+            return self._embeds_prefill(embeds, st).float().cpu().numpy()
+
+    def generate_embeds(self, embeds, max_new_tokens: int,
+                        seed: int = 0) -> GenerationResult:
+        """:meth:`generate` from a pre-embedded prefix: the prefix is
+        prefilled into the static decode state, then the same decode loop
+        (the captured graph on the card) runs from its last logits."""
+        embeds = self._embeds(embeds)
+        b, plen = embeds.shape[0], embeds.shape[1]
+        check_capacity(self.max_seq, plen, max_new_tokens)
+        with self._lock:
+            st = self._state(b)     # a new batch size captures here, untimed
+            t0 = time.perf_counter()
+            self._gen.manual_seed(int(seed))
+            eos = self._eos()
+            st.begin(self._embeds_prefill(embeds, st), plen, eos)
+            toks, _, steps = self._profiled_loop(
+                st, eos, max_new_tokens, max_new_tokens, False, plen)
+            toks = toks.cpu().numpy().astype(np.int32)
+        return GenerationResult(tokens=toks, prompt_len=plen,
+                                num_new=max_new_tokens,
+                                seconds=time.perf_counter() - t0,
+                                steps_computed=steps)
 
     # -- decode --------------------------------------------------------
 

@@ -45,7 +45,10 @@ there.
   batching engine's resume path replays the delivered prefix silently
   and streams the rest, numbering steps from ``len(delivered_tokens)``.
 
-``image`` (multimodal) answers 501 "not yet ported".
+  A blocking request may carry ``image`` (nested floats [H][W][C] or
+  [b][H][W][C]) for a backend whose ``generate`` takes one
+  (``runtime/multimodal.MultimodalBackend``); an image with ``stream``,
+  or sent to any other backend, answers 501.
 """
 
 from __future__ import annotations
@@ -62,9 +65,6 @@ import numpy as np
 
 from ..telemetry import catalog as _metrics
 from .overload import SchedulerOverloaded
-
-NOT_PORTED_FIELDS = ("image",)
-
 
 def _round_lps(row) -> list:
     """JSON-friendly logprob row (6 decimals ~ float32 noise floor)."""
@@ -505,9 +505,6 @@ class InferenceHTTPServer:
                 traceback.print_exc()
                 self._json(500, {"error": str(e)})
 
-            def _not_ported(self, what: str) -> None:
-                self._json(501, {"error": f"{what}: not yet ported"})
-
             def _raw(self, code: int, body: bytes, ctype: str) -> None:
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
@@ -618,6 +615,7 @@ class InferenceHTTPServer:
                     max_new = int(req.get("max_new_tokens",
                                           outer.default_max_new))
                     seed = int(req.get("seed", 0))
+                    image = req.get("image")
                 except (ValueError, KeyError) as e:
                     self._json(400, {"error": str(e)})
                     return
@@ -625,9 +623,16 @@ class InferenceHTTPServer:
                 # gateway-forwarded header
                 self._tenant = (req.get("tenant")
                                 or self.headers.get("X-DWT-Tenant"))
-                for field in NOT_PORTED_FIELDS:
-                    if req.get(field) is not None:
-                        self._not_ported(f"'{field}'")
+                if image is not None:
+                    # honor-or-reject: only a multimodal backend takes an
+                    # image, and an image prefix does not stream
+                    if req.get("stream"):
+                        self._json(501, {"error": "image input does not "
+                                                  "support stream"})
+                        return
+                    if not _accepts_kwarg(outer.backend.generate, "image"):
+                        self._json(501, {"error": "backend does not "
+                                                  "support image input"})
                         return
                 resume = req.get("resume")
                 if resume is not None:
@@ -638,7 +643,7 @@ class InferenceHTTPServer:
                     err_code, err = None, None
                     if not req.get("stream"):
                         err_code, err = 400, "resume requires stream"
-                    elif (req.get("stop") is not None
+                    elif (image is not None or req.get("stop") is not None
                           or req.get("logprobs")):
                         err_code, err = 501, ("resume does not support "
                                               "image, stop, or logprobs")
@@ -680,10 +685,14 @@ class InferenceHTTPServer:
                                      "or list of non-empty strings"})
                         return
                     # honor-or-reject: stop strings need server-side text
-                    if outer.tokenizer is None:
+                    unsupported = [w for w, on in [
+                        ("a server-side tokenizer (none attached)",
+                         outer.tokenizer is None),
+                        ("image", image is not None)] if on]
+                    if unsupported:
                         self._json(501, {
-                            "error": "stop does not support a server-side "
-                                     "tokenizer (none attached)"})
+                            "error": "stop does not support "
+                                     + ", ".join(unsupported)})
                         return
                     want_lp = bool(req.get("logprobs"))
                     if want_lp and not _accepts_kwarg(
@@ -730,6 +739,8 @@ class InferenceHTTPServer:
                     return
                 try:
                     kwargs = {"logprobs": True} if logprobs else {}
+                    if image is not None:
+                        kwargs["image"] = image
                     if (outer.request_timeout
                             and _accepts_kwarg(outer.backend.generate,
                                                "timeout")):

@@ -8,11 +8,16 @@ its own: it imports nothing of the JAX package).  The backends:
   default: the ids are the reference's;
 - ``hf``      -- the HuggingFace ``tokenizers`` library when present, for
   exactness on exotic tokenizer.json configs;
-- ``native``  -- the reference's C++ BPE engine is a ctypes library built
-  with the wire codec (``comm/native``) and is not ported yet
-  (ROADMAP item 11): asking for it raises ``NotImplementedError``.
+- ``native``  -- the C++ BPE engine (the port's copy of
+  ``comm/native/tokenizer.cc``, built with g++ at first use beside the
+  native wire codec, ``comm/native/build.py``), through ``ctypes``: the
+  same ids as ``python``.  Asked for explicitly, a failed build raises
+  with the compiler's output; there is no fallback.
 
-Both consume standard HF ``tokenizer.json``; a sentencepiece ``.model``
+The port's default stays ``python`` where the reference's is ``native``
+(a documented difference: the ids are the same, and the default needs
+no compiler).  All consume standard HF ``tokenizer.json`` (lowered to a
+line-based blob for the C++ engine); a sentencepiece ``.model``
 goes through ``sp_tokenizer.py``.  Schemes covered (enough for the whole
 model catalog, ``models/registry.py``): ``bytelevel`` (BLOOM/GPT-2
 byte-level BPE) and ``metaspace`` (llama/mistral sentencepiece-style BPE
@@ -21,15 +26,11 @@ with <0xXX> byte fallback).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
-
-NATIVE_LATER = ("the native tokenizer backend (the C++ engine of "
-                "comm/native) is ported in a later slice (ROADMAP item 11); "
-                "use backend='python' (the default) or 'hf'")
-
 
 # ---------------------------------------------------------------------------
 # GPT-2 byte <-> unicode alphabet (matches transformers bytes_to_unicode)
@@ -148,6 +149,29 @@ class TokenizerSpec:
                              byte_fallback=bool(model.get("byte_fallback")),
                              prepend=prepend, unk_id=unk_id,
                              specials=specials, bos_id=bos_id, eos_id=eos_id)
+
+    def to_blob(self) -> str:
+        """Serialize for the C++ engine (``tokenizer.cc``'s parse_blob)."""
+        def esc(s: str) -> str:
+            return (s.replace("\\", "\\\\").replace("\n", "\\n")
+                    .replace("\t", "\\t"))
+
+        lines = [
+            f"scheme\t{self.scheme}",
+            f"fallback\t{1 if self.byte_fallback else 0}",
+            f"prepend\t{1 if self.prepend else 0}",
+            f"unk\t{self.unk_id}",
+            f"ntok\t{len(self.vocab)}",
+        ]
+        for tok, i in self.vocab.items():
+            lines.append(f"{i}\t{esc(tok)}")
+        lines.append(f"nmerge\t{len(self.merges)}")
+        for left, right in self.merges:
+            lines.append(f"{esc(left)}\t{esc(right)}")
+        lines.append(f"nspecial\t{len(self.specials)}")
+        for tok, i in self.specials.items():
+            lines.append(f"{i}\t{esc(tok)}")
+        return "\n".join(lines) + "\n"
 
 
 # ---------------------------------------------------------------------------
@@ -356,15 +380,92 @@ class PyBPETokenizer:
 
 
 # ---------------------------------------------------------------------------
+# Native (C++) backend via ctypes
+# ---------------------------------------------------------------------------
+
+class NativeTokenizer:
+    """ctypes wrapper over ``comm/native/tokenizer.cc`` (the same surface
+    as :class:`PyBPETokenizer`)."""
+
+    def __init__(self, spec: TokenizerSpec):
+        from .comm.native.build import build
+        self.spec = spec
+        self._lib = lib = ctypes.CDLL(str(build()))
+        lib.dwt_tok_new.restype = ctypes.c_void_p
+        lib.dwt_tok_new.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+        lib.dwt_tok_free.argtypes = [ctypes.c_void_p]
+        lib.dwt_tok_encode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                       ctypes.c_uint64]
+        lib.dwt_tok_ids_len.restype = ctypes.c_uint64
+        lib.dwt_tok_ids_len.argtypes = [ctypes.c_void_p]
+        lib.dwt_tok_ids.restype = ctypes.POINTER(ctypes.c_int32)
+        lib.dwt_tok_ids.argtypes = [ctypes.c_void_p]
+        lib.dwt_tok_decode.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_uint64,
+            ctypes.c_int]
+        lib.dwt_tok_str_len.restype = ctypes.c_uint64
+        lib.dwt_tok_str_len.argtypes = [ctypes.c_void_p]
+        lib.dwt_tok_str.restype = ctypes.c_void_p  # read with string_at
+        lib.dwt_tok_str.argtypes = [ctypes.c_void_p]
+        lib.dwt_tok_token_to_id.restype = ctypes.c_int32
+        lib.dwt_tok_token_to_id.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                            ctypes.c_uint64]
+        lib.dwt_tok_id_to_token.restype = ctypes.c_int
+        lib.dwt_tok_id_to_token.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        lib.dwt_tok_vocab_size.restype = ctypes.c_uint64
+        lib.dwt_tok_vocab_size.argtypes = [ctypes.c_void_p]
+        blob = spec.to_blob().encode("utf-8")
+        self._h = lib.dwt_tok_new(blob, len(blob))
+        if not self._h:
+            raise ValueError("native tokenizer rejected blob")
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.dwt_tok_free(h)
+            self._h = None
+
+    def encode(self, text: str) -> List[int]:
+        raw = text.encode("utf-8")
+        self._lib.dwt_tok_encode(self._h, raw, len(raw))
+        n = self._lib.dwt_tok_ids_len(self._h)
+        ptr = self._lib.dwt_tok_ids(self._h)
+        return ptr[:n] if n else []
+
+    def decode(self, ids: Sequence[int], skip_special: bool = True) -> str:
+        arr = (ctypes.c_int32 * len(ids))(*[int(i) for i in ids])
+        self._lib.dwt_tok_decode(self._h, arr, len(ids),
+                                 1 if skip_special else 0)
+        n = self._lib.dwt_tok_str_len(self._h)
+        ptr = self._lib.dwt_tok_str(self._h)
+        if n == 0 or not ptr:
+            return ""
+        return ctypes.string_at(ptr, n).decode("utf-8", errors="replace")
+
+    def token_to_id(self, tok: str) -> int:
+        raw = tok.encode("utf-8")
+        return self._lib.dwt_tok_token_to_id(self._h, raw, len(raw))
+
+    def id_to_token(self, i: int) -> Optional[str]:
+        if not self._lib.dwt_tok_id_to_token(self._h, int(i)):
+            return None
+        n = self._lib.dwt_tok_str_len(self._h)
+        ptr = self._lib.dwt_tok_str(self._h)
+        return ctypes.string_at(ptr, n).decode("utf-8") if ptr else ""
+
+    def vocab_size(self) -> int:
+        return self._lib.dwt_tok_vocab_size(self._h)
+
+
+# ---------------------------------------------------------------------------
 # Facade
 # ---------------------------------------------------------------------------
 
 class Tokenizer:
     """Unified tokenizer with backend selection + bos/eos convenience.
 
-    ``backend``: "python" (the default), or "hf" (HuggingFace tokenizers
-    passthrough); "native" raises ``NotImplementedError``
-    (:data:`NATIVE_LATER`).
+    ``backend``: "python" (the default), "native" (the C++ engine; a
+    failed build raises), or "hf" (HuggingFace tokenizers passthrough).
     """
 
     def __init__(self, impl, spec: TokenizerSpec, backend: str):
@@ -419,9 +520,9 @@ class Tokenizer:
             raw = data if isinstance(data, str) else json.dumps(data)
             spec = TokenizerSpec.from_json(raw)
             return Tokenizer(_HFAdapter(HFTok.from_str(raw)), spec, "hf")
-        if backend == "native":
-            raise NotImplementedError(NATIVE_LATER)
         spec = TokenizerSpec.from_json(data)
+        if backend == "native":
+            return Tokenizer(NativeTokenizer(spec), spec, "native")
         if backend == "python":
             return Tokenizer(PyBPETokenizer(spec), spec, "python")
         raise ValueError(f"unknown backend {backend!r}")

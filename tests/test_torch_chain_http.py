@@ -223,10 +223,28 @@ def test_cli_serve_chain_over_worker_processes(npz, capsys, monkeypatch):
 
 
 def _free_port() -> int:
+    """A free port below the kernel's ephemeral range (and zmq's random
+    range above it).  The header binds it only after both workers are up;
+    a port the kernel hands out could meanwhile become another process's
+    connection or ``bind(0)`` under a busy parallel test run, and the
+    header's bind would then fail."""
+    import random
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(max(1024, low - 12000), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 def test_chain_refusals_equal_reference(capsys):
@@ -256,7 +274,7 @@ def test_chain_refusals_equal_reference(capsys):
         assert err == capsys.readouterr().err and err, extra
     # what stays refused names its item
     assert cli.main(["serve", "--model", "llama-test", "--device", "cpu",
-                     "--vision"]) == 1
+                     "--tp", "2", "--draft-model", "llama-test"]) == 1
     assert "not yet ported" in capsys.readouterr().err
     assert cli.main(["worker", "--model", "llama-test", "--device", "cpu",
                      "--stage-id", "1", "--num-stages", "2",

@@ -129,16 +129,19 @@ def test_health_stats_and_unported_routes(servers):
         (rc, rbody), (pc, pbody) = (_request(p, path, body) for p in servers)
         assert pc == rc and json.loads(pbody) == json.loads(rbody)
         assert "not yet ported" not in pbody
-    # a plain engine has no resume path: the reference's 501; images are
-    # not ported yet
+    # a plain engine has no resume path and takes no image: the
+    # reference's 501s
     (rc, rbody), (pc, pbody) = (
         _request(p, "/generate", {"prompt_ids": [[1, 2]], "stream": True,
                                   "resume": {"delivered_tokens": [3]}})
         for p in servers)
     assert pc == rc == 501 and json.loads(pbody) == json.loads(rbody)
-    code, body = _request(port, "/generate", {"prompt_ids": [[1, 2]],
-                                              "stream": True, "image": {}})
-    assert code == 501 and "not yet ported" in body
+    for extra in ({"stream": True}, {}):
+        (rc, rbody), (pc, pbody) = (
+            _request(p, "/generate", {"prompt_ids": [[1, 2]], "image": {},
+                                      **extra}) for p in servers)
+        assert pc == rc == 501 and json.loads(pbody) == json.loads(rbody)
+        assert "image" in pbody and "not yet ported" not in pbody
     code, _ = _request(port, "/generate", {"prompt_ids": [[1] * 60],
                                            "max_new_tokens": 10})
     assert code == 400          # past the KV capacity, as the reference
@@ -155,5 +158,6 @@ def test_cli_serve_flags(capsys, monkeypatch):
     assert cli.main(["serve", "--model", "llama-test", "--batch-slots",
                      "4", "--tp", "2", "--prompt-lookup"]) == 1
     assert "not yet ported" in capsys.readouterr().err
-    assert cli.main(["serve", "--model", "llama-test", "--vision"]) == 1
+    assert cli.main(["serve", "--model", "llama-test", "--tp", "2",
+                     "--draft-model", "llama-test"]) == 1
     assert "not yet ported" in capsys.readouterr().err

@@ -260,3 +260,92 @@ def test_control_plane_runs_with_jax_zmq_msgpack_and_ml_dtypes_blocked():
     assert res.stdout.split("\n")[-4:-1] == [
         "True monitor_stop open True True", "zmq-refused",
         "zmq-refused"], res.stdout
+
+
+MULTIMODAL_MODULES = ("models.vision", "runtime.multimodal",
+                      "comm.native_codec", "comm.native.build", "tokenizer")
+
+
+def test_multimodal_and_native_run_with_jax_zmq_and_ml_dtypes_blocked():
+    """The card machine's case for the multimodal slice: its modules
+    import, ``MultimodalHeader`` + ``VisionWorker`` generate over
+    ``LoopbackTransport``, and the native library builds from the port's
+    own sources (no file of the JAX package is read) and gives the wire's
+    bytes and the python tokenizer's ids, with jax, the JAX package, zmq
+    and ml_dtypes all blocked."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'distributed_inference_demo_tpu',\n"
+        "          'zmq', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib, json, threading, numpy as np, torch\n"
+        f"for n in {MULTIMODAL_MODULES!r}:\n"
+        "    importlib.import_module('distributed_inference_demo_tpu_torch.'"
+        " + n)\n"
+        "from distributed_inference_demo_tpu_torch import cli\n"
+        "from distributed_inference_demo_tpu_torch.comm import wire, "
+        "native_codec\n"
+        "from distributed_inference_demo_tpu_torch.comm.native import build\n"
+        "from distributed_inference_demo_tpu_torch.comm.transport import "
+        "LoopbackNetwork, LoopbackTransport\n"
+        "from distributed_inference_demo_tpu_torch.models import "
+        "get_model_config\n"
+        "from distributed_inference_demo_tpu_torch.models.base import "
+        "slice_stage, split_layer_ranges\n"
+        "from distributed_inference_demo_tpu_torch.models.decoder import "
+        "init_full_params\n"
+        "from distributed_inference_demo_tpu_torch.models.vision import "
+        "init_vision_params\n"
+        "from distributed_inference_demo_tpu_torch.runtime.distributed "
+        "import PipelineWorker, StageRuntime\n"
+        "from distributed_inference_demo_tpu_torch.runtime.multimodal "
+        "import MultimodalEngine, MultimodalHeader, VisionWorker\n"
+        "from distributed_inference_demo_tpu_torch.tokenizer import "
+        "Tokenizer\n"
+        "from distributed_inference_demo_tpu_torch.ops.sampling import "
+        "SamplingParams\n"
+        "g = SamplingParams(greedy=True)\n"
+        "cfg = get_model_config('llama-test')\n"
+        "full = init_full_params(torch.Generator().manual_seed(0), cfg, "
+        "'cpu')\n"
+        "vcfg = cli.vision_config('clip-test')\n"
+        "vp = init_vision_params(torch.Generator().manual_seed(1), vcfg, "
+        "cfg.hidden_size, 'cpu')\n"
+        "img = np.ones((1, 28, 28, 3), np.float32)\n"
+        "text = np.array([[1, 2, 3]], np.int32)\n"
+        "want = MultimodalEngine(cfg, full, vcfg, vp, 32, g, device='cpu')"
+        ".generate(img, text, 3).tokens\n"
+        "specs = split_layer_ranges(cfg.num_layers, 2)\n"
+        "net = LoopbackNetwork()\n"
+        "rt = [StageRuntime(cfg, s, slice_stage(full, cfg, s), 32, g, "
+        "device='cpu') for s in specs]\n"
+        "w = PipelineWorker(rt[1], LoopbackTransport('s1', net), None, "
+        "'s0', step_timeout=30)\n"
+        "v = VisionWorker(vp, vcfg, LoopbackTransport('vis', net), 's0', "
+        "30)\n"
+        "ths = [threading.Thread(target=x.serve_forever, args=(30,), "
+        "daemon=True) for x in (w, v)]\n"
+        "[t.start() for t in ths]\n"
+        "h = MultimodalHeader(rt[0], LoopbackTransport('s0', net), 's1', "
+        "'vis', step_timeout=30)\n"
+        "got = h.generate_mm(img, text, 3)\n"
+        "h.shutdown_pipeline()\n"
+        "h.transport.send('vis', 'stop', b'')\n"
+        "[t.join(30) for t in ths]\n"
+        "arrs = [np.arange(6, dtype=np.float32), "
+        "wire.bf16_view(np.arange(4, dtype=np.uint16))]\n"
+        "same = native_codec.serialize_tensors(arrs) == "
+        "wire.serialize_tensors(arrs)\n"
+        "spec = json.dumps({'model': {'type': 'BPE', 'vocab': {'a': 0, "
+        "'b': 1, 'ab': 2}, 'merges': ['a b']}, 'pre_tokenizer': "
+        "{'type': 'ByteLevel'}})\n"
+        "ids = [Tokenizer.from_json(spec, backend=b).encode('abab') "
+        "for b in ('native', 'python')]\n"
+        "print('SOURCES', build.SRC_DIR.parent.parent.name)\n"
+        "print('OK', bool((got == want).all()), same, ids[0] == ids[1])\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split("\n")[-3:-1] == [
+        "SOURCES distributed_inference_demo_tpu_torch",
+        "OK True True True"], res.stdout

@@ -4,8 +4,8 @@ Byte-level and metaspace ``tokenizer.json`` files (the first trained here
 with the ``tokenizers`` library, the second built by hand, as
 ``tests/test_tokenizer.py`` makes them) and a crafted sentencepiece
 ``.model`` (as ``tests/test_text_e2e.py`` makes one, with byte pieces)
-go through both packages' ``Tokenizer`` on every ported backend; ids,
-text and stream deltas must be equal.
+go through both packages' ``Tokenizer`` on every backend (python, hf and
+the native C++ engine); ids, text and stream deltas must be equal.
 """
 
 import json
@@ -120,7 +120,7 @@ def test_model_proto_bytes_equal_reference():
             == ref_sp.build_model_proto(_sp_pieces(ref_sp)))
 
 
-@pytest.mark.parametrize("backend", ["python", "hf"])
+@pytest.mark.parametrize("backend", ["python", "hf", "native"])
 @pytest.mark.parametrize("kind", ["bytelevel", "metaspace"])
 def test_json_tokenizers_equal_reference(kind, backend, bytelevel_json,
                                          metaspace_json):
@@ -169,12 +169,16 @@ def test_stream_detokenizer_deltas_equal_reference(kind, bytelevel_json,
 
 
 def test_native_backend_names_its_roadmap_item(metaspace_json, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Tokenizer.from_json(metaspace_json, backend="native")
+    """The native backend is served (built from the port's own sources)
+    and its ids equal the python backend's, from a string and a file."""
     path = tmp_path / "tokenizer.json"
     path.write_text(metaspace_json)
-    with pytest.raises(NotImplementedError, match="comm/native"):
-        Tokenizer.from_file(path, backend="native")
+    python = Tokenizer.from_json(metaspace_json, backend="python")
+    for native in (Tokenizer.from_json(metaspace_json, backend="native"),
+                   Tokenizer.from_file(path, backend="native")):
+        assert native.backend == "native"
+        for text in TEXTS:
+            assert native.encode(text) == python.encode(text), text
     # the default is the python backend, for a file and for a string
     assert Tokenizer.from_file(path).backend == "python"
     assert Tokenizer.from_json(metaspace_json).backend == "python"
