@@ -62,10 +62,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             against the gather path's, as in the batching phase; at f32
             the tokens equal the same configuration's on the gather path;
             no page leak; an int4 request gathers with no
-            launch; throughput, TTFT, step time, idle share, and how many
-            tokens agree with the serialized interleave's, on the kernels
-            and on the gather path, with the teacher-forced logit gap
-            between a prefill chunk run in a mixed slab and run alone,
+            launch; throughput, TTFT, step time, idle share, the
+            teacher-forced logit gap between a prefill chunk run in a mixed slab and run alone,
             through the kernels and through the gather path; the K/V
             pages the 1000-, 150- and 20-token prompts write, chunk by
             chunk, serialized and in a mixed slab, compared bit for bit,
@@ -118,9 +116,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             prefill and decode logits held against a float twin whose
             weights are the same codes dequantized (plain serve through
             the plain engine's forward, batching through the batching
-            engine's paged forward); llama-3-8b-int8 and llama-3-8b
-            plain serve (graph only): init peak memory, ms/token, device
-            ms a step and the dense kernel's share, and the int8 model's
+            engine's paged forward); llama-3-8b-int8 and llama-3-8b plain
+            serve (graph only): init peak memory, ms/token, device ms a
+            step and the dense kernel's share, and the int8 model's
             logits against its twin;
             ``serve --model tinyllama-1.1b-int8 --checkpoint DIR`` over a
             full-width HF state dict written as two safetensors shards:
@@ -153,7 +151,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             reported); each pool's blocks exported and adopted back
             bit-equal; 8-slot batching over float8 e4m3 pages as phases
             4 (the e4m3 instances' launches against the routing, bf16
-            logits against the gather path, f32 tokens against the
+            logits against the gather path, f32 tokens, at
+            FP8_F32_LAYERS (6) of the layers and full width, against the
             gather path's: equal, or parting only at near ties) and 8
             (replayed = eager, ms a step, idle share); the plain engine
             over a float8 cache (plain attention; ms/token, device ms a
@@ -194,8 +193,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             flash kernel's launches = L a prefill, the first 32 tokens
             replayed = eager bit for bit, bf16 greedy streams equal to
             the plain engine's or parting at a reported near tie
-            (``spec_partings``), f32 token-exact; 8-slot batching over
-            the batching phase's prompts with either proposer,
+            (``spec_partings``), f32 token-exact (the target at
+            SPEC_F32_LAYERS of its layers, full width); 8-slot
+            batching over the batching phase's prompts with either proposer,
             serialized (``decode_block`` 4) and mixed over int8 pages
             (budget 288, adaptive K), and prompt lookup over float8
             pages: the paged kernels' launches against the routing
@@ -255,7 +255,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             since NCCL refuses two ranks on one device), each check on a
             line of its own: an NCCL group of size 1 whose all-reduce,
             all-gather and all-to-all at TinyLlama's 8-slot shapes are
-            captured in a CUDA graph and replayed equal to eager;
+            captured in a CUDA graph and replayed equal to eager; on
+            one tp=2 mesh (its ranks started once):
             TinyLlama bf16 tp=2 8-slot ``--batch-slots`` serving, at full
             width and PAR_BATCHING_LAYERS of its 22 layers, of the
             batching phase's 8 requests over HTTP: tokens against the
@@ -361,10 +362,35 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             ``tokenizer.json`` the phase writes (special tokens, byte
             fallback); the build's seconds, each codec's µs a frame and
             each tokenizer backend's encode µs per 1 KB of text;
-20. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+20. train   training on the card (``parallel/pipeline.py``,
+            ``checkpoint.py``) at TinyLlama's full width: pp = 1, full
+            depth, bf16, one process: TRAIN_STEPS AdamW steps (state in
+            bf16) on a fixed 8 x 128-token batch in two microbatches, the
+            loss finite and falling, ms a step and tokens/s; on one pp =
+            2 mesh (two ranks over gloo on the one card): f32 at
+            TRAIN_PP_LAYERS (2) of 22 layers, ``pipeline_apply``'s loss
+            and one ``sgd(1.0)`` step's change of ``wq``, ``w_down`` and
+            the embedding against the single-process autograd
+            reference's loss and gradient, the step's ms against pp =
+            1's at the same depth and the bytes it staged through host
+            memory; ``tinyllama-1.1b-int8``'s forward through the
+            pipeline (the dense kernel) against its dequantised twin,
+            the last rank's logits within LOGIT_TOL_REL of the twin's
+            largest, each rank's dense launches = 7 x
+            its 11 layers x 2 microbatches; the circular decode, f32 at
+            full depth, greedy tokens against ``InferenceEngine``'s
+            (near ties only); ``TrainCheckpointManager`` on the pp = 1
+            run's params and AdamW state (6.6 GB): a save and a restore
+            in a fresh manager, bit for bit, seconds and GB/s each way,
+            ``load_or_init`` on ``save_params``' directory bit for bit,
+            ``max_to_keep`` on a small tree;
+    (phase 9's kernel rows hold the dense kernel at the train phase's
+    256-row products: TinyLlama's w_up, M = 256)
+21. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the ``{"ok": true, "device": {...}}`` line.
 
-Phases 10 to 19 run in the order 11, 12, 13, 14, 16, 17, 18, 19, 15, 10:
+Phases 10 to 20 run in the order 11, 12, 13, 14, 16, 17, 18, 19, 20, 15,
+10:
 the moe phase last, after the earlier phases freed their memory.  Every phase line carries
 its wall ``seconds``.  Exits non-zero, printing no
 result, without CUDA or outside a checkout, and on any failed check.
@@ -478,6 +504,11 @@ KV_PROMPTS = 6
 MOE_MODEL = "mixtral-tpu-1b"
 MOE_LARGE = "mixtral-8x7b-int8"
 MOE_TWIN_LAYERS = 2
+# the float8-page batching's f32 gather check at 6 layers, full width:
+# f32 streams part only at near ties at any depth (pays for the train
+# phase with the speculative phase's single-request f32 check at
+# SPEC_F32_LAYERS and one tp mesh for the parallel phase's tp checks)
+FP8_F32_LAYERS = 6
 # the speculative phase: TinyLlama with the catalog's 8-layer dense
 # llama as its draft (hd 64, g = 4, TinyLlama's vocab), K proposals a
 # round; the prompt-lookup prompt repeats a SPEC_SPAN-token span; the
@@ -488,7 +519,7 @@ SPEC_NEW = 128
 SPEC_SPAN = 64
 SPEC_REPEATS = 4
 SPEC_ROUNDS_PROFILED = 4
-SPEC_F32_LAYERS = 6      # the f32 speculative batching check's depth cut
+SPEC_F32_LAYERS = 6      # the f32 speculative checks' depth cut
 SPEC_EAGER_NEW = 16      # tokens of an eager run held to the graph's
 VERIFY_STARTS = (20, 150, 300, 600, 1000, 1500, 1999, None)
 # the parallel phase: tp=2 ranks as processes on the one card (gloo
@@ -1925,12 +1956,14 @@ def kv_pages_slab_vs_chunk(torch, engine, seq) -> dict:
 
 def phase_batching(torch, model: str = SERVE_MODEL,
                    f32: str | None = "engine",
-                   kv_cache_dtype: str | None = None) -> dict:
+                   kv_cache_dtype: str | None = None,
+                   f32_layers: int | None = None) -> dict:
     """The batching path of ``model`` at full width: see the module
     docstring, item 4.  ``f32``: "engine" holds the f32 tokens to a
     plain-attention ``InferenceEngine``'s (requests concurrent), "gather"
     to the same batching configuration's on the gather path (requests
-    one after another, the same schedule for both), None skips it.
+    one after another, the same schedule for both), None skips it;
+    ``f32_layers`` cuts that check's depth (full width).
     ``kv_cache_dtype`` "float8_e4m3fn": the pool's pages are float8 and
     the e4m3 instances launch (launch keys ``paged_*_fp8``); the decode
     window is left to :func:`graph_batching`."""
@@ -2057,7 +2090,9 @@ def phase_batching(torch, model: str = SERVE_MODEL,
     # ---- f32, same seed: the batching engine (paged kernels) against a
     # plain-attention InferenceEngine, or against the gather path, token
     # for token ----
-    cfg32 = cfg.replace(dtype_name="float32")
+    cfg32 = cfg.replace(dtype_name="float32",
+                        num_layers=f32_layers or cfg.num_layers)
+    out["f32_layers"] = cfg32.num_layers
     p32 = init_full_params(
         torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
     if f32 == "engine":
@@ -2134,8 +2169,7 @@ def fp8_partings(torch, engines, prompts, got, want) -> list:
 def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
                 ) -> dict:
     """The mixed dispatch over int8 pages at ``model``'s full width: see
-    the module docstring, item 5.  ``extras``: also the agreement with the
-    serialized interleave (kernels and gather path), the teacher-forced
+    the module docstring, item 5.  ``extras``: also the teacher-forced
     slab-vs-chunk logit gap, the int4 pool and the f32 tokens."""
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
@@ -2275,28 +2309,6 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
         for p in (seq[:1000], prompts[BATCH_PROMPTS.index(150)],
                   prompts[BATCH_PROMPTS.index(20)])}
     del engine, plain_engine
-
-    # ---- the serialized interleave on the same int8 pages: how many of
-    # the same 8 requests' greedy tokens agree (bf16: a count, no check);
-    # then both orders again with the 8 requests submitted at once, on
-    # the kernels and on the gather path
-    def agreement(a, b):
-        return sum(sum(x == y for x, y in zip(r, s_)) for r, s_ in zip(a, b))
-
-    def submit_all(**kw):
-        with engine_for(cfg, params, **kw) as e:
-            reqs = [e.submit(p, NEW_TOKENS) for p in prompts]
-            return [r.wait(timeout=900).tolist() for r in reqs]
-
-    ser_toks = submit_all(mixed_token_budget=0)
-    out["serialized_agreement"] = agreement(toks, ser_toks)
-    out["serialized_agreement_of"] = len(prompts) * NEW_TOKENS
-    # per request
-    out["serialized_agreement_submitted"] = {
-        name: [sum(x == y for x, y in zip(r, s_)) for r, s_ in
-               zip(submit_all(attn_backend=backend),
-                   submit_all(attn_backend=backend, mixed_token_budget=0))]
-        for name, backend in (("kernels", "auto"), ("gather", "plain"))}
 
     # ---- an int4 pool: the routing sends it to the gather path ----
     _reset_launches(*wrappers)
@@ -3778,7 +3790,8 @@ def phase_kvcache(torch) -> dict:
     for key, run in (
             ("prefix_pool", lambda: kv_prefix_pool(torch)),
             ("batching", lambda: phase_batching(
-                torch, SERVE_MODEL, f32="gather", kv_cache_dtype=fp8)),
+                torch, SERVE_MODEL, f32="gather", kv_cache_dtype=fp8,
+                f32_layers=FP8_F32_LAYERS)),
             ("graph_batching", lambda: graph_batching(
                 torch, SERVE_MODEL, kv_cache_dtype=fp8)),
             ("fp8_plain", fp8_plain)):
@@ -4697,8 +4710,11 @@ def phase_speculative(torch, ptxas: list) -> dict:
     del plain
     lap("single_request_engines")
     # f32: the draft-model and prompt-lookup engines token-exact against
-    # the plain engine (each on its own weights from seed 0)
-    cfg32, dcfg32 = (c.replace(dtype_name="float32") for c in (cfg, dcfg))
+    # the plain engine (each on its own weights from seed 0), the target
+    # at SPEC_F32_LAYERS of its layers, full width
+    cfg32 = cfg.replace(dtype_name="float32", num_layers=SPEC_F32_LAYERS)
+    dcfg32 = dcfg.replace(dtype_name="float32")
+    out["single_request_f32_layers"] = SPEC_F32_LAYERS
     p32 = init_full_params(torch.Generator(device="cuda").manual_seed(0),
                            cfg32, "cuda")
     d32 = init_full_params(torch.Generator(device="cuda").manual_seed(0),
@@ -5756,7 +5772,7 @@ def parallel_nccl(torch) -> dict:
     return res
 
 
-def parallel_tp_batching(torch) -> dict:
+def parallel_tp_batching(torch, mesh) -> dict:
     """TinyLlama bf16 at full width and PAR_BATCHING_LAYERS layers, tp=2
     over gloo on the one card: 8-slot
     ``--batch-slots`` serving over HTTP of the batching phase's 8
@@ -5765,7 +5781,8 @@ def parallel_tp_batching(torch) -> dict:
     routing's prediction; no page leak; ms a step at tp=2 against tp=1
     (both eager: a gloo step cannot be captured), rank 0's device ms a
     step and idle share, the collectives' ms and staged bytes; then an
-    f32 cross-check on three of the prompts."""
+    f32 cross-check on three of the prompts.  ``mesh``: a tp=PAR_TP
+    mesh, the caller's."""
     import numpy as np
 
     from distributed_inference_demo_tpu_torch.models.decoder import \
@@ -5774,10 +5791,8 @@ def parallel_tp_batching(torch) -> dict:
         get_model_config
     from distributed_inference_demo_tpu_torch.ops.sampling import \
         SamplingParams
-    from distributed_inference_demo_tpu_torch.parallel.mesh import \
-        local_tp_mesh
-    from distributed_inference_demo_tpu_torch.parallel.tensor import \
-        rank_launches
+    from distributed_inference_demo_tpu_torch.parallel.tensor import (
+        free_tp, rank_launches)
     from distributed_inference_demo_tpu_torch.runtime.batching import \
         ContinuousBatchingEngine
     from distributed_inference_demo_tpu_torch.runtime.http_server import \
@@ -5811,90 +5826,88 @@ def parallel_tp_batching(torch) -> dict:
     finally:
         one.close()
     flight = get_flight_recorder()
-    mesh = local_tp_mesh(PAR_TP, "cuda")
+    out["mesh"] = mesh.describe()
+    eng = ContinuousBatchingEngine(cfg, params, mesh=mesh, **kw)
+    server = InferenceHTTPServer(eng, "127.0.0.1", 0,
+                                 model_name=SERVE_MODEL,
+                                 default_max_new=NEW_TOKENS)
+    server.start()
     try:
-        out["mesh"] = mesh.describe()
-        eng = ContinuousBatchingEngine(cfg, params, mesh=mesh, **kw)
-        server = InferenceHTTPServer(eng, "127.0.0.1", 0,
-                                     model_name=SERVE_MODEL,
-                                     default_max_new=NEW_TOKENS)
-        server.start()
-        try:
-            _post(server.port, {"prompt_ids": [list(range(16))],
-                                "max_new_tokens": 2})
-            eng.reset_stats()
-            flight.clear()
-            rank_launches(mesh, reset=True)
-            before = dict(mesh.stats)
-            t0 = time.perf_counter()
-            toks = _serve_all(server.port, prompts)
-            wall = time.perf_counter() - t0
-            comm = _mesh_delta(mesh, before)
-            per_rank = rank_launches(mesh)
-            events = flight.snapshot()
-            admits = [(e["prompt_len"], e["prefix_reused"]) for e in events
-                      if e["kind"] == "batch_admit"]
-            predicted = predicted_paged_launches(eng, admits, L)
-            launches = [{"paged_decode": r["paged_decode"]["launches"],
-                         "paged_prefill": r["paged_prefill"]["launches"]}
-                        for r in per_rank]
-            steps = eng.loop_stats["device_loop_steps"]
-            out.update(launches_by_rank=launches, predicted=predicted,
-                       wall_s=wall, tok_s=len(prompts) * NEW_TOKENS / wall,
-                       decode_steps=steps, comm=comm,
-                       comm_per_step_ms=comm["collective_ms"] / max(1, steps),
-                       admissions=admits)
-            _check(all(x == predicted for x in launches)
-                   and min(predicted.values()) > 0,
-                   f"per-rank paged launches {launches}, routing "
-                   f"predicts {predicted}")
-            out["no_page_leak"] = _no_page_leak(eng)
-            _check(out["no_page_leak"], "pages leaked after the drain")
-            out["tp2_window"] = decode_window(torch, eng, prompts,
-                                              steps=8, profiled=4)
-            _check(_no_page_leak(eng), "the window leaked pages")
-        finally:
-            server.shutdown()
-            eng.close()
-        out["tokens_equal"] = sum(g == w for g, w in zip(toks, want))
-        out["partings"] = _partings(torch, one, prompts, toks, want)
-        out["ms_per_step"] = {
-            "tp1": out["tp1_window"]["decode_ms_per_step"],
-            "tp2": out["tp2_window"]["decode_ms_per_step"]}
-        out["rank0_profile"] = {
-            k: out["tp2_window"]["profile"].get(k)
-            for k in ("device_busy_ms", "wall_ms", "device_idle_share",
-                      "steps", "kernels")}
-        del params, one
-        torch.cuda.empty_cache()
-        # ---- f32 cross-check, three of the prompts ----
-        cfg32 = cfg.replace(dtype_name="float32")
-        p32 = init_full_params(
-            torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
-        few = [prompts[BATCH_PROMPTS.index(n)] for n in (20, 150)]
-        one32 = ContinuousBatchingEngine(cfg32, p32, **kw)
-        try:
-            want32 = [r.wait(timeout=900).tolist()
-                      for r in [one32.submit(p, NEW_TOKENS) for p in few]]
-        finally:
-            one32.close()
-        eng32 = ContinuousBatchingEngine(cfg32, p32, mesh=mesh, **kw)
-        try:
-            got32 = [r.wait(timeout=900).tolist()
-                     for r in [eng32.submit(p, NEW_TOKENS) for p in few]]
-            _check(_no_page_leak(eng32), "f32 run leaked pages")
-        finally:
-            eng32.close()
-        out["f32_tokens_equal"] = sum(g == w for g, w in zip(got32, want32))
-        out["f32_partings"] = _partings(torch, one32, few, got32, want32)
-        del p32
+        _post(server.port, {"prompt_ids": [list(range(16))],
+                            "max_new_tokens": 2})
+        eng.reset_stats()
+        flight.clear()
+        rank_launches(mesh, reset=True)
+        before = dict(mesh.stats)
+        t0 = time.perf_counter()
+        toks = _serve_all(server.port, prompts)
+        wall = time.perf_counter() - t0
+        comm = _mesh_delta(mesh, before)
+        per_rank = rank_launches(mesh)
+        events = flight.snapshot()
+        admits = [(e["prompt_len"], e["prefix_reused"]) for e in events
+                  if e["kind"] == "batch_admit"]
+        predicted = predicted_paged_launches(eng, admits, L)
+        launches = [{"paged_decode": r["paged_decode"]["launches"],
+                     "paged_prefill": r["paged_prefill"]["launches"]}
+                    for r in per_rank]
+        steps = eng.loop_stats["device_loop_steps"]
+        out.update(launches_by_rank=launches, predicted=predicted,
+                   wall_s=wall, tok_s=len(prompts) * NEW_TOKENS / wall,
+                   decode_steps=steps, comm=comm,
+                   comm_per_step_ms=comm["collective_ms"] / max(1, steps),
+                   admissions=admits)
+        _check(all(x == predicted for x in launches)
+               and min(predicted.values()) > 0,
+               f"per-rank paged launches {launches}, routing "
+               f"predicts {predicted}")
+        out["no_page_leak"] = _no_page_leak(eng)
+        _check(out["no_page_leak"], "pages leaked after the drain")
+        out["tp2_window"] = decode_window(torch, eng, prompts,
+                                          steps=8, profiled=4)
+        _check(_no_page_leak(eng), "the window leaked pages")
     finally:
-        mesh.close()
+        server.shutdown()
+        eng.close()
+        free_tp(mesh, eng.params)           # the shared mesh lives on
+    out["tokens_equal"] = sum(g == w for g, w in zip(toks, want))
+    out["partings"] = _partings(torch, one, prompts, toks, want)
+    out["ms_per_step"] = {
+        "tp1": out["tp1_window"]["decode_ms_per_step"],
+        "tp2": out["tp2_window"]["decode_ms_per_step"]}
+    out["rank0_profile"] = {
+        k: out["tp2_window"]["profile"].get(k)
+        for k in ("device_busy_ms", "wall_ms", "device_idle_share",
+                  "steps", "kernels")}
+    del params, one
+    torch.cuda.empty_cache()
+    # ---- f32 cross-check, three of the prompts ----
+    cfg32 = cfg.replace(dtype_name="float32")
+    p32 = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
+    few = [prompts[BATCH_PROMPTS.index(n)] for n in (20, 150)]
+    one32 = ContinuousBatchingEngine(cfg32, p32, **kw)
+    try:
+        want32 = [r.wait(timeout=900).tolist()
+                  for r in [one32.submit(p, NEW_TOKENS) for p in few]]
+    finally:
+        one32.close()
+    eng32 = ContinuousBatchingEngine(cfg32, p32, mesh=mesh, **kw)
+    try:
+        got32 = [r.wait(timeout=900).tolist()
+                 for r in [eng32.submit(p, NEW_TOKENS) for p in few]]
+        _check(_no_page_leak(eng32), "f32 run leaked pages")
+    finally:
+        eng32.close()
+        free_tp(mesh, eng32.params)
+    out["f32_tokens_equal"] = sum(g == w for g, w in zip(got32, want32))
+    out["f32_partings"] = _partings(torch, one32, few, got32, want32)
+    del p32
     torch.cuda.empty_cache()
     return out
 
 
-def parallel_tp_generate(torch, name: str) -> dict:
+def parallel_tp_generate(torch, mesh, name: str) -> dict:
     """Plain ``generate`` of ``name`` (llama-3-8b or its -int8, at full
     width and PAR_GENERATE_LAYERS layers) at tp=2: the prefill logits
     held to the tp=1 engine's within the bf16 logit tolerance, the
@@ -5912,10 +5925,8 @@ def parallel_tp_generate(torch, name: str) -> dict:
         get_model_config
     from distributed_inference_demo_tpu_torch.ops.sampling import \
         SamplingParams
-    from distributed_inference_demo_tpu_torch.parallel.mesh import \
-        local_tp_mesh
-    from distributed_inference_demo_tpu_torch.parallel.tensor import \
-        rank_launches
+    from distributed_inference_demo_tpu_torch.parallel.tensor import (
+        free_tp, rank_launches)
     from distributed_inference_demo_tpu_torch.runtime.engine import (
         InferenceEngine, shard_engine_params)
 
@@ -5943,55 +5954,51 @@ def parallel_tp_generate(torch, name: str) -> dict:
     lp1 = one.prefill_logits(prompt)[0]
     want = one.generate(prompt, n).tokens[0].tolist()
     out["tp1_ms_per_token"] = ms_per_token(one)
-    mesh = local_tp_mesh(PAR_TP, "cuda")
-    try:
-        out["mesh"] = mesh.describe()
-        t0 = time.perf_counter()
-        sharded = shard_engine_params(params, cfg, mesh)
-        out["shard_s"] = time.perf_counter() - t0
-        out["shard_sent_bytes"] = mesh.stats["staged_bytes"]
-        eng = InferenceEngine(cfg, sharded, mesh=mesh, **kw)
-        rank_launches(mesh, reset=True)
-        before = dict(mesh.stats)
-        lp2 = eng.prefill_logits(prompt)[0]
-        got = eng.generate(prompt, n).tokens[0].tolist()
-        comm = _mesh_delta(mesh, before)
-        per_rank = rank_launches(mesh, reset=True)
-        forwards = 2 + n        # prefill_logits, generate's prefill, n steps
-        tol = LOGIT_TOL_REL * max(1.0, float(np.abs(lp1).max()))
-        err = float(np.abs(lp2 - lp1).max())
-        out.update(logit_max_abs_err=err, logit_tol=tol,
-                   argmax_equal=int(lp2.argmax()) == int(lp1.argmax()),
-                   tokens_equal=got == want, comm=comm,
-                   comm_per_forward_ms=comm["collective_ms"] / forwards,
-                   launches_by_rank=[
-                       {"flash": r["flash"]["launches"],
-                        "quant_dense": r["quant_dense"]["launches"],
-                        "quant_dense_decode":
-                            r["quant_dense"]["decode_launches"]}
-                       for r in per_rank])
-        _check(err <= tol, f"tp=2 prefill logits off by {err} > {tol}")
-        if got != want:
-            j = next(k for k in range(n) if got[k] != want[k])
-            ls = one.prefill_logits(np.asarray([prompt[0].tolist()
-                                                + want[:j]]))[0]
-            out["parting"] = {"step": j,
-                              "margin": float(abs(ls[want[j]] - ls[got[j]])),
-                              "logit_tol": tol}
-            _check(out["parting"]["margin"] <= tol,
-                   f"a tp=2 stream parts away from a near tie: "
-                   f"{out['parting']}")
-        dense = 7 * L * forwards if cfg.quantization == "int8" else 0
-        for r in out["launches_by_rank"]:
-            _check(r["flash"] == 2 * L and r["quant_dense"] == dense,
-                   f"per-rank launches {out['launches_by_rank']}: flash "
-                   f"{2 * L}, dense {dense} expected")
-        out["tp2_ms_per_token"] = ms_per_token(eng)
-        out["rank0_profile"] = profile_decode(torch, eng, prompt, steps=8)
-        del eng, sharded
-    finally:
-        mesh.close()
-    del one, params
+    out["mesh"] = mesh.describe()
+    t0, sent = time.perf_counter(), mesh.stats["staged_bytes"]
+    sharded = shard_engine_params(params, cfg, mesh)
+    out["shard_s"] = time.perf_counter() - t0
+    out["shard_sent_bytes"] = mesh.stats["staged_bytes"] - sent
+    eng = InferenceEngine(cfg, sharded, mesh=mesh, **kw)
+    rank_launches(mesh, reset=True)
+    before = dict(mesh.stats)
+    lp2 = eng.prefill_logits(prompt)[0]
+    got = eng.generate(prompt, n).tokens[0].tolist()
+    comm = _mesh_delta(mesh, before)
+    per_rank = rank_launches(mesh, reset=True)
+    forwards = 2 + n        # prefill_logits, generate's prefill, n steps
+    tol = LOGIT_TOL_REL * max(1.0, float(np.abs(lp1).max()))
+    err = float(np.abs(lp2 - lp1).max())
+    out.update(logit_max_abs_err=err, logit_tol=tol,
+               argmax_equal=int(lp2.argmax()) == int(lp1.argmax()),
+               tokens_equal=got == want, comm=comm,
+               comm_per_forward_ms=comm["collective_ms"] / forwards,
+               launches_by_rank=[
+                   {"flash": r["flash"]["launches"],
+                    "quant_dense": r["quant_dense"]["launches"],
+                    "quant_dense_decode":
+                        r["quant_dense"]["decode_launches"]}
+                   for r in per_rank])
+    _check(err <= tol, f"tp=2 prefill logits off by {err} > {tol}")
+    if got != want:
+        j = next(k for k in range(n) if got[k] != want[k])
+        ls = one.prefill_logits(np.asarray([prompt[0].tolist()
+                                            + want[:j]]))[0]
+        out["parting"] = {"step": j,
+                          "margin": float(abs(ls[want[j]] - ls[got[j]])),
+                          "logit_tol": tol}
+        _check(out["parting"]["margin"] <= tol,
+               f"a tp=2 stream parts away from a near tie: "
+               f"{out['parting']}")
+    dense = 7 * L * forwards if cfg.quantization == "int8" else 0
+    for r in out["launches_by_rank"]:
+        _check(r["flash"] == 2 * L and r["quant_dense"] == dense,
+               f"per-rank launches {out['launches_by_rank']}: flash "
+               f"{2 * L}, dense {dense} expected")
+    out["tp2_ms_per_token"] = ms_per_token(eng)
+    out["rank0_profile"] = profile_decode(torch, eng, prompt, steps=8)
+    free_tp(mesh, sharded)                  # the shared mesh lives on
+    del eng, sharded, one, params
     torch.cuda.empty_cache()
     return out
 
@@ -6152,25 +6159,37 @@ def parallel_sp(torch) -> dict:
 def phase_parallel(torch) -> dict:
     """Multiple devices on torch.distributed, on the one card: see the
     module docstring, item 15.  Each check prints its own line."""
+    from distributed_inference_demo_tpu_torch.parallel.mesh import \
+        local_tp_mesh
+
     t0 = time.perf_counter()
     out = {"phase": "parallel", "device": torch.cuda.get_device_name(0),
            "device_count": torch.cuda.device_count(),
            "power": nvidia_smi_line(), "note": PARALLEL_NOTE}
     print(f"parallel: torch.cuda.device_count() = "
           f"{torch.cuda.device_count()}", flush=True)
-    for key, fn, args in (("nccl", parallel_nccl, ()),
-                          ("tp_batching", parallel_tp_batching, ()),
-                          ("tp_llama3_8b", parallel_tp_generate,
-                           (LARGE_MODEL,)),
-                          ("tp_llama3_8b_int8", parallel_tp_generate,
-                           (LARGE_MODEL + "-int8",)),
-                          ("ep", parallel_ep, ()),
-                          ("sp", parallel_sp, ())):
+
+    def run(key, fn, *args):
         t1 = time.perf_counter()
         res = fn(torch, *args)
         res["seconds"] = time.perf_counter() - t1
         emit(res)
         out[key] = res
+
+    run("nccl", parallel_nccl)
+    # the three tp checks share one tp mesh (its ranks start once)
+    t1 = time.perf_counter()
+    mesh = local_tp_mesh(PAR_TP, "cuda")
+    out["tp_mesh_s"] = time.perf_counter() - t1
+    try:
+        run("tp_batching", parallel_tp_batching, mesh)
+        run("tp_llama3_8b", parallel_tp_generate, mesh, LARGE_MODEL)
+        run("tp_llama3_8b_int8", parallel_tp_generate, mesh,
+            LARGE_MODEL + "-int8")
+    finally:
+        mesh.close()
+    run("ep", parallel_ep)
+    run("sp", parallel_sp)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -7537,6 +7556,452 @@ def phase_native(torch, dev: str = "cuda") -> dict:
     return out
 
 
+TRAIN_ROWS, TRAIN_SEQ = 8, 128        # a step's fixed batch: 1024 tokens
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 3                       # AdamW steps at pp = 1; the first warms
+TRAIN_LR = 1e-3                       # moves bf16 weights past their ulp
+TRAIN_PP = 2
+TRAIN_PP_LAYERS = 2                   # the f32 pp = 2 checks' depth cut
+TRAIN_PP_ROWS = 4                     # their batch: 4 x 128 tokens
+TRAIN_GRAD_TOL_REL = 2e-3             # of the leaf's largest |gradient|
+TRAIN_INT8_ROWS = 2                   # 2 x 128 = 256 rows a dense product
+TRAIN_GEN_PROMPT = 32
+TRAIN_GEN_NEW = 8
+TRAIN_GEN_MICROBATCHES = 2
+TRAIN_KEEP_TREE = "llama-test"        # max_to_keep's small tree
+
+
+def _train_batch(torch, vocab: int, rows: int, seed: int):
+    """``rows`` x TRAIN_SEQ token ids from ``seed`` and their next-token
+    targets (the last position padded with -100)."""
+    import numpy as np
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, vocab, (rows, TRAIN_SEQ)))
+    targets = torch.roll(ids, -1, 1)
+    targets[:, -1] = -100
+    return ids, targets
+
+
+def _sync(torch, dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bits_of(torch, t):
+    """A tensor's bytes (bit equality, -0.0 and NaN included)."""
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _timed_steps(torch, step, params, opt, ids, targets, n: int, dev: str):
+    """``n`` train steps from (params, opt): their losses and the wall ms
+    of each (host clock, the card synchronized)."""
+    losses, ms = [], []
+    for _ in range(n):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, ids, targets)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return params, opt, losses, ms
+
+
+def train_pp1(torch, cfg, dev: str) -> tuple:
+    """TRAIN_STEPS AdamW steps of the one-rank pipeline at full depth on
+    a fixed batch: finite losses that fall; ms a step and tokens/s over
+    the steps after the first."""
+    import functools
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.parallel.mesh import (
+        MeshConfig, local_mesh)
+    from distributed_inference_demo_tpu_torch.parallel.pipeline import \
+        make_pipeline_train_step
+
+    opt = functools.partial(torch.optim.AdamW, lr=TRAIN_LR,
+                            weight_decay=1e-4)
+    full = init_full_params(torch.Generator(device=dev).manual_seed(0),
+                            cfg, dev)
+    ids, targets = _train_batch(torch, cfg.vocab_size, TRAIN_ROWS, 5)
+    with local_mesh(MeshConfig(), dev) as mesh:
+        step = make_pipeline_train_step(cfg, mesh, opt, TRAIN_MICROBATCHES)
+        params, state, losses, ms = _timed_steps(
+            torch, step, full, None, ids, targets, TRAIN_STEPS, dev)
+    del full
+    import math
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    out = {"layers": cfg.num_layers, "dtype": str(cfg.dtype),
+           "batch": [TRAIN_ROWS, TRAIN_SEQ],
+           "microbatches": TRAIN_MICROBATCHES, "optimizer":
+           f"AdamW(lr={TRAIN_LR}, weight_decay=1e-4), state in "
+           f"{cfg.dtype}", "losses": losses, "step_ms": ms,
+           "ms_a_step": steady,
+           "tokens_per_s": TRAIN_ROWS * TRAIN_SEQ / steady * 1e3}
+    _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    _check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    return out, params, state, opt
+
+
+def _autograd_reference(torch, cfg, full, ids, targets):
+    """The single-process autograd reference: the training form of
+    ``stage_forward`` over the whole batch, mean cross-entropy, its loss
+    and every leaf's gradient."""
+    from distributed_inference_demo_tpu_torch.models.base import (
+        StageParams, StageSpec)
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        stage_forward
+    from distributed_inference_demo_tpu_torch.parallel.pipeline import \
+        _nll_sum
+
+    tree = StageParams(**{
+        n: None if getattr(full, n) is None else {
+            k: v.detach().clone().requires_grad_(True)
+            for k, v in getattr(full, n).items()}
+        for n in ("layers", "embed", "final_norm", "lm_head")})
+    b, s = ids.shape
+    dev = full.embed["tokens"].device
+    logits, _ = stage_forward(tree, cfg, StageSpec(0, 1, 0, cfg.num_layers),
+                              ids.to(dev), None,
+                              torch.arange(s, device=dev).expand(b, s))
+    tg = targets.to(dev)
+    loss = _nll_sum(logits, tg) / int((tg != -100).sum())
+    loss.backward()
+    return float(loss.detach()), tree
+
+
+def train_pp2(torch, cfg, mesh, dev: str) -> dict:
+    """pp = 2 over two ranks on the one card (gloo), f32, full width at
+    TRAIN_PP_LAYERS layers: ``pipeline_apply``'s loss against the
+    single-process autograd reference's; one ``sgd(1.0)`` step's change
+    of ``wq``, ``w_down`` and the embedding against its gradient; a
+    step's ms against pp = 1's at the same depth, and the bytes it
+    staged through host memory."""
+    import functools
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.parallel.mesh import (
+        MeshConfig, local_mesh)
+    from distributed_inference_demo_tpu_torch.parallel.pipeline import (
+        distribute_pipeline_params, gather_pipeline_params,
+        make_pipeline_train_step, pipeline_loss)
+    from distributed_inference_demo_tpu_torch.parallel.tensor import free_tp
+
+    sgd = functools.partial(torch.optim.SGD, lr=1.0)
+    full = init_full_params(torch.Generator(device=dev).manual_seed(1),
+                            cfg, dev)
+    ids, targets = _train_batch(torch, cfg.vocab_size, TRAIN_PP_ROWS, 6)
+    M = TRAIN_MICROBATCHES
+    ref_loss, ref = _autograd_reference(torch, cfg, full, ids, targets)
+    sharded = distribute_pipeline_params(full, cfg, mesh)
+    loss = float(pipeline_loss(sharded, cfg, mesh,
+                               ids.reshape(M, -1, TRAIN_SEQ),
+                               targets.reshape(M, -1, TRAIN_SEQ)))
+    step = make_pipeline_train_step(cfg, mesh, sgd, M)
+    before = dict(mesh.stats)
+    new, state, step_loss = step(sharded, None, ids, targets)
+    first = _mesh_delta(mesh, before)
+    names = [("layers", "wq"), ("layers", "w_down"), ("embed", "tokens")]
+    got = gather_pipeline_params(new, cfg, names)
+    update = {}
+    for part, key in names:
+        want = getattr(ref, part)[key].grad.float().cpu()
+        delta = getattr(full, part)[key].float().cpu() - got[(part, key)]
+        scale = float(want.abs().max())
+        update[f"{part}/{key}"] = {
+            "max_abs_err": float((delta - want).abs().max()),
+            "grad_max_abs": scale,
+            "tol": TRAIN_GRAD_TOL_REL * scale}
+    # a second step, timed, and pp = 1's second at the same depth
+    before = dict(mesh.stats)
+    new, state, _, pp2_ms = _timed_steps(
+        torch, step, new, state, ids, targets, 1, dev)
+    steady = _mesh_delta(mesh, before)
+    free_tp(mesh, new, state)
+    with local_mesh(MeshConfig(), dev) as one:
+        _, _, _, pp1_ms = _timed_steps(
+            torch, make_pipeline_train_step(cfg, one, sgd, M), full, None,
+            ids, targets, 2, dev)
+    del full, ref, got
+    out = {"layers": cfg.num_layers, "dtype": str(cfg.dtype),
+           "batch": [TRAIN_PP_ROWS, TRAIN_SEQ], "microbatches": M,
+           "loss": loss, "reference_loss": ref_loss,
+           "step_loss": float(step_loss),
+           "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+           "sgd_update_vs_grad": update,
+           "first_step_comm": first,
+           "pp2_ms_a_step": pp2_ms[-1], "pp1_ms_a_step": pp1_ms[-1],
+           "pp2_comm_a_step": steady,
+           "staged_bytes_a_step": steady["staged_bytes"]}
+    _check(out["loss_rel_err"] <= 1e-4,
+           f"pp=2 loss {loss} against the reference's {ref_loss}")
+    _check(abs(float(step_loss) - ref_loss) / abs(ref_loss) <= 1e-4,
+           f"pp=2 step loss {float(step_loss)} against {ref_loss}")
+    for name, u in update.items():
+        _check(u["max_abs_err"] <= u["tol"],
+               f"pp=2 sgd(1.0) change of {name} differs from the "
+               f"gradient: {u}")
+    return out
+
+
+def train_int8(torch, cfg, mesh, dev: str) -> dict:
+    """``pipeline_apply`` over the ``-int8`` tree at pp = 2 (every
+    quantized product through the dense kernel on the card) against its
+    dequantised twin: the last rank's logits within LOGIT_TOL_REL of the
+    twin's largest, as the quant phase's twin checks (the loss alone
+    barely sees the layers: the final norm fixes the hidden state's
+    scale); the dense kernel's launches on each rank against the
+    prediction, 7 x its layers x the microbatches (one 256-row product
+    each)."""
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.parallel.pipeline import \
+        pipeline_loss
+    from distributed_inference_demo_tpu_torch.parallel.tensor import \
+        rank_launches
+
+    M = TRAIN_MICROBATCHES
+    params = init_full_params(torch.Generator(device=dev).manual_seed(2),
+                              cfg, dev, quantize=True)
+    twin = dequantized_twin(cfg, params)
+    ids, targets = _train_batch(torch, cfg.vocab_size, M * TRAIN_INT8_ROWS,
+                                7)
+    ids, targets = (ids.reshape(M, -1, TRAIN_SEQ),
+                    targets.reshape(M, -1, TRAIN_SEQ))
+    lt, logits_t = pipeline_loss(twin, cfg, mesh, ids, targets,
+                                 return_logits=True)
+    rank_launches(mesh, reset=True)
+    lq, logits_q = pipeline_loss(params, cfg, mesh, ids, targets,
+                                 return_logits=True)
+    per_rank = rank_launches(mesh, reset=True)
+    del params, twin
+    logits_q, logits_t = logits_q.float(), logits_t.float()
+    scale = max(1.0, float(logits_t.abs().max()))
+    per_layer = dense_per_layer(cfg)
+    L_rank = cfg.num_layers // TRAIN_PP
+    predicted = per_layer * L_rank * M if dev == "cuda" else 0
+    out = {"model": cfg.quantization, "layers": cfg.num_layers,
+           "microbatches": M, "rows_a_product": TRAIN_INT8_ROWS * TRAIN_SEQ,
+           "loss": float(lq), "twin_loss": float(lt),
+           "logit_max_abs_err": float((logits_q - logits_t).abs().max()),
+           "logit_scale": scale, "logit_tol": LOGIT_TOL_REL * scale,
+           "logit_positions": logits_t[..., 0].numel(),
+           "argmax_agreement": int((logits_q.argmax(-1)
+                                    == logits_t.argmax(-1)).sum()),
+           "launches_by_rank": [r["quant_dense"]["launches"]
+                                for r in per_rank],
+           "decode_launches_by_rank": [r["quant_dense"]["decode_launches"]
+                                       for r in per_rank],
+           "predicted_launches_by_rank": [predicted] * TRAIN_PP}
+    _check(bool(torch.isfinite(logits_q).all()),
+           "int8 pipeline logits not finite")
+    _check(out["logit_max_abs_err"] <= out["logit_tol"],
+           f"int8 pipeline logits differ from the dequantised twin's by "
+           f"{out['logit_max_abs_err']} (> {LOGIT_TOL_REL} x {scale})")
+    _check(out["launches_by_rank"] == out["predicted_launches_by_rank"]
+           and not any(out["decode_launches_by_rank"]),
+           f"dense launches {out['launches_by_rank']} (decode "
+           f"{out['decode_launches_by_rank']}), predicted "
+           f"{out['predicted_launches_by_rank']} of the prefill kernel")
+    return out
+
+
+def train_generate(torch, cfg, mesh, dev: str) -> dict:
+    """``make_pipeline_generate_fn`` at pp = 2, f32, full width and
+    depth: its greedy tokens against ``InferenceEngine.generate``'s on
+    the same prompts (a parting only at a near tie, by
+    :func:`chain_partings`), its ms a token."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.parallel.pipeline import (
+        distribute_pipeline_params, make_pipeline_generate_fn)
+    from distributed_inference_demo_tpu_torch.parallel.tensor import free_tp
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+
+    M, n = TRAIN_GEN_MICROBATCHES, TRAIN_GEN_NEW
+    greedy = SamplingParams(greedy=True)
+    params = init_full_params(torch.Generator(device=dev).manual_seed(3),
+                              cfg, dev)
+    ids = np.random.RandomState(8).randint(0, cfg.vocab_size,
+                                           (M, 1, TRAIN_GEN_PROMPT))
+    engine = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
+                             device=dev)
+    want = [engine.generate(ids[m], n).tokens[0].tolist() for m in range(M)]
+    sharded = distribute_pipeline_params(params, cfg, mesh)
+    gen = make_pipeline_generate_fn(cfg, mesh, max_seq=MAX_SEQ,
+                                    num_new_tokens=n, sampling=greedy)
+    one = make_pipeline_generate_fn(cfg, mesh, max_seq=MAX_SEQ,
+                                    num_new_tokens=1, sampling=greedy)
+    one(sharded, ids)                                  # warm
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    one(sharded, ids)
+    t1 = time.perf_counter()
+    before = dict(mesh.stats)
+    got = gen(sharded, ids)
+    t2 = time.perf_counter()
+    comm = _mesh_delta(mesh, before)
+    got = [got[m, 0].tolist() for m in range(M)]
+    free_tp(mesh, sharded)
+    partings = chain_partings(torch, engine, [ids[m] for m in range(M)],
+                              got, want)
+    del engine, params
+    return {"layers": cfg.num_layers, "dtype": str(cfg.dtype),
+            "microbatches": M, "prompt_len": TRAIN_GEN_PROMPT,
+            "new_tokens": n, "ring_steps": TRAIN_PP - 1 + (n - 1) * M,
+            "tokens_equal": got == want, "partings": partings,
+            "ms_a_token": ((t2 - t1) - (t1 - t0)) * 1e3 / (M * (n - 1)),
+            "comm": comm}
+
+
+def train_checkpoint(torch, cfg, params, state, opt, model: str,
+                     dev: str) -> dict:
+    """``TrainCheckpointManager`` on the full-depth pp = 1 run's params
+    and AdamW state: a save, a restore in a fresh manager, bit equality
+    of every tensor, seconds and GB/s each way; ``save_params`` and
+    ``load_or_init`` on the params, bit equal; ``max_to_keep`` on a small
+    tree.  Everything under a temporary directory, removed."""
+    import functools
+    import shutil
+    import tempfile
+
+    from distributed_inference_demo_tpu_torch import checkpoint as ckpt
+    from distributed_inference_demo_tpu_torch.models.loader import \
+        load_or_init
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+
+    tmp = tempfile.mkdtemp(prefix="dwt-train-ckpt-")
+    try:
+        p_bytes = sum(t.numel() * t.element_size()
+                      for t in ckpt._flatten(params)[0].values())
+        sd = state.state_dict()
+        s_bytes = sum(x.numel() * x.element_size()
+                      for st in sd["state"].values() for x in st.values()
+                      if torch.is_tensor(x))
+        total = p_bytes + s_bytes
+        mgr = ckpt.TrainCheckpointManager(os.path.join(tmp, "train"), cfg,
+                                          opt, max_to_keep=2, device=dev)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, params, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, p2, o2 = ckpt.TrainCheckpointManager(
+            os.path.join(tmp, "train"), cfg, opt, device=dev
+        ).restore_or_init()
+        _sync(torch, dev)
+        restore_s = time.perf_counter() - t0
+        fa, fb = ckpt._flatten(params)[0], ckpt._flatten(p2)[0]
+        params_equal = fa.keys() == fb.keys() and all(
+            torch.equal(_bits_of(torch, x), _bits_of(torch, fb[k]))
+            for k, x in fa.items())
+        sb = o2.state_dict()
+        state_equal = (sd["param_groups"] == sb["param_groups"] and all(
+            torch.equal(_bits_of(torch, x), _bits_of(torch, sb["state"][i][n]))
+            for i, st in sd["state"].items() for n, x in st.items()))
+        del p2, o2, sb
+        path = os.path.join(tmp, "params")
+        t0 = time.perf_counter()
+        ckpt.save_params(path, params, cfg, model)
+        psave_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_or_init(model, cfg, path, device=dev)
+        _sync(torch, dev)
+        pload_s = time.perf_counter() - t0
+        fl = ckpt._flatten(loaded)[0]
+        load_equal = fa.keys() == fl.keys() and all(
+            torch.equal(_bits_of(torch, x), _bits_of(torch, fl[k]))
+            for k, x in fa.items())
+        del loaded, fl, fb
+        small = get_model_config(TRAIN_KEEP_TREE)
+        keep = ckpt.TrainCheckpointManager(
+            os.path.join(tmp, "keep"), small,
+            functools.partial(torch.optim.SGD, lr=1e-2), max_to_keep=2,
+            device=dev)
+        _, sp, so = keep.restore_or_init(seed=0)
+        for s in (1, 2, 3):
+            keep.save(s, sp, so)
+        kept = keep.all_steps()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"restored_step": step, "params_bytes": p_bytes,
+           "opt_state_bytes": s_bytes, "save_s": save_s,
+           "restore_s": restore_s, "save_gb_s": total / save_s / 1e9,
+           "restore_gb_s": total / restore_s / 1e9,
+           "params_bit_equal": params_equal,
+           "opt_state_bit_equal": state_equal,
+           "save_params_s": psave_s, "load_or_init_s": pload_s,
+           "load_or_init_gb_s": p_bytes / pload_s / 1e9,
+           "load_or_init_bit_equal": load_equal, "max_to_keep_2": kept,
+           "reads": "warm (the files were just written; the page cache is "
+                    "not dropped)"}
+    _check(step == TRAIN_STEPS, f"restored step {step}")
+    _check(params_equal and state_equal and load_equal,
+           f"checkpoint round trip not bit-equal: params {params_equal}, "
+           f"state {state_equal}, load_or_init {load_equal}")
+    _check(kept == [2, 3], f"max_to_keep=2 left steps {kept}")
+    return out
+
+
+def phase_train(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
+    """Training on the card (``parallel/pipeline.py``, ``checkpoint.py``):
+    TinyLlama at full width.  (1) pp = 1, full depth, bf16, one
+    process: TRAIN_STEPS AdamW steps on a fixed batch, the loss finite
+    and falling, ms a step and tokens/s.  On one pp = 2 mesh (two ranks
+    over gloo on the one card): (2) f32 at TRAIN_PP_LAYERS layers, the
+    pipeline's loss and one ``sgd(1.0)`` update against the
+    single-process autograd reference, the step against pp = 1's, its
+    staged bytes; (3) the ``-int8`` tree's forward through the dense
+    kernel against its dequantised twin, launches predicted; (4) the
+    circular decode, f32 at full depth, against ``InferenceEngine``'s
+    greedy tokens.  (5) ``TrainCheckpointManager`` on (1)'s params and
+    AdamW state, bit for bit, GB/s each way."""
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.parallel.mesh import (
+        MeshConfig, local_mesh)
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(model)
+    out = {"phase": "train", "device": dev,
+           "power": nvidia_smi_line() if dev == "cuda" else None,
+           "model": model, "layers_of_the_model": cfg.num_layers,
+           "hidden_size": cfg.hidden_size, "vocab_size": cfg.vocab_size}
+    t0 = time.perf_counter()
+    out["pp1"], params, state, opt = train_pp1(torch, cfg, dev)
+    out["pp1"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["checkpoint"] = train_checkpoint(torch, cfg, params, state, opt,
+                                         model, dev)
+    out["checkpoint"]["seconds"] = time.perf_counter() - t0
+    del params, state
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    f32 = cfg.replace(dtype_name="float32")
+    t0 = time.perf_counter()
+    with local_mesh(MeshConfig(pp=TRAIN_PP), dev) as mesh:
+        out["mesh"] = mesh.describe()
+        out["mesh_s"] = time.perf_counter() - t0
+        for name, fn, c in (
+                ("pp2", train_pp2, f32.replace(num_layers=TRAIN_PP_LAYERS)),
+                ("int8", train_int8, get_model_config(model + "-int8")),
+                ("generate", train_generate, f32)):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, c, mesh, dev)
+            out[name]["seconds"] = time.perf_counter() - t0
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    out["note"] = PARALLEL_NOTE
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -7636,6 +8101,8 @@ def main(argv) -> int:
         vision = timed(phase_vision, torch)
         emit(vision)
         emit(timed(phase_native, torch))
+        train = timed(phase_train, torch)
+        emit(train)
         par = timed(phase_parallel, torch)
         emit(par)
         moe = timed(phase_moe, torch)
@@ -7999,6 +8466,15 @@ def main(argv) -> int:
                  "(launches: the same ring's one-token hops, each stage "
                  "its layers x its hops, summed)"),
          "graph_replayed": False},
+        quant_entry("quant_dense_prefill_int8_train",
+                    {"decode_launches": 0, "dense_launches":
+                     train["int8"]["launches_by_rank"][0]}, 256, 8,
+                    "TinyLlama w_up [2048, 5632] int8, M = 256 (launches: "
+                    "rank 0's prefill-kernel launches in the train phase's "
+                    "pp=2 pipeline_apply over tinyllama-1.1b-int8, 7 x "
+                    f"{train['int8']['layers'] // TRAIN_PP} layers x "
+                    f"{TRAIN_MICROBATCHES} microbatches of "
+                    f"{TRAIN_INT8_ROWS} x {TRAIN_SEQ} rows; eager)"),
         entry("flash_attention_tp2_llama3_8b", KERNEL_SOURCE,
               KERNEL_REPLACES,
               par["tp_llama3_8b"]["launches_by_rank"][0]["flash"],

@@ -14,7 +14,9 @@ Counterpart of ``distributed_inference_demo_tpu/models/decoder.py``.  One
 Int8 and int4 weights (``-int8`` / ``-int4`` configs) go through
 ``ops.quant.dense``, expert stacks one expert at a time.  The reference's
 ``lax.scan`` over the stacked layers becomes a Python loop that writes
-each layer's cache plane in place.
+each layer's cache plane in place; with no cache (the training form,
+``parallel/pipeline.py``) each layer keeps its own K/V and nothing is
+written in place, so autograd runs through it.
 
 Under tensor parallelism (``tp``, a ``parallel.mesh.AxisGroup``: this
 rank's slice of the weights, ``parallel/sharding.py``) the block sums
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.attention import (alibi_slopes, attention, attention_at,
-                             update_kv_cache)
+                             prepare_kv_chunk, update_kv_cache)
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.quant import (QuantizedArray, QuantizedArray4, dense,
                          int4_group_for, quantize_array, quantize_array4)
@@ -151,10 +153,13 @@ def init_full_params(generator: torch.Generator, cfg: ModelConfig,
     ``quantize=True`` resolves to the config's own mode (int8 or int4),
     as in the reference; the float tree otherwise, whatever the config.
     The quantized weights are the codes of the float init's weights from
-    the same generator state."""
+    the same generator state.  ``device="meta"`` gives the tree's
+    skeleton (shapes, dtypes, quantized leaves) with nothing
+    materialised."""
     if quantize is True and cfg.quantization in ("int8", "int4"):
         quantize = cfg.quantization
-    device = resolve_device(device)
+    if device is None or torch.device(device).type != "meta":
+        device = resolve_device(device)
     dt = cfg.dtype
     H = cfg.hidden_size
     embed = {"tokens": _dense_init(generator, (cfg.vocab_size, H), dt,
@@ -335,6 +340,18 @@ def _default_attn(q, k, v, k_cache, v_cache, positions, cache_start, slopes):
     return out, k_cache, v_cache
 
 
+def _own_kv_attn(q, k, v, k_cache, v_cache, positions, cache_start, slopes):
+    """The training form's attention hook: the chunk attends to its own
+    K/V, a cache of exactly the chunk from position 0 (the reference's
+    per-layer zeros with the chunk written at 0, ``cache_in_carry=False``).
+    It is built out of place and held by this layer alone, so nothing
+    autograd saved is written afterwards."""
+    k, v = prepare_kv_chunk(k, v, k.dtype, v.dtype)
+    out = attention(q, k.transpose(1, 2), v.transpose(1, 2), positions,
+                    q.shape[1], slopes)
+    return out, None, None
+
+
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
            k_cache: torch.Tensor, v_cache: torch.Tensor,
            positions: torch.Tensor, cache_start,
@@ -388,7 +405,7 @@ def stage_forward(
     cfg: ModelConfig,
     spec: StageSpec,
     inputs: torch.Tensor,        # [b, s] int ids (first stage) or [b, s, H]
-    cache: KVCache,              # this stage's cache (spec.num_layers layers)
+    cache: Optional[KVCache],    # this stage's cache; None: training form
     positions: torch.Tensor,     # [b, s] absolute positions of the chunk
     attn_impl=None,              # attention hook (see _default_attn)
     last_logits_only: bool = False,  # head over the final position only
@@ -400,7 +417,16 @@ def stage_forward(
     The cache's tensors are written in place, layer plane by layer plane;
     the returned KVCache shares them and carries the advanced length.
     ``last_logits_only`` narrows the LM head to the chunk's final position
-    ([b, 1, V]): prefill samples only from the last token."""
+    ([b, 1, V]): prefill samples only from the last token.
+
+    ``cache=None`` is the training form (the reference's
+    ``cache_in_carry=False``): the chunk starts at position 0, each layer
+    attends to its own K/V (:func:`_own_kv_attn`), nothing is written in
+    place, so ``backward()`` runs through it; the same ``_layer`` in the
+    same order of operations.  The returned cache is None.  (The cached
+    form writes every layer's K/V into a plane of one shared tensor,
+    which bumps the version counter autograd saved for the planes before
+    it.)"""
     if spec.is_first and not torch.is_floating_point(inputs):
         x = embed_tokens(params, cfg, inputs)  # [b, s, H]
     else:
@@ -411,18 +437,37 @@ def stage_forward(
     if slopes is not None and tp is not None:
         nh_local = params.layers["wq"].shape[-1] // cfg.head_dim
         slopes = slopes[tp.rank * nh_local:(tp.rank + 1) * nh_local]
-    # a length held as a device scalar passes through (the fixed-shape
-    # decode step); a host length stays a Python int
-    cache_start = (cache.length if torch.is_tensor(cache.length)
-                   else int(cache.length))
-    for li in range(cache.keys.shape[0]):
-        # every hook writes its layer's cache plane in place
-        # (update_kv_cache), so the returned planes need no copy back
-        x, _, _ = _layer(cfg, params.layer(li), x, cache.keys[li],
-                         cache.values[li], positions, cache_start, slopes,
-                         attn_impl, tp, ep)
-    new_cache = KVCache(cache.keys, cache.values,
-                        cache_start + inputs.shape[1])
+    if cache is None:
+        if attn_impl is not None:
+            raise ValueError("the training form (cache=None) runs the "
+                             "default attention; attn_impl is for caches")
+        # fresh views: ``params.layer``'s are built once, possibly under
+        # no_grad, and would carry no gradient to the stack.  A float
+        # stack is unbound once, so its gradient is one stack of the
+        # layers' gradients; indexing it a layer at a time would add a
+        # zero-filled stack-sized gradient per layer
+        n = next(iter(params.layers.values())).shape[0]
+        planes = {k: (v.unbind(0) if torch.is_tensor(v)
+                      else [v[i] for i in range(n)])
+                  for k, v in params.layers.items()}
+        for li in range(n):
+            lp = {k: v[li] for k, v in planes.items()}
+            x, _, _ = _layer(cfg, lp, x, None, None, positions, 0, slopes,
+                             _own_kv_attn, tp, ep)
+        new_cache = None
+    else:
+        # a length held as a device scalar passes through (the
+        # fixed-shape decode step); a host length stays a Python int
+        cache_start = (cache.length if torch.is_tensor(cache.length)
+                       else int(cache.length))
+        for li in range(cache.keys.shape[0]):
+            # every hook writes its layer's cache plane in place
+            # (update_kv_cache), so the returned planes need no copy back
+            x, _, _ = _layer(cfg, params.layer(li), x, cache.keys[li],
+                             cache.values[li], positions, cache_start,
+                             slopes, attn_impl, tp, ep)
+        new_cache = KVCache(cache.keys, cache.values,
+                            cache_start + inputs.shape[1])
 
     if spec.is_last:
         if last_logits_only:

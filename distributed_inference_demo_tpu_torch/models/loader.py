@@ -14,8 +14,10 @@ package: an 8-byte little-endian header length, a JSON header (its
 ``stage_params_to_bytes`` / ``stage_params_from_bytes`` are the control
 plane's stage blobs, byte-equal to the JAX package's.
 ``load_vision_params`` reads a CLIP / LLaVA vision tower (and LLaVA's
-projector) into ``models/vision.py``'s tree.  The JAX package's own
-orbax checkpoint directories are refused.
+projector) into ``models/vision.py``'s tree.  :func:`write_safetensors`
+writes the format (the port's own checkpoints, ``checkpoint.py``);
+``load_or_init`` reads those and refuses the JAX package's orbax
+checkpoint directories.
 """
 
 import json
@@ -37,6 +39,7 @@ _SAFETENSORS_DTYPES = {
     "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
     "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
     "BOOL": torch.bool}
+_DTYPE_NAMES = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
 
 # safetensors name -> (our key, transpose?); attention/norm subset is
 # shared by every rope-family mapper (llama's dense MLP adds mlp.*)
@@ -57,14 +60,15 @@ _LLAMA_LAYER_MAP = {
 }
 
 
-def read_safetensors(path: str, key_filter: Optional[Callable] = None
-                     ) -> Dict[str, torch.Tensor]:
+def read_safetensors(path: str, key_filter: Optional[Callable] = None,
+                     with_metadata: bool = False):
     """The tensors of one ``.safetensors`` file as CPU tensors (views of
-    one buffer holding the file's data)."""
+    one buffer holding the file's data); with ``with_metadata``, also
+    the header's ``__metadata__`` (``{}`` if it has none)."""
     with open(path, "rb") as f:
         (hlen,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(hlen).decode("utf-8"))
-        header.pop("__metadata__", None)
+        metadata = header.pop("__metadata__", None) or {}
         data = bytearray(os.fstat(f.fileno()).st_size - 8 - hlen)
         f.readinto(data)
     buf = torch.frombuffer(data, dtype=torch.uint8) if data else None
@@ -83,7 +87,37 @@ def read_safetensors(path: str, key_filter: Optional[Callable] = None
         if start % itemsize:
             raw = raw.clone()       # a view must start on an element
         out[name] = raw.view(dtype).reshape(info["shape"])
-    return out
+    return (out, metadata) if with_metadata else out
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor],
+                      metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write ``tensors`` (any device; bf16 as BF16) as one safetensors
+    file in :func:`read_safetensors`' layout, the header padded with
+    spaces to 8 bytes, ``metadata`` (strings) as its ``__metadata__``.
+    The file is written aside and renamed into place, so a crash leaves
+    no half file at ``path``.  One tensor at a time passes through host
+    memory."""
+    header: dict = {}
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    off = 0
+    for name, t in tensors.items():
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": _DTYPE_NAMES[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [off, off + size]}
+        off += size
+    hb = json.dumps(header).encode("utf-8")
+    hb += b" " * (-len(hb) % 8)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for t in tensors.values():
+            flat = t.detach().contiguous().reshape(-1).cpu()
+            f.write(memoryview(flat.view(torch.uint8).numpy()))
+    os.replace(tmp, path)
 
 
 def load_safetensors_dir(path: str, key_filter: Optional[Callable] = None
@@ -357,18 +391,26 @@ def load_or_init(model_name: str, cfg: ModelConfig,
     ``-int8`` / ``-int4`` config; the random path quantizes during init,
     one layer at a time, so peak memory stays near the quantized
     footprint.  ``quantize=False`` returns the float tree for any config.
-    The JAX package's own orbax directories (``framework_meta.json``) are
-    refused: that format is JAX's.  ``model_name`` is the reference's
-    argument, which only its orbax path reads."""
+    The port's own checkpoints (``checkpoint.save_params``: a
+    ``framework_meta.json`` sidecar beside ``params.safetensors``) load
+    as saved, already quantized, their identity checked against
+    ``model_name`` and ``cfg``.  The JAX package's orbax directories (the
+    sidecar without the port's file) are refused: that format is JAX's."""
+    from ..checkpoint import PARAMS_FILE, load_params
     from ..ops.quant import maybe_quantize
 
     device = resolve_device(device)
     if checkpoint_dir and os.path.isdir(checkpoint_dir):
         if os.path.exists(os.path.join(checkpoint_dir, ORBAX_META)):
+            if os.path.exists(os.path.join(checkpoint_dir, PARAMS_FILE)):
+                params, _ = load_params(checkpoint_dir, cfg,
+                                        model_name=model_name, device=device)
+                return params
             raise ValueError(
                 f"{checkpoint_dir} holds {ORBAX_META}: an orbax checkpoint "
                 "of the JAX package, which this port does not read; point "
-                "--checkpoint at an HF safetensors directory")
+                "--checkpoint at an HF safetensors directory or at a "
+                "checkpoint this port saved")
         params = params_from_state_dict(load_safetensors_dir(checkpoint_dir),
                                         cfg, device)
         return maybe_quantize(params, cfg) if quantize else params

@@ -7,7 +7,9 @@ under ``shard_map``); PyTorch's idiom is one process per rank.  Here:
 - :class:`Mesh` keeps the reference's named axes (``AXES``, tp
   innermost) and its ``shape`` mapping, and holds this rank's
   coordinates, its device and one process group per axis of size > 1
-  (:class:`AxisGroup`, the collectives the forward uses).  The mesh owns
+  (:class:`AxisGroup`, the collectives the forward uses;
+  :class:`GradGroup` wraps one so that its collectives carry gradients,
+  for training).  The mesh owns
   its groups: they are built on its own ``TCPStore``, never on the
   default group, so one process can build many meshes.
 - :func:`local_tp_mesh` / :func:`local_sp_mesh` / :func:`local_mesh`
@@ -194,10 +196,11 @@ class AxisGroup:
             return self._unstage(out.view(t.dtype).view(t.shape), t)
         return self._timed(run)
 
-    def rotate(self, t: torch.Tensor) -> torch.Tensor:
+    def rotate(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
         """The ring hop (the reference's ``ppermute`` i -> i + 1): send
-        ``t`` to the next rank, return what the previous rank sent.  One
-        ``alltoall_base`` with one non-empty split each way."""
+        ``t`` to rank + ``shift``, return what rank - ``shift`` sent
+        (``shift=-1`` is the hop back).  One ``alltoall_base`` with one
+        non-empty split each way."""
         n = self.size
 
         def run():
@@ -206,8 +209,8 @@ class AxisGroup:
             out = torch.empty_like(src)
             send = [0] * n
             recv = [0] * n
-            send[(self.rank + 1) % n] = m
-            recv[(self.rank - 1) % n] = m
+            send[(self.rank + shift) % n] = m
+            recv[(self.rank - shift) % n] = m
             self.pg.alltoall_base(out, src, recv, send).wait()
             return self._unstage(out.view(t.dtype).view(t.shape), t)
         return self._timed(run)
@@ -225,6 +228,73 @@ class AxisGroup:
                 t.copy_(h)
             return t
         return self._timed(run)
+
+
+class _RingHop(torch.autograd.Function):
+    """The ring hop i -> i + 1; its backward is the hop back."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.rotate(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.rotate(g.contiguous(), shift=-1), None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over an axis after a row-parallel product; its backward
+    is the sum of the gradients (a psum's transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.clone()), None
+
+
+class _GatherOver(torch.autograd.Function):
+    """The vocab-parallel head's all-gather along ``dim``; its backward
+    is the reduce-scatter: the gradients summed over the axis, this
+    rank's slice kept."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = ctx.group.all_reduce(g.clone())
+        part = full.narrow(ctx.dim, ctx.group.rank * ctx.width, ctx.width)
+        return part.contiguous(), None, None
+
+
+class GradGroup:
+    """An :class:`AxisGroup` whose collectives carry gradients, under the
+    sum/sum convention: every rank backpropagates its own copy of what a
+    collective replicated, so a gradient through an axis of n ranks
+    comes out n times the single-device one (``parallel/pipeline.py``
+    divides it back).  ``models/decoder.py`` takes it as its ``tp``
+    (``rank``, ``size``, ``all_reduce``, ``all_gather``); the pipeline's
+    hop is :meth:`rotate`."""
+
+    def __init__(self, group: AxisGroup):
+        self.group = group
+        self.axis, self.rank, self.size = group.axis, group.rank, group.size
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return _SumOver.apply(t, self.group)
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return _GatherOver.apply(t, self.group, dim)
+
+    def rotate(self, t: torch.Tensor) -> torch.Tensor:
+        return _RingHop.apply(t, self.group)
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -558,7 +628,7 @@ def _follower_main(port: int, rank: int, cfg: MeshConfig, device: str,
     from torch.distributed import TCPStore
     # the command functions live in these modules; importing them here
     # keeps a follower's first command from paying the import
-    from . import expert, sequence, tensor, ulysses  # noqa: F401
+    from . import expert, pipeline, sequence, tensor, ulysses  # noqa: F401
     try:
         store = TCPStore("127.0.0.1", port, cfg.num_devices, False,
                          timeout=datetime.timedelta(seconds=timeout_s))

@@ -349,3 +349,61 @@ def test_multimodal_and_native_run_with_jax_zmq_and_ml_dtypes_blocked():
     assert res.stdout.split("\n")[-3:-1] == [
         "SOURCES distributed_inference_demo_tpu_torch",
         "OK True True True"], res.stdout
+
+
+TRAIN_BLOCKED = ("jax", "jaxlib", "distributed_inference_demo_tpu", "optax",
+                 "orbax", "safetensors", "ml_dtypes")
+
+
+def test_train_save_restore_with_jax_optax_orbax_safetensors_blocked():
+    """The card machine's case for training: a pp=2 train step over two
+    spawned ranks, a ``TrainCheckpointManager`` save and a restore in a
+    fresh manager, with jax, the JAX package, optax, orbax, safetensors
+    and ml_dtypes blocked in rank 0; no rank loads any of them."""
+    code = (
+        "import sys\n"
+        f"for m in {TRAIN_BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import functools, shutil, tempfile, torch\n"
+        "from distributed_inference_demo_tpu_torch import checkpoint as C\n"
+        "from distributed_inference_demo_tpu_torch.models import "
+        "get_model_config\n"
+        "from distributed_inference_demo_tpu_torch.parallel import mesh "
+        "as M, pipeline as P\n"
+        "if __name__ == '__main__':\n"
+        "    cfg = get_model_config('llama-test')\n"
+        "    opt = functools.partial(torch.optim.AdamW, lr=1e-3, "
+        "weight_decay=1e-4)\n"
+        "    d = tempfile.mkdtemp()\n"
+        "    mgr = C.TrainCheckpointManager(d, cfg, opt, device='cpu')\n"
+        "    _, p, _ = mgr.restore_or_init(seed=0)\n"
+        "    ids = torch.arange(32).reshape(4, 8) % cfg.vocab_size\n"
+        "    with M.local_mesh(M.MeshConfig(pp=2), 'cpu', 60) as mesh:\n"
+        "        step = P.make_pipeline_train_step(cfg, mesh, opt, 2)\n"
+        "        p2, o, loss = step(p, None, ids, ids)\n"
+        "        got = P.gather_pipeline_params(p2, cfg)\n"
+        "        mods = M.loaded_modules(mesh)\n"
+        "    one = M.local_mesh(M.MeshConfig(), 'cpu')\n"
+        "    p1, o1, _ = P.make_pipeline_train_step(cfg, one, opt, 2)(\n"
+        "        p, None, ids, ids)\n"
+        "    mgr.save(1, p1, o1)\n"
+        "    r, ro = C.TrainCheckpointManager(d, cfg, opt, device='cpu')"
+        ".restore()\n"
+        "    same = all(torch.equal(r.layers[k], p1.layers[k]) for k in "
+        "p1.layers)\n"
+        "    st = ro.state_dict()['state']\n"
+        "    same_opt = all(torch.equal(st[i]['exp_avg'], "
+        "o1.state_dict()['state'][i]['exp_avg']) for i in st)\n"
+        "    one.close()\n"
+        "    shutil.rmtree(d)\n"
+        f"    bad = sorted({{n for ms in mods for n in ms if n.split('.')[0]"
+        f" in {TRAIN_BLOCKED!r}}})\n"
+        "    print('BAD', bad, len(mods))\n"
+        "    print('OK', bool(torch.isfinite(loss)), same, same_opt, "
+        "torch.allclose(got[('layers', 'wq')], p1.layers['wq'].detach(), "
+        "atol=1e-6))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split("\n")[-3:-1] == [
+        "BAD [] 2", "OK True True True True"], res.stdout
