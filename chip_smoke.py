@@ -9,8 +9,9 @@ their plain versions.
                                           # quant, kvcache, surface,
                                           # speculative, fleet, chain,
                                           # server, vision, native,
-                                          # parallel, moe), no result
-                                          # lines
+                                          # train, parallel, moe; or a
+                                          # comma-separated list), no
+                                          # result lines
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -275,11 +276,34 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             SP_LAYERS (6) of its 22 layers, full width, ring and
             Ulysses, on a SP_PROMPT_LEN-token prompt: tokens equal the
             single-device engine's at that depth, Ulysses' flash
-            launches (L a rank);
+            launches (L a rank); then, on the tp mesh, TinyLlama bf16 at
+            full width and PAR_BATCHING_LAYERS layers under the rest of
+            tensor parallelism: ``SpeculativeEngine`` with the
+            SPEC_DRAFT draft at tp=2 (tokens against tp=1's, near ties
+            only, f32 exact; each rank's flash launches L_t + L_d, ms
+            per emitted token against tp=2 plain decode, the acceptance
+            rate); 8-slot prompt-lookup batching at tp=2 (tokens against
+            tp=1's, near ties only, f32 exact; each rank's paged
+            launches, the verify's L a round, ms a round); the host tier
+            below a tp=2 pool (a 1088-token prompt's 1024-token prefix
+            demoted with every rank's heads gathered, promoted with each
+            rank adopting its own: every promoted page bit-equal on each
+            rank, tokens and logprobs equal a device hit's, bytes
+            scattered = promoted blocks x block bytes, demote and
+            promote ms); a request exported mid-stream from the tp=2
+            engine and imported at tp=1 on the card, and the reverse
+            (the checkpoint holds every kv head; streams against the
+            unmigrated ones, near ties only; the pause); a tp=2
+            ``StageRuntime`` as the tail of a two-stage loopback chain
+            (tokens against the tp=1 chain's, near ties only; the tail's
+            paged launches on each rank = layers x chunks / hops; ms a
+            token);
     (phase 2 holds the per-rank instances: one tp=2 rank of TinyLlama's
-    heads at the paged kernels' 8-slot decode and 64-token chunk, of
-    llama-3-8b's at the flash kernel's 64-token prompt, and llama-3-8b's
-    sliced int8 weights at the dense kernels)
+    heads at the paged kernels' 8-slot decode and 64-token chunk, its
+    [8, K+1] verify and its chain stage's hop and prompt chunk, at the
+    flash kernel's 64-token prompt, of llama-3-8b's at the flash
+    kernel's 64-token prompt, and llama-3-8b's sliced int8 weights at
+    the dense kernels)
 16. chain   the ring pipeline at TinyLlama's full width and CHAIN_LAYERS
             (6) of its 22 layers (bf16, random weights from seed 0; the
             engines it is held to at the same depth): CHAIN_STAGES
@@ -373,7 +397,11 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             the embedding against the single-process autograd
             reference's loss and gradient, the step's ms against pp =
             1's at the same depth and the bytes it staged through host
-            memory; ``tinyllama-1.1b-int8``'s forward through the
+            memory, and that run's pair (rank 0's slice and optimizer)
+            through ``TrainCheckpointManager``: the save writes the
+            global pair, its restore on one rank bit-equal, leaf for
+            leaf, to ``gather_pipeline_params``' tree (ROADMAP C 7);
+            ``tinyllama-1.1b-int8``'s forward through the
             pipeline (the dense kernel) against its dequantised twin,
             the last rank's logits within LOGIT_TOL_REL of the twin's
             largest, each rank's dense launches = 7 x
@@ -391,8 +419,12 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 
 Phases 10 to 20 run in the order 11, 12, 13, 14, 16, 17, 18, 19, 20, 15,
 10:
-the moe phase last, after the earlier phases freed their memory.  Every phase line carries
-its wall ``seconds``.  Exits non-zero, printing no
+the moe phase last, after the earlier phases freed their memory.  The
+train and parallel phases' four meshes (pp, tp, ep, sp: two ranks
+each) start their ranks on threads as the train phase begins (with
+``--phase``, beside the kernels' build; ``MeshStarts``), so no check
+waits for a rank start.  Every phase line
+carries its wall ``seconds``.  Exits non-zero, printing no
 result, without CUDA or outside a checkout, and on any failed check.
 """
 
@@ -726,6 +758,11 @@ def kernel_cases():
     nh, nkv, hd, alibi = model_heads(LARGE_MODEL)
     cases.append((LARGE_MODEL + "-tp2", 1, PROMPT_LEN, 0, nh // PAR_TP,
                   nkv // PAR_TP, hd, alibi))
+    # ... and of TinyLlama (16 q heads on 2 kv heads) at the tp
+    # speculative engines' prompt
+    nh, nkv, hd, alibi = model_heads(SERVE_MODEL)
+    cases.append((SERVE_MODEL + "-tp2", 1, PROMPT_LEN, 0, nh // PAR_TP,
+                  nkv // PAR_TP, hd, alibi))
     return cases
 
 
@@ -954,6 +991,16 @@ def paged_cases():
     tp2 = (SERVE_MODEL + "-tp2", nh // PAR_TP, nkv // PAR_TP, hd, alibi)
     cases += [(tp2[0], "decode", *tp2[1:], serve, "full"),
               (tp2[0], "prefill", *tp2[1:], (PREFILL_CHUNK, (200,)),
+               "full")]
+    # ... at the tp prompt-lookup batching's [8, K+1] verify, and as the
+    # tp chain stage: one row's one-token hop at its longest request's
+    # last length, that prompt's whole chunk at 0
+    cases.append((tp2[0] + "-verify", "prefill", *tp2[1:],
+                  (SPEC_K + 1, VERIFY_STARTS), "full"))
+    longest_tp = max(PAR_STAGE_PROMPTS)
+    cases += [(tp2[0] + "-chain", "decode", *tp2[1:],
+               (longest_tp + PAR_STAGE_NEW - 1,), "full"),
+              (tp2[0] + "-chain", "prefill", *tp2[1:], (longest_tp, (0,)),
                "full")]
     # the chain phase's stage shapes (every stage holds all of TinyLlama's
     # heads): one row's one-token hop at the longest request's last
@@ -6003,7 +6050,575 @@ def parallel_tp_generate(torch, mesh, name: str) -> dict:
     return out
 
 
-def parallel_ep(torch) -> dict:
+# the parallel phase's checks of tensor parallelism under the proposers,
+# the tier, the fleet and a chain stage: on the phase's tp mesh, at full
+# width and PAR_BATCHING_LAYERS of the model's layers
+PAR_SPEC_NEW = 16          # tokens of the tp speculative run (bf16)
+PAR_SPEC_F32_NEW = 8       # ... and of its f32 twin
+PAR_PLAIN_NEW = 8          # tp=2 plain decode's timed tokens
+PAR_TIER_NEW = 8
+PAR_FLEET_NEW = 24
+PAR_FLEET_AT = 8           # tokens a request holds when it moves
+PAR_STAGE_PROMPTS = (20, 600)
+PAR_STAGE_NEW = 16
+
+
+def _init(torch, cfg, seed: int, dev: str):
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    return init_full_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, dev)
+
+
+def _rank_counts(per_rank) -> list:
+    return [{"flash": r["flash"]["launches"],
+             "paged_decode": r["paged_decode"]["launches"],
+             "paged_prefill": r["paged_prefill"]["launches"]}
+            for r in per_rank]
+
+
+def parallel_tp_speculative(torch, mesh, model: str = SERVE_MODEL,
+                            draft: str = SPEC_DRAFT,
+                            dev: str = "cuda") -> dict:
+    """``SpeculativeEngine`` at tp=2: the target (``model`` at full width
+    and PAR_BATCHING_LAYERS layers) and the ``draft`` (full depth, g =
+    4) on the tp seam, K = SPEC_K, b=1, one PROMPT_LEN-token prompt.
+    bf16: greedy tokens against the tp=1 speculative engine's (graph) at
+    the same depth, partings at near ties only; each rank's flash
+    launches = L_t + L_d (one prefill of each model; the rounds' 1- and
+    K+1-token forwards take plain attention), paged 0; ms per emitted
+    token against tp=2 plain decode's, the acceptance rate, the
+    collectives.  f32: tokens equal tp=1's."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.parallel.tensor import (
+        free_tp, rank_launches)
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+    from distributed_inference_demo_tpu_torch.runtime.speculative import \
+        SpeculativeEngine
+
+    greedy = SamplingParams(greedy=True)
+    cfg = get_model_config(model).replace(num_layers=PAR_BATCHING_LAYERS)
+    dcfg = get_model_config(draft)
+    Lt, Ld = cfg.num_layers, dcfg.num_layers
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                              PROMPT_LEN).tolist()
+    kw = dict(max_seq=MAX_SEQ, sampling=greedy, num_draft=SPEC_K,
+              device=dev)
+    out = {"check": "tp_speculative", "model": model, "draft": draft,
+           "tp": PAR_TP, "layers": Lt, "draft_layers": Ld,
+           "layers_of_the_model": get_model_config(model).num_layers,
+           "num_draft": SPEC_K, "prompt_len": PROMPT_LEN,
+           "new_tokens": PAR_SPEC_NEW, "mesh": mesh.describe(),
+           "graph": "tp=1 replays its rounds; tp=2 runs them eagerly (a "
+                    "gloo collective cannot be captured)"}
+    for dtype, n in (("bfloat16", PAR_SPEC_NEW),
+                     ("float32", PAR_SPEC_F32_NEW)):
+        c, dc = cfg.replace(dtype_name=dtype), dcfg.replace(dtype_name=dtype)
+        p, dp = _init(torch, c, 0, dev), _init(torch, dc, 1, dev)
+        one = SpeculativeEngine(c, p, dc, dp, **kw)
+        res1, st1 = one.generate([prompt], n)
+        want = res1.tokens[0].tolist()
+        side = {"tp1_stats": vars(st1)}
+        two = SpeculativeEngine(c, p, dc, dp, mesh=mesh, cuda_graph=False,
+                                **kw)
+        rank_launches(mesh, reset=True)
+        before = dict(mesh.stats)
+        res2, st2 = two.generate([prompt], n)
+        comm = _mesh_delta(mesh, before)
+        side["launches_by_rank"] = _rank_counts(rank_launches(mesh))
+        got = res2.tokens[0].tolist()
+        side.update(tokens_equal=got == want, stats=vars(st2),
+                    acceptance_rate=st2.acceptance_rate, comm=comm,
+                    comm_per_round_ms=comm["collective_ms"]
+                    / max(1, st2.rounds))
+        predicted = {"flash": Lt + Ld, "paged_decode": 0, "paged_prefill": 0}
+        side["predicted"] = predicted
+        if dev == "cuda":
+            _check(all(r == predicted for r in side["launches_by_rank"]),
+                   f"{dtype}: per-rank launches {side['launches_by_rank']},"
+                   f" the routing predicts {predicted}")
+        if dtype == "float32":
+            _check(got == want, "f32 tp=2 speculative tokens differ from "
+                   "tp=1's")
+        else:
+            if got != want:
+                plain = InferenceEngine(c, p, max_seq=MAX_SEQ,
+                                        sampling=greedy, device=dev)
+                side["partings"] = spec_partings(torch, plain, prompt, got,
+                                                 want)
+                del plain
+            # ms per emitted token: the counted run against a 1-token one
+            # (the prefill cancels out), and tp=2 plain decode's the same
+            t1 = two.generate([prompt], 1)[0].seconds
+            side["ms_per_token"] = (res2.seconds - t1) * 1e3 / (n - 1)
+            side["tp1_ms_per_token"] = (
+                res1.seconds - one.generate([prompt], 1)[0].seconds
+            ) * 1e3 / (n - 1)
+            plain2 = InferenceEngine(c, two.params, max_seq=MAX_SEQ,
+                                     sampling=greedy, device=dev,
+                                     mesh=mesh, cuda_graph=False)
+            t1 = plain2.generate([prompt], 1).seconds
+            tn = plain2.generate([prompt], 1 + PAR_PLAIN_NEW).seconds
+            side["tp2_plain_ms_per_token"] = (tn - t1) * 1e3 / PAR_PLAIN_NEW
+            free_tp(mesh, *[x for st in plain2._states.values()
+                            for x in (st.cache.keys, st.cache.values)],
+                    *([plain2._seam] if plain2._seam is not None else []))
+            del plain2
+        two.free_tp()
+        out[dtype] = side
+        del one, two, p, dp
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def parallel_tp_proposers(torch, mesh, model: str = SERVE_MODEL,
+                          dev: str = "cuda") -> dict:
+    """8-slot ``ContinuousBatchingEngine`` with prompt lookup at tp=2
+    (``model`` at full width and PAR_BATCHING_LAYERS layers), the
+    batching phase's 8 prompts, NEW_TOKENS each, K = SPEC_K: bf16 tokens
+    against the tp=1 prompt-lookup engine's (partings at near ties
+    only); each rank's paged launches against the routing (the verify's
+    prefill kernel L a round, the admission's chunks and finals, no
+    decode kernel); ms a round at both widths; no page leak.  f32 on two
+    of the prompts: tokens equal tp=1's."""
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.parallel.tensor import (
+        free_tp, rank_launches)
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
+
+    cfg = get_model_config(model).replace(num_layers=PAR_BATCHING_LAYERS)
+    L = cfg.num_layers
+    prompts = _batch_prompts(cfg.vocab_size)
+    kw = dict(max_seq=MAX_SEQ, max_batch=SLOTS,
+              sampling=SamplingParams(greedy=True), num_draft=SPEC_K,
+              prompt_lookup=True, kv_block_tokens=BLOCK_TOKENS,
+              prefill_chunk=PREFILL_CHUNK, device=dev)
+    out = {"check": "tp_proposers", "model": model, "tp": PAR_TP,
+           "layers": L, "proposer": "prompt_lookup", "num_draft": SPEC_K,
+           "slots": SLOTS, "prompt_lens": list(BATCH_PROMPTS),
+           "new_tokens": NEW_TOKENS, "mesh": mesh.describe()}
+    flight = get_flight_recorder()
+
+    def run(engine, few, after_warm=lambda: None):
+        engine.submit(list(range(16)), 2).wait(timeout=300)     # warm
+        engine.reset_stats()
+        flight.clear()
+        after_warm()
+        rbw0 = dict(engine.rounds_by_width)
+        t0 = time.perf_counter()
+        toks = [r.wait(timeout=900).tolist()
+                for r in [engine.submit(p, NEW_TOKENS) for p in few]]
+        wall = time.perf_counter() - t0
+        rounds = sum(engine.rounds_by_width.values()) - sum(rbw0.values())
+        admits = [(e["prompt_len"], e["prefix_reused"])
+                  for e in flight.snapshot() if e["kind"] == "batch_admit"]
+        return toks, wall, rounds, admits
+
+    for dtype, few in (("bfloat16", prompts), ("float32", prompts[:2])):
+        c = cfg.replace(dtype_name=dtype)
+        p = _init(torch, c, 0, dev)
+        one = ContinuousBatchingEngine(c, p, **kw)
+        try:
+            want, wall1, rounds1, _ = run(one, few)
+        finally:
+            one.close()
+        eng = ContinuousBatchingEngine(c, p, mesh=mesh, cuda_graph=False,
+                                       **kw)
+        try:
+            before = {}
+
+            def counted():
+                rank_launches(mesh, reset=True)
+                before.update(mesh.stats)
+
+            got, wall2, rounds2, admits = run(eng, few, counted)
+            comm = _mesh_delta(mesh, before)
+            launches = _rank_counts(rank_launches(mesh))
+            admission = predicted_paged_launches(eng, admits,
+                                                 L)["paged_prefill"]
+            predicted = {"flash": 0, "paged_decode": 0,
+                         "paged_prefill": L * rounds2 + admission}
+            side = {"tokens_equal": sum(g == w for g, w in zip(got, want)),
+                    "requests": len(few), "rounds": rounds2,
+                    "tp1_rounds": rounds1, "speculative":
+                        eng.stats()["speculative"],
+                    "launches_by_rank": launches, "predicted": predicted,
+                    "verify_launches_predicted": L * rounds2,
+                    "ms_a_round": wall2 * 1e3 / max(1, rounds2),
+                    "tp1_ms_a_round": wall1 * 1e3 / max(1, rounds1),
+                    "wall_s": wall2, "tp1_wall_s": wall1, "comm": comm}
+            if dev == "cuda":
+                _check(all(r == predicted for r in launches),
+                       f"{dtype}: per-rank launches {launches}, the "
+                       f"routing predicts {predicted}")
+            side["no_page_leak"] = _no_page_leak(eng)
+            _check(side["no_page_leak"], "pages leaked after the drain")
+        finally:
+            eng.close()
+            free_tp(mesh, eng.params)
+        if dtype == "float32":
+            _check(got == want, "f32 tp=2 prompt-lookup tokens differ from "
+                   "tp=1's")
+        else:
+            side["partings"] = _partings(torch, one, few, got, want)
+        out[dtype] = side
+        del one, eng, p
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _tier_bits(torch, blocks, j: int) -> list:
+    """Block ``j`` of a host payload, every leaf's bytes."""
+    from distributed_inference_demo_tpu_torch.ops.quant import \
+        QuantizedKVPages
+    leaves = blocks.leaves() if isinstance(blocks, QuantizedKVPages) \
+        else [blocks]
+    return [t[j].contiguous().view(torch.uint8) for t in leaves]
+
+
+def parallel_tp_tier(torch, mesh, model: str = SERVE_MODEL,
+                     dev: str = "cuda") -> dict:
+    """The host tier below a tp=2 pool of FLEET_POOL_BLOCKS pages
+    (``model`` bf16 at full width and PAR_BATCHING_LAYERS layers): a
+    FLEET_SHARED + FLEET_TAIL-token prompt, FLEET_FILLERS prompts that
+    evict its prefix into the tier (every rank's heads gathered at
+    demotion), then a prompt sharing the prefix, whose blocks promote
+    (each rank adopting its heads).  Every promoted page, on each rank,
+    is bit-equal to its kv heads of the demoted block; its tokens and
+    logprobs equal the same two prompts' on a tp=2 pool that keeps the
+    prefix (a device hit); the bytes scattered to the ranks equal
+    promoted blocks x block bytes, as the h2d counter does; demote and
+    promote ms, TTFT promoted, re-prefilled and hit."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.parallel.tensor import (
+        fetch_tp, free_tp, rank_launches)
+    from distributed_inference_demo_tpu_torch.runtime.kvcache import \
+        PagedKVCacheManager
+    from distributed_inference_demo_tpu_torch.runtime.kvcache.tiered \
+        import chain_digests
+
+    cfg = get_model_config(model).replace(num_layers=PAR_BATCHING_LAYERS)
+    params = _init(torch, cfg, 0, dev)
+    rs = np.random.RandomState(5)
+    shared = rs.randint(0, cfg.vocab_size, FLEET_SHARED).tolist()
+    first, warm = (shared + rs.randint(0, cfg.vocab_size,
+                                       FLEET_TAIL).tolist()
+                   for _ in range(2))
+    fillers = [rs.randint(0, cfg.vocab_size, FLEET_SHARED).tolist()
+               for _ in range(FLEET_FILLERS)]
+    block_bytes = PagedKVCacheManager.for_model(
+        cfg, 8, BLOCK_TOKENS).block_bytes
+    eng = _fleet_engine(torch, cfg, params, dev, mesh=mesh,
+                        cuda_graph=False, kv_cache_blocks=FLEET_POOL_BLOCKS,
+                        kv_host_tier_bytes=(FLEET_SHARED // BLOCK_TOKENS
+                                            * FLEET_FILLERS * 2
+                                            * block_bytes))
+    hit = None
+    try:
+        tier = eng._kv_tier
+        demoted, demote_ms, promote_ms = {}, [], []
+        real_demote, real_hook = tier.demote, eng.kv_cache.demote_hook
+        real_note = tier.note_promoted
+
+        def demote(path_keys, kb, vb):
+            n = int(kb.shape[0])
+            digests = chain_digests(path_keys)[len(path_keys) - n:]
+            for j, dg in enumerate(digests):
+                demoted[dg] = (_tier_bits(torch, kb, j),
+                               _tier_bits(torch, vb, j))
+            return real_demote(path_keys, kb, vb)
+
+        def hook(path_keys, block_ids):
+            t0 = time.perf_counter()
+            real_hook(path_keys, block_ids)
+            demote_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def note(blocks, nbytes, seconds):
+            promote_ms.append(seconds * 1e3)
+            return real_note(blocks, nbytes, seconds)
+
+        tier.demote, tier.note_promoted = demote, note
+        eng.kv_cache.demote_hook = hook
+        _, _, ttft_cold = _run(eng, first, PAR_TIER_NEW)
+        for f in fillers:
+            _run(eng, f, PAR_TIER_NEW)
+        st0 = dict(tier.stats)
+        h2d0 = eng.stats()["kvcache"]["h2d_bytes"]
+        sent0 = mesh.stats.get("scattered_bytes", 0)
+        rank_launches(mesh, reset=True)
+        toks, lps, ttft_promoted = _run(eng, warm, PAR_TIER_NEW)
+        launches = _rank_counts(rank_launches(mesh))
+        st = dict(tier.stats)
+        promoted = st["promoted_blocks"] - st0["promoted_blocks"]
+        h2d = eng.stats()["kvcache"]["h2d_bytes"] - h2d0
+        scattered = mesh.stats.get("scattered_bytes", 0) - sent0
+        _check(promoted > 0, f"the warm prompt promoted nothing: {st}")
+        _check(h2d == scattered == promoted * block_bytes,
+               f"h2d {h2d}, scattered {scattered} bytes, promoted "
+               f"{promoted} x {block_bytes}")
+        # each rank's promoted pages against its heads of the demoted bits
+        bt = BLOCK_TOKENS
+        keys = [tuple(warm[i * bt:(i + 1) * bt])
+                for i in range(len(warm) // bt)]
+        digests = chain_digests(keys)
+        lease = eng.kv_cache.match(np.asarray(warm, np.int32))
+        _check(lease is not None, "the promoted prefix is not in the tree")
+        try:
+            ids = list(lease.block_ids)
+        finally:
+            lease.release()
+        planes = (fetch_tp(mesh, eng._pk), fetch_tp(mesh, eng._pv))
+        checked = 0
+        for j, dg in enumerate(digests[:len(ids)]):
+            if dg not in demoted:
+                continue
+            for side, plane_list in enumerate(planes):
+                want = demoted[dg][side][0]          # [L, H, bt, D] bytes
+                for r, plane in enumerate(plane_list):
+                    h = plane.shape[2]
+                    got = plane[:, ids[j]].contiguous().view(torch.uint8)
+                    _check(torch.equal(got, want[:, r * h:(r + 1) * h]),
+                           f"rank {r}: promoted block {j} differs from its "
+                           "demoted bits")
+            checked += 1
+        _check(checked >= promoted, f"{checked} promoted blocks compared")
+        tier.check()
+        _check(_idle_pages(eng), "the tier engine leaked pages")
+        hit = _fleet_engine(torch, cfg, params, dev, mesh=mesh,
+                            cuda_graph=False)
+        _, _, ttft_hit_first = _run(hit, first, PAR_TIER_NEW)
+        h_toks, h_lps, ttft_hit = _run(hit, warm, PAR_TIER_NEW)
+        _check(h_toks == toks and h_lps == lps,
+               "promoted tokens / logprobs differ from a device hit's")
+    finally:
+        eng.close()
+        free_tp(mesh, eng.params)
+        if hit is not None:
+            hit.close()
+            free_tp(mesh, hit.params)
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"check": "tp_tier", "model": model, "tp": PAR_TP,
+            "layers": cfg.num_layers, "mesh": mesh.describe(),
+            "pool_blocks": FLEET_POOL_BLOCKS, "block_bytes": block_bytes,
+            "prompt_tokens": len(first), "shared_tokens": FLEET_SHARED,
+            "new_tokens": PAR_TIER_NEW, "promoted_blocks": promoted,
+            "promoted_pages_bit_equal_on_every_rank": checked,
+            "h2d_bytes": h2d, "scattered_bytes": scattered,
+            "bit_equal_to_device_hit": True,
+            "launches_by_rank_warm": launches,
+            "demoted_blocks": st["demoted_blocks"],
+            "demote_ms_median": float(np.median(demote_ms)),
+            "demote_ms_max": max(demote_ms), "demotions": len(demote_ms),
+            "promote_ms": promote_ms,
+            "ttft_promoted_s": ttft_promoted, "ttft_reprefilled_s": ttft_cold,
+            "ttft_device_hit_s": ttft_hit}
+
+
+def parallel_tp_fleet(torch, mesh, model: str = SERVE_MODEL,
+                      dev: str = "cuda") -> dict:
+    """A request exported mid-stream (``export_request``, after
+    PAR_FLEET_AT tokens) from a tp=2 batching engine and imported into a
+    tp=1 engine on the card, then the reverse (``model`` bf16 at full
+    width and PAR_BATCHING_LAYERS layers): the checkpoint holds every kv
+    head (the tp=1 layout), each migrated stream equals its unmigrated
+    one (the source's width) or parts only at a near tie, and the pause
+    from the export call to the importer's first new token; each rank's
+    paged launches while the tp=2 side runs."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.parallel.tensor import (
+        free_tp, rank_launches)
+
+    cfg = get_model_config(model).replace(num_layers=PAR_BATCHING_LAYERS)
+    params = _init(torch, cfg, 0, dev)
+    prompt = np.random.RandomState(11).randint(0, cfg.vocab_size,
+                                               MIGRATION_PROMPTS[-1]).tolist()
+    two = _fleet_engine(torch, cfg, params, dev, mesh=mesh,
+                        cuda_graph=False)
+    one = _fleet_engine(torch, cfg, params, dev)
+    out = {"check": "tp_fleet", "model": model, "tp": PAR_TP,
+           "layers": cfg.num_layers, "mesh": mesh.describe(),
+           "prompt_len": len(prompt), "new_tokens": PAR_FLEET_NEW,
+           "tokens_at_move": PAR_FLEET_AT}
+    streams = {}
+    try:
+        for name, src, dst in (("tp2_to_tp1", two, one),
+                               ("tp1_to_tp2", one, two)):
+            want = _run(src, prompt, PAR_FLEET_NEW)[0]
+            rank_launches(mesh, reset=True)
+            req = src.submit(prompt, PAR_FLEET_NEW, request_id=name)
+            t_end = time.monotonic() + 300
+            while len(req.tokens) < PAR_FLEET_AT:
+                _check(time.monotonic() < t_end, "the request did not "
+                       "decode")
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            ckpt = src.export_request(name, detach=True)
+            export_ms = (time.perf_counter() - t0) * 1e3
+            heads = int(ckpt["k"].shape[2])
+            _check(heads == cfg.num_kv_heads,
+                   f"the checkpoint holds {heads} kv heads")
+            moved = dst.import_request(ckpt)
+            n0 = len(ckpt["tokens"])
+            while len(moved.tokens) <= n0 and not moved.done.is_set():
+                time.sleep(0.0005)
+            pause_ms = (time.perf_counter() - t0) * 1e3
+            got = moved.wait(timeout=900).tolist()
+            side = {"tokens_equal": got == want,
+                    "tokens_at_export": n0, "export_ms": export_ms,
+                    "pause_ms": pause_ms,
+                    "checkpoint_blocks": int(ckpt["k"].shape[0]),
+                    "launches_by_rank": _rank_counts(rank_launches(mesh))}
+            _check(_idle_pages(src) and _idle_pages(dst), "pages leaked")
+            out[name] = side
+            streams[name] = (got, want)
+    finally:
+        two.close()
+        one.close()
+        free_tp(mesh, two.params)
+    for name, (got, want) in streams.items():
+        # teacher forced through the closed tp=1 engine's paged forward
+        out[name]["partings"] = _partings(torch, one, [prompt], [got],
+                                          [want])
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_tp_stage(torch, mesh, model: str = SERVE_MODEL,
+                      dev: str = "cuda") -> dict:
+    """A ``StageRuntime`` on the tp mesh as the tail of a two-stage chain
+    (``model`` bf16 at full width and PAR_BATCHING_LAYERS layers, split
+    in two; the head a tp=1 stage; a ``PipelineWorker`` on a thread,
+    ``LoopbackTransport``): PAR_STAGE_PROMPTS' requests, PAR_STAGE_NEW
+    tokens each, interleaved; tokens against the tp=1 chain's at the
+    same depth (partings at near ties only, teacher forced through the
+    single-device engine); the tail's paged launches on each rank = its
+    layers x prompt chunks (prefill) and x one-token hops (decode); ms a
+    token at both widths; its pool whole after."""
+    import threading
+
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.comm.transport import (
+        LoopbackNetwork, LoopbackTransport)
+    from distributed_inference_demo_tpu_torch.models.base import (
+        slice_stage, split_layer_ranges)
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.parallel.tensor import \
+        rank_launches
+    from distributed_inference_demo_tpu_torch.runtime.distributed import (
+        PipelineHeader, PipelineWorker, StageRuntime)
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+
+    greedy = SamplingParams(greedy=True)
+    cfg = get_model_config(model).replace(num_layers=PAR_BATCHING_LAYERS)
+    full = _init(torch, cfg, 0, dev)
+    specs = split_layer_ranges(cfg.num_layers, 2)
+    Ltail = specs[1].num_layers
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, cfg.vocab_size, (1, n)).astype(np.int32)
+               for n in PAR_STAGE_PROMPTS]
+    n_new = [PAR_STAGE_NEW] * len(prompts)
+    out = {"check": "tp_stage", "model": model, "tp": PAR_TP,
+           "layers": cfg.num_layers, "tail_layers": Ltail,
+           "mesh": mesh.describe(), "prompt_lens": list(PAR_STAGE_PROMPTS),
+           "new_tokens": PAR_STAGE_NEW}
+
+    def chain(tail_mesh):
+        net = LoopbackNetwork()
+        head = StageRuntime(cfg, specs[0], slice_stage(full, cfg, specs[0]),
+                            MAX_SEQ, greedy, device=dev)
+        tail = StageRuntime(cfg, specs[1], slice_stage(full, cfg, specs[1]),
+                            MAX_SEQ, greedy, device=dev, mesh=tail_mesh)
+        worker = PipelineWorker(tail, LoopbackTransport("s1", net),
+                                next_id=None, header_id="s0",
+                                step_timeout=600)
+        th = threading.Thread(target=worker.serve_forever, daemon=True)
+        th.start()
+        header = PipelineHeader(head, LoopbackTransport("s0", net),
+                                next_id="s1", step_timeout=600)
+        return header, tail, th
+
+    res = {}
+    for name, m in (("tp1", None), ("tp2", mesh)):
+        header, tail, th = chain(m)
+        try:
+            header.generate_many(prompts[:1], [2])        # warm
+            if m is not None:
+                rank_launches(mesh, reset=True)
+            tail.launches.update(decode=0, prefill=0)
+            got = [g[0].tolist() for g in header.generate_many(
+                prompts, n_new, pool_size=len(prompts))]
+            side = {"tail_launches": dict(tail.launches)}
+            if m is not None:
+                side["launches_by_rank"] = _rank_counts(rank_launches(mesh))
+            side["ms_per_token"] = _chain_ms_a_token(
+                lambda k: header.generate_many(prompts[:1], [k]))
+            t_end = time.monotonic() + 30
+            while (tail.pages_free != tail.num_pages
+                   and time.monotonic() < t_end):
+                time.sleep(0.01)
+            side["pool_whole"] = tail.pages_free == tail.num_pages
+            _check(side["pool_whole"], f"{name}: the tail's pool leaked")
+        finally:
+            header.shutdown_pipeline()
+            th.join(timeout=60)
+            tail.free_tp()
+        res[name] = (got, side)
+    got, want = res["tp2"][0], res["tp1"][0]
+    predicted = {"paged_prefill": Ltail * len(prompts),
+                 "paged_decode": Ltail * sum(n - 1 for n in n_new)}
+    tp2 = res["tp2"][1]
+    out.update(tp1=res["tp1"][1], tp2=tp2, predicted=predicted,
+               tokens_equal=sum(g == w for g, w in zip(got, want)))
+    if dev == "cuda":
+        rank1 = tp2["launches_by_rank"][1]
+        own = tp2["tail_launches"]
+        _check({"paged_prefill": rank1["paged_prefill"],
+                "paged_decode": rank1["paged_decode"]} == predicted
+               and {"paged_prefill": own["prefill"],
+                    "paged_decode": own["decode"]} == predicted,
+               f"the tail's launches: rank 1 {rank1}, rank 0's seam {own}, "
+               f"predicted {predicted}")
+    if got != want:
+        plain = InferenceEngine(cfg, full, max_seq=MAX_SEQ, sampling=greedy,
+                                device=dev)
+        out["partings"] = chain_partings(torch, plain, prompts, got, want)
+        del plain
+    del full
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_ep(torch, mesh) -> dict:
     """mixtral-tpu-1b at ep=2 (4 experts a rank, the batch data-parallel),
     f32 at full width and depth, capacity factor E (no token drops): the
     prefill logits and one decode step's held to the all-experts path
@@ -6019,8 +6634,6 @@ def parallel_ep(torch) -> dict:
         get_model_config
     from distributed_inference_demo_tpu_torch.parallel.expert import (
         distribute_ep_params, make_ep_stage_fn, new_ep_cache)
-    from distributed_inference_demo_tpu_torch.parallel.mesh import (
-        MeshConfig, local_mesh)
 
     base = get_model_config(MOE_MODEL)
     cfg = base.replace(dtype_name="float32",
@@ -6049,24 +6662,20 @@ def parallel_ep(torch) -> dict:
            "experts_per_rank": cfg.num_experts // 2, "batch": b,
            "prompt_len": PROMPT_LEN,
            "capacity_factor": cfg.moe_capacity_factor}
-    mesh = local_mesh(MeshConfig(ep=2), "cuda")
-    try:
-        out["mesh"] = mesh.describe()
-        ep_params = distribute_ep_params(params, cfg, mesh)
-        fn = make_ep_stage_fn(cfg, spec, mesh, ep_params)
-        cache = new_ep_cache(cfg, mesh, L, b, 128)
-        fn(ep_params, ids, cache, pos)          # warm
-        cache = new_ep_cache(cfg, mesh, L, b, 128)
-        before = dict(mesh.stats)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got, cache = fn(ep_params, ids, cache, pos)
-        torch.cuda.synchronize()
-        ms2 = (time.perf_counter() - t0) * 1e3
-        comm = _mesh_delta(mesh, before)
-        got2, _ = fn(ep_params, nxt, cache, dpos)
-    finally:
-        mesh.close()
+    out["mesh"] = mesh.describe()
+    ep_params = distribute_ep_params(params, cfg, mesh)
+    fn = make_ep_stage_fn(cfg, spec, mesh, ep_params)
+    cache = new_ep_cache(cfg, mesh, L, b, 128)
+    fn(ep_params, ids, cache, pos)          # warm
+    cache = new_ep_cache(cfg, mesh, L, b, 128)
+    before = dict(mesh.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, cache = fn(ep_params, ids, cache, pos)
+    torch.cuda.synchronize()
+    ms2 = (time.perf_counter() - t0) * 1e3
+    comm = _mesh_delta(mesh, before)
+    got2, _ = fn(ep_params, nxt, cache, dpos)
     r, g = ref.float().cpu().numpy(), got.float().cpu().numpy()
     r2, g2 = ref2.float().cpu().numpy(), got2.float().cpu().numpy()
     tol = LOGIT_TOL_F32 * max(1.0, float(np.abs(r).max()))
@@ -6086,7 +6695,7 @@ def parallel_ep(torch) -> dict:
     return out
 
 
-def parallel_sp(torch) -> dict:
+def parallel_sp(torch, mesh) -> dict:
     """TinyLlama f32 at sp=2, ring and Ulysses, on a SP_PROMPT_LEN-token
     prompt, at SP_LAYERS of its layers (full width): SP_NEW greedy tokens equal the single-device engine's at the
     same max_seq; each strategy's seconds against the engine's, Ulysses'
@@ -6100,8 +6709,6 @@ def parallel_sp(torch) -> dict:
         get_model_config
     from distributed_inference_demo_tpu_torch.ops.sampling import \
         SamplingParams
-    from distributed_inference_demo_tpu_torch.parallel.mesh import \
-        local_sp_mesh
     from distributed_inference_demo_tpu_torch.parallel.sequence import (
         make_sp_generate_fn, replicate_params)
     from distributed_inference_demo_tpu_torch.parallel.tensor import \
@@ -6128,40 +6735,78 @@ def parallel_sp(torch) -> dict:
            "prompt_len": SP_PROMPT_LEN, "new_tokens": SP_NEW,
            "max_seq": SP_MAX_SEQ, "single_s": res.seconds}
     del one
-    mesh = local_sp_mesh(2, "cuda")
-    try:
-        out["mesh"] = mesh.describe()
-        rep = replicate_params(params, cfg, mesh)
-        for name, make in (("ring", make_sp_generate_fn),
-                           ("ulysses", make_ulysses_generate_fn)):
-            gen = make(cfg, mesh, max_seq=SP_MAX_SEQ, num_new_tokens=SP_NEW)
-            rank_launches(mesh, reset=True)
-            before = dict(mesh.stats)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = gen(rep, prompt, 0).tolist()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            flash = [r["flash"]["launches"] for r in rank_launches(mesh)]
-            out[name] = {"seconds": dt, "tokens_equal": got == want,
-                         "flash_launches_by_rank": flash,
-                         "comm": _mesh_delta(mesh, before)}
-            _check(got == want, f"sp {name} tokens {got} != {want}")
-            _check(flash == ([L] * 2 if name == "ulysses" else [0, 0]),
-                   f"sp {name} flash launches {flash}")
-    finally:
-        mesh.close()
+    out["mesh"] = mesh.describe()
+    rep = replicate_params(params, cfg, mesh)
+    for name, make in (("ring", make_sp_generate_fn),
+                       ("ulysses", make_ulysses_generate_fn)):
+        gen = make(cfg, mesh, max_seq=SP_MAX_SEQ, num_new_tokens=SP_NEW)
+        rank_launches(mesh, reset=True)
+        before = dict(mesh.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gen(rep, prompt, 0).tolist()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        flash = [r["flash"]["launches"] for r in rank_launches(mesh)]
+        out[name] = {"seconds": dt, "tokens_equal": got == want,
+                     "flash_launches_by_rank": flash,
+                     "comm": _mesh_delta(mesh, before)}
+        _check(got == want, f"sp {name} tokens {got} != {want}")
+        _check(flash == ([L] * 2 if name == "ulysses" else [0, 0]),
+               f"sp {name} flash launches {flash}")
     del params
     torch.cuda.empty_cache()
     return out
 
 
-def phase_parallel(torch) -> dict:
-    """Multiple devices on torch.distributed, on the one card: see the
-    module docstring, item 15.  Each check prints its own line."""
-    from distributed_inference_demo_tpu_torch.parallel.mesh import \
-        local_tp_mesh
+class MeshStarts:
+    """Meshes whose ranks start on threads of this process, each taken
+    once by the phase that needs it: a rank start (a spawned process
+    importing torch, 8.6-9.9 s on the card machine) then overlaps the
+    work before it (the train phase's one-process steps and checkpoint,
+    or with ``--phase`` the kernels' build).  ``close()`` closes every
+    mesh not taken."""
 
+    def __init__(self, names, dev: str = "cuda"):
+        from concurrent.futures import ThreadPoolExecutor
+        self.dev = dev
+        self.waited_s = {}
+        self._pool = ThreadPoolExecutor(max(1, len(names)))
+        self._futures = {n: self._pool.submit(self._start, n)
+                         for n in names}
+
+    def _start(self, name):
+        from distributed_inference_demo_tpu_torch.parallel.mesh import (
+            MeshConfig, local_mesh)
+        return local_mesh(MeshConfig(**MESH_AXES[name]), self.dev)
+
+    def take(self, name):
+        """The mesh ``name``, started now if it was not started early;
+        the caller closes it."""
+        t0 = time.perf_counter()
+        fut = self._futures.pop(name, None)
+        mesh = fut.result() if fut is not None else self._start(name)
+        self.waited_s[name] = time.perf_counter() - t0
+        return mesh
+
+    def close(self) -> None:
+        for fut in self._futures.values():
+            try:
+                fut.result().close()
+            except Exception:        # a failed start has nothing to close
+                traceback.print_exc()
+        self._futures.clear()
+        self._pool.shutdown()
+
+
+def phase_parallel(torch, starts=None) -> dict:
+    """Multiple devices on torch.distributed, on the one card: see the
+    module docstring, item 15.  Each check prints its own line.
+    ``starts``: a :class:`MeshStarts` holding the phase's tp, ep and sp
+    meshes (else the phase starts all three at once)."""
+    own = starts is None
+    if own:
+        starts = MeshStarts(PHASE_MESHES["parallel"])
     t0 = time.perf_counter()
     out = {"phase": "parallel", "device": torch.cuda.get_device_name(0),
            "device_count": torch.cuda.device_count(),
@@ -6176,20 +6821,33 @@ def phase_parallel(torch) -> dict:
         emit(res)
         out[key] = res
 
-    run("nccl", parallel_nccl)
-    # the three tp checks share one tp mesh (its ranks start once)
-    t1 = time.perf_counter()
-    mesh = local_tp_mesh(PAR_TP, "cuda")
-    out["tp_mesh_s"] = time.perf_counter() - t1
     try:
-        run("tp_batching", parallel_tp_batching, mesh)
-        run("tp_llama3_8b", parallel_tp_generate, mesh, LARGE_MODEL)
-        run("tp_llama3_8b_int8", parallel_tp_generate, mesh,
-            LARGE_MODEL + "-int8")
+        run("nccl", parallel_nccl)
+        # the tp checks share one tp mesh (its ranks start once)
+        mesh = starts.take("tp")
+        try:
+            run("tp_batching", parallel_tp_batching, mesh)
+            run("tp_llama3_8b", parallel_tp_generate, mesh, LARGE_MODEL)
+            run("tp_llama3_8b_int8", parallel_tp_generate, mesh,
+                LARGE_MODEL + "-int8")
+            run("tp_speculative", parallel_tp_speculative, mesh)
+            run("tp_proposers", parallel_tp_proposers, mesh)
+            run("tp_tier", parallel_tp_tier, mesh)
+            run("tp_fleet", parallel_tp_fleet, mesh)
+            run("tp_stage", parallel_tp_stage, mesh)
+        finally:
+            mesh.close()
+        for name, fn in (("ep", parallel_ep), ("sp", parallel_sp)):
+            mesh = starts.take(name)
+            try:
+                run(name, fn, mesh)
+            finally:
+                mesh.close()
     finally:
-        mesh.close()
-    run("ep", parallel_ep)
-    run("sp", parallel_sp)
+        if own:
+            starts.close()
+    out["mesh_wait_s"] = {n: starts.waited_s.get(n)
+                          for n in PHASE_MESHES["parallel"]}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -7561,6 +8219,11 @@ TRAIN_MICROBATCHES = 2
 TRAIN_STEPS = 3                       # AdamW steps at pp = 1; the first warms
 TRAIN_LR = 1e-3                       # moves bf16 weights past their ulp
 TRAIN_PP = 2
+# the multi-rank phases' meshes, by name: train's pp = 2 mesh, and the
+# parallel phase's tp, ep and sp meshes (``MeshStarts``)
+MESH_AXES = {"pp": {"pp": TRAIN_PP}, "tp": {"tp": PAR_TP}, "ep": {"ep": 2},
+             "sp": {"sp": 2}}
+PHASE_MESHES = {"train": ("pp",), "parallel": ("tp", "ep", "sp")}
 TRAIN_PP_LAYERS = 2                   # the f32 pp = 2 checks' depth cut
 TRAIN_PP_ROWS = 4                     # their batch: 4 x 128 tokens
 TRAIN_GRAD_TOL_REL = 2e-3             # of the leaf's largest |gradient|
@@ -7717,6 +8380,7 @@ def train_pp2(torch, cfg, mesh, dev: str) -> dict:
     new, state, _, pp2_ms = _timed_steps(
         torch, step, new, state, ids, targets, 1, dev)
     steady = _mesh_delta(mesh, before)
+    round_trip = _pp2_checkpoint(torch, cfg, new, state, sgd, dev)
     free_tp(mesh, new, state)
     with local_mesh(MeshConfig(), dev) as one:
         _, _, _, pp1_ms = _timed_steps(
@@ -7732,7 +8396,8 @@ def train_pp2(torch, cfg, mesh, dev: str) -> dict:
            "first_step_comm": first,
            "pp2_ms_a_step": pp2_ms[-1], "pp1_ms_a_step": pp1_ms[-1],
            "pp2_comm_a_step": steady,
-           "staged_bytes_a_step": steady["staged_bytes"]}
+           "staged_bytes_a_step": steady["staged_bytes"],
+           "checkpoint": round_trip}
     _check(out["loss_rel_err"] <= 1e-4,
            f"pp=2 loss {loss} against the reference's {ref_loss}")
     _check(abs(float(step_loss) - ref_loss) / abs(ref_loss) <= 1e-4,
@@ -7742,6 +8407,49 @@ def train_pp2(torch, cfg, mesh, dev: str) -> dict:
                f"pp=2 sgd(1.0) change of {name} differs from the "
                f"gradient: {u}")
     return out
+
+
+def _pp2_checkpoint(torch, cfg, params, state, optimizer, dev: str) -> dict:
+    """The pp = 2 run's pair (rank 0's slice and optimizer) through
+    ``TrainCheckpointManager``: the save writes the global pair, and its
+    restore on this one rank is bit-equal, leaf for leaf, to the tree
+    ``gather_pipeline_params`` assembles from the ranks; seconds each
+    way.  Under a temporary directory, removed."""
+    import shutil
+    import tempfile
+
+    from distributed_inference_demo_tpu_torch.checkpoint import \
+        TrainCheckpointManager
+    from distributed_inference_demo_tpu_torch.parallel.pipeline import (
+        gather_pipeline_params, trainable_leaves)
+
+    tmp = tempfile.mkdtemp(prefix="dwt-pp2-ckpt-")
+    try:
+        mgr = TrainCheckpointManager(tmp, cfg, optimizer, device=dev)
+        t0 = time.perf_counter()
+        mgr.save(2, params, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, _ = mgr.restore()
+        _sync(torch, dev)
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gathered = gather_pipeline_params(params, cfg)
+        gather_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    leaves = {(p, k): v for p, k, v in trainable_leaves(tree)}
+    equal = leaves.keys() == gathered.keys() and all(
+        torch.equal(_bits_of(torch, v.cpu()), _bits_of(torch, gathered[n]))
+        for n, v in leaves.items())
+    nbytes = sum(t.numel() * t.element_size() for t in gathered.values())
+    full_layers = leaves[("layers", "wq")].shape[0]
+    _check(equal and full_layers == cfg.num_layers,
+           f"the pp = 2 checkpoint restores {full_layers} layers, bit-equal "
+           f"to the gathered tree: {equal}")
+    return {"restored_layers": full_layers, "bit_equal_to_gathered": equal,
+            "params_bytes": nbytes, "save_s": save_s,
+            "restore_s": restore_s, "gather_s": gather_s}
 
 
 def train_int8(torch, cfg, mesh, dev: str) -> dict:
@@ -7949,7 +8657,8 @@ def train_checkpoint(torch, cfg, params, state, opt, model: str,
     return out
 
 
-def phase_train(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
+def phase_train(torch, model: str = SERVE_MODEL, dev: str = "cuda",
+                starts=None) -> dict:
     """Training on the card (``parallel/pipeline.py``, ``checkpoint.py``):
     TinyLlama at full width.  (1) pp = 1, full depth, bf16, one
     process: TRAIN_STEPS AdamW steps on a fixed batch, the loss finite
@@ -7961,12 +8670,15 @@ def phase_train(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
     kernel against its dequantised twin, launches predicted; (4) the
     circular decode, f32 at full depth, against ``InferenceEngine``'s
     greedy tokens.  (5) ``TrainCheckpointManager`` on (1)'s params and
-    AdamW state, bit for bit, GB/s each way."""
+    AdamW state, bit for bit, GB/s each way.  ``starts``: a
+    :class:`MeshStarts` holding the pp = 2 mesh (else the phase starts
+    it on a thread at its beginning, beside (1) and (5))."""
     from distributed_inference_demo_tpu_torch.models.registry import \
         get_model_config
-    from distributed_inference_demo_tpu_torch.parallel.mesh import (
-        MeshConfig, local_mesh)
 
+    own = starts is None
+    if own:
+        starts = MeshStarts(PHASE_MESHES["train"], dev)
     t_phase = time.perf_counter()
     cfg = get_model_config(model)
     out = {"phase": "train", "device": dev,
@@ -7985,18 +8697,23 @@ def phase_train(torch, model: str = SERVE_MODEL, dev: str = "cuda") -> dict:
         torch.cuda.empty_cache()
     f32 = cfg.replace(dtype_name="float32")
     t0 = time.perf_counter()
-    with local_mesh(MeshConfig(pp=TRAIN_PP), dev) as mesh:
-        out["mesh"] = mesh.describe()
-        out["mesh_s"] = time.perf_counter() - t0
-        for name, fn, c in (
-                ("pp2", train_pp2, f32.replace(num_layers=TRAIN_PP_LAYERS)),
-                ("int8", train_int8, get_model_config(model + "-int8")),
-                ("generate", train_generate, f32)):
-            t0 = time.perf_counter()
-            out[name] = fn(torch, c, mesh, dev)
-            out[name]["seconds"] = time.perf_counter() - t0
-            if dev == "cuda":
-                torch.cuda.empty_cache()
+    try:
+        with starts.take("pp") as mesh:
+            out["mesh"] = mesh.describe()
+            out["mesh_wait_s"] = time.perf_counter() - t0
+            for name, fn, c in (
+                    ("pp2", train_pp2,
+                     f32.replace(num_layers=TRAIN_PP_LAYERS)),
+                    ("int8", train_int8, get_model_config(model + "-int8")),
+                    ("generate", train_generate, f32)):
+                t0 = time.perf_counter()
+                out[name] = fn(torch, c, mesh, dev)
+                out[name]["seconds"] = time.perf_counter() - t0
+                if dev == "cuda":
+                    torch.cuda.empty_cache()
+    finally:
+        if own:
+            starts.close()
     out["note"] = PARALLEL_NOTE
     out["seconds"] = time.perf_counter() - t_phase
     return out
@@ -8033,23 +8750,35 @@ def main(argv) -> int:
         out.setdefault("seconds", time.perf_counter() - t0)
         return out
 
-    # --phase NAME: the build, then that phase alone (no result lines)
+    # --phase NAME[,NAME...]: the build, then those phases alone (no
+    # result lines)
     only = argv[argv.index("--phase") + 1] if "--phase" in argv else None
+    # --phase: the phases' meshes start their ranks now, beside the
+    # kernels' build; a full run starts all four as the train phase
+    # begins, beside its one-process steps and checkpoint (the earlier
+    # phases run with no other process on the card)
+    starts = None
+    if only is not None:
+        starts = MeshStarts([m for p in only.split(",")
+                             for m in PHASE_MESHES.get(p, ())])
     try:
         device = timed(phase_device, torch, smi)
         emit(device)
         if only is not None:
-            emit(timed({
+            phases = {
                 "serve": phase_serve, "batching": phase_batching,
                 "mixed": phase_mixed, "graph": phase_graph,
                 "quant": phase_quant, "kvcache": phase_kvcache,
                 "surface": phase_surface, "moe": phase_moe,
-                "fleet": phase_fleet, "parallel": phase_parallel,
+                "fleet": phase_fleet,
                 "chain": phase_chain, "server": phase_server,
                 "vision": phase_vision, "native": phase_native,
+                "train": lambda t: phase_train(t, starts=starts),
+                "parallel": lambda t: phase_parallel(t, starts),
                 "speculative": lambda t: phase_speculative(
-                    t, device["ptxas"]["paged_attention.cu"])}[only],
-                torch))
+                    t, device["ptxas"]["paged_attention.cu"])}
+            for name in only.split(","):
+                emit(timed(phases[name], torch))
             return 0
         kern = timed(phase_kernels, torch)
         emit(kern)
@@ -8101,9 +8830,10 @@ def main(argv) -> int:
         vision = timed(phase_vision, torch)
         emit(vision)
         emit(timed(phase_native, torch))
-        train = timed(phase_train, torch)
+        starts = MeshStarts([m for ms in PHASE_MESHES.values() for m in ms])
+        train = timed(phase_train, torch, starts=starts)
         emit(train)
-        par = timed(phase_parallel, torch)
+        par = timed(phase_parallel, torch, starts)
         emit(par)
         moe = timed(phase_moe, torch)
         emit(moe)
@@ -8111,6 +8841,9 @@ def main(argv) -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        if starts is not None:
+            starts.close()
 
     def flash_case(case, dtype="bfloat16"):
         return next(c for c in kern["cases"]
@@ -8283,6 +9016,65 @@ def main(argv) -> int:
     vision_case = next(c for c in kern["cases"]
                        if c["case"] == "tinyllama-vision"
                        and c["dtype"] == "bfloat16")
+    # the tp checks of the parallel phase: rank 0's launches (each other
+    # rank launched as many, held in the phase)
+    tps = par["tp_speculative"]["bfloat16"]
+    tpp = par["tp_proposers"]["bfloat16"]
+    tpt, tpf, tpc = par["tp_tier"], par["tp_fleet"], par["tp_stage"]
+    tp2_verify = next(c for c in paged["cases"]
+                      if c["case"] == SERVE_MODEL + "-tp2-verify"
+                      and c["dtype"] == "bfloat16")
+    tp2_rows = "one tp=2 rank (16 q heads on 2 kv heads), "
+    longest_tp = max(PAR_STAGE_PROMPTS)
+    tp_entries = [
+        entry("flash_attention_tp2_speculative", KERNEL_SOURCE,
+              KERNEL_REPLACES, tps["launches_by_rank"][0]["flash"],
+              flash_case(SERVE_MODEL + "-tp2"), tp2_rows + "64-token "
+              "prompt at 0 (launches: rank 0's in the tp=2 SpeculativeEngine"
+              f", the target's {PAR_BATCHING_LAYERS} and the {SPEC_DRAFT} "
+              "draft's layers, one prefill each)"),
+        {**entry("paged_prefill_tp2_verify", PAGED_SOURCE,
+                 PAGED_REPLACES["paged_prefill"],
+                 tpp["launches_by_rank"][0]["paged_prefill"], tp2_verify,
+                 tp2_rows + verify + " (launches: rank 0's prefill-kernel "
+                 "launches in the tp=2 8-slot prompt-lookup batching: its "
+                 "verifies, L x rounds, and its admission chunks)"),
+         "graph_replayed": False},
+        {**entry("paged_decode_tp2_tier", PAGED_SOURCE,
+                 PAGED_REPLACES["paged_decode"],
+                 tpt["launches_by_rank_warm"][0]["paged_decode"],
+                 serve_case("decode", "full", SERVE_MODEL + "-tp2"),
+                 tp2_rows + rows8 + " (launches: rank 0's, the tp=2 tier "
+                 "check's promoted request)"), "graph_replayed": False},
+        {**entry("paged_prefill_tp2_tier", PAGED_SOURCE,
+                 PAGED_REPLACES["paged_prefill"],
+                 tpt["launches_by_rank_warm"][0]["paged_prefill"],
+                 serve_case("prefill", "full", SERVE_MODEL + "-tp2"),
+                 tp2_rows + chunk200 + " (launches: rank 0's, the promoted "
+                 "request's suffix prefill)"), "graph_replayed": False},
+        {**entry("paged_decode_tp2_fleet", PAGED_SOURCE,
+                 PAGED_REPLACES["paged_decode"],
+                 sum(tpf[k]["launches_by_rank"][0]["paged_decode"]
+                     for k in ("tp2_to_tp1", "tp1_to_tp2")),
+                 serve_case("decode", "full", SERVE_MODEL + "-tp2"),
+                 tp2_rows + rows8 + " (launches: rank 0's, the tp=2 side "
+                 "of both migrations)"), "graph_replayed": False},
+        {**entry("paged_decode_tp2_stage", PAGED_SOURCE,
+                 PAGED_REPLACES["paged_decode"],
+                 tpc["tp2"]["tail_launches"]["decode"],
+                 chain_case("decode", SERVE_MODEL + "-tp2-chain"),
+                 tp2_rows + f"b=1, one token at "
+                 f"{longest_tp + PAR_STAGE_NEW - 1} (launches: rank 0's, "
+                 "the tp=2 tail stage's layers x its one-token hops)"),
+         "graph_replayed": False},
+        {**entry("paged_prefill_tp2_stage", PAGED_SOURCE,
+                 PAGED_REPLACES["paged_prefill"],
+                 tpc["tp2"]["tail_launches"]["prefill"],
+                 chain_case("prefill", SERVE_MODEL + "-tp2-chain"),
+                 tp2_rows + f"b=1, the {longest_tp}-token prompt chunk at "
+                 "0 (launches: rank 0's, the tp=2 tail stage's layers x "
+                 "its prompt chunks)"),
+         "graph_replayed": False}]
     r0 = par["tp_llama3_8b_int8"]["launches_by_rank"][0]
     tp2_int8 = {"decode_launches": r0["quant_dense_decode"],
                 "dense_launches": r0["quant_dense"]}
@@ -8481,7 +9273,7 @@ def main(argv) -> int:
               flash_case(LARGE_MODEL + "-tp2"), "one tp=2 rank of "
               "llama-3-8b (16 q heads on 4 kv heads, hd 128), 64-token "
               "prompt at 0 (launches: rank 0's, the tp=2 generate's two "
-              f"prefills at {PAR_GENERATE_LAYERS} layers)")]})
+              f"prefills at {PAR_GENERATE_LAYERS} layers)")] + tp_entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -117,6 +117,31 @@ def _restore_tree(path: str, template: StageParams, device) -> StageParams:
         for part in _PARTS})
 
 
+def _global_tree(params: StageParams, cfg: ModelConfig) -> StageParams:
+    """The whole tree of ``params``: unchanged, or, for rank 0's slice of
+    a multi-rank mesh (``parallel.tensor.ShardedParams``), the tree
+    assembled from every rank's slice
+    (``parallel.pipeline.gather_pipeline_params``).  A sharded tree's
+    quantized leaves are not gathered: it raises."""
+    mesh = getattr(params, "mesh", None)
+    if mesh is None or mesh.world <= 1:
+        return params
+    from .parallel.pipeline import gather_pipeline_params, trainable_leaves
+    names = {(p, k) for p, k, _ in trainable_leaves(params)}
+    for part in _PARTS:
+        for key in (getattr(params, part) or {}):
+            if (part, key) not in names:
+                raise ValueError(
+                    f"{part}/{key} of a {mesh.world}-rank tree is not a "
+                    "float leaf; only float trees are gathered for a "
+                    "checkpoint")
+    full = gather_pipeline_params(params, cfg)
+    return StageParams(**{
+        part: (None if getattr(params, part) is None else
+               {k: full[(part, k)] for k in getattr(params, part)})
+        for part in _PARTS})
+
+
 def _write_tree(path: str, params: StageParams) -> None:
     tensors, groups = _flatten(params)
     write_safetensors(path, tensors, {"format": FORMAT, **groups})
@@ -124,10 +149,12 @@ def _write_tree(path: str, params: StageParams) -> None:
 
 def save_params(path: str, params: StageParams, cfg: ModelConfig,
                 model_name: str, metadata: Optional[dict] = None) -> None:
-    """Write a parameter checkpoint + metadata sidecar at ``path``."""
+    """Write a parameter checkpoint + metadata sidecar at ``path``.  On a
+    multi-rank mesh ``params`` is rank 0's slice and the whole tree is
+    gathered first (:func:`_global_tree`)."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    _write_tree(os.path.join(path, PARAMS_FILE), params)
+    _write_tree(os.path.join(path, PARAMS_FILE), _global_tree(params, cfg))
     meta = {
         "model": model_name,
         "quantization": cfg.quantization,
@@ -223,9 +250,21 @@ class TrainCheckpointManager:
 
     def save(self, step: int, params: StageParams, opt_state: Any) -> None:
         """Write step ``step`` (aside, then renamed into place) and drop
-        the oldest steps past ``max_to_keep``; synchronous."""
-        sd = (opt_state.state_dict() if hasattr(opt_state, "state_dict")
-              else opt_state)
+        the oldest steps past ``max_to_keep``; synchronous.  On a
+        multi-rank mesh (``params`` and ``opt_state`` as
+        ``make_pipeline_train_step`` returns them: rank 0's slice and
+        optimizer) the global pair is written: the tree gathered from
+        every rank, and every rank's optimizer state reassembled into the
+        one-rank order (``parallel.pipeline.gather_pipeline_opt_state``)."""
+        mesh = getattr(params, "mesh", None)
+        if (mesh is not None and mesh.world > 1
+                and hasattr(opt_state, "state_dict")):
+            from .parallel.pipeline import gather_pipeline_opt_state
+            sd = gather_pipeline_opt_state(opt_state, params, self.cfg)
+        else:
+            sd = (opt_state.state_dict() if hasattr(opt_state, "state_dict")
+                  else opt_state)
+        params = _global_tree(params, self.cfg)
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)

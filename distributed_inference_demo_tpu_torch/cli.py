@@ -150,15 +150,6 @@ def _mesh_from_args(args, device, axis: str = "tp"):
     return mesh
 
 
-def _refuse_tp_with_proposer(args) -> None:
-    """tp under the speculative engines and proposers is a later slice."""
-    if getattr(args, "tp", 1) > 1 and (args.draft_model
-                                       or args.prompt_lookup):
-        from .parallel.tensor import TP_LATER
-        raise NotImplementedError(
-            f"--tp with --draft-model/--prompt-lookup: {TP_LATER}")
-
-
 def _load_tokenizer(path: Optional[str]):
     if not path:
         return None
@@ -204,6 +195,16 @@ def _draft_params(args, device):
                               seed=args.weights_seed, device=device)
 
 
+def _draft_for_mesh(args, device, mesh):
+    """:func:`_draft_params`, sharded onto ``mesh`` when serving
+    tensor-parallel (the reference's ``_load_draft_for_mesh``)."""
+    dcfg, params = _draft_params(args, device)
+    if mesh is not None:
+        from .runtime.engine import shard_engine_params
+        params = shard_engine_params(params, dcfg, mesh)
+    return dcfg, params
+
+
 def _kv_tier_from_args(args) -> dict:
     """The tier kwargs of the one engine that takes them explicitly
     (``ContinuousBatchingEngine``); every other pool reads the env knobs
@@ -246,25 +247,38 @@ def _spec_engine_kwargs(args, device) -> dict:
 
 def build_spec_engine(args):
     """The ``SpeculativeEngine`` of ``generate`` / ``serve
-    --draft-model``."""
+    --draft-model``, both models over the ``--tp`` mesh when one is
+    asked for (``engine.mesh``)."""
     from .runtime.speculative import SpeculativeEngine
 
     _refuse_stream_block(args, "--draft-model")
-    device, cfg, params = _params(args)
-    dcfg, dparams = _draft_params(args, device)
-    return SpeculativeEngine(cfg, params, dcfg, dparams,
-                             **_spec_engine_kwargs(args, device))
+    device, cfg, params, mesh = _params_for_mesh(args)
+    try:
+        dcfg, dparams = _draft_for_mesh(args, device, mesh)
+        return SpeculativeEngine(cfg, params, dcfg, dparams, mesh=mesh,
+                                 cuda_graph=mesh is None,
+                                 **_spec_engine_kwargs(args, device))
+    except BaseException:
+        if mesh is not None:
+            mesh.close()
+        raise
 
 
 def build_prompt_lookup_engine(args):
     """The ``PromptLookupEngine`` of ``generate`` / ``serve
-    --prompt-lookup``."""
+    --prompt-lookup``, over the ``--tp`` mesh when one is asked for."""
     from .runtime.prompt_lookup import PromptLookupEngine
 
     _refuse_stream_block(args, "--prompt-lookup")
-    device, cfg, params = _params(args)
-    return PromptLookupEngine(cfg, params,
-                              **_spec_engine_kwargs(args, device))
+    device, cfg, params, mesh = _params_for_mesh(args)
+    try:
+        return PromptLookupEngine(cfg, params, mesh=mesh,
+                                  cuda_graph=mesh is None,
+                                  **_spec_engine_kwargs(args, device))
+    except BaseException:
+        if mesh is not None:
+            mesh.close()
+        raise
 
 
 def _params_for_mesh(args):
@@ -298,7 +312,7 @@ def build_batching_engine(args):
     device, cfg, params, mesh = _params_for_mesh(args)
     dcfg = dparams = None
     if args.draft_model:
-        dcfg, dparams = _draft_params(args, device)
+        dcfg, dparams = _draft_for_mesh(args, device, mesh)
     return cfg, ContinuousBatchingEngine(
         cfg, params, max_seq=args.max_seq, max_batch=args.batch_slots,
         sampling=_sampling_from_args(args), seed=args.seed,
@@ -545,7 +559,6 @@ def cmd_serve(args) -> int:
             print(f"{'/'.join(unsupported)} not supported with --vision",
                   file=sys.stderr)
             return 1
-    _refuse_tp_with_proposer(args)
     if args.batch_slots and args.stream_block is not None:
         # the scheduler's fused block is --decode-block; a second K knob
         # is rejected, never silently ignored
@@ -962,14 +975,15 @@ def cmd_generate(args) -> int:
                   "--tp", file=sys.stderr)
             return 1
         return _generate_sp(args, ids, tokenizer)
-    _refuse_tp_with_proposer(args)
     stats = None
-    if args.prompt_lookup:
-        res, stats = build_prompt_lookup_engine(args).generate(
-            ids, args.max_new_tokens, seed=args.seed)
-    elif args.draft_model:
-        res, stats = build_spec_engine(args).generate(
-            ids, args.max_new_tokens, seed=args.seed)
+    if args.prompt_lookup or args.draft_model:
+        spec = (build_prompt_lookup_engine(args) if args.prompt_lookup
+                else build_spec_engine(args))
+        try:
+            res, stats = spec.generate(ids, args.max_new_tokens,
+                                       seed=args.seed)
+        finally:
+            _close_mesh(spec)
     else:
         _, engine = build_engine(args)
         try:
@@ -1394,6 +1408,7 @@ def cmd_worker(args) -> int:
 
     from .comm.faults import FaultConfigError, load_fault_plan
     from .models.base import StageSpec
+    from .parallel.mesh import local_tp_mesh
     from .runtime.elastic import ElasticStageRuntime, ElasticWorker
 
     ap = argparse.ArgumentParser(prog="worker --elastic")
@@ -1420,8 +1435,8 @@ def cmd_worker(args) -> int:
     ap.add_argument("--min-p", type=float, default=0.0)
     ap.add_argument("--step-timeout", type=float, default=120.0)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism per stage (refused: a later "
-                         "slice)")
+                    help="tensor parallelism per stage over N local "
+                         "ranks (pipeline x tp)")
     ap.add_argument("--kv-cache-dtype", default="",
                     help="reduced-precision KV cache storage for this "
                          "stage, e.g. float8_e4m3fn")
@@ -1437,15 +1452,21 @@ def cmd_worker(args) -> int:
     except FaultConfigError as e:
         print(str(e), file=sys.stderr)
         return 1
-    worker_main.refuse_tp(a.tp)
     cfg, device = worker_main._model(a)
     full = worker_main._full_params(a, cfg, device)
     layer_end = a.layer_end if a.layer_end >= 0 else cfg.num_layers
     spec = StageSpec(a.stage_id, a.num_stages, a.layer_start, layer_end)
-    rt = ElasticStageRuntime(cfg, spec, full, a.max_seq,
-                             worker_main._sampling(a), seed=a.seed,
-                             kv_cache_dtype=a.kv_cache_dtype or None,
-                             kv_layout=a.kv_layout, device=device)
+    mesh = local_tp_mesh(a.tp, device)
+    try:
+        rt = ElasticStageRuntime(cfg, spec, full, a.max_seq,
+                                 worker_main._sampling(a), seed=a.seed,
+                                 kv_cache_dtype=a.kv_cache_dtype or None,
+                                 kv_layout=a.kv_layout, device=device,
+                                 mesh=mesh)
+    except BaseException:
+        if mesh is not None:
+            mesh.close()
+        raise
     transport = worker_main._transport(a)
     try:
         next_id = None
@@ -1462,6 +1483,7 @@ def cmd_worker(args) -> int:
         worker.serve_forever()
     finally:
         transport.close()
+        worker_main.close_stage_mesh(rt)
     return 0
 
 
@@ -1544,8 +1566,6 @@ def cmd_bench(args) -> int:
         print("choose one of --draft-model / --prompt-lookup",
               file=sys.stderr)
         return 1
-    _refuse_tp_with_proposer(args)
-
     spec = None
     if want_pld or want_draft:
         # build the speculative engine first and reuse its target weights
@@ -1554,10 +1574,15 @@ def cmd_bench(args) -> int:
         spec = (build_prompt_lookup_engine(args) if want_pld
                 else build_spec_engine(args))
         from .runtime.engine import InferenceEngine
-        engine = InferenceEngine(
-            spec.cfg, spec.params, max_seq=args.max_seq,
-            sampling=_sampling_from_args(args),
-            attn_backend=args.attn_backend, device=spec.device)
+        try:
+            engine = InferenceEngine(
+                spec.cfg, spec.params, max_seq=args.max_seq,
+                sampling=_sampling_from_args(args),
+                attn_backend=args.attn_backend, device=spec.device,
+                mesh=spec.mesh, cuda_graph=spec.mesh is None)
+        except BaseException:
+            _close_mesh(spec)
+            raise
     else:
         _, engine = build_engine(args)
 
@@ -1566,23 +1591,24 @@ def cmd_bench(args) -> int:
     try:
         engine.generate(prompt, args.max_new_tokens, seed=0)   # warm
         res = engine.generate(prompt, args.max_new_tokens, seed=0)
+        out = {
+            "metric": f"decode tokens/sec ({args.model}, batch="
+                      f"{args.batch}, prompt={args.prompt_len}, new="
+                      f"{args.max_new_tokens})",
+            "value": round(res.tokens_per_second, 2),
+            "unit": "tokens/sec",
+        }
+        if spec is not None:
+            from .runtime.speculative import stats_json
+            spec.generate(prompt, args.max_new_tokens, seed=0)     # warm
+            sres, stats = spec.generate(prompt, args.max_new_tokens, seed=0)
+            out["speculative"] = dict(
+                stats_json(stats, args.num_draft),
+                tokens_per_sec=round(sres.tokens_per_second, 2),
+                speedup=round(sres.tokens_per_second
+                              / res.tokens_per_second, 3))
     finally:
         _close_mesh(engine)
-    out = {
-        "metric": f"decode tokens/sec ({args.model}, batch={args.batch}, "
-                  f"prompt={args.prompt_len}, new={args.max_new_tokens})",
-        "value": round(res.tokens_per_second, 2),
-        "unit": "tokens/sec",
-    }
-    if spec is not None:
-        from .runtime.speculative import stats_json
-        spec.generate(prompt, args.max_new_tokens, seed=0)     # warm
-        sres, stats = spec.generate(prompt, args.max_new_tokens, seed=0)
-        out["speculative"] = dict(
-            stats_json(stats, args.num_draft),
-            tokens_per_sec=round(sres.tokens_per_second, 2),
-            speedup=round(sres.tokens_per_second
-                          / res.tokens_per_second, 3))
     print(json.dumps(out))
     return 0
 

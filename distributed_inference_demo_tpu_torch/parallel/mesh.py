@@ -468,12 +468,12 @@ class Mesh:
         self.stats["staged_bytes"] += h.numel()
         self._ctl.send([h], dst, 0).wait()
 
-    def recv(self, shape, dtype, src: int) -> torch.Tensor:
-        """The tensor :meth:`send` sent from ``src``, on this rank's
-        device."""
+    def recv(self, shape, dtype, src: int, device=None) -> torch.Tensor:
+        """The tensor :meth:`send` sent from ``src``, on ``device``
+        (default this rank's)."""
         h = torch.empty(shape, dtype=dtype)
         self._ctl.recv([_as_bytes(h)], src, 0).wait()
-        return h.to(self.device)
+        return h.to(device if device is not None else self.device)
 
     def _bcast_bytes(self, payload: Optional[bytes]) -> bytes:
         from torch.distributed import BroadcastOptions

@@ -277,10 +277,36 @@ def _init_train(mesh, params_h: int, opt_h: int, optimizer, state,
 
 def _gather_leaves(mesh, params_h: int, names):
     """Command: this rank's slices of the leaves ``names`` (``(part,
-    key)``), gathered at rank 0."""
+    key)``) at rank 0, on its host, leaf by leaf through the control
+    group (the slices of a leaf have one shape on every rank): a list in
+    rank order of ``{"part/key": tensor}``; None on the followers."""
     params = mesh.objects[params_h]
-    return mesh.gather({f"{p}/{k}": getattr(params, p)[k].detach()
-                        for p, k in names})
+    local = {f"{p}/{k}": getattr(params, p)[k].detach() for p, k in names}
+    if mesh.rank != 0:
+        for t in local.values():
+            mesh.send(t, 0)
+        return None
+    out = [{n: t.cpu() for n, t in local.items()}]
+    for r in range(1, mesh.world):
+        out.append({n: mesh.recv(tuple(t.shape), t.dtype, r, device="cpu")
+                    for n, t in local.items()})
+    return out
+
+
+def _assemble(mesh, local_shape, spec, shards) -> torch.Tensor:
+    """One leaf's full tensor from every rank's slice (``shards`` in rank
+    order), each placed by the rank's coordinates along ``spec``."""
+    from .sharding import rank_coords
+    axes = tuple(spec) + (None,) * (len(local_shape) - len(spec))
+    shape = [n * (mesh.shape.get(a, 1) if a is not None else 1)
+             for n, a in zip(local_shape, axes)]
+    full = torch.empty(shape, dtype=shards[0].dtype)
+    for r, got in enumerate(shards):
+        c = rank_coords(mesh.shape, r)
+        idx = tuple(slice(c[a] * n, (c[a] + 1) * n) if a else slice(None)
+                    for n, a in zip(local_shape, axes))
+        full[idx] = got
+    return full
 
 
 def gather_pipeline_params(params: ShardedParams, cfg: ModelConfig,
@@ -289,26 +315,62 @@ def gather_pipeline_params(params: ShardedParams, cfg: ModelConfig,
     rank 0 (on the host) from every rank's slice: ``{(part, key):
     tensor}`` for ``names`` (default every float leaf).  For checks and
     checkpoints."""
-    from .sharding import rank_coords
     mesh = params.mesh
     specs = _pp_in_specs(params, cfg, mesh.shape.get("tp", 1) > 1)
     names = list(names or [(p, k) for p, k, _ in trainable_leaves(params)])
     shards = mesh.spmd(_gather_leaves, params.handle, names)
     out = {}
     for part, key in names:
-        spec = getattr(specs, part)[key]
-        local = shards[0][f"{part}/{key}"]
-        shape = [n * (mesh.shape.get(a, 1) if a is not None else 1)
-                 for n, a in zip(local.shape, spec + (None,) * local.ndim)]
-        full = torch.empty(shape, dtype=local.dtype)
-        for r, got in enumerate(shards):
-            c = rank_coords(mesh.shape, r)
-            idx = tuple(slice(c[a] * n, (c[a] + 1) * n) if a else slice(None)
-                        for n, a in zip(local.shape,
-                                        spec + (None,) * local.ndim))
-            full[idx] = got[f"{part}/{key}"]
-        out[(part, key)] = full
+        name = f"{part}/{key}"
+        out[(part, key)] = _assemble(mesh, shards[0][name].shape,
+                                     getattr(specs, part)[key],
+                                     [got[name] for got in shards])
     return out
+
+
+def _gather_opt(mesh, opt_h: int):
+    """Command: this rank's optimizer ``state_dict()``, gathered at rank
+    0."""
+    return mesh.gather(mesh.objects[opt_h].state_dict())
+
+
+def gather_pipeline_opt_state(opt_state, params: ShardedParams,
+                              cfg: ModelConfig) -> dict:
+    """The optimizer state of a pipeline-sharded run as one rank holds it
+    (a ``state_dict()`` over the full tree's :func:`trainable_leaves`),
+    assembled on rank 0's host from every rank's optimizer
+    (``opt_state``: rank 0's, as :func:`make_pipeline_train_step`
+    returns it).  A per-parameter tensor (``exp_avg``, ``exp_avg_sq``)
+    is reassembled along its parameter's spec; every other value
+    (``step``) must agree across ranks, or this raises.  It is the order
+    :func:`make_pipeline_train_step` slices per rank when handed a
+    full-tree optimizer."""
+    mesh = params.mesh
+    opt_h = mesh.handle_of(opt_state)
+    if opt_h is None:
+        raise ValueError("opt_state is not an optimizer of this mesh (pass "
+                         "the one make_pipeline_train_step returned)")
+    specs = _pp_in_specs(params, cfg, mesh.shape.get("tp", 1) > 1)
+    leaves = trainable_leaves(params)
+    sds = mesh.spmd(_gather_opt, opt_h)
+    state = {}
+    for i, st in sds[0]["state"].items():
+        part, key, v = leaves[int(i)]
+        spec = getattr(specs, part)[key]
+        state[i] = {}
+        for n, x in st.items():
+            got = [sd["state"][i][n] for sd in sds]
+            if torch.is_tensor(x) and x.ndim == v.ndim:
+                state[i][n] = _assemble(mesh, x.shape, spec, got)
+                continue
+            same = all((torch.equal(g, x) if torch.is_tensor(x)
+                        else g == x) for g in got)
+            if not same:
+                raise ValueError(
+                    f"optimizer state {n!r} of {part}/{key} differs "
+                    f"across ranks: {got}")
+            state[i][n] = x
+    return {"state": state, "param_groups": sds[0]["param_groups"]}
 
 
 def _apply(mesh, params_h: int, cfg: ModelConfig, ids_mb: torch.Tensor,

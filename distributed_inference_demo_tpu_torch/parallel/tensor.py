@@ -30,13 +30,25 @@ nothing else):
 - :func:`_kv_seed` / :func:`_kv_store`: the prefix pool's gather into a
   working cache and scatter out of it (``InferenceEngine`` with
   ``kv_cache_blocks``);
+- :func:`_gather_pages` / :func:`_scatter_pages`: blocks of a page
+  pool out of every rank's plane, joined over the kv-head axis at rank
+  0, and global blocks split back into each rank's heads (the tier's
+  demotions and promotions, a request's export and import, a
+  premigrated join);
+- :func:`_row_to_pages`: a dense row's blocks into every rank's pages
+  (the batching draft's admission prefill);
 - :func:`_free`: drop a handle (an engine's close);
 - :func:`_fetch`: every rank's copy of an object at rank 0 (checks).
 
 A cache or pool is addressed by the handle of its keys / values object.
 Anything rank 0 did to its own plane without one of these commands would
 leave the followers' planes stale, so the engines touch a tp cache only
-through them.
+through them.  Rank 0's planes are known by :func:`plane_mesh`:
+``runtime/kvcache/device.py``'s block export, adopt and row write route
+a plane to the commands above, so the tier and the fleet move a tp
+pool's pages with the code they use at tp=1.  Blocks leave and enter in
+the tp=1 layout (``[n, L, H, bt, D]``, every kv head), so a tier entry,
+an export or a premigrated block is the same bytes at any tp.
 """
 
 from typing import Optional
@@ -46,8 +58,6 @@ import torch
 from ..models.base import KVCache, ModelConfig, StageParams, StageSpec
 from ..models.decoder import stage_forward
 from .sharding import shard_tree, stage_param_spec_tree
-
-TP_LATER = "tensor-parallel meshes are ported in a later slice (ROADMAP A13)"
 
 # head-major cache [layers, batch, nkv, seq, hd] and page pool
 # [layers, pages, nkv, bt, hd]: both shard the kv-head axis (axis 2); a
@@ -238,9 +248,18 @@ def alloc_mesh_kv(mesh, kind: str, local_shape, dtype, kv_dtype=None):
     mesh.spmd(_alloc_kv, handles, kind, tuple(local_shape), dtype,
               kv_dtype)
     k, v = (mesh.objects[h] for h in handles)
-    mesh.register(k, handles[0])
-    mesh.register(v, handles[1])
+    for obj, h in ((k, handles[0]), (v, handles[1])):
+        mesh.register(obj, h)
+        obj._tp_mesh = mesh
     return k, v
+
+
+def plane_mesh(obj):
+    """The mesh whose rank-0 plane ``obj`` is (a cache's or pool's keys
+    or values from :func:`alloc_mesh_kv`), else None.  A plane of a
+    closed mesh still names it: its commands raise, rather than rank 0
+    moving its own heads alone."""
+    return getattr(obj, "_tp_mesh", None)
 
 
 def _free(mesh, handles) -> None:
@@ -248,11 +267,13 @@ def _free(mesh, handles) -> None:
     for h in handles:
         obj = mesh.objects.pop(h, None)
         mesh.unregister(obj)
+        if getattr(obj, "_tp_mesh", None) is mesh:
+            del obj._tp_mesh
 
 
 def free_tp(mesh, *objs) -> None:
-    """Drop the handles of rank 0's ``objs`` (tensors, pools, params) on
-    every rank."""
+    """Drop the handles of rank 0's ``objs`` (tensors, pools, params, a
+    forward of :func:`make_tp_forward`) on every rank."""
     hs = [getattr(o, "handle", None) or mesh.handle_of(o) for o in objs]
     hs = [h for h in hs if h is not None]
     if hs and not mesh.closed:
@@ -283,13 +304,16 @@ class _Seam:
         self.bind = None
         if attn[0] == "paged":
             from ..ops.paged_attention import make_paged_attn_impl
-            _, bt, backend, num_pages, head_dim, device_type = attn
+            _, bt, backend, num_pages, head_dim, device_type, launches = attn
             self.impl, self.bind = make_paged_attn_impl(
                 bt, backend, num_pages=num_pages, head_dim=head_dim,
-                device_type=device_type)
+                device_type=device_type, launches=launches)
         elif attn[1] == "flash":
             from ..ops.flash_attention import make_flash_attn_impl
             self.impl = make_flash_attn_impl()
+        elif attn[1] == "slot":
+            from ..runtime.batching import slot_attention_impl
+            self.impl = slot_attention_impl
         else:
             self.impl = None
 
@@ -323,8 +347,10 @@ def make_tp_forward(cfg: ModelConfig, spec: StageSpec, mesh,
     positions and logits are replicated.  ``attn`` describes the hook
     each rank builds for its own heads: ``("dense", "flash" | "plain")``
     or ``("paged", block_tokens, backend, num_pages, head_dim,
-    device_type)``; ``bind(tables)`` hands a paged seam the dispatch's
-    block tables (None for a dense seam)."""
+    device_type, launches)`` (``launches``: a dict rank 0's hook counts
+    its own launches in; each follower counts into its copy); ``bind(
+    tables)`` hands a paged seam the dispatch's block tables (None for a
+    dense seam)."""
     validate_tp(cfg, mesh)
     handle = mesh.new_handle()
     mesh.spmd(_make_seam, handle, cfg, spec, attn)
@@ -342,6 +368,7 @@ def make_tp_forward(cfg: ModelConfig, spec: StageSpec, mesh,
         return logits, KVCache(cache.keys, cache.values,
                                start + inputs.shape[1])
 
+    fwd.handle = handle          # free_tp(mesh, fwd) drops every rank's hook
     return fwd, (bind if attn[0] == "paged" else None)
 
 
@@ -350,7 +377,8 @@ def make_forward_seam(cfg: ModelConfig, spec: StageSpec, mesh,
                       attn_backend: str = "plain"):
     """(fwd, cache_sharding) for an engine: the tp seam when ``mesh`` has
     a tp axis > 1 (each rank builds its own ``attn_backend`` hook, since
-    a hook is rank-local), else a plain ``stage_forward`` closure over
+    a hook is rank-local: "flash", "plain", or "slot", the batching
+    draft's admission row), else a plain ``stage_forward`` closure over
     ``attn_impl`` with ``cache_sharding=None``."""
     if tp_size(mesh) > 1:
         fwd, _ = make_tp_forward(cfg, spec, mesh, params_template,
@@ -381,14 +409,14 @@ def make_paged_forward_seam(cfg: ModelConfig, spec: StageSpec, mesh,
     its kv-head plane of the pool, the tables go out with the forward's
     inputs, and ``pool_sharding`` is the kv-head spec; off-mesh it is
     None.  ``num_pages``, ``backend``, ``device_type`` and ``launches``
-    (off a tp mesh: the hook's own launch counts) go to
+    (the hook's own launch counts; under tp rank 0's) go to
     :func:`~..ops.paged_attention.make_paged_attn_impl`."""
     from ..ops.paged_attention import make_paged_attn_impl
     if tp_size(mesh) > 1:
         fwd, bind = make_tp_forward(
             cfg, spec, mesh, params_template,
             attn=("paged", block_tokens, backend, num_pages, cfg.head_dim,
-                  device_type))
+                  device_type, launches))
         return fwd, bind, tp_cache_sharding(mesh)
     impl, bind = make_paged_attn_impl(block_tokens, backend,
                                       num_pages=num_pages,
@@ -468,6 +496,144 @@ class TPPoolOps:
         h = self.mesh.handle_of
         self.mesh.spmd(_kv_store, h(pk), h(pv), h(ck), h(cv),
                        list(block_ids), int(covered))
+
+
+# ---------------------------------------------------------------------------
+# page blocks across ranks: the tier, the fleet, the draft's admission
+# ---------------------------------------------------------------------------
+
+def _block_leaves(blocks) -> list:
+    """A block payload's tensors (a quantized one's data, scale[, zero])."""
+    from ..ops.quant import QuantizedKVPages
+    return blocks.leaves() if isinstance(blocks, QuantizedKVPages) \
+        else [blocks]
+
+
+def _block_map(blocks, fn):
+    """``fn`` over every tensor of a block payload, its kind kept."""
+    from ..ops.quant import QuantizedKVPages
+    if isinstance(blocks, QuantizedKVPages):
+        return QuantizedKVPages(
+            *[None if t is None else fn(t)
+              for t in (blocks.data, blocks.scale, blocks.zero)],
+            bits=blocks.bits)
+    return fn(blocks)
+
+
+def _heads(blocks, rank: int, tp: int):
+    """Rank ``rank``'s kv heads of global blocks ``[n, L, H, bt, ...]``."""
+    def cut(t):
+        h = t.shape[2] // tp
+        return t[:, :, rank * h:(rank + 1) * h].contiguous()
+    return _block_map(blocks, cut)
+
+
+def _gather_pages(mesh, keys_h, values_h, ids):
+    """Command: every rank's blocks ``ids`` of its planes, on the host,
+    gathered at rank 0."""
+    from ..runtime.kvcache.device import export_local, payload_to
+    kb, vb = export_local(mesh.objects[keys_h], mesh.objects[values_h], ids)
+    return mesh.gather((payload_to(kb, "cpu"), payload_to(vb, "cpu")))
+
+
+def gather_tp_blocks(mesh, pk, pv, ids):
+    """Blocks ``ids`` of the tp pool whose rank-0 planes are ``(pk, pv)``,
+    every rank's heads joined along the kv-head axis: global ``(k, v)``
+    payloads ``[n, L, H, bt, D]`` (quantized pools: their narrow leaves)
+    on rank 0's host, as ``export_blocks_from_pages`` gives them at
+    tp=1."""
+    got = mesh.spmd(_gather_pages, mesh.handle_of(pk), mesh.handle_of(pv),
+                    [int(i) for i in ids])
+
+    def join(side):
+        parts = [g[side] for g in got]
+        leaves = [_block_leaves(p) for p in parts]
+        joined = iter([torch.cat([ls[j] for ls in leaves], dim=2)
+                       for j in range(len(leaves[0]))])
+        return _block_map(parts[0], lambda _: next(joined))
+
+    return join(0), join(1)
+
+
+def _layout(blocks) -> tuple:
+    """What a follower needs to receive its slice of a payload: the
+    quantized bits (None for full width) and each tensor's shape and
+    dtype, in :func:`_block_leaves`' order."""
+    from ..ops.quant import QuantizedKVPages
+    bits = blocks.bits if isinstance(blocks, QuantizedKVPages) else None
+    zero = bits is not None and blocks.zero is not None
+    return bits, zero, [(tuple(t.shape), t.dtype)
+                        for t in _block_leaves(blocks)]
+
+
+def _received(mesh, layout):
+    from ..ops.quant import QuantizedKVPages
+    bits, zero, shapes = layout
+    got = [mesh.recv(shape, dtype, 0) for shape, dtype in shapes]
+    if bits is None:
+        return got[0]
+    return QuantizedKVPages(got[0], got[1], got[2] if zero else None, bits)
+
+
+def _scatter_pages(mesh, keys_h, values_h, src, layouts, ids, num_pages):
+    """Command: rank 0 sends each follower its kv heads of the global
+    blocks it parked under ``src`` (through host memory); every rank
+    adopts its slice into blocks ``ids`` of its planes."""
+    from ..runtime.kvcache.device import adopt_local
+    tp = tp_size(mesh)
+    if mesh.rank == 0:
+        kb, vb = mesh.objects.pop(src)
+        for r in range(1, mesh.world):
+            for blocks in (kb, vb):
+                for t in _block_leaves(_heads(blocks, r, tp)):
+                    mesh.send(t, r)
+        mine = [_block_map(_heads(b, 0, tp), lambda t: t.to(mesh.device))
+                for b in (kb, vb)]
+        mesh.stats["scattered_bytes"] = (
+            mesh.stats.get("scattered_bytes", 0)
+            + sum(t.numel() * t.element_size()
+                  for b in (kb, vb) for t in _block_leaves(b)))
+    else:
+        mine = [_received(mesh, layouts[0]), _received(mesh, layouts[1])]
+    adopt_local(mesh.objects[keys_h], mesh.objects[values_h], mine[0],
+                mine[1], ids, num_pages=num_pages)
+
+
+def scatter_tp_blocks(mesh, pk, pv, k_blocks, v_blocks, ids,
+                      num_pages=None) -> None:
+    """Global blocks ``[n, L, H, bt, D]`` (the tp=1 layout, a tensor or a
+    quantized payload, on the host or rank 0's device) into blocks
+    ``ids`` of the tp pool whose rank-0 planes are ``(pk, pv)``: each
+    rank adopts its own kv heads (``adopt_blocks_into_pages``' rules).
+    Every byte that lands on a rank's device is counted in
+    ``mesh.stats["scattered_bytes"]``."""
+    tp = tp_size(mesh)
+    src = mesh.new_handle()
+    mesh.objects[src] = (k_blocks, v_blocks)
+    layouts = [_layout(_heads(b, 0, tp)) for b in (k_blocks, v_blocks)]
+    try:
+        mesh.spmd(_scatter_pages, mesh.handle_of(pk), mesh.handle_of(pv),
+                  src, layouts, [int(i) for i in ids], num_pages)
+    finally:
+        mesh.objects.pop(src, None)
+
+
+def _row_to_pages(mesh, keys_h, values_h, row_k_h, row_v_h, table,
+                  num_pages):
+    """Command: a dense row's blocks into every rank's pages."""
+    from ..runtime.kvcache.device import write_row_local
+    o = mesh.objects
+    write_row_local(o[keys_h], o[values_h], o[row_k_h], o[row_v_h], table,
+                    num_pages=num_pages)
+
+
+def write_tp_row(mesh, pk, pv, row_k, row_v, table, num_pages=None):
+    """``write_row_to_pages`` on every rank: its plane of the dense row
+    ``(row_k, row_v)`` (:func:`new_tp_cache`) into its planes of the
+    pool."""
+    h = mesh.handle_of
+    mesh.spmd(_row_to_pages, h(pk), h(pv), h(row_k), h(row_v),
+              [int(i) for i in table], num_pages)
 
 
 # ---------------------------------------------------------------------------

@@ -99,9 +99,14 @@ Over a tensor-parallel ``mesh`` (``parallel/tensor.py``) every rank
 holds its kv-head plane of the page pool and runs the paged hook (the
 paged kernels on the card) on it; rank 0 owns the scheduler, the page
 allocator and sampling, and each forward goes out with its block
-tables.  The step runs eagerly there.  Refused under a tp mesh until
-their slice: the speculative proposers, the host / disk tier, and the
-fleet's page movement (premigrated joins, export / import, resumes).
+tables.  The step runs eagerly there.  A draft's rows and pool are
+born on their kv-head shards the same way (its admission row is every
+rank's plane of a dense tp cache, written into every rank's draft
+pages), the n-gram history stays on rank 0, and the tier and the
+fleet move blocks through ``kvcache/device.py``, which gathers every
+rank's heads on an export or a demotion and scatters them on an adopt
+or a promotion (``parallel.tensor``'s page commands): a block leaves
+and enters in the tp=1 layout.
 """
 
 from __future__ import annotations
@@ -141,12 +146,11 @@ from .engine import (GenerationResult, check_capacity, count_device_loop,
 from .cuda_graph import StepGraphs
 from .kvcache.device import (adopt_blocks_into_pages,
                              export_blocks_from_pages, payload_to,
-                             write_row_to_pages)
+                             staging_device, write_row_to_pages)
 from .overload import SchedulerOverloaded
 from .prompt_lookup import ngram_propose
 from .speculative import draw_noise, propose_token, verify_emit_per_row
 
-from ..parallel.tensor import TP_LATER
 
 # queue nudge from export_request: wakes an idle scheduler so it services
 # the export mailbox
@@ -343,9 +347,8 @@ class ContinuousBatchingEngine:
         from ..parallel.tensor import check_graph_under_mesh, validate_tp
         self.mesh = mesh
         self._tp = validate_tp(cfg, mesh)
-        if self._tp > 1 and self._proposer is not None:
-            raise NotImplementedError(
-                f"speculative proposers under a tp mesh: {TP_LATER}")
+        if self._tp > 1 and draft_cfg is not None:
+            validate_tp(draft_cfg, mesh)
         if attn_backend not in PAGED_BACKENDS:
             raise ValueError(f"unknown attn_backend {attn_backend!r}; "
                              f"expected one of {PAGED_BACKENDS}")
@@ -363,6 +366,9 @@ class ContinuousBatchingEngine:
         if self._tp > 1:
             from .engine import engine_params_for_mesh
             params = engine_params_for_mesh(params, cfg, mesh)
+            if draft_params is not None:
+                draft_params = engine_params_for_mesh(draft_params,
+                                                      draft_cfg, mesh)
         self.cfg, self.params = cfg, params
         self.draft_cfg, self.draft_params = draft_cfg, draft_params
         self.num_draft = num_draft
@@ -452,9 +458,6 @@ class ContinuousBatchingEngine:
         tier_host, tier_path, tier_disk = resolve_tier_config(
             kv_host_tier_bytes, kv_disk_tier_path, kv_disk_tier_bytes)
         self._kv_tier = None
-        if tier_host > 0 and self._tp > 1:
-            raise NotImplementedError(
-                f"the host / disk tier under a tp mesh: {TP_LATER}")
         if tier_host > 0:
             self._kv_tier = TieredKVStore(tier_host, bt, disk_path=tier_path,
                                           disk_bytes=tier_disk)
@@ -666,7 +669,6 @@ class ContinuousBatchingEngine:
         :meth:`submit`.  A quantized payload needs a pool of its width
         and adopts verbatim; a full-width one into a quantized pool
         quantizes at the adopt."""
-        self._refuse_under_tp("submit_premigrated")
         if k_blocks is None:
             return self.submit(prompt_ids, max_new_tokens)
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -722,7 +724,6 @@ class ContinuousBatchingEngine:
 
         Replayed tokens append to ``tokens`` but never reach the
         stream; the replay window is recorded as ``resume_pause``."""
-        self._refuse_under_tp("submit_resumed")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         delivered = [int(t) for t in
                      np.asarray(delivered_tokens, np.int64).reshape(-1)]
@@ -773,9 +774,10 @@ class ContinuousBatchingEngine:
         sig = _profiling.dispatch_signature(
             "disagg_adopt", batch=n, chunk=bt, kv_dtype=self.kv_dtype)
         t0 = self._prof.begin(sig)
+        dev = staging_device(self._pk)
         adopt_blocks_into_pages(
-            self._pk, self._pv, payload_to(st["k"], self.device),
-            payload_to(st["v"], self.device),
+            self._pk, self._pv, payload_to(st["k"], dev),
+            payload_to(st["v"], dev),
             np.asarray(ids, np.int64), num_pages=self._page_sentinel)
         self._prof.end(sig, t0, out=self.device,
                        hbm_bytes=n * bt * self._kv_bytes_per_token)
@@ -825,7 +827,6 @@ class ContinuousBatchingEngine:
         dispatches): the checkpoint carries the row's adaptive K and its
         acceptance EWMA, not the draft pages or n-gram history, which the
         importer rebuilds from prompt + tokens."""
-        self._refuse_under_tp("export_request")
         req = rid if isinstance(rid, Request) else self._by_rid.get(rid)
         if req is None:
             raise KeyError(f"unknown request id {rid!r}")
@@ -946,7 +947,6 @@ class ContinuousBatchingEngine:
         the checkpointed length with no prefill.  The generator's state
         comes with it, so a single-request resume samples exactly;
         greedy streams are bit-identical regardless."""
-        self._refuse_under_tp("import_request")
         rid = request_id if request_id is not None else ckpt.get("rid")
         if not ckpt.get("tokens") or int(ckpt.get("length") or 0) <= 0:
             # cold checkpoint: plain admission (still adopted: the source
@@ -1012,10 +1012,6 @@ class ContinuousBatchingEngine:
                 self._by_rid[rid] = req
             self._queue.put(req)
         return req
-
-    def _refuse_under_tp(self, what: str) -> None:
-        if self._tp > 1:
-            raise NotImplementedError(f"{what} under a tp mesh: {TP_LATER}")
 
     def get_request(self, rid: str) -> Optional[Request]:
         """The live Request registered under ``rid`` (None once it
@@ -1344,7 +1340,9 @@ class ContinuousBatchingEngine:
         if self._tp > 1 and not self._thread.is_alive():
             # every rank's plane of the pool goes with the engine
             from ..parallel.tensor import free_tp
-            free_tp(self.mesh, self._pk, self._pv)
+            free_tp(self.mesh, self._pk, self._pv, self._fwd,
+                    *((self._dpk, self._dpv, self._fwd_dp, self._fwd_drow)
+                      if self._proposer == "draft" else ()))
         # reset-on-close: this engine's pool owners leave the process
         # watermark ledger
         for owner in self._hbm_owners:
@@ -1474,15 +1472,25 @@ class ContinuousBatchingEngine:
             self._dpage_sentinel = ND
             dshape = (dcfg.num_layers, ND + 1, dcfg.num_kv_heads, bt,
                       dcfg.head_dim)
-            self._dpk = alloc_kv_pages(dshape, self.kv_dtype, page_dtype,
-                                       dev)
-            self._dpv = alloc_kv_pages(dshape, self.kv_dtype, page_dtype,
-                                       dev)
+            if self._tp > 1:
+                from ..parallel.tensor import alloc_tp_kv, make_forward_seam
+                self._dpk, self._dpv = alloc_tp_kv(
+                    self.mesh, "pages", dshape, page_dtype, self.kv_dtype)
+                # the admission row's forward: every rank its heads of
+                # a dense row (the reference's slot impl under tp)
+                self._fwd_drow, _ = make_forward_seam(
+                    dcfg, self.draft_spec, self.mesh, self.draft_params,
+                    attn_backend="slot")
+            else:
+                self._dpk = alloc_kv_pages(dshape, self.kv_dtype,
+                                           page_dtype, dev)
+                self._dpv = alloc_kv_pages(dshape, self.kv_dtype,
+                                           page_dtype, dev)
             self._dtables = np.full((B, self._table_width), ND, np.int32)
             self._dec_dtables = torch.full((B, self._table_width), ND,
                                            dtype=torch.int32, device=dev)
             self._fwd_dp, self._bind_d, _ = make_paged_forward_seam(
-                dcfg, self.draft_spec, None, self.draft_params, bt,
+                dcfg, self.draft_spec, self.mesh, self.draft_params, bt,
                 self.attn_backend, num_pages=ND, device_type=dev.type)
         else:
             self._hcap = S + 1
@@ -1620,14 +1628,23 @@ class ContinuousBatchingEngine:
         dpad = np.zeros((1, self._bucket(plen)), np.int64)
         dpad[0, :plen] = hist
         ids = torch.from_numpy(dpad).to(self.device)
-        row = KVCache.create(dcfg, dcfg.num_layers, 1, self._S,
-                             dtype=self.kv_cache_dtype, device=self.device)
         pos = torch.arange(ids.shape[1], device=self.device)[None, :]
-        stage_forward(self.draft_params, dcfg, self.draft_spec, ids, row,
-                      pos, attn_impl=slot_attention_impl,
-                      last_logits_only=True)
+        if self._tp > 1:
+            from ..parallel.tensor import free_tp, new_tp_cache
+            row = new_tp_cache(dcfg, self.mesh, dcfg.num_layers, 1,
+                               self._S, self.kv_cache_dtype)
+            self._fwd_drow(self.draft_params, ids, row, pos, True)
+        else:
+            row = KVCache.create(dcfg, dcfg.num_layers, 1, self._S,
+                                 dtype=self.kv_cache_dtype,
+                                 device=self.device)
+            stage_forward(self.draft_params, dcfg, self.draft_spec, ids,
+                          row, pos, attn_impl=slot_attention_impl,
+                          last_logits_only=True)
         write_row_to_pages(self._dpk, self._dpv, row.keys, row.values,
                            dtable, num_pages=self._dpage_sentinel)
+        if self._tp > 1:
+            free_tp(self.mesh, row.keys, row.values)
 
     def _seed_history(self, slot: int, hist: np.ndarray, dtable, tok: int
                       ) -> None:
@@ -1823,9 +1840,10 @@ class ContinuousBatchingEngine:
         req._pkv_blocked = None
         length = rs["length"]
         n_used = -(-length // bt)
+        dev = staging_device(self._pk)
         adopt_blocks_into_pages(
-            self._pk, self._pv, payload_to(rs["k"], self.device),
-            payload_to(rs["v"], self.device),
+            self._pk, self._pv, payload_to(rs["k"], dev),
+            payload_to(rs["v"], dev),
             np.asarray(ids[:n_used], np.int64),
             num_pages=self._page_sentinel)
         adopted, store_lease = (), None

@@ -107,15 +107,30 @@ class StageRuntime:
 
     ``launches`` counts this stage's own paged kernel launches
     (``{"decode": n, "prefill": n}``), apart from the wrappers'
-    process-wide counters, which every stage of a process bumps."""
+    process-wide counters, which every stage of a process bumps; under
+    a tp mesh, rank 0's (``parallel.tensor.rank_launches`` reads every
+    rank's).
+
+    ``mesh``: a local tp mesh (``parallel.mesh.local_tp_mesh``): the
+    stage's layer range runs with Megatron-sliced weights
+    (``parallel.tensor.distribute_params``) and its page pool on
+    kv-head shards, every rank its plane (``make_paged_forward_seam``
+    over the mesh), the way ``ContinuousBatchingEngine`` runs one.  The
+    block tables stay on rank 0's host and go out with each forward;
+    the wire stays ``[b, s, H]`` (replicated activations), one
+    device-to-host copy a hop at rank 0."""
 
     def __init__(self, cfg: ModelConfig, spec: StageSpec, params: StageParams,
                  max_seq: int, sampling: SamplingParams = SamplingParams(),
                  seed: int = 0, kv_cache_dtype=None, kv_layout=None,
-                 kv_dtype=None, attn_backend: str = "auto", device=None):
+                 kv_dtype=None, attn_backend: str = "auto", device=None,
+                 mesh=None):
         from ..ops.quant import resolve_kv_cache_dtype, resolve_kv_dtype
+        from ..parallel.tensor import validate_tp
         from .kvcache import resolve_kv_layout
         self.cfg = cfg
+        self.mesh = mesh
+        self._tp = validate_tp(cfg, mesh)
         self.max_seq = max_seq
         self.sampling = sampling
         self.device = resolve_device(device)
@@ -129,15 +144,21 @@ class StageRuntime:
         self.kv_layout = resolve_kv_layout(kv_layout)
         self.attn_backend = attn_backend
         self.seed = int(seed)
+        if self._tp > 1 and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device}, the stage "
+                             f"on {self.device}")
         self.launches = {"decode": 0, "prefill": 0}
         self._prof = _profiling.get_profiler()
+        self._pk = self._pv = None
+        self._own_params = False
         self._build(spec, params)
 
     def _build(self, spec: StageSpec, params: StageParams) -> None:
         """Pool, seam and tables for ``spec``'s layer range: any earlier
-        pool is dropped before the new one is allocated."""
+        pool (and, under a tp mesh, the weights this stage sharded) is
+        dropped on every rank before the new one is allocated."""
         from ..ops.quant import alloc_kv_pages
-        from ..parallel.tensor import make_paged_forward_seam
+        from ..parallel.tensor import (alloc_tp_kv, make_paged_forward_seam)
         from ..telemetry._env import env_int
         from .kvcache import resolve_kvcache_config
         cfg = self.cfg
@@ -146,6 +167,12 @@ class StageRuntime:
         if p_dev.type != self.device.type:
             raise ValueError(f"params live on {p_dev}, the stage on "
                              f"{self.device}")
+        self.free_tp()
+        if self._tp > 1:
+            from .engine import engine_params_for_mesh
+            sharded = engine_params_for_mesh(params, cfg, self.mesh)
+            self._own_params = sharded is not params
+            params = sharded
         self.spec = spec
         self.params = params
         _, bt = resolve_kvcache_config(None, None)
@@ -154,16 +181,19 @@ class StageRuntime:
         self._bt, self._table_width = bt, S // bt
         rows = env_int("DWT_STAGE_KV_ROWS", 16)
         n_blocks = env_int("DWT_STAGE_KV_BLOCKS", rows * self._table_width)
-        self._pk = self._pv = None
         page_dtype = self.kv_cache_dtype or cfg.dtype
         shape = (spec.num_layers, n_blocks + 1, cfg.num_kv_heads, bt,
                  cfg.head_dim)
-        self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
-                                  self.device)
-        self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
-                                  self.device)
+        if self._tp > 1:
+            self._pk, self._pv = alloc_tp_kv(self.mesh, "pages", shape,
+                                             page_dtype, self.kv_dtype)
+        else:
+            self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
+                                      self.device)
+            self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
+                                      self.device)
         self._fwd, self._bind, _ = make_paged_forward_seam(
-            cfg, spec, None, params, bt, self.attn_backend,
+            cfg, spec, self.mesh, params, bt, self.attn_backend,
             num_pages=n_blocks, device_type=self.device.type,
             launches=self.launches)
         self._sentinel = n_blocks
@@ -287,6 +317,20 @@ class StageRuntime:
         restart)."""
         for rid in list(self._tables):
             self.free(rid)
+
+    def free_tp(self) -> None:
+        """Under a tp mesh: drop this stage's pool, its forward's hooks
+        and the weights it sharded on every rank (a reassign, a
+        shutdown).  A no-op off a
+        mesh, or once the mesh is closed."""
+        if self._tp <= 1 or self._pk is None or self.mesh.closed:
+            return
+        from ..parallel.tensor import free_tp
+        objs = [self._pk, self._pv, self._fwd]
+        if self._own_params:
+            objs.append(self.params)
+        free_tp(self.mesh, *objs)
+        self._pk = self._pv = None
 
 
 def _h_tag(rid: int, step: int) -> str:

@@ -61,19 +61,22 @@ class ElasticStageRuntime(StageRuntime):
     views.  ``reassign`` is the reference's ``ModifySession``: every page
     of the old range goes back to its pool, the pool is dropped, and the
     new range gets its own pool and paged seam.  The stage's launch
-    counts carry across."""
+    counts carry across.  Under a tp ``mesh`` the old range's weights
+    and pool are freed on every rank first, and the new range's slices
+    are distributed (``StageRuntime._build``)."""
 
     def __init__(self, cfg: ModelConfig, spec: StageSpec,
                  full_params: StageParams, max_seq: int,
                  sampling: SamplingParams = SamplingParams(),
                  seed: int = 0, kv_cache_dtype=None, kv_layout=None,
-                 kv_dtype=None, attn_backend: str = "auto", device=None):
+                 kv_dtype=None, attn_backend: str = "auto", device=None,
+                 mesh=None):
         self.full_params = full_params
         super().__init__(cfg, spec, slice_stage(full_params, cfg, spec),
                          max_seq, sampling, seed,
                          kv_cache_dtype=kv_cache_dtype, kv_layout=kv_layout,
                          kv_dtype=kv_dtype, attn_backend=attn_backend,
-                         device=device)
+                         device=device, mesh=mesh)
 
     def reassign(self, spec: StageSpec) -> None:
         self.reset_caches()

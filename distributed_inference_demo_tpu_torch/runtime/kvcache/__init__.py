@@ -3,6 +3,7 @@
 Counterpart of ``distributed_inference_demo_tpu/runtime/kvcache``: the
 page-id manager (:class:`PagedKVCacheManager`, radix tree, LRU eviction,
 adoption stores), the host block pool and radix tree it is built from,
+the host-pool manager (:class:`KVCacheManager`, :class:`KVLease`),
 and the config resolution, which do no device work and are copies of
 the JAX package's; the device side of the seam (``device.py``: seeds,
 stores, block export and adoption as torch index ops) and the
@@ -21,8 +22,8 @@ import os
 
 from ...ops.quant import KV_DTYPES, resolve_kv_dtype
 from .backend import PagedKVBackend, make_kv_backend
-from .manager import (DEFAULT_BLOCK_TOKENS, apply_byte_budget,
-                      resolve_kvcache_config)
+from .manager import (DEFAULT_BLOCK_TOKENS, KVCacheManager, KVLease,
+                      apply_byte_budget, resolve_kvcache_config)
 from .paged import PagedBlockLease, PagedKVCacheManager
 from .pool import KVBlockPool
 from .radix import RadixTree
@@ -49,7 +50,7 @@ def resolve_kv_layout(kv_layout=None) -> str:
     return layout
 
 
-__all__ = ["KVBlockPool", "PagedBlockLease", "PagedKVBackend",
+__all__ = ["KVBlockPool", "KVCacheManager", "KVLease", "PagedBlockLease", "PagedKVBackend",
            "PagedKVCacheManager", "RadixTree",
            "apply_byte_budget", "make_kv_backend",
            "resolve_kvcache_config", "resolve_kv_layout", "resolve_kv_dtype",

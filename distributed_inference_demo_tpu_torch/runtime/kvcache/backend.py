@@ -87,10 +87,6 @@ class PagedKVBackend:
             self._pv = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
                                       device)
         self.tier = None
-        if tier_host > 0 and device_ops is not None:
-            from ...parallel.tensor import TP_LATER
-            raise NotImplementedError(f"the host tier under a tp mesh: "
-                                      f"{TP_LATER}")
         if tier_host > 0:
             self.tier = TieredKVStore(tier_host, self.block_tokens,
                                       disk_path=tier_path,

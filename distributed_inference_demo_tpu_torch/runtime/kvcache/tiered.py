@@ -540,8 +540,11 @@ def make_demote_hook(tier: TieredKVStore, get_pools):
     :class:`~.paged.PagedKVCacheManager`: gather the victim leaf's
     pages (one device gather, quantized leaves verbatim — the export
     seam) and demote them.  ``get_pools()`` returns the owner's current
-    ``(pk, pv)``.  Never raises into ``alloc``: a demotion failure costs
-    cache capacity, not admission."""
+    ``(pk, pv)``; over a tp mesh they are rank 0's planes, and the
+    export gathers every rank's heads (``device.export_blocks_from_
+    pages``), so an entry holds the tp=1 layout.  Never raises into
+    ``alloc``: a demotion failure costs cache capacity, not
+    admission."""
     def hook(path_keys, block_ids) -> None:
         try:
             from .device import export_blocks_from_pages
@@ -570,10 +573,11 @@ def promote_prefix(mgr, tier: TieredKVStore, pk, pv, prompt,
     counted into the manager's ``h2d_bytes`` and the tier's promoted
     counters.  Best-effort by design: pool pressure (alloc infeasible)
     or a racing eviction just skips — the suffix prefills.  The pools
-    are written in place.
+    are written in place; over a tp mesh each rank adopts its own kv
+    heads of the entry (``device.adopt_blocks_into_pages``).
 
     Returns ``(pk, pv, promoted_tokens)``."""
-    from .device import _leaves, adopt_blocks_into_pages, payload_to
+    from .device import adopt_blocks_into_pages, payload_to, staging_device
     run = tier.match(prompt, mgr.peek(prompt) // mgr.block_tokens)
     if not run:
         return pk, pv, 0
@@ -596,7 +600,7 @@ def promote_prefix(mgr, tier: TieredKVStore, pk, pv, prompt,
         mgr.free(ids[n:])
         ids = ids[:n]
     bt = mgr.block_tokens
-    device = _leaves(pk)[0].device
+    device = staging_device(pk)
     sig = None
     if profiler is not None:
         from ...telemetry import profiling as _profiling

@@ -72,24 +72,23 @@ class PromptLookupEngine(_RoundEngine):
                  device=None, cuda_graph: bool = True):
         """Arguments as ``SpeculativeEngine``'s, without a draft: the
         prefix pool seeds the cache only, and the history always seeds
-        from the full ids."""
+        from the full ids.  Over a tp ``mesh`` the history and the
+        round's state stay on rank 0."""
         self._setup(cfg, params, max_seq, sampling, num_draft, eos_id,
                     prefill_chunk, mesh, kv_layout, device, cuda_graph)
         attn_impl = self._attn(kv_cache_dtype, attn_backend, (cfg.head_dim,))
-        self._fwd_t = self._make_fwd(cfg, params, self.spec, attn_impl)
+        self._fwd_t = self._make_fwd(cfg, self.params, self.spec, attn_impl)
         self._t_progs = prefill_programs(self._fwd_t, self.device)
         # history/cache slack per round, padded to 8 as the reference's
         self._cap = pad_cache_capacity(self.max_seq + num_draft + 2)
         self.kv_cache = make_kv_backend(
             cfg, kv_cache_blocks, kv_block_tokens, layout=self.kv_layout,
             dtype=self.kv_cache_dtype, kv_dtype=kv_dtype, default_blocks=0,
-            device=self.device)
+            device=self.device, device_ops=self._pool_ops())
 
     def _new_state(self, batch: int) -> RoundState:
         st = RoundState(batch, self.num_draft, self.device)
-        st.tcache = KVCache.create(self.cfg, self.cfg.num_layers, batch,
-                                   self._cap, dtype=self.kv_cache_dtype,
-                                   device=self.device)
+        st.tcache = self._cache(self.cfg, batch, self._cap)
         st.history = torch.zeros((batch, self._cap), dtype=torch.int64,
                                  device=self.device)
         return st

@@ -51,10 +51,10 @@ from ..ops.flash_attention import make_flash_attn_impl
 from ..ops.sampling import (SamplingParams, filtered_logits, gumbel_noise,
                             sample_logits)
 from .cuda_graph import StepGraphs
-from .engine import (GenerationResult, check_capacity, prefill_programs,
+from .engine import (GenerationResult, _new_cache, check_capacity,
+                     engine_params_for_mesh, prefill_programs,
                      resolve_attn_backend, resolve_cache_dtype_backend,
                      run_seeded_prefill, validate_prefill_chunk)
-from ..parallel.tensor import TP_LATER
 from .kvcache import make_kv_backend, resolve_kv_layout
 
 
@@ -308,12 +308,18 @@ class _RoundEngine:
 
     def _setup(self, cfg, params, max_seq, sampling, num_draft, eos_id,
                prefill_chunk, mesh, kv_layout, device, cuda_graph):
+        from ..parallel.tensor import check_graph_under_mesh, validate_tp
         if num_draft < 1:
             raise ValueError("num_draft must be >= 1")
-        if mesh is not None and dict(mesh.shape).get("tp", 1) > 1:
-            raise NotImplementedError(TP_LATER)
         self.kv_layout = resolve_kv_layout(kv_layout)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._tp = validate_tp(cfg, mesh)
+        check_graph_under_mesh(mesh, cuda_graph, self.device)
+        if self._tp > 1 and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device}, the engine "
+                             f"on {self.device}")
+        params = engine_params_for_mesh(params, cfg, mesh)
         p_dev = params.embed["tokens"].device
         if p_dev.type != self.device.type:
             raise ValueError(f"params live on {p_dev}, the engine on "
@@ -335,6 +341,8 @@ class _RoundEngine:
     def _attn(self, kv_cache_dtype, attn_backend, head_dims):
         """The resolved cache dtype and attention hook, both models'
         head dims checked against the kernel's."""
+        from ..parallel.tensor import resolve_tp_attn_backend
+        attn_backend = resolve_tp_attn_backend(self._tp, attn_backend)
         self.kv_cache_dtype, attn_backend = resolve_cache_dtype_backend(
             kv_cache_dtype, attn_backend)
         for hd in head_dims:
@@ -344,6 +352,20 @@ class _RoundEngine:
                 else None)
 
     def _make_fwd(self, cfg, params, spec, attn_impl):
+        """``fwd(ids, cache, pos, last_logits_only)`` of one model: its
+        ``stage_forward``, or over a tp mesh the tp seam (every rank
+        builds its own hook for its heads; the logits come back
+        replicated to rank 0, which keeps the round's state)."""
+        if self._tp > 1:
+            from ..parallel.tensor import make_forward_seam
+            seam, _ = make_forward_seam(cfg, spec, self.mesh, params,
+                                        attn_backend=self.attn_backend)
+
+            def fwd(ids, cache, pos, last_logits_only):
+                return seam(params, ids, cache, pos, last_logits_only)
+            fwd.handle = seam.handle
+            return fwd
+
         def fwd(ids, cache, pos, last_logits_only):
             return stage_forward(params, cfg, spec, ids, cache, pos,
                                  attn_impl=attn_impl,
@@ -354,6 +376,26 @@ class _RoundEngine:
     def graph_replays(self) -> int:
         """Rounds replayed from a captured graph, over all states."""
         return self._graphs.replays
+
+    def free_tp(self) -> None:
+        """Over a tp mesh: drop, on every rank, the planes of the round
+        states' caches and of the prefix pool, the models' forward hooks
+        and their weight shards; the engine is unusable after it.  A
+        no-op off a mesh or once the mesh is closed."""
+        if self._tp <= 1 or self.mesh.closed:
+            return
+        from ..parallel.tensor import free_tp
+        objs = [self.params, self._fwd_t]
+        if getattr(self, "draft_params", None) is not None:
+            objs += [self.draft_params, self._fwd_d]
+        for st in self._states.values():
+            for cache in (st.tcache, getattr(st, "dcache", None)):
+                if cache is not None:
+                    objs += [cache.keys, cache.values]
+        if self.kv_cache is not None:
+            objs += [self.kv_cache._pk, self.kv_cache._pv]
+        free_tp(self.mesh, *objs)
+        self._states.clear()
 
     def _round_start(self, st: RoundState) -> torch.Tensor:
         """The round's start position: the device length, clamped at
@@ -394,6 +436,18 @@ class _RoundEngine:
             st.step = self._graphs.capture(lambda: self._round(st))
             self._states[batch] = st
         return st
+
+    def _cache(self, cfg, batch: int, cap: int) -> KVCache:
+        """A dense cache of ``cap`` columns (padded to 8): on the device,
+        or every rank's kv-head plane over a tp mesh."""
+        return _new_cache(cfg, batch, cap, self.kv_cache_dtype, self.device,
+                          self.mesh)
+
+    def _pool_ops(self):
+        """The prefix pool's device ops: every rank's plane over a tp
+        mesh (``parallel.tensor.TPPoolOps``), else None."""
+        from ..parallel.tensor import TPPoolOps
+        return TPPoolOps(self.mesh) if self._tp > 1 else None
 
     def _ids(self, prompt_ids) -> torch.Tensor:
         ids = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64)
@@ -535,10 +589,15 @@ class SpeculativeEngine(_RoundEngine):
         the full prompt.  ``attn_backend`` "auto", "flash" or "plain"
         (``runtime/engine.resolve_attn_backend``).
 
+        ``mesh``: a tp mesh; both models run on its seam (the draft's
+        kv heads must divide by tp too), their caches are every rank's
+        kv-head planes, and rank 0 keeps the round's state and samples
+        from replicated logits.  A multi-rank round runs eagerly
+        (``parallel.tensor.check_graph_under_mesh``).
+
         Port-only: ``device`` (CUDA unless "cpu" is asked for; both
         models' params must live there) and ``cuda_graph`` (False runs
-        the round eagerly on the card: the comparison for the graph).
-        A tp ``mesh`` raises until its slice."""
+        the round eagerly on the card: the comparison for the graph)."""
         if cfg.vocab_size != draft_cfg.vocab_size:
             raise ValueError(
                 f"draft vocab ({draft_cfg.vocab_size}) != target vocab "
@@ -550,11 +609,14 @@ class SpeculativeEngine(_RoundEngine):
             raise ValueError("the draft's params live on "
                              f"{draft_params.embed['tokens'].device}, the "
                              f"engine on {self.device}")
+        from ..parallel.tensor import validate_tp
+        validate_tp(draft_cfg, mesh)
+        draft_params = engine_params_for_mesh(draft_params, draft_cfg, mesh)
         self.draft_cfg, self.draft_params = draft_cfg, draft_params
         self.draft_spec = StageSpec(0, 1, 0, draft_cfg.num_layers)
         attn_impl = self._attn(kv_cache_dtype, attn_backend,
                                (cfg.head_dim, draft_cfg.head_dim))
-        self._fwd_t = self._make_fwd(cfg, params, self.spec, attn_impl)
+        self._fwd_t = self._make_fwd(cfg, self.params, self.spec, attn_impl)
         self._fwd_d = self._make_fwd(draft_cfg, draft_params,
                                      self.draft_spec, attn_impl)
         self._t_progs = prefill_programs(self._fwd_t, self.device)
@@ -562,18 +624,15 @@ class SpeculativeEngine(_RoundEngine):
         self.kv_cache = make_kv_backend(
             cfg, kv_cache_blocks, kv_block_tokens, layout=self.kv_layout,
             dtype=self.kv_cache_dtype, kv_dtype=kv_dtype, default_blocks=0,
-            device=self.device)
+            device=self.device, device_ops=self._pool_ops())
 
     def new_caches(self, batch: int):
         """(target, draft) caches of ``max_seq + num_draft + 1`` columns:
         a round writes K+1 positions past the valid length before the
         rollback trims it (``KVCache.create`` pads to 8 on top)."""
         cap = self.max_seq + self.num_draft + 1
-        return (KVCache.create(self.cfg, self.cfg.num_layers, batch, cap,
-                               dtype=self.kv_cache_dtype, device=self.device),
-                KVCache.create(self.draft_cfg, self.draft_cfg.num_layers,
-                               batch, cap, dtype=self.kv_cache_dtype,
-                               device=self.device))
+        return (self._cache(self.cfg, batch, cap),
+                self._cache(self.draft_cfg, batch, cap))
 
     def _new_state(self, batch: int) -> RoundState:
         st = RoundState(batch, self.num_draft, self.device)
@@ -624,6 +683,7 @@ class SpeculativeBackend:
         self.engine = engine
         self.max_seq = engine.max_seq
         self.device = engine.device
+        self.mesh = engine.mesh          # closed with the server
         self.last_stats: Optional[SpecStats] = None
         self._lock = threading.Lock()   # one generation at a time
 

@@ -69,28 +69,29 @@ def _transport(args):
                         getattr(args, "chaos", False)))
 
 
-def refuse_tp(tp: int) -> None:
-    """``worker --tp N``: a stage over a tp mesh is a later slice."""
-    if tp > 1:
-        from ..parallel.tensor import TP_LATER
-        raise NotImplementedError(f"worker --tp: {TP_LATER}")
-
-
 def build_worker(args):
-    """(PipelineWorker, transport) for ``--role stage``."""
+    """(PipelineWorker, transport) for ``--role stage``; the stage runs
+    tp-sharded over ``--tp`` local ranks (``worker.rt.mesh``)."""
     from ..models.base import StageSpec, slice_stage
+    from ..parallel.mesh import local_tp_mesh
     from .distributed import PipelineWorker, StageRuntime
 
-    refuse_tp(args.tp)
     cfg, device = _model(args)
     spec = StageSpec(args.stage_id, args.num_stages,
                      args.layer_start, args.layer_end)
     params = slice_stage(_full_params(args, cfg, device), cfg, spec)
-    runtime = StageRuntime(cfg, spec, params, max_seq=args.max_seq,
-                           sampling=_sampling(args), seed=args.seed,
-                           kv_cache_dtype=args.kv_cache_dtype or None,
-                           kv_layout=args.kv_layout or None,
-                           device=device)
+    # pipeline x tensor parallelism: each worker picks its own tp
+    mesh = local_tp_mesh(args.tp, device)
+    try:
+        runtime = StageRuntime(cfg, spec, params, max_seq=args.max_seq,
+                               sampling=_sampling(args), seed=args.seed,
+                               kv_cache_dtype=args.kv_cache_dtype or None,
+                               kv_layout=args.kv_layout or None,
+                               device=device, mesh=mesh)
+    except BaseException:
+        if mesh is not None:
+            mesh.close()
+        raise
     transport = _transport(args)
     next_id = None
     if args.next:
@@ -106,10 +107,10 @@ def build_worker(args):
 
 def build_role_worker(args):
     """Build a disaggregated-role worker (``--role prefill|decode``) on
-    a ZMQ transport with its ``--peer`` connections dialed."""
+    a ZMQ transport with its ``--peer`` connections dialed.  As the
+    reference's, these roles run on one device whatever ``--tp`` says."""
     from .disagg import DecodeWorker, PrefillWorker
 
-    refuse_tp(args.tp)
     cfg, device = _model(args)
     params = _full_params(args, cfg, device)
     transport = _transport(args)
@@ -220,8 +221,8 @@ def _parser() -> argparse.ArgumentParser:
                          "per-stage page pool, blocks reserved per chunk "
                          "actually run, freed on end:{rid})")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism per stage (refused: a later "
-                         "slice)")
+                    help="tensor parallelism per stage over N local "
+                         "ranks (pipeline x tp)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--metrics-port", type=int, default=-1,
                     help="serve Prometheus GET /metrics on this port "
@@ -333,7 +334,16 @@ def main(argv=None) -> int:
         if engine is not None:
             engine.close()
         transport.close()
+        close_stage_mesh(getattr(worker, "rt", None))
     return 0
+
+
+def close_stage_mesh(runtime) -> None:
+    """Close a stage runtime's tp mesh, so that no follower outlives the
+    worker."""
+    mesh = getattr(runtime, "mesh", None)
+    if mesh is not None:
+        mesh.close()
 
 
 if __name__ == "__main__":

@@ -316,8 +316,8 @@ def test_sampled_rows_and_streams(weights, oracle):
      "exclusive"),
     (dict(kv_dtype="int8", kv_cache_dtype="float8_e4m3fn"),
      "cannot compose"),
-    (dict(mesh=SimpleNamespace(shape={"tp": 2}), prompt_lookup=True),
-     "A13"),
+    (dict(mesh=SimpleNamespace(shape={"tp": 3}), prompt_lookup=True),
+     "num_kv_heads=2 not divisible by tp=3"),
     (dict(kv_disk_tier_path="/x", kv_disk_tier_bytes=1 << 20),
      "BELOW the host ring"),
     (dict(kv_layout="dense"), "removed"),

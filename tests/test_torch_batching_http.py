@@ -235,11 +235,14 @@ def test_cli_batching_flags(capsys, monkeypatch):
     assert cli.main(["serve", "--model", "llama-test", "--device", "cpu",
                      "--batch-slots", "2", "--stream-block", "4"]) == 1
     assert "--decode-block" in capsys.readouterr().err
-    # what this slice leaves out exits 1 (tp under a draft model), and
-    # --sp pairs with no other serve mode (the reference's text)
+    # tp under a draft model is served, and refused as the reference
+    # refuses it; --sp pairs with no other serve mode (the reference's
+    # texts)
     for extra, err in (
             (["--batch-slots", "2", "--tp", "2", "--draft-model",
-              "llama-test"], "not yet ported"),
+              "llama-test", "--stream-block", "4"],
+             "--stream-block is not supported with --batch-slots (use "
+             "--decode-block)"),
             (["--sp", "2", "--batch-slots", "2"],
              "choose one serve mode, got --batch-slots + --sp")):
         assert cli.main(["serve", "--model", "llama-test", "--device",

@@ -272,15 +272,20 @@ def test_chain_refusals_equal_reference(capsys):
         err = capsys.readouterr().err
         assert ref_wm.main(stage + extra) == 1
         assert err == capsys.readouterr().err and err, extra
-    # what stays refused names its item
-    assert cli.main(["serve", "--model", "llama-test", "--device", "cpu",
-                     "--tp", "2", "--draft-model", "llama-test"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
-    assert cli.main(["worker", "--model", "llama-test", "--device", "cpu",
-                     "--stage-id", "1", "--num-stages", "2",
-                     "--layer-start", "0", "--layer-end", "2",
-                     "--device-id", "w", "--port", "0", "--header",
-                     "h@127.0.0.1:1", "--tp", "2"]) == 1
+    # tp under a draft model and worker --tp are served; the port
+    # refuses what the reference refuses of them, with its text
+    tp_draft = ["serve", "--model", "llama-test", "--tp", "2",
+                "--draft-model", "llama-test", "--chain", "w@127.0.0.1:1"]
+    assert cli.main(tp_draft + ["--device", "cpu"]) == 1
     err = capsys.readouterr().err
-    assert "not yet ported" in err and "A13" in err
+    assert ref_cli.main(tp_draft) == 1
+    assert err == capsys.readouterr().err and err
+    tp_stage = ["--model", "llama-test", "--stage-id", "1", "--num-stages",
+                "2", "--layer-start", "0", "--layer-end", "2", "--device-id",
+                "w", "--port", "0", "--header", "h@127.0.0.1:1", "--tp", "2",
+                "--kv-cache-blocks", "8"]
+    assert cli.main(["worker", "--device", "cpu", *tp_stage]) == 1
+    err = capsys.readouterr().err
+    assert ref_wm.main(tp_stage) == 1
+    assert err == capsys.readouterr().err and err
     assert os.environ.get("DWT_FAULT_PLAN") is None

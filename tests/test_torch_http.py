@@ -154,10 +154,14 @@ def test_cli_serve_flags(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["serve", "--model", "llama-test"])
-    # tp under a proposer is the next slice's (tp itself is served)
-    assert cli.main(["serve", "--model", "llama-test", "--batch-slots",
-                     "4", "--tp", "2", "--prompt-lookup"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
-    assert cli.main(["serve", "--model", "llama-test", "--tp", "2",
-                     "--draft-model", "llama-test"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    # tp under a proposer is served; what the reference refuses of it,
+    # the port refuses with its text
+    from distributed_inference_demo_tpu import cli as ref_cli
+    for argv in (["serve", "--model", "llama-test", "--batch-slots", "4",
+                  "--tp", "2", "--prompt-lookup", "--stream-block", "4"],
+                 ["serve", "--model", "llama-test", "--tp", "2",
+                  "--draft-model", "llama-test", "--prompt-lookup"]):
+        assert cli.main(argv) == 1
+        err = capsys.readouterr().err
+        assert ref_cli.main(argv) == 1
+        assert err == capsys.readouterr().err and err, argv

@@ -375,7 +375,9 @@ def weights():
 
 def test_kv_dtype_refuses_a_storage_cast(weights):
     """``kv_dtype`` int8/int4 with ``kv_cache_dtype`` is the reference's
-    ValueError, raised before the tp mesh's not-yet-ported refusal."""
+    ValueError, under a tp mesh too; a tp the kv heads do not divide is
+    the reference's own refusal, with its text, under a proposer over
+    int8 pages."""
     rcfg, rp, cfg, params = weights
     kw = dict(max_seq=64, kv_block_tokens=8, kv_dtype="int8",
               kv_cache_dtype="float8_e4m3fn")
@@ -388,7 +390,10 @@ def test_kv_dtype_refuses_a_storage_cast(weights):
         ContinuousBatchingEngine(cfg, params, device="cpu",
                                  mesh=SimpleNamespace(shape={"tp": 2}),
                                  **kw)
-    with pytest.raises(NotImplementedError, match="A13"):
-        ContinuousBatchingEngine(cfg, params, device="cpu", max_seq=64,
-                                 kv_dtype="int8", prompt_lookup=True,
-                                 mesh=SimpleNamespace(shape={"tp": 2}))
+    kw = dict(max_seq=64, kv_dtype="int8", prompt_lookup=True,
+              mesh=SimpleNamespace(shape={"tp": 3}))
+    with pytest.raises(ValueError, match="not divisible") as want:
+        RefBatching(rcfg, rp, **kw)
+    with pytest.raises(ValueError, match="not divisible") as got:
+        ContinuousBatchingEngine(cfg, params, device="cpu", **kw)
+    assert str(got.value) == str(want.value)

@@ -407,3 +407,71 @@ def test_train_save_restore_with_jax_optax_orbax_safetensors_blocked():
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.split("\n")[-3:-1] == [
         "BAD [] 2", "OK True True True True"], res.stdout
+
+
+TP_SLICE_MODULES = ("runtime", "runtime.kvcache", "runtime.kvcache.manager",
+                    "runtime.kvcache.device", "runtime.kvcache.tiered",
+                    "runtime.speculative", "runtime.prompt_lookup",
+                    "runtime.batching", "runtime.distributed",
+                    "runtime.elastic", "runtime.worker_main",
+                    "parallel.tensor", "parallel.pipeline", "checkpoint")
+
+
+def test_tp_slice_runs_with_jax_zmq_and_ml_dtypes_blocked():
+    """The card machine's case for tensor parallelism under the proposers,
+    the tier and the stages: their modules import, the runtime's lazy
+    exports and the host ``KVCacheManager`` resolve, and over a tp=2 CPU
+    mesh a speculative engine, a batching engine with prompt lookup and
+    the tier, and a stage run, with jax, the JAX package, zmq and
+    ml_dtypes blocked in rank 0; the follower loads none of them."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'distributed_inference_demo_tpu',\n"
+        "          'zmq', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib, numpy as np, torch\n"
+        f"for n in {TP_SLICE_MODULES!r}:\n"
+        "    importlib.import_module('distributed_inference_demo_tpu_torch.'"
+        " + n)\n"
+        "from distributed_inference_demo_tpu_torch import runtime as R\n"
+        "from distributed_inference_demo_tpu_torch.models import "
+        "get_model_config\n"
+        "from distributed_inference_demo_tpu_torch.models.base import "
+        "split_layer_ranges\n"
+        "from distributed_inference_demo_tpu_torch.models.decoder import "
+        "init_full_params\n"
+        "from distributed_inference_demo_tpu_torch.ops.sampling import "
+        "SamplingParams\n"
+        "from distributed_inference_demo_tpu_torch.parallel import mesh as M"
+        "\n"
+        "if __name__ == '__main__':\n"
+        "    cfg = get_model_config('llama-test')\n"
+        "    p = init_full_params(torch.Generator().manual_seed(0), cfg, "
+        "'cpu')\n"
+        "    g = SamplingParams(greedy=True)\n"
+        "    kv = R.KVCacheManager(2, 2, 4, 8, 4, torch.bfloat16)\n"
+        "    kv.store(np.arange(9), torch.zeros(2, 1, 2, 16, 4), "
+        "torch.zeros(2, 1, 2, 16, 4))\n"
+        "    assert kv.match(np.arange(9)).tokens == 8\n"
+        "    with M.local_tp_mesh(2, 'cpu', 60) as mesh:\n"
+        "        R.SpeculativeEngine(cfg, p, cfg, p, max_seq=32, sampling=g,"
+        " device='cpu', mesh=mesh).generate([[1, 2, 3, 4]], 3)\n"
+        "        with R.ContinuousBatchingEngine(cfg, p, max_seq=32, "
+        "sampling=g, device='cpu', mesh=mesh, prompt_lookup=True, "
+        "kv_block_tokens=4, kv_host_tier_bytes=1 << 20) as e:\n"
+        "            e.generate(np.asarray([[1, 2, 3, 4, 1, 2]]), 3)\n"
+        "        s = split_layer_ranges(cfg.num_layers, 2)[0]\n"
+        "        rt = R.ElasticStageRuntime(cfg, s, p, 32, device='cpu', "
+        "mesh=mesh)\n"
+        "        rt.run_chunk(1, np.asarray([[1, 2, 3]]))\n"
+        "        rt.free_tp()\n"
+        "        mods = M.loaded_modules(mesh)\n"
+        "    bad = sorted({n for ms in mods for n in ms\n"
+        "                  if n.split('.')[0] in ('jax', 'jaxlib', 'zmq',\n"
+        "                  'ml_dtypes', 'distributed_inference_demo_tpu')})\n"
+        "    print('BAD', bad, len(mods))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("BAD")]
+    assert line == ["BAD [] 2"], res.stdout

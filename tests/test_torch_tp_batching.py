@@ -8,8 +8,10 @@ page allocation), greedy tokens equal the reference's, and after the run
 each rank's plane of the pool equals the reference's pool shard on the
 same device index; over full-width pages with a prefix hit, int8 pages,
 float8 pages, and the mixed dispatch over int8 pages.  Then the
-combinations this slice refuses under tp (a proposer, the tier, the
-fleet's page movement).
+combinations a later slice ported under tp: a proposer and the tier
+(tokens and counters equal the reference's tp=2 engine's), and the
+fleet's calls (export / import, premigrated joins, resumes) answering
+as the reference's tp=2 engine answers them.
 """
 
 import jax
@@ -134,21 +136,52 @@ def test_tp_batching_equals_reference(name, weights, mesh):
 ])
 def test_tp_batching_refuses_what_the_next_slice_ports(weights, mesh, kw,
                                                        what):
-    _, _, _, cfg, params = weights
-    with pytest.raises(NotImplementedError, match=what) as err:
-        ContinuousBatchingEngine(cfg, params, device="cpu", mesh=mesh,
-                                 **dict(BASE, **kw))
-    assert "A13" in str(err.value)
+    """The two combinations a later slice ported under tp (``what``):
+    tokens, the speculative counters and the kvcache fragment equal the
+    reference's tp=2 engine's."""
+    rcfg, rparams, rmesh, cfg, params = weights
+    with RefBatching(rcfg, rparams, sampling=RefSamplingParams(greedy=True),
+                     mesh=rmesh, **dict(BASE, **kw)) as ref:
+        want = [ref.submit(p, n).wait(timeout=WAIT).tolist()
+                for p, n in ASKS]
+        ref_spec, ref_kv = dict(ref.spec_stats), ref.stats()["kvcache"]
+    with ContinuousBatchingEngine(cfg, params, sampling=GREEDY,
+                                  device="cpu", mesh=mesh,
+                                  **dict(BASE, **kw)) as eng:
+        got = [eng.submit(p, n).wait(timeout=WAIT).tolist()
+               for p, n in ASKS]
+        assert got == want, what
+        assert eng.spec_stats == ref_spec
+        kv = eng.stats()["kvcache"]
+        assert ({k: v for k, v in kv.items() if "seconds" not in k}
+                == {k: v for k, v in ref_kv.items() if "seconds" not in k})
 
 
 def test_tp_batching_refuses_fleet_page_movement(weights, mesh):
-    _, _, _, cfg, params = weights
-    with ContinuousBatchingEngine(cfg, params, sampling=GREEDY,
-                                  device="cpu", mesh=mesh, **BASE) as eng:
-        for call in (lambda: eng.export_request("r"),
-                     lambda: eng.import_request({}),
-                     lambda: eng.submit_premigrated([1, 2], 2, None, None),
-                     lambda: eng.submit_resumed([1, 2], 2, [3])):
-            with pytest.raises(NotImplementedError, match="A13"):
-                call()
-        assert eng.submit([5, 4, 3], 3).wait(timeout=WAIT).size == 3
+    """The fleet's four calls under tp answer as the reference's tp=2
+    engine answers them: an unknown rid's export and an empty
+    checkpoint's import raise its errors, a premigrated join without
+    blocks and a greedy resume give its tokens."""
+    rcfg, rparams, rmesh, cfg, params = weights
+    answers = []
+    for make in (lambda: RefBatching(
+                     rcfg, rparams, sampling=RefSamplingParams(greedy=True),
+                     mesh=rmesh, **BASE),
+                 lambda: ContinuousBatchingEngine(
+                     cfg, params, sampling=GREEDY, device="cpu", mesh=mesh,
+                     **BASE)):
+        got = []
+        with make() as eng:
+            for call in (lambda: eng.export_request("r"),
+                         lambda: eng.import_request({})):
+                with pytest.raises(Exception) as err:
+                    call()
+                got.append(type(err.value).__name__)
+            got.append(eng.submit_premigrated(
+                [1, 2, 5], 4, None, None).wait(timeout=WAIT).tolist())
+            got.append(eng.submit_resumed(
+                [1, 2, 5], 4, got[-1][:2]).wait(timeout=WAIT).tolist())
+            got.append(eng.submit([5, 4, 3], 3).wait(timeout=WAIT).size)
+        answers.append(got)
+    assert answers[1] == answers[0]
+    assert answers[1][-1] == 3 and answers[1][0] == "KeyError"

@@ -242,23 +242,23 @@ def test_cli_generate_tp2(f32, capsys, monkeypatch):
 
 
 def test_cli_tp_refusals_equal_reference(capsys):
-    """The reference's texts for --tp with --chain and --vision; tp under
-    a proposer is the next slice's."""
+    """The reference's texts for --tp with --chain and --vision, and for
+    --tp under both proposers at once (tp under one proposer is
+    served)."""
     from distributed_inference_demo_tpu import cli as ref_cli
     base = ["serve", "--model", "llama-test", "--device", "cpu"]
     cases = [
         (["--tp", "2", "--chain", "h:1"], ["--tp", "2", "--chain", "h:1"]),
         (["--tp", "2", "--vision"], ["--tp", "2", "--vision"]),
-        (["--sp", "2", "--tp", "2"], ["--sp", "2", "--tp", "2"])]
+        (["--sp", "2", "--tp", "2"], ["--sp", "2", "--tp", "2"]),
+        (["--tp", "2", "--prompt-lookup", "--draft-model", "llama-test"],
+         ["--tp", "2", "--prompt-lookup", "--draft-model", "llama-test"])]
     for mine, theirs in cases:
         assert cli.main(base + mine) == 1
         err = capsys.readouterr().err
         assert ref_cli.main(["serve", "--model", "llama-test",
                              *theirs]) == 1
         assert err == capsys.readouterr().err and err
-    assert cli.main(base + ["--tp", "2", "--prompt-lookup"]) == 1
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "A13" in err
     assert cli.main(["--jax-process-id", "1", "serve", "--model",
                      "llama-test"]) == 2
     assert "require --jax-coordinator" in capsys.readouterr().err
