@@ -421,9 +421,9 @@ Phases 10 to 20 run in the order 11, 12, 13, 14, 16, 17, 18, 19, 20, 15,
 10:
 the moe phase last, after the earlier phases freed their memory.  The
 train and parallel phases' four meshes (pp, tp, ep, sp: two ranks
-each) start their ranks on threads as the train phase begins (with
-``--phase``, beside the kernels' build; ``MeshStarts``), so no check
-waits for a rank start.  Every phase line
+each) start their ranks together, on threads, once: in the train phase
+after its one-process windows, or as the parallel phase begins where it
+runs first (``MeshStarts``).  Every phase line
 carries its wall ``seconds``.  Exits non-zero, printing no
 result, without CUDA or outside a checkout, and on any failed check.
 """
@@ -6077,6 +6077,24 @@ def _rank_counts(per_rank) -> list:
             for r in per_rank]
 
 
+def _admits(flight) -> list:
+    """(prompt length, matched prefix) of each admission the flight
+    recorder holds."""
+    return [(e["prompt_len"], e["prefix_reused"]) for e in flight.snapshot()
+            if e["kind"] == "batch_admit"]
+
+
+def _tp_predicted(engine, admits, L: int, steps: int) -> dict:
+    """Each rank's launches over a window of an eager tp batching engine:
+    no flash kernel, the decode kernel L times for each of its ``steps``
+    decode steps, the prefill kernel as ``predicted_paged_launches``
+    routes the window's ``admits`` (an imported row resumes with no
+    prefill)."""
+    return {"flash": 0, "paged_decode": L * steps,
+            "paged_prefill": predicted_paged_launches(
+                engine, admits, L)["paged_prefill"]}
+
+
 def parallel_tp_speculative(torch, mesh, model: str = SERVE_MODEL,
                             draft: str = SPEC_DRAFT,
                             dev: str = "cuda") -> dict:
@@ -6313,9 +6331,12 @@ def parallel_tp_tier(torch, mesh, model: str = SERVE_MODEL,
         PagedKVCacheManager
     from distributed_inference_demo_tpu_torch.runtime.kvcache.tiered \
         import chain_digests
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
 
     cfg = get_model_config(model).replace(num_layers=PAR_BATCHING_LAYERS)
     params = _init(torch, cfg, 0, dev)
+    flight = get_flight_recorder()
     rs = np.random.RandomState(5)
     shared = rs.randint(0, cfg.vocab_size, FLEET_SHARED).tolist()
     first, warm = (shared + rs.randint(0, cfg.vocab_size,
@@ -6362,9 +6383,18 @@ def parallel_tp_tier(torch, mesh, model: str = SERVE_MODEL,
         st0 = dict(tier.stats)
         h2d0 = eng.stats()["kvcache"]["h2d_bytes"]
         sent0 = mesh.stats.get("scattered_bytes", 0)
+        flight.clear()
+        steps0 = eng.loop_stats["device_loop_steps"]
         rank_launches(mesh, reset=True)
         toks, lps, ttft_promoted = _run(eng, warm, PAR_TIER_NEW)
         launches = _rank_counts(rank_launches(mesh))
+        predicted = _tp_predicted(
+            eng, _admits(flight), cfg.num_layers,
+            eng.loop_stats["device_loop_steps"] - steps0)
+        if dev == "cuda":
+            _check(all(r == predicted for r in launches),
+                   f"per-rank launches {launches}, the routing predicts "
+                   f"{predicted}")
         st = dict(tier.stats)
         promoted = st["promoted_blocks"] - st0["promoted_blocks"]
         h2d = eng.stats()["kvcache"]["h2d_bytes"] - h2d0
@@ -6424,7 +6454,7 @@ def parallel_tp_tier(torch, mesh, model: str = SERVE_MODEL,
             "promoted_pages_bit_equal_on_every_rank": checked,
             "h2d_bytes": h2d, "scattered_bytes": scattered,
             "bit_equal_to_device_hit": True,
-            "launches_by_rank_warm": launches,
+            "launches_by_rank_warm": launches, "predicted_warm": predicted,
             "demoted_blocks": st["demoted_blocks"],
             "demote_ms_median": float(np.median(demote_ms)),
             "demote_ms_max": max(demote_ms), "demotions": len(demote_ms),
@@ -6441,17 +6471,23 @@ def parallel_tp_fleet(torch, mesh, model: str = SERVE_MODEL,
     width and PAR_BATCHING_LAYERS layers): the checkpoint holds every kv
     head (the tp=1 layout), each migrated stream equals its unmigrated
     one (the source's width) or parts only at a near tie, and the pause
-    from the export call to the importer's first new token; each rank's
-    paged launches while the tp=2 side runs."""
+    (the export call, then the import to the importer's first new
+    token).  Each rank's launches over the tp=2 side's own stretch (the
+    source's admission and decode up to the export, or the importer's
+    decode from the import), the tp=1 engine, which runs in rank 0's
+    process, idle meanwhile, against the routing's prediction."""
     import numpy as np
 
     from distributed_inference_demo_tpu_torch.models.registry import \
         get_model_config
     from distributed_inference_demo_tpu_torch.parallel.tensor import (
         free_tp, rank_launches)
+    from distributed_inference_demo_tpu_torch.telemetry.flightrecorder \
+        import get_flight_recorder
 
     cfg = get_model_config(model).replace(num_layers=PAR_BATCHING_LAYERS)
     params = _init(torch, cfg, 0, dev)
+    flight = get_flight_recorder()
     prompt = np.random.RandomState(11).randint(0, cfg.vocab_size,
                                                MIGRATION_PROMPTS[-1]).tolist()
     two = _fleet_engine(torch, cfg, params, dev, mesh=mesh,
@@ -6462,11 +6498,31 @@ def parallel_tp_fleet(torch, mesh, model: str = SERVE_MODEL,
            "prompt_len": len(prompt), "new_tokens": PAR_FLEET_NEW,
            "tokens_at_move": PAR_FLEET_AT}
     streams = {}
+
+    def count_from():
+        """Open the tp=2 side's window: launches to 0 on every rank."""
+        flight.clear()
+        rank_launches(mesh, reset=True)
+        return two.loop_stats["device_loop_steps"]
+
+    def counted(steps0):
+        """Close it: each rank's launches and the routing's prediction."""
+        launches = _rank_counts(rank_launches(mesh))
+        predicted = _tp_predicted(
+            two, _admits(flight), cfg.num_layers,
+            two.loop_stats["device_loop_steps"] - steps0)
+        if dev == "cuda":
+            _check(all(r == predicted for r in launches),
+                   f"per-rank launches {launches}, the routing predicts "
+                   f"{predicted}")
+        return {"launches_by_rank": launches, "predicted": predicted}
+
     try:
         for name, src, dst in (("tp2_to_tp1", two, one),
                                ("tp1_to_tp2", one, two)):
             want = _run(src, prompt, PAR_FLEET_NEW)[0]
-            rank_launches(mesh, reset=True)
+            if src is two:
+                steps0 = count_from()
             req = src.submit(prompt, PAR_FLEET_NEW, request_id=name)
             t_end = time.monotonic() + 300
             while len(req.tokens) < PAR_FLEET_AT:
@@ -6476,20 +6532,28 @@ def parallel_tp_fleet(torch, mesh, model: str = SERVE_MODEL,
             t0 = time.perf_counter()
             ckpt = src.export_request(name, detach=True)
             export_ms = (time.perf_counter() - t0) * 1e3
+            # between the two calls, out of the pause: the tp=2 side's
+            # window closes (a source) or opens (an importer)
+            tp2 = counted(steps0) if src is two else None
+            if dst is two:
+                steps0 = count_from()
             heads = int(ckpt["k"].shape[2])
             _check(heads == cfg.num_kv_heads,
                    f"the checkpoint holds {heads} kv heads")
+            t1 = time.perf_counter()
             moved = dst.import_request(ckpt)
             n0 = len(ckpt["tokens"])
             while len(moved.tokens) <= n0 and not moved.done.is_set():
                 time.sleep(0.0005)
-            pause_ms = (time.perf_counter() - t0) * 1e3
+            pause_ms = export_ms + (time.perf_counter() - t1) * 1e3
             got = moved.wait(timeout=900).tolist()
+            if dst is two:
+                tp2 = counted(steps0)
             side = {"tokens_equal": got == want,
                     "tokens_at_export": n0, "export_ms": export_ms,
                     "pause_ms": pause_ms,
                     "checkpoint_blocks": int(ckpt["k"].shape[0]),
-                    "launches_by_rank": _rank_counts(rank_launches(mesh))}
+                    "tp2_side": tp2}
             _check(_idle_pages(src) and _idle_pages(dst), "pages leaked")
             out[name] = side
             streams[name] = (got, want)
@@ -6760,57 +6824,67 @@ def parallel_sp(torch, mesh) -> dict:
 
 
 class MeshStarts:
-    """Meshes whose ranks start on threads of this process, each taken
-    once by the phase that needs it: a rank start (a spawned process
-    importing torch, 8.6-9.9 s on the card machine) then overlaps the
-    work before it (the train phase's one-process steps and checkpoint,
-    or with ``--phase`` the kernels' build).  ``close()`` closes every
-    mesh not taken."""
+    """The meshes of the phases a run takes, started together and once:
+    the first phase that needs one calls :meth:`start` where none of its
+    timed windows is open (the train phase after its one-process steps
+    and checkpoint, the parallel phase as it begins).  The rank starts
+    (each a spawned process importing torch, 8.6-9.9 s on the card
+    machine) then run beside one another, and the call returns once all
+    are up, so no later window shares the host with a starting rank.
+    Each phase takes its meshes and closes them; ``close()`` closes
+    every mesh not taken."""
 
     def __init__(self, names, dev: str = "cuda"):
-        from concurrent.futures import ThreadPoolExecutor
-        self.dev = dev
-        self.waited_s = {}
-        self._pool = ThreadPoolExecutor(max(1, len(names)))
-        self._futures = {n: self._pool.submit(self._start, n)
-                         for n in names}
+        self.names, self.dev = list(names), dev
+        self.meshes = None
 
-    def _start(self, name):
+    def start(self) -> float:
+        """Start every mesh (after the first call, nothing): the seconds
+        this call waited."""
+        if self.meshes is not None:
+            return 0.0
+        from concurrent.futures import ThreadPoolExecutor
+
         from distributed_inference_demo_tpu_torch.parallel.mesh import (
             MeshConfig, local_mesh)
-        return local_mesh(MeshConfig(**MESH_AXES[name]), self.dev)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max(1, len(self.names))) as pool:
+            futures = {n: pool.submit(local_mesh,
+                                      MeshConfig(**MESH_AXES[n]), self.dev)
+                       for n in self.names}
+        self.meshes, errors = {}, []
+        for n, fut in futures.items():
+            try:
+                self.meshes[n] = fut.result()
+            except Exception as e:      # the meshes that started: close()
+                errors.append(e)
+        if errors:
+            raise errors[0]
+        return time.perf_counter() - t0
 
     def take(self, name):
-        """The mesh ``name``, started now if it was not started early;
-        the caller closes it."""
-        t0 = time.perf_counter()
-        fut = self._futures.pop(name, None)
-        mesh = fut.result() if fut is not None else self._start(name)
-        self.waited_s[name] = time.perf_counter() - t0
-        return mesh
+        """The started mesh ``name``; the caller closes it."""
+        return self.meshes.pop(name)
 
     def close(self) -> None:
-        for fut in self._futures.values():
+        for mesh in (self.meshes or {}).values():
             try:
-                fut.result().close()
-            except Exception:        # a failed start has nothing to close
+                mesh.close()
+            except Exception:
                 traceback.print_exc()
-        self._futures.clear()
-        self._pool.shutdown()
+        self.meshes = {}
 
 
-def phase_parallel(torch, starts=None) -> dict:
+def phase_parallel(torch, starts) -> dict:
     """Multiple devices on torch.distributed, on the one card: see the
     module docstring, item 15.  Each check prints its own line.
     ``starts``: a :class:`MeshStarts` holding the phase's tp, ep and sp
-    meshes (else the phase starts all three at once)."""
-    own = starts is None
-    if own:
-        starts = MeshStarts(PHASE_MESHES["parallel"])
+    meshes (started here unless an earlier phase started them)."""
     t0 = time.perf_counter()
     out = {"phase": "parallel", "device": torch.cuda.get_device_name(0),
            "device_count": torch.cuda.device_count(),
-           "power": nvidia_smi_line(), "note": PARALLEL_NOTE}
+           "power": nvidia_smi_line(), "note": PARALLEL_NOTE,
+           "mesh_wait_s": starts.start()}
     print(f"parallel: torch.cuda.device_count() = "
           f"{torch.cuda.device_count()}", flush=True)
 
@@ -6821,33 +6895,21 @@ def phase_parallel(torch, starts=None) -> dict:
         emit(res)
         out[key] = res
 
-    try:
-        run("nccl", parallel_nccl)
-        # the tp checks share one tp mesh (its ranks start once)
-        mesh = starts.take("tp")
-        try:
-            run("tp_batching", parallel_tp_batching, mesh)
-            run("tp_llama3_8b", parallel_tp_generate, mesh, LARGE_MODEL)
-            run("tp_llama3_8b_int8", parallel_tp_generate, mesh,
-                LARGE_MODEL + "-int8")
-            run("tp_speculative", parallel_tp_speculative, mesh)
-            run("tp_proposers", parallel_tp_proposers, mesh)
-            run("tp_tier", parallel_tp_tier, mesh)
-            run("tp_fleet", parallel_tp_fleet, mesh)
-            run("tp_stage", parallel_tp_stage, mesh)
-        finally:
-            mesh.close()
-        for name, fn in (("ep", parallel_ep), ("sp", parallel_sp)):
-            mesh = starts.take(name)
-            try:
-                run(name, fn, mesh)
-            finally:
-                mesh.close()
-    finally:
-        if own:
-            starts.close()
-    out["mesh_wait_s"] = {n: starts.waited_s.get(n)
-                          for n in PHASE_MESHES["parallel"]}
+    run("nccl", parallel_nccl)
+    # the tp checks share one tp mesh (its ranks start once)
+    with starts.take("tp") as mesh:
+        run("tp_batching", parallel_tp_batching, mesh)
+        run("tp_llama3_8b", parallel_tp_generate, mesh, LARGE_MODEL)
+        run("tp_llama3_8b_int8", parallel_tp_generate, mesh,
+            LARGE_MODEL + "-int8")
+        run("tp_speculative", parallel_tp_speculative, mesh)
+        run("tp_proposers", parallel_tp_proposers, mesh)
+        run("tp_tier", parallel_tp_tier, mesh)
+        run("tp_fleet", parallel_tp_fleet, mesh)
+        run("tp_stage", parallel_tp_stage, mesh)
+    for name, fn in (("ep", parallel_ep), ("sp", parallel_sp)):
+        with starts.take(name) as mesh:
+            run(name, fn, mesh)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -8657,8 +8719,8 @@ def train_checkpoint(torch, cfg, params, state, opt, model: str,
     return out
 
 
-def phase_train(torch, model: str = SERVE_MODEL, dev: str = "cuda",
-                starts=None) -> dict:
+def phase_train(torch, starts, model: str = SERVE_MODEL,
+                dev: str = "cuda") -> dict:
     """Training on the card (``parallel/pipeline.py``, ``checkpoint.py``):
     TinyLlama at full width.  (1) pp = 1, full depth, bf16, one
     process: TRAIN_STEPS AdamW steps on a fixed batch, the loss finite
@@ -8671,14 +8733,11 @@ def phase_train(torch, model: str = SERVE_MODEL, dev: str = "cuda",
     circular decode, f32 at full depth, against ``InferenceEngine``'s
     greedy tokens.  (5) ``TrainCheckpointManager`` on (1)'s params and
     AdamW state, bit for bit, GB/s each way.  ``starts``: a
-    :class:`MeshStarts` holding the pp = 2 mesh (else the phase starts
-    it on a thread at its beginning, beside (1) and (5))."""
+    :class:`MeshStarts` holding the pp = 2 mesh, started after (1) and
+    (5), whose windows the host's clock times."""
     from distributed_inference_demo_tpu_torch.models.registry import \
         get_model_config
 
-    own = starts is None
-    if own:
-        starts = MeshStarts(PHASE_MESHES["train"], dev)
     t_phase = time.perf_counter()
     cfg = get_model_config(model)
     out = {"phase": "train", "device": dev,
@@ -8696,24 +8755,18 @@ def phase_train(torch, model: str = SERVE_MODEL, dev: str = "cuda",
     if dev == "cuda":
         torch.cuda.empty_cache()
     f32 = cfg.replace(dtype_name="float32")
-    t0 = time.perf_counter()
-    try:
-        with starts.take("pp") as mesh:
-            out["mesh"] = mesh.describe()
-            out["mesh_wait_s"] = time.perf_counter() - t0
-            for name, fn, c in (
-                    ("pp2", train_pp2,
-                     f32.replace(num_layers=TRAIN_PP_LAYERS)),
-                    ("int8", train_int8, get_model_config(model + "-int8")),
-                    ("generate", train_generate, f32)):
-                t0 = time.perf_counter()
-                out[name] = fn(torch, c, mesh, dev)
-                out[name]["seconds"] = time.perf_counter() - t0
-                if dev == "cuda":
-                    torch.cuda.empty_cache()
-    finally:
-        if own:
-            starts.close()
+    out["mesh_wait_s"] = starts.start()
+    with starts.take("pp") as mesh:
+        out["mesh"] = mesh.describe()
+        for name, fn, c in (
+                ("pp2", train_pp2, f32.replace(num_layers=TRAIN_PP_LAYERS)),
+                ("int8", train_int8, get_model_config(model + "-int8")),
+                ("generate", train_generate, f32)):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, c, mesh, dev)
+            out[name]["seconds"] = time.perf_counter() - t0
+            if dev == "cuda":
+                torch.cuda.empty_cache()
     out["note"] = PARALLEL_NOTE
     out["seconds"] = time.perf_counter() - t_phase
     return out
@@ -8753,14 +8806,12 @@ def main(argv) -> int:
     # --phase NAME[,NAME...]: the build, then those phases alone (no
     # result lines)
     only = argv[argv.index("--phase") + 1] if "--phase" in argv else None
-    # --phase: the phases' meshes start their ranks now, beside the
-    # kernels' build; a full run starts all four as the train phase
-    # begins, beside its one-process steps and checkpoint (the earlier
-    # phases run with no other process on the card)
-    starts = None
-    if only is not None:
-        starts = MeshStarts([m for p in only.split(",")
-                             for m in PHASE_MESHES.get(p, ())])
+    # the meshes of the phases this run takes; the first phase to need
+    # one starts them all (the phases before it run with no other
+    # process on the card)
+    starts = MeshStarts([m for p in (only.split(",") if only is not None
+                                     else PHASE_MESHES)
+                         for m in PHASE_MESHES.get(p, ())])
     try:
         device = timed(phase_device, torch, smi)
         emit(device)
@@ -8773,7 +8824,7 @@ def main(argv) -> int:
                 "fleet": phase_fleet,
                 "chain": phase_chain, "server": phase_server,
                 "vision": phase_vision, "native": phase_native,
-                "train": lambda t: phase_train(t, starts=starts),
+                "train": lambda t: phase_train(t, starts),
                 "parallel": lambda t: phase_parallel(t, starts),
                 "speculative": lambda t: phase_speculative(
                     t, device["ptxas"]["paged_attention.cu"])}
@@ -8830,8 +8881,7 @@ def main(argv) -> int:
         vision = timed(phase_vision, torch)
         emit(vision)
         emit(timed(phase_native, torch))
-        starts = MeshStarts([m for ms in PHASE_MESHES.values() for m in ms])
-        train = timed(phase_train, torch, starts=starts)
+        train = timed(phase_train, torch, starts)
         emit(train)
         par = timed(phase_parallel, torch, starts)
         emit(par)
@@ -8842,8 +8892,7 @@ def main(argv) -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     finally:
-        if starts is not None:
-            starts.close()
+        starts.close()
 
     def flash_case(case, dtype="bfloat16"):
         return next(c for c in kern["cases"]
@@ -9016,8 +9065,9 @@ def main(argv) -> int:
     vision_case = next(c for c in kern["cases"]
                        if c["case"] == "tinyllama-vision"
                        and c["dtype"] == "bfloat16")
-    # the tp checks of the parallel phase: rank 0's launches (each other
-    # rank launched as many, held in the phase)
+    # the tp checks of the parallel phase: rank 0's launches over the
+    # tp=2 engine's own window (the tp=2 tail stage's: its seam's count),
+    # every rank's held to the routing's prediction in the phase
     tps = par["tp_speculative"]["bfloat16"]
     tpp = par["tp_proposers"]["bfloat16"]
     tpt, tpf, tpc = par["tp_tier"], par["tp_fleet"], par["tp_stage"]
@@ -9054,8 +9104,8 @@ def main(argv) -> int:
                  "request's suffix prefill)"), "graph_replayed": False},
         {**entry("paged_decode_tp2_fleet", PAGED_SOURCE,
                  PAGED_REPLACES["paged_decode"],
-                 sum(tpf[k]["launches_by_rank"][0]["paged_decode"]
-                     for k in ("tp2_to_tp1", "tp1_to_tp2")),
+                 sum(tpf[k]["tp2_side"]["launches_by_rank"][0][
+                     "paged_decode"] for k in ("tp2_to_tp1", "tp1_to_tp2")),
                  serve_case("decode", "full", SERVE_MODEL + "-tp2"),
                  tp2_rows + rows8 + " (launches: rank 0's, the tp=2 side "
                  "of both migrations)"), "graph_replayed": False},

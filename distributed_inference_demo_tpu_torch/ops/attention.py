@@ -146,6 +146,24 @@ def attention_at(q, k, v, k_cache, v_cache, positions, start: torch.Tensor,
     return attention(q, k_cache, v_cache, positions, None, slopes)
 
 
+def slot_attention_impl(q, k, v, k_cache, v_cache, positions, cache_start,
+                        slopes):
+    """Attention hook for ragged per-slot cache offsets (the batching
+    draft's dense admission row): ignores ``cache_start``; ``positions``
+    [b, s] carries each row's insert offsets.  K/V land through an
+    advanced-index scatter, in place, and every row attends over the
+    whole row buffer, bounded by its own query positions."""
+    b, s = positions.shape
+    k, v = prepare_kv_chunk(k, v, k_cache.dtype, v_cache.dtype)
+    rows = torch.arange(b, device=positions.device)[:, None]
+    # [b, s, nkv, hd] through indices (0, 2) of [b, nkv, S, hd]
+    as_bytes(k_cache).permute(0, 2, 1, 3)[rows, positions] = as_bytes(k)
+    as_bytes(v_cache).permute(0, 2, 1, 3)[rows, positions] = as_bytes(v)
+    out = attention(q, k_cache, v_cache, positions, k_cache.shape[2],
+                    slopes)
+    return out, k_cache, v_cache
+
+
 def update_kv_cache(
     k_cache: torch.Tensor,  # [batch, nkv, max_seq, hd] (head-major)
     v_cache: torch.Tensor,

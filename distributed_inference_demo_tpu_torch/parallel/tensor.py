@@ -43,9 +43,9 @@ nothing else):
 A cache or pool is addressed by the handle of its keys / values object.
 Anything rank 0 did to its own plane without one of these commands would
 leave the followers' planes stale, so the engines touch a tp cache only
-through them.  Rank 0's planes are known by :func:`plane_mesh`:
-``runtime/kvcache/device.py``'s block export, adopt and row write route
-a plane to the commands above, so the tier and the fleet move a tp
+through them.  An owner hands its pool's :class:`TPPoolOps` to
+``runtime/kvcache/device.py``'s block export, adopt and row write,
+which then run the commands above, so the tier and the fleet move a tp
 pool's pages with the code they use at tp=1.  Blocks leave and enter in
 the tp=1 layout (``[n, L, H, bt, D]``, every kv head), so a tier entry,
 an export or a premigrated block is the same bytes at any tp.
@@ -250,25 +250,13 @@ def alloc_mesh_kv(mesh, kind: str, local_shape, dtype, kv_dtype=None):
     k, v = (mesh.objects[h] for h in handles)
     for obj, h in ((k, handles[0]), (v, handles[1])):
         mesh.register(obj, h)
-        obj._tp_mesh = mesh
     return k, v
-
-
-def plane_mesh(obj):
-    """The mesh whose rank-0 plane ``obj`` is (a cache's or pool's keys
-    or values from :func:`alloc_mesh_kv`), else None.  A plane of a
-    closed mesh still names it: its commands raise, rather than rank 0
-    moving its own heads alone."""
-    return getattr(obj, "_tp_mesh", None)
 
 
 def _free(mesh, handles) -> None:
     """Command: drop objects from every rank's table."""
     for h in handles:
-        obj = mesh.objects.pop(h, None)
-        mesh.unregister(obj)
-        if getattr(obj, "_tp_mesh", None) is mesh:
-            del obj._tp_mesh
+        mesh.unregister(mesh.objects.pop(h, None))
 
 
 def free_tp(mesh, *objs) -> None:
@@ -312,7 +300,7 @@ class _Seam:
             from ..ops.flash_attention import make_flash_attn_impl
             self.impl = make_flash_attn_impl()
         elif attn[1] == "slot":
-            from ..runtime.batching import slot_attention_impl
+            from ..ops.attention import slot_attention_impl
             self.impl = slot_attention_impl
         else:
             self.impl = None
@@ -478,11 +466,25 @@ def _kv_store(mesh, pk, pv, ck, cv, block_ids, covered) -> None:
 
 
 class TPPoolOps:
-    """The prefix pool's two device ops as commands on a tp mesh
-    (``runtime/kvcache/backend.PagedKVBackend``'s ``device_ops``)."""
+    """A page pool's device ops as commands on a tp mesh, its owner's
+    ``ops`` (``runtime/kvcache/backend.PagedKVBackend``'s
+    ``device_ops``): allocation, the prefix pool's seed and store, and
+    ``runtime/kvcache/device.py``'s block export, adopt and row write.
+    On a closed mesh each raises, rather than rank 0 moving its own
+    heads alone."""
 
     def __init__(self, mesh):
         self.mesh = mesh
+
+    def export(self, pk, pv, ids):
+        return gather_tp_blocks(self.mesh, pk, pv, ids)
+
+    def adopt(self, pk, pv, k_blocks, v_blocks, ids, num_pages):
+        scatter_tp_blocks(self.mesh, pk, pv, k_blocks, v_blocks, ids,
+                          num_pages)
+
+    def write_row(self, pk, pv, row_k, row_v, ids, num_pages):
+        write_tp_row(self.mesh, pk, pv, row_k, row_v, ids, num_pages)
 
     def alloc(self, shape, kv_dtype, dtype, device):
         return alloc_tp_kv(self.mesh, "pages", shape, dtype, kv_dtype)
@@ -531,8 +533,9 @@ def _heads(blocks, rank: int, tp: int):
 def _gather_pages(mesh, keys_h, values_h, ids):
     """Command: every rank's blocks ``ids`` of its planes, on the host,
     gathered at rank 0."""
-    from ..runtime.kvcache.device import export_local, payload_to
-    kb, vb = export_local(mesh.objects[keys_h], mesh.objects[values_h], ids)
+    from ..runtime.kvcache.device import export_blocks_from_pages, payload_to
+    kb, vb = export_blocks_from_pages(mesh.objects[keys_h],
+                                      mesh.objects[values_h], ids)
     return mesh.gather((payload_to(kb, "cpu"), payload_to(vb, "cpu")))
 
 
@@ -579,7 +582,7 @@ def _scatter_pages(mesh, keys_h, values_h, src, layouts, ids, num_pages):
     """Command: rank 0 sends each follower its kv heads of the global
     blocks it parked under ``src`` (through host memory); every rank
     adopts its slice into blocks ``ids`` of its planes."""
-    from ..runtime.kvcache.device import adopt_local
+    from ..runtime.kvcache.device import adopt_blocks_into_pages
     tp = tp_size(mesh)
     if mesh.rank == 0:
         kb, vb = mesh.objects.pop(src)
@@ -595,8 +598,8 @@ def _scatter_pages(mesh, keys_h, values_h, src, layouts, ids, num_pages):
                   for b in (kb, vb) for t in _block_leaves(b)))
     else:
         mine = [_received(mesh, layouts[0]), _received(mesh, layouts[1])]
-    adopt_local(mesh.objects[keys_h], mesh.objects[values_h], mine[0],
-                mine[1], ids, num_pages=num_pages)
+    adopt_blocks_into_pages(mesh.objects[keys_h], mesh.objects[values_h],
+                            mine[0], mine[1], ids, num_pages=num_pages)
 
 
 def scatter_tp_blocks(mesh, pk, pv, k_blocks, v_blocks, ids,
@@ -621,10 +624,10 @@ def scatter_tp_blocks(mesh, pk, pv, k_blocks, v_blocks, ids,
 def _row_to_pages(mesh, keys_h, values_h, row_k_h, row_v_h, table,
                   num_pages):
     """Command: a dense row's blocks into every rank's pages."""
-    from ..runtime.kvcache.device import write_row_local
+    from ..runtime.kvcache.device import write_row_to_pages
     o = mesh.objects
-    write_row_local(o[keys_h], o[values_h], o[row_k_h], o[row_v_h], table,
-                    num_pages=num_pages)
+    write_row_to_pages(o[keys_h], o[values_h], o[row_k_h], o[row_v_h],
+                       table, num_pages=num_pages)
 
 
 def write_tp_row(mesh, pk, pv, row_k, row_v, table, num_pages=None):

@@ -129,9 +129,9 @@ from ..device import resolve_device
 from ..models.base import (KVCache, ModelConfig, StageParams, StageSpec,
                            pad_cache_capacity)
 from ..models.decoder import stage_forward
-from ..ops.attention import attention, prepare_kv_chunk
+from ..ops.attention import slot_attention_impl
 from ..ops.paged_attention import BACKENDS as PAGED_BACKENDS
-from ..ops.quant import (alloc_kv_pages, as_bytes, resolve_kv_cache_dtype,
+from ..ops.quant import (alloc_kv_pages, resolve_kv_cache_dtype,
                          resolve_kv_dtype)
 from ..ops.sampling import SamplingParams, sample_logits
 from ..telemetry import postmortem
@@ -155,24 +155,6 @@ from .speculative import draw_noise, propose_token, verify_emit_per_row
 # queue nudge from export_request: wakes an idle scheduler so it services
 # the export mailbox
 _WAKE = object()
-
-
-def slot_attention_impl(q, k, v, k_cache, v_cache, positions, cache_start,
-                        slopes):
-    """Attention hook for ragged per-slot cache offsets (the draft's dense
-    admission row): ignores ``cache_start``; ``positions`` [b, s] carries
-    each row's insert offsets.  K/V land through an advanced-index
-    scatter, in place, and every row attends over the whole row buffer,
-    bounded by its own query positions."""
-    b, s = positions.shape
-    k, v = prepare_kv_chunk(k, v, k_cache.dtype, v_cache.dtype)
-    rows = torch.arange(b, device=positions.device)[:, None]
-    # [b, s, nkv, hd] through indices (0, 2) of [b, nkv, S, hd]
-    as_bytes(k_cache).permute(0, 2, 1, 3)[rows, positions] = as_bytes(k)
-    as_bytes(v_cache).permute(0, 2, 1, 3)[rows, positions] = as_bytes(v)
-    out = attention(q, k_cache, v_cache, positions, k_cache.shape[2],
-                    slopes)
-    return out, k_cache, v_cache
 
 
 class _BlocksExhausted(Exception):
@@ -438,11 +420,14 @@ class ContinuousBatchingEngine:
         # N pages a table may name + the drop page N
         shape = (cfg.num_layers, N + 1, cfg.num_kv_heads, bt, cfg.head_dim)
         page_dtype = self.kv_cache_dtype or cfg.dtype
+        # a tp pool's device ops (export, adopt, row write), else None
+        self._pool_ops = None
         if self._tp > 1:
             # every rank's kv-head plane (sidecars with their pages)
-            from ..parallel.tensor import alloc_tp_kv
-            self._pk, self._pv = alloc_tp_kv(mesh, "pages", shape,
-                                             page_dtype, self.kv_dtype)
+            from ..parallel.tensor import TPPoolOps
+            self._pool_ops = TPPoolOps(mesh)
+            self._pk, self._pv = self._pool_ops.alloc(
+                shape, self.kv_dtype, page_dtype, self.device)
         else:
             self._pk = alloc_kv_pages(shape, self.kv_dtype, page_dtype,
                                       self.device)
@@ -463,7 +448,8 @@ class ContinuousBatchingEngine:
                                           disk_bytes=tier_disk)
             self.kv_cache.tier = self._kv_tier
             self.kv_cache.demote_hook = make_demote_hook(
-                self._kv_tier, lambda: (self._pk, self._pv))
+                self._kv_tier, lambda: (self._pk, self._pv),
+                ops=self._pool_ops)
 
         from ..parallel.tensor import make_paged_forward_seam
         self.attn_backend = attn_backend
@@ -774,11 +760,12 @@ class ContinuousBatchingEngine:
         sig = _profiling.dispatch_signature(
             "disagg_adopt", batch=n, chunk=bt, kv_dtype=self.kv_dtype)
         t0 = self._prof.begin(sig)
-        dev = staging_device(self._pk)
+        dev = staging_device(self._pk, self._pool_ops)
         adopt_blocks_into_pages(
             self._pk, self._pv, payload_to(st["k"], dev),
             payload_to(st["v"], dev),
-            np.asarray(ids, np.int64), num_pages=self._page_sentinel)
+            np.asarray(ids, np.int64), num_pages=self._page_sentinel,
+            ops=self._pool_ops)
         self._prof.end(sig, t0, out=self.device,
                        hbm_bytes=n * bt * self._kv_bytes_per_token)
         adopted, lease = mgr.store_shared(req.prompt[:n * bt], ids)
@@ -906,7 +893,8 @@ class ContinuousBatchingEngine:
             bt = self.kv_cache.block_tokens
             n_used = -(-length // bt)
             ids = np.asarray(self._tables[slot][:n_used], np.int64)
-            k_run, v_run = export_blocks_from_pages(self._pk, self._pv, ids)
+            k_run, v_run = export_blocks_from_pages(self._pk, self._pv, ids,
+                                                    ops=self._pool_ops)
             ckpt.update(length=length, last_tok=last_tok,
                         k=payload_to(k_run, "cpu"),
                         v=payload_to(v_run, "cpu"),
@@ -1642,7 +1630,8 @@ class ContinuousBatchingEngine:
                           row, pos, attn_impl=slot_attention_impl,
                           last_logits_only=True)
         write_row_to_pages(self._dpk, self._dpv, row.keys, row.values,
-                           dtable, num_pages=self._dpage_sentinel)
+                           dtable, num_pages=self._dpage_sentinel,
+                           ops=self._pool_ops)
         if self._tp > 1:
             free_tp(self.mesh, row.keys, row.values)
 
@@ -1715,7 +1704,8 @@ class ContinuousBatchingEngine:
         if self._kv_tier is not None:
             from .kvcache import promote_prefix
             promote_prefix(mgr, self._kv_tier, self._pk, self._pv,
-                           req.prompt, profiler=self._prof)
+                           req.prompt, profiler=self._prof,
+                           ops=self._pool_ops)
         lease = mgr.match(req.prompt)
         m = lease.tokens if lease is not None else 0
         n_pref = m // bt
@@ -1840,12 +1830,12 @@ class ContinuousBatchingEngine:
         req._pkv_blocked = None
         length = rs["length"]
         n_used = -(-length // bt)
-        dev = staging_device(self._pk)
+        dev = staging_device(self._pk, self._pool_ops)
         adopt_blocks_into_pages(
             self._pk, self._pv, payload_to(rs["k"], dev),
             payload_to(rs["v"], dev),
             np.asarray(ids[:n_used], np.int64),
-            num_pages=self._page_sentinel)
+            num_pages=self._page_sentinel, ops=self._pool_ops)
         adopted, store_lease = (), None
         if plen // bt >= 1:
             adopted, store_lease = mgr.store_shared(req.prompt,

@@ -59,9 +59,10 @@ class PagedKVBackend:
         "int4"); ``device``: where the pool lives; the tier knobs over
         their env knobs (``tiered.resolve_tier_config``).
         ``device_ops``: the pool's allocation, seed gather and store
-        scatter (``alloc`` / ``seed`` / ``store``) when the pool is
-        sharded over a tp mesh (``parallel.tensor.TPPoolOps``: every
-        rank's kv-head plane); None runs them here."""
+        scatter (``alloc`` / ``seed`` / ``store``) and the tier's block
+        export and adopt when the pool is sharded over a tp mesh
+        (``parallel.tensor.TPPoolOps``: every rank's kv-head plane);
+        None runs them here."""
         from ...ops.quant import alloc_kv_pages, resolve_kv_dtype
         from .tiered import (TieredKVStore, make_demote_hook,
                              resolve_tier_config)
@@ -93,7 +94,7 @@ class PagedKVBackend:
                                       disk_bytes=tier_disk)
             self.mgr.tier = self.tier
             self.mgr.demote_hook = make_demote_hook(
-                self.tier, lambda: (self._pk, self._pv))
+                self.tier, lambda: (self._pk, self._pv), ops=device_ops)
 
     def seed(self, ids, cache):
         """Match, then gather out of the pool into ``cache``'s leading
@@ -109,7 +110,7 @@ class PagedKVBackend:
         if self.tier is not None:
             from .tiered import promote_prefix
             promote_prefix(self.mgr, self.tier, self._pk, self._pv,
-                           _prompt(ids))
+                           _prompt(ids), ops=self._ops)
         lease = self.mgr.match(_prompt(ids))
         if lease is None:
             return 0, cache

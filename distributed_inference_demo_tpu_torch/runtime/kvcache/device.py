@@ -25,19 +25,18 @@ working cache a seed fills is a captured CUDA graph's static state, so
 its addresses must not change.  Nothing here synchronizes with the
 host.
 
-A pool over a tp mesh is rank 0's plane (``parallel.tensor.plane_mesh``
-names its mesh): a block export gathers every rank's heads, an adopt
-scatters each rank its own, and a row write runs on every rank
-(``parallel.tensor``'s commands), so the tier and the fleet call the
-same three functions at any tp.  Their ``*_local`` forms are what each
-rank runs.
+A block export, an adopt and a row write take the pool's ``ops``: None
+for a pool of this process, or, for a pool over a tp mesh (rank 0's
+planes), the owner's ``parallel.tensor.TPPoolOps``, whose commands
+gather every rank's heads, scatter each rank its own, or write every
+rank's row.  So the tier and the fleet call the same three functions at
+any tp, and each rank runs them with no ``ops`` on its own planes.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ...ops.quant import (FLOAT8, QuantizedKVPages, as_bytes, cast_kv,
@@ -179,41 +178,27 @@ def store_cache_to_pages(pk, pv, ck: torch.Tensor, cv: torch.Tensor, table,
     return pk, pv
 
 
-def _plane_mesh(pool):
-    from ...parallel.tensor import plane_mesh
-    return plane_mesh(pool)
-
-
-def staging_device(pool):
+def staging_device(pool, ops=None):
     """Where a payload waits before it is adopted into ``pool``: the
-    pool's device, or, for a tp plane, rank 0's host (the scatter sends
-    each rank its heads from there)."""
-    if _plane_mesh(pool) is not None:
+    pool's device, or, for a tp pool (``ops``), rank 0's host (the
+    scatter sends each rank its heads from there)."""
+    if ops is not None:
         return torch.device("cpu")
     return _leaves(pool)[0].device
 
 
 def adopt_blocks_into_pages(pk, pv, k_blocks, v_blocks, table, *,
-                            num_pages: Optional[int] = None):
+                            num_pages: Optional[int] = None, ops=None):
     """Scatter block payloads ``[n, L, H, bt, D]`` into the pool at
     ``table``'s ids, in place (sentinels drop).  Payloads of the pool's
     own kind adopt verbatim: a quantized export lands bit-identical
     pages.  A full-width payload into a quantized pool quantizes here;
-    into a full-width pool it casts to the pool's dtype.  A tp pool's
-    ranks each adopt their own kv heads."""
-    mesh = _plane_mesh(pk)
-    if mesh is not None:
-        from ...parallel.tensor import scatter_tp_blocks
-        scatter_tp_blocks(mesh, pk, pv, k_blocks, v_blocks,
-                          np.asarray(table).reshape(-1), num_pages)
+    into a full-width pool it casts to the pool's dtype.  With a tp
+    pool's ``ops`` the ranks each adopt their own kv heads."""
+    if ops is not None:
+        ops.adopt(pk, pv, k_blocks, v_blocks, table, num_pages)
         return pk, pv
-    return adopt_local(pk, pv, k_blocks, v_blocks, table,
-                       num_pages=num_pages)
 
-
-def adopt_local(pk, pv, k_blocks, v_blocks, table, *,
-                num_pages: Optional[int] = None):
-    """:func:`adopt_blocks_into_pages` on this process's pool."""
     def adopt(pool, blocks):
         quant = isinstance(pool, QuantizedKVPages)
         if quant and not isinstance(blocks, QuantizedKVPages):
@@ -230,21 +215,15 @@ def adopt_local(pk, pv, k_blocks, v_blocks, table, *,
     return pk, pv
 
 
-def export_blocks_from_pages(pk, pv, table):
+def export_blocks_from_pages(pk, pv, table, *, ops=None):
     """Gather block payloads ``[n, L, H, bt, D]`` out of the pool at
     ``table``'s (real) ids: the inverse of :func:`adopt_blocks_into_pages`.
     A quantized pool's narrow leaves come verbatim, as a
-    ``QuantizedKVPages`` with block-leading leaves.  A tp pool's blocks
-    come with every rank's heads, on rank 0's host."""
-    mesh = _plane_mesh(pk)
-    if mesh is not None:
-        from ...parallel.tensor import gather_tp_blocks
-        return gather_tp_blocks(mesh, pk, pv, np.asarray(table).reshape(-1))
-    return export_local(pk, pv, table)
+    ``QuantizedKVPages`` with block-leading leaves.  With a tp pool's
+    ``ops`` the blocks come with every rank's heads, on rank 0's host."""
+    if ops is not None:
+        return ops.export(pk, pv, table)
 
-
-def export_local(pk, pv, table):
-    """:func:`export_blocks_from_pages` on this process's pool."""
     def export(pool):
         idx = _ids(table, _leaves(pool)[0].device)
         if isinstance(pool, QuantizedKVPages):
@@ -271,25 +250,16 @@ def payload_to(blocks, device):
 
 
 def write_row_to_pages(pk, pv, row_k: torch.Tensor, row_v: torch.Tensor,
-                       table, *, num_pages: Optional[int] = None):
+                       table, *, num_pages: Optional[int] = None, ops=None):
     """Scatter a dense row ``[L, 1, H, W*bt, D]`` into the pool at
     ``table``'s ``W`` ids, in place.  Sentinel entries drop their block:
     the caller sentinels the matched prefix (tree-owned, immutable
-    pages) and the unallocated tail.  A tp pool's row is a tp cache
-    (``parallel.tensor.new_tp_cache``) and every rank writes its
-    plane."""
-    mesh = _plane_mesh(pk)
-    if mesh is not None:
-        from ...parallel.tensor import write_tp_row
-        write_tp_row(mesh, pk, pv, row_k, row_v,
-                     np.asarray(table).reshape(-1), num_pages)
+    pages) and the unallocated tail.  With a tp pool's ``ops`` the row
+    is a tp cache (``parallel.tensor.new_tp_cache``) and every rank
+    writes its plane."""
+    if ops is not None:
+        ops.write_row(pk, pv, row_k, row_v, table, num_pages)
         return pk, pv
-    return write_row_local(pk, pv, row_k, row_v, table, num_pages=num_pages)
-
-
-def write_row_local(pk, pv, row_k: torch.Tensor, row_v: torch.Tensor,
-                    table, *, num_pages: Optional[int] = None):
-    """:func:`write_row_to_pages` on this process's pool."""
     bt = _leaves(pk)[0].shape[3]
     W = len(table)
     _scatter_run(pk, _to_blocks(row_k[:, 0], W, bt), table, num_pages)

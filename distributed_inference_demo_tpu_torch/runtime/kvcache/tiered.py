@@ -535,22 +535,22 @@ class TieredKVStore:
 # the promotion seam, shared by the batching engine and PagedKVBackend
 
 
-def make_demote_hook(tier: TieredKVStore, get_pools):
+def make_demote_hook(tier: TieredKVStore, get_pools, ops=None):
     """The eviction-side hook a pool owner installs on its
     :class:`~.paged.PagedKVCacheManager`: gather the victim leaf's
     pages (one device gather, quantized leaves verbatim — the export
     seam) and demote them.  ``get_pools()`` returns the owner's current
-    ``(pk, pv)``; over a tp mesh they are rank 0's planes, and the
-    export gathers every rank's heads (``device.export_blocks_from_
-    pages``), so an entry holds the tp=1 layout.  Never raises into
-    ``alloc``: a demotion failure costs cache capacity, not
-    admission."""
+    ``(pk, pv)``; over a tp mesh they are rank 0's planes, ``ops`` is
+    the pool's ``parallel.tensor.TPPoolOps``, and the export gathers
+    every rank's heads (``device.export_blocks_from_pages``), so an
+    entry holds the tp=1 layout.  Never raises into ``alloc``: a
+    demotion failure costs cache capacity, not admission."""
     def hook(path_keys, block_ids) -> None:
         try:
             from .device import export_blocks_from_pages
             pk, pv = get_pools()
             kb, vb = export_blocks_from_pages(
-                pk, pv, np.asarray(block_ids, np.int64))
+                pk, pv, np.asarray(block_ids, np.int64), ops=ops)
             tier.demote(path_keys, kb, vb)
         except Exception:
             with tier._lock:
@@ -561,7 +561,7 @@ def make_demote_hook(tier: TieredKVStore, get_pools):
 
 
 def promote_prefix(mgr, tier: TieredKVStore, pk, pv, prompt,
-                   profiler=None):
+                   profiler=None, ops=None):
     """Promote the tier's continuation of ``prompt``'s device-covered
     prefix back into the page pool — the admission-side seam, run
     BEFORE the manager's ``match`` so the promoted blocks land as an
@@ -573,8 +573,9 @@ def promote_prefix(mgr, tier: TieredKVStore, pk, pv, prompt,
     counted into the manager's ``h2d_bytes`` and the tier's promoted
     counters.  Best-effort by design: pool pressure (alloc infeasible)
     or a racing eviction just skips — the suffix prefills.  The pools
-    are written in place; over a tp mesh each rank adopts its own kv
-    heads of the entry (``device.adopt_blocks_into_pages``).
+    are written in place; over a tp mesh (``ops``, the pool's
+    ``parallel.tensor.TPPoolOps``) each rank adopts its own kv heads of
+    the entry (``device.adopt_blocks_into_pages``).
 
     Returns ``(pk, pv, promoted_tokens)``."""
     from .device import adopt_blocks_into_pages, payload_to, staging_device
@@ -600,7 +601,7 @@ def promote_prefix(mgr, tier: TieredKVStore, pk, pv, prompt,
         mgr.free(ids[n:])
         ids = ids[:n]
     bt = mgr.block_tokens
-    device = staging_device(pk)
+    device = staging_device(pk, ops)
     sig = None
     if profiler is not None:
         from ...telemetry import profiling as _profiling
@@ -609,7 +610,7 @@ def promote_prefix(mgr, tier: TieredKVStore, pk, pv, prompt,
         _pt0 = profiler.begin(sig)
     adopt_blocks_into_pages(pk, pv, payload_to(k_blocks, device),
                             payload_to(v_blocks, device),
-                            np.asarray(ids, np.int64))
+                            np.asarray(ids, np.int64), ops=ops)
     if sig is not None:
         profiler.end(sig, _pt0, out=(pk, pv), hbm_bytes=nbytes)
     adopted, lease = mgr.store_shared(

@@ -101,9 +101,12 @@ class _Recorder:
             return demote(path_keys, kb, vb)
 
         def on_adopt(pk, pv, kb, vb, table, **kw):
-            self.adopted.append(([t.clone() for t in _leaves(kb)],
-                                 [t.clone() for t in _leaves(vb)],
-                                 np.asarray(table).reshape(-1).copy()))
+            # the promotion's adopt carries the pool's ops; rank 0's
+            # adopt of its own heads, inside the scatter, carries none
+            if kw.get("ops") is not None:
+                self.adopted.append(([t.clone() for t in _leaves(kb)],
+                                     [t.clone() for t in _leaves(vb)],
+                                     np.asarray(table).reshape(-1).copy()))
             return adopt(pk, pv, kb, vb, table, **kw)
 
         monkeypatch.setattr(tier, "demote", on_demote)
