@@ -11,7 +11,9 @@ their plain versions.
                                           # server, vision, native,
                                           # train, parallel, moe; or a
                                           # comma-separated list), no
-                                          # result lines
+                                          # result lines; also
+                                          # mixed_f32_partings, a
+                                          # diagnostic no full run takes
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -27,8 +29,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             ``eager_ms`` is per eager call, host launch cost included.
             The flash kernel (chunks of 16-512 tokens, the 2048-token
             prompt, ragged rows with ALiBi, one token either side of its
-            instance threshold; each bf16 row names the instance the
-            wrapper took and holds and times the other one too), then
+            instance threshold; each row names the instance the wrapper
+            took, with ptxas's registers and spills, and holds and
+            times the other one too, f32 up to hd 128), then
             the two paged kernels (decode and
             chunk prefill) over shuffled page tables with sentinels, on
             full-width pages and on int8 pages (their int8 instances),
@@ -777,7 +780,90 @@ def flash_work(b, chunk, q_start, nh, nkv, hd, elt):
     return flops, nbytes
 
 
-def phase_kernels(torch) -> dict:
+class F32Tally:
+    """The f32 prefill kernels' eager launches by template instance: the
+    wrappers' launch functions (``flash_attention._launch``,
+    ``paged_attention._prefill_launch``) wrapped for the run, each f32
+    call counted under the instance it takes.  A replayed graph's launches
+    are not calls, so the speculative rounds' replays do not count."""
+
+    def __init__(self, torch):
+        import threading
+
+        from distributed_inference_demo_tpu_torch.ops import \
+            flash_attention as fa
+        from distributed_inference_demo_tpu_torch.ops import \
+            paged_attention as pa
+        self._fa, self._pa = fa, pa
+        self._orig = (fa._launch, pa._prefill_launch)
+        self._lock = threading.Lock()
+        self.counts = {}
+        f32 = torch.float32
+
+        def flash(q, k_cache, v_cache, q_start, kv_len, slopes, rows):
+            out = self._orig[0](q, k_cache, v_cache, q_start, kv_len, slopes,
+                                rows)
+            if q.dtype == f32:
+                self._add(flash_instance("float32", q.shape[3], rows))
+            return out
+
+        def paged(q, k_pages, v_pages, tables, starts, slopes, page, rows):
+            out = self._orig[1](q, k_pages, v_pages, tables, starts, slopes,
+                                page, rows)
+            if q.dtype == f32:
+                self._add(paged_instance("prefill", "float32", page,
+                                         q.shape[3], rows))
+            return out
+
+        fa._launch, pa._prefill_launch = flash, paged
+
+    def _add(self, inst) -> None:
+        name = f"{inst[0]}<{', '.join(map(str, inst[1]))}>"
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def take(self) -> dict:
+        with self._lock:
+            out, self.counts = self.counts, {}
+        return out
+
+    def close(self) -> None:
+        self._fa._launch, self._pa._prefill_launch = self._orig
+
+
+def instance_fields(ptxas: list, name: str, targs: tuple) -> dict:
+    """A kernel case's template instance and its registers and spill
+    bytes from nvcc's ptxas report (None where the report lacks it)."""
+    pt = _ptxas_row(ptxas, name, targs)
+    return {"instance": f"{name}<{', '.join(map(str, targs))}>",
+            "registers": pt and pt["registers"],
+            "spill_stores": pt and pt["spill_stores"],
+            "spill_loads": pt and pt["spill_loads"]}
+
+
+def flash_instance(dname: str, hd: int, rows: int) -> tuple:
+    """The flash kernel's template instance for q's dtype, the head dim
+    and the rows a block: (name, template arguments)."""
+    name = "flash_mma_kernel" if dname == "bfloat16" else "flash_f32_kernel"
+    return name, (hd, rows)
+
+
+def paged_instance(kind: str, dname: str, pages: str, hd: int,
+                   rows: int = 16) -> tuple:
+    """The paged kernels' template instance (name, template arguments)
+    that a launch takes, as the demangler names its types."""
+    page = {"int8": "signed char", "fp8": "__nv_fp8_e4m3"}.get(
+        pages, "float" if dname == "float32" else "__nv_bfloat16")
+    if kind == "decode":
+        if dname == "bfloat16":
+            return "paged_decode_split_kernel", (page, hd)
+        return "paged_decode_kernel", ("float", page, hd)
+    if dname == "bfloat16":
+        return "paged_prefill_mma_kernel", (page, hd)
+    return "paged_prefill_f32_kernel", (page, hd, rows)
+
+
+def phase_kernels(torch, ptxas: list) -> dict:
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
@@ -810,22 +896,26 @@ def phase_kernels(torch) -> dict:
                 return flash_attention_plain(q, kc, vc, q_start, kv_len,
                                              slopes)
 
-            wide = flash_attention.wide_launches
+            # the 64-row launches of q's dtype's kernel
+            counter = ("wide_launches" if dtype == torch.bfloat16
+                       else "f32_wide_launches")
+            wide = getattr(flash_attention, counter)
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             atol, rtol = TOL[dname]
             ok = bool(torch.isfinite(got.float()).all()) and bool(
                 (err <= atol + rtol * want.float().abs()).all())
-            # the bf16 instance the wrapper took, by its count, against the
-            # rule (f32 has one instance)
+            # the instance the wrapper took, by its count, against the rule
             g = nh // nkv
-            rule = fa.flash_rows_per_block(b, nkv, chunk * g, sm_count)
-            rows_per_block, other = None, {}
-            if dtype == torch.bfloat16:
-                rows_per_block = (64 if flash_attention.wide_launches > wide
-                                  else 16)
-                ok = ok and rows_per_block == rule
+            rule = (fa.flash_rows_per_block(b, nkv, chunk * g, sm_count)
+                    if dtype == torch.bfloat16 else
+                    fa.f32_rows_per_block(b, nkv, chunk * g, hd, sm_count))
+            rows_per_block = (64 if getattr(flash_attention, counter) > wide
+                              else 16)
+            ok = ok and rows_per_block == rule
+            other = {}
+            if dtype == torch.bfloat16 or hd <= fa.F32_WIDE_MAX_HD:
                 # the instance the rule did not pick, checked and timed
                 # on the same inputs: the evidence for the threshold
                 o_rows = 16 if rows_per_block == 64 else 64
@@ -873,6 +963,8 @@ def phase_kernels(torch) -> dict:
             row = {"case": label, "dtype": dname, "b": b, "chunk": chunk,
                    "q_start": q_start, "nh": nh, "nkv": nkv, "hd": hd,
                    "rows_per_block": rows_per_block,
+                   **instance_fields(ptxas, *flash_instance(
+                       dname, hd, rows_per_block)),
                    "max_abs_err": float(err.max()), "tol": [atol, rtol],
                    "ok": ok,
                    "ms": device_ms(torch, kern), **other,
@@ -1076,15 +1168,18 @@ def paged_work(kind, nh, nkv, hd, elt, lens, chunk=1, pages="full"):
             elt * 2 * nq * nh * hd + 2 * nkv * kv_elt * kv)
 
 
-def phase_paged_kernels(torch) -> dict:
+def phase_paged_kernels(torch, ptxas: list) -> dict:
     import torch.nn.functional as F
 
     from distributed_inference_demo_tpu_torch.ops import \
         paged_attention as pa
     from distributed_inference_demo_tpu_torch.ops.attention import \
         alibi_slopes
+    from distributed_inference_demo_tpu_torch.ops.flash_attention import (
+        F32_WIDE_MAX_HD, f32_rows_per_block)
 
     dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     W = MAX_SEQ // BLOCK_TOKENS
     results, failures, invariance = [], [], []
@@ -1126,18 +1221,43 @@ def phase_paged_kernels(torch) -> dict:
             def plain():
                 return plain_fn(q, pk, pv, tables, per_row, slopes)
 
+            wide = pa.paged_prefill_attention.f32_wide_launches
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             atol, rtol = TOL[dname]
             ok = bool(torch.isfinite(got.float()).all()) and bool(
                 (err <= atol + rtol * want.float().abs()).all())
+            g = nh // nkv
+            rows_per_block, other = 16, {}
+            if kind == "prefill" and dtype == torch.float32:
+                # the f32 instance the wrapper took, by its count, against
+                # the rule; the other one checked and timed beside it
+                rows_per_block = (
+                    64 if pa.paged_prefill_attention.f32_wide_launches > wide
+                    else 16)
+                ok = ok and rows_per_block == f32_rows_per_block(
+                    b, nkv, chunk * g, hd, sm_count, pages == "full")
+                if pages == "full" and hd <= F32_WIDE_MAX_HD:
+                    o_rows = 16 if rows_per_block == 64 else 64
+                    starts32 = per_row[:, 0].contiguous()
+
+                    def kern_other():
+                        return pa._prefill_launch(q, pk, pv, tables, starts32,
+                                                  slopes, "full", o_rows)
+
+                    o_err = (kern_other() - want).abs()
+                    o_ok = bool(torch.isfinite(o_err).all()) and bool(
+                        (o_err <= atol + rtol * want.abs()).all())
+                    ok = ok and o_ok
+                    other = {"other_rows_per_block": o_rows,
+                             "other_max_abs_err": float(o_err.max()),
+                             "other_ms": device_ms(torch, kern_other)}
 
             # yardstick: SDPA over the pages gathered beforehand into a
             # linear view, K/V expanded to nh heads, the causal (and
             # ALiBi) mask built outside the timed call
             S = max(lens)
-            g = nh // nkv
             # (int8 pages: gathered, then dequantized, beforehand; float8
             # pages gathered, then upcast)
             kt = pa._linear_view(pk, tables)[:, :, :S].to(
@@ -1169,9 +1289,12 @@ def phase_paged_kernels(torch) -> dict:
                    else None, "starts": None if kind == "decode"
                    else list(row_starts), "nh": nh, "nkv": nkv, "hd": hd,
                    "block_tokens": BLOCK_TOKENS,
+                   "rows_per_block": rows_per_block,
+                   **instance_fields(ptxas, *paged_instance(
+                       kind, dname, pages, hd, rows_per_block)),
                    "max_abs_err": float(err.max()), "tol": [atol, rtol],
                    "ok": ok,
-                   "ms": device_ms(torch, kern),
+                   "ms": device_ms(torch, kern), **other,
                    "plain_ms": device_ms(torch, plain),
                    "library_ms": device_ms(torch, sdpa),
                    "eager_ms": eager_ms(torch, kern),
@@ -1746,7 +1869,8 @@ def _serve_all(port: int, prompts) -> list:
 def _reset_launches(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
-        for extra in ("int8_launches", "fp8_launches", "wide_launches"):
+        for extra in ("int8_launches", "fp8_launches", "wide_launches",
+                      "f32_wide_launches"):
             if hasattr(w, extra):
                 setattr(w, extra, 0)
 
@@ -2372,15 +2496,9 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
     # ---- f32, same seed, requests one after another (the same schedule
     # for both): the int8 kernels against the gather path, token for
     # token ----
-    cfg32 = cfg.replace(dtype_name="float32")
-    p32 = init_full_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
-    runs = {}
-    for backend in ("auto", "plain"):
-        with engine_for(cfg32, p32, attn_backend=backend) as eng32:
-            runs[backend] = [eng32.submit(p, NEW_TOKENS).wait(
-                timeout=900).tolist() for p in prompts]
-            _check(_no_page_leak(eng32), "f32 run leaked pages")
+    runs, engines32, p32 = mixed_f32_streams(
+        torch, cfg.replace(dtype_name="float32"), prompts)
+    del engines32, p32
     agree = [sum(a == b for a, b in zip(g_, w_))
              for g_, w_ in zip(runs["auto"], runs["plain"])]
     out["f32_greedy_agreement"] = sum(agree) / (len(prompts) * NEW_TOKENS)
@@ -2388,9 +2506,164 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
     _check(runs["auto"] == runs["plain"],
            f"f32 mixed int8 tokens differ between the kernels and the "
            f"gather path: {agree} of {NEW_TOKENS} per request")
-    del p32
     torch.cuda.empty_cache()
     return out
+
+
+def mixed_f32_streams(torch, cfg32, prompts):
+    """The mixed phase's f32 streams over int8 pages: ``prompts`` one
+    after another (the same schedule for both) through the mixed dispatch
+    on the kernels ("auto") and on the gather path ("plain"), greedy,
+    NEW_TOKENS each, from the same seeded weights.  Returns (tokens by
+    backend, the closed engines by backend, the weights)."""
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+
+    p32 = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
+    runs, engines = {}, {}
+    for backend in ("auto", "plain"):
+        with ContinuousBatchingEngine(
+                cfg32, p32, max_seq=MAX_SEQ, max_batch=SLOTS,
+                sampling=SamplingParams(greedy=True),
+                kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+                decode_block=MIXED_DECODE_BLOCK,
+                mixed_token_budget=MIXED_BUDGET, kv_dtype="int8",
+                attn_backend=backend, device="cuda") as eng32:
+            runs[backend] = [eng32.submit(p, NEW_TOKENS).wait(
+                timeout=900).tolist() for p in prompts]
+            _check(_no_page_leak(eng32), "f32 run leaked pages")
+        engines[backend] = eng32
+    return runs, engines, p32
+
+
+# the depth at which the mixed phase's f32 int8 check once parted (a
+# full-width TinyLlama cut to 6 of its 22 layers)
+PARTING_LAYERS = 6
+
+
+def _stream_parting(torch, cfg32, p32, prompts, i, got, want, j) -> dict:
+    """A parting in the streams' own context: requests 0 .. i served again
+    as :func:`mixed_f32_streams` serves them, on engines that run their
+    decode steps eagerly (a replayed step equals the eager one bit for
+    bit), with the logits that request i's tokens were drawn from kept,
+    through the kernels and through the gather path.  Returns whether both
+    reruns repeat their streams up to step j, the largest gap between the
+    two paths' logits over steps 0 .. j, and the margin between the two
+    tokens at step j on each path."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime import batching
+
+    draw = batching.sample_logits
+    kept = {}
+    for backend, want_toks in (("auto", got), ("plain", want)):
+        rows, on = [], [False]
+
+        def keep(logits, *a, **kw):
+            tok = draw(logits, *a, **kw)
+            if on[0]:
+                rows.append((logits.float().cpu().numpy(),
+                             tok.cpu().numpy()))
+            return tok
+
+        batching.sample_logits = keep
+        try:
+            with batching.ContinuousBatchingEngine(
+                    cfg32, p32, max_seq=MAX_SEQ, max_batch=SLOTS,
+                    sampling=SamplingParams(greedy=True),
+                    kv_block_tokens=BLOCK_TOKENS,
+                    prefill_chunk=PREFILL_CHUNK,
+                    decode_block=MIXED_DECODE_BLOCK,
+                    mixed_token_budget=MIXED_BUDGET, kv_dtype="int8",
+                    attn_backend=backend, cuda_graph=False,
+                    device="cuda") as eng:
+                for k in range(i + 1):
+                    on[0] = k == i
+                    toks = eng.submit(prompts[k], NEW_TOKENS).wait(
+                        timeout=900).tolist()
+        finally:
+            batching.sample_logits = draw
+        # the draws of request i: token 0 from its final prefill row (a
+        # one-row draw), then one per decode step over all slots, from the
+        # slot whose draws are its tokens at every step
+        final = next(lg[0] for lg, tok in rows if tok.shape[0] == 1)
+        decs = [(lg, tok) for lg, tok in rows if tok.shape[0] > 1]
+        n = min(len(decs), len(toks) - 1)
+        slot = next(r for r in range(SLOTS)
+                    if all(decs[k][1][r] == toks[1 + k] for k in range(n)))
+        steps = [final] + [decs[k][0][slot] for k in range(n)]
+        kept[backend] = (toks, np.stack(steps[:j + 1]))
+    (tk, lk), (tp, lp) = kept["auto"], kept["plain"]
+    return {"repeats": tk[:j + 1] == got[:j + 1]
+            and tp[:j + 1] == want[:j + 1],
+            "logit_gap": float(np.abs(lk - lp).max()),
+            "kernel_margin": float(lk[j, got[j]] - lk[j, want[j]]),
+            "gather_margin": float(lp[j, want[j]] - lp[j, got[j]]),
+            "logit_scale": max(1.0, float(np.abs(lp).max()))}
+
+
+def phase_mixed_f32_partings(torch, model: str = SERVE_MODEL,
+                             layers: int = PARTING_LAYERS) -> dict:
+    """A diagnostic, run only by name (``--phase mixed_f32_partings``):
+    the mixed phase's f32 int8-page streams at ``layers`` of ``model``'s
+    layers, full width, and for each request whose kernel stream parts
+    from the gather path's, teacher forced along the kernels' tokens as
+    :func:`fp8_partings` does: the first differing step, the two paths'
+    largest logit gap up to it, and the margin between the two tokens'
+    logits there on the gather path.  Nothing is held: ``near_tie`` says
+    whether the margin is under the gap and the gap within
+    LOGIT_TOL_REL of the largest logit."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops import \
+        paged_attention as pa
+
+    cfg = get_model_config(model)
+    cfg32 = cfg.replace(dtype_name="float32", num_layers=layers)
+    prompts = _batch_prompts(cfg.vocab_size)
+    _reset_launches(pa.paged_prefill_attention, pa.paged_flash_attention)
+    runs, engines, p32 = mixed_f32_streams(torch, cfg32, prompts)
+    got, want = runs["auto"], runs["plain"]
+    partings = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(k for k in range(len(g)) if g[k] != w[k])
+        seq = prompts[i] + g[:j + 1]
+        lk = _paged_logits(torch, engines["auto"], seq, j + 1)
+        lp = _paged_logits(torch, engines["plain"], seq, j + 1)
+        gap = float(np.abs(lk[:j + 1] - lp[:j + 1]).max())
+        row = {"request": i, "prompt_len": len(prompts[i]), "step": j,
+               "kernel_token": g[j], "gather_token": w[j],
+               "margin": float(abs(lp[j, w[j]] - lp[j, g[j]])),
+               "kernel_margin": float(abs(lk[j, w[j]] - lk[j, g[j]])),
+               "logit_gap": gap,
+               "logit_tol": LOGIT_TOL_REL * max(1.0,
+                                                float(np.abs(lp).max()))}
+        row["near_tie"] = row["margin"] <= gap <= row["logit_tol"]
+        row["stream"] = _stream_parting(torch, cfg32, p32, prompts, i, g, w,
+                                        j)
+        partings.append(row)
+    del engines, p32
+    torch.cuda.empty_cache()
+    return {"phase": "mixed_f32_partings", "model": model,
+            "layers": layers, "kv_dtype": "int8",
+            "agreement_per_request": [sum(a == b for a, b in zip(g_, w_))
+                                      for g_, w_ in zip(got, want)],
+            "new_tokens": NEW_TOKENS,
+            "prefill_int8_launches":
+                pa.paged_prefill_attention.int8_launches,
+            "decode_int8_launches": pa.paged_flash_attention.int8_launches,
+            "partings": partings}
 
 
 # new tokens per request of a decode window: far more than the window
@@ -8796,11 +9069,21 @@ def main(argv) -> int:
     smi = nvidia_smi_line()
     print(smi, flush=True)
 
+    tally = F32Tally(torch)
+    f32_seen = []     # (phase, {instance: eager f32 prefill launches})
+
     def timed(fn, *args, **kw):
-        """``fn``'s phase line, with its wall seconds if it has none."""
+        """``fn``'s phase line, with its wall seconds if it has none and
+        the f32 prefill kernels' eager launches in this process."""
+        tally.take()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         out.setdefault("seconds", time.perf_counter() - t0)
+        launched = tally.take()
+        if launched:
+            out["f32_prefill_launches"] = launched
+            f32_seen.append((":".join(str(out[k]) for k in ("phase", "model")
+                                      if k in out), launched))
         return out
 
     # --phase NAME[,NAME...]: the build, then those phases alone (no
@@ -8822,6 +9105,7 @@ def main(argv) -> int:
                 "quant": phase_quant, "kvcache": phase_kvcache,
                 "surface": phase_surface, "moe": phase_moe,
                 "fleet": phase_fleet,
+                "mixed_f32_partings": phase_mixed_f32_partings,
                 "chain": phase_chain, "server": phase_server,
                 "vision": phase_vision, "native": phase_native,
                 "train": lambda t: phase_train(t, starts),
@@ -8831,9 +9115,11 @@ def main(argv) -> int:
             for name in only.split(","):
                 emit(timed(phases[name], torch))
             return 0
-        kern = timed(phase_kernels, torch)
+        kern = timed(phase_kernels, torch,
+                     device["ptxas"]["flash_attention.cu"])
         emit(kern)
-        paged = timed(phase_paged_kernels, torch)
+        paged = timed(phase_paged_kernels, torch,
+                      device["ptxas"]["paged_attention.cu"])
         emit(paged)
         qkern = timed(phase_quant_kernels, torch,
                       device["ptxas"]["quant_dense.cu"])
@@ -8893,6 +9179,7 @@ def main(argv) -> int:
         return 1
     finally:
         starts.close()
+        tally.close()
 
     def flash_case(case, dtype="bfloat16"):
         return next(c for c in kern["cases"]
@@ -9054,7 +9341,19 @@ def main(argv) -> int:
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
-                "library_ms": case["library_ms"]}
+                "library_ms": case["library_ms"],
+                # the template instance the case ran, with ptxas's
+                # registers and spill bytes
+                **{k: case[k] for k in ("instance", "registers",
+                                        "spill_stores", "spill_loads")
+                   if k in case},
+                # an f32 instance's eager launches in every phase that
+                # drove it (a replayed round's launches are not calls)
+                **({"f32_launches_by_phase": {
+                    ph: n[case["instance"]] for ph, n in f32_seen
+                    if case["instance"] in n}}
+                   if case.get("dtype") == "float32"
+                   and case.get("kind", "prefill") == "prefill" else {})}
 
     server_decode = sum(server["int8"]["dense_decode_launches_by_stage"])
     server_int8 = {"decode_launches": server_decode,

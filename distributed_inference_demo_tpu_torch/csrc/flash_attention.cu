@@ -77,10 +77,22 @@
 // step for the 64-row instance, which on long prompts is well short of
 // its operation bound.
 //
-// The f32-q instances keep the first design (full-f32 math on the CUDA
-// cores, no TF32) for the f32 cross-checks of the serving paths: one
-// block of 128 threads per 64-row tile, Q, K, V and P in f32 shared
-// memory.
+// Design of the f32-q instances (flash_f32_kernel<HD, ROWS>, the tile of
+// f32_tile.cuh, shared with the paged prefill kernel).  They serve the
+// f32 configurations and the f32 cross-checks of the serving paths, which
+// hold f32 streams token for token, so the math stays full f32 FFMA on
+// the CUDA cores (no TF32): the card's 67 TFLOP/s of f32 bounds them past
+// a few hundred keys a row, and at the serving chunk (64 tokens from 0)
+// they are bound by latency like the bf16 instances.  So the same shape:
+// 16-row blocks whose four warps take fixed 16-key slices of every tile
+// (128 blocks at the serving chunk where 64-row blocks give 32), a
+// 64-row instance (up to hd 128) once its blocks fill one and a half
+// waves of the card, K/V by
+// 16-byte cp.async into a ring of chunk slots beside the math, register
+// micro-tiles of S and O fed by 16-byte shared-memory reads, the online
+// softmax in the log2 domain; a row's output depends on its own keys
+// only (fixed key slices, merge in warp order).  An f32 cache that is
+// only 4-byte aligned comes by 4-byte copies.
 //
 // Plain C interface, loaded with ctypes: the launch goes on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -90,6 +102,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "f32_tile.cuh"
 #include "hopper_tile.cuh"
 
 namespace {
@@ -97,179 +110,35 @@ namespace {
 constexpr float NEG = -1e30f;
 
 // ---------------------------------------------------------------------
-// The f32-q instances: CUDA cores
+// The f32-q instances: CUDA cores, cp.async ring (f32_tile.cuh)
 
-constexpr int BR = 64;            // query rows per block
-constexpr int BK = 64;            // cache columns per tile
-constexpr int NT = 128;           // threads per block
-constexpr int RPT = BR / (NT / 16);   // rows per thread (8)
-constexpr int CPT = BK / 16;      // score columns per thread (4)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store_val(float* p, float x) { *p = x; }
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  // qs [BR][HD+1] + ks [BK][HD+1] + vs [BK][HD] + ps [BR][BK+1], f32;
-  // the +1 pads keep the row-broadcast reads on distinct banks
-  return sizeof(float) * (BR * (HD + 1) + BK * (HD + 1) + BK * HD +
-                          BR * (BK + 1));
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ slopes,
-                 T* __restrict__ out, int chunk, int nh, int nkv,
-                 int max_seq, int q_start, int kv_len, float scale) {
-  constexpr int QP = HD + 1;
-  constexpr int KP = HD + 1;
-  constexpr int PP = BK + 1;
-  constexpr int DPT = HD / 16;    // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;               // [BR][QP]
-  float* ks = qs + BR * QP;       // [BK][KP]
-  float* vs = ks + BK * KP;       // [BK][HD]
-  float* ps = vs + BK * HD;       // [BR][PP]
-
+// One block: ROWS regrouped rows of (kv head h, batch row bi) over the
+// dense plane of that pair.  The grid is one-dimensional, nrb row blocks
+// x nkv x b, the last row block (the longest prefix) first.
+template <int HD, int ROWS>
+__global__ void __launch_bounds__(f32_tile::NT,
+                                  (f32_tile::min_blocks<HD, ROWS>()))
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const float* __restrict__ slopes, float* __restrict__ out,
+                 int chunk, int nh, int nkv, int max_seq, int q_start,
+                 int kv_len, int nrb, float scale, bool vec16) {
+  extern __shared__ __align__(16) char f32_tiles[];
   const int g = nh / nkv;
-  const int rows = chunk * g;
-  const int row0 = blockIdx.x * BR;
-  const int h = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;        // column lane within a half-warp
-  const int ty = tid >> 4;        // row group; one half-warp per group
-
-  // Q tile, pre-scaled in f32 as the reference does (q * 1/sqrt(hd))
-  for (int i = tid; i < BR * HD; i += NT) {
-    const int r = i / HD, d = i - r * HD;
-    const int row = row0 + r;
-    float val = 0.f;
-    if (row < rows) {
-      const int c = row / g, m = row - c * g;
-      const size_t off =
-          (((size_t)bi * chunk + c) * nh + (size_t)h * g + m) * HD + d;
-      val = to_f32(q[off]) * scale;
-    }
-    qs[r * QP + d] = val;
-  }
-
-  float m_i[RPT], l_i[RPT], acc[RPT][DPT], slope[RPT];
-  int qpos[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + ty * RPT + r;
-    qpos[r] = q_start + row / g;
-    slope[r] = slopes != nullptr ? slopes[h * g + row % g] : 0.f;
-    m_i[r] = NEG;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[r][j] = 0.f;
-  }
-
-  const int last_row = min(row0 + BR, rows) - 1;
-  const int kv_end = min(kv_len, q_start + last_row / g + 1);
-  const size_t plane = ((size_t)bi * nkv + h) * (size_t)max_seq * HD;
-  const T* kb = k + plane;
-  const T* vb = v + plane;
-
-  for (int t0 = 0; t0 < kv_end; t0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * HD; i += NT) {
-      const int r = i / HD, d = i - r * HD;
-      const int pos = t0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (pos < kv_end) {
-        kv = to_f32(kb[(size_t)pos * HD + d]);
-        vv = to_f32(vb[(size_t)pos * HD + d]);
-      }
-      ks[r * KP + d] = kv;
-      vs[r * HD + d] = vv;
-    }
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[r][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float kr[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kr[j] = ks[(tx + 16 * j) * KP + d];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float qv = qs[(ty * RPT + r) * QP + d];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[r][j] = fmaf(qv, kr[j], s[r][j]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      float mx = NEG;
-      unsigned valid = 0;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kpos = t0 + tx + 16 * j;
-        const bool ok = kpos <= qpos[r] && kpos < kv_len;
-        float sv = s[r][j] - slope[r] * (float)(qpos[r] - kpos);
-        sv = ok ? sv : NEG;
-        valid |= (ok ? 1u : 0u) << j;
-        s[r][j] = sv;
-        mx = fmaxf(mx, sv);
-      }
-      // the 16 lanes of this half-warp hold the row's 64 columns
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_i[r], mx);
-      const float alpha = expf(m_i[r] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = (valid >> j) & 1u ? expf(s[r][j] - m_new) : 0.f;
-        rs += p;
-        ps[(ty * RPT + r) * PP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l_i[r] = l_i[r] * alpha + rs;
-      m_i[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[r][j] *= alpha;
-    }
-    __syncwarp();  // a row's probabilities come from its own half-warp
-
-    const int cols = min(BK, kv_end - t0);
-    for (int c = 0; c < cols; ++c) {
-      float vr[DPT];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) vr[j] = vs[c * HD + tx + 16 * j];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float p = ps[(ty * RPT + r) * PP + c];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[r][j] = fmaf(p, vr[j], acc[r][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + ty * RPT + r;
-    if (row >= rows) continue;
-    const int c = row / g, m = row - c * g;
-    const size_t off =
-        (((size_t)bi * chunk + c) * nh + (size_t)h * g + m) * HD;
-    const float denom = fmaxf(l_i[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      store_val(out + off + tx + 16 * j, acc[r][j] / denom);
-  }
+  const int planes = (int)gridDim.x / nrb;       // nkv * b
+  const int lin = (int)blockIdx.x;
+  const int rb = nrb - 1 - lin / planes;
+  const int h = lin % planes % nkv, bi = lin % planes / nkv;
+  const f32_tile::Args<float> a{q, out, k, nullptr, v, nullptr, slopes, g,
+                                chunk * g, chunk, nh, h, bi, rb * ROWS,
+                                q_start, kv_len, scale, vec16};
+  // token row of position pos: the (bi, h) plane's row pos
+  const long long plane = ((long long)bi * nkv + h) * max_seq;
+  f32_tile::run<float, HD, ROWS, f32_tile::stages<float, HD, ROWS>()>(
+      a, f32_tiles, [&](int t, int kend) -> long long {
+        const int pos = t * f32_tile::TK + (int)(threadIdx.x >> 1);
+        return pos < kend ? plane + pos : -1;
+      });
 }
 
 // ---------------------------------------------------------------------
@@ -497,7 +366,6 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using I = Inst<HD, ROWS>;
   constexpr int PITCH = I::PITCH, KWS = I::KWS, KW = I::KW, KS = I::KS,
                 NS = I::NS;
-  // (the f32 kernel's extern array is float: nvcc wants another name)
   extern __shared__ __align__(16) char tiles[];
   bf16* qs = reinterpret_cast<bf16*>(tiles);
   char* ring = tiles + I::Q_BYTES;
@@ -676,22 +544,27 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* slopes, void* out, int b, int chunk, int nh,
-                   int nkv, int max_seq, int q_start, int kv_len,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<T, HD>;
+template <int HD, int ROWS>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const float* slopes, void* out, int b, int chunk,
+                       int nh, int nkv, int max_seq, int q_start, int kv_len,
+                       float scale, cudaStream_t stream) {
+  constexpr size_t smem =
+      f32_tile::Inst<float, HD, ROWS,
+                     f32_tile::stages<float, HD, ROWS>()>::SMEM;
+  auto kern = flash_f32_kernel<HD, ROWS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int rows = chunk * (nh / nkv);
-  dim3 grid((rows + BR - 1) / BR, nkv, b);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), slopes, static_cast<T*>(out), chunk, nh,
-      nkv, max_seq, q_start, kv_len, scale);
+  const long long rows = (long long)chunk * (nh / nkv);
+  const long long nrb = (rows + ROWS - 1) / ROWS;
+  const long long blocks = nrb * nkv * b;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, f32_tile::NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), slopes, static_cast<float*>(out), chunk,
+      nh, nkv, max_seq, q_start, kv_len, (int)nrb, scale,
+      ((uintptr_t)k | (uintptr_t)v) % 16 == 0);
   return cudaGetLastError();
 }
 
@@ -722,12 +595,12 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
 // slopes: [nh] float32 ALiBi slopes on the device, or null.
-// rows_per_block: the bfloat16 instance, regrouped query rows per block:
-// 16 or 64 (16-byte aligned q, caches and out); float32 has one instance
-// and ignores it.
+// rows_per_block: the instance, regrouped query rows per block: 16 or 64
+// (bfloat16: 16-byte aligned q, caches and out; float32: 4-byte aligned
+// q and caches, 16-byte aligned out, 64 rows up to hd 128).
 // Returns a cudaError_t (cudaErrorInvalidValue for a shape, dtype, head
-// dim or bfloat16 rows_per_block without an instance); the caller raises
-// on anything but 0.
+// dim or rows_per_block without an instance); the caller raises on
+// anything but 0.
 int flash_attention_fwd(const void* q, const void* k_cache,
                         const void* v_cache, const void* slopes, void* out,
                         int b, int chunk, int nh, int nkv, int hd,
@@ -737,9 +610,10 @@ int flash_attention_fwd(const void* q, const void* k_cache,
     return (int)cudaErrorInvalidValue;
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_CASE(T, HD)                                                   \
-  return (int)launch<T, HD>(q, k_cache, v_cache, sl, out, b, chunk, nh,  \
-                            nkv, max_seq, q_start, kv_len, scale, st)
+#define FA_F32(HD, ROWS)                                                 \
+  return (int)launch_f32<HD, ROWS>(q, k_cache, v_cache, sl, out, b,      \
+                                   chunk, nh, nkv, max_seq, q_start,     \
+                                   kv_len, scale, st)
 #define FA_MMA(HD, ROWS)                                                 \
   return (int)launch_mma<HD, ROWS>(q, k_cache, v_cache, sl, out, b,      \
                                    chunk, nh, nkv, max_seq, q_start,     \
@@ -748,9 +622,16 @@ int flash_attention_fwd(const void* q, const void* k_cache,
   // (bloom3b), 96 (bloom1b1), 128 (llama-3-8b, bloom7b1), 256 (gemma)
 #define FA_HD(HD)                                                        \
   if (hd == HD) {                                                        \
-    if (dtype == 0) FA_CASE(float, HD);                                  \
+    if (dtype == 0 && rows_per_block == 16) FA_F32(HD, 16);              \
     if (dtype == 1 && rows_per_block == 16) FA_MMA(HD, 16);              \
     if (dtype == 1 && rows_per_block == 64) FA_MMA(HD, 64);              \
+  }
+  // the f32 64-row instance: up to hd 128
+  if (dtype == 0 && rows_per_block == 64) {
+    if (hd == 64) FA_F32(64, 64);
+    if (hd == 80) FA_F32(80, 64);
+    if (hd == 96) FA_F32(96, 64);
+    if (hd == 128) FA_F32(128, 64);
   }
   FA_HD(64)
   FA_HD(80)
@@ -759,7 +640,7 @@ int flash_attention_fwd(const void* q, const void* k_cache,
   FA_HD(256)
 #undef FA_HD
 #undef FA_MMA
-#undef FA_CASE
+#undef FA_F32
   return (int)cudaErrorInvalidValue;
 }
 

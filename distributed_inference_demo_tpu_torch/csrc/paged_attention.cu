@@ -11,7 +11,8 @@
 //   the causal bound: the query sits at kv_len - 1), with an optional
 //   ALiBi bias -slope * (kv_len - 1 - s);
 // - prefill replaces _paged_prefill_kernel (via _paged_prefill_call):
-//   paged_prefill_kernel for f32 q, paged_prefill_mma_kernel for bf16 q.
+//   paged_prefill_f32_kernel for f32 q, paged_prefill_mma_kernel for
+//   bf16 q.
 //   A contiguous chunk of queries per row.  Row r
 //   of the regrouped [chunk*g] rows of kv head h is position
 //   starts[b] + r/g of q head h*g + r%g and attends to every s <= its own
@@ -104,11 +105,23 @@
 // and a per-key-row paged gather is simpler with cp.async than with one
 // TMA box per page.
 //
-// The f32-q instances (f32 pages, or int8 pages under f32 q) keep full
+// The f32-q instances (f32, int8 or e4m3 pages under f32 q) keep full
 // f32 math on the CUDA cores, with no TF32, as the f32 cross-checks of
-// the serving paths need: one block per (row, kv head) for decode and
-// per (64-row tile, kv head, row) for prefill, looping over 32- or
-// 64-key tiles and looking each key's page up as they load.
+// the serving paths need (they hold f32 streams token for token, and a
+// stream may run within 1e-4 of a tie).
+// - Prefill: paged_prefill_f32_kernel<P, HD, ROWS>, the f32 tile of
+//   f32_tile.cuh (its header gives the design), shared with the flash
+//   kernel's f32 instances: 16-row blocks of four warps on fixed 16-key
+//   slices of every 64-key tile (a 64-row instance for full-width pages
+//   up to hd 128 past one and a half waves of blocks), K/V by 16-byte
+//   cp.async through the table into a ring of chunk slots, each key
+//   row's page looked up once a tile, byte pages turned into f32 once by
+//   the warp that reads them (int8: code * scale per element, as the
+//   plain version), register micro-tiles, log2-domain softmax.  At the
+//   serving chunk (64 tokens at 200) it is bound by latency; long chunks
+//   by the card's f32 FFMA rate.
+// - Decode: one block per (row, kv head), looping over 32-key tiles and
+//   looking each key's page up as they load (the first design).
 //
 // float8 e4m3 pages (a kv_cache_dtype pool).  The Pallas kernels upcast a
 // page of any dtype to f32 after its load; here a third page type streams
@@ -142,10 +155,12 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "f32_tile.cuh"
 #include "hopper_tile.cuh"
 
 namespace {
@@ -338,181 +353,43 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
 }
 
 // ---------------------------------------------------------------------
-// Prefill
+// Prefill, f32 q: CUDA cores, cp.async ring (f32_tile.cuh)
 
-constexpr int P_BR = 64;               // query rows per block
-constexpr int P_BK = 64;               // keys per tile
-constexpr int P_NT = 128;              // threads per block
-constexpr int P_RPT = P_BR / (P_NT / 16);   // rows per thread (8)
-constexpr int P_CPT = P_BK / 16;       // score columns per thread (4)
-
-template <int HD>
-constexpr size_t prefill_smem_bytes() {
-  // qs [BR][HD+1] + ks [BK][HD+1] + vs [BK][HD] + ps [BR][BK+1], f32;
-  // the +1 pads keep the row-broadcast reads on distinct banks
-  return sizeof(float) * (P_BR * (HD + 1) + P_BK * (HD + 1) + P_BK * HD +
-                          P_BR * (P_BK + 1));
-}
-
-template <typename T, typename P, int HD>
-__global__ void __launch_bounds__(P_NT)
-paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ kp,
-                     const float* __restrict__ ksc,
-                     const P* __restrict__ vp,
-                     const float* __restrict__ vsc,
-                     const int* __restrict__ tables,
-                     const int* __restrict__ starts,
-                     const float* __restrict__ slopes, T* __restrict__ out,
-                     int chunk, int nh, int nkv, int bt, int num_pages,
-                     int W, float scale) {
-  constexpr int QP = HD + 1;
-  constexpr int KP = HD + 1;
-  constexpr int PP = P_BK + 1;
-  constexpr int DPT = HD / 16;    // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;               // [BR][QP]
-  float* ks = qs + P_BR * QP;     // [BK][KP]
-  float* vs = ks + P_BK * KP;     // [BK][HD]
-  float* ps = vs + P_BK * HD;     // [BR][PP]
-
+// One block: ROWS regrouped rows of (kv head h, row bi) over the row's
+// pages.  The grid is one-dimensional, nrb row blocks x nkv x b, the last
+// row block (the longest prefix) first.
+template <typename P, int HD, int ROWS>
+__global__ void __launch_bounds__(f32_tile::NT,
+                                  (f32_tile::min_blocks<HD, ROWS>()))
+paged_prefill_f32_kernel(const float* __restrict__ q,
+                         const P* __restrict__ kp,
+                         const float* __restrict__ ksc,
+                         const P* __restrict__ vp,
+                         const float* __restrict__ vsc,
+                         const int* __restrict__ tables,
+                         const int* __restrict__ starts,
+                         const float* __restrict__ slopes,
+                         float* __restrict__ out, int chunk, int nh, int nkv,
+                         int bt, int num_pages, int W, int nrb,
+                         float scale) {
+  extern __shared__ __align__(16) char f32_tiles[];
   const int g = nh / nkv;
-  const int rows = chunk * g;
-  const int row0 = blockIdx.x * P_BR;
-  const int h = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;        // column lane within a half-warp
-  const int ty = tid >> 4;        // row group; one half-warp per group
+  const int planes = (int)gridDim.x / nrb;       // nkv * b
+  const int lin = (int)blockIdx.x;
+  const int rb = nrb - 1 - lin / planes;
+  const int h = lin % planes % nkv, bi = lin % planes / nkv;
   const int* tab = tables + (size_t)bi * W;
-  const int start = starts[bi];
-
-  for (int i = tid; i < P_BR * HD; i += P_NT) {
-    const int r = i / HD, d = i - r * HD;
-    const int row = row0 + r;
-    float val = 0.f;
-    if (row < rows) {
-      const int c = row / g, m = row - c * g;
-      const size_t off =
-          (((size_t)bi * chunk + c) * nh + (size_t)h * g + m) * HD + d;
-      val = to_f32(q[off]) * scale;
-    }
-    qs[r * QP + d] = val;
-  }
-
-  float m_i[P_RPT], l_i[P_RPT], acc[P_RPT][DPT], slope[P_RPT];
-  int qpos[P_RPT];
-#pragma unroll
-  for (int r = 0; r < P_RPT; ++r) {
-    const int row = row0 + ty * P_RPT + r;
-    qpos[r] = start + row / g;
-    slope[r] = slopes != nullptr ? slopes[h * g + row % g] : 0.f;
-    m_i[r] = NEG;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[r][j] = 0.f;
-  }
-
-  // the tile's causal frontier, and never past the table
-  const int last_row = min(row0 + P_BR, rows) - 1;
-  const int kv_end = max(0, min(start + last_row / g + 1, W * bt));
-
-  for (int t0 = 0; t0 < kv_end; t0 += P_BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < P_BK * HD; i += P_NT) {
-      const int r = i / HD, d = i - r * HD;
-      const int pos = t0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (pos < kv_end) {
-        const size_t row = page_row(tab, pos, bt, nkv, h, num_pages);
-        kx = load_kv(kp, ksc, row, HD, d);
-        vx = load_kv(vp, vsc, row, HD, d);
-      }
-      ks[r * KP + d] = kx;
-      vs[r * HD + d] = vx;
-    }
-    __syncthreads();
-
-    float s[P_RPT][P_CPT];
-#pragma unroll
-    for (int r = 0; r < P_RPT; ++r)
-#pragma unroll
-      for (int j = 0; j < P_CPT; ++j) s[r][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float kr[P_CPT];
-#pragma unroll
-      for (int j = 0; j < P_CPT; ++j) kr[j] = ks[(tx + 16 * j) * KP + d];
-#pragma unroll
-      for (int r = 0; r < P_RPT; ++r) {
-        const float qv = qs[(ty * P_RPT + r) * QP + d];
-#pragma unroll
-        for (int j = 0; j < P_CPT; ++j) s[r][j] = fmaf(qv, kr[j], s[r][j]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < P_RPT; ++r) {
-      float mx = NEG;
-      unsigned valid = 0;
-#pragma unroll
-      for (int j = 0; j < P_CPT; ++j) {
-        const int kpos = t0 + tx + 16 * j;
-        const bool ok = kpos <= qpos[r] && kpos < kv_end;
-        float sv = s[r][j] - slope[r] * (float)(qpos[r] - kpos);
-        sv = ok ? sv : NEG;
-        valid |= (ok ? 1u : 0u) << j;
-        s[r][j] = sv;
-        mx = fmaxf(mx, sv);
-      }
-      // the 16 lanes of this half-warp hold the row's 64 columns
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_i[r], mx);
-      const float alpha = expf(m_i[r] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < P_CPT; ++j) {
-        const float p = (valid >> j) & 1u ? expf(s[r][j] - m_new) : 0.f;
-        rs += p;
-        ps[(ty * P_RPT + r) * PP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l_i[r] = l_i[r] * alpha + rs;
-      m_i[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[r][j] *= alpha;
-    }
-    __syncwarp();  // a row's probabilities come from its own half-warp
-
-    const int cols = min(P_BK, kv_end - t0);
-    for (int c = 0; c < cols; ++c) {
-      float vr[DPT];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) vr[j] = vs[c * HD + tx + 16 * j];
-#pragma unroll
-      for (int r = 0; r < P_RPT; ++r) {
-        const float p = ps[(ty * P_RPT + r) * PP + c];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[r][j] = fmaf(p, vr[j], acc[r][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < P_RPT; ++r) {
-    const int row = row0 + ty * P_RPT + r;
-    if (row >= rows) continue;
-    const int c = row / g, m = row - c * g;
-    const size_t off =
-        (((size_t)bi * chunk + c) * nh + (size_t)h * g + m) * HD;
-    const float denom = fmaxf(l_i[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      store_val(out + off + tx + 16 * j, acc[r][j] / denom);
-  }
+  // keys never reach past the table
+  const f32_tile::Args<P> a{q, out, kp, ksc, vp, vsc, slopes, g,
+                            chunk * g, chunk, nh, h, bi, rb * ROWS,
+                            starts[bi], W * bt, scale, true};
+  f32_tile::run<P, HD, ROWS, f32_tile::stages<P, HD, ROWS>()>(
+      a, f32_tiles, [&](int t, int kend) -> long long {
+        const int pos = t * f32_tile::TK + (int)(threadIdx.x >> 1);
+        return pos < kend
+                   ? (long long)page_row(tab, pos, bt, nkv, h, num_pages)
+                   : -1;
+      });
 }
 
 // ---------------------------------------------------------------------
@@ -1227,24 +1104,50 @@ cudaError_t launch_decode_split(const void* q, Pages pg, const int* tables,
   return cudaGetLastError();
 }
 
-// The f32-q prefill: one block per (64-row tile, kv head, row).
-template <typename T, typename P, int HD>
-cudaError_t launch_prefill(const void* q, Pages pg, const int* tables,
-                           const int* starts, const float* slopes, void* out,
-                           int b, int chunk, int nh, int nkv, int bt,
-                           int num_pages, int W, float scale,
-                           cudaStream_t stream) {
-  constexpr size_t smem = prefill_smem_bytes<HD>();
-  auto kern = paged_prefill_kernel<T, P, HD>;
+// The f32-q prefill: one block per (ROWS rows, kv head, row).
+template <typename P, int HD, int ROWS>
+cudaError_t launch_prefill_f32(const void* q, Pages pg, const int* tables,
+                               const int* starts, const float* slopes,
+                               void* out, int b, int chunk, int nh, int nkv,
+                               int bt, int num_pages, int W, float scale,
+                               cudaStream_t stream) {
+  constexpr size_t smem =
+      f32_tile::Inst<P, HD, ROWS, f32_tile::stages<P, HD, ROWS>()>::SMEM;
+  auto kern = paged_prefill_f32_kernel<P, HD, ROWS>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const int rows = chunk * (nh / nkv);
-  dim3 grid((rows + P_BR - 1) / P_BR, nkv, b);
-  kern<<<grid, P_NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(pg.k), pg.ks,
+  const long long rows = (long long)chunk * (nh / nkv);
+  const long long nrb = (rows + ROWS - 1) / ROWS;
+  const long long blocks = nrb * nkv * b;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, f32_tile::NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const P*>(pg.k), pg.ks,
       static_cast<const P*>(pg.v), pg.vs, tables, starts, slopes,
-      static_cast<T*>(out), chunk, nh, nkv, bt, num_pages, W, scale);
+      static_cast<float*>(out), chunk, nh, nkv, bt, num_pages, W, (int)nrb,
+      scale);
   return cudaGetLastError();
+}
+
+// ... its instance by rows_per_block: 16, or 64 for full-width pages up
+// to hd 128.
+template <typename P, int HD>
+cudaError_t launch_prefill_f32_rows(const void* q, Pages pg,
+                                    const int* tables, const int* starts,
+                                    const float* slopes, void* out, int b,
+                                    int chunk, int nh, int nkv, int bt,
+                                    int num_pages, int W, float scale,
+                                    int rows_per_block, cudaStream_t stream) {
+  if (rows_per_block == 16)
+    return launch_prefill_f32<P, HD, 16>(q, pg, tables, starts, slopes, out,
+                                         b, chunk, nh, nkv, bt, num_pages, W,
+                                         scale, stream);
+  if constexpr (sizeof(P) == sizeof(float) && HD <= 128) {
+    if (rows_per_block == 64)
+      return launch_prefill_f32<P, HD, 64>(q, pg, tables, starts, slopes,
+                                           out, b, chunk, nh, nkv, bt,
+                                           num_pages, W, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The bf16-q prefill: one block per (PREFILL_ROWS rows, kv head, row).
@@ -1337,7 +1240,8 @@ template <int KIND>
 int prefill_fwd(const void* q, Pages pg, const void* tables,
                 const void* starts, const void* slopes, void* out, int b,
                 int chunk, int nh, int nkv, int hd, int bt, int num_pages,
-                int W, float scale, int dtype, void* stream) {
+                int W, float scale, int dtype, int rows_per_block,
+                void* stream) {
   if (!shapes_ok(b, chunk, nh, nkv, bt, num_pages, W))
     return (int)cudaErrorInvalidValue;
   const int* tab = static_cast<const int*>(tables);
@@ -1358,16 +1262,17 @@ int prefill_fwd(const void* q, Pages pg, const void* tables,
 #undef PP_MMA
     return (int)cudaErrorInvalidValue;
   }
-#define PP_CASE(T, HD)                                                     \
-  return (int)launch_prefill<T, typename PageOf<KIND, T>::type, HD>(       \
+  using P32 = typename PageOf<KIND, float>::type;
+#define PP_F32(HD)                                                         \
+  return (int)launch_prefill_f32_rows<P32, HD>(                            \
       q, pg, tab, st0, sl, out, b, chunk, nh, nkv, bt, num_pages, W, scale, \
-      st)
-  if (dtype == 0 && hd == 64) PP_CASE(float, 64);
-  if (dtype == 0 && hd == 80) PP_CASE(float, 80);
-  if (dtype == 0 && hd == 96) PP_CASE(float, 96);
-  if (dtype == 0 && hd == 128) PP_CASE(float, 128);
-  if (dtype == 0 && hd == 256) PP_CASE(float, 256);
-#undef PP_CASE
+      rows_per_block, st)
+  if (dtype == 0 && hd == 64) PP_F32(64);
+  if (dtype == 0 && hd == 80) PP_F32(80);
+  if (dtype == 0 && hd == 96) PP_F32(96);
+  if (dtype == 0 && hd == 128) PP_F32(128);
+  if (dtype == 0 && hd == 256) PP_F32(256);
+#undef PP_F32
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1411,16 +1316,20 @@ int paged_decode_int8_fwd(const void* q, const void* k_pages,
 }
 
 // As paged_decode_fwd, with q/out [b, chunk, nh, hd] and starts [b]
-// int32: the position of each row's first chunk token.
+// int32: the position of each row's first chunk token.  rows_per_block:
+// the f32 instance's regrouped query rows per block, 16, or 64 for
+// full-width pages up to hd 128 (bf16 has one instance of PREFILL_ROWS
+// and ignores it).
 int paged_prefill_fwd(const void* q, const void* k_pages,
                       const void* v_pages, const void* tables,
                       const void* starts, const void* slopes, void* out,
                       int b, int chunk, int nh, int nkv, int hd, int bt,
                       int num_pages, int W, float scale, int dtype,
-                      void* stream) {
+                      int rows_per_block, void* stream) {
   return prefill_fwd<FULL>(q, Pages{k_pages, nullptr, v_pages, nullptr},
                             tables, starts, slopes, out, b, chunk, nh, nkv,
-                            hd, bt, num_pages, W, scale, dtype, stream);
+                            hd, bt, num_pages, W, scale, dtype,
+                            rows_per_block, stream);
 }
 
 // As paged_prefill_fwd over int8 pages with their float32 scales.
@@ -1430,13 +1339,13 @@ int paged_prefill_int8_fwd(const void* q, const void* k_pages,
                            const void* starts, const void* slopes, void* out,
                            int b, int chunk, int nh, int nkv, int hd, int bt,
                            int num_pages, int W, float scale, int dtype,
-                           void* stream) {
+                           int rows_per_block, void* stream) {
   return prefill_fwd<INT8>(
       q,
       Pages{k_pages, static_cast<const float*>(k_scale), v_pages,
             static_cast<const float*>(v_scale)},
       tables, starts, slopes, out, b, chunk, nh, nkv, hd, bt, num_pages, W,
-      scale, dtype, stream);
+      scale, dtype, rows_per_block, stream);
 }
 
 // As paged_decode_fwd over float8 e4m3 pages [num_pages, nkv, bt, hd]
@@ -1459,10 +1368,11 @@ int paged_prefill_fp8_fwd(const void* q, const void* k_pages,
                           const void* starts, const void* slopes, void* out,
                           int b, int chunk, int nh, int nkv, int hd, int bt,
                           int num_pages, int W, float scale, int dtype,
-                          void* stream) {
+                          int rows_per_block, void* stream) {
   return prefill_fwd<FP8>(q, Pages{k_pages, nullptr, v_pages, nullptr},
                           tables, starts, slopes, out, b, chunk, nh, nkv, hd,
-                          bt, num_pages, W, scale, dtype, stream);
+                          bt, num_pages, W, scale, dtype, rows_per_block,
+                          stream);
 }
 
 const char* paged_attention_error_string(int err) {

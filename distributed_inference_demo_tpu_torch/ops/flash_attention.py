@@ -7,10 +7,11 @@ it).  ``flash_attention`` launches it for CUDA tensors and raises on
 anything it does not take; for CPU tensors it runs the plain PyTorch
 version, which is ``ops.attention.attention`` at contiguous query
 positions.  Its integer ``flash_attention.launches`` counts kernel
-launches, so a run can show that it went through the kernel, and
+launches, so a run can show that it went through the kernel,
 ``flash_attention.wide_launches`` those of the bf16 kernel's 64-row
-instance, so a run can show which instance it took
-(:func:`flash_rows_per_block` picks it).
+instance and ``flash_attention.f32_wide_launches`` those of the f32
+kernel's, so a run can show which instance it took
+(:func:`flash_rows_per_block` and :func:`f32_rows_per_block` pick them).
 """
 
 import ctypes
@@ -65,6 +66,28 @@ def flash_rows_per_block(b: int, nkv: int, rows: int, sm_count: int) -> int:
     other and the faster one varies with the shape (PERF.md §6 lists
     the shapes where the rule picks the slower one)."""
     return 64 if b * nkv * -(-rows // 64) >= sm_count else 16
+
+
+# the f32 kernel's 64-row instance exists for head dims up to this one
+# (at 256 a lane's 128 accumulators leave no room for its 64-key scores)
+F32_WIDE_MAX_HD = 128
+
+
+def f32_rows_per_block(b: int, nkv: int, rows: int, hd: int, sm_count: int,
+                       full_width: bool = True) -> int:
+    """The f32 kernel's instance (``csrc/f32_tile.cuh``, shared with the
+    paged prefill kernel) for ``rows`` regrouped query rows of ``b``
+    batch rows and ``nkv`` kv heads: 64 rows a block, whose one K/V tile
+    feeds 64 rows, when those blocks alone fill one and a half waves of
+    the card's ``sm_count`` SMs, the head dim has that instance and the
+    K/V are full-width f32 (``full_width``; byte pages take 16-row blocks
+    only), else 16 (four times the blocks, a block's four warps split each
+    tile's keys).  Below that line the 16-row blocks won on the card at
+    132-150 64-row blocks of a causal chunk (257 tokens from 0, a tp=2
+    rank's 600), the 64-row ones from 256 on (PERF.md §6)."""
+    if hd > F32_WIDE_MAX_HD or not full_width:
+        return 16
+    return 64 if 2 * b * nkv * -(-rows // 64) >= 3 * sm_count else 16
 
 
 @functools.cache
@@ -127,18 +150,21 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda_args(q, k_cache, v_cache, q_start, kv_len, slopes)
-    b, chunk, nh, _ = q.shape
+    b, chunk, nh, hd = q.shape
     nkv = k_cache.shape[1]
-    rows = flash_rows_per_block(b, nkv, chunk * (nh // nkv),
-                                _sm_count(q.device))
+    if q.dtype == torch.bfloat16:
+        rows = flash_rows_per_block(b, nkv, chunk * (nh // nkv),
+                                    _sm_count(q.device))
+    else:
+        rows = f32_rows_per_block(b, nkv, chunk * (nh // nkv), hd,
+                                  _sm_count(q.device))
     return _launch(q, k_cache, v_cache, q_start, kv_len, slopes, rows)
 
 
 def _launch(q, k_cache, v_cache, q_start: int, kv_len: int, slopes,
             rows_per_block: int) -> torch.Tensor:
-    """One launch of the bf16 instance with ``rows_per_block`` rows a
-    block (the f32 kernel has one instance and ignores it; arguments
-    already checked); counts it."""
+    """One launch of q's dtype's instance with ``rows_per_block`` rows a
+    block (arguments already checked); counts it."""
     b, chunk, nh, hd = q.shape
     nkv, max_seq = k_cache.shape[1], k_cache.shape[2]
     if slopes is not None:
@@ -157,13 +183,17 @@ def _launch(q, k_cache, v_cache, q_start: int, kv_len: int, slopes,
                            + err_str(err).decode())
     with _count_lock:
         flash_attention.launches += 1
-        if q.dtype == torch.bfloat16 and rows_per_block == 64:
-            flash_attention.wide_launches += 1
+        if rows_per_block == 64:
+            if q.dtype == torch.bfloat16:
+                flash_attention.wide_launches += 1
+            else:
+                flash_attention.f32_wide_launches += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.wide_launches = 0
+flash_attention.f32_wide_launches = 0
 
 
 def make_flash_attn_impl(min_chunk: int = 16):

@@ -43,7 +43,9 @@ for CPU tensors they run their plain PyTorch version
 Each has integer counts of kernel launches: ``.launches`` (full-width
 pages), ``.int8_launches`` and ``.fp8_launches``, one per wrapper call
 (a bf16 decode call is two CUDA launches, the split pass and its
-merge).
+merge); the prefill wrapper's ``.f32_wide_launches`` counts its f32
+launches of 64-row blocks (``ops.flash_attention.f32_rows_per_block``
+picks them, as it does for the flash kernel).
 
 Under bf16 q the decode kernel splits each row's keys at fixed positions
 ``KV_SPLIT`` apart (flash-decoding) and merges the splits' partial
@@ -60,6 +62,7 @@ import numpy as np
 import torch
 
 from .attention import attention, prepare_kv_chunk
+from .flash_attention import _sm_count, f32_rows_per_block
 from .quant import FLOAT8, QuantizedKVPages, as_bytes, quantize_kv_like
 
 SOURCE = "paged_attention.cu"
@@ -69,6 +72,9 @@ MAX_DECODE_GROUP = 16        # q heads per kv head the decode kernel takes
 # keys per split of the bf16 decode kernel, as KV_SPLIT in the source,
 # which refuses a launch whose split count does not match it
 KV_SPLIT = 128
+# query rows a block of the bf16 prefill kernel (PREFILL_ROWS in the
+# source; the f32 instances' rows come from f32_rows_per_block)
+PREFILL_ROWS = 16
 # one prefill kernel call's query rows = chunk * group, padded to 8; the
 # reference's cap (its f32 VMEM accumulators crowd the page stream past
 # it), kept off the card so the routing matches the reference's; the
@@ -301,13 +307,16 @@ def _kernel_fns() -> dict:
     tail = [ctypes.c_float, i32, ptr]
     fns = {}
     # decode: q, pages, tables, kv_lens, slopes, out, 2 scratch; b, nh,
-    # nkv, hd, bt, num_pages, W, splits.  prefill: q, pages, tables,
-    # starts, slopes, out; b, chunk, nh, nkv, hd, bt, num_pages, W
-    for kind, n_ptr, n_int in (("decode", 9, 8), ("prefill", 7, 8)):
+    # nkv, hd, bt, num_pages, W, splits; scale, dtype.  prefill: q,
+    # pages, tables, starts, slopes, out; b, chunk, nh, nkv, hd, bt,
+    # num_pages, W; scale, dtype, rows_per_block
+    for kind, n_ptr, n_int, n_tail in (("decode", 9, 8, 0),
+                                       ("prefill", 7, 8, 1)):
         for page in PAGE_TYPES:
             fn = getattr(lib, f"paged_{kind}{_SUFFIX[page]}_fwd")
             n_scales = 2 if page == "int8" else 0
-            fn.argtypes = [ptr] * (n_ptr + n_scales) + [i32] * n_int + tail
+            fn.argtypes = ([ptr] * (n_ptr + n_scales) + [i32] * n_int
+                           + tail[:2] + [i32] * n_tail + tail[2:])
             fn.restype = i32
             fns[kind, page] = fn
     lib.paged_attention_error_string.argtypes = [i32]
@@ -505,6 +514,22 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
     page, tables, starts = _check_cuda_args(
         "paged_prefill_attention", q, k_pages, v_pages, tables,
         q_positions[:, 0], slopes)
+    nkv = k_pages.shape[1]
+    rows = PREFILL_ROWS
+    if q.dtype == torch.float32:
+        rows = f32_rows_per_block(b, nkv, chunk * (nh // nkv), hd,
+                                  _sm_count(q.device),
+                                  full_width=page == "full")
+    return _prefill_launch(q, k_pages, v_pages, tables, starts, slopes,
+                           page, rows)
+
+
+def _prefill_launch(q, k_pages, v_pages, tables, starts, slopes, page: str,
+                    rows_per_block: int) -> torch.Tensor:
+    """One prefill launch of q's dtype's instance with ``rows_per_block``
+    rows a block (f32: 16 or 64; bf16 has one instance, PREFILL_ROWS),
+    the arguments checked by :func:`_check_cuda_args`; counts it."""
+    b, chunk, nh, hd = q.shape
     num_pages, nkv, bt, _ = k_pages.shape
     if slopes is not None:
         slopes = slopes.float().contiguous()
@@ -514,14 +539,18 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
         tables.data_ptr(), starts.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, out.data_ptr(),
         b, chunk, nh, nkv, hd, bt, num_pages, tables.shape[1], _scale(hd),
-        _DTYPE_CODE[q.dtype]), _kernel_fns())
+        _DTYPE_CODE[q.dtype], rows_per_block), _kernel_fns())
     _count(paged_prefill_attention, page)
+    if q.dtype == torch.float32 and rows_per_block == 64:
+        with _count_lock:
+            paged_prefill_attention.f32_wide_launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
 paged_prefill_attention.int8_launches = 0
 paged_prefill_attention.fp8_launches = 0
+paged_prefill_attention.f32_wide_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -644,7 +644,7 @@ def write_tp_row(mesh, pk, pv, row_k, row_v, table, num_pages=None):
 # ---------------------------------------------------------------------------
 
 _COUNTERS = ("launches", "int8_launches", "fp8_launches", "wide_launches",
-             "decode_launches")
+             "f32_wide_launches", "decode_launches")
 
 
 def _rank_launches(mesh, reset: bool):

@@ -67,8 +67,10 @@ _COUNTERS = (
     (_pa.paged_flash_attention, ("launches", "int8_launches",
                                  "fp8_launches"), _pa._count_lock),
     (_pa.paged_prefill_attention, ("launches", "int8_launches",
-                                   "fp8_launches"), _pa._count_lock),
-    (_fa.flash_attention, ("launches", "wide_launches"), _fa._count_lock),
+                                   "fp8_launches", "f32_wide_launches"),
+     _pa._count_lock),
+    (_fa.flash_attention, ("launches", "wide_launches", "f32_wide_launches"),
+     _fa._count_lock),
     (_qd.quant_dense, ("launches", "decode_launches"), _qd._count_lock),
 )
 # one capture at a time in the process (CUDA's rule for stream capture);
