@@ -37,8 +37,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             full-width pages and on int8 pages (their int8 instances),
             the prefill kernel on a mixed dispatch's 4-row slab and on a
             1024-row chunk, decode rows around the split boundaries;
-            each row of the 8-slot bf16 decode launch bit-equal to the
-            row launched alone;
+            each row of the 8-slot decode launch (f32 and bf16 q)
+            bit-equal to the row launched alone;
 3. serve    the plain path: ``InferenceHTTPServer`` over
             ``InferenceEngine`` at full TinyLlama-1.1B width (random
             weights from a seed) answers a greedy, a streamed and a
@@ -95,11 +95,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             routing;
 9. quant    int8 / int4 weights through the dequantizing dense kernels
             (``csrc/quant_dense.cu``: the decode kernel for bf16 M <= 16,
-            the prefill kernel above, the f32 kernel for f32).  Its rows
+            the prefill kernel above; for f32 the f32 decode kernel and
+            the f32 tile kernel, split at the same M).  Its rows
             (with phase 2): each kernel against its plain version at
             TinyLlama's seven weight shapes, M = 1, 8 and 256, int8 and
             int4, bf16 and f32 activations, M = 16 and 17 (the routing
-            boundary) in bf16, M = 1500 for w_up in bf16, and at
+            boundary) in bf16 and for w_up in f32, M = 1500 for w_up in
+            bf16, and at
             llama-3-8b's four, M = 1 and 64, int8, bf16 (every shape the
             phase serves), each naming its kernel and split count, with
             device ms warm (one weight, replayed) and cold (a captured
@@ -109,7 +111,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             beforehand (what the bf16 model pays) warm and cold, the
             bound and the instance's registers and spills; every row of
             an 8-row decode launch bit-equal to the same row launched
-            alone, at TinyLlama's and llama-3-8b's decode shapes; the
+            alone, at TinyLlama's and llama-3-8b's decode shapes (and
+            TinyLlama's in f32); the
             kernels' SASS conversion counts (``cuobjdump``).  Then, as
             phase 8 runs them, with the graph and with
             ``cuda_graph=False``: tinyllama-1.1b-int8 plain serve and
@@ -120,7 +123,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             prefill and decode logits held against a float twin whose
             weights are the same codes dequantized (plain serve through
             the plain engine's forward, batching through the batching
-            engine's paged forward); llama-3-8b-int8 and llama-3-8b plain
+            engine's paged forward; the two plain configs at f32 too,
+            through the f32 dense kernels, at the f32 tolerance);
+            llama-3-8b-int8 and llama-3-8b plain
             serve (graph only): init peak memory, ms/token, device ms a
             step and the dense kernel's share, and the int8 model's
             logits against its twin;
@@ -417,8 +422,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             ``max_to_keep`` on a small tree;
     (phase 9's kernel rows hold the dense kernel at the train phase's
     256-row products: TinyLlama's w_up, M = 256)
-21. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
-   the ``{"ok": true, "device": {...}}`` line.
+21. the ``{"kernels": [...]}`` line (every entry launched on the path
+   at least once, or the run fails; an f32 instance's eager calls and
+   replayed launches by phase, from ``F32Tally``), then the card's
+   nvidia-smi line, then the ``{"ok": true, "device": {...}}`` line.
 
 Phases 10 to 20 run in the order 11, 12, 13, 14, 16, 17, 18, 19, 20, 15,
 10:
@@ -781,11 +788,15 @@ def flash_work(b, chunk, q_start, nh, nkv, hd, elt):
 
 
 class F32Tally:
-    """The f32 prefill kernels' eager launches by template instance: the
-    wrappers' launch functions (``flash_attention._launch``,
-    ``paged_attention._prefill_launch``) wrapped for the run, each f32
-    call counted under the instance it takes.  A replayed graph's launches
-    are not calls, so the speculative rounds' replays do not count."""
+    """The f32 kernels' launches by template instance: the wrappers'
+    launch functions (``flash_attention._launch``,
+    ``paged_attention._prefill_launch`` and ``._decode_launch``,
+    ``quant_dense._launch``) wrapped for the run, each f32 call counted
+    under the instance it takes.  A call made while a decode step is
+    captured (``runtime/cuda_graph._capture``) launches nothing then: it
+    counts at every replay of that graph instead, under ``replayed``, so
+    a phase's replayed decode steps (batching, speculative rounds) are
+    counted beside its eager calls."""
 
     def __init__(self, torch):
         import threading
@@ -794,41 +805,94 @@ class F32Tally:
             flash_attention as fa
         from distributed_inference_demo_tpu_torch.ops import \
             paged_attention as pa
-        self._fa, self._pa = fa, pa
-        self._orig = (fa._launch, pa._prefill_launch)
+        from distributed_inference_demo_tpu_torch.ops import \
+            quant_dense as qd
+        from distributed_inference_demo_tpu_torch.runtime import \
+            cuda_graph as cg
+        self._mods = (fa, pa, qd, cg)
+        self._orig = (fa._launch, pa._prefill_launch, pa._decode_launch,
+                      qd._launch, cg._capture, cg.StepGraph.__init__,
+                      cg.StepGraph.__call__)
         self._lock = threading.Lock()
-        self.counts = {}
+        self._local = threading.local()
+        self.counts, self.replayed = {}, {}
         f32 = torch.float32
+        orig = self._orig
 
         def flash(q, k_cache, v_cache, q_start, kv_len, slopes, rows):
-            out = self._orig[0](q, k_cache, v_cache, q_start, kv_len, slopes,
-                                rows)
+            out = orig[0](q, k_cache, v_cache, q_start, kv_len, slopes, rows)
             if q.dtype == f32:
                 self._add(flash_instance("float32", q.shape[3], rows))
             return out
 
-        def paged(q, k_pages, v_pages, tables, starts, slopes, page, rows):
-            out = self._orig[1](q, k_pages, v_pages, tables, starts, slopes,
-                                page, rows)
+        def prefill(q, k_pages, v_pages, tables, starts, slopes, page, rows):
+            out = orig[1](q, k_pages, v_pages, tables, starts, slopes, page,
+                          rows)
             if q.dtype == f32:
                 self._add(paged_instance("prefill", "float32", page,
                                          q.shape[3], rows))
             return out
 
-        fa._launch, pa._prefill_launch = flash, paged
+        def decode(q, k_pages, v_pages, tables, kv_lens, slopes, page):
+            out = orig[2](q, k_pages, v_pages, tables, kv_lens, slopes, page)
+            if q.dtype == f32:
+                self._add(paged_instance("decode", "float32", page,
+                                         q.shape[3]))
+            return out
+
+        def dense(x, w, kernel, splits):
+            out = orig[3](x, w, kernel, splits)
+            if x.dtype == f32:
+                self._add(_quant_instance(kernel, w.bits, x.shape[0]))
+            return out
+
+        def capture(*args, **kw):
+            self._local.capturing = {}
+            try:
+                return orig[4](*args, **kw)
+            finally:
+                self._local.captured = self._local.capturing
+                self._local.capturing = None
+
+        def graph_init(graph, *args, **kw):
+            self._local.captured = {}
+            orig[5](graph, *args, **kw)
+            graph.f32_tally = self._local.captured
+
+        def graph_call(graph):
+            orig[6](graph)
+            if graph.graph is not None and graph.f32_tally:
+                with self._lock:
+                    for name, n in graph.f32_tally.items():
+                        self.replayed[name] = self.replayed.get(name, 0) + n
+
+        fa._launch, pa._prefill_launch, pa._decode_launch = (flash, prefill,
+                                                             decode)
+        qd._launch, cg._capture = dense, capture
+        cg.StepGraph.__init__, cg.StepGraph.__call__ = graph_init, graph_call
 
     def _add(self, inst) -> None:
         name = f"{inst[0]}<{', '.join(map(str, inst[1]))}>"
+        capturing = getattr(self._local, "capturing", None)
+        if capturing is not None:
+            capturing[name] = capturing.get(name, 0) + 1
+            return
         with self._lock:
             self.counts[name] = self.counts.get(name, 0) + 1
 
-    def take(self) -> dict:
+    def take(self) -> tuple:
+        """(eager calls, replayed launches) by instance since the last
+        take."""
         with self._lock:
-            out, self.counts = self.counts, {}
+            out = (self.counts, self.replayed)
+            self.counts, self.replayed = {}, {}
         return out
 
     def close(self) -> None:
-        self._fa._launch, self._pa._prefill_launch = self._orig
+        fa, pa, qd, cg = self._mods
+        (fa._launch, pa._prefill_launch, pa._decode_launch, qd._launch,
+         cg._capture, cg.StepGraph.__init__, cg.StepGraph.__call__) = \
+            self._orig
 
 
 def instance_fields(ptxas: list, name: str, targs: tuple) -> dict:
@@ -857,7 +921,7 @@ def paged_instance(kind: str, dname: str, pages: str, hd: int,
     if kind == "decode":
         if dname == "bfloat16":
             return "paged_decode_split_kernel", (page, hd)
-        return "paged_decode_kernel", ("float", page, hd)
+        return "paged_decode_f32_split_kernel", (page, hd)
     if dname == "bfloat16":
         return "paged_prefill_mma_kernel", (page, hd)
     return "paged_prefill_f32_kernel", (page, hd, rows)
@@ -1307,8 +1371,7 @@ def phase_paged_kernels(torch, ptxas: list) -> dict:
             if not ok:
                 failures.append(f"{label} {kind} {dname} {pages} {shape}: "
                                 f"max err {row['max_abs_err']}")
-            if dname == "bfloat16" and label in (
-                    "tinyllama", "gemma-2b", "bloom3b") and \
+            if label in ("tinyllama", "gemma-2b", "bloom3b") and \
                     kind == "decode" and b == SLOTS:
                 invariance.append(batch_invariance(
                     torch, kern_fn, label, q, pk, pv, tables, per_row,
@@ -1327,7 +1390,8 @@ def phase_paged_kernels(torch, ptxas: list) -> dict:
 def batch_invariance(torch, kern_fn, label, q, pk, pv, tables, per_row,
                      slopes, got, pages) -> dict:
     """Each row of the 8-slot decode launch against the same row launched
-    alone: bit-equal, since the kernel's splits sit at fixed positions."""
+    alone: bit-equal, since the kernel's splits sit at fixed positions
+    (f32 and bf16 q alike)."""
     same = 0
     for i in range(q.shape[0]):
         one = kern_fn(q[i:i + 1], pk, pv, tables[i:i + 1], per_row[i:i + 1],
@@ -2968,6 +3032,14 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
            "eager_decode_tokens": EAGER_DECODE_TOKENS}
     if cfg.quantization != "none":
         out["twin_check"] = quant_twin_check(torch, cfg, params)
+        # the f32 dense kernels on the same path: the same codes under f32
+        # activations through a prefill (the tile kernel, M = PROMPT_LEN)
+        # and decode steps (the decode kernel, M = 1), held to their f32
+        # twin at the f32 tolerance
+        out["twin_check_f32"] = quant_twin_check(
+            torch, cfg.replace(dtype_name="float32"), f32_params(params),
+            tol_rel=LOGIT_TOL_F32)
+        torch.cuda.empty_cache()
     for key, flag in (("graph", True), ("eager", False)):
         eng = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
                               device="cuda", cuda_graph=flag)
@@ -3177,8 +3249,9 @@ def quant_cases():
     """(model, weight, K, N, M, bits, dtype): TinyLlama's seven matmul
     weights at M = 1 (plain decode), 8 (8-slot decode) and 256 (a mixed
     slab's rows), int8 and int4, bf16 and f32 activations, and at M = 16
-    and 17 (the last decode-kernel row count and the first prefill one)
-    in bf16; w_up at M = QUANT_LONG_ROWS (a long prompt's chunk) in bf16;
+    and 17 (the last decode-kernel row count and the first prefill or
+    tile one) in bf16, and for w_up in f32; w_up at M = QUANT_LONG_ROWS
+    (a long prompt's chunk) in bf16;
     and llama-3-8b's four weight shapes where its int8 plain serve runs
     them, M = 1 (decode) and PROMPT_LEN (the prefill), int8, bf16 (also
     mixtral-8x7b's), and mixtral-tpu-1b's four the same way."""
@@ -3200,6 +3273,11 @@ def quant_cases():
     out += [(SERVE_MODEL, name, k, n, m, bits, torch.bfloat16)
             for name, k, n in tiny for m in QUANT_BOUNDARY_ROWS
             for bits in (8, 4)]
+    # ... and the f32 kernels' (the decode kernel's last row count, the
+    # tile kernel's first) at w_up
+    out += [(SERVE_MODEL, name, k, n, m, bits, torch.float32)
+            for name, k, n in tiny if name == "w_up"
+            for m in QUANT_BOUNDARY_ROWS for bits in (8, 4)]
     out += [(SERVE_MODEL, name, k, n, QUANT_LONG_ROWS, bits, torch.bfloat16)
             for name, k, n in tiny if name == "w_up" for bits in (8, 4)]
 
@@ -3250,7 +3328,10 @@ def _quant_instance(kernel: str, bits: int, m: int) -> tuple:
         return "quant_dense_decode_kernel", (bits, 1 if m <= 8 else 2)
     if kernel == "prefill":
         return "quant_dense_prefill_kernel", (bits,)
-    return "quant_dense_kernel", (bits,)
+    if kernel == "f32_decode":
+        return ("quant_dense_f32_decode_kernel",
+                (bits, 1 if m == 1 else 8 if m <= 8 else 16))
+    return "quant_dense_f32_tile_kernel", (bits,)
 
 
 def _ptxas_row(rows: list, name: str, args: tuple):
@@ -3316,19 +3397,22 @@ def cold_ms(torch, make, nbytes: int, fn) -> float:
 
 def quant_decode_row_check(torch, weights) -> list:
     """Every row of an 8-row decode-kernel launch against the same row
-    launched alone, bit for bit, at each distinct bf16 weight shape of
-    the decode rows (TinyLlama's and llama-3-8b's)."""
+    launched alone, bit for bit, at each distinct weight shape and
+    activation dtype of the decode rows (TinyLlama's and llama-3-8b's in
+    bf16, TinyLlama's in f32: the f32 decode kernel's split depends on no
+    M either).  ``weights``: {((K, N, bits), dtype name): weight}."""
     from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = []
-    for (k, n, bits), wq in weights.items():
+    for ((k, n, bits), dname), wq in weights.items():
         x = torch.randn((8, k), generator=gen,
-                        device="cuda").to(torch.bfloat16)
+                        device="cuda").to(getattr(torch, dname))
         y8 = qd.quant_dense(x, wq)
         equal = all(torch.equal(qd.quant_dense(x[r:r + 1], wq)[0], y8[r])
                     for r in range(8))
-        out.append({"k": k, "n": n, "bits": bits, "rows": 8,
+        out.append({"k": k, "n": n, "bits": bits, "dtype": dname,
+                    "rows": 8,
                     "splits": qd.decode_splits(
                         k, n, bits, torch.cuda.get_device_properties(0)
                         .multi_processor_count),
@@ -3418,11 +3502,13 @@ def phase_quant_kernels(torch, ptxas: list) -> dict:
                             f"{dname}: max err {row['max_abs_err']}")
         del x, got, want, w_deq
     decode_rows = quant_decode_row_check(torch, {
-        key: wq for key, wq in weights.items()
+        (key, dname): wq for key, wq in weights.items()
+        for dname in ("bfloat16", "float32")
         if any(c["k"] == key[0] and c["n"] == key[1] and c["bits"] == key[2]
-               and c["kernel"] == "decode" for c in cases)})
+               and c["dtype"] == dname and c["kernel"] in qd.DECODE_KERNELS
+               for c in cases)})
     failures += [f"decode kernel rows differ from single-row launches at "
-                 f"K={r['k']} N={r['n']} int{r['bits']}"
+                 f"K={r['k']} N={r['n']} int{r['bits']} {r['dtype']}"
                  for r in decode_rows if not r["bit_equal"]]
     del weights
     torch.cuda.empty_cache()
@@ -3466,13 +3552,14 @@ def _teacher_forced_logits(torch, params, cfg, seq, n_decode: int):
     return np.stack(out)
 
 
-def quant_twin_check(torch, cfg, params, n_decode: int = 8) -> dict:
+def quant_twin_check(torch, cfg, params, n_decode: int = 8,
+                     tol_rel: float = LOGIT_TOL_REL) -> dict:
     """Prefill (PROMPT_LEN tokens) and ``n_decode`` decode-step logits of
     the quantized model (the dense kernel) against its float twin, whose
     weights are the same codes dequantized to the model dtype, held to
-    LOGIT_TOL_REL as the kernels' bf16 logit checks: the reference
-    defines dense as exactly that product, so only the summation order
-    differs."""
+    ``tol_rel`` (LOGIT_TOL_REL as the kernels' bf16 logit checks,
+    LOGIT_TOL_F32 for an f32 config): the reference defines dense as
+    exactly that product, so only the summation order differs."""
     import numpy as np
 
     from distributed_inference_demo_tpu_torch.ops import quant_dense as qd
@@ -3495,7 +3582,23 @@ def quant_twin_check(torch, cfg, params, n_decode: int = 8) -> dict:
     torch.cuda.empty_cache()
     per_fwd = dense_per_layer(cfg) * cfg.num_layers
     return _twin_verdict(cfg, lq, lt, len(seq), launches[0],
-                         per_fwd * (1 + n_decode), routing)
+                         per_fwd * (1 + n_decode), routing, tol_rel)
+
+
+def f32_params(params):
+    """``params`` under f32 activations: the same codes and scales, every
+    float leaf as f32."""
+    from distributed_inference_demo_tpu_torch.models.base import StageParams
+    from distributed_inference_demo_tpu_torch.ops import quant
+
+    def f32(leaves):
+        return None if leaves is None else {
+            k: v if isinstance(v, quant.AnyQuantized) else v.float()
+            for k, v in leaves.items()}
+
+    return StageParams(layers=f32(params.layers), embed=f32(params.embed),
+                       final_norm=f32(params.final_norm),
+                       lm_head=f32(params.lm_head))
 
 
 def dequantized_twin(cfg, params):
@@ -3512,10 +3615,11 @@ def dequantized_twin(cfg, params):
 
 
 def _twin_verdict(cfg, lq, lt, tokens: int, launches: int,
-                  predicted: int, routing=None) -> dict:
+                  predicted: int, routing=None,
+                  tol_rel: float = LOGIT_TOL_REL) -> dict:
     """The quantized model's teacher-forced logits ``lq`` against its
     twin's ``lt`` ([n_decode + 1, vocab]: the prefill's last position,
-    then each decode step's), held to LOGIT_TOL_REL of the twin's largest
+    then each decode step's), held to ``tol_rel`` of the twin's largest
     logit (an MoE model's with the twin's expert choices,
     :func:`moe_pinned`); the dense kernel's launches against the
     routing's prediction."""
@@ -3528,15 +3632,17 @@ def _twin_verdict(cfg, lq, lt, tokens: int, launches: int,
            "predicted_dense_launches": predicted,
            "logit_max_abs_err": float(err.max()),
            "prefill_logit_max_abs_err": float(err[0]),
-           "logit_scale": scale, "logit_tol": LOGIT_TOL_REL * scale,
+           "dtype": cfg.dtype_name, "logit_scale": scale,
+           "logit_tol": tol_rel * scale,
            "argmax_agreement": int((lq.argmax(1) == lt.argmax(1)).sum()),
            "argmax_agreement_of": len(err), "routing": routing}
     _check(launches == predicted, f"twin check: {launches} dense launches, "
            f"predicted {predicted}")
     _check(bool(np.isfinite(lq).all()), "quantized logits not finite")
     _check(res["logit_max_abs_err"] <= res["logit_tol"],
-           f"{cfg.quantization} logits differ from the dequantized twin's by "
-           f"{res['logit_max_abs_err']} (> {LOGIT_TOL_REL} x {scale})")
+           f"{cfg.quantization} {cfg.dtype_name} logits differ from the "
+           f"dequantized twin's by {res['logit_max_abs_err']} (> {tol_rel} "
+           f"x {scale})")
     return res
 
 
@@ -9070,20 +9176,23 @@ def main(argv) -> int:
     print(smi, flush=True)
 
     tally = F32Tally(torch)
-    f32_seen = []     # (phase, {instance: eager f32 prefill launches})
+    # (phase, {instance: eager f32 calls}, {instance: replayed launches})
+    f32_seen = []
 
     def timed(fn, *args, **kw):
         """``fn``'s phase line, with its wall seconds if it has none and
-        the f32 prefill kernels' eager launches in this process."""
+        the f32 kernels' launches in this process (eager calls, and
+        launches by replays of captured steps)."""
         tally.take()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         out.setdefault("seconds", time.perf_counter() - t0)
-        launched = tally.take()
-        if launched:
-            out["f32_prefill_launches"] = launched
+        launched, replayed = tally.take()
+        if launched or replayed:
+            out["f32_launches"] = launched
+            out["f32_replayed_launches"] = replayed
             f32_seen.append((":".join(str(out[k]) for k in ("phase", "model")
-                                      if k in out), launched))
+                                      if k in out), launched, replayed))
         return out
 
     # --phase NAME[,NAME...]: the build, then those phases alone (no
@@ -9347,13 +9456,15 @@ def main(argv) -> int:
                 **{k: case[k] for k in ("instance", "registers",
                                         "spill_stores", "spill_loads")
                    if k in case},
-                # an f32 instance's eager launches in every phase that
-                # drove it (a replayed round's launches are not calls)
+                # an f32 instance's eager calls in every phase that drove
+                # it, and its launches by replays of captured steps
                 **({"f32_launches_by_phase": {
-                    ph: n[case["instance"]] for ph, n in f32_seen
-                    if case["instance"] in n}}
-                   if case.get("dtype") == "float32"
-                   and case.get("kind", "prefill") == "prefill" else {})}
+                    ph: n[case["instance"]] for ph, n, _ in f32_seen
+                    if case["instance"] in n},
+                    "f32_replayed_by_phase": {
+                    ph: r[case["instance"]] for ph, _, r in f32_seen
+                    if case["instance"] in r}}
+                   if case.get("dtype") == "float32" else {})}
 
     server_decode = sum(server["int8"]["dense_decode_launches_by_stage"])
     server_int8 = {"decode_launches": server_decode,
@@ -9428,10 +9539,11 @@ def main(argv) -> int:
     tp2_int8 = {"decode_launches": r0["quant_dense_decode"],
                 "dense_launches": r0["quant_dense"]}
 
-    def quant_case(m, bits, weight="w_up", model=SERVE_MODEL):
+    def quant_case(m, bits, weight="w_up", model=SERVE_MODEL,
+                   dtype="bfloat16"):
         return next(c for c in qkern["cases"] if c["model"] == model
                     and c["weight"] == weight and c["m"] == m
-                    and c["bits"] == bits and c["dtype"] == "bfloat16")
+                    and c["bits"] == bits and c["dtype"] == dtype)
 
     def quant_entry(name, side, m, bits, shape, **case):
         # launches: the decode kernel's on the path (every decode step's
@@ -9447,7 +9559,61 @@ def main(argv) -> int:
                  graph_replayed=c["kernel"] == "decode")
         return e
 
-    emit({"kernels": [
+    # the f32 instances' launches in the run's phases past the kernel
+    # checks (whose launches compare kernels with their plain versions):
+    # eager calls and replays of captured steps, counted by the tally
+    kernel_phases = ("kernels", "paged_kernels", "quant_kernels")
+
+    def f32_run_launches(instance):
+        return sum(n.get(instance, 0) + r.get(instance, 0)
+                   for ph, n, r in f32_seen if ph not in kernel_phases)
+
+    f32_paged = " (launches: every f32 call and replay of this instance in "
+    f32_entries = [
+        entry(name, PAGED_SOURCE, PAGED_REPLACES["paged_decode"],
+              f32_run_launches(case["instance"]), case, shape + f32_paged
+              + why + ")")
+        for name, case, shape, why in (
+            ("paged_decode_f32", serve_case("decode", "full",
+                                            dtype="float32"),
+             "f32, " + rows8, "the run: the f32 checks of the batching, "
+             "speculative, fleet, chain and parallel phases"),
+            ("paged_decode_int8_f32", serve_case("decode", "int8",
+                                                 dtype="float32"),
+             "f32, int8 pages, " + rows8, "the run: the mixed phase's f32 "
+             "check"),
+            ("paged_decode_fp8_f32", serve_case("decode", "fp8",
+                                                dtype="float32"),
+             "f32, float8 e4m3 pages, " + rows8, "the run: the kvcache "
+             "phase's float8 f32 check"),
+            ("paged_decode_hd256_f32", serve_case("decode", "full",
+                                                  "gemma-2b", "float32"),
+             "gemma-2b, f32, " + rows8, "the run: gemma-2b's f32 batching "
+             "check"))]
+
+    def f32_quant_entry(name, m, bits, shape):
+        c = quant_case(m, bits, dtype="float32")
+        e = entry(name, QUANT_SOURCE, QUANT_REPLACES,
+                  f32_run_launches(c["instance"]), c, shape)
+        e.update(kernel=c["instance"], splits=c["splits"],
+                 cold_ms=c["cold_ms"], library_cold_ms=c["library_cold_ms"])
+        return e
+
+    f32_twin = (f"the quant phase's f32 twin checks: {PROMPT_LEN}-token "
+                "prefills and one-row decode steps of tinyllama-1.1b-int8 "
+                "and -int4 at f32")
+    f32_entries += [
+        f32_quant_entry(f"quant_dense_f32_int{bits}", 1, bits,
+                        f"TinyLlama w_up [2048, 5632] int{bits}, f32 x, M = 1 "
+                        f"(launches: the decode kernel's, {f32_twin})")
+        for bits in (8, 4)] + [
+        f32_quant_entry(f"quant_dense_f32_tile_int{bits}", 256, bits,
+                        f"TinyLlama w_up [2048, 5632] int{bits}, f32 x, M = "
+                        f"256 (launches: the tile kernel's at M = "
+                        f"{PROMPT_LEN}, {f32_twin})")
+        for bits in (8, 4)]
+
+    kernels = [
         entry("flash_attention", KERNEL_SOURCE, KERNEL_REPLACES,
               serve["launches"], main_case, "64-token prompt at 0"),
         entry("flash_attention_long", KERNEL_SOURCE, KERNEL_REPLACES,
@@ -9622,7 +9788,14 @@ def main(argv) -> int:
               flash_case(LARGE_MODEL + "-tp2"), "one tp=2 rank of "
               "llama-3-8b (16 q heads on 4 kv heads, hd 128), 64-token "
               "prompt at 0 (launches: rank 0's, the tp=2 generate's two "
-              f"prefills at {PAR_GENERATE_LAYERS} layers)")] + tp_entries})
+              f"prefills at {PAR_GENERATE_LAYERS} layers)")] + tp_entries \
+        + f32_entries
+    unlaunched = [e["name"] for e in kernels if not e["launches"]]
+    if unlaunched:
+        print(f"chip_smoke: FAILED: no launch on the main path of "
+              f"{unlaunched}", file=sys.stderr)
+        return 1
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

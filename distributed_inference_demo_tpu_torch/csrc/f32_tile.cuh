@@ -65,6 +65,12 @@
 //
 // The kernels around it supply the token row of a key (the dense plane's
 // row, or the page table's) and the bounds.
+//
+// The f32 paged decode (paged_decode_f32_split_kernel) runs the same tile
+// over one split of a row's keys: its g <= 16 q heads are the block's 16
+// rows (chunk 1), the tiles start at the split's first key, and the block
+// writes its unnormalised partial (acc, m, l; m in the log2 domain) for a
+// second pass that merges the splits in split order.
 
 #pragma once
 
@@ -194,8 +200,11 @@ __device__ __forceinline__ float4 decode4(uint32_t w, const __nv_fp8_e4m3*,
 // HD values at r * HD) and, for int8, their f32 scales (at r), the ALiBi
 // slopes [nh] or null; kv head h, batch row bi, regrouped rows [row0,
 // row0 + ROWS) of `rows`; a row's position is qstart + row / g, and it
-// attends to keys at or before it and below `bound`.  vec16: the K/V
-// arrays are 16-byte aligned (else f32 K/V rows come by 4-byte copies).
+// attends to keys at or before it, at or past `kstart` and below
+// `bound`.  vec16: the K/V arrays are 16-byte aligned (else f32 K/V rows
+// come by 4-byte copies).  With part_acc set (16-row blocks only), the
+// block writes regrouped row r's unnormalised partial to part_acc[(part_row
+// + r) * HD ..], part_m and part_l[part_row + r] instead of out.
 template <typename P>
 struct Args {
   const float* q;
@@ -208,6 +217,11 @@ struct Args {
   int g, rows, chunk, nh, h, bi, row0, qstart, bound;
   float scale;
   bool vec16;
+  int kstart = 0;
+  float* part_acc = nullptr;
+  float* part_m = nullptr;
+  float* part_l = nullptr;
+  size_t part_row = 0;
 };
 
 // The sum (or max) over the eight lanes of a row group.
@@ -283,9 +297,9 @@ __device__ __forceinline__ void each(F&& f, std::integer_sequence<int, Is...>) {
   (f(std::integral_constant<int, Is>{}), ...);
 }
 
-// The whole block.  row_of(t, kend) is this thread's key row of tile t
-// (position t * TK + threadIdx.x / 2) as a token row of the K/V arrays,
-// or -1 at or past kend.
+// The whole block.  row_of(t0, kend) is this thread's key row of the
+// tile at position t0 (position t0 + threadIdx.x / 2) as a token row of
+// the K/V arrays, or -1 at or past kend.
 template <typename P, int HD, int ROWS, int NS, typename RowOf>
 __device__ __forceinline__ void run(const Args<P>& a, char* smem,
                                     const RowOf& row_of) {
@@ -311,19 +325,21 @@ __device__ __forceinline__ void run(const Args<P>& a, char* smem,
   // the block's causal frontier: tiles past it are never copied
   const int last_row = min(a.row0 + ROWS, a.rows) - 1;
   const int kv_end = max(0, min(a.bound, a.qstart + last_row / g + 1));
-  const int ntiles = (kv_end + TK - 1) / TK;
+  const int ntiles = max(0, kv_end - a.kstart + TK - 1) / TK;
   const int nchunks = ntiles * CHUNKS;
 
   // chunk c (tile c / CHUNKS; parts 0 .. PARTS - 1 of K, then of V) into
   // slot c % NS: this thread's half of key row tid / 2
   int cur_t = -1;
-  long long cur_row = -1, nxt_row = ntiles > 0 ? row_of(0, kv_end) : -1;
+  long long cur_row = -1,
+            nxt_row = ntiles > 0 ? row_of(a.kstart, kv_end) : -1;
   auto issue = [&](int c) {
     const int t = c / CHUNKS, p = c - t * CHUNKS;
     if (t != cur_t) {   // chunks go out in order: the next tile's row
       cur_t = t;
       cur_row = nxt_row;
-      nxt_row = t + 1 < ntiles ? row_of(t + 1, kv_end) : -1;
+      nxt_row =
+          t + 1 < ntiles ? row_of(a.kstart + (t + 1) * TK, kv_end) : -1;
     }
     const bool isv = p >= PARTS;
     const P* base = isv ? a.v : a.k;
@@ -405,7 +421,7 @@ __device__ __forceinline__ void run(const Args<P>& a, char* smem,
 
   const float* q0 = qs + (rw * 16 + gid) * QP;
   for (int t = 0; t < ntiles; ++t) {
-    const int kbase = t * TK + kw * KW;   // position of the slice's row 0
+    const int kbase = a.kstart + t * TK + kw * KW;   // the slice's row 0
     const bool active = kbase < wend;     // warp-uniform
     each([&](auto pc) {
       constexpr int p = decltype(pc)::value;
@@ -544,6 +560,15 @@ __device__ __forceinline__ void run(const Args<P>& a, char* smem,
         const float e = exp2f(wm[w * 16 + rr] - mm);
         ll += wl[w * 16 + rr] * e;
         fma4(o, e, ld4(wo + (w * 16 + rr) * MP + 4 * c4));
+      }
+      if (a.part_acc != nullptr) {   // a split's partial, unnormalised
+        const size_t pr = a.part_row + a.row0 + rr;
+        *reinterpret_cast<float4*>(a.part_acc + pr * HD + 4 * c4) = o;
+        if (c4 == 0) {
+          a.part_m[pr] = mm;
+          a.part_l[pr] = ll;
+        }
+        continue;
       }
       const float den = fmaxf(ll, 1e-30f);
       *reinterpret_cast<float4*>(a.out + offset(a.row0 + rr) + 4 * c4) =

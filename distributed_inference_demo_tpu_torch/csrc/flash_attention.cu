@@ -135,8 +135,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // token row of position pos: the (bi, h) plane's row pos
   const long long plane = ((long long)bi * nkv + h) * max_seq;
   f32_tile::run<float, HD, ROWS, f32_tile::stages<float, HD, ROWS>()>(
-      a, f32_tiles, [&](int t, int kend) -> long long {
-        const int pos = t * f32_tile::TK + (int)(threadIdx.x >> 1);
+      a, f32_tiles, [&](int t0, int kend) -> long long {
+        const int pos = t0 + (int)(threadIdx.x >> 1);
         return pos < kend ? plane + pos : -1;
       });
 }

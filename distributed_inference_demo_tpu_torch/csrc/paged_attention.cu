@@ -4,10 +4,11 @@
 // Replaces the two Pallas TPU kernels of
 // distributed_inference_demo_tpu/ops/paged_attention.py:
 //
-// - decode replaces _paged_kernel (via _paged_call): paged_decode_kernel
-//   for f32 q, paged_decode_split_kernel + paged_decode_merge_kernel for
-//   bf16 q.  One query token per row.  For kv head h of row b, the g query heads
-//   h*g .. h*g+g-1 attend to every key position s < kv_len[b] (which is
+// - decode replaces _paged_kernel (via _paged_call):
+//   paged_decode_f32_split_kernel for f32 q, paged_decode_split_kernel for
+//   bf16 q, each followed by paged_decode_merge_kernel.  One query token
+//   per row.  For kv head h of row b, the g query heads h*g .. h*g+g-1
+//   attend to every key position s < kv_len[b] (which is
 //   the causal bound: the query sits at kv_len - 1), with an optional
 //   ALiBi bias -slope * (kv_len - 1 - s);
 // - prefill replaces _paged_prefill_kernel (via _paged_prefill_call):
@@ -41,15 +42,15 @@
 //
 // Design of the bf16-q instances (bf16 or int8 pages).
 //
-// - Decode: split-KV (flash-decoding).  The grid is (splits, nkv, b) with
-//   splits = ceil(W*bt / KV_SPLIT), known from the table's shape, so the
-//   host reads no kv_lens.  Split s of row b covers positions
-//   [s*KV_SPLIT, (s+1)*KV_SPLIT) clipped to the row's kv_end; a split past
-//   kv_end exits at once.  At the 8-slot serving shape about 116 blocks
-//   have work where one block per (row, kv head) gave 32.  Split
-//   boundaries sit at fixed positions and each warp owns fixed 16-key
-//   slices of every 64-key tile, so a row's output depends only on its own
-//   kv_len and pages, never on b or the other rows: the batch
+// - Decode: split-KV (flash-decoding), as the f32-q decode.  The grid is
+//   (splits, nkv, b) with splits = ceil(W*bt / KV_SPLIT), known from the
+//   table's shape, so the host reads no kv_lens.  Split s of row b covers
+//   positions [s*KV_SPLIT, (s+1)*KV_SPLIT) clipped to the row's kv_end; a
+//   split past kv_end exits at once.  At the 8-slot serving shape about
+//   116 blocks have work where one block per (row, kv head) gave 32.
+//   Split boundaries sit at fixed positions and each warp owns fixed
+//   16-key slices of every 64-key tile, so a row's output depends only on
+//   its own kv_len and pages, never on b or the other rows: the batch
 //   invariance that greedy identity across batch compositions needs.
 //   The g <= 16 q heads of the kv head are the rows of one m16n8k16 A
 //   tile (zero-padded to 16), read once from q into registers.  Each warp
@@ -120,8 +121,18 @@
 //   plain version), register micro-tiles, log2-domain softmax.  At the
 //   serving chunk (64 tokens at 200) it is bound by latency; long chunks
 //   by the card's f32 FFMA rate.
-// - Decode: one block per (row, kv head), looping over 32-key tiles and
-//   looking each key's page up as they load (the first design).
+// - Decode: paged_decode_f32_split_kernel<P, HD>, the bf16 decode's
+//   split-KV design on the same f32 tile: the grid is (splits, nkv, b)
+//   with splits = ceil(W*bt / KV_SPLIT) (the host reads no kv_lens), a
+//   split past kv_end exits at once, and the kv head's g <= 16 q heads
+//   are the tile's 16 rows (chunk 1: every row at position kv_len - 1).
+//   Each warp owns fixed 16-key slices of the split's 64-key tiles; the
+//   four merge in warp order and write the split's unnormalised f32
+//   partial; paged_decode_merge_kernel<float, HD> merges the live splits
+//   in split order.  So a row's output depends only on its own q, kv_len
+//   and pages, never on b or the other rows.  At the 8-slot serving shape
+//   about 116 blocks have work where one block per (row, kv head) gave
+//   32 (the first design, a page lookup per element and no ring).
 //
 // float8 e4m3 pages (a kv_cache_dtype pool).  The Pallas kernels upcast a
 // page of any dtype to f32 after its load; here a third page type streams
@@ -169,13 +180,6 @@ constexpr float NEG = -1e30f;
 constexpr int KV_SPLIT = 128;     // keys per decode split
 constexpr int PREFILL_ROWS = 16;  // regrouped query rows per prefill block
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
-  return static_cast<float>(x);   // exact: e4m3 -> f16 -> f32
-}
 __device__ __forceinline__ void store_val(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_val(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -192,164 +196,67 @@ __device__ __forceinline__ size_t page_row(const int* tab, int pos, int bt,
   return ((size_t)page * nkv + h) * bt + (pos - j * bt);
 }
 
-// Element d of a token row as f32: a full-width or e4m3 page converts,
-// an int8 page multiplies its code by the token's scale (sc is unused
-// for the others).
-template <typename P>
-__device__ __forceinline__ float load_kv(const P* __restrict__ p,
-                                         const float* __restrict__ sc,
-                                         size_t row, int hd, int d) {
-  if constexpr (std::is_same<P, int8_t>::value) {
-    return (float)p[row * hd + d] * sc[row];
-  } else {
-    return to_f32(p[row * hd + d]);
-  }
-}
-
 // ---------------------------------------------------------------------
-// Decode
+// Decode, f32 q: split-KV on the f32 tile (f32_tile.cuh)
 
-constexpr int D_NT = 128;     // threads per block
-constexpr int D_TK = 32;      // keys per tile: one lane each in the softmax
-constexpr int D_GMAX = 16;    // q heads per kv head
+constexpr int D_GMAX = 16;    // q heads per kv head: the tile's 16 rows
 
-template <int HD>
-constexpr size_t decode_smem_bytes() {
-  // qs [GMAX][HD] + ks [TK][HD+1] + vs [TK][HD] + ps [GMAX][TK]
-  // + running max, sum and rescale factor [GMAX] each, all f32; the +1
-  // pad keeps the lanes of a warp on distinct banks in the score loop
-  return sizeof(float) * (D_GMAX * HD + D_TK * (HD + 1) + D_TK * HD +
-                          D_GMAX * D_TK + 3 * D_GMAX);
+// Ring slots of the f32 decode: a whole split's chunks in flight at once
+// (KV_SPLIT / TK tiles of CHUNKS chunks), as many as shared memory holds
+// (six at f32 hd 256, whose tiles take four 34 KB chunks).
+template <typename P, int HD>
+__host__ __device__ constexpr int d_f32_stages() {
+  using I = f32_tile::Inst<P, HD, 16, 2>;
+  constexpr int want = KV_SPLIT / f32_tile::TK * I::CHUNKS + 1;
+  constexpr int fit = (int)((f32_tile::SMEM_MAX - I::Q_BYTES - I::P_BYTES -
+                             I::W_BYTES) / I::SLOT);
+  return want < fit ? want : fit;
 }
 
-template <typename T, typename P, int HD>
-__global__ void __launch_bounds__(D_NT)
-paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
-                    const float* __restrict__ ksc,
-                    const P* __restrict__ vp,
-                    const float* __restrict__ vsc,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ kv_lens,
-                    const float* __restrict__ slopes, T* __restrict__ out,
-                    int nh, int nkv, int bt, int num_pages, int W,
-                    float scale) {
-  constexpr int KP = HD + 1;
-  constexpr int OPT = D_GMAX * HD / D_NT;   // accumulator cells per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [GMAX][HD]
-  float* ks = qs + D_GMAX * HD;       // [TK][KP]
-  float* vs = ks + D_TK * KP;         // [TK][HD]
-  float* ps = vs + D_TK * HD;         // [GMAX][TK]
-  float* m_s = ps + D_GMAX * D_TK;    // [GMAX]
-  float* l_s = m_s + D_GMAX;          // [GMAX]
-  float* a_s = l_s + D_GMAX;          // [GMAX]
-
-  const int g = nh / nkv;
-  const int h = blockIdx.x;
-  const int bi = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int* tab = tables + (size_t)bi * W;
+// Split s of (kv head h, row bi): the unnormalised partial (acc, m, l; m
+// in the log2 domain) of the keys [s*KV_SPLIT, (s+1)*KV_SPLIT) below
+// kv_end, written to part_acc [b, splits, nh, HD] and part_m / part_l
+// [b, splits, nh], as paged_decode_split_kernel writes its own.
+template <typename P, int HD>
+__global__ void __launch_bounds__(f32_tile::NT,
+                                  (f32_tile::min_blocks<HD, 16>()))
+paged_decode_f32_split_kernel(const float* __restrict__ q,
+                              const P* __restrict__ kp,
+                              const float* __restrict__ ksc,
+                              const P* __restrict__ vp,
+                              const float* __restrict__ vsc,
+                              const int* __restrict__ tables,
+                              const int* __restrict__ kv_lens,
+                              const float* __restrict__ slopes,
+                              float* __restrict__ part_acc,
+                              float* __restrict__ part_m,
+                              float* __restrict__ part_l, int nh, int nkv,
+                              int bt, int num_pages, int W, int splits,
+                              float scale) {
+  extern __shared__ __align__(16) char f32_tiles[];
+  const int s = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
   const int kv_len = kv_lens[bi];
-  // the query sits at kv_len - 1; keys past the table do not exist
   const int kv_end = max(0, min(kv_len, W * bt));
-  const int qpos = kv_len - 1;
-
-  // q pre-scaled in f32 as the reference does (q * 1/sqrt(hd))
-  for (int i = tid; i < D_GMAX * HD; i += D_NT) {
-    const int r = i / HD, d = i - r * HD;
-    qs[i] = r < g ? to_f32(q[((size_t)bi * nh + h * g + r) * HD + d]) *
-                        scale
-                  : 0.f;
-  }
-  if (tid < D_GMAX) {
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
-  }
-  float acc[OPT];
-#pragma unroll
-  for (int o = 0; o < OPT; ++o) acc[o] = 0.f;
-
-  for (int t0 = 0; t0 < kv_end; t0 += D_TK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < D_TK * HD; i += D_NT) {
-      const int r = i / HD, d = i - r * HD;
-      const int pos = t0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (pos < kv_end) {
-        const size_t row = page_row(tab, pos, bt, nkv, h, num_pages);
-        kx = load_kv(kp, ksc, row, HD, d);
-        vx = load_kv(vp, vsc, row, HD, d);
-      }
-      ks[r * KP + d] = kx;
-      vs[r * HD + d] = vx;
-    }
-    __syncthreads();
-
-    // scores of (q row, key) pairs
-    for (int i = tid; i < g * D_TK; i += D_NT) {
-      const int r = i / D_TK, c = i - r * D_TK;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d)
-        s = fmaf(qs[r * HD + d], ks[c * KP + d], s);
-      ps[r * D_TK + c] = s;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per q row, one lane per key
-    for (int r = warp; r < g; r += D_NT / 32) {
-      const int kpos = t0 + lane;
-      const bool ok = kpos < kv_end;
-      float sv = ps[r * D_TK + lane];
-      if (slopes != nullptr) sv -= slopes[h * g + r] * (float)(qpos - kpos);
-      sv = ok ? sv : NEG;
-      float mx = sv;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = ok ? expf(sv - m_new) : 0.f;
-      float rs = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      ps[r * D_TK + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + rs;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    const int cols = min(D_TK, kv_end - t0);
-#pragma unroll
-    for (int o = 0; o < OPT; ++o) {
-      const int i = tid + o * D_NT;
-      const int r = i / HD, d = i - r * HD;
-      if (r < g) {
-        float a = acc[o] * a_s[r];
-        for (int c = 0; c < cols; ++c)
-          a = fmaf(ps[r * D_TK + c], vs[c * HD + d], a);
-        acc[o] = a;
-      }
-    }
-  }
-  __syncthreads();  // l_s is final (and initialized when no tile ran)
-
-#pragma unroll
-  for (int o = 0; o < OPT; ++o) {
-    const int i = tid + o * D_NT;
-    const int r = i / HD, d = i - r * HD;
-    if (r < g)
-      store_val(out + ((size_t)bi * nh + h * g + r) * HD + d,
-                acc[o] / fmaxf(l_s[r], 1e-30f));
-  }
+  const int s0 = s * KV_SPLIT;
+  if (s0 >= kv_end) return;          // a dead split: the merge skips it
+  const int s1 = min(s0 + KV_SPLIT, kv_end);
+  const int g = nh / nkv;
+  const int* tab = tables + (size_t)bi * W;
+  // chunk 1: the g rows sit at kv_len - 1 and attend to keys [s0, s1)
+  f32_tile::Args<P> a{q, nullptr, kp, ksc, vp, vsc, slopes, g, g, 1, nh,
+                      h, bi, 0, kv_len - 1, s1, scale, true};
+  a.kstart = s0;
+  a.part_acc = part_acc;
+  a.part_m = part_m;
+  a.part_l = part_l;
+  a.part_row = ((size_t)bi * splits + s) * nh + (size_t)h * g;
+  f32_tile::run<P, HD, 16, d_f32_stages<P, HD>()>(
+      a, f32_tiles, [&](int t0, int kend) -> long long {
+        const int pos = t0 + (int)(threadIdx.x >> 1);
+        return pos < kend
+                   ? (long long)page_row(tab, pos, bt, nkv, h, num_pages)
+                   : -1;
+      });
 }
 
 // ---------------------------------------------------------------------
@@ -384,8 +291,8 @@ paged_prefill_f32_kernel(const float* __restrict__ q,
                             chunk * g, chunk, nh, h, bi, rb * ROWS,
                             starts[bi], W * bt, scale, true};
   f32_tile::run<P, HD, ROWS, f32_tile::stages<P, HD, ROWS>()>(
-      a, f32_tiles, [&](int t, int kend) -> long long {
-        const int pos = t * f32_tile::TK + (int)(threadIdx.x >> 1);
+      a, f32_tiles, [&](int t0, int kend) -> long long {
+        const int pos = t0 + (int)(threadIdx.x >> 1);
         return pos < kend
                    ? (long long)page_row(tab, pos, bt, nkv, h, num_pages)
                    : -1;
@@ -1059,47 +966,43 @@ struct Pages {
   const float* vs;
 };
 
-// The f32-q decode: one block per (kv head, row).
+// The decode: q's dtype T's split kernel (f32: the f32 tile, bf16: the
+// tensor-core one), then the merge, on one stream.
 template <typename T, typename P, int HD>
-cudaError_t launch_decode(const void* q, Pages pg, const int* tables,
-                          const int* kv_lens, const float* slopes,
-                          void* out, int b, int nh, int nkv, int bt,
-                          int num_pages, int W, float scale,
-                          cudaStream_t stream) {
-  constexpr size_t smem = decode_smem_bytes<HD>();
-  auto kern = paged_decode_kernel<T, P, HD>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(nkv, b);
-  kern<<<grid, D_NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(pg.k), pg.ks,
-      static_cast<const P*>(pg.v), pg.vs, tables, kv_lens, slopes,
-      static_cast<T*>(out), nh, nkv, bt, num_pages, W, scale);
-  return cudaGetLastError();
-}
-
-// The bf16-q decode: the split kernel, then the merge, on one stream.
-template <typename P, int HD>
 cudaError_t launch_decode_split(const void* q, Pages pg, const int* tables,
                                 const int* kv_lens, const float* slopes,
                                 void* out, float* part_acc, float* part_ml,
                                 int b, int nh, int nkv, int bt,
                                 int num_pages, int W, int splits,
                                 float scale, cudaStream_t stream) {
-  constexpr size_t smem = ring_smem_bytes<P, HD, D_STAGES<P, HD>, 16>();
-  auto kern = paged_decode_split_kernel<P, HD>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
   float* part_m = part_ml;
   float* part_l = part_ml + (size_t)b * splits * nh;
-  kern<<<dim3(splits, nkv, b), T_NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const P*>(pg.k), pg.ks,
-      static_cast<const P*>(pg.v), pg.vs, tables, kv_lens, slopes, part_acc,
-      part_m, part_l, nh, nkv, bt, num_pages, W, splits, scale);
+  const dim3 grid(splits, nkv, b);
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr size_t smem =
+        f32_tile::Inst<P, HD, 16, d_f32_stages<P, HD>()>::SMEM;
+    auto kern = paged_decode_f32_split_kernel<P, HD>;
+    err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, f32_tile::NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const P*>(pg.k), pg.ks,
+        static_cast<const P*>(pg.v), pg.vs, tables, kv_lens, slopes,
+        part_acc, part_m, part_l, nh, nkv, bt, num_pages, W, splits, scale);
+  } else {
+    constexpr size_t smem = ring_smem_bytes<P, HD, D_STAGES<P, HD>, 16>();
+    auto kern = paged_decode_split_kernel<P, HD>;
+    err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, T_NT, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const P*>(pg.k), pg.ks,
+        static_cast<const P*>(pg.v), pg.vs, tables, kv_lens, slopes,
+        part_acc, part_m, part_l, nh, nkv, bt, num_pages, W, splits, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_merge_kernel<bf16, HD><<<dim3(nh, b), HD, 0, stream>>>(
-      part_acc, part_m, part_l, kv_lens, static_cast<bf16*>(out), nh, bt, W,
+  paged_decode_merge_kernel<T, HD><<<dim3(nh, b), HD, 0, stream>>>(
+      part_acc, part_m, part_l, kv_lens, static_cast<T*>(out), nh, bt, W,
       splits);
   return cudaGetLastError();
 }
@@ -1189,50 +1092,43 @@ struct PageOf<FP8, T> {
 };
 
 // One decode launch, dispatched on q's dtype (0 = float32, 1 =
-// bfloat16), the page type (KIND) and the head dim.  bf16 q needs the partials' scratch: part_acc [b, splits, nh, hd]
-// and part_ml [2, b, splits, nh] (m, then l), f32, with splits =
-// ceil(W * bt / KV_SPLIT).
+// bfloat16), the page type (KIND) and the head dim.  Both need the
+// partials' scratch: part_acc [b, splits, nh, hd] and part_ml [2, b,
+// splits, nh] (m, then l), f32, with splits = ceil(W * bt / KV_SPLIT).
 template <int KIND>
 int decode_fwd(const void* q, Pages pg, const void* tables,
                const void* kv_lens, const void* slopes, void* out,
                void* part_acc, void* part_ml, int b, int nh, int nkv,
                int hd, int bt, int num_pages, int W, int splits, float scale,
                int dtype, void* stream) {
-  if (!shapes_ok(b, 1, nh, nkv, bt, num_pages, W) || nh / nkv > D_GMAX)
+  if (!shapes_ok(b, 1, nh, nkv, bt, num_pages, W) || nh / nkv > D_GMAX ||
+      part_acc == nullptr || part_ml == nullptr ||
+      (long long)splits * KV_SPLIT < (long long)W * bt ||
+      (long long)(splits - 1) * KV_SPLIT >= (long long)W * bt)
     return (int)cudaErrorInvalidValue;
   const int* tab = static_cast<const int*>(tables);
   const int* lens = static_cast<const int*>(kv_lens);
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (part_acc == nullptr || part_ml == nullptr ||
-        (long long)splits * KV_SPLIT < (long long)W * bt ||
-        (long long)(splits - 1) * KV_SPLIT >= (long long)W * bt)
-      return (int)cudaErrorInvalidValue;
-    using P = typename PageOf<KIND, bf16>::type;
-    float* pa = static_cast<float*>(part_acc);
-    float* pm = static_cast<float*>(part_ml);
-#define PD_SPLIT(HD)                                                        \
-  return (int)launch_decode_split<P, HD>(q, pg, tab, lens, sl, out, pa, pm, \
-                                         b, nh, nkv, bt, num_pages, W,      \
-                                         splits, scale, st)
-    if (hd == 64) PD_SPLIT(64);
-    if (hd == 80) PD_SPLIT(80);
-    if (hd == 96) PD_SPLIT(96);
-    if (hd == 128) PD_SPLIT(128);
-    if (hd == 256) PD_SPLIT(256);
-#undef PD_SPLIT
-    return (int)cudaErrorInvalidValue;
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+#define PD_SPLIT(T, HD)                                                   \
+  return (int)launch_decode_split<T, typename PageOf<KIND, T>::type, HD>( \
+      q, pg, tab, lens, sl, out, pa, pm, b, nh, nkv, bt, num_pages, W,    \
+      splits, scale, st)
+#define PD_DTYPE(T)                 \
+  if (hd == 64) PD_SPLIT(T, 64);    \
+  if (hd == 80) PD_SPLIT(T, 80);    \
+  if (hd == 96) PD_SPLIT(T, 96);    \
+  if (hd == 128) PD_SPLIT(T, 128);  \
+  if (hd == 256) PD_SPLIT(T, 256);
+  if (dtype == 0) {
+    PD_DTYPE(float)
+  } else if (dtype == 1) {
+    PD_DTYPE(bf16)
   }
-#define PD_CASE(T, HD)                                                  \
-  return (int)launch_decode<T, typename PageOf<KIND, T>::type, HD>(     \
-      q, pg, tab, lens, sl, out, b, nh, nkv, bt, num_pages, W, scale, st)
-  if (dtype == 0 && hd == 64) PD_CASE(float, 64);
-  if (dtype == 0 && hd == 80) PD_CASE(float, 80);
-  if (dtype == 0 && hd == 96) PD_CASE(float, 96);
-  if (dtype == 0 && hd == 128) PD_CASE(float, 128);
-  if (dtype == 0 && hd == 256) PD_CASE(float, 256);
-#undef PD_CASE
+#undef PD_DTYPE
+#undef PD_SPLIT
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1283,8 +1179,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).
 // q/out [b, 1, nh, hd]; pages [num_pages, nkv, bt, hd]; tables [b, W]
 // int32; kv_lens [b] int32; slopes [nh] float32 ALiBi slopes or null.
-// part_acc / part_ml: the split partials' f32 scratch for bf16 q (see
-// decode_fwd; null for f32 q), splits = ceil(W * bt / KV_SPLIT).
+// part_acc / part_ml: the split partials' f32 scratch (see decode_fwd),
+// splits = ceil(W * bt / KV_SPLIT).
 // Returns a cudaError_t; the caller raises on anything but 0.
 int paged_decode_fwd(const void* q, const void* k_pages,
                      const void* v_pages, const void* tables,

@@ -24,7 +24,7 @@
 // fsub removes 2^23 and the code's offset, exactly; pairs are packed with
 // one cvt.rn.bf16x2.f32.
 //
-// Three kernels; the wrapper (ops/quant_dense.py) picks one by dtype and M.
+// Four kernels; the wrapper (ops/quant_dense.py) picks one by dtype and M.
 //
 // quant_dense_decode_kernel<BITS, NT8>: bf16 x, M <= 16 (decode: M = 1
 // plain, M = 8 the 8-slot batch).  Every code byte feeds at most 32
@@ -74,16 +74,48 @@
 //   its 64 rows (B's transpose bit set); a warpgroup whose rows are all
 //   past M skips the product.
 //
-// quant_dense_kernel<BITS>: f32 x, full f32 on the CUDA cores (the f32
-// cross-checks; no served path runs it), 16-row tiles, split K summed by
-// quant_dense_reduce_splits.
+// The f32 kernels: f32 x (the f32 cross-checks of the -int8 / -int4
+// configs), full f32 FFMA on the CUDA cores, no TF32, each element
+// dequantized as the plain version does it, f32(code) * scale, in f32;
+// split at M = 16 as the bf16 kernels are.
 //
-// Split K (decode and prefill kernels): a product whose tiles do not fill
-// the card splits its K steps over blockIdx.y (decode) / .z (prefill).
+// quant_dense_f32_decode_kernel<BITS, MR>: M <= 16, bound by the codes'
+// bytes as the bf16 decode kernel is, and built the same way: the same
+// warp stages (a TMA box of 32 code rows into each warp's own ring, x and
+// int4's scale row by each lane's cp.async), the same interleaved 32-row
+// steps of the four warps summed in warp order, the same K split (it
+// depends on K, N, bits and the SM count, never on M).  (Tried on the
+// H100 and no faster: splits summed in a cluster's shared memory,
+// 16-column blocks, eight warps on half steps, codes streamed by plain
+// loads into registers.)  A lane owns 4
+// neighbouring columns of the block's 128: per 4 k rows it reads one code
+// word a row, dequantizes straight into registers (no W tile in shared
+// memory, no block barrier in the main loop) and takes the MR rows of x
+// (1, 8 or 16, zero-padded past M) as broadcast float4s: 16 MR FFMA for
+// 4 + MR loads.  Each (row, column) sum is one FFMA chain over k in
+// order, whatever MR is, so a row's result is bit-equal at M = 1 and
+// inside M = 8 or 16.
+//
+// quant_dense_f32_tile_kernel<BITS>: M > 16, bound by operations from a
+// few hundred rows (67 TFLOP/s of f32 FFMA): an SGEMM tile.  A block of
+// 256 threads owns 128 x 128 outputs, a thread an 8 x 8 micro-tile (rows
+// 4 ty .. + 3 and 64 + 4 ty .., columns 4 tx .. + 3 and 64 + 4 tx ..), fed
+// by float4 loads from shared memory: per 4 k, 8 x and 8 W loads for 256
+// FFMA (1/16 a FFMA: a 16-byte load takes a wavefront a quarter-warp,
+// and the SM serves one wavefront for four warp FFMAs).  x ([128][64]
+// f32 a step) and the raw codes arrive by cp.async into a 3-stage ring;
+// each 64-row code step is dequantized once per block into one of two f32
+// W tiles, the step after the one being multiplied, so one barrier a
+// step separates them.
+//
+// Split K (every kernel): a product whose tiles do not fill the card
+// splits its K steps over blockIdx.y (decode kernels) / .z (prefill and
+// tile kernels).
 // Each split writes f32 partials to a scratch the wrapper allocates; the
 // last block of a tile to arrive (a per-tile arrival counter, which that
 // block resets to 0 for the next launch and the next graph replay) sums
-// them in split order and rounds once.  Deterministic: no float atomics.
+// them in split order (and rounds once, to bf16).  Deterministic: no
+// float atomics.
 // The counters are zeroed buffers allocated by the wrapper outside any
 // capture (ops/quant_dense.arrival_counters): one per (device, stream) for
 // eager products, so two products running at once on two streams of one
@@ -107,7 +139,7 @@ using hopper_tile::mma_bf16;
 using hopper_tile::pack_bf16;
 
 constexpr int BN = 128;             // output columns a block (all kernels)
-constexpr int BK = 64;              // K rows a step (f32, prefill)
+constexpr int BK = 64;              // K rows a step (f32 tile, prefill)
 constexpr int COUNTERS = 1 << 16;   // arrival counters (ints) a device
 
 // ---------------------------------------------------------------------------
@@ -257,14 +289,23 @@ __device__ __forceinline__ bool last_to_arrive(int* counter, int splits,
   return *reinterpret_cast<volatile int*>(flag) != 0;
 }
 
+// Four outputs at p: bf16 (rounded once) or f32.
+__device__ __forceinline__ void store4(bf16* p, const float4& v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ void store4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
 // The last split of a tile sums the tile's partials, part[z][M][N] for z
-// = 0 .. splits - 1 in that order, into out (bf16): rows [m0, m1) by
-// columns [n0, n0 + BN), as float4 slots spread over `nthreads` threads,
-// eight splits' loads in flight at a time.
-__device__ __forceinline__ void sum_tile(const float* part, bf16* out,
-                                         int M, int N, int m0, int m1,
-                                         int n0, int splits, int tid,
-                                         int nthreads) {
+// = 0 .. splits - 1 in that order, into out (x's dtype T): rows [m0, m1)
+// by columns [n0, n0 + BN), as float4 slots spread over `nthreads`
+// threads, eight splits' loads in flight at a time.
+template <typename T>
+__device__ __forceinline__ void sum_tile(const float* part, T* out, int M,
+                                         int N, int m0, int m1, int n0,
+                                         int splits, int tid, int nthreads) {
   const size_t stride = (size_t)M * N / 4;   // float4s a split
   for (int e = tid; e < (m1 - m0) * (BN / 4); e += nthreads) {
     const int row = m0 + e / (BN / 4), col = n0 + (e % (BN / 4)) * 4;
@@ -287,8 +328,7 @@ __device__ __forceinline__ void sum_tile(const float* part, bf16* out,
           v.w += q[u].w;
         }
     }
-    *reinterpret_cast<uint2*>(out + (size_t)row * N + col) =
-        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    store4(out + (size_t)row * N + col, v);
   }
 }
 
@@ -304,9 +344,9 @@ constexpr int DEC_STEP = 32;   // K rows a stage
 // owns up to SLOTS float4 slots of the [M][BN] tile and keeps 16 loads in
 // flight over them, so a sum costs splits / (16 / SLOTS) round trips
 // whatever M is.
-template <int SLOTS>
-__device__ __forceinline__ void sum_rows(const float* part, bf16* out,
-                                         int M, int N, int n0, int splits,
+template <int SLOTS, typename T>
+__device__ __forceinline__ void sum_rows(const float* part, T* out, int M,
+                                         int N, int n0, int splits,
                                          int tid) {
   constexpr int B = 16 / SLOTS;
   const size_t stride = (size_t)M * N / 4;
@@ -346,8 +386,7 @@ __device__ __forceinline__ void sum_rows(const float* part, bf16* out,
     if (!ok[i]) continue;
     const int e = tid + i * DEC_NT;
     const int row = e / (BN / 4), col = n0 + (e % (BN / 4)) * 4;
-    *reinterpret_cast<uint2*>(out + (size_t)row * N + col) = make_uint2(
-        pack_bf16(v[i].x, v[i].y), pack_bf16(v[i].z, v[i].w));
+    store4(out + (size_t)row * N + col, v[i]);
   }
 }
 
@@ -840,175 +879,438 @@ __global__ void __launch_bounds__(PF_NT, 1)
 }
 
 // ---------------------------------------------------------------------------
-// the f32 kernel: f32 x on the CUDA cores (the f32 cross-checks)
+// the f32 decode kernel: f32 x, M <= 16, weight streaming on the CUDA cores
 
-constexpr int F_NT = 128;     // threads a block: a thread a column
-constexpr int F_BM = 16;      // rows a block
-constexpr int F_STAGES = 3;
-
-template <int BITS>
-struct F32Cfg {
-  static constexpr int X_BYTES = F_BM * BK * 4;
-  static constexpr int RAW_ROWS = BITS == 8 ? BK : BK / 2;
-  static constexpr int RAW_BYTES = RAW_ROWS * BN;
-  static constexpr int SCALE_BYTES = BITS == 4 ? BN * 4 : 0;
-  static constexpr int STAGE_BYTES = X_BYTES + RAW_BYTES + SCALE_BYTES;
-  static constexpr int W_BYTES = BK * BN * 4;
-  static constexpr int SMEM = F_STAGES * STAGE_BYTES + W_BYTES;
+template <int BITS, int MR>
+struct F32Dec {
+  // one warp's stage: the W box [W_ROWS][BN] bytes as TMA lays it down,
+  // x rows [MR][32] f32, int4's scale row [BN] f32; every offset a
+  // multiple of 128
+  static constexpr int W_ROWS = BITS == 8 ? DEC_STEP : DEC_STEP / 2;
+  static constexpr int X_OFF = W_ROWS * BN;
+  static constexpr int S_OFF = X_OFF + MR * DEC_STEP * 4;
+  static constexpr int STAGE = S_OFF + (BITS == 4 ? BN * 4 : 0);
+  static constexpr int DEPTH = BITS == 8 ? 3 : 4;
+  static constexpr int RING = DEC_WARPS * DEPTH * STAGE;
+  // after the loop the ring holds each warp's sums [MR rows][BN]
+  static constexpr int RED = DEC_WARPS * MR * BN * 4;
+  // then each warp's DEPTH W barriers, the split flag, and slack to align
+  // the base to 128 bytes (TMA's destinations)
+  static constexpr int BARS = RING > RED ? RING : RED;
+  static constexpr int FLAG = BARS + DEC_WARPS * DEPTH * 8;
+  static constexpr int SMEM = FLAG + 16 + 128;
+  static_assert(MR == 1 || MR == 8 || MR == 16, "1, 8 or 16 rows");
 };
 
-// Issue stage `st`'s copies: x rows [m0, m0 + 16) and W rows of K step kt,
-// and for int4 the step's scale row (rows past M and columns past N are
-// zero-filled).
-template <int BITS>
-__device__ __forceinline__ void f32_load(char* st, const float* x,
-                                         const uint8_t* w,
-                                         const float* scale, int M, int N,
-                                         int K, int group, int m0, int n0,
-                                         int kt) {
-  using C = F32Cfg<BITS>;
-  float* sx = reinterpret_cast<float*>(st);
-  uint8_t* sw = reinterpret_cast<uint8_t*>(st + C::X_BYTES);
-  const int k0 = kt * BK;
-#pragma unroll
-  for (int c = threadIdx.x; c < F_BM * (BK / 4); c += F_NT) {
-    const int r = c / (BK / 4), cc = c % (BK / 4);
-    const bool ok = m0 + r < M;
-    const float* src = ok ? x + (size_t)(m0 + r) * K + k0 + cc * 4 : x;
-    cp_async16(sx + r * BK + cc * 4, src, ok);
+// Issue one warp's copies of the stage at K row k0 into slot st: the W
+// box by one TMA completing on `bar` (lane 0, once every lane is done
+// with the slot); x rows [0, MR) (past M zero-filled) and int4's scale
+// row at this lane's columns by each lane's own cp.async.
+template <int BITS, int MR>
+__device__ __forceinline__ void f32d_load(char* st, uint64_t* bar,
+                                          const CUtensorMap* wmap,
+                                          const float* x, const float* scale,
+                                          int M, int N, int K, int group,
+                                          int n0, int k0, int lane) {
+  using C = F32Dec<BITS, MR>;
+  if (lane == 0) {
+    // the slot's earlier reads (generic proxy) before the TMA's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(bar, C::X_OFF);
+    tma_load_2d(st, wmap, n0, BITS == 8 ? k0 : k0 / 2, bar);
   }
-  const int wr0 = BITS == 8 ? k0 : k0 / 2;
+  // x row c / 8, k0 + 4 (c % 8) .. + 3
 #pragma unroll
-  for (int c = threadIdx.x; c < C::RAW_ROWS * 8; c += F_NT) {
-    const int r = c >> 3, n = n0 + (c & 7) * 16;
-    const bool ok = n < N;
-    const uint8_t* src = ok ? w + (size_t)(wr0 + r) * N + n : w;
-    cp_async16(sw + r * BN + (c & 7) * 16, src, ok);
+  for (int c = lane; c < MR * 8; c += 32) {
+    const int row = c >> 3;
+    const bool ok = row < M;
+    cp_async16(st + C::X_OFF + c * 16,
+               ok ? x + (size_t)row * K + k0 + 4 * (c & 7) : x, ok);
   }
   if constexpr (BITS == 4) {
-    float* ss = reinterpret_cast<float*>(st + C::X_BYTES + C::RAW_BYTES);
-    const float* row = scale + (size_t)(k0 / group) * N;
-    if (threadIdx.x < BN / 4) {
-      const int n = n0 + threadIdx.x * 4;
-      const bool ok = n < N;
-      cp_async16(ss + threadIdx.x * 4, ok ? row + n : scale, ok);
-    }
+    const int n = n0 + 4 * lane;
+    const bool ok = n < N;   // N % 16 == 0: a lane's 4 are all in or out
+    cp_async16(st + C::S_OFF + lane * 16,
+               ok ? scale + (size_t)(k0 / group) * N + n : scale, ok);
   }
 }
 
-// Dequantize stage `st`'s raw W into the f32 tile sw: f32(code) * scale.
-// A thread takes 16 neighbouring columns, (threadIdx.x % 8) * 16, of every
-// 16th row.
-template <int BITS>
-__device__ __forceinline__ void f32_dequant(const char* st, float* sw,
-                                            const float (&sc8)[16]) {
-  using C = F32Cfg<BITS>;
-  const uint8_t* raw = reinterpret_cast<const uint8_t*>(st + C::X_BYTES);
-  const int col = (threadIdx.x & 7) * 16;
-  float s[16];
+// One stage's products into acc[row][column]: per 4 k rows, the lane's
+// code word of each row dequantized to w[k][column] (f32(code) * scale),
+// then every row of x times it, k in order.
+template <int BITS, int MR>
+__device__ __forceinline__ void f32d_compute(const char* st,
+                                             float (&acc)[MR][4],
+                                             const float (&sc8)[4], int lane,
+                                             uint32_t magic) {
+  using C = F32Dec<BITS, MR>;
+  float s[4];
   if constexpr (BITS == 8) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) s[j] = sc8[j];
+    for (int c = 0; c < 4; ++c) s[c] = sc8[c];
   } else {
-    smem_scales16(s, st + C::X_BYTES + C::RAW_BYTES + col * 4);
+    const float4 v = *reinterpret_cast<const float4*>(st + C::S_OFF +
+                                                      lane * 16);
+    s[0] = v.x;
+    s[1] = v.y;
+    s[2] = v.z;
+    s[3] = v.w;
   }
+  const float* xs = reinterpret_cast<const float*>(st + C::X_OFF);
+#pragma unroll 2
+  for (int kq = 0; kq < DEC_STEP; kq += 4) {
+    float w[4][4];
 #pragma unroll
-  for (int r = threadIdx.x >> 3; r < C::RAW_ROWS; r += F_NT / 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * BN + col);
+    for (int r = 0; r < 4; ++r) {
+      // int8: box row kq + r; int4: packed row (kq + r) / 2, the low
+      // nibbles for even k, the high ones for odd
+      const int row = BITS == 8 ? kq + r : (kq + r) >> 1;
+      const uint32_t b = biased<BITS>(
+          *reinterpret_cast<const uint32_t*>(st + row * BN + 4 * lane),
+          BITS == 4 && (r & 1));
 #pragma unroll
-    for (int hi = 0; hi < (BITS == 8 ? 1 : 2); ++hi) {
-      float* dst = sw + (BITS == 8 ? r : 2 * r + hi) * BN + col;
+      for (int c = 0; c < 4; ++c)
+        w[r][c] = code_f32<BITS>(b, c, magic) * s[c];
+    }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t b = biased<BITS>(word(v, q), hi);
-        reinterpret_cast<float4*>(dst)[q] =
-            make_float4(code_f32<BITS>(b, 0, MAGIC) * s[4 * q],
-                        code_f32<BITS>(b, 1, MAGIC) * s[4 * q + 1],
-                        code_f32<BITS>(b, 2, MAGIC) * s[4 * q + 2],
-                        code_f32<BITS>(b, 3, MAGIC) * s[4 * q + 3]);
+    for (int m = 0; m < MR; ++m) {
+      const float4 xv = *reinterpret_cast<const float4*>(xs + m * DEC_STEP +
+                                                         kq);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[m][c] = fmaf(xv.x, w[0][c], acc[m][c]);
+        acc[m][c] = fmaf(xv.y, w[1][c], acc[m][c]);
+        acc[m][c] = fmaf(xv.z, w[2][c], acc[m][c]);
+        acc[m][c] = fmaf(xv.w, w[3][c], acc[m][c]);
       }
     }
   }
 }
 
-// grid (ceil(N / BN), ceil(M / 16), splits); split z takes K steps
-// [z * per, min(K / BK, (z + 1) * per)).  With one split the block writes
-// out; with more, f32 partials part[z][M][N].
-template <int BITS>
-__global__ void __launch_bounds__(F_NT)
-    quant_dense_kernel(const float* __restrict__ x,
-                       const uint8_t* __restrict__ w,
-                       const float* __restrict__ scale,
-                       float* __restrict__ out, float* __restrict__ part,
-                       int M, int N, int K, int group, int per) {
-  using C = F32Cfg<BITS>;
-  extern __shared__ __align__(16) char smem[];
-  float* sw = reinterpret_cast<float*>(smem + F_STAGES * C::STAGE_BYTES);
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * F_BM;
-  const int kt0 = blockIdx.z * per;
-  const int nsteps = min(K / BK - kt0, per);
+// grid (ceil(N / BN), splits); split y takes 32-row steps [y per, min(K /
+// 32, (y + 1) per)); its warp w takes every fourth of them from the w-th.
+// One split writes out; with more, f32 partials part[y][M][N], and the
+// tile's last split sums them.
+template <int BITS, int MR>
+__global__ void __launch_bounds__(DEC_NT, 3)
+    quant_dense_f32_decode_kernel(const __grid_constant__ CUtensorMap wmap,
+                                  const float* __restrict__ x,
+                                  const float* __restrict__ scale,
+                                  float* __restrict__ out,
+                                  float* __restrict__ part,
+                                  int* __restrict__ counters, int M, int N,
+                                  int K, int group, int per,
+                                  uint32_t magic) {
+  using C = F32Dec<BITS, MR>;
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n0 = blockIdx.x * BN;
+  const int kt0 = blockIdx.y * per;
+  const int left = min(K / DEC_STEP, kt0 + per) - kt0 - warp;
+  const int mine = left > 0 ? (left + DEC_WARPS - 1) / DEC_WARPS : 0;
+  char* ring = smem + warp * C::DEPTH * C::STAGE;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + C::BARS) + warp * C::DEPTH;
+  if (lane == 0) {
+    for (int s = 0; s < C::DEPTH; ++s) mbar_init(bars + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
 
-  float sc8[16];
+  float sc8[4] = {0.f, 0.f, 0.f, 0.f};
   if constexpr (BITS == 8) {
-    const int col = n0 + (threadIdx.x & 7) * 16;
-    load_scales16(sc8, scale + col, col < N);
-  }
-#pragma unroll
-  for (int s = 0; s < F_STAGES - 1; ++s) {
-    if (s < nsteps)
-      f32_load<BITS>(smem + s * C::STAGE_BYTES, x, w, scale, M, N, K, group,
-                     m0, n0, kt0 + s);
-    cp_async_commit();
-  }
-  float a[F_BM];
-#pragma unroll
-  for (int r = 0; r < F_BM; ++r) a[r] = 0.f;
-  for (int i = 0; i < nsteps; ++i) {
-    if (i + F_STAGES - 1 < nsteps)
-      f32_load<BITS>(smem + ((i + F_STAGES - 1) % F_STAGES) * C::STAGE_BYTES,
-                     x, w, scale, M, N, K, group, m0, n0,
-                     kt0 + i + F_STAGES - 1);
-    cp_async_commit();
-    cp_async_wait<F_STAGES - 1>();
-    __syncthreads();
-    const char* st = smem + (i % F_STAGES) * C::STAGE_BYTES;
-    f32_dequant<BITS>(st, sw, sc8);
-    __syncthreads();
-    const float* sx = reinterpret_cast<const float*>(st);
-    // thread = column; 16 rows of running sums in full f32
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float wv = sw[kk * BN + threadIdx.x];
-#pragma unroll
-      for (int r = 0; r < F_BM; ++r) a[r] = fmaf(sx[r * BK + kk], wv, a[r]);
+    const int n = n0 + 4 * lane;
+    if (n < N) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(scale + n));
+      sc8[0] = v.x;
+      sc8[1] = v.y;
+      sc8[2] = v.z;
+      sc8[3] = v.w;
     }
-    __syncthreads();   // the stage and the W tile are rewritten next step
+  }
+  float acc[MR][4];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+
+  auto k_of = [&](int i) { return (kt0 + warp + i * DEC_WARPS) * DEC_STEP; };
+#pragma unroll
+  for (int s = 0; s < C::DEPTH - 1; ++s) {
+    if (s < mine)
+      f32d_load<BITS, MR>(ring + s * C::STAGE, bars + s, &wmap, x, scale, M,
+                          N, K, group, n0, k_of(s), lane);
+    cp_async_commit();
+  }
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<C::DEPTH - 2>();   // this lane's copies of stage i
+    mbar_wait(bars + i % C::DEPTH, (i / C::DEPTH) & 1);   // its W box
+    // the other lanes' x pieces, and every lane done with stage i - 1's
+    // slot, which the next copies refill
+    __syncwarp();
+    const int nxt = i + C::DEPTH - 1;
+    if (nxt < mine)
+      f32d_load<BITS, MR>(ring + (nxt % C::DEPTH) * C::STAGE,
+                          bars + nxt % C::DEPTH, &wmap, x, scale, M, N, K,
+                          group, n0, k_of(nxt), lane);
+    cp_async_commit();
+    f32d_compute<BITS, MR>(ring + (i % C::DEPTH) * C::STAGE, acc, sc8, lane,
+                           magic);
   }
   cp_async_wait<0>();
+  __syncthreads();   // every warp done with its ring: it takes the sums
 
-  const int n = n0 + threadIdx.x;
-  if (n >= N) return;
-  float* pz = part + (size_t)blockIdx.z * M * N;
+  // [warp][MR][BN]: lane's 4 columns as one float4 a row
+  float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int r = 0; r < F_BM; ++r) {
-    if (m0 + r >= M) break;
-    const size_t o = (size_t)(m0 + r) * N + n;
-    if (gridDim.z > 1)
-      pz[o] = a[r];
-    else
-      out[o] = a[r];
+  for (int m = 0; m < MR; ++m)
+    *reinterpret_cast<float4*>(red + (warp * MR + m) * BN + 4 * lane) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  __syncthreads();
+  const int n = n0 + threadIdx.x;   // DEC_NT == BN: a thread a column
+  const bool split = gridDim.y > 1;
+  for (int m = 0; m < M; ++m) {
+    float v = red[m * BN + threadIdx.x];
+#pragma unroll
+    for (int ww = 1; ww < DEC_WARPS; ++ww)
+      v += red[(ww * MR + m) * BN + threadIdx.x];
+    if (n < N) {
+      if (split)
+        part[((size_t)blockIdx.y * M + m) * N + n] = v;
+      else
+        out[(size_t)m * N + n] = v;
+    }
+  }
+  if (!split) return;
+  int* flag = reinterpret_cast<int*>(smem + C::FLAG);
+  if (!last_to_arrive(counters + blockIdx.x, gridDim.y, flag,
+                      threadIdx.x == 0, 1, DEC_NT))
+    return;
+  if (M <= 4)
+    sum_rows<1>(part, out, M, N, n0, gridDim.y, threadIdx.x);
+  else if (M <= 8)
+    sum_rows<2>(part, out, M, N, n0, gridDim.y, threadIdx.x);
+  else
+    sum_rows<4>(part, out, M, N, n0, gridDim.y, threadIdx.x);
+}
+
+// ---------------------------------------------------------------------------
+// the f32 tile kernel: f32 x, M > 16, an SGEMM tile on the CUDA cores
+
+constexpr int FT_BM = 128;                    // rows a block
+constexpr int FT_NT = 256;                    // threads: 8 x 8 outputs each
+constexpr int FT_STAGES = 3;
+
+template <int BITS>
+struct Ft {
+  // a stage: x [FT_BM][BK] f32, the raw codes [64 or 32][BN] bytes,
+  // int4's scale row [BN] f32; then two dequantized W tiles [BK][BN] f32
+  // and the split flag
+  static constexpr int X_BYTES = FT_BM * BK * 4;
+  static constexpr int RAW_ROWS = BITS == 8 ? BK : BK / 2;
+  static constexpr int RAW_BYTES = RAW_ROWS * BN;
+  static constexpr int SC_BYTES = BITS == 4 ? BN * 4 : 0;
+  static constexpr int STAGE = X_BYTES + RAW_BYTES + SC_BYTES;
+  static constexpr int W_BYTES = BK * BN * 4;
+  static constexpr int W_OFF = FT_STAGES * STAGE;
+  static constexpr int FLAG = W_OFF + 2 * W_BYTES;
+  static constexpr int SMEM = FLAG + 16;
+  static_assert(SMEM <= 232448, "over the SM's 227 KB");
+};
+
+// Issue stage st's copies of K step kt: x rows [m0, m0 + FT_BM) (past M
+// zero-filled), the step's code rows at columns [n0, n0 + BN) (past N
+// zero-filled) and, for int4, its scale row.
+template <int BITS>
+__device__ __forceinline__ void ft_load(char* st, const float* x,
+                                        const uint8_t* w, const float* scale,
+                                        int M, int N, int K, int group,
+                                        int m0, int n0, int kt) {
+  using C = Ft<BITS>;
+  const int k0 = kt * BK;
+#pragma unroll
+  for (int c = threadIdx.x; c < FT_BM * (BK / 4); c += FT_NT) {
+    const int r = c / (BK / 4), p = c % (BK / 4);
+    const bool ok = m0 + r < M;
+    cp_async16(st + c * 16, ok ? x + (size_t)(m0 + r) * K + k0 + 4 * p : x,
+               ok);
+  }
+  const int wr0 = BITS == 8 ? k0 : k0 / 2;
+#pragma unroll
+  for (int c = threadIdx.x; c < C::RAW_ROWS * (BN / 16); c += FT_NT) {
+    const int r = c / (BN / 16), n = n0 + 16 * (c % (BN / 16));
+    const bool ok = n < N;
+    cp_async16(st + C::X_BYTES + c * 16,
+               ok ? w + (size_t)(wr0 + r) * N + n : w, ok);
+  }
+  if constexpr (BITS == 4) {
+    if (threadIdx.x < BN / 4) {
+      const int n = n0 + 4 * threadIdx.x;
+      const bool ok = n < N;
+      cp_async16(st + C::X_BYTES + C::RAW_BYTES + 16 * threadIdx.x,
+                 ok ? scale + (size_t)(k0 / group) * N + n : scale, ok);
+    }
   }
 }
 
-// out[i] = sum over splits, in split order, of part[s][i].
-__global__ void quant_dense_reduce_splits(const float* __restrict__ part,
-                                          float* __restrict__ out,
-                                          size_t mn, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[(size_t)z * mn + i];
-  out[i] = s;
+// Stage st's codes -> the W tile wt [BK][BN] f32, f32(code) * scale: a
+// thread takes the 4 columns 4 (tid % 32) .. of every eighth code row,
+// one code word and one or two float4 stores a row.
+template <int BITS>
+__device__ __forceinline__ void ft_dequant(const char* st, float* wt,
+                                           const float (&sc8)[4],
+                                           uint32_t magic) {
+  using C = Ft<BITS>;
+  const char* raw = st + C::X_BYTES;
+  const int c4 = threadIdx.x & 31;
+  float s[4];
+  if constexpr (BITS == 8) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = sc8[c];
+  } else {
+    const float4 v =
+        *reinterpret_cast<const float4*>(raw + C::RAW_BYTES + 16 * c4);
+    s[0] = v.x;
+    s[1] = v.y;
+    s[2] = v.z;
+    s[3] = v.w;
+  }
+#pragma unroll
+  for (int r = threadIdx.x >> 5; r < C::RAW_ROWS; r += FT_NT / 32) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(raw + r * BN +
+                                                          4 * c4);
+#pragma unroll
+    for (int hi = 0; hi < (BITS == 8 ? 1 : 2); ++hi) {
+      const uint32_t b = biased<BITS>(v, hi);
+      *reinterpret_cast<float4*>(wt + (BITS == 8 ? r : 2 * r + hi) * BN +
+                                 4 * c4) =
+          make_float4(code_f32<BITS>(b, 0, magic) * s[0],
+                      code_f32<BITS>(b, 1, magic) * s[1],
+                      code_f32<BITS>(b, 2, magic) * s[2],
+                      code_f32<BITS>(b, 3, magic) * s[3]);
+    }
+  }
+}
+
+// acc += x[rows][step] . wt over the step's BK k, in order: thread (ty,
+// tx) reads its 8 rows' x as float4s of 4 k and its 8 columns of each W
+// row as two float4s.
+__device__ __forceinline__ void ft_compute(const float* xs, const float* wt,
+                                           float (&acc)[8][8], int ty,
+                                           int tx) {
+#pragma unroll 2
+  for (int kq = 0; kq < BK; kq += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a[i] = *reinterpret_cast<const float4*>(
+          xs + ((i >> 2) * (FT_BM / 2) + 4 * ty + (i & 3)) * BK + kq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* wr = wt + (kq + kk) * BN + 4 * tx;
+      const float4 b0 = *reinterpret_cast<const float4*>(wr);
+      const float4 b1 = *reinterpret_cast<const float4*>(wr + BN / 2);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y
+                         : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// grid (ceil(N / BN), ceil(M / FT_BM), splits); split z takes 64-row
+// steps [z per, min(K / 64, (z + 1) per)).  One split writes out; with
+// more, f32 partials part[z][M][N], and the tile's last split sums them.
+template <int BITS>
+__global__ void __launch_bounds__(FT_NT, 1)
+    quant_dense_f32_tile_kernel(const float* __restrict__ x,
+                                const uint8_t* __restrict__ w,
+                                const float* __restrict__ scale,
+                                float* __restrict__ out,
+                                float* __restrict__ part,
+                                int* __restrict__ counters, int M, int N,
+                                int K, int group, int per, uint32_t magic) {
+  using C = Ft<BITS>;
+  extern __shared__ __align__(16) char smem[];
+  float* wts = reinterpret_cast<float*>(smem + C::W_OFF);
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * FT_BM;
+  const int kt0 = blockIdx.z * per;
+  const int nsteps = min(K / BK - kt0, per);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+
+  float sc8[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (BITS == 8) {
+    const int n = n0 + 4 * (tid & 31);
+    if (n < N) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(scale + n));
+      sc8[0] = v.x;
+      sc8[1] = v.y;
+      sc8[2] = v.z;
+      sc8[3] = v.w;
+    }
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < FT_STAGES - 1; ++s) {
+    if (s < nsteps)
+      ft_load<BITS>(smem + s * C::STAGE, x, w, scale, M, N, K, group, m0, n0,
+                    kt0 + s);
+    cp_async_commit();
+  }
+  cp_async_wait<FT_STAGES - 2>();   // step 0 has landed
+  __syncthreads();
+  if (nsteps > 0) ft_dequant<BITS>(smem, wts, sc8, magic);
+  for (int i = 0; i < nsteps; ++i) {
+    cp_async_wait<FT_STAGES - 3>();   // step i + 1 has landed
+    // ... for every thread; W tile i is whole; step i - 1's stage and W
+    // tile are free
+    __syncthreads();
+    const int nxt = i + FT_STAGES - 1;
+    if (nxt < nsteps)
+      ft_load<BITS>(smem + (nxt % FT_STAGES) * C::STAGE, x, w, scale, M, N,
+                    K, group, m0, n0, kt0 + nxt);
+    cp_async_commit();   // (empty past the last step)
+    if (i + 1 < nsteps)
+      ft_dequant<BITS>(smem + ((i + 1) % FT_STAGES) * C::STAGE,
+                       wts + ((i + 1) & 1) * BK * BN, sc8, magic);
+    ft_compute(reinterpret_cast<const float*>(smem +
+                                              (i % FT_STAGES) * C::STAGE),
+               wts + (i & 1) * BK * BN, acc, ty, tx);
+  }
+  cp_async_wait<0>();
+
+  const bool split = gridDim.z > 1;
+  float* dst = split ? part + (size_t)blockIdx.z * M * N : out;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i >> 2) * (FT_BM / 2) + 4 * ty + (i & 3);
+    if (row >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + h * (BN / 2) + 4 * tx;
+      if (col < N)   // N % 16 == 0: all 4 or none
+        *reinterpret_cast<float4*>(dst + (size_t)row * N + col) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+    }
+  }
+  if (!split) return;
+  int* flag = reinterpret_cast<int*>(smem + C::FLAG);
+  if (!last_to_arrive(counters + blockIdx.y * gridDim.x + blockIdx.x,
+                      gridDim.z, flag, tid == 0, 1, FT_NT))
+    return;
+  sum_tile(part, out, M, N, m0, min(M, m0 + FT_BM), n0, gridDim.z, tid,
+           FT_NT);
 }
 
 // ---------------------------------------------------------------------------
@@ -1118,27 +1420,48 @@ cudaError_t launch_prefill(const void* x, const void* w, const void* scale,
   return cudaGetLastError();
 }
 
-template <int BITS>
-cudaError_t launch_f32(const void* x, const void* w, const void* scale,
-                       void* out, void* part, int M, int N, int K, int group,
-                       int splits, int per, cudaStream_t stream) {
-  using C = F32Cfg<BITS>;
-  auto kern = quant_dense_kernel<BITS>;
+template <int BITS, int MR>
+cudaError_t launch_f32_decode(const void* x, const void* w,
+                              const void* scale, void* out, void* part,
+                              void* counters, int M, int N, int K, int group,
+                              int splits, int per, cudaStream_t stream) {
+  using C = F32Dec<BITS, MR>;
+  CUtensorMap wmap{};
+  if (!tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N,
+                  BITS == 8 ? K : K / 2, N, BN, C::W_ROWS,
+                  CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  auto kern = quant_dense_f32_decode_kernel<BITS, MR>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + F_BM - 1) / F_BM, splits);
-  kern<<<grid, F_NT, C::SMEM, stream>>>(
+  const dim3 grid((N + BN - 1) / BN, splits);
+  kern<<<grid, DEC_NT, C::SMEM, stream>>>(
+      wmap, static_cast<const float*>(x), static_cast<const float*>(scale),
+      static_cast<float*>(out), static_cast<float*>(part),
+      static_cast<int*>(counters), M, N, K, group, per, MAGIC);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_f32_tile(const void* x, const void* w, const void* scale,
+                            void* out, void* part, void* counters, int M,
+                            int N, int K, int group, int splits, int per,
+                            cudaStream_t stream) {
+  constexpr int smem = Ft<BITS>::SMEM;
+  auto kern = quant_dense_f32_tile_kernel<BITS>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + FT_BM - 1) / FT_BM, splits);
+  kern<<<grid, FT_NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const uint8_t*>(w),
       static_cast<const float*>(scale), static_cast<float*>(out),
-      static_cast<float*>(part), M, N, K, group, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const size_t mn = (size_t)M * N;
-  quant_dense_reduce_splits<<<(unsigned)((mn + 255) / 256), 256, 0,
-                              stream>>>(static_cast<const float*>(part),
-                                        static_cast<float*>(out), mn,
-                                        splits);
+      static_cast<float*>(part), static_cast<int*>(counters), M, N, K, group,
+      per, MAGIC);
   return cudaGetLastError();
 }
 
@@ -1149,13 +1472,14 @@ extern "C" {
 // x [M, K] (dtype 0 = float32, 1 = bfloat16), out [M, N] in x's dtype,
 // w: bits 8 -> int8 [K, N] with scale f32 [N]; bits 4 -> uint8 [K/2, N]
 // with scale f32 [K/group, N], group a multiple of 64 dividing K.
-// kernel: 0 the f32 kernel (dtype 0), 1 the decode kernel (dtype 1, M <=
-// 16), 2 the prefill kernel (dtype 1).  splits: K-step splits (32-row
-// steps for kernel 1, 64-row for 0 and 2); every split must hold at least
-// one step (splits == ceil(steps / ceil(steps / splits))).  With more
-// than one, part is f32 scratch [splits, M, N], and kernels 1 and 2 need
-// `counters`: the device's zeroed arrival counters (1 << 16 ints, one a
-// tile).  Every pointer 16-byte aligned, N % 16 == 0, K % 64 == 0.
+// kernel: 0 the f32 tile kernel (dtype 0), 1 the decode kernel (dtype 1,
+// M <= 16), 2 the prefill kernel (dtype 1), 3 the f32 decode kernel
+// (dtype 0, M <= 16).  splits: K-step splits (32-row steps for kernels 1
+// and 3, 64-row for 0 and 2); every split must hold at least one step
+// (splits == ceil(steps / ceil(steps / splits))).  With more than one,
+// part is f32 scratch [splits, M, N], and `counters` the device's zeroed
+// arrival counters (1 << 16 ints, one a tile).  Every pointer 16-byte
+// aligned, N % 16 == 0, K % 64 == 0.
 // Returns a cudaError_t (cudaErrorInvalidValue for anything without an
 // instance); the caller raises on anything but 0.
 int quant_dense_fwd(const void* x, const void* w, const void* scale,
@@ -1167,27 +1491,44 @@ int quant_dense_fwd(const void* x, const void* w, const void* scale,
   if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
   if (bits == 4 && (group <= 0 || group % BK || K % group))
     return (int)cudaErrorInvalidValue;
-  if (dtype != (kernel == 0 ? 0 : 1) || kernel < 0 || kernel > 2 ||
-      (kernel == 1 && M > 16))
+  const bool f32 = kernel == 0 || kernel == 3;
+  const bool dec = kernel == 1 || kernel == 3;
+  if (kernel < 0 || kernel > 3 || dtype != (f32 ? 0 : 1) || (dec && M > 16))
     return (int)cudaErrorInvalidValue;
-  const int steps = K / (kernel == 1 ? DEC_STEP : BK);
+  const int steps = K / (dec ? DEC_STEP : BK);
   if (splits < 1 || splits > steps || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const int per = (steps + splits - 1) / splits;
   if ((steps + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
   const long long n_tiles = (N + BN - 1) / BN;
-  const long long tiles =
-      n_tiles * (kernel == 2 ? (M + PF_BM - 1) / PF_BM : 1);
-  if (kernel != 0 && splits > 1 && (counters == nullptr || tiles > COUNTERS))
+  const long long row_tiles = kernel == 2   ? (M + PF_BM - 1) / PF_BM
+                              : kernel == 0 ? (M + FT_BM - 1) / FT_BM
+                                            : 1;
+  if (splits > 1 &&
+      (counters == nullptr || n_tiles * row_tiles > COUNTERS))
     return (int)cudaErrorInvalidValue;
-  if ((M + F_BM - 1) / F_BM > 65535 || splits > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (row_tiles > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kernel == 0)
-    return (int)(bits == 8 ? launch_f32<8>(x, w, scale, out, part, M, N, K,
-                                           group, splits, per, st)
-                           : launch_f32<4>(x, w, scale, out, part, M, N, K,
-                                           group, splits, per, st));
+    return (int)(bits == 8
+                     ? launch_f32_tile<8>(x, w, scale, out, part, counters,
+                                          M, N, K, group, splits, per, st)
+                     : launch_f32_tile<4>(x, w, scale, out, part, counters,
+                                          M, N, K, group, splits, per, st));
+  if (kernel == 3) {
+#define F32_DEC(MR)                                                         \
+  return (int)(bits == 8                                                    \
+                   ? launch_f32_decode<8, MR>(x, w, scale, out, part,       \
+                                              counters, M, N, K, group,     \
+                                              splits, per, st)              \
+                   : launch_f32_decode<4, MR>(x, w, scale, out, part,       \
+                                              counters, M, N, K, group,     \
+                                              splits, per, st))
+    if (M == 1) F32_DEC(1);
+    if (M <= 8) F32_DEC(8);
+    F32_DEC(16);
+#undef F32_DEC
+  }
   if (kernel == 2)
     return (int)(bits == 8
                      ? launch_prefill<8>(x, w, scale, out, part, counters, M,

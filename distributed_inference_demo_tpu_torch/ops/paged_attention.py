@@ -42,15 +42,16 @@ for CPU tensors they run their plain PyTorch version
 (``paged_flash_attention_plain``, ``paged_prefill_attention_plain``).
 Each has integer counts of kernel launches: ``.launches`` (full-width
 pages), ``.int8_launches`` and ``.fp8_launches``, one per wrapper call
-(a bf16 decode call is two CUDA launches, the split pass and its
-merge); the prefill wrapper's ``.f32_wide_launches`` counts its f32
-launches of 64-row blocks (``ops.flash_attention.f32_rows_per_block``
-picks them, as it does for the flash kernel).
+(a decode call is two CUDA launches, the split pass and its merge); the
+prefill wrapper's ``.f32_wide_launches`` counts its f32 launches of
+64-row blocks (``ops.flash_attention.f32_rows_per_block`` picks them, as
+it does for the flash kernel).
 
-Under bf16 q the decode kernel splits each row's keys at fixed positions
-``KV_SPLIT`` apart (flash-decoding) and merges the splits' partial
-softmax states in split order; :func:`paged_decode_split_plain` is that
-arithmetic in plain PyTorch, for the tests.
+Under f32 and bf16 q alike the decode kernel splits each row's keys at
+fixed positions ``KV_SPLIT`` apart (flash-decoding) and merges the
+splits' partial softmax states in split order;
+:func:`paged_decode_split_plain` is that arithmetic in plain PyTorch,
+for the tests.
 """
 
 import ctypes
@@ -69,8 +70,8 @@ SOURCE = "paged_attention.cu"
 # the head dims of the catalog's models, each an instance of the kernels
 HEAD_DIMS = (64, 80, 96, 128, 256)
 MAX_DECODE_GROUP = 16        # q heads per kv head the decode kernel takes
-# keys per split of the bf16 decode kernel, as KV_SPLIT in the source,
-# which refuses a launch whose split count does not match it
+# keys per split of the decode kernel (both q dtypes), as KV_SPLIT in the
+# source, which refuses a launch whose split count does not match it
 KV_SPLIT = 128
 # query rows a block of the bf16 prefill kernel (PREFILL_ROWS in the
 # source; the f32 instances' rows come from f32_rows_per_block)
@@ -233,12 +234,12 @@ def decode_splits(W: int, block_tokens: int, kv_split: int = KV_SPLIT
 def paged_decode_split_plain(q, k_pages, v_pages, tables, kv_lens,
                              slopes=None, kv_split: int = KV_SPLIT
                              ) -> torch.Tensor:
-    """The bf16 decode kernel's split arithmetic in plain f32 PyTorch
-    (tests only; no path calls it): split ``s`` of a row covers the
-    positions ``[s * kv_split, (s + 1) * kv_split)`` below its ``kv_end =
-    min(kv_len, W * bt)`` and keeps an unnormalised partial (acc, m, l);
-    the live splits merge in split order, ``acc / max(l, 1e-30)``, and a
-    row with ``kv_end`` 0 gives 0.  Same contract as
+    """The decode kernel's split arithmetic (f32 and bf16 q) in plain
+    f32 PyTorch (tests only; no path calls it): split ``s`` of a row
+    covers the positions ``[s * kv_split, (s + 1) * kv_split)`` below its
+    ``kv_end = min(kv_len, W * bt)`` and keeps an unnormalised partial
+    (acc, m, l); the live splits merge in split order, ``acc / max(l,
+    1e-30)``, and a row with ``kv_end`` 0 gives 0.  Same contract as
     :func:`paged_flash_attention_plain`."""
     b, _, nh, hd = q.shape
     nkv, bt = k_pages.shape[1], k_pages.shape[2]
@@ -455,32 +456,39 @@ def paged_flash_attention(q: torch.Tensor, k_pages, v_pages,
     page, tables, kv_lens = _check_cuda_args(
         "paged_flash_attention", q, k_pages, v_pages, tables, kv_lens,
         slopes)
-    b, _, nh, hd = q.shape
-    num_pages, nkv, bt, _ = k_pages.shape
+    nh, nkv = q.shape[2], k_pages.shape[1]
     if nh // nkv > MAX_DECODE_GROUP:
         raise ValueError(f"the decode kernel takes at most "
                          f"{MAX_DECODE_GROUP} q heads per kv head, got "
                          f"{nh // nkv}")
+    return _decode_launch(q, k_pages, v_pages, tables, kv_lens, slopes,
+                          page)
+
+
+def _decode_launch(q, k_pages, v_pages, tables, kv_lens, slopes,
+                   page: str) -> torch.Tensor:
+    """One decode launch of q's dtype's instance (its split pass, then
+    the merge), the arguments checked by :func:`_check_cuda_args`;
+    counts it."""
+    b, _, nh, hd = q.shape
+    num_pages, nkv, bt, _ = k_pages.shape
     if slopes is not None:
         slopes = slopes.float().contiguous()
     W = tables.shape[1]
     splits = decode_splits(W, bt)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if q.dtype == torch.bfloat16:
-        # the split pass's f32 partials in one buffer: acc [b, splits, nh,
-        # hd], then (m, l) [2, b, splits, nh]
-        n_acc = b * splits * nh * hd
-        scratch = torch.empty(n_acc + 2 * b * splits * nh,
-                              dtype=torch.float32, device=q.device)
-        part_acc = scratch.data_ptr()
-        part_ml = part_acc + 4 * n_acc
+    # the split pass's f32 partials in one buffer: acc [b, splits, nh,
+    # hd], then (m, l) [2, b, splits, nh]
+    n_acc = b * splits * nh * hd
+    scratch = torch.empty(n_acc + 2 * b * splits * nh, dtype=torch.float32,
+                          device=q.device)
+    part_acc = scratch.data_ptr()
     _launch("decode", page, q, (
         q.data_ptr(), *_page_ptrs(k_pages, v_pages, page),
         tables.data_ptr(), kv_lens.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, out.data_ptr(),
-        part_acc, part_ml, b, nh, nkv, hd, bt, num_pages, W, splits,
-        _scale(hd), _DTYPE_CODE[q.dtype]), _kernel_fns())
+        part_acc, part_acc + 4 * n_acc, b, nh, nkv, hd, bt, num_pages, W,
+        splits, _scale(hd), _DTYPE_CODE[q.dtype]), _kernel_fns())
     _count(paged_flash_attention, page)
     return out
 

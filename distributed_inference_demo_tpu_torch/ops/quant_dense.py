@@ -11,9 +11,12 @@ CPU tensors it runs the plain PyTorch version, ``x @ w.dequantize(x.dtype)``.
 
 Routing (``route``): bf16 activations with M <= ``DECODE_MAX_ROWS`` take
 the decode kernel (weight streaming, ``mma.sync`` with swapped operands),
-larger M the prefill kernel (``wgmma`` fed by TMA); f32 activations take
-the f32 kernel on the CUDA cores.  ``quant_dense.launches`` counts every
-launch, ``quant_dense.decode_launches`` the decode kernel's.
+larger M the prefill kernel (``wgmma`` fed by TMA); f32 activations split
+at the same M, full f32 on the CUDA cores: the f32 decode kernel (weight
+streaming, dequantized into registers) and the f32 tile kernel (an SGEMM
+tile over each step dequantized once a block).  ``quant_dense.launches``
+counts every launch, ``quant_dense.decode_launches`` the bf16 decode
+kernel's.
 
 ``w`` is an ``ops.quant.QuantizedArray`` (``bits`` 8: int8 ``q`` [K, N],
 f32 ``scale`` [1, N]) or ``QuantizedArray4`` (``bits`` 4: uint8 ``q``
@@ -30,11 +33,11 @@ import torch
 
 SOURCE = "quant_dense.cu"
 BLOCK_N = 128          # output columns a block, every kernel (csrc: BN)
-BLOCK_K = 64           # K rows a step of the f32 and prefill kernels (BK)
-DECODE_STEP_K = 32     # K rows a step of the decode kernel (DEC_STEP)
-DECODE_MAX_ROWS = 16   # bf16 products up to this M take the decode kernel
+BLOCK_K = 64           # K rows a step of the tile and prefill kernels (BK)
+DECODE_STEP_K = 32     # K rows a step of the decode kernels (DEC_STEP)
+DECODE_MAX_ROWS = 16   # products up to this M take a decode kernel
 PREFILL_ROWS = 128     # rows a prefill block (PF_BM)
-F32_ROWS = 16          # rows an f32 block (F_BM)
+F32_TILE_ROWS = 128    # rows an f32 tile block (FT_BM)
 COUNTERS = 1 << 16     # arrival counters a buffer (COUNTERS)
 # the decode kernel's split aims at this many blocks an SM (four fit): two
 # for a weight under DECODE_LARGE_BYTES (fewer splits to sum), three from
@@ -42,7 +45,9 @@ COUNTERS = 1 << 16     # arrival counters a buffer (COUNTERS)
 DECODE_BLOCKS_PER_SM = (2, 3)
 DECODE_LARGE_BYTES = 24 << 20
 DECODE_WARPS = 4       # warps a decode block, each its own steps (DEC_WARPS)
-KERNELS = {"f32": 0, "decode": 1, "prefill": 2}
+# the C entry's kernel codes
+KERNELS = {"f32_tile": 0, "decode": 1, "prefill": 2, "f32_decode": 3}
+DECODE_KERNELS = ("decode", "f32_decode")   # 32-row steps, M <= 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()   # server threads may launch concurrently
 
@@ -55,7 +60,7 @@ def quant_dense_plain(x: torch.Tensor, w) -> torch.Tensor:
 def route(m: int, dtype: torch.dtype) -> str:
     """The kernel a product of ``m`` rows of ``dtype`` activations takes."""
     if dtype == torch.float32:
-        return "f32"
+        return "f32_decode" if m <= DECODE_MAX_ROWS else "f32_tile"
     return "decode" if m <= DECODE_MAX_ROWS else "prefill"
 
 
@@ -67,13 +72,13 @@ def _even_splits(steps: int, want: int) -> int:
 
 
 def decode_splits(k: int, n: int, bits: int, sm_count: int) -> int:
-    """The decode kernel's K split: as many blocks as DECODE_BLOCKS_PER_SM
-    an SM give, never more (a second wave would run alone); few enough
-    that every warp of a split has a 32-row step (more splits only add
-    partials to sum) and that the f32 partials at the kernel's most rows
-    (16 x N x 4 bytes a split) stay under the weight's own bytes.  It
-    depends on no M, so a row's result is the same at any M the kernel
-    takes."""
+    """The decode kernels' K split (bf16 and f32 x alike): as many
+    blocks as DECODE_BLOCKS_PER_SM an SM give, never more (a second wave
+    would run alone); few enough that every warp of a split has a 32-row
+    step (more splits only add partials to sum) and that the f32
+    partials at the kernel's most rows (16 x N x 4 bytes a split) stay
+    under the weight's own bytes.  It depends on no M, so a row's result
+    is the same at any M the kernel takes."""
     tiles = -(-n // BLOCK_N)
     per_sm = DECODE_BLOCKS_PER_SM[k * n * bits // 8 >= DECODE_LARGE_BYTES]
     steps = k // DECODE_STEP_K
@@ -93,21 +98,32 @@ def prefill_splits(m: int, k: int, n: int, bits: int, sm_count: int) -> int:
     return _even_splits(k // BLOCK_K, want)
 
 
-def f32_splits(m: int, k: int, n: int, bits: int, sm_count: int) -> int:
-    """The f32 kernel's K split: enough blocks for four an SM, and the
-    partials under the weight's bytes."""
-    tiles = -(-n // BLOCK_N) * -(-m // F32_ROWS)
-    want = min(-(-4 * sm_count // tiles), max(1, k * bits // (32 * m)))
-    return _even_splits(k // BLOCK_K, want)
+def f32_tile_splits(m: int, k: int, n: int, bits: int,
+                    sm_count: int) -> int:
+    """The f32 tile kernel's K split (one block an SM): the count that
+    finishes first, taking a block's time as its 64-row steps and the
+    blocks as waves over the SMs (the fewest splits among equals, so a
+    product whose tiles fill the card whole is not split), and few enough
+    that the partials (splits x M x N x 4 bytes) stay under the weight's
+    own bytes."""
+    tiles = -(-m // F32_TILE_ROWS) * -(-n // BLOCK_N)
+    steps = k // BLOCK_K
+    best = (None, 1)
+    for want in range(1, min(steps, max(1, k * bits // (32 * m))) + 1):
+        splits = _even_splits(steps, want)
+        cost = -(-tiles * splits // sm_count) * -(-steps // splits)
+        if best[0] is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
 
 
 def splits_for(kernel: str, m: int, k: int, n: int, bits: int,
                sm_count: int) -> int:
-    if kernel == "decode":
+    if kernel in DECODE_KERNELS:
         return decode_splits(k, n, bits, sm_count)
     if kernel == "prefill":
         return prefill_splits(m, k, n, bits, sm_count)
-    return f32_splits(m, k, n, bits, sm_count)
+    return f32_tile_splits(m, k, n, bits, sm_count)
 
 
 @functools.cache
@@ -255,8 +271,7 @@ def _launch(x, w, kernel: str, splits: int) -> torch.Tensor:
     part = (torch.empty((splits, m, n), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(x.device)
-    counters = (arrival_counters(x.device, stream) if kernel != "f32"
-                else None)
+    counters = arrival_counters(x.device, stream)
     fn, err_str = _kernel_fn()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),

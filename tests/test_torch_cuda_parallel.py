@@ -29,10 +29,12 @@ GREEDY = SamplingParams(greedy=True)
 @pytest.mark.cuda
 def test_tp2_tokens_on_the_card_equal_tp1():
     """The tp=2 engine's f32 greedy tokens equal tp=1's, and each rank
-    launched the flash kernel L times for the one prefill."""
+    launched the flash kernel L times for the one prefill (llama-test at
+    256 wide: 4 heads of 64, a head dim the kernel has)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cfg = get_model_config("llama-test")
+    cfg = get_model_config("llama-test").replace(hidden_size=256,
+                                                 intermediate_size=512)
     params = init_full_params(torch.Generator(device="cuda").manual_seed(0),
                               cfg, "cuda")
     prompt = np.arange(1, 33).reshape(1, 32) % cfg.vocab_size

@@ -303,38 +303,44 @@ def test_layer_chunked_init_quantizes_the_float_init(mode):
 
 def test_kernel_instance_and_split_rules():
     """bf16 products of up to 16 rows take the decode kernel, larger ones
-    the prefill kernel, f32 the f32 kernel; the decode kernel's split
-    depends on no M; every split holds at least one step; partials never
-    outweigh the weight."""
+    the prefill kernel; f32 ones split at the same M, the f32 decode
+    kernel and the f32 tile kernel; the decode kernels' split depends on
+    no M; every split holds at least one step; partials never outweigh
+    the weight."""
     assert qd.route(1, torch.bfloat16) == "decode"
     assert qd.route(8, torch.bfloat16) == "decode"
     assert qd.route(16, torch.bfloat16) == "decode"
     assert qd.route(17, torch.bfloat16) == "prefill"
     assert qd.route(1500, torch.bfloat16) == "prefill"
-    assert qd.route(1, torch.float32) == qd.route(256, torch.float32) == "f32"
+    assert qd.route(1, torch.float32) == "f32_decode"
+    assert qd.route(16, torch.float32) == "f32_decode"
+    assert qd.route(17, torch.float32) == qd.route(256, torch.float32) \
+        == "f32_tile"
     shapes = ((2048, 256), (2048, 2048), (2048, 5632), (5632, 2048),
               (4096, 1024), (4096, 4096), (4096, 14336), (14336, 4096),
               (64, 16))
     for k, n in shapes:
         for bits in (8, 4):
             for sms in (132, 114, 1):
-                dec = {qd.splits_for("decode", m, k, n, bits, sms)
-                       for m in range(1, qd.DECODE_MAX_ROWS + 1)}
-                assert dec == {qd.decode_splits(k, n, bits, sms)}
+                for kernel in qd.DECODE_KERNELS:
+                    dec = {qd.splits_for(kernel, m, k, n, bits, sms)
+                           for m in range(1, qd.DECODE_MAX_ROWS + 1)}
+                    assert dec == {qd.decode_splits(k, n, bits, sms)}
             for m in (1, 8, 16, 17, 64, 256, 1500):
-                for kernel in ("decode", "prefill", "f32"):
-                    if kernel == "decode" and m > qd.DECODE_MAX_ROWS:
+                for kernel in ("decode", "prefill", "f32_decode",
+                               "f32_tile"):
+                    decode = kernel in qd.DECODE_KERNELS
+                    if decode and m > qd.DECODE_MAX_ROWS:
                         continue
                     s = qd.splits_for(kernel, m, k, n, bits, 132)
-                    steps = k // (qd.DECODE_STEP_K if kernel == "decode"
+                    steps = k // (qd.DECODE_STEP_K if decode
                                   else qd.BLOCK_K)
                     per = -(-steps // s)
                     assert 1 <= s <= steps and -(-steps // per) == s
                     if s > 1:   # partials never outweigh the weight
-                        rows = (qd.DECODE_MAX_ROWS if kernel == "decode"
-                                else m)
+                        rows = qd.DECODE_MAX_ROWS if decode else m
                         assert s * rows * n * 4 <= k * n * bits // 8
-                    if kernel == "decode":   # a step for every warp
+                    if decode:   # a step for every warp
                         assert s == 1 or steps // s >= qd.DECODE_WARPS
     # TinyLlama's wk at decode: 2 tiles, split to fill the card, capped
     # by a step for every warp of a split
