@@ -9,7 +9,8 @@ their plain versions.
                                           # quant, kvcache, surface,
                                           # speculative, fleet, chain,
                                           # server, vision, native,
-                                          # train, parallel, moe; or a
+                                          # train, parallel, moe,
+                                          # catalog; or a
                                           # comma-separated list), no
                                           # result lines; also
                                           # mixed_f32_partings, a
@@ -74,22 +75,25 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             with whether layer 0's dense products give a chunk's rows
             bit-equal at the two row counts (ROADMAP C 2);
 6. serve_model  plain serve, as in phase 3, of each model at the kernels'
-            other head dims, at full width: gemma-2b (hd 256), bloom3b
-            (hd 80) and bloom1b1 (hd 96): one greedy request, the flash
+            other head dims, at full width: gemma-2b (hd 256) and
+            bloom3b (hd 80), each cut to HEAD_DIM_LAYERS' depth, and
+            bloom1b1 (hd 96): one greedy request, the flash
             kernel's launch count, the prefill logits against plain
             attention, decode ms/token;
 7. batching, mixed  phases 4 and 5 for gemma-2b (at f32 its batching
             tokens through the kernels equal the gather path's), and
-            phase 4 for bloom3b (bf16 only);
+            phase 4 for bloom3b (bf16 only), each cut to
+            HEAD_DIM_LAYERS' depth, full width;
 8. graph    every decode step of phases 3-7 replays a captured CUDA graph
             (the engines' default); this phase runs five paths with the
             graph and with ``cuda_graph=False``, one engine each on the
             same weights: TinyLlama plain serve (b=1), 8-slot batching
             and 8-slot mixed int8, gemma-2b batching, bloom3b plain
-            serve (ALiBi).  For each: ms/token or ms per step, the
-            device's idle share (``torch.profiler``), replays against the
-            decode steps, paged decode launches against L per step, and
-            greedy bf16 tokens and logprobs of the two equal bit for bit
+            serve (ALiBi; these two at HEAD_DIM_LAYERS' depth).  For
+            each: ms/token or ms per step, the device's idle share
+            (``torch.profiler``), replays against the decode steps,
+            paged decode launches against L per step, and greedy bf16
+            tokens and logprobs of the two equal bit for bit
             (TinyLlama plain also greedy and sampled at f32); the dense
             kernel's launches (none on these float models) against the
             routing;
@@ -422,14 +426,50 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             ``max_to_keep`` on a small tree;
     (phase 9's kernel rows hold the dense kernel at the train phase's
     256-row products: TinyLlama's w_up, M = 256)
-21. the ``{"kernels": [...]}`` line (every entry launched on the path
+21. catalog  the catalog's head layouts that no other phase serves, at
+            full width and depth (random bf16 weights from seed 0, each
+            model's made once and freed before the next): qwen2.5-0.5b
+            (14 q heads on 2 kv heads, hd 64) and qwen2.5-7b (28 on 4,
+            hd 128; 7 q heads a kv head, qkv biases), gemma-7b (16 on
+            16, hd 256) and bloom7b1 (32 on 32, hd 128, ALiBi), each
+            served as phase 6 with the LONG_PROMPT_LEN-token prefill
+            (one greedy request over HTTP, the flash launches against
+            the rule, both prefills' logits against plain attention,
+            decode ms/token, device ms a step and idle share over
+            CATALOG_PROFILE_STEPS steps); bloom7b1 with the bloom560m
+            draft, K = SPEC_K: ``SpeculativeEngine`` at b=1 (the README's
+            ``generate --draft-model``) and 8-slot speculative batching,
+            serialized (``serve --batch-slots 8 --draft-model``): greedy
+            tokens against plain decode's and the plain batching
+            engine's (partings at near ties only), the plain engine's
+            logits teacher forced SPEC_K + 1 tokens a forward (the
+            verify's width) against one a forward over the plain
+            stream's first SPEC_VERIFY_ROUNDS rounds, on every run (a
+            random-weight stream may accept every draft), acceptance,
+            ms per emitted token, device ms a round and idle share, the
+            flash launches of a prefill (L_t + L_d), the paged launches
+            against the routing, the verify window's L_t a round (the
+            first ALiBi verify on the card); 8-slot batching as phase 4
+            of qwen2.5-7b and of bloom7b1 over int8 pages (``serve
+            --kv-dtype int8``): launches against the routing, bf16
+            logits against the gather path, f32 tokens equal the gather
+            path's (at CATALOG_F32_LAYERS layers, full width), no page
+            leak, the decode window;
+    (phase 2 holds the kernels at these heads: the flash kernel at the
+    64-token prompt, the 1500-token prompt and a ragged g = 7 chunk, the
+    paged kernels at the 8-slot decode rows (full, int8 and e4m3 pages;
+    gemma-7b full and int8), each row bit-equal to the row launched
+    alone, qwen2.5-7b's split boundaries, the 64-token chunk at 200 and
+    the mixed slab (full and int8), and bloom7b1's [8, K+1] verify)
+22. the ``{"kernels": [...]}`` line (every entry launched on the path
    at least once, or the run fails; an f32 instance's eager calls and
    replayed launches by phase, from ``F32Tally``), then the card's
    nvidia-smi line, then the ``{"ok": true, "device": {...}}`` line.
 
-Phases 10 to 20 run in the order 11, 12, 13, 14, 16, 17, 18, 19, 20, 15,
-10:
-the moe phase last, after the earlier phases freed their memory.  The
+Phases 10 to 21 run in the order 11, 12, 13, 14, 16, 17, 18, 19, 20, 15,
+10, 21:
+the moe and catalog phases last, after the earlier phases freed their
+memory.  The
 train and parallel phases' four meshes (pp, tp, ep, sp: two ranks
 each) start their ranks together, on threads, once: in the train phase
 after its one-process windows, or as the parallel phase begins where it
@@ -532,6 +572,32 @@ SLAB_STARTS = (0, 64, 448, None)
 # and (gemma-2b) the mixed dispatch over int8 pages; bloom1b1 (hd 96,
 # ALiBi) through plain serve
 HEAD_DIM_MODELS = ("gemma-2b", "bloom3b", "bloom1b1")
+# their depth cuts (full width), which pay for the catalog phase: the
+# plain serve, batching and graph paths of bloom3b (2 layers) and
+# gemma-2b (6), and gemma-2b's mixed path; bloom7b1 and gemma-7b serve
+# ALiBi and hd 256 at full depth there, and every HEAD_DIM_MODELS
+# instance keeps its kernel rows (phase 2).  (At 2 layers gemma-2b's
+# batching decode window timed out waiting for its profiled steps.)
+HEAD_DIM_LAYERS = {"gemma-2b": 6, "bloom3b": 2}
+# the catalog phase: the catalog's head layouts no other phase serves, at
+# full width and depth: qwen2.5-0.5b and qwen2.5-7b (7 q heads a kv head,
+# at hd 64 and 128, qkv biases), gemma-7b (16 heads on 16, hd 256) and
+# bloom7b1 (32 on 32, hd 128, ALiBi) through plain serve; 8-slot batching
+# of qwen2.5-7b and of bloom7b1 over int8 pages (the README's `serve
+# --model bloom7b1 --batch-slots 8 --kv-dtype int8`); bloom7b1 with the
+# bloom560m draft, K = SPEC_K, at b=1 and at 8 slots (the README's
+# speculative commands)
+CATALOG_MODELS = ("qwen2.5-0.5b", "qwen2.5-7b", "gemma-7b", "bloom7b1")
+CATALOG_BATCHING = {"qwen2.5-7b": None, "bloom7b1": "int8"}   # kv_dtype
+CATALOG_SPEC = ("bloom7b1", "bloom560m")                    # target, draft
+# the catalog's serve profiles: device ms a step over this many steps
+# (the phase-6 path's 64-step profile cost 7-10 s a 7B model in its
+# trace alone); its batching's f32 check at a depth cut (full width)
+CATALOG_PROFILE_STEPS = 16
+CATALOG_F32_LAYERS = 4
+# the speculative catalog path's verify check: this many rounds of SPEC_K
+# + 1 positions teacher forced at both widths (:func:`verify_gap`)
+SPEC_VERIFY_ROUNDS = 4
 # the kvcache phase: KV_PROMPTS prompts of a shared "system prompt" of
 # KV_PREFIX tokens and PREFILL_CHUNK tokens of their own, a prefix pool
 # of KV_POOL_BLOCKS pages of BLOCK_TOKENS
@@ -597,21 +663,43 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def eager_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean time of ``fn`` over ``iters`` back-to-back eager calls, by
-    CUDA events.  At small shapes the host's launch cost, not the device,
-    sets this number."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+# a timing's device-time budget: a call slower than TIMING_BUDGET_MS /
+# iters is timed over fewer calls, TIMING_MIN_ITERS at least (a 1 ms
+# plain version's mean over 10 calls, not 50); calls under 0.2 ms keep
+# all of theirs
+TIMING_BUDGET_MS = 10.0
+TIMING_MIN_ITERS = 10
+
+
+def _events_ms(torch, fn, calls: int) -> float:
+    """Mean ms of ``calls`` back-to-back eager calls of ``fn``, by CUDA
+    events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
+    for _ in range(calls):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / calls
+
+
+def _budget_iters(ms: float, iters: int) -> int:
+    """``iters``, cut to TIMING_BUDGET_MS of calls of ``ms`` each, not
+    below TIMING_MIN_ITERS."""
+    return max(min(iters, TIMING_MIN_ITERS),
+               min(iters, int(TIMING_BUDGET_MS / max(ms, 1e-6))))
+
+
+def eager_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean time of ``fn`` over ``iters`` back-to-back eager calls (cut
+    to the timing budget by the warm-up's mean), by CUDA events.  At
+    small shapes the host's launch cost, not the device, sets this
+    number."""
+    fn()
+    torch.cuda.synchronize()
+    warm = _events_ms(torch, fn, warmup)
+    return _events_ms(torch, fn, _budget_iters(warm, iters))
 
 
 def _graph_counters(torch):
@@ -623,10 +711,12 @@ def _graph_counters(torch):
 
 
 def device_ms(torch, fn, iters: int = 50) -> float:
-    """Mean device time of ``fn``: ``iters`` calls captured in one CUDA
-    graph and replayed, so no host launch cost sits between them."""
+    """Mean device time of ``fn``: ``iters`` calls (cut to the timing
+    budget by a warm call's eager time) captured in one CUDA graph and
+    replayed, so no host launch cost sits between them."""
     fn()
     torch.cuda.synchronize()
+    iters = _budget_iters(_events_ms(torch, fn, 1), iters)
     graph = torch.cuda.CUDAGraph()
     # the graph keeps the counters' address: they live while it does
     with _graph_counters(torch) as counters, torch.cuda.graph(graph):
@@ -730,8 +820,10 @@ def kernel_cases():
     64-row blocks per kv head, 128 and 132 in all); the serve prefill
     (64 tokens at 0) of each HEAD_DIM_MODELS model, at hd 256, 80, 96;
     the moe phase's (mixtral-tpu-1b at 64 and 2048 tokens, mixtral-8x7b
-    at 64); and the kvcache phase's warm prefill (64 tokens at
-    KV_PREFIX)."""
+    at 64); the kvcache phase's warm prefill (64 tokens at
+    KV_PREFIX); and each CATALOG_MODELS model's serve prompt and
+    LONG_PROMPT_LEN-token prompt at 0, plus a ragged 37-token chunk at 7
+    of qwen2.5-7b's heads (g = 7)."""
     cases = []
     for b in (1, 4):
         for chunk in (16, 64, 512):
@@ -773,6 +865,13 @@ def kernel_cases():
     nh, nkv, hd, alibi = model_heads(SERVE_MODEL)
     cases.append((SERVE_MODEL + "-tp2", 1, PROMPT_LEN, 0, nh // PAR_TP,
                   nkv // PAR_TP, hd, alibi))
+    # the catalog phase's prefills: the serve prompt and the long one (at
+    # g = 7, 10500 regrouped rows: a multiple of neither 16 nor 64), and
+    # a ragged g = 7 chunk after a prefix (259 rows)
+    for name in CATALOG_MODELS:
+        cases += [(name, 1, PROMPT_LEN, 0, *model_heads(name)),
+                  (name + "-long", 1, LONG_PROMPT_LEN, 0, *model_heads(name))]
+    cases.append(("qwen2.5-7b-ragged", 1, 37, 7, *model_heads("qwen2.5-7b")))
     return cases
 
 
@@ -1073,7 +1172,12 @@ def paged_cases():
     (g = 4) at the 8-slot decode and the 64-token chunk at 200 on
     full-width pages; and float8 e4m3 pages ("fp8", the e4m3 instances) at
     TinyLlama's decode rows, 64-token chunk at 200, mixed slab and split
-    boundaries, and gemma-2b's decode rows and chunk."""
+    boundaries, and gemma-2b's decode rows and chunk; and each
+    CATALOG_MODELS model's heads at the 8-slot decode rows (full, int8
+    and e4m3 pages; gemma-7b full and int8), the 64-token chunk at 200
+    and (but gemma-7b) the mixed slab on full and int8 pages, qwen2.5-7b's
+    at the split boundaries on both, and bloom7b1's at the [8, K+1]
+    verify."""
     from distributed_inference_demo_tpu_torch.ops.paged_attention import \
         KV_SPLIT
     serve = (1, 16, 37, 1999, 512, 130, -300, -5)   # negative: freed slot
@@ -1172,6 +1276,27 @@ def paged_cases():
                (VISION_PREFIX + VISION_NEW - 1,), "full"),
               (SERVE_MODEL + "-vision", "prefill", nh, nkv, hd, alibi,
                (VISION_PREFIX, (0,)), "full")]
+    # the catalog phase's heads: the 8-slot decode rows on full, int8 and
+    # e4m3 pages (gemma-7b: full and int8), the 64-token chunk at 200 and
+    # (but gemma-7b) the mixed slab on full and int8 pages; qwen2.5-7b's
+    # decode rows around the split boundaries; bloom7b1's [8, K+1]
+    # verify (the catalog's speculative batching, ALiBi)
+    for name in CATALOG_MODELS:
+        heads = model_heads(name)
+        gemma = name == "gemma-7b"
+        cases += [(name, "decode", *heads, serve, pages)
+                  for pages in ("full", "int8") + (() if gemma
+                                                   else ("fp8",))]
+        for pages in ("full", "int8"):
+            cases.append((name, "prefill", *heads, (PREFILL_CHUNK, (200,)),
+                          pages))
+            if not gemma:
+                cases.append((name + "-slab", "prefill", *heads,
+                              (PREFILL_CHUNK, SLAB_STARTS), pages))
+    cases += [("qwen2.5-7b-splits", "decode", *model_heads("qwen2.5-7b"),
+               splits, pages) for pages in ("full", "int8")]
+    cases.append(("bloom7b1-verify", "prefill", *model_heads("bloom7b1"),
+                  (SPEC_K + 1, VERIFY_STARTS), "full"))
     return cases
 
 
@@ -1371,7 +1496,8 @@ def phase_paged_kernels(torch, ptxas: list) -> dict:
             if not ok:
                 failures.append(f"{label} {kind} {dname} {pages} {shape}: "
                                 f"max err {row['max_abs_err']}")
-            if label in ("tinyllama", "gemma-2b", "bloom3b") and \
+            if label in ("tinyllama", "gemma-2b", "bloom3b",
+                         *CATALOG_MODELS) and \
                     kind == "decode" and b == SLOTS:
                 invariance.append(batch_invariance(
                     torch, kern_fn, label, q, pk, pv, tables, per_row,
@@ -1431,6 +1557,19 @@ def _get(port: int, path: str):
     with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
                                 timeout=60) as resp:
         return resp.status, json.loads(resp.read().decode())
+
+
+class Laps(dict):
+    """Wall seconds between successive ``lap(name)`` calls, by name (the
+    first from the construction)."""
+
+    def __init__(self):
+        super().__init__()
+        self._t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self[name], self._t = now - self._t, now
 
 
 def _check(cond: bool, what: str) -> None:
@@ -1738,16 +1877,22 @@ def long_prefill_check(torch, engine, plain, prompt) -> dict:
             "long_routing": routing}
 
 
-def phase_serve_model(torch, name: str, long_prompt: bool = False) -> dict:
-    """Plain serve of a HEAD_DIM_MODELS model at full width (random
-    weights from seed 0): ``InferenceHTTPServer`` over an
+def phase_serve_model(torch, name: str, long_prompt: bool = False,
+                      params=None, profile: int = 0,
+                      layers: int | None = None) -> dict:
+    """Plain serve of a HEAD_DIM_MODELS (or CATALOG_MODELS) model at full
+    width (random weights from seed 0, or ``params``):
+    ``InferenceHTTPServer`` over an
     ``InferenceEngine`` on "auto", which resolves to the flash kernel,
     answers one greedy request (a PROMPT_LEN-token prompt, NEW_TOKENS new
     tokens); the counts show every layer's prefill launched the kernel,
     in the instance its rule names; the prefill logits are held against
     an engine on plain attention (an MoE model's with its expert
     choices, :func:`moe_pinned`; ``long_prompt``: a LONG_PROMPT_LEN-token
-    prompt's too, :func:`long_prefill_check`); decode ms/token."""
+    prompt's too, :func:`long_prefill_check`); decode ms/token
+    (``profile``: and device ms a step and idle share over that many
+    decode steps, :func:`profile_decode`).  ``layers``: a depth cut
+    (full width)."""
     import numpy as np
 
     from distributed_inference_demo_tpu_torch.models.decoder import \
@@ -1764,10 +1909,12 @@ def phase_serve_model(torch, name: str, long_prompt: bool = False) -> dict:
         InferenceHTTPServer
 
     cfg = get_model_config(name)
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers)
     L, g = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
     greedy = SamplingParams(greedy=True)
-    params = init_full_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    if params is None:
+        params = init_full_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
     engine = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
                              attn_backend="auto", device="cuda")
     _check(engine.attn_backend == "flash",
@@ -1832,6 +1979,10 @@ def phase_serve_model(torch, name: str, long_prompt: bool = False) -> dict:
     t_many = engine.generate(prompt, 1 + n).seconds
     out.update(decode_ms_per_token=(t_many - t_one) / n * 1e3,
                prefill_plus_one_token_s=t_one)
+    if profile:
+        prof = profile_decode(torch, engine, prompt, steps=profile)
+        out["profile"] = dict(prof, device_ms_per_step=prof["device_busy_ms"]
+                              / profile)
     del engine, plain, params
     torch.cuda.empty_cache()
     return out
@@ -2192,7 +2343,9 @@ def kv_pages_slab_vs_chunk(torch, engine, seq) -> dict:
 def phase_batching(torch, model: str = SERVE_MODEL,
                    f32: str | None = "engine",
                    kv_cache_dtype: str | None = None,
-                   f32_layers: int | None = None) -> dict:
+                   f32_layers: int | None = None,
+                   kv_dtype: str | None = None, params=None,
+                   layers: int | None = None) -> dict:
     """The batching path of ``model`` at full width: see the module
     docstring, item 4.  ``f32``: "engine" holds the f32 tokens to a
     plain-attention ``InferenceEngine``'s (requests concurrent), "gather"
@@ -2201,7 +2354,10 @@ def phase_batching(torch, model: str = SERVE_MODEL,
     ``f32_layers`` cuts that check's depth (full width).
     ``kv_cache_dtype`` "float8_e4m3fn": the pool's pages are float8 and
     the e4m3 instances launch (launch keys ``paged_*_fp8``); the decode
-    window is left to :func:`graph_batching`."""
+    window is left to :func:`graph_batching`.  ``kv_dtype`` "int8": the
+    pages are int8 and the int8 instances launch (``paged_*_int8``).
+    ``params``: the bf16 weights, else random ones from seed 0.
+    ``layers``: a depth cut of the whole phase (full width)."""
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
     from distributed_inference_demo_tpu_torch.models.registry import \
@@ -2222,29 +2378,35 @@ def phase_batching(torch, model: str = SERVE_MODEL,
         import get_flight_recorder
 
     cfg = get_model_config(model)
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers)
     L = cfg.num_layers
     greedy = SamplingParams(greedy=True)
     prompts = _batch_prompts(cfg.vocab_size)
 
     fp8 = kv_cache_dtype is not None
-    # the counts of the instances this pool takes, and of the others
-    attr, other = (("fp8_launches", "launches") if fp8
-                   else ("launches", "fp8_launches"))
-    suffix = "_fp8" if fp8 else ""
+    # the count of the instances this pool takes, and of the others
+    attr, suffix = (("fp8_launches", "_fp8") if fp8 else
+                    ("int8_launches", "_int8") if kv_dtype == "int8" else
+                    ("launches", ""))
+    others = [a for a in ("launches", "int8_launches", "fp8_launches")
+              if a != attr]
 
     def engine_for(c, params, **kw):
         return ContinuousBatchingEngine(
             c, params, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
             kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
-            kv_cache_dtype=kv_cache_dtype, device="cuda", **kw)
+            kv_cache_dtype=kv_cache_dtype, kv_dtype=kv_dtype,
+            device="cuda", **kw)
 
     out = {"phase": "batching", "device": torch.cuda.get_device_name(0),
-           "kv_cache_dtype": kv_cache_dtype,
-           "model": model, "head_dim": cfg.head_dim, "slots": SLOTS,
+           "kv_cache_dtype": kv_cache_dtype, "kv_dtype": kv_dtype,
+           "model": model, "head_dim": cfg.head_dim, "layers": L,
+           "slots": SLOTS,
            "block_tokens": BLOCK_TOKENS, "prefill_chunk": PREFILL_CHUNK,
            "prompt_lens": list(BATCH_PROMPTS), "new_tokens": NEW_TOKENS}
-    params = init_full_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    if params is None:
+        params = init_full_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
     engine = engine_for(cfg, params)
     _check(engine.attn_backend == "auto", "paged backend")
     server = InferenceHTTPServer(engine, "127.0.0.1", 0,
@@ -2290,10 +2452,9 @@ def phase_batching(torch, model: str = SERVE_MODEL,
         _check(launches == predicted and min(launches.values()) > 0,
                f"paged launches {launches}, routing predicts {predicted}")
         _check(flash_attention.launches == 0, "the flash kernel ran")
-        _check(pa.paged_flash_attention.int8_launches
-               == pa.paged_prefill_attention.int8_launches
-               == getattr(pa.paged_flash_attention, other)
-               == getattr(pa.paged_prefill_attention, other) == 0,
+        _check(not any(getattr(w, a) for a in others
+                       for w in (pa.paged_flash_attention,
+                                 pa.paged_prefill_attention)),
                "another page type's instance ran")
         _check(stats["kvcache"]["hits"] == 1
                and stats["kvcache"]["partial_hit_tokens"] == SHARED_PREFIX,
@@ -2401,11 +2562,12 @@ def fp8_partings(torch, engines, prompts, got, want) -> list:
     return out
 
 
-def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
-                ) -> dict:
+def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True,
+                layers: int | None = None) -> dict:
     """The mixed dispatch over int8 pages at ``model``'s full width: see
     the module docstring, item 5.  ``extras``: also the teacher-forced
-    slab-vs-chunk logit gap, the int4 pool and the f32 tokens."""
+    slab-vs-chunk logit gap, the int4 pool and the f32 tokens.
+    ``layers``: a depth cut (full width)."""
     from distributed_inference_demo_tpu_torch.models.decoder import \
         init_full_params
     from distributed_inference_demo_tpu_torch.models.registry import \
@@ -2424,6 +2586,7 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
         import get_flight_recorder
 
     cfg = get_model_config(model)
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers)
     L = cfg.num_layers
     greedy = SamplingParams(greedy=True)
     prompts = _batch_prompts(cfg.vocab_size)
@@ -2447,7 +2610,8 @@ def phase_mixed(torch, model: str = SERVE_MODEL, extras: bool = True
                 "flash_attention": flash_attention.launches}
 
     out = {"phase": "mixed", "device": torch.cuda.get_device_name(0),
-           "model": model, "head_dim": cfg.head_dim, "slots": SLOTS,
+           "model": model, "head_dim": cfg.head_dim, "layers": L,
+           "slots": SLOTS,
            "block_tokens": BLOCK_TOKENS, "prefill_chunk": PREFILL_CHUNK,
            "decode_block": MIXED_DECODE_BLOCK,
            "mixed_token_budget": MIXED_BUDGET, "kv_dtype": "int8",
@@ -3002,11 +3166,13 @@ def _graph_plain_side(torch, engine, prompt) -> dict:
             "profile_top": prof["top"][:3]}
 
 
-def graph_plain(torch, name: str, f32: bool = False) -> dict:
+def graph_plain(torch, name: str, f32: bool = False,
+                layers: int | None = None) -> dict:
     """Plain serve of ``name`` at b=1, full width, the decode step
     replayed and eager (one engine each, the same weights): see the
     module docstring, item 8.  ``f32``: also greedy and sampled
-    (seed 7) tokens and logprobs at f32, bit for bit."""
+    (seed 7) tokens and logprobs at f32, bit for bit.  ``layers``: a
+    depth cut (full width)."""
     import numpy as np
 
     from distributed_inference_demo_tpu_torch.models.decoder import \
@@ -3021,6 +3187,7 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
         InferenceEngine
 
     cfg = get_model_config(name)
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers)
     greedy = SamplingParams(greedy=True)
     prompt = np.random.RandomState(1).randint(
         0, cfg.vocab_size, (1, PROMPT_LEN)).tolist()
@@ -3028,6 +3195,7 @@ def graph_plain(torch, name: str, f32: bool = False) -> dict:
     # init for an -int8 / -int4 model
     params = load_or_init(name, cfg, None, seed=0, device="cuda")
     out = {"path": f"{name} plain serve, b=1", "model": name,
+           "layers": cfg.num_layers,
            "decode_tokens": GRAPH_DECODE_TOKENS,
            "eager_decode_tokens": EAGER_DECODE_TOKENS}
     if cfg.quantization != "none":
@@ -3154,11 +3322,13 @@ def _graph_batching_side(torch, engine, prompts, mixed: bool,
 
 
 def graph_batching(torch, name: str, mixed: bool = False,
-                   kv_cache_dtype: str | None = None) -> dict:
+                   kv_cache_dtype: str | None = None,
+                   layers: int | None = None) -> dict:
     """8-slot batching of ``name`` (``mixed``: the mixed dispatch over
     int8 pages, whose decode half is the graph; ``kv_cache_dtype``: over
     float8 pages), full width, the decode step replayed and eager (one
-    engine each, the same weights): see the module docstring, item 8."""
+    engine each, the same weights): see the module docstring, item 8.
+    ``layers``: a depth cut (full width)."""
     from distributed_inference_demo_tpu_torch.models.loader import \
         load_or_init
     from distributed_inference_demo_tpu_torch.models.registry import \
@@ -3169,6 +3339,7 @@ def graph_batching(torch, name: str, mixed: bool = False,
         ContinuousBatchingEngine
 
     cfg = get_model_config(name)
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers)
     params = load_or_init(name, cfg, None, seed=0, device="cuda")
     prompts = [p[:16] for p in _batch_prompts(cfg.vocab_size)]
     kw = (dict(mixed_token_budget=MIXED_BUDGET, kv_dtype="int8",
@@ -3179,7 +3350,8 @@ def graph_batching(torch, name: str, mixed: bool = False,
     kind = ("mixed int8" if mixed else
             f"batching over {kv_cache_dtype} pages" if kv_cache_dtype
             else "batching")
-    out = {"path": f"{name} {kind}, {SLOTS} slots", "model": name}
+    out = {"path": f"{name} {kind}, {SLOTS} slots", "model": name,
+           "layers": cfg.num_layers}
 
     def engine_for(p, flag):
         return ContinuousBatchingEngine(
@@ -3235,8 +3407,9 @@ def phase_graph(torch) -> dict:
     paths = [graph_plain(torch, SERVE_MODEL, f32=True),
              graph_batching(torch, SERVE_MODEL),
              graph_batching(torch, SERVE_MODEL, mixed=True),
-             graph_batching(torch, "gemma-2b"),
-             graph_plain(torch, "bloom3b")]
+             graph_batching(torch, "gemma-2b",
+                            layers=HEAD_DIM_LAYERS["gemma-2b"]),
+             graph_plain(torch, "bloom3b", layers=HEAD_DIM_LAYERS["bloom3b"])]
     return {"phase": "graph", "device": torch.cuda.get_device_name(0),
             "paths": paths, "seconds": time.perf_counter() - t0}
 
@@ -4861,6 +5034,39 @@ def _teacher_logits(torch, engine, seq, plen: int, width: int):
     return logits[0].float().cpu().numpy()
 
 
+def verify_gap(torch, engine, prompt, stream) -> dict:
+    """The plain engine's logits at the first SPEC_VERIFY_ROUNDS x (SPEC_K
+    + 1) positions of ``stream`` after ``prompt``, teacher forced one
+    token a forward (decode's) and SPEC_K + 1 a forward (the verify's):
+    the largest gap over every position and vocab entry, held within
+    LOGIT_TOL_REL of the largest logit."""
+    n = SPEC_VERIFY_ROUNDS * (SPEC_K + 1)
+    seq = list(prompt) + list(stream[:n])
+
+    def rows(width):
+        ids = torch.tensor([seq], device=engine.device)
+        _, cache = engine._prefill(ids[:, :len(prompt)],
+                                   engine.new_cache(1))
+        out, start = [], len(prompt)
+        while start < len(seq):
+            w = min(width, len(seq) - start)
+            lg, cache = engine._fwd(ids[:, start:start + w], cache,
+                                    engine._positions(1, w, start), False)
+            out.append(lg[0].float())
+            start += w
+        return torch.cat(out)
+
+    one, wide = rows(1), rows(SPEC_K + 1)
+    res = {"positions": n,
+           "teacher_forced_gap": float((one - wide).abs().max()),
+           "logit_tol": LOGIT_TOL_REL * max(1.0,
+                                            float(one.abs().max()))}
+    _check(bool(torch.isfinite(wide).all())
+           and res["teacher_forced_gap"] <= res["logit_tol"],
+           f"the verify-width forward's logits differ from decode's: {res}")
+    return res
+
+
 def spec_partings(torch, engine, prompt, got, want) -> list:
     """Where a speculative engine's greedy stream ``got`` parts from the
     plain engine's ``want``: the first differing step, the top-two gap
@@ -5065,12 +5271,7 @@ def phase_speculative(torch, ptxas: list) -> dict:
         SpeculativeBackend, SpeculativeEngine)
 
     t_phase = time.perf_counter()
-    laps, t_lap = {}, [t_phase]
-
-    def lap(name):
-        now = time.perf_counter()
-        laps[name], t_lap[0] = now - t_lap[0], now
-
+    lap = Laps()
     greedy = SamplingParams(greedy=True)
     cfg, dcfg = get_model_config(SERVE_MODEL), get_model_config(SPEC_DRAFT)
     Lt, Ld = cfg.num_layers, dcfg.num_layers
@@ -5401,7 +5602,7 @@ def phase_speculative(torch, ptxas: list) -> dict:
     out["generate_prompt_lookup_int8"] = int8
     torch.cuda.empty_cache()
     lap("generate_prompt_lookup_int8")
-    out["section_s"] = laps
+    out["section_s"] = lap
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -9151,6 +9352,214 @@ def phase_train(torch, starts, model: str = SERVE_MODEL,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: the catalog's head layouts that no other phase serves
+# ---------------------------------------------------------------------------
+
+def catalog_speculative(torch, cfg, params) -> dict:
+    """CATALOG_SPEC's target (``params``) with its draft (random weights
+    from seed 0), K = SPEC_K, full width and depth: ``SpeculativeEngine``
+    at b=1 over SPEC_NEW tokens (``generate --draft-model``) and 8-slot
+    speculative batching, serialized (``serve --batch-slots 8
+    --draft-model``), over the batching phase's 8 prompts.  Greedy tokens
+    against plain decode's (the plain engine's; the plain batching
+    engine's), partings at near ties only; acceptance, ms per emitted
+    token, device ms a round and idle share; the flash launches of one
+    prefill (L_t + L_d), the paged launches against the routing and the
+    verify window's L_t a round (:func:`_spec_batching_run`)."""
+    import numpy as np
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+    from distributed_inference_demo_tpu_torch.ops.sampling import \
+        SamplingParams
+    from distributed_inference_demo_tpu_torch.runtime.batching import \
+        ContinuousBatchingEngine
+    from distributed_inference_demo_tpu_torch.runtime.engine import \
+        InferenceEngine
+    from distributed_inference_demo_tpu_torch.runtime.speculative import \
+        SpeculativeEngine
+
+    draft = CATALOG_SPEC[1]
+    dcfg = get_model_config(draft)
+    Lt, Ld = cfg.num_layers, dcfg.num_layers
+    greedy = SamplingParams(greedy=True)
+    dparams = init_full_params(
+        torch.Generator(device="cuda").manual_seed(0), dcfg, "cuda")
+    prompt = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, PROMPT_LEN).tolist()
+    out = {"draft": draft, "num_draft": SPEC_K, "new_tokens": SPEC_NEW,
+           "draft_layers": Ld, "draft_heads": [dcfg.num_heads,
+                                              dcfg.num_kv_heads],
+           "draft_head_dim": dcfg.head_dim}
+    plain = InferenceEngine(cfg, params, max_seq=MAX_SEQ, sampling=greedy,
+                            device="cuda")
+    plain.generate([prompt], 1)                                 # warm
+    t_one = plain.generate([prompt], 1).seconds
+    res = plain.generate([prompt], 1 + SPEC_NEW)
+    want = res.tokens[0].tolist()[:SPEC_NEW]
+    out["plain_ms_per_token"] = (res.seconds - t_one) / SPEC_NEW * 1e3
+    # the verify's forward, K + 1 tokens at once, held against decode's
+    # one token a forward on the plain stream's first SPEC_VERIFY_ROUNDS
+    # rounds: checked on every run, since a random-weight stream may
+    # accept every draft and never part (BLOOM ties its embeddings)
+    out["plain_stream_distinct_tokens"] = len(set(want))
+    out["verify_check"] = verify_gap(torch, plain, prompt, want)
+    eng = SpeculativeEngine(cfg, params, dcfg, dparams, max_seq=MAX_SEQ,
+                            sampling=greedy, num_draft=SPEC_K,
+                            device="cuda")
+    single = _spec_plain_side(torch, eng, [prompt], Lt + Ld)
+    del eng
+    single.pop("short")
+    single["partings"] = spec_partings(torch, plain, prompt,
+                                       single["tokens"], want)
+    single["greedy_agreement"] = sum(
+        a == b for a, b in zip(single.pop("tokens"), want)) / SPEC_NEW
+    single["ms_per_token_vs_plain"] = (single["ms_per_token"]
+                                       / out["plain_ms_per_token"])
+    out["single"] = single
+    del plain
+    torch.cuda.empty_cache()
+
+    prompts = _batch_prompts(cfg.vocab_size)
+
+    def batching(**kw):
+        return ContinuousBatchingEngine(
+            cfg, params, max_seq=MAX_SEQ, max_batch=SLOTS, sampling=greedy,
+            kv_block_tokens=BLOCK_TOKENS, prefill_chunk=PREFILL_CHUNK,
+            decode_block=MIXED_DECODE_BLOCK, num_draft=SPEC_K,
+            device="cuda", **kw)
+
+    with batching() as eng:
+        reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+        want8 = [r.wait(timeout=900).tolist() for r in reqs]
+    del eng
+    with batching(draft_cfg=dcfg, draft_params=dparams) as eng:
+        run = _spec_batching_run(torch, eng, prompts, draft_layers=Ld)
+        got = run.pop("tokens")
+        run["greedy_agreement"] = sum(
+            sum(a == b for a, b in zip(g_, w_))
+            for g_, w_ in zip(got, want8)) / (len(prompts) * NEW_TOKENS)
+        run["plain_rows_distinct_tokens"] = [len(set(w)) for w in want8]
+        run["partings"] = []
+        if got != want8:
+            with batching() as closed:
+                pass
+            run["partings"] = _batch_partings(
+                torch, {"plain": closed, "spec": eng}, prompts, got, want8)
+            del closed
+        run.update(decode_window(torch, eng, prompts, steps=8, profiled=4))
+        _check(_no_page_leak(eng), "cancelled requests leaked pages")
+    out["batching"] = run
+    del eng, dparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_catalog(torch) -> dict:
+    """The catalog's head layouts that no other phase serves, at full
+    width and depth: see the module docstring, item 21.  Each model's
+    weights are made once (random, seed 0) and freed before the next
+    model's."""
+    import gc
+
+    from distributed_inference_demo_tpu_torch.models.decoder import \
+        init_full_params
+    from distributed_inference_demo_tpu_torch.models.registry import \
+        get_model_config
+
+    out = {"phase": "catalog", "device": torch.cuda.get_device_name(0),
+           "models": list(CATALOG_MODELS)}
+    lap = Laps()
+    for name in CATALOG_MODELS:
+        cfg = get_model_config(name)
+        params = init_full_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        res = {"serve": phase_serve_model(
+            torch, name, long_prompt=True, params=params,
+            profile=CATALOG_PROFILE_STEPS)}
+        lap(f"{name}_serve")
+        if name == CATALOG_SPEC[0]:
+            res["speculative"] = catalog_speculative(torch, cfg, params)
+            lap(f"{name}_speculative")
+        if name in CATALOG_BATCHING:
+            res["batching"] = phase_batching(
+                torch, name, f32="gather", kv_dtype=CATALOG_BATCHING[name],
+                params=params, f32_layers=CATALOG_F32_LAYERS)
+            lap(f"{name}_batching")
+        out[name] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["section_s"] = lap
+    return out
+
+
+def catalog_entries(catalog, kern, paged, serve_case, entry) -> list:
+    """The kernels line's entries of the catalog phase: each model's
+    flash prefills (its serve prompt and the long one, L launches each),
+    the paged kernels under CATALOG_BATCHING's 8-slot serves, and the
+    speculative batching's verify (the target's prefill kernel, L_t a
+    round) and its draft's decode steps."""
+    def flash(case):
+        return next(c for c in kern["cases"]
+                    if c["case"] == case and c["dtype"] == "bfloat16")
+
+    def heads(case):
+        return (f"{case['nh']} q heads on {case['nkv']} kv heads, hd "
+                f"{case['hd']}")
+
+    out = []
+    for name in CATALOG_MODELS:
+        sv = catalog[name]["serve"]
+        c, cl = flash(name), flash(name + "-long")
+        out += [entry(f"flash_attention_{name}", KERNEL_SOURCE,
+                      KERNEL_REPLACES, sv["launches"], c,
+                      f"{name} ({heads(c)}), {PROMPT_LEN}-token prompt at "
+                      "0 (launches: the catalog phase's served request)"),
+                entry(f"flash_attention_long_{name}", KERNEL_SOURCE,
+                      KERNEL_REPLACES, sv["long_launches"], cl,
+                      f"{name}, {LONG_PROMPT_LEN}-token prompt at 0 "
+                      "(launches: its whole-prompt prefill)")]
+    rows8 = "8 rows, lengths 1-1999, 2 freed"
+    for name, kv_dtype in CATALOG_BATCHING.items():
+        pages = kv_dtype or "full"
+        suffix = f"_{kv_dtype}" if kv_dtype else ""
+        launches = catalog[name]["batching"]["launches"]
+        for kind, shape in (("decode", rows8),
+                            ("prefill", f"{PREFILL_CHUNK}-token chunk at "
+                             "200")):
+            case = serve_case(kind, pages, name)
+            out.append(entry(
+                f"paged_{kind}{suffix}_{name}", PAGED_SOURCE,
+                PAGED_REPLACES[f"paged_{kind}"],
+                launches[f"paged_{kind}{suffix}"], case,
+                f"{name} ({heads(case)}), {pages} pages, {shape} "
+                f"(launches: the catalog phase's {SLOTS}-slot serve)"))
+    target, draft = CATALOG_SPEC
+    sb = catalog[target]["speculative"]["batching"]
+    verify = next(c for c in paged["cases"]
+                  if c["case"] == target + "-verify"
+                  and c["dtype"] == "bfloat16")
+    # the draft's heads (bloom560m's) are the bloom560m-alibi case's
+    draft_case = serve_case("decode", "full", "bloom560m-alibi")
+    out += [{**entry(f"paged_prefill_verify_{target}", PAGED_SOURCE,
+                     PAGED_REPLACES["paged_prefill"], sb["verify_launches"],
+                     verify, f"{target} ({heads(verify)}, ALiBi), verify: 8 "
+                     f"rows of {SPEC_K + 1} tokens at 20-1999, one freed "
+                     f"(launches: the verify window of the {draft}-draft "
+                     "serialized batching run)"), "graph_replayed": True},
+            {**entry(f"paged_decode_draft_{draft}", PAGED_SOURCE,
+                     PAGED_REPLACES["paged_decode"],
+                     sb["launches"]["paged_decode"],
+                     draft_case, f"{draft} ({heads(draft_case)}, ALiBi), "
+                     f"{rows8} (launches: the draft steps of the same run)"),
+             "graph_replayed": True}]
+    return out
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -9217,6 +9626,7 @@ def main(argv) -> int:
                 "mixed_f32_partings": phase_mixed_f32_partings,
                 "chain": phase_chain, "server": phase_server,
                 "vision": phase_vision, "native": phase_native,
+                "catalog": phase_catalog,
                 "train": lambda t: phase_train(t, starts),
                 "parallel": lambda t: phase_parallel(t, starts),
                 "speculative": lambda t: phase_speculative(
@@ -9248,14 +9658,18 @@ def main(argv) -> int:
         # the catalog's models at the kernels' other head dims
         served = {}
         for name in HEAD_DIM_MODELS:
-            served[name] = timed(phase_serve_model, torch, name)
+            served[name] = timed(phase_serve_model, torch, name,
+                                 layers=HEAD_DIM_LAYERS.get(name))
             emit(served[name])
         gemma_batching = timed(phase_batching, torch, "gemma-2b",
-                               f32="gather")
+                               f32="gather",
+                               layers=HEAD_DIM_LAYERS["gemma-2b"])
         emit(gemma_batching)
-        gemma_mixed = timed(phase_mixed, torch, "gemma-2b", extras=False)
+        gemma_mixed = timed(phase_mixed, torch, "gemma-2b", extras=False,
+                            layers=HEAD_DIM_LAYERS["gemma-2b"])
         emit(gemma_mixed)
-        bloom_batching = timed(phase_batching, torch, "bloom3b", f32=None)
+        bloom_batching = timed(phase_batching, torch, "bloom3b", f32=None,
+                               layers=HEAD_DIM_LAYERS["bloom3b"])
         emit(bloom_batching)
         emit(timed(phase_graph, torch))
         quant_phase = timed(phase_quant, torch)
@@ -9282,6 +9696,8 @@ def main(argv) -> int:
         emit(par)
         moe = timed(phase_moe, torch)
         emit(moe)
+        catalog = timed(phase_catalog, torch)
+        emit(catalog)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -9789,7 +10205,8 @@ def main(argv) -> int:
               "llama-3-8b (16 q heads on 4 kv heads, hd 128), 64-token "
               "prompt at 0 (launches: rank 0's, the tp=2 generate's two "
               f"prefills at {PAR_GENERATE_LAYERS} layers)")] + tp_entries \
-        + f32_entries
+        + f32_entries \
+        + catalog_entries(catalog, kern, paged, serve_case, entry)
     unlaunched = [e["name"] for e in kernels if not e["launches"]]
     if unlaunched:
         print(f"chip_smoke: FAILED: no launch on the main path of "
